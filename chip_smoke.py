@@ -1,0 +1,456 @@
+#!/usr/bin/env python3
+"""Smoke test of rtc_tpu_torch's main path on one NVIDIA GPU.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from rtc_tpu_torch/csrc with nvcc, holds each
+against its plain PyTorch version on the card, checks that the fused
+closest+shadow kernel matches the split kernels, renders the cow scene at
+1920x960, depth 5, f32 through render(), and checks the image. Each phase
+prints one line with the card's name and power limit. Before the last line
+it prints the kernels' JSON record (times and max_abs_err from the main
+path's 460,800-ray wavefront; launches from the frame that runs each
+kernel, named in "frame") and the card line; the last line is
+{"ok": true, "device": {...}}. Any failure raises and exits non-zero.
+Without a CUDA device it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from rtc_tpu_torch.models.scenes import REGISTRY
+from rtc_tpu_torch.ops.kernels import mesh_intersect as mi
+from rtc_tpu_torch.ops.vec import normalize3
+from rtc_tpu_torch.render import integrator
+from rtc_tpu_torch.render.camera import camera_rays, camera_rays_for_pixels
+from rtc_tpu_torch.render.renderer import blocked_pixels, render
+from rtc_tpu_torch.scene.compile import compile_scene
+from rtc_tpu_torch.scene.materials import Material
+from rtc_tpu_torch.scene.shapes import mesh
+from rtc_tpu_torch.scene.world import PointLight, World
+from rtc_tpu_torch.utils.config import RenderConfig
+from rtc_tpu_torch.utils.constants import FAR
+from rtc_tpu_torch.utils.profiling import rays_per_pixel
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SOURCE = "rtc_tpu_torch/csrc/mesh_intersect.cu"
+TPU_KERNELS = "rtc_tpu/ops/pallas/mesh_intersect.py"
+WIDTH, HEIGHT, DEPTH = 1920, 960, 5
+RAY_TILE = 460800          # the cow shading tile of bench.py
+PARITY_RAYS = 10240        # bench.py check_kernel_parity's wavefront
+# f32 render budget (tests/test_pallas_mesh.py): 99.9th-percentile error
+# below 2e-3 and at most 3 pixels off by more than 0.05
+P999_MAX, BIG_ERR, BIG_ERR_PIXELS = 2e-3, 0.05, 3
+COW_F32_BUDGET = (0.98, 2)  # tests/test_golden.py F32_BUDGET["cow"]
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok, msg: str) -> None:
+    if not ok:
+        raise SmokeFailure(msg)
+
+
+def card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip()
+
+
+def say(phase: str, msg: str) -> None:
+    print(f"[{CARD}] {phase}: {msg}", flush=True)
+
+
+def timed_ms(fn, warmup: int, iters: int):
+    """Mean device time of fn() in ms, from CUDA events around iters calls,
+    and the last call's result."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters, out
+
+
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+def cow_scene(width: int):
+    world, cam = REGISTRY["cow"](width)
+    return compile_scene(world, dtype=torch.float32, device="cuda"), cam
+
+
+def soup_scene(rng, n_tris: int = 26000):
+    """A random triangle soup of >= 200 clusters, with rays from a sphere
+    around it toward random points inside it."""
+    centers = rng.uniform(-4.0, 4.0, (n_tris, 3))
+    v = [centers + rng.normal(0.0, 0.2, (n_tris, 3)) for _ in range(3)]
+    world = World(objects=[mesh(*v, material=Material(reflective=0.2))],
+                  light=PointLight((0.0, 6.9, -5.0), (1.0, 1.0, 1.0)))
+    scene = compile_scene(world, dtype=torch.float32, device="cuda")
+    origin = rng.normal(size=(PARITY_RAYS, 3))
+    origin *= 12.0 / np.linalg.norm(origin, axis=1, keepdims=True)
+    d = rng.uniform(-4.0, 4.0, (PARITY_RAYS, 3)) - origin
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
+    return scene, f32(origin), f32(d)
+
+
+def tables(scene):
+    return scene.tri_p1, scene.tri_e1, scene.tri_e2
+
+
+def occlusion_rays(scene, o, d, t, idx):
+    """Free-space occlusion queries (bench.py:84-96): from halfway to each
+    hit toward the light, and from the light toward each hit stopping 0.05
+    short of it. Misses are dead lanes."""
+    hit = idx >= 0
+    light = scene.light_pos[None, :]
+    t_safe = torch.where(hit, t, 1.0)[:, None]
+    half = o + d * (t_safe * 0.5)
+    target = o + d * t_safe
+    v = torch.cat([light - half, target - light])
+    dist = torch.sqrt((v * v).sum(1))
+    live = torch.cat([hit, hit])
+    margin = torch.cat([torch.zeros_like(t), torch.full_like(t, 0.05)])
+    max_t = torch.where(live, dist - margin, -1.0)
+    origin = torch.cat([half, light.expand_as(target)]).contiguous()
+    return origin, (v / dist[:, None]).contiguous(), max_t.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# gates
+# ---------------------------------------------------------------------------
+
+def closest_gate(what: str, got, ref) -> float:
+    """bench.py's gate: equal hit masks, |dt| <= 1e-3, index mismatches only
+    at ties; the normal is the winner's row. Returns max |dt|."""
+    t, idx, n = got[:3]
+    tr, ir, nr = ref[:3]
+    hit = idx >= 0
+    check(torch.equal(hit, ir >= 0),
+          f"{what}: hit masks differ on {int((hit != (ir >= 0)).sum())} rays")
+    check(bool((t[~hit] == tr[~hit]).all()), f"{what}: miss t is not BIG")
+    dt = (t - tr).abs()[hit]
+    max_dt = float(dt.max()) if dt.numel() else 0.0
+    check(max_dt <= 1e-3, f"{what}: closest-hit t diverges, max {max_dt}")
+    tie = hit & (idx != ir)
+    check(bool(((t - tr).abs()[tie] <= 1e-3).all()),
+          f"{what}: the kernel picked a non-closest triangle")
+    same = idx == ir
+    check(torch.equal(n[same], nr[same]), f"{what}: normals differ at equal idx")
+    return max_dt
+
+
+def kernel_parity(name, scene, o, d, leaf, eps):
+    """K1, K2 and K3 against their plain versions on one wavefront.
+    Returns a summary string."""
+    p1, e1, e2 = tables(scene)
+    args = (p1, e1, e2, scene.tri_n)
+    k1 = mi.mesh_closest_hit(o, d, *args, scene.cluster_aabb, leaf, eps)
+    p = mi.closest_hit_plain(o, d, *args, eps)
+    err1 = closest_gate(f"{name} K1", k1, p)
+
+    so, sd, max_t = occlusion_rays(scene, o, d, p[0], p[1])
+    k2 = mi.mesh_any_hit(so, sd, max_t, p1, e1, e2, scene.cluster_aabb, leaf, eps)
+    p2 = mi.any_hit_plain(so, sd, max_t, p1, e1, e2, eps)
+    flips2 = int((k2 != p2).sum())
+    check(flips2 <= max(2, so.shape[0] // 2048),
+          f"{name} K2: occlusion parity: {flips2} rays differ")
+
+    k3 = mi.mesh_closest_shadow(o, d, *args, scene.cluster_aabb,
+                                scene.light_pos, leaf, eps)
+    p3 = mi.closest_shadow_plain(o, d, *args, scene.light_pos, eps)
+    err3 = closest_gate(f"{name} K3", k3, p3)
+    hits = int((p3[1] >= 0).sum())
+    flips3 = int((k3[3] != p3[3]).sum())
+    check(flips3 <= max(2, hits // 1000),
+          f"{name} K3: shadow flags differ on {flips3} of {hits} hits")
+    torch.cuda.synchronize()
+    summary = (f"{name}: {o.shape[0]} rays, C={scene.cluster_aabb.shape[0]}, "
+               f"hits {int((k1[1] >= 0).sum())}, K1 max|dt| {err1:.3g}; "
+               f"K2 {int(p2.sum())} occluded, {flips2} flips of {so.shape[0]}; "
+               f"K3 max|dt| {err3:.3g}, {int(p3[3].sum())} shadowed, "
+               f"{flips3} flips")
+    return summary
+
+
+def image_gate(what: str, img, ref) -> str:
+    err = (img - ref).abs().amax(dim=2).flatten().double()
+    p999 = float(torch.quantile(err, 0.999))
+    big = int((err > BIG_ERR).sum())
+    check(p999 < P999_MAX and big <= BIG_ERR_PIXELS,
+          f"{what}: p99.9 error {p999:.3g}, {big} pixels above {BIG_ERR}")
+    return f"p99.9 err {p999:.3g}, {big} px > {BIG_ERR}, max {float(err.max()):.3g}"
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_environment() -> None:
+    nvcc = subprocess.run([mi.find_nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[-1]
+    try:
+        import triton
+        triton_version = triton.__version__
+    except ImportError:
+        triton_version = "not installed (unused)"
+    say("1 environment",
+        f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, nvcc '{nvcc}', triton {triton_version}, "
+        f"{torch.cuda.device_count()} device(s), "
+        f"device 0 {torch.cuda.get_device_name(0)}")
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    lib = mi.build()
+    mi.library()
+    seconds = time.perf_counter() - t0
+    with open(lib + ".log") as f:
+        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+    say("2 build", f"{os.path.relpath(lib, ROOT)} in {seconds:.1f} s; "
+        + " | ".join(ptxas))
+
+
+def main_path_rays(cam):
+    """The first K3 wavefront shape of the main path: 460,800 primary
+    rays, block-major, taken every 4th ray across the whole frame."""
+    px, py = blocked_pixels(cam.vsize, cam.hsize, "cuda")
+    o, d = camera_rays_for_pixels(cam.transform_inverse, px[::4], py[::4],
+                                  cam.half_width, cam.half_height,
+                                  cam.pixel_size)
+    return o.contiguous(), d.contiguous()
+
+
+def phase_parity(scene, cam, leaf, eps):
+    o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize,
+                       cam.half_width, cam.half_height, cam.pixel_size,
+                       device="cuda")
+    step = o.shape[0] // PARITY_RAYS
+    o, d = o[::step][:PARITY_RAYS].contiguous(), d[::step][:PARITY_RAYS].contiguous()
+    say("3 kernel parity", kernel_parity("cow", scene, o, d, leaf, eps))
+    soup, so, sd = soup_scene(np.random.default_rng(0))
+    check(soup.static.n_clusters >= 200, "soup has fewer than 200 clusters")
+    say("3 kernel parity", kernel_parity("soup", soup, so, sd,
+                                         soup.static.cluster_size, eps))
+
+
+def phase_timing(scene, cam, leaf, eps):
+    """Each kernel against its plain version at the main path's shapes:
+    the times of both, and the parity gates on the timed calls' outputs.
+    Returns {kernel: (ms, plain_ms)} and {kernel: (max_abs_err, flips)}."""
+    o, d = main_path_rays(cam)
+    p1, e1, e2 = tables(scene)
+    t, idx, n = mi.mesh_closest_hit(o, d, p1, e1, e2, scene.tri_n,
+                                    scene.cluster_aabb, leaf, eps)
+    so, sd, max_t = mi.shadow_rays_plain(o, d, t, idx, n, scene.light_pos, eps)
+    so, sd = so.contiguous(), sd.contiguous()
+    runs = {
+        "closest_hit": (
+            lambda: mi.mesh_closest_hit(o, d, p1, e1, e2, scene.tri_n,
+                                        scene.cluster_aabb, leaf, eps),
+            lambda: mi.closest_hit_plain(o, d, p1, e1, e2, scene.tri_n, eps)),
+        "any_hit": (
+            lambda: mi.mesh_any_hit(so, sd, max_t, p1, e1, e2,
+                                    scene.cluster_aabb, leaf, eps),
+            lambda: mi.any_hit_plain(so, sd, max_t, p1, e1, e2, eps)),
+        "closest_shadow": (
+            lambda: mi.mesh_closest_shadow(o, d, p1, e1, e2, scene.tri_n,
+                                           scene.cluster_aabb,
+                                           scene.light_pos, leaf, eps),
+            lambda: mi.closest_shadow_plain(o, d, p1, e1, e2, scene.tri_n,
+                                            scene.light_pos, eps)),
+    }
+    times, outs = {}, {}
+    for name, (kernel, plain) in runs.items():
+        # plain, kernel, kernel, plain: both see the same card state
+        a, _ = timed_ms(plain, 1, 2)
+        b, got = timed_ms(kernel, 2, 10)
+        c, _ = timed_ms(kernel, 0, 10)
+        e, ref = timed_ms(plain, 0, 2)
+        times[name] = ((b + c) / 2, (a + e) / 2)
+        outs[name] = (got, ref)
+
+    # the same gates as phase 3, on the outputs of the timed calls
+    err1 = closest_gate("main-path K1", *outs["closest_hit"])
+    k2, p2 = outs["any_hit"]
+    flips2 = int((k2 != p2).sum())
+    check(flips2 <= max(2, so.shape[0] // 2048),
+          f"main-path K2: occlusion parity: {flips2} rays differ")
+    k3, p3 = outs["closest_shadow"]
+    err3 = closest_gate("main-path K3", k3, p3)
+    hits = int((p3[1] >= 0).sum())
+    flips3 = int((k3[3] != p3[3]).sum())
+    check(flips3 <= max(2, hits // 1000),
+          f"main-path K3: shadow flags differ on {flips3} of {hits} hits")
+    parity = {"closest_hit": (err1, None), "any_hit": (float(flips2 > 0), flips2),
+              "closest_shadow": (err3, flips3)}
+    say("3 kernel timing",
+        f"{o.shape[0]} primary rays ({hits} hits, "
+        f"{int((max_t > 0).sum())} live shadow rays): " + "; ".join(
+            f"{k} {v[0]:.3f} ms vs plain {v[1]:.1f} ms" for k, v in times.items())
+        + f"; vs plain: K1 max|dt| {err1:.3g}, K2 {flips2} flips of "
+        f"{so.shape[0]}, K3 max|dt| {err3:.3g}, {flips3} shadow flips")
+    return times, parity
+
+
+def phase_fused_vs_split(scene, cam, eps):
+    """K3 against K1, then K2 on the shadow rays the integrator derives."""
+    o, d = main_path_rays(cam)
+    leaf = scene.static.cluster_size
+    t, idx, n, sh = mi.mesh_closest_shadow(
+        o, d, *tables(scene), scene.tri_n, scene.cluster_aabb,
+        scene.light_pos, leaf, eps)
+    cfg = RenderConfig(fused_shadow=False)
+    hit = integrator.closest_hit(scene, o, d, cfg)
+    comps = integrator.prepare_hit3(o, d, hit, cfg)
+    over = torch.stack([torch.where(hit.valid, c, FAR)
+                        for c in comps.over_point], 1)
+    lvx, lvy, lvz = normalize3(*(scene.light_pos[k] - comps.point[k]
+                                 for k in range(3)))
+    nx, ny, nz = comps.normalv
+    facing = (lvx * nx + lvy * ny + lvz * nz) >= 0.0
+    sh_split = integrator.is_shadowed(scene, over, cfg, live=hit.valid & facing)
+    valid = idx >= 0
+    check(torch.equal(valid, hit.valid), "fused/split hit masks differ")
+    check(torch.equal(t, hit.t), "fused/split t differ")
+    check(torch.equal(idx.clamp_min(0), hit.tri), "fused/split idx differ")
+    check(torch.equal(n, hit.tri_n), "fused/split normals differ")
+    hits = int(valid.sum())
+    flips = int((sh != sh_split).sum())
+    check(flips <= max(2, hits // 1000),
+          f"fused/split shadow flags differ on {flips} of {hits} hits")
+    say("4 fused vs split", f"{o.shape[0]} rays, {hits} hits: t, idx, n "
+        f"bit-equal; shadow flags differ on {flips} ({int(sh.sum())} shadowed)")
+
+
+def phase_slice():
+    """The main path: render() of the cow frame, fused (the default) then
+    split (fused_shadow=False), with each frame's own launch counts; then
+    two image checks. Returns {frame: {kernel: launches}}."""
+    t0 = time.perf_counter()
+    scene, cam = cow_scene(WIDTH)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    fused = RenderConfig(ray_tile=RAY_TILE)
+    split = RenderConfig(ray_tile=RAY_TILE, fused_shadow=False)
+    for cfg in (fused, split):  # warm-up
+        render(scene, cam, cfg)
+    torch.cuda.synchronize()
+
+    walls, images, launches = {}, {}, {}
+    for key, cfg in (("fused", fused), ("split", split)):
+        mi.reset_launch_counts()
+        t0 = time.perf_counter()
+        images[key] = render(scene, cam, cfg)
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+        launches[key] = dict(mi.LAUNCHES)
+
+    n_tiles = -(-WIDTH * HEIGHT // RAY_TILE)
+    nodes = n_tiles * 2  # two bounce nodes per tile at depth 5
+    expected = {"fused": {"closest_hit": 0, "any_hit": 0, "closest_shadow": nodes},
+                "split": {"closest_hit": nodes, "any_hit": nodes, "closest_shadow": 0}}
+    for key in expected:
+        check(launches[key] == expected[key],
+              f"{key} frame: launch counts {launches[key]}, "
+              f"expected {expected[key]}")
+    img = images["fused"]
+    check(img.shape == (HEIGHT, WIDTH, 3), f"image shape {tuple(img.shape)}")
+    check(bool(torch.isfinite(img).all()), "image has non-finite values")
+    check(float(img.min()) >= 0.0 and float(img.amax()) > 0.1,
+          "image is black or negative")
+    same = float((images["fused"] == images["split"]).all(dim=2).float().mean())
+    casts = WIDTH * HEIGHT * rays_per_pixel(DEPTH, scene.static.any_reflective,
+                                            False)
+    rates = {k: casts / w for k, w in walls.items()}
+    say("5 slice",
+        f"cow {WIDTH}x{HEIGHT} depth {DEPTH} f32, tile {RAY_TILE}: compile "
+        f"{compile_s:.2f} s; fused frame {walls['fused'] * 1e3:.1f} ms = "
+        f"{rates['fused'] / 1e6:.1f}M rays/s; split frame "
+        f"{walls['split'] * 1e3:.1f} ms = {rates['split'] / 1e6:.1f}M rays/s "
+        f"({casts} casts); launches {launches}; fused == split on "
+        f"{same:.6f} of pixels")
+
+    small, cam_s = cow_scene(480)
+    kern = render(small, cam_s, RenderConfig())
+    plain = render(small, cam_s, RenderConfig(mesh_impl="bruteforce"))
+    say("5 slice", "480x240 kernels vs plain render on the card: "
+        + image_gate("480x240 kernels vs plain", kern, plain))
+
+    golden = np.load(os.path.join(ROOT, "tests", "golden", "cow.npy"))
+    tiny, cam_t = cow_scene(golden.shape[1])
+    img32 = render(tiny, cam_t, RenderConfig(ray_tile=512)).cpu().numpy()
+    q = lambda a: np.clip(np.asarray(a, np.float64) * 255 + 0.5, 0, 255).astype(np.uint8)
+    match = float(np.all(q(golden) == q(img32), axis=2).mean())
+    flips = int((np.abs(golden - img32).max(axis=2) > 0.15).sum())
+    check(match >= COW_F32_BUDGET[0] and flips <= COW_F32_BUDGET[1],
+          f"f32 kernels vs f64 golden: match {match:.4f}, flips {flips}")
+    say("5 slice", f"width {golden.shape[1]} kernels vs tests/golden/cow.npy "
+        f"(f64): 8-bit match {match:.4f}, structural flips {flips}")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    global CARD
+    CARD = card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_environment()
+    phase_build()
+    eps = RenderConfig().epsilon
+    scene, cam = cow_scene(WIDTH)
+    leaf = scene.static.cluster_size
+    phase_parity(scene, cam, leaf, eps)
+    times, parity = phase_timing(scene, cam, leaf, eps)
+    phase_fused_vs_split(scene, cam, eps)
+    launches = phase_slice()
+
+    # each kernel's launches come from the frame that runs it: K3 from the
+    # default fused frame, K1 and K2 from the fused_shadow=False frame
+    lines = {"closest_hit": ("K1 closest hit", 413, "split"),
+             "any_hit": ("K2 any-hit occlusion", 861, "split"),
+             "closest_shadow": ("K3 fused closest hit + shadow", 720, "fused")}
+    record = {"kernels": [
+        {"name": label, "route": "cuda", "source": SOURCE,
+         "replaces": f"{TPU_KERNELS}:{line}", "frame": frame,
+         "launches": launches[frame][key], "max_abs_err": parity[key][0],
+         "flips": parity[key][1], "ms": times[key][0],
+         "plain_ms": times[key][1]}
+        for key, (label, line, frame) in lines.items()]}
+    print(json.dumps(record))
+    print(f"card: {CARD}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+CARD = "no card"
+
+if __name__ == "__main__":
+    sys.exit(main())

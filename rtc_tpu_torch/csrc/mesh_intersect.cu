@@ -1,0 +1,345 @@
+// Mesh intersection kernels for NVIDIA Hopper (sm_90a): K1 closest hit,
+// K2 any-hit occlusion, K3 fused closest hit + shadow.
+//
+// Replaces (rtc_tpu/ops/pallas/mesh_intersect.py):
+//   K1 _kernel_mxu / _kernel_mxu_body, with_n mode (mesh_closest_hit_mxu)
+//   K2 _anyhit_kernel_mxu                         (mesh_any_hit_mxu)
+//   K3 _kernel_mxu_cs, flat mode                  (mesh_closest_shadow_mxu)
+//
+// What the TPU kernels compute is kept; their TPU layout is not. There is
+// no Plücker matmul (that factoring exists to feed the MXU), no lane-major
+// transposes, no per-tile union gate or selection sort, no seeded t_best,
+// no two-probe loop and no VMEM superblocks. Each thread owns one ray.
+//
+// What bounds these kernels on an H100: divergent per-ray traversal, not
+// bytes. The cow's triangle tables (T x 9 floats, ~221 KB) and normals
+// (~74 KB) sit in the 50 MB L2 and mostly in L1; a ray does a few thousand
+// FP32 operations per cluster it visits and reads the same rows as its
+// neighbours. The design answers that with ordering, not staging: rays come
+// in 16x16 screen blocks, so a warp's 32 rays usually pop the same
+// clusters in the same order and read the same triangle rows (one
+// broadcast load per warp). Shared-memory staging, TMA and wgmma are left
+// for later work.
+//
+// Rounding. The file is compiled with -fmad=false, and every formula
+// below keeps the association order of the plain PyTorch versions
+// (rtc_tpu_torch/ops/intersect.py, integrator.py). So each pair test, and
+// K3's in-register shadow ray, round exactly as the plain versions' separate
+// elementwise operations do, and K3's phase 1 is the same __device__
+// function as K1: fused and split give bit-identical t, idx and n.
+//
+// Any C and T: no array is sized by the scene. The traversal re-derives the
+// next cluster by scanning all C slab entries (O(C) per visited cluster),
+// which is exact front-to-back order with no per-ray storage.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kBig = 1e30f;  // "no hit" (rtc_tpu_torch/utils/constants.py)
+constexpr float kFar = 1e12f;  // parked origin of dead lanes (integrator.py)
+constexpr int kThreads = 128;
+
+struct Ray {
+  float ox, oy, oz;
+  float dx, dy, dz;
+  float ix, iy, iz;  // slab reciprocals
+};
+
+// Near-zero direction components use +-BIG, not +-inf, so that
+// (lo - o) * inv never forms 0 * inf = NaN (mesh_intersect.py:324-326).
+__device__ __forceinline__ float slab_inv(float a) {
+  if (fabsf(a) < 1e-30f) return a >= 0.f ? kBig : -kBig;
+  return 1.0f / a;
+}
+
+__device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
+                                        float dx, float dy, float dz) {
+  Ray r;
+  r.ox = ox; r.oy = oy; r.oz = oz;
+  r.dx = dx; r.dy = dy; r.dz = dz;
+  r.ix = slab_inv(dx); r.iy = slab_inv(dy); r.iz = slab_inv(dz);
+  return r;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
+                                        const float* __restrict__ d, int i) {
+  return make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                  d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+}
+
+__device__ __forceinline__ void slab_axis(float lo, float hi, float o,
+                                          float inv, float& tmin,
+                                          float& tmax) {
+  const float t1 = (lo - o) * inv;
+  const float t2 = (hi - o) * inv;
+  tmin = fmaxf(tmin, fminf(t1, t2));
+  tmax = fminf(tmax, fmaxf(t1, t2));
+}
+
+// Conservative entry t (>= 0) of the ray into cluster c's box, or kBig
+// when the ray misses the box, the box lies behind the ray, or the box is
+// an empty padding box (lo = 1 > hi = -1, compile.py). A parked lane
+// (origin 1e12, direction +0.577) has every box behind it. The box is
+// widened by a few ulps of its largest coordinate so that rounding in the
+// f32 box or in the slab arithmetic never cuts off a hit on its faces.
+__device__ __forceinline__ float cluster_entry(const Ray& r,
+                                               const float* __restrict__ aabb,
+                                               int c) {
+  const float* b = aabb + 6 * c;
+  float lx = __ldg(b), ly = __ldg(b + 1), lz = __ldg(b + 2);
+  float hx = __ldg(b + 3), hy = __ldg(b + 4), hz = __ldg(b + 5);
+  if (lx > hx || ly > hy || lz > hz) return kBig;
+  const float scale = fmaxf(fmaxf(fmaxf(fabsf(lx), fabsf(hx)),
+                                  fmaxf(fabsf(ly), fabsf(hy))),
+                            fmaxf(fabsf(lz), fabsf(hz)));
+  const float pad = 4e-6f * scale;
+  lx -= pad; ly -= pad; lz -= pad;
+  hx += pad; hy += pad; hz += pad;
+  float tmin = -kBig, tmax = kBig;
+  slab_axis(lx, hx, r.ox, r.ix, tmin, tmax);
+  slab_axis(ly, hy, r.oy, r.iy, tmin, tmax);
+  slab_axis(lz, hz, r.oz, r.iz, tmin, tmax);
+  if (!(tmax >= tmin && tmax >= 0.f)) return kBig;
+  return fmaxf(tmin, 0.f);
+}
+
+// Möller-Trumbore (rtc_tpu/ops/intersect.py:207-227) for triangle row j,
+// in full FP32 and in the order of rtc_tpu_torch/ops/intersect.py. True
+// with t set when the ray crosses the triangle (any sign of t). Padding
+// rows have zero edges, so det = 0 and the det guard rejects them.
+__device__ __forceinline__ bool tri_hit(const Ray& r,
+                                        const float* __restrict__ p1,
+                                        const float* __restrict__ e1,
+                                        const float* __restrict__ e2, int j,
+                                        float eps, float& t) {
+  const float e1x = __ldg(e1 + 3 * j), e1y = __ldg(e1 + 3 * j + 1),
+              e1z = __ldg(e1 + 3 * j + 2);
+  const float e2x = __ldg(e2 + 3 * j), e2y = __ldg(e2 + 3 * j + 1),
+              e2z = __ldg(e2 + 3 * j + 2);
+  const float hx = r.dy * e2z - r.dz * e2y;
+  const float hy = r.dz * e2x - r.dx * e2z;
+  const float hz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * hx + e1y * hy + e1z * hz;
+  if (!(fabsf(det) >= eps)) return false;
+  const float f = 1.0f / det;
+  const float sx = r.ox - __ldg(p1 + 3 * j);
+  const float sy = r.oy - __ldg(p1 + 3 * j + 1);
+  const float sz = r.oz - __ldg(p1 + 3 * j + 2);
+  const float u = f * (sx * hx + sy * hy + sz * hz);
+  if (!(u >= 0.f && u <= 1.f)) return false;
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
+  if (!(v >= 0.f && u + v <= 1.f)) return false;
+  t = f * (e2x * qx + e2y * qy + e2z * qz);
+  return true;
+}
+
+// K1 body: nearest triangle with t >= 0. Clusters are visited in
+// increasing (entry, cluster id) order; the next one is found by a scan
+// over all C entries, and the walk stops once no unvisited cluster starts
+// before t_best (the ordered early exit of _kernel_mxu_body).
+__device__ __forceinline__ void closest_hit_dev(
+    const Ray& r, const float* __restrict__ p1, const float* __restrict__ e1,
+    const float* __restrict__ e2, const float* __restrict__ aabb, int C,
+    int leaf, float eps, float& t_best, int& best) {
+  t_best = kBig;
+  best = -1;
+  float last_e = -1.f;
+  int last_c = -1;
+  for (;;) {
+    float ne = kBig;
+    int nc = -1;
+    for (int c = 0; c < C; ++c) {
+      const float e = cluster_entry(r, aabb, c);
+      if (!(e < t_best)) continue;
+      if (e < last_e || (e == last_e && c <= last_c)) continue;
+      if (e < ne) { ne = e; nc = c; }
+    }
+    if (nc < 0) return;
+    const int base = nc * leaf;
+    for (int j = base; j < base + leaf; ++j) {
+      float t;
+      if (tri_hit(r, p1, e1, e2, j, eps, t) && t >= 0.f && t < t_best) {
+        t_best = t;
+        best = j;
+      }
+    }
+    last_e = ne;
+    last_c = nc;
+  }
+}
+
+// K2 body: does any triangle lie at t in [0, max_t)? max_t <= 0 marks a
+// dead lane, which never hits. Occlusion needs no order, so clusters are
+// taken in table order (k-d order, so still spatially coherent), skipping
+// those the ray misses or enters at or beyond max_t; the lane stops at its
+// first occluder.
+__device__ __forceinline__ bool any_hit_dev(
+    const Ray& r, float max_t, const float* __restrict__ p1,
+    const float* __restrict__ e1, const float* __restrict__ e2,
+    const float* __restrict__ aabb, int C, int leaf, float eps) {
+  if (!(max_t > 0.f)) return false;
+  for (int c = 0; c < C; ++c) {
+    if (!(cluster_entry(r, aabb, c) < max_t)) continue;
+    for (int j = c * leaf; j < (c + 1) * leaf; ++j) {
+      float t;
+      if (tri_hit(r, p1, e1, e2, j, eps, t) && t >= 0.f && t < max_t)
+        return true;
+    }
+  }
+  return false;
+}
+
+__device__ __forceinline__ void write_hit(int i, float t, int idx,
+                                          const float* __restrict__ tri_n,
+                                          float* t_out, int* idx_out,
+                                          float* n_out, float& nx, float& ny,
+                                          float& nz) {
+  nx = ny = nz = 0.f;
+  if (idx >= 0) {
+    nx = __ldg(tri_n + 3 * idx);
+    ny = __ldg(tri_n + 3 * idx + 1);
+    nz = __ldg(tri_n + 3 * idx + 2);
+  }
+  t_out[i] = t;
+  idx_out[i] = idx;
+  n_out[3 * i] = nx;
+  n_out[3 * i + 1] = ny;
+  n_out[3 * i + 2] = nz;
+}
+
+__global__ void __launch_bounds__(kThreads)
+closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                   int R, const float* __restrict__ p1,
+                   const float* __restrict__ e1, const float* __restrict__ e2,
+                   const float* __restrict__ tri_n,
+                   const float* __restrict__ aabb, int C, int leaf, float eps,
+                   float* __restrict__ t_out, int* __restrict__ idx_out,
+                   float* __restrict__ n_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R) return;
+  const Ray r = load_ray(o, d, i);
+  float t;
+  int idx;
+  closest_hit_dev(r, p1, e1, e2, aabb, C, leaf, eps, t, idx);
+  float nx, ny, nz;
+  write_hit(i, t, idx, tri_n, t_out, idx_out, n_out, nx, ny, nz);
+}
+
+__global__ void __launch_bounds__(kThreads)
+any_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
+               const float* __restrict__ max_t, int R,
+               const float* __restrict__ p1, const float* __restrict__ e1,
+               const float* __restrict__ e2, const float* __restrict__ aabb,
+               int C, int leaf, float eps, uint8_t* __restrict__ hit_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R) return;
+  const Ray r = load_ray(o, d, i);
+  hit_out[i] = any_hit_dev(r, max_t[i], p1, e1, e2, aabb, C, leaf, eps);
+}
+
+// K3: phase 1 is K1; phase 2 derives the shadow ray in registers, formula
+// for formula as _kernel_mxu_cs (mesh_intersect.py:767-818), which copies
+// prepare_hit3's normal flip and over_point, color_at's facing test and
+// is_shadowed's direction, distance and live rules; phase 3 is K2 on it.
+__global__ void __launch_bounds__(kThreads)
+closest_shadow_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                      int R, const float* __restrict__ p1,
+                      const float* __restrict__ e1,
+                      const float* __restrict__ e2,
+                      const float* __restrict__ tri_n,
+                      const float* __restrict__ aabb, int C, int leaf,
+                      float eps, const float* __restrict__ light,
+                      float* __restrict__ t_out, int* __restrict__ idx_out,
+                      float* __restrict__ n_out, uint8_t* __restrict__ sh_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R) return;
+  const Ray r = load_ray(o, d, i);
+  float t;
+  int idx;
+  closest_hit_dev(r, p1, e1, e2, aabb, C, leaf, eps, t, idx);
+  float nx, ny, nz;
+  write_hit(i, t, idx, tri_n, t_out, idx_out, n_out, nx, ny, nz);
+
+  // ---- phase 2: the shadow ray ----
+  const bool hit_ok = idx >= 0;
+  const float ts = hit_ok ? t : 1.0f;
+  const float px = r.ox + r.dx * ts;
+  const float py = r.oy + r.dy * ts;
+  const float pz = r.oz + r.dz * ts;
+  const bool inside = (nx * -r.dx + ny * -r.dy + nz * -r.dz) < 0.f;
+  if (inside) { nx = -nx; ny = -ny; nz = -nz; }
+  const float lx = __ldg(light), ly = __ldg(light + 1), lz = __ldg(light + 2);
+  // facing test from the hit point (color_at)
+  const float fx = lx - px, fy = ly - py, fz = lz - pz;
+  const float fsq = fx * fx + fy * fy + fz * fz;
+  const float finv = fsq > 0.f ? 1.0f / sqrtf(fsq) : 0.f;
+  const bool facing = ((fx * finv) * nx + (fy * finv) * ny
+                       + (fz * finv) * nz) >= 0.f;
+  // over_point, parked far away for misses (color_at)
+  const float ovx = hit_ok ? px + nx * eps : kFar;
+  const float ovy = hit_ok ? py + ny * eps : kFar;
+  const float ovz = hit_ok ? pz + nz * eps : kFar;
+  // direction, distance and live bound (is_shadowed)
+  const float vx = lx - ovx, vy = ly - ovy, vz = lz - ovz;
+  const float dist = sqrtf(fmaxf(vx * vx + vy * vy + vz * vz, 1e-30f));
+  const float max_t = (hit_ok && facing) ? dist : -1.f;
+  const Ray s = make_ray(ovx, ovy, ovz, vx / dist, vy / dist, vz / dist);
+
+  // ---- phase 3: occlusion ----
+  sh_out[i] = any_hit_dev(s, max_t, p1, e1, e2, aabb, C, leaf, eps);
+}
+
+inline unsigned blocks_for(int R) { return (unsigned)((R + kThreads - 1) / kThreads); }
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes. Each launches on the given
+// stream, allocates nothing, and returns cudaGetLastError() (0 = launched).
+extern "C" {
+
+int rtc_closest_hit(int device, void* stream, const float* o, const float* d,
+                    int R, const float* p1, const float* e1, const float* e2,
+                    const float* tri_n, const float* aabb, int C, int leaf,
+                    float eps, float* t_out, int* idx_out, float* n_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  closest_hit_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, R, p1, e1, e2, tri_n, aabb, C, leaf, eps, t_out, idx_out, n_out);
+  return (int)cudaGetLastError();
+}
+
+int rtc_any_hit(int device, void* stream, const float* o, const float* d,
+                const float* max_t, int R, const float* p1, const float* e1,
+                const float* e2, const float* aabb, int C, int leaf, float eps,
+                uint8_t* hit_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  any_hit_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, max_t, R, p1, e1, e2, aabb, C, leaf, eps, hit_out);
+  return (int)cudaGetLastError();
+}
+
+int rtc_closest_shadow(int device, void* stream, const float* o,
+                       const float* d, int R, const float* p1,
+                       const float* e1, const float* e2, const float* tri_n,
+                       const float* aabb, int C, int leaf, float eps,
+                       const float* light, float* t_out, int* idx_out,
+                       float* n_out, uint8_t* sh_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  closest_shadow_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, R, p1, e1, e2, tri_n, aabb, C, leaf, eps, light, t_out, idx_out,
+      n_out, sh_out);
+  return (int)cudaGetLastError();
+}
+
+const char* rtc_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

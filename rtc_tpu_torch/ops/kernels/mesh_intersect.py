@@ -1,0 +1,289 @@
+"""Mesh intersection: the hand-written CUDA kernels K1-K3
+(rtc_tpu_torch/csrc/mesh_intersect.cu) and their plain PyTorch versions.
+
+Counterpart of rtc_tpu/ops/pallas/mesh_intersect.py:
+
+  K1 mesh_closest_hit     <- mesh_closest_hit_mxu(tri_n=...)  (_kernel_mxu)
+  K2 mesh_any_hit         <- mesh_any_hit_mxu                 (_anyhit_kernel_mxu)
+  K3 mesh_closest_shadow  <- mesh_closest_shadow_mxu          (_kernel_mxu_cs)
+
+Each wrapper takes f32 tensors. Given tensors on the CPU it returns its
+plain version's result; given CUDA tensors it launches its kernel, or
+raises. LAUNCHES counts the kernel launches of each wrapper.
+
+The kernels are built from the checkout's sources with nvcc at first use,
+into a plain-C shared library under build/kernels/ (content-addressed, so
+an edited source is rebuilt), and bound with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+from ...utils.constants import BIG, EPSILON, FAR
+from ..intersect import triangle
+from ..vec import dot3, normalize3
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+SOURCE = os.path.join(_PKG, "csrc", "mesh_intersect.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+# -fmad=false: the kernels round each multiply and add on its own, as the
+# plain versions' separate elementwise operations do (see the source note)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+
+LAUNCHES = {"closest_hit": 0, "any_hit": 0, "closest_shadow": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions: a dense sweep over every triangle, chunked over rays
+# ---------------------------------------------------------------------------
+
+def _chunk(n_rays: int, n_tris: int, device) -> int:
+    """Rays per chunk so one (rays, T) intermediate stays near 4M (CPU)
+    or 32M (CUDA) elements."""
+    budget = (1 << 25) if torch.device(device).type == "cuda" else (1 << 22)
+    return max(1, min(n_rays, budget // max(n_tris, 1)))
+
+
+def _pair_tests(o, d, p1, e1, e2, eps):
+    """(rays, T) t and validity of every ray against every triangle."""
+    return triangle(o[:, None, :], d[:, None, :], p1[None], e1[None], e2[None],
+                    eps)[:2]
+
+
+def closest_hit_plain(o, d, p1, e1, e2, tri_n, eps: float = EPSILON):
+    """K1's plain version: nearest triangle with t >= 0 by a dense sweep
+    (rtc_tpu integrator.mesh_closest bruteforce, :640-644) plus the normal
+    gather. Returns t (BIG on miss), idx (-1 on miss, the lowest index on a
+    tie) and the winner's tri_n row (zeros on miss)."""
+    R = o.shape[0]
+    t_out = torch.full((R,), BIG, dtype=o.dtype, device=o.device)
+    idx_out = torch.full((R,), -1, dtype=torch.int32, device=o.device)
+    if p1.shape[0] == 0:
+        return t_out, idx_out, torch.zeros_like(o)
+    step = _chunk(R, p1.shape[0], o.device)
+    for s in range(0, R, step):
+        t, valid = _pair_tests(o[s:s + step], d[s:s + step], p1, e1, e2, eps)
+        tt = torch.where(valid & (t >= 0.0), t, BIG)
+        idx = torch.argmin(tt, dim=1)
+        t_min = torch.gather(tt, 1, idx[:, None])[:, 0]
+        t_out[s:s + step] = t_min
+        idx_out[s:s + step] = torch.where(t_min < BIG * 0.5, idx, -1).to(torch.int32)
+    hit = idx_out >= 0
+    n = torch.where(hit[:, None], tri_n[idx_out.clamp_min(0).long()], 0.0)
+    return t_out, idx_out, n
+
+
+def any_hit_plain(o, d, max_t, p1, e1, e2, eps: float = EPSILON):
+    """K2's plain version: does any triangle lie at t in [0, max_t)? Lanes
+    with max_t <= 0 are dead and never hit."""
+    R = o.shape[0]
+    out = torch.zeros((R,), dtype=torch.bool, device=o.device)
+    if p1.shape[0] == 0:
+        return out
+    step = _chunk(R, p1.shape[0], o.device)
+    for s in range(0, R, step):
+        t, valid = _pair_tests(o[s:s + step], d[s:s + step], p1, e1, e2, eps)
+        out[s:s + step] = torch.any(
+            valid & (t >= 0.0) & (t < max_t[s:s + step, None]), dim=1)
+    return out
+
+
+def shadow_rays_plain(o, d, t, idx, n, light_pos, eps: float = EPSILON):
+    """K3's phase 2: the shadow ray of each closest hit, with the formulas
+    of prepare_hit3 (normal flip, over_point), color_at (facing test,
+    parked misses) and is_shadowed (direction, distance, live). Returns
+    (origin (R, 3), direction (R, 3), max_t (R,)); dead lanes get -1."""
+    hit_ok = idx >= 0
+    t_safe = torch.where(hit_ok, t, 1.0)
+    ox, oy, oz = o.unbind(1)
+    dx, dy, dz = d.unbind(1)
+    px, py, pz = ox + dx * t_safe, oy + dy * t_safe, oz + dz * t_safe
+    nx, ny, nz = n.unbind(1)
+    inside = (nx * -dx + ny * -dy + nz * -dz) < 0.0
+    nx, ny, nz = (torch.where(inside, -c, c) for c in (nx, ny, nz))
+    lx, ly, lz = light_pos.unbind(0)
+    facing = dot3(*normalize3(lx - px, ly - py, lz - pz), nx, ny, nz) >= 0.0
+    ovx = torch.where(hit_ok, px + nx * eps, FAR)
+    ovy = torch.where(hit_ok, py + ny * eps, FAR)
+    ovz = torch.where(hit_ok, pz + nz * eps, FAR)
+    vx, vy, vz = lx - ovx, ly - ovy, lz - ovz
+    dist = torch.sqrt(torch.clamp_min(vx * vx + vy * vy + vz * vz, 1e-30))
+    max_t = torch.where(hit_ok & facing, dist, -1.0)
+    return (torch.stack([ovx, ovy, ovz], 1),
+            torch.stack([vx / dist, vy / dist, vz / dist], 1), max_t)
+
+
+def closest_shadow_plain(o, d, p1, e1, e2, tri_n, light_pos,
+                         eps: float = EPSILON):
+    """K3's plain version: closest_hit_plain, then shadow_rays_plain, then
+    any_hit_plain. Returns (t, idx, n, shadowed)."""
+    t, idx, n = closest_hit_plain(o, d, p1, e1, e2, tri_n, eps)
+    so, sd, max_t = shadow_rays_plain(o, d, t, idx, n, light_pos, eps)
+    return t, idx, n, any_hit_plain(so, sd, max_t, p1, e1, e2, eps)
+
+
+# ---------------------------------------------------------------------------
+# build and binding
+# ---------------------------------------------------------------------------
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           f"{SOURCE} on the machine with the GPU")
+    return nvcc
+
+
+def build() -> str:
+    """Compile the kernels (once per source and flag set) and return the
+    shared library's path. nvcc's ptxas report (registers, spills) is kept
+    beside it as <library>.log."""
+    with open(SOURCE, "rb") as f:
+        key = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = os.path.join(BUILD_DIR, f"libmesh_intersect_{key}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
+    with open(lib + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build())
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rtc_closest_hit.argtypes = [I, P, P, P, I, P, P, P, P, P, I, I, F,
+                                    P, P, P]
+    lib.rtc_any_hit.argtypes = [I, P, P, P, P, I, P, P, P, P, I, I, F, P]
+    lib.rtc_closest_shadow.argtypes = [I, P, P, P, I, P, P, P, P, P, I, I, F,
+                                       P, P, P, P, P]
+    for fn in (lib.rtc_closest_hit, lib.rtc_any_hit, lib.rtc_closest_shadow):
+        fn.restype = I
+    lib.rtc_error_string.argtypes = [I]
+    lib.rtc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name: str, x, dtype, shape, device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb, leaf, tri_n=None):
+    """Validate a launch's inputs; returns (device, R, C)."""
+    device = o.device
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {device}")
+    R, C = o.shape[0], cluster_aabb.shape[0]
+    T = C * leaf
+    f32 = torch.float32
+    _check("o", o, f32, (R, 3), device)
+    _check("d", d, f32, (R, 3), device)
+    for name, x in (("tri_p1", tri_p1), ("tri_e1", tri_e1), ("tri_e2", tri_e2)):
+        _check(name, x, f32, (T, 3), device)
+    if tri_n is not None:
+        _check("tri_n", tri_n, f32, (T, 3), device)
+    _check("cluster_aabb", cluster_aabb, f32, (C, 6), device)
+    return device, R, C
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} "
+                           f"({library().rtc_error_string(err).decode()})")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def mesh_closest_hit(o, d, tri_p1, tri_e1, tri_e2, tri_n, cluster_aabb,
+                     leaf: int, eps: float = EPSILON):
+    """K1: (t, idx, n) as closest_hit_plain."""
+    if o.device.type == "cpu":
+        return closest_hit_plain(o, d, tri_p1, tri_e1, tri_e2, tri_n, eps)
+    device, R, C = _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
+                                leaf, tri_n)
+    t = torch.empty((R,), dtype=torch.float32, device=device)
+    idx = torch.empty((R,), dtype=torch.int32, device=device)
+    n = torch.empty((R, 3), dtype=torch.float32, device=device)
+    if R:
+        err = library().rtc_closest_hit(
+            device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(), R,
+            tri_p1.data_ptr(), tri_e1.data_ptr(), tri_e2.data_ptr(),
+            tri_n.data_ptr(), cluster_aabb.data_ptr(), C, leaf, eps,
+            t.data_ptr(), idx.data_ptr(), n.data_ptr())
+        _raise_on(err, "closest_hit")
+        LAUNCHES["closest_hit"] += 1
+    return t, idx, n
+
+
+def mesh_any_hit(o, d, max_t, tri_p1, tri_e1, tri_e2, cluster_aabb,
+                 leaf: int, eps: float = EPSILON):
+    """K2: (R,) bool as any_hit_plain."""
+    if o.device.type == "cpu":
+        return any_hit_plain(o, d, max_t, tri_p1, tri_e1, tri_e2, eps)
+    device, R, C = _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb, leaf)
+    _check("max_t", max_t, torch.float32, (R,), device)
+    hit = torch.empty((R,), dtype=torch.bool, device=device)
+    if R:
+        err = library().rtc_any_hit(
+            device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(),
+            max_t.data_ptr(), R, tri_p1.data_ptr(), tri_e1.data_ptr(),
+            tri_e2.data_ptr(), cluster_aabb.data_ptr(), C, leaf, eps,
+            hit.data_ptr())
+        _raise_on(err, "any_hit")
+        LAUNCHES["any_hit"] += 1
+    return hit
+
+
+def mesh_closest_shadow(o, d, tri_p1, tri_e1, tri_e2, tri_n, cluster_aabb,
+                        light_pos, leaf: int, eps: float = EPSILON):
+    """K3: (t, idx, n, shadowed) as closest_shadow_plain."""
+    if o.device.type == "cpu":
+        return closest_shadow_plain(o, d, tri_p1, tri_e1, tri_e2, tri_n,
+                                    light_pos, eps)
+    device, R, C = _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
+                                leaf, tri_n)
+    _check("light_pos", light_pos, torch.float32, (3,), device)
+    t = torch.empty((R,), dtype=torch.float32, device=device)
+    idx = torch.empty((R,), dtype=torch.int32, device=device)
+    n = torch.empty((R, 3), dtype=torch.float32, device=device)
+    sh = torch.empty((R,), dtype=torch.bool, device=device)
+    if R:
+        err = library().rtc_closest_shadow(
+            device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(), R,
+            tri_p1.data_ptr(), tri_e1.data_ptr(), tri_e2.data_ptr(),
+            tri_n.data_ptr(), cluster_aabb.data_ptr(), C, leaf, eps,
+            light_pos.data_ptr(), t.data_ptr(), idx.data_ptr(), n.data_ptr(),
+            sh.data_ptr())
+        _raise_on(err, "closest_shadow")
+        LAUNCHES["closest_shadow"] += 1
+    return t, idx, n, sh

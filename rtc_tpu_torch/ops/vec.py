@@ -1,0 +1,38 @@
+"""Component-form 3-vector ops (counterpart of rtc_tpu/ops/vec.py).
+
+The shading stage works on three (R,) tensors per vector. Every formula
+keeps rtc_tpu's association order, because its f64 goldens pin the
+output to about 1 ulp.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def unpack3(v):
+    """(..., 3) -> three (...,) component tensors."""
+    return v[..., 0], v[..., 1], v[..., 2]
+
+
+def pack3(x, y, z):
+    """Three (...,) component tensors -> (..., 3)."""
+    return torch.stack([x, y, z], dim=-1)
+
+
+def dot3(ax, ay, az, bx, by, bz):
+    """Component-form dot product, summed left to right."""
+    return ax * bx + ay * by + az * bz
+
+
+def cross3(ax, ay, az, bx, by, bz):
+    """Component-form cross product, in jnp.cross's order."""
+    return ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx
+
+
+def normalize3(x, y, z):
+    """Component-form normalize; a zero vector stays zero."""
+    sq = x * x + y * y + z * z
+    safe = torch.where(sq > 0.0, sq, 1.0)
+    inv = torch.where(sq > 0.0, 1.0 / torch.sqrt(safe), 0.0)
+    return x * inv, y * inv, z * inv

@@ -1,0 +1,77 @@
+"""Camera and batched primary-ray generation (counterpart of
+rtc_tpu/render/camera.py; reference: src/camera.rs)."""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class Camera:
+    hsize: int
+    vsize: int
+    field_of_view: float
+    transform: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.eye(4, dtype=np.float64)
+    )
+
+    def __post_init__(self):
+        # half extents / pixel size (reference: src/camera.rs:16-41)
+        half_view = math.tan(self.field_of_view / 2.0)
+        aspect = self.hsize / self.vsize
+        if aspect >= 1.0:
+            self.half_width = half_view
+            self.half_height = half_view / aspect
+        else:
+            self.half_width = half_view * aspect
+            self.half_height = half_view
+        self.pixel_size = self.half_width * 2.0 / self.hsize
+
+    def set_transform(self, m) -> "Camera":
+        """(reference: src/camera.rs:43-46)"""
+        self.transform = np.asarray(m, dtype=np.float64).reshape(4, 4)
+        return self
+
+    @property
+    def transform_inverse(self) -> np.ndarray:
+        return np.linalg.inv(self.transform)
+
+
+def camera_rays_for_pixels(inv, px, py, half_width, half_height, pixel_size,
+                           dtype=torch.float32):
+    """Primary rays for explicit pixel coordinates: ray_for_pixel
+    (src/camera.rs:48-65) batched over any pixel order.
+
+    inv: (4, 4) camera inverse (array or tensor); px/py: (R,) integer
+    tensors, whose device the rays are made on. Per-pixel arithmetic is
+    elementwise, so every pixel order gives the same values per pixel.
+    Returns (R, 3) origins and unit directions.
+    """
+    dev = px.device
+    inv = torch.as_tensor(inv, dtype=dtype, device=dev)
+    hw, hh, ps = (torch.as_tensor(v, dtype=dtype, device=dev)
+                  for v in (half_width, half_height, pixel_size))
+    wx = hw - (px.to(dtype) + 0.5) * ps  # +x is LEFT
+    wy = hh - (py.to(dtype) + 0.5) * ps
+    # canvas plane z = -1, w = 1 (src/camera.rs:60)
+    pix = torch.stack([wx, wy, torch.full_like(wx, -1.0), torch.ones_like(wx)],
+                      dim=-1)
+    pixel_world = (pix @ inv.T)[:, :3]
+    origin = inv[:3, 3]
+    direction = pixel_world - origin
+    norm = torch.sqrt(torch.sum(direction * direction, dim=-1, keepdim=True))
+    direction = direction / torch.clamp_min(norm, 1e-30)
+    return origin.expand_as(direction), direction
+
+
+def camera_rays(inv, hsize: int, vsize: int, half_width, half_height,
+                pixel_size, dtype=torch.float32, device="cpu"):
+    """All primary rays, row-major like the reference's y/x loop
+    (src/camera.rs:67-79). Returns (R, 3) origins and directions."""
+    idx = torch.arange(hsize * vsize, dtype=torch.int64, device=device)
+    return camera_rays_for_pixels(inv, idx % hsize, idx // hsize, half_width,
+                                  half_height, pixel_size, dtype)

@@ -1,0 +1,16 @@
+"""Numeric tolerance policy (counterpart of rtc_tpu/utils/constants.py).
+
+EPSILON is the reference's single tolerance (src/utils.rs:2): the
+triangle parallel-ray guard and the shadow-acne offset of over_point.
+"""
+
+EPSILON = 1e-5
+
+# Large-but-finite sentinel for "no hit", so min-reductions stay NaN-free.
+BIG = 1e30
+
+# Lanes that cast no ray (misses, pad rays, non-reflective hits) are parked
+# far out on (+1, +1, +1) with a direction pointing further out, so every
+# cluster box lies behind them and the kernels' traversal drops them at once.
+FAR = 1e12
+PARK = 0.5773502692

@@ -1,0 +1,159 @@
+"""rtc_tpu_torch's host side against rtc_tpu: scene compile, OBJ parse,
+camera rays, ray accounting, and the package's import hygiene."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from rtc_tpu.models.scenes import REGISTRY as JAX_REGISTRY
+from rtc_tpu.render.camera import camera_rays as jax_camera_rays
+from rtc_tpu.scene.compile import compile_scene as jax_compile_scene
+from rtc_tpu.utils.profiling import rays_per_pixel as jax_rays_per_pixel
+from rtc_tpu_torch.io.obj import Parser
+from rtc_tpu_torch.models.scenes import ASSETS, REGISTRY
+from rtc_tpu_torch.render.camera import camera_rays
+from rtc_tpu_torch.scene import shapes
+from rtc_tpu_torch.scene.compile import (TENSOR_FIELDS, SceneStatic,
+                                         compile_scene, scene_from_numpy)
+from rtc_tpu_torch.scene.materials import STRIPE, Material, Pattern
+from rtc_tpu_torch.scene.world import PointLight, World
+from rtc_tpu_torch.utils.config import RenderConfig
+from rtc_tpu_torch.utils.profiling import rays_per_pixel
+
+torch.set_num_threads(2)
+
+DTYPES = {"float32": (np.float32, torch.float32),
+          "float64": (np.float64, torch.float64)}
+
+
+@pytest.fixture(scope="module")
+def cows():
+    """(rtc_tpu scene, port scene) of cow in each dtype."""
+    out = {}
+    for name, (np_dt, torch_dt) in DTYPES.items():
+        jax_world, _ = JAX_REGISTRY["cow"](32)
+        world, _ = REGISTRY["cow"](32)
+        out[name] = (jax_compile_scene(jax_world, dtype=np_dt),
+                     compile_scene(world, dtype=torch_dt))
+    return out
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_compile_matches_rtc_tpu(cows, dtype):
+    """Every table the port keeps equals rtc_tpu's exactly, in the same
+    cluster order; the static counts are rtc_tpu's."""
+    jax_scene, scene = cows[dtype]
+    for field in TENSOR_FIELDS:
+        ref = np.asarray(getattr(jax_scene, field))
+        got = getattr(scene, field).numpy()
+        assert got.dtype == ref.dtype, field
+        assert np.array_equal(got, ref), field
+    for field in SceneStatic._fields:
+        assert getattr(scene.static, field) == getattr(jax_scene.static, field), field
+    assert scene.static.n_tris == 6144 and scene.static.n_clusters == 48
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_scene_from_numpy_matches_compile(cows, dtype):
+    jax_scene, scene = cows[dtype]
+    arrays = {f: np.asarray(getattr(jax_scene, f)) for f in TENSOR_FIELDS}
+    carried = scene_from_numpy(arrays, jax_scene.static._asdict(), device="cpu")
+    assert carried.static == scene.static
+    for field in TENSOR_FIELDS:
+        assert torch.equal(getattr(carried, field), getattr(scene, field)), field
+
+
+def _tri_world(**material):
+    tri = shapes.triangle([0, 1, 0], [-1, 0, 0], [1, 0, 0],
+                          material=Material(**material))
+    return World(objects=[tri], light=PointLight((0, 5, -5), (1, 1, 1)))
+
+
+def _unported_worlds():
+    glass = _tri_world(transparency=0.9, refractive_index=1.5)
+    patterned = _tri_world(pattern=Pattern(STRIPE))
+    smooth = World(objects=[shapes.mesh(
+        [[0, 1, 0]], [[-1, 0, 0]], [[1, 0, 0]],
+        vn1=[[0, 0, -1]], vn2=[[0, 0, -1]], vn3=[[0, 0, -1]])])
+    herd = World(objects=[shapes.mesh(*(np.zeros((30000, 3)),) * 3)
+                          for _ in range(2)])
+    return {"sphere": World(objects=[shapes.sphere()]),
+            "pattern": patterned, "refractive": glass, "smooth": smooth,
+            "instanced": herd}
+
+
+@pytest.mark.parametrize("kind", sorted(_unported_worlds()))
+def test_unported_features_raise(kind):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        compile_scene(_unported_worlds()[kind])
+
+
+def test_triangle_world_compiles_with_padding():
+    scene = compile_scene(_tri_world())
+    st = scene.static
+    assert (st.n_tris, st.n_clusters, st.single_tri_obj) == (1024, 8, 0)
+    # padding clusters carry empty boxes: lo = 1 > hi = -1
+    assert torch.equal(scene.cluster_aabb[1:, :3], torch.ones(7, 3))
+    assert torch.equal(scene.cluster_aabb[1:, 3:], -torch.ones(7, 3))
+
+
+def test_obj_native_matches_python_parser():
+    with open(os.path.join(ASSETS, "cow-nonormals.obj")) as f:
+        text = f.read()
+    native = Parser.from_obj_str(text)
+    python = Parser._from_obj_str_py(text)
+    assert native.ignored_lines == python.ignored_lines
+    assert native.group_names() == python.group_names()
+    assert native.default_faces == python.default_faces
+    np.testing.assert_array_equal(np.stack(native.vertices_list),
+                                  np.stack(python.vertices_list))
+
+
+def test_camera_rays_match_rtc_tpu_f64():
+    _, cam = REGISTRY["cow"](48)
+    args = (cam.transform_inverse, cam.hsize, cam.vsize, cam.half_width,
+            cam.half_height, cam.pixel_size)
+    o, d = camera_rays(*args, dtype=torch.float64)
+    jo, jd = jax_camera_rays(*args, dtype=jnp.float64)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 4, 5, 8])
+@pytest.mark.parametrize("reflective", [False, True])
+@pytest.mark.parametrize("shadows", [False, True])
+def test_rays_per_pixel_counts_like_rtc_tpu(depth, reflective, shadows):
+    assert rays_per_pixel(depth, reflective, False, shadows) == \
+        jax_rays_per_pixel(depth, reflective, False, shadows)
+
+
+def test_cow_main_path_casts_four_rays_per_pixel():
+    assert rays_per_pixel(5, True, False) == 4
+    assert jax_rays_per_pixel(5, True, False) == 4
+
+
+def test_config_knobs():
+    cfg = RenderConfig()
+    assert (cfg.max_depth, cfg.epsilon, cfg.dtype, cfg.ray_tile, cfg.mesh_impl,
+            cfg.shadows, cfg.ray_order, cfg.fused_shadow) == \
+        (5, 1e-5, "float32", 8192, "auto", True, "morton", True)
+    with pytest.raises(ValueError):
+        RenderConfig(mesh_impl="mxu")
+    with pytest.raises(NotImplementedError):
+        RenderConfig(prim_axis="prims")
+
+
+def test_import_loads_no_jax():
+    """The port never imports jax or rtc_tpu."""
+    code = ("import sys, rtc_tpu_torch, rtc_tpu_torch.render.integrator; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'rtc_tpu')]; print(bad); sys.exit(bool(bad))")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
