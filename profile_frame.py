@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of one rtc_tpu_torch cow frame goes, on one NVIDIA GPU.
+"""Where the time of one rtc_tpu_torch frame goes, on one NVIDIA GPU.
 
 Run from the repository root:
 
-    python3 profile_frame.py [--tile 460800] [--frames 10]
+    python3 profile_frame.py [--scene cow] [--tile 460800] [--frames 10]
 
-For the fused (default) and the split (fused_shadow=False) frame it times
---frames unprofiled frames of cow 1920x960, depth 5, f32 on the host clock
-around render() and torch.cuda.synchronize(), after 3 warm-up frames, then
-profiles one more with torch.profiler and sums the device time of its
-kernels by name. It prints one JSON line per frame kind and writes the
-full record to build/profile/frame.json.
+For the fused (default) and the split (fused_shadow=False) frame of the
+scene (only the default one where the scene has analytic prims, which
+never take the fused kernel) it times --frames unprofiled frames at
+1920x960, depth 5, f32 on the host clock around render() and
+torch.cuda.synchronize(), after 3 warm-up frames, then profiles one more
+with torch.profiler and sums the device time of its kernels by name. It
+prints one JSON line per frame kind and writes the full record to
+build/profile/frame_<scene>.json.
 """
 
 from __future__ import annotations
@@ -34,9 +36,9 @@ from rtc_tpu_torch.utils.config import RenderConfig
 from rtc_tpu_torch.utils.profiling import rays_per_pixel
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-OUT = os.path.join(ROOT, "build", "profile", "frame.json")
 WIDTH, HEIGHT, DEPTH = 1920, 960, 5
-OUR_KERNELS = ("closest_hit_kernel", "any_hit_kernel", "closest_shadow_kernel")
+OUR_KERNELS = ("closest_hit_kernel", "any_hit_kernel", "closest_shadow_kernel",
+               "crossing_count_kernel")
 
 
 def frame_seconds(scene, cam, cfg) -> float:
@@ -76,6 +78,7 @@ def profiled_frame(scene, cam, cfg) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", default="cow", choices=sorted(REGISTRY))
     ap.add_argument("--tile", type=int, default=460800,
                     help="RenderConfig.ray_tile (default: bench.py's cow tile)")
     ap.add_argument("--frames", type=int, default=10)
@@ -87,12 +90,16 @@ def main() -> int:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    world, cam = REGISTRY["cow"](WIDTH)
+    world, cam = REGISTRY[args.scene](WIDTH)
     scene = compile_scene(world, dtype=torch.float32, device="cuda")
-    casts = WIDTH * HEIGHT * rays_per_pixel(DEPTH, scene.static.any_reflective,
-                                            False)
-    record = {"card": card, "tile": args.tile, "casts": casts, "frames": {}}
-    for kind, fused in (("fused", True), ("split", False)):
+    st = scene.static
+    casts = WIDTH * HEIGHT * rays_per_pixel(DEPTH, st.any_reflective,
+                                            st.any_refractive)
+    record = {"card": card, "scene": args.scene, "tile": args.tile,
+              "casts": casts, "frames": {}}
+    kinds = (("fused", True), ("split", False)) if not st.n_prims else (
+        ("default", True),)
+    for kind, fused in kinds:
         cfg = RenderConfig(ray_tile=args.tile, fused_shadow=fused)
         for _ in range(3):
             render(scene, cam, cfg)
@@ -106,12 +113,13 @@ def main() -> int:
         summary = {k: v for k, v in entry.items() if k != "by_kernel"}
         summary["top"] = [f"{k['ms']:.3f} ms x{k['launches']} {k['name'][:60]}"
                           for k in entry["by_kernel"][:6]]
-        print(json.dumps({"card": card, "tile": args.tile, "frame": kind,
-                          **summary}), flush=True)
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    with open(OUT, "w") as f:
+        print(json.dumps({"card": card, "scene": args.scene, "tile": args.tile,
+                          "frame": kind, **summary}), flush=True)
+    out = os.path.join(ROOT, "build", "profile", f"frame_{args.scene}.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
         json.dump(record, f, indent=1)
-    print(f"wrote {os.path.relpath(OUT, ROOT)}")
+    print(f"wrote {os.path.relpath(out, ROOT)}")
     return 0
 
 

@@ -8,7 +8,7 @@ path. This package imports torch and numpy, never jax or rtc_tpu.
   scene/    builder API + SoA compiler (host-side numpy, tensors at the end)
   render/   camera, wavefront integrator, renderer
   io/       OBJ parser
-  models/   the shipped scenes (cow so far)
+  models/   the shipped scenes (cow, teapot_smooth, glass_teapot, teddy)
   csrc/     CUDA C++ sources, built with nvcc at first use
 """
 

@@ -1,10 +1,13 @@
 // Mesh intersection kernels for NVIDIA Hopper (sm_90a): K1 closest hit,
-// K2 any-hit occlusion, K3 fused closest hit + shadow.
+// K2 any-hit occlusion, K3 fused closest hit + shadow, K4 crossing census.
 //
 // Replaces (rtc_tpu/ops/pallas/mesh_intersect.py):
-//   K1 _kernel_mxu / _kernel_mxu_body, with_n mode (mesh_closest_hit_mxu)
+//   K1 _kernel_mxu / _kernel_mxu_body, with_n and with_sn modes
+//                                                 (mesh_closest_hit_mxu)
 //   K2 _anyhit_kernel_mxu                         (mesh_any_hit_mxu)
-//   K3 _kernel_mxu_cs, flat mode                  (mesh_closest_shadow_mxu)
+//   K3 _kernel_mxu_cs, flat and with_sn modes     (mesh_closest_shadow_mxu)
+//   K4 _crossing_kernel_mxu + _mt_cluster_mxu_signed
+//                                                 (mesh_crossing_count_mxu)
 //
 // What the TPU kernels compute is kept; their TPU layout is not. There is
 // no Plücker matmul (that factoring exists to feed the MXU), no lane-major
@@ -12,25 +15,27 @@
 // no two-probe loop and no VMEM superblocks. Each thread owns one ray.
 //
 // What bounds these kernels on an H100: divergent per-ray traversal, not
-// bytes. The cow's triangle tables (T x 9 floats, ~221 KB) and normals
-// (~74 KB) sit in the 50 MB L2 and mostly in L1; a ray does a few thousand
-// FP32 operations per cluster it visits and reads the same rows as its
-// neighbours. The design answers that with ordering, not staging: rays come
-// in 16x16 screen blocks, so a warp's 32 rays usually pop the same
-// clusters in the same order and read the same triangle rows (one
-// broadcast load per warp). Shared-memory staging, TMA and wgmma are left
-// for later work.
+// bytes. A mesh's triangle tables (T x 9 floats, ~221 KB for the cow), its
+// normals (T x 3 flat, T x 9 smooth) and container slots (T ints) sit in
+// the 50 MB L2 and mostly in L1; a ray does a few thousand FP32 operations
+// per cluster it visits and reads the same rows as its neighbours. The
+// design answers that with ordering, not staging: rays come in 16x16 screen
+// blocks, so a warp's 32 rays usually visit the same clusters in the same
+// order and read the same triangle rows (one broadcast load per warp).
+// Shared-memory staging, TMA and wgmma are left for later work.
 //
 // Rounding. The file is compiled with -fmad=false, and every formula
 // below keeps the association order of the plain PyTorch versions
-// (rtc_tpu_torch/ops/intersect.py, integrator.py). So each pair test, and
-// K3's in-register shadow ray, round exactly as the plain versions' separate
-// elementwise operations do, and K3's phase 1 is the same __device__
-// function as K1: fused and split give bit-identical t, idx and n.
+// (rtc_tpu_torch/ops/intersect.py, ops/kernels/mesh_intersect.py). So each
+// pair test, the smooth blend, and K3's in-register shadow ray round
+// exactly as the plain versions' separate elementwise operations do, and
+// K3's phase 1 is the same __device__ code as K1: fused and split give
+// bit-identical t, idx and n.
 //
-// Any C and T: no array is sized by the scene. The traversal re-derives the
-// next cluster by scanning all C slab entries (O(C) per visited cluster),
-// which is exact front-to-back order with no per-ray storage.
+// Any C, T and container count K: no array is sized by the scene. The
+// closest-hit traversal re-derives the next cluster by scanning all C slab
+// entries (O(C) per visited cluster), which is exact front-to-back order
+// with no per-ray storage.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,29 +83,41 @@ __device__ __forceinline__ void slab_axis(float lo, float hi, float o,
   tmax = fminf(tmax, fmaxf(t1, t2));
 }
 
-// Conservative entry t (>= 0) of the ray into cluster c's box, or kBig
-// when the ray misses the box, the box lies behind the ray, or the box is
-// an empty padding box (lo = 1 > hi = -1, compile.py). A parked lane
-// (origin 1e12, direction +0.577) has every box behind it. The box is
+// The ray's signed slab interval [tmin, tmax] through cluster c's box;
+// false for an empty padding box (lo = 1 > hi = -1, compile.py). The box is
 // widened by a few ulps of its largest coordinate so that rounding in the
 // f32 box or in the slab arithmetic never cuts off a hit on its faces.
-__device__ __forceinline__ float cluster_entry(const Ray& r,
-                                               const float* __restrict__ aabb,
-                                               int c) {
+__device__ __forceinline__ bool cluster_slab(const Ray& r,
+                                             const float* __restrict__ aabb,
+                                             int c, float& tmin,
+                                             float& tmax) {
   const float* b = aabb + 6 * c;
   float lx = __ldg(b), ly = __ldg(b + 1), lz = __ldg(b + 2);
   float hx = __ldg(b + 3), hy = __ldg(b + 4), hz = __ldg(b + 5);
-  if (lx > hx || ly > hy || lz > hz) return kBig;
+  if (lx > hx || ly > hy || lz > hz) return false;
   const float scale = fmaxf(fmaxf(fmaxf(fabsf(lx), fabsf(hx)),
                                   fmaxf(fabsf(ly), fabsf(hy))),
                             fmaxf(fabsf(lz), fabsf(hz)));
   const float pad = 4e-6f * scale;
   lx -= pad; ly -= pad; lz -= pad;
   hx += pad; hy += pad; hz += pad;
-  float tmin = -kBig, tmax = kBig;
+  tmin = -kBig;
+  tmax = kBig;
   slab_axis(lx, hx, r.ox, r.ix, tmin, tmax);
   slab_axis(ly, hy, r.oy, r.iy, tmin, tmax);
   slab_axis(lz, hz, r.oz, r.iz, tmin, tmax);
+  return true;
+}
+
+// Conservative entry t (>= 0) of the ray into cluster c's box, or kBig
+// when the ray misses the box, the box lies behind the ray, or the box is
+// empty. A parked lane (origin 1e12, direction +0.577) has every box
+// behind it.
+__device__ __forceinline__ float cluster_entry(const Ray& r,
+                                               const float* __restrict__ aabb,
+                                               int c) {
+  float tmin, tmax;
+  if (!cluster_slab(r, aabb, c, tmin, tmax)) return kBig;
   if (!(tmax >= tmin && tmax >= 0.f)) return kBig;
   return fmaxf(tmin, 0.f);
 }
@@ -136,6 +153,33 @@ __device__ __forceinline__ bool tri_hit(const Ray& r,
   if (!(v >= 0.f && u + v <= 1.f)) return false;
   t = f * (e2x * qx + e2y * qy + e2z * qz);
   return true;
+}
+
+// Barycentric (u, v) of the ray on triangle row j, with tri_hit's
+// arithmetic. Recomputing them at the winner costs one pair test per ray
+// and gives the bits the traversal saw, without carrying (u, v) through
+// the loop.
+__device__ __forceinline__ void tri_uv(const Ray& r,
+                                       const float* __restrict__ p1,
+                                       const float* __restrict__ e1,
+                                       const float* __restrict__ e2, int j,
+                                       float& u, float& v) {
+  const float e1x = __ldg(e1 + 3 * j), e1y = __ldg(e1 + 3 * j + 1),
+              e1z = __ldg(e1 + 3 * j + 2);
+  const float e2x = __ldg(e2 + 3 * j), e2y = __ldg(e2 + 3 * j + 1),
+              e2z = __ldg(e2 + 3 * j + 2);
+  const float hx = r.dy * e2z - r.dz * e2y;
+  const float hy = r.dz * e2x - r.dx * e2z;
+  const float hz = r.dx * e2y - r.dy * e2x;
+  const float f = 1.0f / (e1x * hx + e1y * hy + e1z * hz);
+  const float sx = r.ox - __ldg(p1 + 3 * j);
+  const float sy = r.oy - __ldg(p1 + 3 * j + 1);
+  const float sz = r.oz - __ldg(p1 + 3 * j + 2);
+  u = f * (sx * hx + sy * hy + sz * hz);
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
 }
 
 // K1 body: nearest triangle with t >= 0. Clusters are visited in
@@ -194,17 +238,37 @@ __device__ __forceinline__ bool any_hit_dev(
   return false;
 }
 
-__device__ __forceinline__ void write_hit(int i, float t, int idx,
-                                          const float* __restrict__ tri_n,
-                                          float* t_out, int* idx_out,
-                                          float* n_out, float& nx, float& ny,
-                                          float& nz) {
+// The winner's payload, zeros on a miss. Flat (SN = false): its row of
+// tri_n (T, 3). Smooth (SN = true): its corner normals (pay = tri_sn, a
+// (T, 9) table [sn1 | sn2 | sn3]) blended by its (u, v) in rtc_tpu's order
+// (mesh_intersect.py:538-545), unnormalized.
+template <bool SN>
+__device__ __forceinline__ void hit_payload(const Ray& r, int idx,
+                                            const float* __restrict__ pay,
+                                            const float* __restrict__ p1,
+                                            const float* __restrict__ e1,
+                                            const float* __restrict__ e2,
+                                            float& nx, float& ny, float& nz) {
   nx = ny = nz = 0.f;
-  if (idx >= 0) {
-    nx = __ldg(tri_n + 3 * idx);
-    ny = __ldg(tri_n + 3 * idx + 1);
-    nz = __ldg(tri_n + 3 * idx + 2);
+  if (idx < 0) return;
+  if (!SN) {
+    nx = __ldg(pay + 3 * idx);
+    ny = __ldg(pay + 3 * idx + 1);
+    nz = __ldg(pay + 3 * idx + 2);
+    return;
   }
+  float u, v;
+  tri_uv(r, p1, e1, e2, idx, u, v);
+  const float w0 = (1.0f - u) - v;
+  const float* g = pay + 9 * idx;
+  nx = (w0 * __ldg(g) + u * __ldg(g + 3)) + v * __ldg(g + 6);
+  ny = (w0 * __ldg(g + 1) + u * __ldg(g + 4)) + v * __ldg(g + 7);
+  nz = (w0 * __ldg(g + 2) + u * __ldg(g + 5)) + v * __ldg(g + 8);
+}
+
+__device__ __forceinline__ void write_hit(int i, float t, int idx, float nx,
+                                          float ny, float nz, float* t_out,
+                                          int* idx_out, float* n_out) {
   t_out[i] = t;
   idx_out[i] = idx;
   n_out[3 * i] = nx;
@@ -212,11 +276,12 @@ __device__ __forceinline__ void write_hit(int i, float t, int idx,
   n_out[3 * i + 2] = nz;
 }
 
+template <bool SN>
 __global__ void __launch_bounds__(kThreads)
 closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    int R, const float* __restrict__ p1,
                    const float* __restrict__ e1, const float* __restrict__ e2,
-                   const float* __restrict__ tri_n,
+                   const float* __restrict__ pay,
                    const float* __restrict__ aabb, int C, int leaf, float eps,
                    float* __restrict__ t_out, int* __restrict__ idx_out,
                    float* __restrict__ n_out) {
@@ -227,7 +292,8 @@ closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
   int idx;
   closest_hit_dev(r, p1, e1, e2, aabb, C, leaf, eps, t, idx);
   float nx, ny, nz;
-  write_hit(i, t, idx, tri_n, t_out, idx_out, n_out, nx, ny, nz);
+  hit_payload<SN>(r, idx, pay, p1, e1, e2, nx, ny, nz);
+  write_hit(i, t, idx, nx, ny, nz, t_out, idx_out, n_out);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -246,12 +312,15 @@ any_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
 // for formula as _kernel_mxu_cs (mesh_intersect.py:767-818), which copies
 // prepare_hit3's normal flip and over_point, color_at's facing test and
 // is_shadowed's direction, distance and live rules; phase 3 is K2 on it.
+// Smooth meshes normalize the blend before the flip (:782-786); n_out
+// keeps the raw blend, as K1's.
+template <bool SN>
 __global__ void __launch_bounds__(kThreads)
 closest_shadow_kernel(const float* __restrict__ o, const float* __restrict__ d,
                       int R, const float* __restrict__ p1,
                       const float* __restrict__ e1,
                       const float* __restrict__ e2,
-                      const float* __restrict__ tri_n,
+                      const float* __restrict__ pay,
                       const float* __restrict__ aabb, int C, int leaf,
                       float eps, const float* __restrict__ light,
                       float* __restrict__ t_out, int* __restrict__ idx_out,
@@ -263,9 +332,15 @@ closest_shadow_kernel(const float* __restrict__ o, const float* __restrict__ d,
   int idx;
   closest_hit_dev(r, p1, e1, e2, aabb, C, leaf, eps, t, idx);
   float nx, ny, nz;
-  write_hit(i, t, idx, tri_n, t_out, idx_out, n_out, nx, ny, nz);
+  hit_payload<SN>(r, idx, pay, p1, e1, e2, nx, ny, nz);
+  write_hit(i, t, idx, nx, ny, nz, t_out, idx_out, n_out);
 
   // ---- phase 2: the shadow ray ----
+  if (SN) {  // normalize3, in the plain version's rounding (no rsqrtf)
+    const float nsq = nx * nx + ny * ny + nz * nz;
+    const float ninv = nsq > 0.f ? 1.0f / sqrtf(nsq) : 0.f;
+    nx = nx * ninv; ny = ny * ninv; nz = nz * ninv;
+  }
   const bool hit_ok = idx >= 0;
   const float ts = hit_ok ? t : 1.0f;
   const float px = r.ox + r.dx * ts;
@@ -294,12 +369,64 @@ closest_shadow_kernel(const float* __restrict__ o, const float* __restrict__ d,
   sh_out[i] = any_hit_dev(s, max_t, p1, e1, e2, aabb, C, leaf, eps);
 }
 
+// K4: per ray and container slot k, the number of crossings of slot-k
+// triangles at t < t_hit, NEGATIVE t included (the reference's containers
+// walk runs over the whole intersection list, src/intersection.rs:29-62),
+// and the latest such t. The hit triangle itself (hit_gid) is excluded by
+// id. Every crossing counts, so there is no early exit and no order: the
+// lane takes every cluster that holds a container triangle (has[c]) and
+// whose signed slab interval starts before t_hit. t_hit <= -BIG marks a
+// dead lane, which visits nothing. The lane accumulates straight into its
+// own output rows, so K is not bounded by the kernel.
+__global__ void __launch_bounds__(kThreads)
+crossing_count_kernel(const float* __restrict__ o,
+                      const float* __restrict__ d,
+                      const float* __restrict__ t_hit,
+                      const int* __restrict__ hit_gid, int R,
+                      const float* __restrict__ p1,
+                      const float* __restrict__ e1,
+                      const float* __restrict__ e2,
+                      const int* __restrict__ tri_cid,
+                      const uint8_t* __restrict__ has,
+                      const float* __restrict__ aabb, int C, int leaf,
+                      float eps, int K, int* __restrict__ cnt_out,
+                      float* __restrict__ last_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R) return;
+  int* cnt = cnt_out + (size_t)i * K;
+  float* last = last_out + (size_t)i * K;
+  for (int k = 0; k < K; ++k) {
+    cnt[k] = 0;
+    last[k] = -kBig;
+  }
+  const float th = t_hit[i];
+  if (!(th > -kBig)) return;
+  const Ray r = load_ray(o, d, i);
+  const int self = hit_gid[i];
+  for (int c = 0; c < C; ++c) {
+    if (!__ldg(has + c)) continue;
+    float tmin, tmax;
+    if (!cluster_slab(r, aabb, c, tmin, tmax)) continue;
+    if (!(tmax >= tmin && tmin < th)) continue;
+    for (int j = c * leaf; j < (c + 1) * leaf; ++j) {
+      const int k = __ldg(tri_cid + j);
+      if (k < 0 || j == self) continue;
+      float t;
+      if (tri_hit(r, p1, e1, e2, j, eps, t) && t < th) {
+        cnt[k] += 1;
+        last[k] = fmaxf(last[k], t);
+      }
+    }
+  }
+}
+
 inline unsigned blocks_for(int R) { return (unsigned)((R + kThreads - 1) / kThreads); }
 
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Each launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() (0 = launched).
+// The *_sn variants take the (T, 9) corner-normal table in place of tri_n.
 extern "C" {
 
 int rtc_closest_hit(int device, void* stream, const float* o, const float* d,
@@ -308,8 +435,20 @@ int rtc_closest_hit(int device, void* stream, const float* o, const float* d,
                     float eps, float* t_out, int* idx_out, float* n_out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  closest_hit_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+  closest_hit_kernel<false><<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
       o, d, R, p1, e1, e2, tri_n, aabb, C, leaf, eps, t_out, idx_out, n_out);
+  return (int)cudaGetLastError();
+}
+
+int rtc_closest_hit_sn(int device, void* stream, const float* o,
+                       const float* d, int R, const float* p1,
+                       const float* e1, const float* e2, const float* tri_sn,
+                       const float* aabb, int C, int leaf, float eps,
+                       float* t_out, int* idx_out, float* n_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  closest_hit_kernel<true><<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, R, p1, e1, e2, tri_sn, aabb, C, leaf, eps, t_out, idx_out, n_out);
   return (int)cudaGetLastError();
 }
 
@@ -332,9 +471,38 @@ int rtc_closest_shadow(int device, void* stream, const float* o,
                        float* n_out, uint8_t* sh_out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  closest_shadow_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+  closest_shadow_kernel<false><<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
       o, d, R, p1, e1, e2, tri_n, aabb, C, leaf, eps, light, t_out, idx_out,
       n_out, sh_out);
+  return (int)cudaGetLastError();
+}
+
+int rtc_closest_shadow_sn(int device, void* stream, const float* o,
+                          const float* d, int R, const float* p1,
+                          const float* e1, const float* e2,
+                          const float* tri_sn, const float* aabb, int C,
+                          int leaf, float eps, const float* light,
+                          float* t_out, int* idx_out, float* n_out,
+                          uint8_t* sh_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  closest_shadow_kernel<true><<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, R, p1, e1, e2, tri_sn, aabb, C, leaf, eps, light, t_out, idx_out,
+      n_out, sh_out);
+  return (int)cudaGetLastError();
+}
+
+int rtc_crossing_count(int device, void* stream, const float* o,
+                       const float* d, const float* t_hit,
+                       const int* hit_gid, int R, const float* p1,
+                       const float* e1, const float* e2, const int* tri_cid,
+                       const uint8_t* has, const float* aabb, int C, int leaf,
+                       float eps, int K, int* cnt_out, float* last_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  crossing_count_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, t_hit, hit_gid, R, p1, e1, e2, tri_cid, has, aabb, C, leaf, eps,
+      K, cnt_out, last_out);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 """The shipped scenes (counterpart of rtc_tpu/models/scenes.py; reference:
-src/main.rs:84-397). Only `cow` is ported; the other scenes need the
-features listed in ROADMAP queue 1.
+src/main.rs:84-397). Ported: `cow`, and the smooth and glass meshes
+`teapot_smooth`, `glass_teapot` and `teddy`; the other scenes wait for the
+items of ROADMAP queue 1 they need.
 
 Each builder returns (World, Camera) for a canvas width, with the
 reference CLI contract: height = width / 2, fov 0.785 (src/main.rs:77, 329).
@@ -8,13 +9,17 @@ reference CLI contract: height = width / 2, fov 0.785 (src/main.rs:77, 329).
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Callable, Dict, Tuple
+
+import numpy as np
 
 from ..io.obj import Parser
 from ..ops import transforms as X
 from ..render.camera import Camera
-from ..scene.materials import Material
+from ..scene.materials import Material, checkers_pattern, gradient_pattern
+from ..scene.shapes import plane
 from ..scene.world import PointLight, World
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
@@ -27,6 +32,17 @@ def _cam(width: int, fr, to, fov: float = 0.785) -> Camera:
     return cam
 
 
+def _mm(*ms):
+    out = np.asarray(ms[0], dtype=np.float64)
+    for m in ms[1:]:
+        out = out @ np.asarray(m, dtype=np.float64)
+    return out
+
+
+def _light() -> PointLight:
+    return PointLight((0.0, 6.9, -5.0), (1.0, 1.0, 0.9))
+
+
 # --- cow (reference: src/main.rs:328-363) -----------------------------------
 
 def cow_world() -> World:
@@ -34,13 +50,70 @@ def cow_world() -> World:
     cow.set_transform(X.translation(0, 3.5, 0) @ X.scaling(0.5, 0.5, 0.5))
     cow.set_material(Material(color=(1, 1, 1), ambient=0.1, diffuse=0.7, specular=0.9,
                               shininess=300.0, reflective=0.2))
-    return World(objects=[cow], light=PointLight((0.0, 6.9, -5.0), (1.0, 1.0, 0.9)))
+    return World(objects=[cow], light=_light())
 
 
 def cow(width: int = 400) -> Tuple[World, Camera]:
     return cow_world(), _cam(width, [8, 6, -8], [0, 3, 0])
 
 
+# --- smooth and glass meshes (rtc_tpu/models/scenes.py:193-237, 332-340) -----
+
+def _teapot(smooth: bool = True):
+    return Parser.from_obj_file(os.path.join(ASSETS, "teapot.obj")).obj_to_group(
+        smooth=smooth)
+
+
+def teapot_smooth_world() -> World:
+    """The teapot with per-vertex normals and Phong-interpolated shading,
+    the capability the reference stubs out (src/obj_file.rs:295-335)."""
+    t = _teapot()
+    t.set_transform(X.translation(0, -1.5, 0))
+    t.set_material(Material(pattern=gradient_pattern((0, 1, 0), (0, 0, 1))))
+    return World(objects=[t], light=_light())
+
+
+def teapot_smooth(width: int = 400) -> Tuple[World, Camera]:
+    return teapot_smooth_world(), _cam(width, [0, 4, -12], [0, 0, 0])
+
+
+def glass_teapot_world() -> World:
+    """The smooth teapot in glass (transparency 0.9, ior 1.5) over a
+    checkered plane: a closed transparent mesh is an n1/n2 container."""
+    t = _teapot()
+    t.set_transform(X.translation(0, -1.0, 0))
+    t.set_material(Material(
+        color=(0.05, 0.08, 0.05), ambient=0.02, diffuse=0.15, specular=0.9,
+        shininess=300.0, reflective=0.1, transparency=0.9,
+        refractive_index=1.5))
+    floor = plane(
+        transform=X.translation(0, -1.0, 0),
+        material=Material(
+            pattern=checkers_pattern(
+                (0.85, 0.85, 0.85), (0.15, 0.15, 0.15)
+            ).set_transform(_mm(X.scaling(4.0, 4.0, 4.0),
+                                X.translation(0.0, 0.5, 0.0))),
+            specular=0.0, reflective=0.05))
+    return World(objects=[floor, t], light=_light())
+
+
+def glass_teapot(width: int = 400) -> Tuple[World, Camera]:
+    return glass_teapot_world(), _cam(width, [0, 4, -12], [0, 0, 0])
+
+
+def teddy(width: int = 400) -> Tuple[World, Camera]:
+    """teddy.obj with smooth shading."""
+    shape = Parser.from_obj_file(os.path.join(ASSETS, "teddy.obj")).obj_to_group(
+        smooth=True)
+    shape.set_transform(_mm(X.translation(0, 3.0, 0), X.scaling(0.15, 0.15, 0.15),
+                            X.rotation_y(math.pi)))
+    shape.set_material(Material(color=(0.6, 0.4, 0.2), diffuse=0.8, specular=0.3))
+    return World(objects=[shape], light=_light()), _cam(width, [8, 6, -8], [0, 3, 0])
+
+
 REGISTRY: Dict[str, Callable[[int], Tuple[World, Camera]]] = {
     "cow": cow,
+    "teapot_smooth": teapot_smooth,
+    "glass_teapot": glass_teapot,
+    "teddy": teddy,
 }

@@ -1,12 +1,157 @@
-"""Ray-triangle intersection (counterpart of rtc_tpu/ops/intersect.py,
-triangle only; the analytic kinds wait for ROADMAP queue 1 item 11)."""
+"""Object-space intersection for every primitive kind (counterpart of
+rtc_tpu/ops/intersect.py; reference: src/shape.rs:248-463).
+
+Each analytic kind is a branchless batched function over rays of shape
+(..., 3) returning a fixed number of candidate-t slots and their validity:
+
+    sphere   -> 2 slots   (src/shape.rs:258-273)
+    plane    -> 1 slot    (src/shape.rs:274-282)
+    cube     -> 2 slots   (src/shape.rs:283-319, check_axis :587-606)
+    cylinder -> 4 slots: wall0, wall1, cap_min, cap_max  (src/shape.rs:320-355)
+    cone     -> 4 slots: wall0/linear, wall1, cap_min, cap_max (src/shape.rs:356-398)
+    triangle -> 1 slot    (Möller-Trumbore, src/shape.rs:437-459)
+
+Invalid slots carry arbitrary finite t values; callers mask with `valid`.
+Every formula keeps rtc_tpu's association order.
+"""
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from ..utils.constants import EPSILON
-from .vec import cross3, dot3, unpack3
+from ..utils.constants import BIG, EPSILON
+from .vec import cross3, dot3, safe_sqrt, unpack3
+
+
+class Hits(NamedTuple):
+    """t: (..., k) candidate hit times; valid: (..., k) mask."""
+
+    t: torch.Tensor
+    valid: torch.Tensor
+
+
+def _quadratic(a, b, c):
+    """Both roots of ax^2+bx+c, smaller first when a > 0; valid iff
+    disc >= 0 (a != 0 is the callers' job)."""
+    disc = b * b - 4.0 * a * c
+    valid = disc >= 0.0
+    sq = safe_sqrt(disc)
+    denom = torch.where(torch.abs(a) > 0.0, 2.0 * a, 1.0)
+    return (-b - sq) / denom, (-b + sq) / denom, valid
+
+
+def sphere(o, d) -> Hits:
+    """Unit sphere at the origin (reference: src/shape.rs:258-273)."""
+    a = (d * d).sum(-1)
+    b = 2.0 * (d * o).sum(-1)
+    c = (o * o).sum(-1) - 1.0
+    t0, t1, valid = _quadratic(a, b, c)
+    return Hits(torch.stack([t0, t1], -1), torch.stack([valid, valid], -1))
+
+
+def plane(o, d, eps: float = EPSILON) -> Hits:
+    """The xz plane, +y normal (reference: src/shape.rs:274-282)."""
+    dy = d[..., 1]
+    valid = torch.abs(dy) >= eps
+    t = -o[..., 1] / torch.where(valid, dy, 1.0)
+    return Hits(t[..., None], valid[..., None])
+
+
+def _check_axis(o1, d1, lo, hi, eps: float):
+    """One slab (reference: src/shape.rs:587-606). A parallel ray gives
+    (-BIG, BIG) inside the slab and an empty interval outside, as the
+    reference's NaN-ignoring min/max do."""
+    num_lo = lo - o1
+    num_hi = hi - o1
+    parallel = torch.abs(d1) < eps
+    d_safe = torch.where(parallel, 1.0, d1)
+    ta = num_lo / d_safe
+    tb = num_hi / d_safe
+    big = torch.full_like(num_lo, BIG)  # keeps BIG in the rays' dtype
+    tmin = torch.where(parallel, torch.where(num_lo <= 0.0, -big, big),
+                       torch.minimum(ta, tb))
+    tmax = torch.where(parallel, torch.where(num_hi >= 0.0, big, -big),
+                       torch.maximum(ta, tb))
+    return tmin, tmax
+
+
+def cube(o, d, eps: float = EPSILON) -> Hits:
+    """The axis-aligned +-1 cube (reference: src/shape.rs:283-319)."""
+    xtmin, xtmax = _check_axis(o[..., 0], d[..., 0], -1.0, 1.0, eps)
+    ytmin, ytmax = _check_axis(o[..., 1], d[..., 1], -1.0, 1.0, eps)
+    ztmin, ztmax = _check_axis(o[..., 2], d[..., 2], -1.0, 1.0, eps)
+    tmin = torch.maximum(torch.maximum(xtmin, ytmin), ztmin)
+    tmax = torch.minimum(torch.minimum(xtmax, ytmax), ztmax)
+    valid = tmax >= tmin
+    return Hits(torch.stack([tmin, tmax], -1), torch.stack([valid, valid], -1))
+
+
+def _check_cap(o, d, t):
+    """Cap-disc membership x^2 + z^2 <= |y| at time t (reference:
+    src/shape.rs:579-585: the bound is |y|, not 1, faithfully)."""
+    x = o[..., 0] + t * d[..., 0]
+    y = o[..., 1] + t * d[..., 1]
+    z = o[..., 2] + t * d[..., 2]
+    return x * x + z * z <= torch.abs(y)
+
+
+def _caps(o, d, ymin, ymax, capped, eps: float):
+    """Cylinder and cone caps (reference: src/shape.rs:537-573)."""
+    oy, dy = o[..., 1], d[..., 1]
+    dy_ok = torch.abs(dy) >= eps
+    dy_safe = torch.where(dy_ok, dy, 1.0)
+    t_lo = (ymin - oy) / dy_safe
+    t_hi = (ymax - oy) / dy_safe
+    enabled = capped & dy_ok
+    return (t_lo, enabled & _check_cap(o, d, t_lo),
+            t_hi, enabled & _check_cap(o, d, t_hi))
+
+
+def cylinder(o, d, ymin, ymax, capped, eps: float = EPSILON) -> Hits:
+    """Unit-radius y-axis cylinder, truncated to ymin < y < ymax, open or
+    capped (reference: src/shape.rs:320-355). ymin/ymax/capped broadcast."""
+    ox, oz = o[..., 0], o[..., 2]
+    dx, dz = d[..., 0], d[..., 2]
+    a = dx * dx + dz * dz
+    wall_possible = torch.abs(a) >= eps
+    b = 2.0 * (ox * dx + oz * dz)
+    c = ox * ox + oz * oz - 1.0
+    t0, t1, disc_ok = _quadratic(torch.where(wall_possible, a, 1.0), b, c)
+    y0 = o[..., 1] + t0 * d[..., 1]
+    y1 = o[..., 1] + t1 * d[..., 1]
+    v0 = wall_possible & disc_ok & (ymin < y0) & (y0 < ymax)
+    v1 = wall_possible & disc_ok & (ymin < y1) & (y1 < ymax)
+    t_lo, v_lo, t_hi, v_hi = _caps(o, d, ymin, ymax, capped, eps)
+    return Hits(torch.stack([t0, t1, t_lo, t_hi], -1),
+                torch.stack([v0, v1, v_lo, v_hi], -1))
+
+
+def cone(o, d, ymin, ymax, capped, eps: float = EPSILON) -> Hits:
+    """Double-napped unit cone along y (reference: src/shape.rs:356-398).
+    A degenerate quadratic (|a| < eps) gives the single linear root
+    t = -c/2b in slot 0, unbounded by the y range, as the reference."""
+    ox, oy, oz = unpack3(o)
+    dx, dy, dz = unpack3(d)
+    a = dx * dx - dy * dy + dz * dz
+    b = 2.0 * (ox * dx - oy * dy + oz * dz)
+    c = ox * ox - oy * oy + oz * oz
+    a_zero = torch.abs(a) < eps
+    b_ok = torch.abs(b) >= eps
+    t_lin = -c / torch.where(b_ok, 2.0 * b, 1.0)
+    t0, t1, disc_ok = _quadratic(torch.where(a_zero, 1.0, a), b, c)
+    t_sm = torch.minimum(t0, t1)
+    t_lg = torch.maximum(t0, t1)
+    y0 = oy + t_sm * dy
+    y1 = oy + t_lg * dy
+    v0_quad = ~a_zero & disc_ok & (ymin < y0) & (y0 < ymax)
+    v1_quad = ~a_zero & disc_ok & (ymin < y1) & (y1 < ymax)
+    slot0_t = torch.where(a_zero, t_lin, t_sm)
+    slot0_v = torch.where(a_zero, b_ok, v0_quad)
+    t_lo, v_lo, t_hi, v_hi = _caps(o, d, ymin, ymax, capped, eps)
+    return Hits(torch.stack([slot0_t, t_lg, t_lo, t_hi], -1),
+                torch.stack([slot0_v, v1_quad, v_lo, v_hi], -1))
 
 
 def triangle(o, d, p1, e1, e2, eps: float = EPSILON):

@@ -1,11 +1,14 @@
-"""Mesh intersection: the hand-written CUDA kernels K1-K3
+"""Mesh intersection: the hand-written CUDA kernels K1-K4
 (rtc_tpu_torch/csrc/mesh_intersect.cu) and their plain PyTorch versions.
 
 Counterpart of rtc_tpu/ops/pallas/mesh_intersect.py:
 
-  K1 mesh_closest_hit     <- mesh_closest_hit_mxu(tri_n=...)  (_kernel_mxu)
-  K2 mesh_any_hit         <- mesh_any_hit_mxu                 (_anyhit_kernel_mxu)
-  K3 mesh_closest_shadow  <- mesh_closest_shadow_mxu          (_kernel_mxu_cs)
+  K1 mesh_closest_hit        <- mesh_closest_hit_mxu(tri_n=...)  (_kernel_mxu)
+     mesh_closest_hit_sn     <- mesh_closest_hit_mxu(tri_sn=...)
+  K2 mesh_any_hit            <- mesh_any_hit_mxu                 (_anyhit_kernel_mxu)
+  K3 mesh_closest_shadow     <- mesh_closest_shadow_mxu          (_kernel_mxu_cs)
+     mesh_closest_shadow_sn  <- mesh_closest_shadow_mxu(tri_sn=...)
+  K4 mesh_crossing_count     <- mesh_crossing_count_mxu          (_crossing_kernel_mxu)
 
 Each wrapper takes f32 tensors. Given tensors on the CPU it returns its
 plain version's result; given CUDA tensors it launches its kernel, or
@@ -39,7 +42,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
-LAUNCHES = {"closest_hit": 0, "any_hit": 0, "closest_shadow": 0}
+LAUNCHES = {"closest_hit": 0, "any_hit": 0, "closest_shadow": 0,
+            "closest_hit_sn": 0, "closest_shadow_sn": 0, "crossing_count": 0}
 
 
 def reset_launch_counts() -> None:
@@ -64,16 +68,15 @@ def _pair_tests(o, d, p1, e1, e2, eps):
                     eps)[:2]
 
 
-def closest_hit_plain(o, d, p1, e1, e2, tri_n, eps: float = EPSILON):
-    """K1's plain version: nearest triangle with t >= 0 by a dense sweep
-    (rtc_tpu integrator.mesh_closest bruteforce, :640-644) plus the normal
-    gather. Returns t (BIG on miss), idx (-1 on miss, the lowest index on a
-    tie) and the winner's tri_n row (zeros on miss)."""
+def _closest_plain(o, d, p1, e1, e2, eps):
+    """Nearest triangle with t >= 0 by a dense sweep (rtc_tpu
+    integrator.mesh_closest bruteforce, :640-644): t (BIG on a miss) and
+    idx (-1 on a miss, the lowest index on a tie)."""
     R = o.shape[0]
     t_out = torch.full((R,), BIG, dtype=o.dtype, device=o.device)
     idx_out = torch.full((R,), -1, dtype=torch.int32, device=o.device)
     if p1.shape[0] == 0:
-        return t_out, idx_out, torch.zeros_like(o)
+        return t_out, idx_out
     step = _chunk(R, p1.shape[0], o.device)
     for s in range(0, R, step):
         t, valid = _pair_tests(o[s:s + step], d[s:s + step], p1, e1, e2, eps)
@@ -82,9 +85,40 @@ def closest_hit_plain(o, d, p1, e1, e2, tri_n, eps: float = EPSILON):
         t_min = torch.gather(tt, 1, idx[:, None])[:, 0]
         t_out[s:s + step] = t_min
         idx_out[s:s + step] = torch.where(t_min < BIG * 0.5, idx, -1).to(torch.int32)
-    hit = idx_out >= 0
-    n = torch.where(hit[:, None], tri_n[idx_out.clamp_min(0).long()], 0.0)
-    return t_out, idx_out, n
+    return t_out, idx_out
+
+
+def closest_hit_plain(o, d, p1, e1, e2, tri_n, eps: float = EPSILON):
+    """K1's plain version: the dense sweep's (t, idx) and the winner's
+    tri_n row (zeros on a miss)."""
+    t, idx = _closest_plain(o, d, p1, e1, e2, eps)
+    hit = idx >= 0
+    if p1.shape[0] == 0:
+        return t, idx, torch.zeros_like(o)
+    n = torch.where(hit[:, None], tri_n[idx.clamp_min(0).long()], 0.0)
+    return t, idx, n
+
+
+def smooth_blend(o, d, p1, e1, e2, tri_sn, idx, eps: float = EPSILON):
+    """The winner's corner normals (tri_sn: (T, 9) = [sn1 | sn2 | sn3])
+    blended by its barycentric (u, v), unnormalized, zeros where idx < 0:
+    w0 = (1 - u) - v, then (w0 sn1 + u sn2) + v sn3 per axis, as rtc_tpu
+    (mesh_intersect.py:538-545, integrator.py:707-715)."""
+    if p1.shape[0] == 0:
+        return torch.zeros_like(o)
+    i = idx.clamp_min(0).long()
+    _, _, u, v = triangle(o, d, p1[i], e1[i], e2[i], eps)
+    g = tri_sn[i]
+    w0 = 1.0 - u - v
+    n = w0[:, None] * g[:, 0:3] + u[:, None] * g[:, 3:6] + v[:, None] * g[:, 6:9]
+    return torch.where((idx >= 0)[:, None], n, 0.0)
+
+
+def closest_hit_sn_plain(o, d, p1, e1, e2, tri_sn, eps: float = EPSILON):
+    """K1 with_sn's plain version: the dense sweep's (t, idx) and the
+    winner's raw corner blend (smooth_blend)."""
+    t, idx = _closest_plain(o, d, p1, e1, e2, eps)
+    return t, idx, smooth_blend(o, d, p1, e1, e2, tri_sn, idx, eps)
 
 
 def any_hit_plain(o, d, max_t, p1, e1, e2, eps: float = EPSILON):
@@ -102,17 +136,21 @@ def any_hit_plain(o, d, max_t, p1, e1, e2, eps: float = EPSILON):
     return out
 
 
-def shadow_rays_plain(o, d, t, idx, n, light_pos, eps: float = EPSILON):
+def shadow_rays_plain(o, d, t, idx, n, light_pos, eps: float = EPSILON,
+                      unit_n: bool = True):
     """K3's phase 2: the shadow ray of each closest hit, with the formulas
     of prepare_hit3 (normal flip, over_point), color_at (facing test,
-    parked misses) and is_shadowed (direction, distance, live). Returns
-    (origin (R, 3), direction (R, 3), max_t (R,)); dead lanes get -1."""
+    parked misses) and is_shadowed (direction, distance, live). unit_n=False
+    normalizes n first (a smooth blend). Returns (origin (R, 3), direction
+    (R, 3), max_t (R,)); dead lanes get -1."""
     hit_ok = idx >= 0
     t_safe = torch.where(hit_ok, t, 1.0)
     ox, oy, oz = o.unbind(1)
     dx, dy, dz = d.unbind(1)
     px, py, pz = ox + dx * t_safe, oy + dy * t_safe, oz + dz * t_safe
     nx, ny, nz = n.unbind(1)
+    if not unit_n:
+        nx, ny, nz = normalize3(nx, ny, nz)
     inside = (nx * -dx + ny * -dy + nz * -dz) < 0.0
     nx, ny, nz = (torch.where(inside, -c, c) for c in (nx, ny, nz))
     lx, ly, lz = light_pos.unbind(0)
@@ -134,6 +172,49 @@ def closest_shadow_plain(o, d, p1, e1, e2, tri_n, light_pos,
     t, idx, n = closest_hit_plain(o, d, p1, e1, e2, tri_n, eps)
     so, sd, max_t = shadow_rays_plain(o, d, t, idx, n, light_pos, eps)
     return t, idx, n, any_hit_plain(so, sd, max_t, p1, e1, e2, eps)
+
+
+def closest_shadow_sn_plain(o, d, p1, e1, e2, tri_sn, light_pos,
+                            eps: float = EPSILON):
+    """K3 with_sn's plain version: closest_hit_sn_plain, then the shadow
+    ray of the normalized blend, then any_hit_plain. Returns (t, idx,
+    n_blend, shadowed), n_blend unnormalized as K1 with_sn's."""
+    t, idx, n = closest_hit_sn_plain(o, d, p1, e1, e2, tri_sn, eps)
+    so, sd, max_t = shadow_rays_plain(o, d, t, idx, n, light_pos, eps,
+                                      unit_n=False)
+    return t, idx, n, any_hit_plain(so, sd, max_t, p1, e1, e2, eps)
+
+
+def crossing_count_plain(o, d, t_hit, hit_gid, p1, e1, e2, tri_cid,
+                         n_containers: int, eps: float = EPSILON):
+    """K4's plain version: per ray and container slot k, the count of
+    crossings at t < t_hit (negative t included) of the triangles with
+    tri_cid == k, the triangle hit_gid excluded, and the latest such t
+    (-BIG where none).
+
+    A dense sweep over the container rows of the global triangle tables
+    (tri_cid >= 0), chunked over rays; rtc_tpu's compact refr_tri_* slabs
+    hold the same rows, so the port does not keep them. Returns (cnt (R, K)
+    i32, last (R, K) in o's dtype)."""
+    R, K = o.shape[0], n_containers
+    cnt = torch.zeros((R, K), dtype=torch.int32, device=o.device)
+    last = torch.full((R, K), -BIG, dtype=o.dtype, device=o.device)
+    rows = torch.nonzero(tri_cid >= 0)[:, 0]
+    if rows.numel() == 0 or R == 0:
+        return cnt, last
+    cid = tri_cid[rows]
+    gid = rows.to(hit_gid.dtype)
+    step = _chunk(R, rows.numel(), o.device)
+    for s in range(0, R, step):
+        t, valid = _pair_tests(o[s:s + step], d[s:s + step], p1[rows],
+                               e1[rows], e2[rows], eps)
+        before = (valid & (t < t_hit[s:s + step, None])
+                  & (gid[None] != hit_gid[s:s + step, None]))
+        for k in range(K):
+            mk = before & (cid == k)[None]
+            cnt[s:s + step, k] = mk.sum(1, dtype=torch.int32)
+            last[s:s + step, k] = torch.where(mk, t, -BIG).amax(1)
+    return cnt, last
 
 
 # ---------------------------------------------------------------------------
@@ -173,12 +254,18 @@ def build() -> str:
 def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rtc_closest_hit.argtypes = [I, P, P, P, I, P, P, P, P, P, I, I, F,
-                                    P, P, P]
+    closest = [I, P, P, P, I, P, P, P, P, P, I, I, F, P, P, P]
+    shadow = [I, P, P, P, I, P, P, P, P, P, I, I, F, P, P, P, P, P]
+    lib.rtc_closest_hit.argtypes = closest
+    lib.rtc_closest_hit_sn.argtypes = closest
     lib.rtc_any_hit.argtypes = [I, P, P, P, P, I, P, P, P, P, I, I, F, P]
-    lib.rtc_closest_shadow.argtypes = [I, P, P, P, I, P, P, P, P, P, I, I, F,
-                                       P, P, P, P, P]
-    for fn in (lib.rtc_closest_hit, lib.rtc_any_hit, lib.rtc_closest_shadow):
+    lib.rtc_closest_shadow.argtypes = shadow
+    lib.rtc_closest_shadow_sn.argtypes = shadow
+    lib.rtc_crossing_count.argtypes = [I, P, P, P, P, P, I, P, P, P, P, P, P,
+                                       I, I, F, I, P, P]
+    for fn in (lib.rtc_closest_hit, lib.rtc_closest_hit_sn, lib.rtc_any_hit,
+               lib.rtc_closest_shadow, lib.rtc_closest_shadow_sn,
+               lib.rtc_crossing_count):
         fn.restype = I
     lib.rtc_error_string.argtypes = [I]
     lib.rtc_error_string.restype = ctypes.c_char_p
@@ -196,8 +283,10 @@ def _check(name: str, x, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb, leaf, tri_n=None):
-    """Validate a launch's inputs; returns (device, R, C)."""
+def _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb, leaf,
+                 payload=None, payload_name="tri_n"):
+    """Validate a launch's inputs; payload is (T, 3) tri_n or (T, 9)
+    tri_sn. Returns (device, R, C)."""
     device = o.device
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {device}")
@@ -208,8 +297,9 @@ def _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb, leaf, tri_n=None):
     _check("d", d, f32, (R, 3), device)
     for name, x in (("tri_p1", tri_p1), ("tri_e1", tri_e1), ("tri_e2", tri_e2)):
         _check(name, x, f32, (T, 3), device)
-    if tri_n is not None:
-        _check("tri_n", tri_n, f32, (T, 3), device)
+    if payload is not None:
+        width = 9 if payload_name == "tri_sn" else 3
+        _check(payload_name, payload, f32, (T, width), device)
     _check("cluster_aabb", cluster_aabb, f32, (C, 6), device)
     return device, R, C
 
@@ -224,25 +314,43 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _closest_launch(name, fn, o, d, tri_p1, tri_e1, tri_e2, payload,
+                    payload_name, cluster_aabb, leaf, eps):
+    """K1 in either payload mode: (t, idx, n)."""
+    device, R, C = _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
+                                leaf, payload, payload_name)
+    t = torch.empty((R,), dtype=torch.float32, device=device)
+    idx = torch.empty((R,), dtype=torch.int32, device=device)
+    n = torch.empty((R, 3), dtype=torch.float32, device=device)
+    if R:
+        err = fn(device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(),
+                 R, tri_p1.data_ptr(), tri_e1.data_ptr(), tri_e2.data_ptr(),
+                 payload.data_ptr(), cluster_aabb.data_ptr(), C, leaf, eps,
+                 t.data_ptr(), idx.data_ptr(), n.data_ptr())
+        _raise_on(err, name)
+        LAUNCHES[name] += 1
+    return t, idx, n
+
+
 def mesh_closest_hit(o, d, tri_p1, tri_e1, tri_e2, tri_n, cluster_aabb,
                      leaf: int, eps: float = EPSILON):
     """K1: (t, idx, n) as closest_hit_plain."""
     if o.device.type == "cpu":
         return closest_hit_plain(o, d, tri_p1, tri_e1, tri_e2, tri_n, eps)
-    device, R, C = _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
-                                leaf, tri_n)
-    t = torch.empty((R,), dtype=torch.float32, device=device)
-    idx = torch.empty((R,), dtype=torch.int32, device=device)
-    n = torch.empty((R, 3), dtype=torch.float32, device=device)
-    if R:
-        err = library().rtc_closest_hit(
-            device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(), R,
-            tri_p1.data_ptr(), tri_e1.data_ptr(), tri_e2.data_ptr(),
-            tri_n.data_ptr(), cluster_aabb.data_ptr(), C, leaf, eps,
-            t.data_ptr(), idx.data_ptr(), n.data_ptr())
-        _raise_on(err, "closest_hit")
-        LAUNCHES["closest_hit"] += 1
-    return t, idx, n
+    return _closest_launch("closest_hit", library().rtc_closest_hit, o, d,
+                           tri_p1, tri_e1, tri_e2, tri_n, "tri_n",
+                           cluster_aabb, leaf, eps)
+
+
+def mesh_closest_hit_sn(o, d, tri_p1, tri_e1, tri_e2, tri_sn, cluster_aabb,
+                        leaf: int, eps: float = EPSILON):
+    """K1 with_sn: (t, idx, n_blend) as closest_hit_sn_plain; tri_sn is
+    the (T, 9) corner-normal table [sn1 | sn2 | sn3]."""
+    if o.device.type == "cpu":
+        return closest_hit_sn_plain(o, d, tri_p1, tri_e1, tri_e2, tri_sn, eps)
+    return _closest_launch("closest_hit_sn", library().rtc_closest_hit_sn, o,
+                           d, tri_p1, tri_e1, tri_e2, tri_sn, "tri_sn",
+                           cluster_aabb, leaf, eps)
 
 
 def mesh_any_hit(o, d, max_t, tri_p1, tri_e1, tri_e2, cluster_aabb,
@@ -264,26 +372,76 @@ def mesh_any_hit(o, d, max_t, tri_p1, tri_e1, tri_e2, cluster_aabb,
     return hit
 
 
-def mesh_closest_shadow(o, d, tri_p1, tri_e1, tri_e2, tri_n, cluster_aabb,
-                        light_pos, leaf: int, eps: float = EPSILON):
-    """K3: (t, idx, n, shadowed) as closest_shadow_plain."""
-    if o.device.type == "cpu":
-        return closest_shadow_plain(o, d, tri_p1, tri_e1, tri_e2, tri_n,
-                                    light_pos, eps)
+def _shadow_launch(name, fn, o, d, tri_p1, tri_e1, tri_e2, payload,
+                   payload_name, cluster_aabb, light_pos, leaf, eps):
+    """K3 in either payload mode: (t, idx, n, shadowed)."""
     device, R, C = _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
-                                leaf, tri_n)
+                                leaf, payload, payload_name)
     _check("light_pos", light_pos, torch.float32, (3,), device)
     t = torch.empty((R,), dtype=torch.float32, device=device)
     idx = torch.empty((R,), dtype=torch.int32, device=device)
     n = torch.empty((R, 3), dtype=torch.float32, device=device)
     sh = torch.empty((R,), dtype=torch.bool, device=device)
     if R:
-        err = library().rtc_closest_shadow(
-            device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(), R,
-            tri_p1.data_ptr(), tri_e1.data_ptr(), tri_e2.data_ptr(),
-            tri_n.data_ptr(), cluster_aabb.data_ptr(), C, leaf, eps,
-            light_pos.data_ptr(), t.data_ptr(), idx.data_ptr(), n.data_ptr(),
-            sh.data_ptr())
-        _raise_on(err, "closest_shadow")
-        LAUNCHES["closest_shadow"] += 1
+        err = fn(device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(),
+                 R, tri_p1.data_ptr(), tri_e1.data_ptr(), tri_e2.data_ptr(),
+                 payload.data_ptr(), cluster_aabb.data_ptr(), C, leaf, eps,
+                 light_pos.data_ptr(), t.data_ptr(), idx.data_ptr(),
+                 n.data_ptr(), sh.data_ptr())
+        _raise_on(err, name)
+        LAUNCHES[name] += 1
     return t, idx, n, sh
+
+
+def mesh_closest_shadow(o, d, tri_p1, tri_e1, tri_e2, tri_n, cluster_aabb,
+                        light_pos, leaf: int, eps: float = EPSILON):
+    """K3: (t, idx, n, shadowed) as closest_shadow_plain."""
+    if o.device.type == "cpu":
+        return closest_shadow_plain(o, d, tri_p1, tri_e1, tri_e2, tri_n,
+                                    light_pos, eps)
+    return _shadow_launch("closest_shadow", library().rtc_closest_shadow, o,
+                          d, tri_p1, tri_e1, tri_e2, tri_n, "tri_n",
+                          cluster_aabb, light_pos, leaf, eps)
+
+
+def mesh_closest_shadow_sn(o, d, tri_p1, tri_e1, tri_e2, tri_sn, cluster_aabb,
+                           light_pos, leaf: int, eps: float = EPSILON):
+    """K3 with_sn: (t, idx, n_blend, shadowed) as closest_shadow_sn_plain."""
+    if o.device.type == "cpu":
+        return closest_shadow_sn_plain(o, d, tri_p1, tri_e1, tri_e2, tri_sn,
+                                       light_pos, eps)
+    return _shadow_launch("closest_shadow_sn", library().rtc_closest_shadow_sn,
+                          o, d, tri_p1, tri_e1, tri_e2, tri_sn, "tri_sn",
+                          cluster_aabb, light_pos, leaf, eps)
+
+
+def mesh_crossing_count(o, d, t_hit, hit_gid, tri_p1, tri_e1, tri_e2,
+                        cluster_aabb, tri_cid, n_containers: int, leaf: int,
+                        eps: float = EPSILON):
+    """K4: (cnt (R, K) i32, last (R, K) f32) as crossing_count_plain.
+    t_hit <= -BIG marks a dead lane; hit_gid (R,) i32 is -2 where the hit
+    is not a triangle."""
+    if o.device.type == "cpu":
+        return crossing_count_plain(o, d, t_hit, hit_gid, tri_p1, tri_e1,
+                                    tri_e2, tri_cid, n_containers, eps)
+    device, R, C = _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb, leaf)
+    _check("t_hit", t_hit, torch.float32, (R,), device)
+    _check("hit_gid", hit_gid, torch.int32, (R,), device)
+    _check("tri_cid", tri_cid, torch.int32, (C * leaf,), device)
+    if n_containers < 1:
+        raise ValueError(f"n_containers must be >= 1, got {n_containers}")
+    # clusters without a container triangle leave the schedule (as rtc_tpu
+    # masks their boxes, mesh_intersect.py:1610-1615)
+    has = (tri_cid.view(C, leaf) >= 0).any(1).to(torch.uint8)
+    cnt = torch.empty((R, n_containers), dtype=torch.int32, device=device)
+    last = torch.empty((R, n_containers), dtype=torch.float32, device=device)
+    if R:
+        err = library().rtc_crossing_count(
+            device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(),
+            t_hit.data_ptr(), hit_gid.data_ptr(), R, tri_p1.data_ptr(),
+            tri_e1.data_ptr(), tri_e2.data_ptr(), tri_cid.data_ptr(),
+            has.data_ptr(), cluster_aabb.data_ptr(), C, leaf, eps,
+            n_containers, cnt.data_ptr(), last.data_ptr())
+        _raise_on(err, "crossing_count")
+        LAUNCHES["crossing_count"] += 1
+    return cnt, last

@@ -36,3 +36,14 @@ def normalize3(x, y, z):
     safe = torch.where(sq > 0.0, sq, 1.0)
     inv = torch.where(sq > 0.0, 1.0 / torch.sqrt(safe), 0.0)
     return x * inv, y * inv, z * inv
+
+
+def normalize(v):
+    """Packed (..., 3) normalize, with normalize3's rounding."""
+    return pack3(*normalize3(*unpack3(v)))
+
+
+def safe_sqrt(x):
+    """sqrt clamped at zero (rtc_tpu's double-where form)."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)

@@ -1,14 +1,17 @@
-"""Wavefront Whitted integrator, main-path subset (counterpart of
-rtc_tpu/render/integrator.py).
+"""Wavefront Whitted integrator (counterpart of rtc_tpu/render/integrator.py).
 
 The reference recurses per pixel (src/world.rs:80-163); here each node of
 the statically unrolled bounce tree shades a whole wavefront of rays. With
 the reference's budget semantics each secondary ray costs 3 budget, so
-RECURSION_LIMIT = 5 yields two shading levels (primary + one reflection).
+RECURSION_LIMIT = 5 yields two shading levels (primary + one reflection
+and one refraction child).
 
-Ported: flat triangle meshes with shadows and reflection. Masked lanes
-carry finite dummy values, and dead lanes are parked outside every box so
-the kernels' traversal drops them at once.
+Ported: analytic prims, flat and smooth triangle meshes, patterns,
+shadows, reflection, refraction with the n1/n2 crossing census, and the
+Schlick blend. Not ported: the instanced (TLAS) path (ROADMAP queue 1 item
+14), primitive sharding (item 16) and the custom derivatives (item 8).
+Masked lanes carry finite dummy values, and dead lanes are parked outside
+every box so the kernels' traversal drops them at once.
 """
 
 from __future__ import annotations
@@ -17,20 +20,26 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import lighting
+from ..ops import intersect, lighting, normals, patterns
 from ..ops.kernels import mesh_intersect as mi
-from ..ops.vec import normalize3, pack3, unpack3
+from ..ops.vec import normalize, normalize3, pack3, safe_sqrt, unpack3
 from ..scene.compile import Scene
+from ..scene.materials import NONE
 from ..utils.config import RenderConfig
 from ..utils.constants import BIG, FAR, PARK
+
+# kind codes (scene.shapes.KIND_CODES)
+SPHERE, PLANE, CUBE, CYLINDER, CONE = 0, 1, 2, 3, 4
 
 
 class HitInfo(NamedTuple):
     t: torch.Tensor        # (R,) hit time (BIG on a miss)
     valid: torch.Tensor    # (R,) bool
     obj: torch.Tensor      # (R,) i32 object id (0 on a miss)
+    prim: torch.Tensor     # (R,) analytic prim id (0 unless a prim won)
     tri: torch.Tensor      # (R,) i32 triangle id (0 on a miss)
-    tri_n: torch.Tensor    # (R, 3) the winning triangle's world normal
+    is_tri: torch.Tensor   # (R,) bool: a triangle won
+    tri_n: torch.Tensor    # (R, 3) the winning triangle's unit world normal
 
 
 def _resolve_mesh_impl(scene: Scene, cfg: RenderConfig, x) -> str:
@@ -52,48 +61,148 @@ def _resolve_mesh_impl(scene: Scene, cfg: RenderConfig, x) -> str:
 
 def _use_fused_shadow(scene: Scene, cfg: RenderConfig, impl: str) -> bool:
     """Fused closest+shadow eligibility: kernel backend, shadows on, a
-    pure-mesh scene. (rtc_tpu also asks that the mesh fit one VMEM block;
-    the card has no such budget.)"""
+    pure-mesh scene, flat or smooth. (rtc_tpu also asks that the mesh fit
+    one VMEM block; the card has no such budget.)"""
     return (cfg.fused_shadow and cfg.shadows and impl == "kernel"
             and scene.static.n_prims == 0 and scene.static.n_tris > 0)
 
 
+def corner_normals(scene: Scene):
+    """The (T, 9) table [sn1 | sn2 | sn3] that K1/K3 with_sn read."""
+    return torch.cat([scene.tri_sn1, scene.tri_sn2, scene.tri_sn3], dim=1)
+
+
+def _local_rays(inv, o, d):
+    """Rays in each prim's object space: inv (N, 3, 4), o/d (R, 3) ->
+    (R, N, 3) each."""
+    o_l = torch.einsum("nij,rj->rni", inv[:, :, :3], o) + inv[:, :, 3]
+    d_l = torch.einsum("nij,rj->rni", inv[:, :, :3], d)
+    return o_l, d_l
+
+
+def prim_candidates(scene: Scene, o, d, eps, ids=None):
+    """(R, N, 4) candidate t and validity of every analytic prim. Every
+    kind runs on every prim, masked by kind (rtc_tpu :64-105). ids
+    restricts the sweep to a subset of prims (the refraction census)."""
+    inv, kind, params = scene.prim_inv, scene.prim_kind, scene.prim_params
+    if ids is not None:
+        sel = torch.as_tensor(ids, dtype=torch.long, device=inv.device)
+        inv, kind, params = inv[sel], kind[sel], params[sel]
+    o_l, d_l = _local_rays(inv, o, d)
+    ymin, ymax = params[:, 0], params[:, 1]
+    capped = params[:, 2] > 0.5
+
+    def pad4(h: intersect.Hits):
+        extra = h.t.shape[:-1] + (4 - h.t.shape[-1],)
+        return intersect.Hits(torch.cat([h.t, h.t.new_zeros(extra)], -1),
+                              torch.cat([h.valid, h.valid.new_zeros(extra)], -1))
+
+    sp = pad4(intersect.sphere(o_l, d_l))
+    pl = pad4(intersect.plane(o_l, d_l, eps))
+    cu = pad4(intersect.cube(o_l, d_l, eps))
+    cy = pad4(intersect.cylinder(o_l, d_l, ymin, ymax, capped, eps))
+    co = pad4(intersect.cone(o_l, d_l, ymin, ymax, capped, eps))
+
+    k = kind[None, :, None]
+    t = torch.where(k == SPHERE, sp.t, 0.0)
+    v = (k == SPHERE) & sp.valid
+    for code, h in ((PLANE, pl), (CUBE, cu), (CYLINDER, cy), (CONE, co)):
+        t = torch.where(k == code, h.t, t)
+        v = torch.where(k == code, h.valid, v)
+    return t, v
+
+
 def mesh_closest(scene: Scene, o, d, cfg: RenderConfig):
     """Closest triangle hit: (t, idx, n); t == BIG, idx == 0 and n == 0 on
-    a miss. 'kernel' launches K1; 'bruteforce' is the dense sweep."""
-    if _resolve_mesh_impl(scene, cfg, o) == "kernel":
+    a miss. n is the winner's unit world normal: its face normal, or for a
+    smooth scene its corner normals blended by (u, v) and normalized
+    (rtc_tpu :605-618). 'kernel' launches K1 (with_n or with_sn);
+    'bruteforce' is the dense sweep."""
+    kernel = _resolve_mesh_impl(scene, cfg, o) == "kernel"
+    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+    if scene.static.any_smooth:
+        snc = corner_normals(scene)
+        if kernel:
+            t, idx, n = mi.mesh_closest_hit_sn(
+                o, d, *tabs, snc, scene.cluster_aabb,
+                scene.static.cluster_size, cfg.epsilon)
+        else:
+            t, idx, n = mi.closest_hit_sn_plain(o, d, *tabs, snc, cfg.epsilon)
+        n = normalize(n)
+    elif kernel:
         t, idx, n = mi.mesh_closest_hit(
-            o, d, scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.tri_n,
-            scene.cluster_aabb, scene.static.cluster_size, cfg.epsilon)
+            o, d, *tabs, scene.tri_n, scene.cluster_aabb,
+            scene.static.cluster_size, cfg.epsilon)
     else:
-        t, idx, n = mi.closest_hit_plain(
-            o, d, scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.tri_n,
-            cfg.epsilon)
+        t, idx, n = mi.closest_hit_plain(o, d, *tabs, scene.tri_n, cfg.epsilon)
     return t, idx.clamp_min(0), n
 
 
-def _hit_info(scene: Scene, t, idx, n) -> HitInfo:
+def _tri_obj(scene: Scene, idx):
     st = scene.static
     if st.single_tri_obj >= 0:
         # single-mesh scene: every triangle shares one object id
-        obj = torch.full_like(idx, st.single_tri_obj)
-    else:
-        obj = scene.tri_obj[idx.long()]
-    return HitInfo(t=t, valid=t < BIG * 0.5, obj=obj, tri=idx, tri_n=n)
+        return torch.full_like(idx, st.single_tri_obj)
+    return scene.tri_obj[idx.long()]
 
 
 def closest_hit(scene: Scene, o, d, cfg: RenderConfig) -> HitInfo:
-    """World::intersect + Intersection::hit: the global min over t >= 0
+    """World::intersect + Intersection::hit: the global min over t >= 0 of
+    the prims' and the triangles' candidates; a tie goes to the prim
     (reference: src/world.rs:43-54, src/intersection.rs:79-84)."""
-    return _hit_info(scene, *mesh_closest(scene, o, d, cfg))
+    R = o.shape[0]
+    st = scene.static
+    i32 = dict(dtype=torch.int32, device=o.device)
+    t_p = torch.full((R,), BIG, dtype=o.dtype, device=o.device)
+    idx_p = torch.zeros((R,), **i32)
+    if st.n_prims:
+        t, v = prim_candidates(scene, o, d, cfg.epsilon)
+        tt = torch.where(v & (t >= 0.0), t, BIG).reshape(R, -1)
+        idx_flat = torch.argmin(tt, dim=1)
+        t_p = torch.gather(tt, 1, idx_flat[:, None])[:, 0]
+        idx_p = (idx_flat // 4).to(torch.int32)
+    t_t = torch.full((R,), BIG, dtype=o.dtype, device=o.device)
+    idx_t = torch.zeros((R,), **i32)
+    tri_obj = torch.zeros((R,), **i32)
+    tri_n = torch.zeros_like(o)
+    if st.n_tris:
+        t_t, idx_t, tri_n = mesh_closest(scene, o, d, cfg)
+        tri_obj = _tri_obj(scene, idx_t)
+    is_tri = t_t < t_p
+    t_hit = torch.where(is_tri, t_t, t_p)
+    prim_obj = scene.prim_obj[idx_p.long()] if st.n_prims else torch.zeros((R,), **i32)
+    return HitInfo(t=t_hit, valid=t_hit < BIG * 0.5,
+                   obj=torch.where(is_tri, tri_obj, prim_obj), prim=idx_p,
+                   tri=idx_t, is_tri=is_tri, tri_n=tri_n)
+
+
+def normal_at(scene: Scene, hit: HitInfo, world_point, eps):
+    """World-space unit normal at the hit (reference: src/shape.rs:466-519):
+    the triangle's from closest-hit time, else the prim's, through its
+    inverse-transpose."""
+    if not scene.static.n_prims:
+        return hit.tri_n
+    p = hit.prim.long()
+    inv, invT = scene.prim_inv[p], scene.prim_invT[p]
+    params, kind = scene.prim_params[p], scene.prim_kind[p]
+    p_l = torch.einsum("rij,rj->ri", inv[:, :, :3], world_point) + inv[:, :, 3]
+    n_l = normals.sphere(p_l)
+    n_l = torch.where((kind == PLANE)[:, None], normals.plane(p_l), n_l)
+    n_l = torch.where((kind == CUBE)[:, None], normals.cube(p_l), n_l)
+    n_l = torch.where((kind == CYLINDER)[:, None],
+                      normals.cylinder(p_l, params[:, 0], params[:, 1], eps), n_l)
+    n_l = torch.where((kind == CONE)[:, None], normals.cone(p_l), n_l)
+    n_p = normalize(torch.einsum("rij,rj->ri", invT, n_l))
+    return torch.where(hit.is_tri[:, None], hit.tri_n, n_p)
 
 
 def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
     """Shadow ray toward the light (reference: src/world.rs:100-114).
 
-    `hit().t < distance` is "any candidate t in [0, distance)", which the
-    any-hit kernel answers without min bookkeeping. live: optional (R,)
-    bool; dead lanes get max_t = -1 and report unshadowed.
+    `hit().t < distance` is "any candidate t in [0, distance)": a dense
+    prim sweep OR the any-hit kernel (or its plain sweep) on the
+    triangles. live: optional (R,) bool; dead lanes get max_t = -1 and
+    report unshadowed.
     """
     px, py, pz = unpack3(point)
     lx, ly, lz = scene.light_pos.unbind(0)
@@ -102,74 +211,221 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
     direction = pack3(vx / distance, vy / distance, vz / distance)
     if live is not None:
         distance = torch.where(live, distance, -1.0)
-    if _resolve_mesh_impl(scene, cfg, point) == "kernel":
-        return mi.mesh_any_hit(
-            point, direction, distance, scene.tri_p1, scene.tri_e1,
-            scene.tri_e2, scene.cluster_aabb, scene.static.cluster_size,
-            cfg.epsilon)
-    return mi.any_hit_plain(point, direction, distance, scene.tri_p1,
-                            scene.tri_e1, scene.tri_e2, cfg.epsilon)
+    st = scene.static
+    shadowed = torch.zeros(point.shape[:1], dtype=torch.bool, device=point.device)
+    if st.n_prims:
+        t, valid = prim_candidates(scene, point, direction, cfg.epsilon)
+        shadowed = torch.any((valid & (t >= 0.0)
+                              & (t < distance[:, None, None])).flatten(1), dim=1)
+    if st.n_tris:
+        tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+        if _resolve_mesh_impl(scene, cfg, point) == "kernel":
+            found = mi.mesh_any_hit(point, direction, distance, *tabs,
+                                    scene.cluster_aabb,
+                                    st.cluster_size, cfg.epsilon)
+        else:
+            found = mi.any_hit_plain(point, direction, distance, *tabs,
+                                     cfg.epsilon)
+        shadowed = shadowed | found
+    return shadowed
 
 
 def object_record(scene: Scene, obj):
     """One fused gather of the per-object shading data: (R,) columns."""
+    O = scene.pat_inv.shape[0]
     tbl = torch.cat([
-        scene.mat_color,                    # 0:3
-        scene.mat_ambient[:, None],         # 3
-        scene.mat_diffuse[:, None],         # 4
-        scene.mat_specular[:, None],        # 5
-        scene.mat_shininess[:, None],       # 6
-        scene.mat_reflective[:, None],      # 7
-        scene.mat_transparency[:, None],    # 8
-        scene.mat_ior[:, None],             # 9
+        scene.pat_kind[:, None].to(scene.pat_a.dtype),  # 0
+        scene.pat_a,                        # 1:4
+        scene.pat_b,                        # 4:7
+        scene.pat_inv.reshape(O, 12),       # 7:19
+        scene.mat_color,                    # 19:22
+        scene.mat_ambient[:, None],         # 22
+        scene.mat_diffuse[:, None],         # 23
+        scene.mat_specular[:, None],        # 24
+        scene.mat_shininess[:, None],       # 25
+        scene.mat_reflective[:, None],      # 26
+        scene.mat_transparency[:, None],    # 27
+        scene.mat_ior[:, None],             # 28
     ], dim=1)
     if scene.static.n_objects == 1:
         g = tbl[0].expand(obj.shape[0], tbl.shape[1])
     else:
         g = tbl[obj.long()]
-    return dict(color=g[:, 0:3], ambient=g[:, 3], diffuse=g[:, 4],
-                specular=g[:, 5], shininess=g[:, 6], reflective=g[:, 7],
-                transparency=g[:, 8], ior=g[:, 9])
+    return dict(pat_kind=g[:, 0].to(torch.int32), pat_a=g[:, 1:4],
+                pat_b=g[:, 4:7], pat_inv=g[:, 7:19].reshape(-1, 3, 4),
+                color=g[:, 19:22], ambient=g[:, 22], diffuse=g[:, 23],
+                specular=g[:, 24], shininess=g[:, 25], reflective=g[:, 26],
+                transparency=g[:, 27], ior=g[:, 28])
+
+
+def refraction_indices(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
+                       n2_enter=None, live=None):
+    """n1/n2 by crossing parity: the equivalent of the reference's
+    containers walk over the sorted intersection list
+    (src/intersection.rs:29-62), as rtc_tpu :970-1073.
+
+    For each container (static.refr_prim_ids, static.refr_mesh_obj_ids),
+    count its crossings strictly before t_hit, negative t included: odd
+    parity means the ray is inside it, and the top of the containers stack
+    is the inside container whose latest crossing is latest. Mesh
+    crossings come from the census, K4 on the kernel path and its plain
+    sweep otherwise; the hit triangle is excluded by id.
+
+    live: optional (R,) bool of the rays whose shading reads n1/n2; the
+    others leave the mesh census (t bound -BIG) and get defaults that no
+    caller reads.
+    """
+    st = scene.static
+    ids, mesh_ids = st.refr_prim_ids, st.refr_mesh_obj_ids
+    R = o.shape[0]
+    one = torch.ones((R,), dtype=o.dtype, device=o.device)
+    if n2_enter is None:
+        n2_enter = scene.mat_ior[hit.obj.long()] if st.n_objects else one
+    if not ids and not mesh_ids:
+        return one, n2_enter
+
+    cnts, lasts, objs = [], [], []
+    if ids:
+        t, v = prim_candidates(scene, o, d, cfg.epsilon, ids=ids)  # (R, Ka, 4)
+        before = v & (t < hit.t[:, None, None])
+        cnts.append(before.sum(2, dtype=torch.int32))
+        lasts.append(torch.where(before, t, -BIG).amax(2))
+        objs.extend(ids)  # prim id == object id
+    if mesh_ids:
+        hit_gid = torch.where(hit.is_tri, hit.tri, -2).to(torch.int32)
+        t_census = hit.t if live is None else torch.where(live, hit.t, -BIG)
+        tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+        if _resolve_mesh_impl(scene, cfg, o) == "kernel":
+            cnt_m, last_m = mi.mesh_crossing_count(
+                o, d, t_census.contiguous(), hit_gid.contiguous(), *tabs,
+                scene.cluster_aabb, scene.tri_cid, len(mesh_ids),
+                st.cluster_size, cfg.epsilon)
+        else:
+            cnt_m, last_m = mi.crossing_count_plain(
+                o, d, t_census, hit_gid, *tabs, scene.tri_cid,
+                len(mesh_ids), cfg.epsilon)
+        cnts.append(cnt_m)
+        lasts.append(last_m)
+        objs.extend(mesh_ids)
+
+    cnt = torch.cat(cnts, dim=1)                        # (R, K)
+    last = torch.cat(lasts, dim=1)                      # (R, K)
+    cont_obj = torch.as_tensor(objs, dtype=torch.long, device=o.device)
+    inside = (cnt % 2) == 1
+    sub_ior = scene.mat_ior[cont_obj]                   # (K,)
+
+    def stack_top(mask):
+        j = torch.argmax(torch.where(mask, last, -BIG), dim=1)
+        return torch.where(mask.any(1), sub_ior[j], 1.0)
+
+    is_self = cont_obj[None, :] == hit.obj[:, None]
+    self_inside = (inside & is_self).any(1)
+    n1 = stack_top(inside)
+    n2 = torch.where(self_inside, stack_top(inside & ~is_self), n2_enter)
+    return n1, n2
+
+
+class Comps(NamedTuple):
+    """prepare_computations (reference: src/intersection.rs:17-77), packed.
+    n1/n2 are real indices only for rays live in the census; elsewhere
+    they are defaults that no caller reads (rtc_tpu's Comps invariant)."""
+
+    point: torch.Tensor
+    eyev: torch.Tensor
+    normalv: torch.Tensor   # flipped toward the eye when inside
+    inside: torch.Tensor
+    over_point: torch.Tensor
+    under_point: torch.Tensor
+    reflectv: torch.Tensor
+    n1: torch.Tensor
+    n2: torch.Tensor
 
 
 class Comps3(NamedTuple):
-    """Component shading frame (reference: src/intersection.rs:17-77):
-    every 3-vector is a tuple of three (R,) tensors. n1/n2 (refraction)
-    are not ported yet."""
+    """Comps in component form: every 3-vector is a tuple of three (R,)
+    tensors."""
 
     point: tuple
     eyev: tuple
     normalv: tuple         # flipped toward the eye when inside
     inside: torch.Tensor
     over_point: tuple
+    under_point: tuple
     reflectv: tuple
+    n1: torch.Tensor
+    n2: torch.Tensor
 
 
-def prepare_hit3(o, d, hit: HitInfo, cfg: RenderConfig) -> Comps3:
-    """The shading frame of a wavefront of hits on a pure-mesh scene
-    (rtc_tpu prepare_hit3 with need_refraction=False). Misses carry finite
-    dummies; callers mask on hit.valid. Every formula keeps rtc_tpu's
-    association order."""
+def prepare_hit3(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
+                 n2_enter=None, need_refraction: bool = True,
+                 refraction_live=None) -> Comps3:
+    """The shading frame of a wavefront of hits (rtc_tpu :1114-1160).
+    Misses carry finite dummies; callers mask on hit.valid. Every formula
+    keeps rtc_tpu's association order. need_refraction=False skips the
+    n1/n2 census (leaf nodes never read it); refraction_live masks it per
+    ray (see refraction_indices)."""
     eps = cfg.epsilon
     t_safe = torch.where(hit.valid, hit.t, 1.0)
     ox, oy, oz = unpack3(o)
     dx, dy, dz = unpack3(d)
     px, py, pz = ox + dx * t_safe, oy + dy * t_safe, oz + dz * t_safe
     ex, ey, ez = -dx, -dy, -dz
-    nx, ny, nz = unpack3(hit.tri_n)
+    nx, ny, nz = unpack3(normal_at(scene, hit, pack3(px, py, pz), eps))
     inside = (nx * ex + ny * ey + nz * ez) < 0.0
     nx = torch.where(inside, -nx, nx)
     ny = torch.where(inside, -ny, ny)
     nz = torch.where(inside, -nz, nz)
     k = 2.0 * (dx * nx + dy * ny + dz * nz)
+    if need_refraction:
+        n1, n2 = refraction_indices(scene, o, d, hit, cfg, n2_enter=n2_enter,
+                                    live=refraction_live)
+    else:
+        n1 = n2 = torch.ones(o.shape[:1], dtype=o.dtype, device=o.device)
     return Comps3(
         point=(px, py, pz),
         eyev=(ex, ey, ez),
         normalv=(nx, ny, nz),
         inside=inside,
         over_point=(px + nx * eps, py + ny * eps, pz + nz * eps),
+        under_point=(px - nx * eps, py - ny * eps, pz - nz * eps),
         reflectv=(dx - nx * k, dy - ny * k, dz - nz * k),
+        n1=n1,
+        n2=n2,
     )
+
+
+def prepare_hit(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
+                n2_enter=None, need_refraction: bool = True,
+                refraction_live=None) -> Comps:
+    """Packed (R, 3) view of prepare_hit3."""
+    c = prepare_hit3(scene, o, d, hit, cfg, n2_enter=n2_enter,
+                     need_refraction=need_refraction,
+                     refraction_live=refraction_live)
+    return Comps(point=pack3(*c.point), eyev=pack3(*c.eyev),
+                 normalv=pack3(*c.normalv), inside=c.inside,
+                 over_point=pack3(*c.over_point),
+                 under_point=pack3(*c.under_point),
+                 reflectv=pack3(*c.reflectv), n1=c.n1, n2=c.n2)
+
+
+def schlick(cos_eye_normal, n1, n2):
+    """Fresnel approximation (reference: src/intersection.rs:107-128)."""
+    cos = cos_eye_normal
+    n = n1 / n2
+    sin2_t = n * n * (1.0 - cos * cos)
+    tir = (n1 > n2) & (sin2_t > 1.0)
+    cos_t = safe_sqrt(1.0 - torch.clamp_max(sin2_t, 1.0))
+    cos_used = torch.where(n1 > n2, cos_t, cos)
+    r0 = ((n1 - n2) / (n1 + n2)) ** 2
+    reflectance = r0 + (1.0 - r0) * (1.0 - cos_used) ** 5
+    return torch.where(tir, 1.0, reflectance)
+
+
+def _park(live, o3, d3):
+    """Packed secondary rays, with the lanes that spawn none parked
+    pointing away from the scene (src/world.rs:117-119,132-134)."""
+    return (pack3(*(torch.where(live, c, FAR) for c in o3)),
+            pack3(*(torch.where(live, c, PARK) for c in d3)))
 
 
 def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
@@ -184,18 +440,49 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
     shadowed = None
     if _use_fused_shadow(scene, cfg, impl):
         # one K3 launch: closest hit + the in-register shadow query
-        t, idx, n, shadowed = mi.mesh_closest_shadow(
-            o, d, scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.tri_n,
-            scene.cluster_aabb, scene.light_pos, st.cluster_size, cfg.epsilon)
-        hit = _hit_info(scene, t, idx.clamp_min(0), n)
+        tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+        if st.any_smooth:
+            t, idx, n, shadowed = mi.mesh_closest_shadow_sn(
+                o, d, *tabs, corner_normals(scene), scene.cluster_aabb,
+                scene.light_pos, st.cluster_size, cfg.epsilon)
+            n = normalize(n)
+        else:
+            t, idx, n, shadowed = mi.mesh_closest_shadow(
+                o, d, *tabs, scene.tri_n, scene.cluster_aabb,
+                scene.light_pos, st.cluster_size, cfg.epsilon)
+        idx = idx.clamp_min(0)
+        valid = t < BIG * 0.5
+        hit = HitInfo(t=t, valid=valid, obj=_tri_obj(scene, idx),
+                      prim=torch.zeros_like(idx), tri=idx, is_tri=valid,
+                      tri_n=n)
     else:
         hit = closest_hit(scene, o, d, cfg)
     valid = hit.valid
     rec = object_record(scene, hit.obj)
-    comps = prepare_hit3(o, d, hit, cfg)
+    can_branch = budget >= 4  # children shade only if budget - 3 >= 1
+    reflective, transparency = rec["reflective"], rec["transparency"]
+    # n1/n2 are read only by the Snell child and the Schlick blend, which
+    # exist only when this node can branch and the hit is transparent
+    # (src/world.rs:71-77,132-134)
+    comps = prepare_hit3(scene, o, d, hit, cfg, n2_enter=rec["ior"],
+                         need_refraction=can_branch and st.any_refractive,
+                         refraction_live=valid & (transparency > 0.0))
     px, py, pz = comps.point
+    ex, ey, ez = comps.eyev
     nx, ny, nz = comps.normalv
-    ovx, ovy, ovz = (torch.where(valid, c, FAR) for c in comps.over_point)
+    over = tuple(torch.where(valid, c, FAR) for c in comps.over_point)
+
+    if st.any_pattern:
+        # pattern space: one affine per object (pattern_inv @ object_inv)
+        pat_inv = rec["pat_inv"]
+        pat_p = torch.einsum("rij,rj->ri", pat_inv[:, :, :3],
+                             pack3(px, py, pz)) + pat_inv[:, :, 3]
+        pat_kind = rec["pat_kind"]
+        base_color = torch.where(
+            (pat_kind == NONE)[:, None], rec["color"],
+            patterns.color_at(pat_p, pat_kind, rec["pat_a"], rec["pat_b"]))
+    else:
+        base_color = rec["color"]
 
     if shadowed is None and cfg.shadows:
         # occlusion matters only where the surface faces the light
@@ -204,27 +491,47 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
         lx, ly, lz = scene.light_pos.unbind(0)
         lvx, lvy, lvz = normalize3(lx - px, ly - py, lz - pz)
         facing = (lvx * nx + lvy * ny + lvz * nz) >= 0.0
-        shadowed = is_shadowed(scene, pack3(ovx, ovy, ovz), cfg,
-                               live=valid & facing)
+        shadowed = is_shadowed(scene, pack3(*over), cfg, live=valid & facing)
     elif shadowed is None:
         shadowed = torch.zeros_like(valid)
     surface = lighting.lighting3(
-        rec["color"], rec["ambient"], rec["diffuse"], rec["specular"],
+        base_color, rec["ambient"], rec["diffuse"], rec["specular"],
         rec["shininess"], scene.light_pos, scene.light_intensity,
         comps.point, comps.eyev, comps.normalv, shadowed)
 
     refl = torch.zeros_like(o)
-    if budget >= 4 and st.any_reflective:  # children shade iff budget-3 >= 1
-        # (src/intersection.rs:27, world.rs:125); lanes that spawn no ray
-        # are parked pointing away from the scene (src/world.rs:117-119)
-        reflective = rec["reflective"]
-        live = valid & (reflective > 0.0)
-        rvx, rvy, rvz = comps.reflectv
-        refl = color_at(
-            scene,
-            pack3(*(torch.where(live, c, FAR) for c in (ovx, ovy, ovz))),
-            pack3(*(torch.where(live, c, PARK) for c in (rvx, rvy, rvz))),
-            cfg, budget - 3,
-        ) * reflective[:, None]
+    if can_branch and st.any_reflective:  # (src/intersection.rs:27, world.rs:125)
+        live_r = valid & (reflective > 0.0)
+        refl = color_at(scene, *_park(live_r, over, comps.reflectv), cfg,
+                        budget - 3) * reflective[:, None]
 
-    return torch.where(valid[:, None], surface + refl, 0.0)
+    refr = torch.zeros_like(o)
+    n1, n2 = comps.n1, comps.n2
+    if can_branch and st.any_refractive:
+        # Snell construction (reference: src/world.rs:140-162)
+        n_ratio = n1 / n2
+        cos_i = ex * nx + ey * ny + ez * nz
+        sin2_t = n_ratio * n_ratio * (1.0 - cos_i * cos_i)
+        tir = sin2_t > 1.0
+        cos_t = safe_sqrt(1.0 - torch.clamp_max(sin2_t, 1.0))
+        a = n_ratio * cos_i - cos_t
+        refr_d = (nx * a - ex * n_ratio, ny * a - ey * n_ratio,
+                  nz * a - ez * n_ratio)
+        live_t = valid & (transparency > 0.0) & ~tir
+        under = tuple(torch.where(valid, c, FAR) for c in comps.under_point)
+        refr = (color_at(scene, *_park(live_t, under, refr_d), cfg, budget - 3)
+                * transparency[:, None]
+                * (~tir).to(o.dtype)[:, None])
+
+    if st.any_reflective and st.any_refractive:
+        # the Schlick blend, only where the material is both
+        # (src/world.rs:71-77)
+        both = (reflective > 0.0) & (transparency > 0.0)
+        reflectance = schlick(ex * nx + ey * ny + ez * nz, n1, n2)
+        secondary = torch.where(
+            both[:, None],
+            refl * reflectance[:, None] + refr * (1.0 - reflectance)[:, None],
+            refl + refr)
+    else:
+        secondary = refl + refr
+    return torch.where(valid[:, None], surface + secondary, 0.0)

@@ -2,9 +2,8 @@
 rtc_tpu/scene/materials.py; reference: src/material.rs:3-29,
 src/pattern.rs:14-66).
 
-Plain Python objects used while building a scene. Pattern evaluation is
-not ported yet (ROADMAP queue 1 item 11): compile_scene refuses a world
-that carries a pattern.
+Plain Python objects used while building a scene; compile_scene packs
+them into per-object tables, and ops/patterns.py evaluates the patterns.
 """
 
 from __future__ import annotations
@@ -39,6 +38,35 @@ class Pattern:
         """(reference: src/pattern.rs:63-66)"""
         self.transform = np.asarray(m, dtype=np.float64).reshape(4, 4)
         return self
+
+
+def _color(c) -> Tuple[float, float, float]:
+    arr = np.asarray(c, dtype=np.float64).reshape(3)
+    return (float(arr[0]), float(arr[1]), float(arr[2]))
+
+
+def stripe_pattern(a, b) -> Pattern:
+    return Pattern(STRIPE, _color(a), _color(b))
+
+
+def gradient_pattern(a, b) -> Pattern:
+    return Pattern(GRADIENT, _color(a), _color(b))
+
+
+def ring_pattern(a, b) -> Pattern:
+    return Pattern(RING, _color(a), _color(b))
+
+
+def checkers_pattern(a, b) -> Pattern:
+    return Pattern(CHECKERS, _color(a), _color(b))
+
+
+def test_pattern() -> Pattern:
+    """(reference: src/pattern.rs:55-61)"""
+    return Pattern(TEST)
+
+
+test_pattern.__test__ = False  # a factory, not a pytest case
 
 
 @dataclasses.dataclass

@@ -7,8 +7,7 @@ the transform sense; a second `set_transform` raises (src/shape.rs:199-201).
 
 Kinds: 'sphere' | 'plane' | 'cube' | 'cylinder' | 'cone' | 'group' |
 'triangle' | 'mesh'. 'mesh' is a block of triangles sharing one transform
-and material. The analytic kinds are described here but not rendered yet:
-compile_scene refuses them (ROADMAP queue 1 item 11).
+and material.
 """
 
 from __future__ import annotations

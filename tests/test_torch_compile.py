@@ -75,22 +75,105 @@ def _tri_world(**material):
 
 
 def _unported_worlds():
-    glass = _tri_world(transparency=0.9, refractive_index=1.5)
-    patterned = _tri_world(pattern=Pattern(STRIPE))
-    smooth = World(objects=[shapes.mesh(
-        [[0, 1, 0]], [[-1, 0, 0]], [[1, 0, 0]],
-        vn1=[[0, 0, -1]], vn2=[[0, 0, -1]], vn3=[[0, 0, -1]])])
     herd = World(objects=[shapes.mesh(*(np.zeros((30000, 3)),) * 3)
                           for _ in range(2)])
-    return {"sphere": World(objects=[shapes.sphere()]),
-            "pattern": patterned, "refractive": glass, "smooth": smooth,
-            "instanced": herd}
+    return {"instanced": herd}
 
 
 @pytest.mark.parametrize("kind", sorted(_unported_worlds()))
 def test_unported_features_raise(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compile_scene(_unported_worlds()[kind])
+
+
+def _slice_worlds():
+    """Worlds with one feature each that compile_scene refused before the
+    smooth and glass meshes were ported."""
+    glass = _tri_world(transparency=0.9, refractive_index=1.5)
+    patterned = _tri_world(pattern=Pattern(STRIPE))
+    smooth = World(objects=[shapes.mesh(
+        [[0, 1, 0]], [[-1, 0, 0]], [[1, 0, 0]],
+        vn1=[[0, 0, -1]], vn2=[[0, 0, -1]], vn3=[[0, 0, -1]])])
+    return {"sphere": World(objects=[shapes.sphere()]),
+            "pattern": patterned, "refractive": glass, "smooth": smooth}
+
+
+@pytest.mark.parametrize("kind", sorted(_slice_worlds()))
+def test_slice_features_compile(kind):
+    st = compile_scene(_slice_worlds()[kind]).static
+    flags = dict(sphere=st.n_prims == 1 and st.n_tris == 0,
+                 pattern=st.any_pattern,
+                 refractive=st.any_refractive and st.refr_mesh_obj_ids == (0,),
+                 smooth=st.any_smooth)
+    assert flags[kind]
+
+
+SLICE_SCENES = ("teapot_smooth", "glass_teapot", "teddy")
+
+
+@pytest.fixture(scope="module")
+def slice_scenes():
+    """(rtc_tpu scene, port scene) of each slice scene in each dtype."""
+    out = {}
+    for name in SLICE_SCENES:
+        for dtype, (np_dt, torch_dt) in DTYPES.items():
+            out[name, dtype] = (
+                jax_compile_scene(JAX_REGISTRY[name](24)[0], dtype=np_dt),
+                compile_scene(REGISTRY[name](24)[0], dtype=torch_dt))
+    return out
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name", SLICE_SCENES)
+def test_compile_matches_rtc_tpu_slice_scenes(slice_scenes, name, dtype):
+    """Corner normals, prim, pattern and container tables, object ids and
+    static fields equal rtc_tpu's element for element."""
+    jax_scene, scene = slice_scenes[name, dtype]
+    for field in TENSOR_FIELDS:
+        ref = np.asarray(getattr(jax_scene, field))
+        got = getattr(scene, field).numpy()
+        assert got.dtype == ref.dtype and got.shape == ref.shape, field
+        assert np.array_equal(got, ref), field
+    for field in SceneStatic._fields:
+        assert getattr(scene.static, field) == getattr(jax_scene.static, field), field
+    st = scene.static
+    assert st.any_smooth and st.n_clusters * st.cluster_size == st.n_tris
+    if name == "glass_teapot":
+        # the plane is object 0, so the teapot's triangles are object 1
+        assert (st.n_prims, st.single_tri_obj, st.refr_mesh_obj_ids) == (1, 1, (1,))
+        assert int((scene.tri_cid == 0).sum()) == 6320
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_scene_from_numpy_round_trips_glass_teapot(slice_scenes, dtype):
+    jax_scene, scene = slice_scenes["glass_teapot", dtype]
+    arrays = {f: np.asarray(getattr(jax_scene, f)) for f in TENSOR_FIELDS}
+    carried = scene_from_numpy(arrays, jax_scene.static._asdict(), device="cpu")
+    assert carried.static == scene.static
+    for field in TENSOR_FIELDS:
+        assert torch.equal(getattr(carried, field), getattr(scene, field)), field
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        scene_from_numpy(arrays, dict(jax_scene.static._asdict(), tlas_n_inst=8),
+                         device="cpu")
+
+
+def test_containers_all_matches_rtc_tpu():
+    """containers='all' makes every object a census container, as rtc_tpu."""
+    from rtc_tpu.scene import shapes as jax_shapes
+    from rtc_tpu.scene.world import World as JaxWorld
+
+    def world(S, W):
+        return W(objects=[S.sphere(), S.mesh([[0, 1, 0]], [[-1, 0, 0]], [[1, 0, 0]])])
+
+    ref = jax_compile_scene(world(jax_shapes, JaxWorld), dtype=np.float64,
+                            containers="all")
+    scene = compile_scene(world(shapes, World), dtype=torch.float64,
+                          containers="all")
+    assert scene.static.refr_prim_ids == ref.static.refr_prim_ids == (0,)
+    assert scene.static.refr_mesh_obj_ids == ref.static.refr_mesh_obj_ids == (1,)
+    assert np.array_equal(scene.tri_cid.numpy(), np.asarray(ref.tri_cid))
+    with pytest.raises(ValueError, match="containers"):
+        compile_scene(world(shapes, World), containers="some")
 
 
 def test_triangle_world_compiles_with_padding():

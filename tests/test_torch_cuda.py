@@ -1,6 +1,7 @@
-"""The CUDA kernels K1-K3 against their plain PyTorch versions on the card,
+"""The CUDA kernels K1-K4 against their plain PyTorch versions on the card,
 at small sizes and on edge cases: ragged ray counts, padding clusters,
-parked rays, axis-parallel directions, empty batches and bad inputs.
+parked rays, axis-parallel directions, empty batches and bad inputs; and
+the smooth and glass scenes rendered through the kernels.
 
 These tests need a CUDA device and nvcc, and skip elsewhere. This file
 imports neither jax nor rtc_tpu, so on the GPU machine it runs without the
@@ -15,12 +16,15 @@ import torch
 
 from rtc_tpu_torch.models.scenes import REGISTRY
 from rtc_tpu_torch.ops.kernels import mesh_intersect as mi
+from rtc_tpu_torch.render import integrator
 from rtc_tpu_torch.render.camera import camera_rays
 from rtc_tpu_torch.render.renderer import render
 from rtc_tpu_torch.scene.compile import compile_scene
 from rtc_tpu_torch.scene.shapes import mesh, triangle
 from rtc_tpu_torch.scene.world import PointLight, World
 from rtc_tpu_torch.utils.config import RenderConfig
+from rtc_tpu_torch.ops.vec import normalize, normalize3
+from rtc_tpu_torch.utils.constants import BIG
 
 torch.set_num_threads(2)
 
@@ -158,3 +162,170 @@ def test_camera_rays_on_device(cuda):
     assert o.device.type == "cuda"
     torch.testing.assert_close(o.cpu(), oc, rtol=0, atol=1e-6)
     torch.testing.assert_close(d.cpu(), dc, rtol=0, atol=1e-6)
+
+
+def _soup(rng, n_clusters, cuda, smooth=False, n_containers=0):
+    """A random triangle soup of n_clusters clusters, with random unit
+    corner normals when smooth, and each triangle in container slot
+    (id % n_containers) when n_containers; plus 1000 rays from a sphere
+    around it toward points inside it."""
+    n = n_clusters * 128
+    c = rng.uniform(-4.0, 4.0, (n, 3))
+    v = [c + rng.normal(0, 0.2, (n, 3)) for _ in range(3)]
+    vn = [rng.normal(size=(n, 3)) for _ in range(3)] if smooth else [None] * 3
+    scene = compile_scene(World(objects=[mesh(*v, *vn)],
+                                light=PointLight((0, 6.9, -5), (1, 1, 1))),
+                          device=cuda)
+    o = rng.normal(size=(1000, 3))
+    o *= 12.0 / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rng.uniform(-4, 4, (1000, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    if n_containers:
+        real = scene.tri_e1.abs().sum(1) > 0
+        cid = torch.arange(scene.tri_cid.shape[0], device=cuda) % n_containers
+        scene.tri_cid = torch.where(real, cid, -1).to(torch.int32)
+    return scene, *_scene_rays(scene, o, d)
+
+
+def _sn_pair(scene, o, d):
+    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+    snc = integrator.corner_normals(scene)
+    leaf = scene.static.cluster_size
+    k1 = mi.mesh_closest_hit_sn(o, d, *tabs, snc, scene.cluster_aabb, leaf)
+    p1 = mi.closest_hit_sn_plain(o, d, *tabs, snc)
+    k3 = mi.mesh_closest_shadow_sn(o, d, *tabs, snc, scene.cluster_aabb,
+                                   scene.light_pos, leaf)
+    p3 = mi.closest_shadow_sn_plain(o, d, *tabs, snc, scene.light_pos)
+    torch.cuda.synchronize()
+    return (k1, p1), (k3, p3)
+
+
+@pytest.mark.parametrize("where", ["soup", "teapot"])
+def test_sn_kernels_match_plain(cuda, where):
+    """K1 and K3 with_sn: t bit-equal, idx different only at ties, the raw
+    blend bit-equal at equal idx; K3's shadow flags within two flips."""
+    if where == "soup":
+        scene, o, d = _soup(np.random.default_rng(2), 100, cuda, smooth=True)
+    else:
+        world, cam = REGISTRY["teapot_smooth"](128)
+        scene = compile_scene(world, device=cuda)
+        o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize,
+                           cam.half_width, cam.half_height, cam.pixel_size,
+                           device=cuda)
+    assert scene.static.any_smooth
+    (k1, p1), (k3, p3) = _sn_pair(scene, o.contiguous(), d.contiguous())
+    _assert_closest_equal(k1, p1)
+    _assert_closest_equal(k3, p3)
+    assert int((k1[1] >= 0).sum()) > 300
+    assert int((k3[3] != p3[3]).sum()) <= 2
+
+
+def test_fused_sn_matches_split(cuda):
+    """teapot_smooth at 256x128: K3 with_sn against K1 with_sn, then K2 on
+    the shadow rays the integrator derives from the normalized blend. The
+    split path normalizes with the same operations, so t, idx and n agree
+    bit for bit; shadow flags within max(2, hits/1000)."""
+    world, cam = REGISTRY["teapot_smooth"](256)
+    scene = compile_scene(world, device=cuda)
+    o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize,
+                       cam.half_width, cam.half_height, cam.pixel_size,
+                       device=cuda)
+    o, d = o.contiguous(), d.contiguous()
+    t, idx, n, sh = mi.mesh_closest_shadow_sn(
+        o, d, scene.tri_p1, scene.tri_e1, scene.tri_e2,
+        integrator.corner_normals(scene), scene.cluster_aabb, scene.light_pos,
+        scene.static.cluster_size)
+    cfg = RenderConfig(fused_shadow=False)
+    hit = integrator.closest_hit(scene, o, d, cfg)
+    comps = integrator.prepare_hit3(scene, o, d, hit, cfg)
+    over = torch.stack([torch.where(hit.valid, c, 1e12) for c in comps.over_point], 1)
+    lvx, lvy, lvz = normalize3(*(scene.light_pos[k] - comps.point[k]
+                                 for k in range(3)))
+    nx, ny, nz = comps.normalv
+    facing = (lvx * nx + lvy * ny + lvz * nz) >= 0.0
+    sh_split = integrator.is_shadowed(scene, over, cfg, live=hit.valid & facing)
+    assert torch.equal(t, hit.t) and torch.equal(idx.clamp_min(0), hit.tri)
+    assert torch.equal(normalize(n)[hit.valid], hit.tri_n[hit.valid])
+    hits = int(hit.valid.sum())
+    assert int((sh != sh_split).sum()) <= max(2, hits // 1000)
+
+
+@pytest.mark.parametrize("where", ["soup", "glass_teapot"])
+def test_crossing_count_matches_plain(cuda, where):
+    """K4 against its plain version: counts exactly equal, the latest
+    crossing equal where counts agree. The glass teapot runs its primary
+    rays (t_hit and hit_gid of their hits, dead lanes at -BIG) and the same
+    rays re-seated past their hit (t_hit = BIG); the soup runs three
+    container slots, on whole lines and on lines cut at the soup's
+    center."""
+    if where == "soup":
+        scene, o, d = _soup(np.random.default_rng(3), 60, cuda, n_containers=3)
+        gid = torch.full((1000,), -2, dtype=torch.int32, device=cuda)
+        sets = [(o, d, torch.full((1000,), BIG, device=cuda), gid),
+                (o, d, torch.full((1000,), 12.0, device=cuda), gid)]
+        K = 3
+    else:
+        world, cam = REGISTRY["glass_teapot"](128)
+        scene = compile_scene(world, device=cuda)
+        o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize,
+                           cam.half_width, cam.half_height, cam.pixel_size,
+                           device=cuda)
+        o, d = o.contiguous(), d.contiguous()
+        t, idx, _ = mi.closest_hit_sn_plain(o, d, scene.tri_p1, scene.tri_e1,
+                                            scene.tri_e2,
+                                            integrator.corner_normals(scene))
+        hit = idx >= 0
+        gid = torch.where(hit, idx, -2).to(torch.int32)
+        t_hit = torch.where(hit, t, -BIG)
+        o2 = (o + d * (torch.where(hit, t, 0.0)[:, None] + 1e-3)).contiguous()
+        sets = [(o, d, t_hit.contiguous(), gid.contiguous()),
+                (o2, d, torch.full_like(t, BIG), torch.full_like(gid, -2))]
+        K = 1
+    leaf = scene.static.cluster_size
+    crossings = 0
+    for oo, dd, t_hit, gid in sets:
+        args = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+        cnt, last = mi.mesh_crossing_count(oo, dd, t_hit, gid, *args,
+                                           scene.cluster_aabb, scene.tri_cid,
+                                           K, leaf)
+        pcnt, plast = mi.crossing_count_plain(oo, dd, t_hit, gid, *args,
+                                              scene.tri_cid, K)
+        torch.cuda.synchronize()
+        assert torch.equal(cnt, pcnt)
+        assert torch.equal(last, plast)
+        crossings += int(cnt.sum())
+    assert crossings > 100
+
+
+def test_crossing_count_bad_inputs(cuda):
+    world, _ = REGISTRY["glass_teapot"](16)
+    scene = compile_scene(world, device=cuda)
+    o = torch.zeros((4, 3), device=cuda)
+    t_hit = torch.ones((4,), device=cuda)
+    gid = torch.full((4,), -2, dtype=torch.int32, device=cuda)
+    args = (scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.cluster_aabb)
+    leaf = scene.static.cluster_size
+    with pytest.raises(ValueError, match="dtype"):
+        mi.mesh_crossing_count(o, o, t_hit, gid.long(), *args, scene.tri_cid, 1, leaf)
+    with pytest.raises(ValueError, match="n_containers"):
+        mi.mesh_crossing_count(o, o, t_hit, gid, *args, scene.tri_cid, 0, leaf)
+
+
+@pytest.mark.parametrize("name", ["teapot_smooth", "glass_teapot"])
+def test_render_slice_scene_through_kernels_matches_plain(cuda, name):
+    """128x64 at depth 5: the kernels' render against the plain render on
+    the card, within the f32 budget of tests/test_pallas_mesh.py; each
+    kernel of the scene's path launched once per bounce node."""
+    world, cam = REGISTRY[name](128)
+    scene = compile_scene(world, device=cuda)
+    mi.reset_launch_counts()
+    img = render(scene, cam, RenderConfig(ray_tile=4096))
+    # 2 tiles; teapot_smooth has 1 node per tile, glass_teapot 3 (the root
+    # and its reflected and refracted children) with the census at the root
+    want = ({"closest_shadow_sn": 2} if name == "teapot_smooth" else
+            {"closest_hit_sn": 6, "any_hit": 6, "crossing_count": 2})
+    assert mi.LAUNCHES == dict(dict.fromkeys(mi.LAUNCHES, 0), **want)
+    ref = render(scene, cam, RenderConfig(ray_tile=4096, mesh_impl="bruteforce"))
+    err = (img - ref).abs().amax(dim=2).flatten()
+    assert float(torch.quantile(err, 0.999)) < 2e-3
+    assert int((err > 0.05).sum()) <= 3

@@ -145,7 +145,7 @@ def test_wrappers_take_plain_versions_on_cpu(cow):
                                   scene.light_pos)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    assert mi.LAUNCHES == {"closest_hit": 0, "any_hit": 0, "closest_shadow": 0}
+    assert mi.LAUNCHES == dict.fromkeys(mi.LAUNCHES, 0)
 
 
 def test_shadow_rays_park_misses_and_kill_back_faces():
@@ -168,3 +168,53 @@ def test_shadow_rays_park_misses_and_kill_back_faces():
     light_behind = torch.tensor([0.0, 0.0, 8.0])
     _, _, max_t = mi.shadow_rays_plain(o, d, t, idx, n, light_behind, 1e-5)
     assert (max_t == -1.0).all()
+
+
+def test_smooth_blend_weights_the_corners():
+    """K1 with_sn's payload on one triangle p1 (0,1,0), p2 (-1,0,0),
+    p3 (1,0,0): at each corner the blend is that corner's normal, at
+    u = 0.45, v = 0.25 it is (1-u-v) sn1 + u sn2 + v sn3 unnormalized, and
+    a miss gets zeros."""
+    p1 = torch.tensor([[0.0, 1.0, 0.0]], dtype=torch.float64)
+    e1 = torch.tensor([[-1.0, -1.0, 0.0]], dtype=torch.float64)
+    e2 = torch.tensor([[1.0, -1.0, 0.0]], dtype=torch.float64)
+    sn = torch.tensor([[0.0, 1.0, 0.0, -1.0, 0.0, 0.0, 1.0, 0.0, 0.0]],
+                      dtype=torch.float64)
+    u, v = 0.45, 0.25
+    o = torch.tensor([[0.0, 1.0, -2.0], [-1.0, 0.0, -2.0], [1.0, 0.0, -2.0],
+                      [-u + v, 1 - u - v, -2.0], [5.0, 5.0, -2.0]],
+                     dtype=torch.float64)
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 5, dtype=torch.float64)
+    t, idx, n = mi.closest_hit_sn_plain(o, d, p1, e1, e2, sn)
+    assert idx.tolist() == [0, 0, 0, 0, -1] and float(t[4]) == BIG
+    want = [[0, 1, 0], [-1, 0, 0], [1, 0, 0], [-u + v, 1 - u - v, 0], [0, 0, 0]]
+    np.testing.assert_allclose(n.numpy(), want, atol=1e-12)
+    # K3 with_sn's shadow ray uses the normalized blend, its n stays raw
+    light = torch.tensor([0.0, 0.0, -8.0], dtype=torch.float64)
+    t3, idx3, n3, sh = mi.closest_shadow_sn_plain(o, d, p1, e1, e2, sn, light)
+    assert torch.equal(n3, n) and not sh.any()
+    unit = torch.nn.functional.normalize(n, dim=1)
+    for a, b in zip(mi.shadow_rays_plain(o, d, t, idx, n, light, unit_n=False),
+                    mi.shadow_rays_plain(o, d, t, idx, unit, light)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-12)
+
+
+def test_census_wrapper_takes_plain_version_on_cpu(cow):
+    """mesh_crossing_count on CPU tensors is crossing_count_plain, with
+    the cow's triangles split into two container slots by parity of id,
+    on the whole line of each ray (t_hit = BIG) but its own hit."""
+    _, scene, o, d = cow
+    o, d = torch.from_numpy(o[::5]), torch.from_numpy(d[::5])
+    cid = (torch.arange(scene.tri_cid.shape[0]) % 2).to(torch.int32)
+    cid[scene.tri_e1.abs().sum(1) == 0] = -1  # padding rows hold no slot
+    t, idx, _ = mi.closest_hit_plain(o, d, *_tables(scene), scene.tri_n)
+    gid = torch.where(idx >= 0, idx, -2)
+    t_hit = torch.full_like(t, BIG)
+    mi.reset_launch_counts()
+    got = mi.mesh_crossing_count(o, d, t_hit, gid, *_tables(scene),
+                                 scene.cluster_aabb, cid, 2,
+                                 scene.static.cluster_size)
+    ref = mi.crossing_count_plain(o, d, t_hit, gid, *_tables(scene), cid, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert int(got[0].sum()) > 50 and (got[0][:, 0] != got[0][:, 1]).any()
+    assert mi.LAUNCHES == dict.fromkeys(mi.LAUNCHES, 0)
