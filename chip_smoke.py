@@ -9,16 +9,21 @@ It builds the CUDA kernels from rtc_tpu_torch/csrc with nvcc and holds
 each against its plain PyTorch version on the card: K1-K3 on the cow
 (phases 3-4, with fused against split), K1/K3 with_sn on teapot_smooth
 (phase 6, with fused against split) and the K4 census on glass_teapot
-(phase 7, exact counts), each at its path's 460,800-ray wavefront. It
-renders cow (phase 5), teapot_smooth and glass_teapot (phase 8) at
-1920x960, depth 5, f32 through render(), counting each kernel's launches
-in each frame, and checks each image against the plain render and the
-golden. Each phase prints lines with the card's name and power limit.
-Before the last line it prints the kernels' JSON record (times and
-max_abs_err from those wavefronts; launches from the frame that runs each
-kernel, named in "frame") and the card line; the last line is
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero.
-Without a CUDA device it exits non-zero and prints no result.
+(phase 7, exact counts), each at its path's 460,800-ray wavefront; and
+the instanced K5 (flat on cow_herd, with_sn on cow_herd_smooth) and K6
+(phase 9), timed on the herds' 460,800-ray wavefronts and held against
+their plain versions, which sweep every instance densely, on a
+57,600-ray subset of them. It renders cow (phase 5), teapot_smooth,
+glass_teapot, cow_herd and cow_herd_smooth (phase 8) at 1920x960, depth
+5, f32 through render(), counting each kernel's launches in each frame,
+and checks each image against the plain render and, where
+tests/golden has one, the golden. Each phase prints lines with the
+card's name and power limit. Before the last line it prints the kernels'
+JSON record (times and max_abs_err from those wavefronts; launches from
+the frame that runs each kernel, named in "frame") and the card line;
+the last line is {"ok": true, "device": {...}}. Any failure raises and
+exits non-zero. Without a CUDA device it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -55,6 +60,17 @@ PARITY_RAYS = 10240        # bench.py check_kernel_parity's wavefront
 # f32 render budget (tests/test_pallas_mesh.py): 99.9th-percentile error
 # below 2e-3 and at most 3 pixels off by more than 0.05
 P999_MAX, BIG_ERR, BIG_ERR_PIXELS = 2e-3, 0.05, 3
+# The herds' kernel render intersects each instance in its object space,
+# the plain render the world-baked table, so f32 rounds hit points
+# differently (|dt| up to ~3e-5 at t ~ 40), and a shadow ray that leaves a
+# surface only EPSILON = 1e-5 above it re-hits its own triangle ("acne")
+# on different pixels in the two: a full shadow flip each. Measured on an
+# H100: 30 (cow_herd) and 33 (cow_herd_smooth) of 28,800 pixels at
+# 240x120, every one a shadow-flag flip with equal hit, object and t to
+# within 3e-5. Budget: the 99th-percentile error below P999_MAX, and at
+# most KNIFE_EDGE_SHARE of the pixels above BIG_ERR. The kernels equal
+# their plain versions bit for bit (phase 9).
+KNIFE_EDGE_SHARE = 0.0025
 COW_F32_BUDGET = (0.98, 2)  # tests/test_golden.py F32_BUDGET["cow"]
 
 
@@ -200,13 +216,19 @@ def kernel_parity(name, scene, o, d, leaf, eps):
     return summary
 
 
-def image_gate(what: str, img, ref) -> str:
+def image_gate(what: str, img, ref, knife_edges: bool = False) -> str:
+    """The f32 render budget; knife_edges: the herds' budget (see
+    KNIFE_EDGE_SHARE)."""
     err = (img - ref).abs().amax(dim=2).flatten().double()
-    p999 = float(torch.quantile(err, 0.999))
+    q = 0.99 if knife_edges else 0.999
+    p = float(torch.quantile(err, q))
     big = int((err > BIG_ERR).sum())
-    check(p999 < P999_MAX and big <= BIG_ERR_PIXELS,
-          f"{what}: p99.9 error {p999:.3g}, {big} pixels above {BIG_ERR}")
-    return f"p99.9 err {p999:.3g}, {big} px > {BIG_ERR}, max {float(err.max()):.3g}"
+    limit = int(KNIFE_EDGE_SHARE * err.numel()) if knife_edges else BIG_ERR_PIXELS
+    check(p < P999_MAX and big <= limit,
+          f"{what}: p{q * 100:g} error {p:.3g}, {big} pixels above {BIG_ERR} "
+          f"(limit {limit})")
+    return (f"p{q * 100:g} err {p:.3g}, {big} px > {BIG_ERR} (limit {limit}) "
+            f"of {err.numel()}, max {float(err.max()):.3g}")
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +259,9 @@ def phase_build() -> None:
         ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
     say("2 build", f"{os.path.relpath(lib, ROOT)} in {seconds:.1f} s; "
         + " | ".join(ptxas))
+
+
+MAIN_RAYS = WIDTH * HEIGHT // 4  # main_path_rays' wavefront
 
 
 def main_path_rays(cam):
@@ -429,18 +454,28 @@ def phase_slice():
 # the smooth and glass meshes: K1/K3 with_sn and the K4 crossing census
 # ---------------------------------------------------------------------------
 
+SCENES = {}  # name -> (scene on the card, compile seconds)
+
+
 def slice_scene(name: str, width: int):
+    """A registry scene on the card (compiled once per name: the tables do
+    not depend on the canvas) and its camera at width."""
     world, cam = REGISTRY[name](width)
-    return compile_scene(world, dtype=torch.float32, device="cuda"), cam
+    if name not in SCENES:
+        t0 = time.perf_counter()
+        scene = compile_scene(world, dtype=torch.float32, device="cuda")
+        torch.cuda.synchronize()
+        SCENES[name] = (scene, time.perf_counter() - t0)
+    return SCENES[name][0], cam
 
 
-def time_pair(kernel, plain):
+def time_pair(kernel, plain, plain_warmup: int = 1, plain_iters: int = 2):
     """Device ms of a kernel and its plain version at one input, in the
     order plain, kernel, kernel, plain; and the last outputs of both."""
-    a, _ = timed_ms(plain, 1, 2)
+    a, _ = timed_ms(plain, plain_warmup, plain_iters)
     b, got = timed_ms(kernel, 2, 10)
     c, _ = timed_ms(kernel, 0, 10)
-    e, ref = timed_ms(plain, 0, 2)
+    e, ref = timed_ms(plain, 0, plain_iters)
     return (b + c) / 2, (a + e) / 2, got, ref
 
 
@@ -554,26 +589,33 @@ FRAME_KERNELS = {
     "glass_teapot": lambda tiles: {"closest_hit_sn": 3 * tiles,
                                    "any_hit": 3 * tiles,
                                    "crossing_count": tiles},
+    # instanced and not reflective: one node per tile, K5 then K6
+    "cow_herd": lambda tiles: {"closest_hit_tlas": tiles,
+                               "any_hit_tlas": tiles},
+    "cow_herd_smooth": lambda tiles: {"closest_hit_tlas_sn": tiles,
+                                      "any_hit_tlas": tiles},
 }
-# tests/test_golden.py: (width, depth) and F32_BUDGET
+# tests/test_golden.py: (width, depth) and F32_BUDGET; the herds have none
 GOLDEN_SPECS = {"teapot_smooth": (24, 5, (0.99, 2)),
                 "glass_teapot": (24, 8, (0.99, 0))}
+# the kernels-vs-plain image gate's canvas width: the herds' plain render
+# sweeps the whole 523,264-row world table for every ray
+GATE_WIDTHS = {"cow_herd": 240, "cow_herd_smooth": 240}
 
 
 def phase_frames():
-    """render() of teapot_smooth and glass_teapot at 1920x960, depth 5,
-    f32: each frame run with the counts set to 0 just before it and read
-    just after; then the 480x240 kernel render against the plain render
-    and the golden-width kernel render against tests/golden. Returns
-    {scene: {kernel: launches}}."""
+    """render() of teapot_smooth, glass_teapot, cow_herd and
+    cow_herd_smooth at 1920x960, depth 5, f32: each frame run with the
+    counts set to 0 just before it and read just after; then the 480x240
+    (herds: 240x120) kernel render against the plain render and, where
+    tests/golden has the scene, the golden-width kernel render against it.
+    Returns {scene: {kernel: launches}}."""
     launches = {}
     n_tiles = -(-WIDTH * HEIGHT // RAY_TILE)
     q = lambda a: np.clip(np.asarray(a, np.float64) * 255 + 0.5, 0, 255).astype(np.uint8)
     for name, want in FRAME_KERNELS.items():
-        t0 = time.perf_counter()
         scene, cam = slice_scene(name, WIDTH)
-        torch.cuda.synchronize()
-        compile_s = time.perf_counter() - t0
+        compile_s = SCENES[name][1]
         cfg = RenderConfig(ray_tile=RAY_TILE)
         render(scene, cam, cfg)  # warm-up
         walls = []
@@ -604,10 +646,16 @@ def phase_frames():
             f"{casts / wall / 1e6:.1f}M rays/s ({casts} casts); launches "
             f"{ {k: v for k, v in counts.items() if v} }")
 
-        small, cam_s = slice_scene(name, 480)
+        gw = GATE_WIDTHS.get(name, 480)
+        small, cam_s = slice_scene(name, gw)
         kern = render(small, cam_s, RenderConfig())
         plain = render(small, cam_s, RenderConfig(mesh_impl="bruteforce"))
-        gate = image_gate(f"{name} 480x240 kernels vs plain", kern, plain)
+        gate = image_gate(f"{name} {gw}x{gw // 2} kernels vs plain", kern,
+                          plain, knife_edges=bool(scene.static.tlas_n_inst))
+        if name not in GOLDEN_SPECS:
+            say("8 slice frames",
+                f"{name}: {gw}x{gw // 2} kernels vs plain render: {gate}")
+            continue
         width, depth, (min_frac, flip_budget) = GOLDEN_SPECS[name]
         golden = np.load(os.path.join(ROOT, "tests", "golden", f"{name}.npy"))
         tiny, cam_t = slice_scene(name, width)
@@ -618,10 +666,95 @@ def phase_frames():
         check(match >= min_frac and flips <= flip_budget,
               f"{name} f32 kernels vs f64 golden: match {match:.4f}, flips {flips}")
         say("8 slice frames",
-            f"{name}: 480x240 kernels vs plain render: {gate}; width {width} "
+            f"{name}: {gw}x{gw // 2} kernels vs plain render: {gate}; width {width} "
             f"depth {depth} kernels vs tests/golden/{name}.npy (f64): 8-bit "
             f"match {match:.4f}, structural flips {flips}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# instanced meshes: K5 (flat and with_sn) and K6
+# ---------------------------------------------------------------------------
+
+# every 8th ray of the 460,800-ray wavefront: the plain versions sweep all
+# 90 instances' rows for every ray (5.5e5 pair tests a ray)
+TLAS_PLAIN_STEP = 8
+
+
+def phase_tlas(eps):
+    """K5 flat on cow_herd, K5 with_sn on cow_herd_smooth, and K6 on
+    cow_herd's free-space occlusion rays: each kernel timed on the full
+    460,800-ray primary wavefront (K6: its 921,600 occlusion rays), then
+    timed with its plain version on every 8th ray of it, and the two held
+    to the parity gate there (max |dt| expected 0). Returns
+    ({kernel: (ms, plain_ms)}, {kernel: (max_abs_err, flips)},
+    {kernel: sizes})."""
+    times, parity, sizes = {}, {}, {}
+    for name in ("cow_herd", "cow_herd_smooth"):
+        scene, cam = slice_scene(name, WIDTH)
+        st, tl = scene.static, scene.tlas
+        check((st.tlas_n_inst, st.tlas_n_mesh, st.tlas_cm) == (96, 1, 48),
+              f"{name}: TLAS tables {st.tlas_n_inst} instances, "
+              f"{st.tlas_n_mesh} meshes, cm {st.tlas_cm}")
+        key = "closest_hit_tlas_sn" if st.tlas_sn else "closest_hit_tlas"
+        kernel = getattr(mi, f"mesh_{key}")
+        plain = getattr(mi, f"{key}_plain")
+        pay = tl.sn if st.tlas_sn else tl.n
+        inst = (tl.inst_ab, tl.inst_aabb, tl.inst_mesh)
+        leaf_cm = (st.cluster_size, st.tlas_cm, eps)
+        o, d = main_path_rays(cam)
+        os_, ds_ = (x[::TLAS_PLAIN_STEP].contiguous() for x in (o, d))
+        k5 = lambda oo, dd: kernel(oo, dd, tl.p1, tl.e1, tl.e2, pay, tl.caabb,
+                                   *inst, tl.inst_obj, *leaf_cm)
+        ms_full, full = timed_ms(lambda: k5(o, d), 2, 10)
+        ms, pms, got, ref = time_pair(
+            lambda: k5(os_, ds_),
+            lambda: plain(os_, ds_, tl.p1, tl.e1, tl.e2, pay, *inst,
+                          tl.inst_obj, *leaf_cm),
+            plain_warmup=0, plain_iters=1)
+        check(all(torch.equal(a[::TLAS_PLAIN_STEP], b) for a, b in zip(full, got)),
+              f"{name} K5: the subset's outputs differ from the full run's")
+        err = closest_gate(f"{name} K5", (got[0], got[1], got[3]),
+                           (ref[0], ref[1], ref[3]))
+        same = got[1] == ref[1]
+        check(torch.equal(got[2][same], ref[2][same]),
+              f"{name} K5: object ids differ at equal enc")
+        hits = int((ref[1] >= 0).sum())
+        times[key], parity[key] = (ms_full, pms), (err, None)
+        sizes[key] = dict(rays=o.shape[0], plain_rays=os_.shape[0],
+                          ms_at_plain_rays=ms)
+        summary = (f"{name} ({st.tlas_n_inst} instances, cm {st.tlas_cm}): "
+                   f"K5{' with_sn' if st.tlas_sn else ''} {ms_full:.3f} ms on "
+                   f"{o.shape[0]} rays ({int((full[1] >= 0).sum())} hits); on "
+                   f"{os_.shape[0]} rays {ms:.3f} ms vs plain {pms:.1f} ms, "
+                   f"{hits} hits, max|dt| {err:.3g}, "
+                   f"{int((~same).sum())} enc mismatches")
+        if not st.tlas_sn:
+            k6 = lambda so, sd, mt: mi.mesh_any_hit_tlas(
+                so, sd, mt, tl.p1, tl.e1, tl.e2, tl.caabb, *inst, *leaf_cm)
+            fo, fd, fmax = occlusion_rays(scene, o, d, full[0], full[1])
+            so, sd, smax = occlusion_rays(scene, os_, ds_, ref[0], ref[1])
+            ms6_full, _ = timed_ms(lambda: k6(fo, fd, fmax), 2, 10)
+            ms6, pms6, k6_out, p6_out = time_pair(
+                lambda: k6(so, sd, smax),
+                lambda: mi.any_hit_tlas_plain(so, sd, smax, tl.p1, tl.e1,
+                                              tl.e2, *inst, *leaf_cm),
+                plain_warmup=0, plain_iters=1)
+            flips = int((k6_out != p6_out).sum())
+            check(flips <= max(2, so.shape[0] // 2048),
+                  f"{name} K6: occlusion parity: {flips} rays differ")
+            times["any_hit_tlas"] = (ms6_full, pms6)
+            parity["any_hit_tlas"] = (float(flips > 0), flips)
+            sizes["any_hit_tlas"] = dict(rays=fo.shape[0],
+                                         plain_rays=so.shape[0],
+                                         ms_at_plain_rays=ms6)
+            summary += (f"; K6 {ms6_full:.3f} ms on {fo.shape[0]} occlusion "
+                        f"rays ({int((fmax > 0).sum())} live); on "
+                        f"{so.shape[0]} rays {ms6:.3f} ms vs plain "
+                        f"{pms6:.1f} ms, {int(p6_out.sum())} occluded, "
+                        f"{flips} flips")
+        say("9 instanced kernels", summary)
+    return times, parity, sizes
 
 
 def main() -> int:
@@ -646,24 +779,35 @@ def main() -> int:
         times.update(t)
         parity.update(p)
     launches.update(phase_frames())
+    t, p, sizes = phase_tlas(eps)
+    times.update(t)
+    parity.update(p)
 
     # each kernel's launches come from the frame that runs it: K3 from the
     # cow's default fused frame, K1 and K2 from its fused_shadow=False
     # frame, K3 with_sn from teapot_smooth's, K1 with_sn and K4 from
-    # glass_teapot's
+    # glass_teapot's, K5 and K6 from cow_herd's, K5 with_sn from
+    # cow_herd_smooth's. "ms" is at "rays" and "plain_ms" at "plain_rays"
+    # (the same count, except for K5 and K6)
     lines = {"closest_hit": ("K1 closest hit", 413, "split"),
              "any_hit": ("K2 any-hit occlusion", 861, "split"),
              "closest_shadow": ("K3 fused closest hit + shadow", 720, "fused"),
              "closest_hit_sn": ("K1 closest hit, with_sn", 413, "glass_teapot"),
              "closest_shadow_sn": ("K3 fused closest hit + shadow, with_sn",
                                    720, "teapot_smooth"),
-             "crossing_count": ("K4 crossing census", 643, "glass_teapot")}
+             "crossing_count": ("K4 crossing census", 643, "glass_teapot"),
+             "closest_hit_tlas": ("K5 instanced closest hit", 978, "cow_herd"),
+             "closest_hit_tlas_sn": ("K5 instanced closest hit, with_sn", 978,
+                                     "cow_herd_smooth"),
+             "any_hit_tlas": ("K6 instanced any-hit occlusion", 1169,
+                              "cow_herd")}
     record = {"kernels": [
         {"name": label, "route": "cuda", "source": SOURCE,
          "replaces": f"{TPU_KERNELS}:{line}", "frame": frame,
          "launches": launches[frame][key], "max_abs_err": parity[key][0],
          "flips": parity[key][1], "ms": times[key][0],
-         "plain_ms": times[key][1]}
+         "plain_ms": times[key][1],
+         **sizes.get(key, dict(rays=MAIN_RAYS, plain_rays=MAIN_RAYS))}
         for key, (label, line, frame) in lines.items()]}
     print(json.dumps(record))
     print(f"card: {CARD}")

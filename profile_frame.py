@@ -5,14 +5,17 @@ Run from the repository root:
 
     python3 profile_frame.py [--scene cow] [--tile 460800] [--frames 10]
 
-For the fused (default) and the split (fused_shadow=False) frame of the
-scene (only the default one where the scene has analytic prims, which
-never take the fused kernel) it times --frames unprofiled frames at
-1920x960, depth 5, f32 on the host clock around render() and
-torch.cuda.synchronize(), after 3 warm-up frames, then profiles one more
-with torch.profiler and sums the device time of its kernels by name. It
-prints one JSON line per frame kind and writes the full record to
-build/profile/frame_<scene>.json.
+--scene is any registry scene: cow, teapot_smooth, glass_teapot, teddy,
+cow_herd, cow_herd_smooth. For the fused (default) and the split
+(fused_shadow=False) frame of the scene (only the default one where the
+scene has analytic prims or is instanced: neither takes the fused kernel)
+it times --frames unprofiled frames at 1920x960, depth 5, f32 on the host
+clock around render() and torch.cuda.synchronize(), after 3 warm-up
+frames, then profiles one more with torch.profiler and sums the device
+time of its kernels by name (the port's kernels K1-K6 under their own
+CUDA names, e.g. closest_hit_tlas_kernel and any_hit_tlas_kernel for the
+herds' K5 and K6). It prints one JSON line per frame kind and writes the
+full record to build/profile/frame_<scene>.json.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from rtc_tpu_torch.utils.profiling import rays_per_pixel
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT, DEPTH = 1920, 960, 5
 OUR_KERNELS = ("closest_hit_kernel", "any_hit_kernel", "closest_shadow_kernel",
-               "crossing_count_kernel")
+               "crossing_count_kernel", "closest_hit_tlas_kernel",
+               "any_hit_tlas_kernel")
 
 
 def frame_seconds(scene, cam, cfg) -> float:
@@ -69,8 +73,9 @@ def profiled_frame(scene, cam, cfg) -> dict:
         "device_busy_ms": busy_ms,
         "idle_share_of_wall": 1.0 - busy_ms / wall_ms,
         "n_device_ops": len(ops),
-        "our_kernels_ms": sum(ms for name, (_, ms) in by_name.items()
-                              if any(k in name for k in OUR_KERNELS)),
+        "our_kernels_ms": {k: sum(ms for name, (_, ms) in by_name.items()
+                                  if k in name) for k in OUR_KERNELS
+                           if any(k in name for name in by_name)},
         "by_kernel": [{"name": name, "launches": n, "ms": ms}
                       for name, (n, ms) in top],
     }
@@ -97,8 +102,8 @@ def main() -> int:
                                             st.any_refractive)
     record = {"card": card, "scene": args.scene, "tile": args.tile,
               "casts": casts, "frames": {}}
-    kinds = (("fused", True), ("split", False)) if not st.n_prims else (
-        ("default", True),)
+    kinds = ((("fused", True), ("split", False))
+             if not (st.n_prims or st.tlas_n_inst) else (("default", True),))
     for kind, fused in kinds:
         cfg = RenderConfig(ray_tile=args.tile, fused_shadow=fused)
         for _ in range(3):

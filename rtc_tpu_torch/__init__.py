@@ -8,7 +8,8 @@ path. This package imports torch and numpy, never jax or rtc_tpu.
   scene/    builder API + SoA compiler (host-side numpy, tensors at the end)
   render/   camera, wavefront integrator, renderer
   io/       OBJ parser
-  models/   the shipped scenes (cow, teapot_smooth, glass_teapot, teddy)
+  models/   the shipped scenes (cow, teapot_smooth, glass_teapot, teddy,
+            cow_herd, cow_herd_smooth)
   csrc/     CUDA C++ sources, built with nvcc at first use
 """
 

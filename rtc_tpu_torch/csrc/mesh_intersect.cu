@@ -1,5 +1,6 @@
 // Mesh intersection kernels for NVIDIA Hopper (sm_90a): K1 closest hit,
-// K2 any-hit occlusion, K3 fused closest hit + shadow, K4 crossing census.
+// K2 any-hit occlusion, K3 fused closest hit + shadow, K4 crossing census,
+// K5 instanced closest hit, K6 instanced occlusion.
 //
 // Replaces (rtc_tpu/ops/pallas/mesh_intersect.py):
 //   K1 _kernel_mxu / _kernel_mxu_body, with_n and with_sn modes
@@ -8,11 +9,16 @@
 //   K3 _kernel_mxu_cs, flat and with_sn modes     (mesh_closest_shadow_mxu)
 //   K4 _crossing_kernel_mxu + _mt_cluster_mxu_signed
 //                                                 (mesh_crossing_count_mxu)
+//   K5 _kernel_mxu_tlas + _inst_ray_features + _slab_full_t, with_n and
+//      with_sn modes                              (mesh_closest_hit_tlas_mxu)
+//   K6 _anyhit_kernel_tlas                        (mesh_any_hit_tlas_mxu)
 //
 // What the TPU kernels compute is kept; their TPU layout is not. There is
-// no Plücker matmul (that factoring exists to feed the MXU), no lane-major
-// transposes, no per-tile union gate or selection sort, no seeded t_best,
-// no two-probe loop and no VMEM superblocks. Each thread owns one ray.
+// no Plücker matmul (that factoring exists to feed the MXU; K5/K6 map the
+// ray itself into instance space instead of its Plücker features), no
+// lane-major transposes, no per-tile union gate or selection sort, no
+// seeded t_best, no two-probe loop and no VMEM superblocks. Each thread
+// owns one ray.
 //
 // What bounds these kernels on an H100: divergent per-ray traversal, not
 // bytes. A mesh's triangle tables (T x 9 floats, ~221 KB for the cow), its
@@ -32,10 +38,14 @@
 // K3's phase 1 is the same __device__ code as K1: fused and split give
 // bit-identical t, idx and n.
 //
-// Any C, T and container count K: no array is sized by the scene. The
-// closest-hit traversal re-derives the next cluster by scanning all C slab
-// entries (O(C) per visited cluster), which is exact front-to-back order
-// with no per-ray storage.
+// Any C, T, container count K and instance count I: no array is sized by
+// the scene. The closest-hit traversal re-derives the next cluster by
+// scanning all C slab entries (O(C) per visited cluster; K5 likewise
+// scans all I instance boxes per visited instance, then only its mesh's
+// cm cluster boxes), which is exact front-to-back order with no per-ray
+// storage. K5/K6 read one copy of each unique mesh (the cow: 6,144 rows,
+// ~300 KB with its normals), so ninety instances cost the caches no more
+// than one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -182,27 +192,40 @@ __device__ __forceinline__ void tri_uv(const Ray& r,
   v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
 }
 
-// K1 body: nearest triangle with t >= 0. Clusters are visited in
-// increasing (entry, cluster id) order; the next one is found by a scan
-// over all C entries, and the walk stops once no unvisited cluster starts
-// before t_best (the ordered early exit of _kernel_mxu_body).
-__device__ __forceinline__ void closest_hit_dev(
+// The next box of [c0, c1) to visit in increasing (entry, id) order after
+// (last_e, last_i), among those entered before t_best; -1 when none is
+// left. A scan of all the boxes: exact order with no per-ray storage.
+__device__ __forceinline__ int next_box(const Ray& r,
+                                        const float* __restrict__ aabb,
+                                        int c0, int c1, float t_best,
+                                        float last_e, int last_i,
+                                        float& ne) {
+  ne = kBig;
+  int nc = -1;
+  for (int c = c0; c < c1; ++c) {
+    const float e = cluster_entry(r, aabb, c);
+    if (!(e < t_best)) continue;
+    if (e < last_e || (e == last_e && c <= last_i)) continue;
+    if (e < ne) { ne = e; nc = c; }
+  }
+  return nc;
+}
+
+// K1 body over clusters [c0, c1): lowers t_best (and sets best to the
+// triangle row) for the nearest triangle with t >= 0 below the t_best it
+// was given. Clusters are visited in increasing (entry, cluster id) order,
+// and the walk stops once no unvisited cluster starts before t_best (the
+// ordered early exit of _kernel_mxu_body). K5 carries t_best from one
+// instance into the next.
+__device__ __forceinline__ void closest_in_clusters(
     const Ray& r, const float* __restrict__ p1, const float* __restrict__ e1,
-    const float* __restrict__ e2, const float* __restrict__ aabb, int C,
-    int leaf, float eps, float& t_best, int& best) {
-  t_best = kBig;
-  best = -1;
+    const float* __restrict__ e2, const float* __restrict__ aabb, int c0,
+    int c1, int leaf, float eps, float& t_best, int& best) {
   float last_e = -1.f;
   int last_c = -1;
   for (;;) {
-    float ne = kBig;
-    int nc = -1;
-    for (int c = 0; c < C; ++c) {
-      const float e = cluster_entry(r, aabb, c);
-      if (!(e < t_best)) continue;
-      if (e < last_e || (e == last_e && c <= last_c)) continue;
-      if (e < ne) { ne = e; nc = c; }
-    }
+    float ne;
+    const int nc = next_box(r, aabb, c0, c1, t_best, last_e, last_c, ne);
     if (nc < 0) return;
     const int base = nc * leaf;
     for (int j = base; j < base + leaf; ++j) {
@@ -217,17 +240,27 @@ __device__ __forceinline__ void closest_hit_dev(
   }
 }
 
-// K2 body: does any triangle lie at t in [0, max_t)? max_t <= 0 marks a
-// dead lane, which never hits. Occlusion needs no order, so clusters are
-// taken in table order (k-d order, so still spatially coherent), skipping
-// those the ray misses or enters at or beyond max_t; the lane stops at its
-// first occluder.
+// K1 body over the whole table: t_best = kBig and best = -1 on a miss.
+__device__ __forceinline__ void closest_hit_dev(
+    const Ray& r, const float* __restrict__ p1, const float* __restrict__ e1,
+    const float* __restrict__ e2, const float* __restrict__ aabb, int C,
+    int leaf, float eps, float& t_best, int& best) {
+  t_best = kBig;
+  best = -1;
+  closest_in_clusters(r, p1, e1, e2, aabb, 0, C, leaf, eps, t_best, best);
+}
+
+// K2 body over clusters [c0, c1): does any triangle lie at t in
+// [0, max_t)? max_t <= 0 marks a dead lane, which never hits. Occlusion
+// needs no order, so clusters are taken in table order (k-d order, so
+// still spatially coherent), skipping those the ray misses or enters at or
+// beyond max_t; the lane stops at its first occluder.
 __device__ __forceinline__ bool any_hit_dev(
     const Ray& r, float max_t, const float* __restrict__ p1,
     const float* __restrict__ e1, const float* __restrict__ e2,
-    const float* __restrict__ aabb, int C, int leaf, float eps) {
+    const float* __restrict__ aabb, int c0, int c1, int leaf, float eps) {
   if (!(max_t > 0.f)) return false;
-  for (int c = 0; c < C; ++c) {
+  for (int c = c0; c < c1; ++c) {
     if (!(cluster_entry(r, aabb, c) < max_t)) continue;
     for (int j = c * leaf; j < (c + 1) * leaf; ++j) {
       float t;
@@ -305,7 +338,7 @@ any_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
   const Ray r = load_ray(o, d, i);
-  hit_out[i] = any_hit_dev(r, max_t[i], p1, e1, e2, aabb, C, leaf, eps);
+  hit_out[i] = any_hit_dev(r, max_t[i], p1, e1, e2, aabb, 0, C, leaf, eps);
 }
 
 // K3: phase 1 is K1; phase 2 derives the shadow ray in registers, formula
@@ -366,7 +399,7 @@ closest_shadow_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const Ray s = make_ray(ovx, ovy, ovz, vx / dist, vy / dist, vz / dist);
 
   // ---- phase 3: occlusion ----
-  sh_out[i] = any_hit_dev(s, max_t, p1, e1, e2, aabb, C, leaf, eps);
+  sh_out[i] = any_hit_dev(s, max_t, p1, e1, e2, aabb, 0, C, leaf, eps);
 }
 
 // K4: per ray and container slot k, the number of crossings of slot-k
@@ -418,6 +451,145 @@ crossing_count_kernel(const float* __restrict__ o,
       }
     }
   }
+}
+
+// ---- instanced (TLAS) tables: K5 and K6 ----
+//
+// The unique meshes sit once, in object space: M meshes of cm clusters of
+// leaf rows each (p1/e1/e2 and the payload (M*cm*leaf, 3|9), caabb
+// (M*cm, 6)). Instance k maps a world ray into its mesh's object space by
+// inst_ab[k] = [A row-major | b]: o' = A o + b, d' = A d. d' is not
+// renormalized, so a hit at parameter t in object space lies at the same
+// world t, and one carried t_best serves every instance. inst_aabb[k] is
+// the instance's world box; padding instances carry the identity, mesh 0
+// and an EMPTY box, which alone keeps them out. Nothing is sized by I, M
+// or cm, and an instance whose mesh index lies outside [0, M) is skipped.
+
+// The ray in instance space, summed left to right in one fixed order:
+// o'_k = ((A_k0 ox + A_k1 oy) + A_k2 oz) + b_k, d'_k = (A_k0 dx + A_k1 dy)
+// + A_k2 dz, as the plain versions' elementwise operations round. Its slab
+// reciprocals come from make_ray (+-BIG for near-zero components: a 0.5
+// scale gives |d'| = 2, and an axis-aligned d' keeps exact zeros).
+__device__ __forceinline__ Ray instance_ray(const Ray& r,
+                                            const float* __restrict__ ab) {
+  float o2[3], d2[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float a0 = __ldg(ab + 3 * k), a1 = __ldg(ab + 3 * k + 1),
+                a2 = __ldg(ab + 3 * k + 2);
+    o2[k] = ((a0 * r.ox + a1 * r.oy) + a2 * r.oz) + __ldg(ab + 9 + k);
+    d2[k] = (a0 * r.dx + a1 * r.dy) + a2 * r.dz;
+  }
+  return make_ray(o2[0], o2[1], o2[2], d2[0], d2[1], d2[2]);
+}
+
+// An object-space normal pushed to world space by the inverse-transpose
+// in row-vector form, n_w[a] = (n0 A[0][a] + n1 A[1][a]) + n2 A[2][a]
+// (rtc_tpu mesh_intersect.py:1094-1096), unnormalized.
+__device__ __forceinline__ void normal_to_world(const float* __restrict__ ab,
+                                                float& nx, float& ny,
+                                                float& nz) {
+  const float n0 = nx, n1 = ny, n2 = nz;
+  nx = (n0 * __ldg(ab) + n1 * __ldg(ab + 3)) + n2 * __ldg(ab + 6);
+  ny = (n0 * __ldg(ab + 1) + n1 * __ldg(ab + 4)) + n2 * __ldg(ab + 7);
+  nz = (n0 * __ldg(ab + 2) + n1 * __ldg(ab + 5)) + n2 * __ldg(ab + 8);
+}
+
+// K5: instances in increasing (world-box entry, instance id) order, found
+// by next_box's scan as K1 finds clusters; the walk stops once no
+// unvisited instance starts before t_best. Each visit runs K1's cluster
+// loop over the instance's mesh in its object space with t_best carried
+// in, so the winner is the strict-< minimum over every instance. Outputs:
+// t (kBig on a miss), enc = instance * cm * leaf + mesh-local row (-1),
+// obj = inst_obj of the winning instance (0), and the payload (0): flat,
+// the winner's object face normal; with_sn, its corner normals blended by
+// its (u, v) in the winning instance's object space; both pushed to world
+// by normal_to_world. The winning instance's ray is rebuilt for the
+// payload, bit for bit as during the walk.
+template <bool SN>
+__global__ void __launch_bounds__(kThreads)
+closest_hit_tlas_kernel(const float* __restrict__ o,
+                        const float* __restrict__ d, int R,
+                        const float* __restrict__ p1,
+                        const float* __restrict__ e1,
+                        const float* __restrict__ e2,
+                        const float* __restrict__ pay,
+                        const float* __restrict__ caabb, int M, int cm,
+                        int leaf, const float* __restrict__ inst_ab,
+                        const float* __restrict__ inst_aabb,
+                        const int* __restrict__ inst_mesh,
+                        const int* __restrict__ inst_obj, int I, float eps,
+                        float* __restrict__ t_out, int* __restrict__ enc_out,
+                        int* __restrict__ obj_out, float* __restrict__ n_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R) return;
+  const Ray r = load_ray(o, d, i);
+  float t_best = kBig;
+  int best = -1, best_inst = -1;
+  float last_e = -1.f;
+  int last_k = -1;
+  for (;;) {
+    float ne;
+    const int k = next_box(r, inst_aabb, 0, I, t_best, last_e, last_k, ne);
+    if (k < 0) break;
+    last_e = ne;
+    last_k = k;
+    const int mi = __ldg(inst_mesh + k);
+    if (mi < 0 || mi >= M) continue;
+    const float t_before = t_best;
+    closest_in_clusters(instance_ray(r, inst_ab + 12 * k), p1, e1, e2, caabb,
+                        mi * cm, (mi + 1) * cm, leaf, eps, t_best, best);
+    if (t_best < t_before) best_inst = k;
+  }
+  int enc = -1, obj = 0;
+  float nx = 0.f, ny = 0.f, nz = 0.f;
+  if (best >= 0) {
+    const float* ab = inst_ab + 12 * best_inst;
+    const int tm = cm * leaf;
+    enc = best_inst * tm + (best - __ldg(inst_mesh + best_inst) * tm);
+    obj = __ldg(inst_obj + best_inst);
+    hit_payload<SN>(instance_ray(r, ab), best, pay, p1, e1, e2, nx, ny, nz);
+    normal_to_world(ab, nx, ny, nz);
+  }
+  t_out[i] = t_best;
+  enc_out[i] = enc;
+  obj_out[i] = obj;
+  n_out[3 * i] = nx;
+  n_out[3 * i + 1] = ny;
+  n_out[3 * i + 2] = nz;
+}
+
+// K6: instances in table order, skipping those whose world box the ray
+// misses, enters at or beyond max_t, or that are empty (padding); K2's
+// loop over each remaining instance's clusters on the instance-space ray.
+// The lane stops at its first occluder; max_t <= 0 is a dead lane.
+__global__ void __launch_bounds__(kThreads)
+any_hit_tlas_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                    const float* __restrict__ max_t, int R,
+                    const float* __restrict__ p1,
+                    const float* __restrict__ e1,
+                    const float* __restrict__ e2,
+                    const float* __restrict__ caabb, int M, int cm, int leaf,
+                    const float* __restrict__ inst_ab,
+                    const float* __restrict__ inst_aabb,
+                    const int* __restrict__ inst_mesh, int I, float eps,
+                    uint8_t* __restrict__ hit_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R) return;
+  const float mt = max_t[i];
+  bool hit = false;
+  if (mt > 0.f) {
+    const Ray r = load_ray(o, d, i);
+    for (int k = 0; k < I && !hit; ++k) {
+      const float e = cluster_entry(r, inst_aabb, k);
+      if (!(e < mt && e < kBig)) continue;
+      const int mi = __ldg(inst_mesh + k);
+      if (mi < 0 || mi >= M) continue;
+      hit = any_hit_dev(instance_ray(r, inst_ab + 12 * k), mt, p1, e1, e2,
+                        caabb, mi * cm, (mi + 1) * cm, leaf, eps);
+    }
+  }
+  hit_out[i] = hit;
 }
 
 inline unsigned blocks_for(int R) { return (unsigned)((R + kThreads - 1) / kThreads); }
@@ -503,6 +675,53 @@ int rtc_crossing_count(int device, void* stream, const float* o,
   crossing_count_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
       o, d, t_hit, hit_gid, R, p1, e1, e2, tri_cid, has, aabb, C, leaf, eps,
       K, cnt_out, last_out);
+  return (int)cudaGetLastError();
+}
+
+int rtc_closest_hit_tlas(int device, void* stream, const float* o,
+                         const float* d, int R, const float* p1,
+                         const float* e1, const float* e2, const float* tri_n,
+                         const float* caabb, int M, int cm, int leaf,
+                         const float* inst_ab, const float* inst_aabb,
+                         const int* inst_mesh, const int* inst_obj, int I,
+                         float eps, float* t_out, int* enc_out, int* obj_out,
+                         float* n_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  closest_hit_tlas_kernel<false><<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, R, p1, e1, e2, tri_n, caabb, M, cm, leaf, inst_ab, inst_aabb,
+      inst_mesh, inst_obj, I, eps, t_out, enc_out, obj_out, n_out);
+  return (int)cudaGetLastError();
+}
+
+int rtc_closest_hit_tlas_sn(int device, void* stream, const float* o,
+                            const float* d, int R, const float* p1,
+                            const float* e1, const float* e2,
+                            const float* tri_sn, const float* caabb, int M,
+                            int cm, int leaf, const float* inst_ab,
+                            const float* inst_aabb, const int* inst_mesh,
+                            const int* inst_obj, int I, float eps,
+                            float* t_out, int* enc_out, int* obj_out,
+                            float* n_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  closest_hit_tlas_kernel<true><<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, R, p1, e1, e2, tri_sn, caabb, M, cm, leaf, inst_ab, inst_aabb,
+      inst_mesh, inst_obj, I, eps, t_out, enc_out, obj_out, n_out);
+  return (int)cudaGetLastError();
+}
+
+int rtc_any_hit_tlas(int device, void* stream, const float* o, const float* d,
+                     const float* max_t, int R, const float* p1,
+                     const float* e1, const float* e2, const float* caabb,
+                     int M, int cm, int leaf, const float* inst_ab,
+                     const float* inst_aabb, const int* inst_mesh, int I,
+                     float eps, uint8_t* hit_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  any_hit_tlas_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, max_t, R, p1, e1, e2, caabb, M, cm, leaf, inst_ab, inst_aabb,
+      inst_mesh, I, eps, hit_out);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """The shipped scenes (counterpart of rtc_tpu/models/scenes.py; reference:
-src/main.rs:84-397). Ported: `cow`, and the smooth and glass meshes
-`teapot_smooth`, `glass_teapot` and `teddy`; the other scenes wait for the
-items of ROADMAP queue 1 they need.
+src/main.rs:84-397). Ported: `cow`, the smooth and glass meshes
+`teapot_smooth`, `glass_teapot` and `teddy`, and the instanced herds
+`cow_herd` and `cow_herd_smooth`; the other scenes wait for the items of
+ROADMAP queue 1 they need.
 
 Each builder returns (World, Camera) for a canvas width, with the
 reference CLI contract: height = width / 2, fov 0.785 (src/main.rs:77, 329).
@@ -111,9 +112,50 @@ def teddy(width: int = 400) -> Tuple[World, Camera]:
     return World(objects=[shape], light=_light()), _cam(width, [8, 6, -8], [0, 3, 0])
 
 
+# --- instanced herds (rtc_tpu/models/scenes.py:262-301) ---------------------
+
+def cow_herd_world(nx: int = 10, nz: int = 9, smooth: bool = False) -> World:
+    """An nx x nz grid of cows (default 90 cows, 522,360 triangles), each
+    its own mesh leaf sharing one object-space mesh: the world compiles to
+    instanced (TLAS) tables. Spacing and heading vary so that the
+    instances' boxes do not line up."""
+    parser = Parser.from_obj_file(os.path.join(ASSETS, "cow-nonormals.obj"))
+    cows = []
+    for i in range(nx):
+        for j in range(nz):
+            c = parser.obj_to_group(smooth=smooth)
+            c.set_transform(_mm(
+                X.translation(3.0 * (i - (nx - 1) / 2.0), 3.5,
+                              3.0 * j + 0.7 * ((i * 7 + j * 3) % 5)),
+                X.rotation_y(0.6 * ((i * 5 + j) % 7)),
+                X.scaling(0.5, 0.5, 0.5)))
+            c.set_material(Material(
+                color=(0.9, 0.85 - 0.04 * (j % 3), 0.8 - 0.05 * (i % 4)),
+                ambient=0.1, diffuse=0.8, specular=0.3, shininess=50.0))
+            cows.append(c)
+    return World(objects=cows, light=PointLight((0.0, 30.0, -20.0),
+                                                (1.0, 1.0, 0.9)))
+
+
+def cow_herd(width: int = 400) -> Tuple[World, Camera]:
+    return cow_herd_world(), _cam(width, [0, 14, -24], [0, 3, 10])
+
+
+def cow_herd_smooth_world(nx: int = 10, nz: int = 9) -> World:
+    """cow_herd with per-vertex normals: smooth shading through the
+    instanced path."""
+    return cow_herd_world(nx, nz, smooth=True)
+
+
+def cow_herd_smooth(width: int = 400) -> Tuple[World, Camera]:
+    return cow_herd_smooth_world(), _cam(width, [0, 14, -24], [0, 3, 10])
+
+
 REGISTRY: Dict[str, Callable[[int], Tuple[World, Camera]]] = {
     "cow": cow,
     "teapot_smooth": teapot_smooth,
     "glass_teapot": glass_teapot,
     "teddy": teddy,
+    "cow_herd": cow_herd,
+    "cow_herd_smooth": cow_herd_smooth,
 }

@@ -1,14 +1,17 @@
-"""Mesh intersection: the hand-written CUDA kernels K1-K4
+"""Mesh intersection: the hand-written CUDA kernels K1-K6
 (rtc_tpu_torch/csrc/mesh_intersect.cu) and their plain PyTorch versions.
 
 Counterpart of rtc_tpu/ops/pallas/mesh_intersect.py:
 
-  K1 mesh_closest_hit        <- mesh_closest_hit_mxu(tri_n=...)  (_kernel_mxu)
-     mesh_closest_hit_sn     <- mesh_closest_hit_mxu(tri_sn=...)
-  K2 mesh_any_hit            <- mesh_any_hit_mxu                 (_anyhit_kernel_mxu)
-  K3 mesh_closest_shadow     <- mesh_closest_shadow_mxu          (_kernel_mxu_cs)
-     mesh_closest_shadow_sn  <- mesh_closest_shadow_mxu(tri_sn=...)
-  K4 mesh_crossing_count     <- mesh_crossing_count_mxu          (_crossing_kernel_mxu)
+  K1 mesh_closest_hit          <- mesh_closest_hit_mxu(tri_n=...)  (_kernel_mxu)
+     mesh_closest_hit_sn       <- mesh_closest_hit_mxu(tri_sn=...)
+  K2 mesh_any_hit              <- mesh_any_hit_mxu                 (_anyhit_kernel_mxu)
+  K3 mesh_closest_shadow       <- mesh_closest_shadow_mxu          (_kernel_mxu_cs)
+     mesh_closest_shadow_sn    <- mesh_closest_shadow_mxu(tri_sn=...)
+  K4 mesh_crossing_count       <- mesh_crossing_count_mxu          (_crossing_kernel_mxu)
+  K5 mesh_closest_hit_tlas     <- mesh_closest_hit_tlas_mxu(tri_n=...)  (_kernel_mxu_tlas)
+     mesh_closest_hit_tlas_sn  <- mesh_closest_hit_tlas_mxu(tri_sn=...)
+  K6 mesh_any_hit_tlas         <- mesh_any_hit_tlas_mxu            (_anyhit_kernel_tlas)
 
 Each wrapper takes f32 tensors. Given tensors on the CPU it returns its
 plain version's result; given CUDA tensors it launches its kernel, or
@@ -43,7 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "closest_shadow": 0,
-            "closest_hit_sn": 0, "closest_shadow_sn": 0, "crossing_count": 0}
+            "closest_hit_sn": 0, "closest_shadow_sn": 0, "crossing_count": 0,
+            "closest_hit_tlas": 0, "closest_hit_tlas_sn": 0, "any_hit_tlas": 0}
 
 
 def reset_launch_counts() -> None:
@@ -217,6 +221,126 @@ def crossing_count_plain(o, d, t_hit, hit_gid, p1, e1, e2, tri_cid,
     return cnt, last
 
 
+# --- instanced (TLAS) tables: K5 and K6's plain versions --------------------
+#
+# p1/e1/e2 and the payloads hold M unique meshes of cm * leaf rows each, in
+# object space; inst_ab (I, 12) = [A row-major | b] maps world rays into
+# instance k's object space; inst_aabb (I, 6) are the instances' world
+# boxes, empty (lo 1 > hi -1) for padding instances; inst_mesh and
+# inst_obj (I,) i32 (scene/compile.py TlasTables).
+
+def instance_rays(o, d, ab):
+    """Rays in an instance's object space, o' = A o + b and d' = A d (not
+    renormalized, so t is world t). ab is (12,) for one instance or (R, 12)
+    for one per ray. Summed left to right, elementwise, as K5/K6 round:
+    einsum or matmul would fix neither the order nor TF32's absence."""
+    ox, oy, oz = o.unbind(1)
+    dx, dy, dz = d.unbind(1)
+    a = ab.unbind(-1)
+    o2 = [a[3 * k] * ox + a[3 * k + 1] * oy + a[3 * k + 2] * oz + a[9 + k]
+          for k in range(3)]
+    d2 = [a[3 * k] * dx + a[3 * k + 1] * dy + a[3 * k + 2] * dz
+          for k in range(3)]
+    return torch.stack(o2, 1), torch.stack(d2, 1)
+
+
+def normal_to_world(n, ab):
+    """Object-space normals (R, 3) through each ray's instance (ab (R, 12)):
+    n_w[a] = (n0 A[0][a] + n1 A[1][a]) + n2 A[2][a], the inverse-transpose
+    in row-vector form (rtc_tpu mesh_intersect.py:1094-1096), unnormalized."""
+    n0, n1, n2 = n.unbind(1)
+    a = ab.unbind(-1)
+    return torch.stack([n0 * a[c] + n1 * a[3 + c] + n2 * a[6 + c]
+                        for c in range(3)], 1)
+
+
+def _real_instances(p1, inst_aabb, inst_mesh, tm: int):
+    """(instance, mesh) of every instance with a non-empty world box and a
+    mesh in the tables, in index order. Padding instances (identity, mesh
+    0, empty box) are left out by their box alone."""
+    n_mesh = p1.shape[0] // tm
+    real = (inst_aabb[:, :3] <= inst_aabb[:, 3:]).all(1)
+    return [(k, m) for k, (r, m) in enumerate(zip(real.tolist(),
+                                                   inst_mesh.tolist()))
+            if r and 0 <= m < n_mesh]
+
+
+def _tlas_result(o, d, t, inst, row, payload, p1, e1, e2, inst_ab,
+                 inst_mesh, inst_obj, tm: int, smooth: bool, eps):
+    """K5's outputs from the winner (inst, mesh row; inst -1 on a miss):
+    (t, enc i32, obj i32, n). n is the winner's object face normal, or
+    with smooth its corner blend at its (u, v) in its instance's object
+    space, pushed to world space; zeros on a miss."""
+    hit = inst >= 0
+    k = inst.clamp_min(0)
+    ab = inst_ab[k]
+    enc = torch.where(hit, k * tm + row - inst_mesh[k].long() * tm, -1)
+    obj = torch.where(hit, inst_obj[k], 0)
+    if smooth:
+        n_obj = smooth_blend(*instance_rays(o, d, ab), p1, e1, e2, payload,
+                             torch.where(hit, row, -1), eps)
+    else:
+        n_obj = payload[row]
+    n = torch.where(hit[:, None], normal_to_world(n_obj, ab), 0.0)
+    return t, enc.to(torch.int32), obj.to(torch.int32), n
+
+
+def _closest_tlas_plain(o, d, p1, e1, e2, payload, inst_ab, inst_aabb,
+                        inst_mesh, inst_obj, leaf: int, cm: int, eps,
+                        smooth: bool):
+    """The real instances in index order, each a dense sweep of its mesh's
+    rows on the instance-space rays; the minimum t by strict <, so a tie
+    goes to the lower instance, then the lower row."""
+    R, tm = o.shape[0], cm * leaf
+    t_best = torch.full((R,), BIG, dtype=o.dtype, device=o.device)
+    inst = torch.full((R,), -1, dtype=torch.int64, device=o.device)
+    row = torch.zeros((R,), dtype=torch.int64, device=o.device)
+    for k, m in _real_instances(p1, inst_aabb, inst_mesh, tm):
+        rows = slice(m * tm, (m + 1) * tm)
+        t, idx = _closest_plain(*instance_rays(o, d, inst_ab[k]), p1[rows],
+                                e1[rows], e2[rows], eps)
+        better = t < t_best
+        t_best = torch.where(better, t, t_best)
+        inst = torch.where(better, k, inst)
+        row = torch.where(better, m * tm + idx.long(), row)
+    return _tlas_result(o, d, t_best, inst, row, payload, p1, e1, e2,
+                        inst_ab, inst_mesh, inst_obj, tm, smooth, eps)
+
+
+def closest_hit_tlas_plain(o, d, p1, e1, e2, tri_n, inst_ab, inst_aabb,
+                           inst_mesh, inst_obj, leaf: int, cm: int,
+                           eps: float = EPSILON):
+    """K5's plain version: (t (BIG on a miss), enc = instance * cm * leaf
+    + mesh-local row (-1), obj (0), n) with n the winner's object face
+    normal (tri_n, (M * cm * leaf, 3)) pushed to world, unnormalized."""
+    return _closest_tlas_plain(o, d, p1, e1, e2, tri_n, inst_ab, inst_aabb,
+                               inst_mesh, inst_obj, leaf, cm, eps, False)
+
+
+def closest_hit_tlas_sn_plain(o, d, p1, e1, e2, tri_sn, inst_ab, inst_aabb,
+                              inst_mesh, inst_obj, leaf: int, cm: int,
+                              eps: float = EPSILON):
+    """K5 with_sn's plain version: as closest_hit_tlas_plain, with n the
+    winner's object corner normals (tri_sn, (M * cm * leaf, 9)) blended by
+    its (u, v) in its instance's object space, pushed to world."""
+    return _closest_tlas_plain(o, d, p1, e1, e2, tri_sn, inst_ab, inst_aabb,
+                               inst_mesh, inst_obj, leaf, cm, eps, True)
+
+
+def any_hit_tlas_plain(o, d, max_t, p1, e1, e2, inst_ab, inst_aabb,
+                       inst_mesh, leaf: int, cm: int, eps: float = EPSILON):
+    """K6's plain version: does any real instance hold a triangle at t in
+    [0, max_t)? Each real instance's rows are swept densely on the
+    instance-space rays; max_t <= 0 marks a dead lane."""
+    out = torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
+    tm = cm * leaf
+    for k, m in _real_instances(p1, inst_aabb, inst_mesh, tm):
+        rows = slice(m * tm, (m + 1) * tm)
+        out |= any_hit_plain(*instance_rays(o, d, inst_ab[k]), max_t,
+                             p1[rows], e1[rows], e2[rows], eps)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # build and binding
 # ---------------------------------------------------------------------------
@@ -263,9 +387,16 @@ def library() -> ctypes.CDLL:
     lib.rtc_closest_shadow_sn.argtypes = shadow
     lib.rtc_crossing_count.argtypes = [I, P, P, P, P, P, I, P, P, P, P, P, P,
                                        I, I, F, I, P, P]
+    closest_tlas = [I, P, P, P, I, P, P, P, P, P, I, I, I, P, P, P, P, I, F,
+                    P, P, P, P]
+    lib.rtc_closest_hit_tlas.argtypes = closest_tlas
+    lib.rtc_closest_hit_tlas_sn.argtypes = closest_tlas
+    lib.rtc_any_hit_tlas.argtypes = [I, P, P, P, P, I, P, P, P, P, I, I, I, P,
+                                     P, P, I, F, P]
     for fn in (lib.rtc_closest_hit, lib.rtc_closest_hit_sn, lib.rtc_any_hit,
                lib.rtc_closest_shadow, lib.rtc_closest_shadow_sn,
-               lib.rtc_crossing_count):
+               lib.rtc_crossing_count, lib.rtc_closest_hit_tlas,
+               lib.rtc_closest_hit_tlas_sn, lib.rtc_any_hit_tlas):
         fn.restype = I
     lib.rtc_error_string.argtypes = [I]
     lib.rtc_error_string.restype = ctypes.c_char_p
@@ -445,3 +576,97 @@ def mesh_crossing_count(o, d, t_hit, hit_gid, tri_p1, tri_e1, tri_e2,
         _raise_on(err, "crossing_count")
         LAUNCHES["crossing_count"] += 1
     return cnt, last
+
+
+def _tlas_launch_args(o, d, p1, e1, e2, caabb, inst_ab, inst_aabb,
+                      inst_mesh, inst_obj, leaf, cm, payload=None,
+                      payload_name="tri_n"):
+    """Validate a K5/K6 launch's inputs (inst_obj None for K6). Returns
+    (device, R, M, I)."""
+    device, R, C = _launch_args(o, d, p1, e1, e2, caabb, leaf, payload,
+                                payload_name)
+    if cm < 1 or C % cm:
+        raise ValueError(f"cm={cm} does not divide the {C} cluster boxes")
+    I = inst_aabb.shape[0]
+    _check("inst_ab", inst_ab, torch.float32, (I, 12), device)
+    _check("inst_aabb", inst_aabb, torch.float32, (I, 6), device)
+    _check("inst_mesh", inst_mesh, torch.int32, (I,), device)
+    if inst_obj is not None:
+        _check("inst_obj", inst_obj, torch.int32, (I,), device)
+    if I * cm * leaf >= 2 ** 31:
+        raise ValueError(f"{I} instances of {cm * leaf} rows overflow the "
+                         "int32 winner encoding")
+    return device, R, C // cm, I
+
+
+def _closest_tlas_launch(name, fn, o, d, p1, e1, e2, payload, payload_name,
+                         caabb, inst_ab, inst_aabb, inst_mesh, inst_obj,
+                         leaf, cm, eps):
+    """K5 in either payload mode: (t, enc, obj, n)."""
+    device, R, M, I = _tlas_launch_args(o, d, p1, e1, e2, caabb, inst_ab,
+                                        inst_aabb, inst_mesh, inst_obj, leaf,
+                                        cm, payload, payload_name)
+    t = torch.empty((R,), dtype=torch.float32, device=device)
+    enc = torch.empty((R,), dtype=torch.int32, device=device)
+    obj = torch.empty((R,), dtype=torch.int32, device=device)
+    n = torch.empty((R, 3), dtype=torch.float32, device=device)
+    if R:
+        err = fn(device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(),
+                 R, p1.data_ptr(), e1.data_ptr(), e2.data_ptr(),
+                 payload.data_ptr(), caabb.data_ptr(), M, cm, leaf,
+                 inst_ab.data_ptr(), inst_aabb.data_ptr(), inst_mesh.data_ptr(),
+                 inst_obj.data_ptr(), I, eps, t.data_ptr(), enc.data_ptr(),
+                 obj.data_ptr(), n.data_ptr())
+        _raise_on(err, name)
+        LAUNCHES[name] += 1
+    return t, enc, obj, n
+
+
+def mesh_closest_hit_tlas(o, d, p1, e1, e2, tri_n, caabb, inst_ab, inst_aabb,
+                          inst_mesh, inst_obj, leaf: int, cm: int,
+                          eps: float = EPSILON):
+    """K5: (t, enc, obj, n) as closest_hit_tlas_plain; caabb (M * cm, 6)
+    holds the unique meshes' object-space cluster boxes."""
+    if o.device.type == "cpu":
+        return closest_hit_tlas_plain(o, d, p1, e1, e2, tri_n, inst_ab,
+                                      inst_aabb, inst_mesh, inst_obj, leaf,
+                                      cm, eps)
+    return _closest_tlas_launch("closest_hit_tlas",
+                                library().rtc_closest_hit_tlas, o, d, p1, e1,
+                                e2, tri_n, "tri_n", caabb, inst_ab, inst_aabb,
+                                inst_mesh, inst_obj, leaf, cm, eps)
+
+
+def mesh_closest_hit_tlas_sn(o, d, p1, e1, e2, tri_sn, caabb, inst_ab,
+                             inst_aabb, inst_mesh, inst_obj, leaf: int,
+                             cm: int, eps: float = EPSILON):
+    """K5 with_sn: (t, enc, obj, n_blend) as closest_hit_tlas_sn_plain."""
+    if o.device.type == "cpu":
+        return closest_hit_tlas_sn_plain(o, d, p1, e1, e2, tri_sn, inst_ab,
+                                         inst_aabb, inst_mesh, inst_obj, leaf,
+                                         cm, eps)
+    return _closest_tlas_launch("closest_hit_tlas_sn",
+                                library().rtc_closest_hit_tlas_sn, o, d, p1,
+                                e1, e2, tri_sn, "tri_sn", caabb, inst_ab,
+                                inst_aabb, inst_mesh, inst_obj, leaf, cm, eps)
+
+
+def mesh_any_hit_tlas(o, d, max_t, p1, e1, e2, caabb, inst_ab, inst_aabb,
+                      inst_mesh, leaf: int, cm: int, eps: float = EPSILON):
+    """K6: (R,) bool as any_hit_tlas_plain."""
+    if o.device.type == "cpu":
+        return any_hit_tlas_plain(o, d, max_t, p1, e1, e2, inst_ab, inst_aabb,
+                                  inst_mesh, leaf, cm, eps)
+    device, R, M, I = _tlas_launch_args(o, d, p1, e1, e2, caabb, inst_ab,
+                                        inst_aabb, inst_mesh, None, leaf, cm)
+    _check("max_t", max_t, torch.float32, (R,), device)
+    hit = torch.empty((R,), dtype=torch.bool, device=device)
+    if R:
+        err = library().rtc_any_hit_tlas(
+            device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(),
+            max_t.data_ptr(), R, p1.data_ptr(), e1.data_ptr(), e2.data_ptr(),
+            caabb.data_ptr(), M, cm, leaf, inst_ab.data_ptr(),
+            inst_aabb.data_ptr(), inst_mesh.data_ptr(), I, eps, hit.data_ptr())
+        _raise_on(err, "any_hit_tlas")
+        LAUNCHES["any_hit_tlas"] += 1
+    return hit

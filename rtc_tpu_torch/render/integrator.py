@@ -6,12 +6,13 @@ the reference's budget semantics each secondary ray costs 3 budget, so
 RECURSION_LIMIT = 5 yields two shading levels (primary + one reflection
 and one refraction child).
 
-Ported: analytic prims, flat and smooth triangle meshes, patterns,
-shadows, reflection, refraction with the n1/n2 crossing census, and the
-Schlick blend. Not ported: the instanced (TLAS) path (ROADMAP queue 1 item
-14), primitive sharding (item 16) and the custom derivatives (item 8).
-Masked lanes carry finite dummy values, and dead lanes are parked outside
-every box so the kernels' traversal drops them at once.
+Ported: analytic prims, flat and smooth triangle meshes, instanced meshes
+(on the kernel path, K5 for closest hit and K6 for shadows, as rtc_tpu's
+TLAS path), patterns, shadows, reflection, refraction with the n1/n2
+crossing census, and the Schlick blend. Not ported: primitive sharding
+(ROADMAP queue 1 item 16) and the custom derivatives (item 8). Masked
+lanes carry finite dummy values, and dead lanes are parked outside every
+box so the kernels' traversal drops them at once.
 """
 
 from __future__ import annotations
@@ -59,12 +60,21 @@ def _resolve_mesh_impl(scene: Scene, cfg: RenderConfig, x) -> str:
     return impl
 
 
+def _use_tlas(scene: Scene, cfg: RenderConfig, impl: str) -> bool:
+    """The instanced path (K5, K6) serves a scene with TLAS tables on the
+    kernel backend (rtc_tpu :510-519); 'bruteforce' sweeps the world
+    table."""
+    return bool(scene.static.tlas_n_inst) and impl == "kernel"
+
+
 def _use_fused_shadow(scene: Scene, cfg: RenderConfig, impl: str) -> bool:
     """Fused closest+shadow eligibility: kernel backend, shadows on, a
-    pure-mesh scene, flat or smooth. (rtc_tpu also asks that the mesh fit
-    one VMEM block; the card has no such budget.)"""
+    pure-mesh scene, flat or smooth, not instanced (rtc_tpu :535: K3 would
+    sweep the instanced scene's whole world table). (rtc_tpu also asks
+    that the mesh fit one VMEM block; the card has no such budget.)"""
     return (cfg.fused_shadow and cfg.shadows and impl == "kernel"
-            and scene.static.n_prims == 0 and scene.static.n_tris > 0)
+            and scene.static.n_prims == 0 and scene.static.n_tris > 0
+            and not _use_tlas(scene, cfg, impl))
 
 
 def corner_normals(scene: Scene):
@@ -112,13 +122,32 @@ def prim_candidates(scene: Scene, o, d, eps, ids=None):
     return t, v
 
 
+def _tlas_closest(scene: Scene, o, d, cfg: RenderConfig):
+    """K5 on the scene's instanced tables, with_sn where the instanced
+    meshes are smooth (rtc_tpu :492-507), reported as mesh_closest reports
+    a hit, plus K5's object id: (t, idx, unit n, obj). The instance-local
+    winner maps to its world-table row through tlas.gid (rtc_tpu :585-594,
+    :673-691); idx == 0 on a miss."""
+    st, tl = scene.static, scene.tlas
+    fn = mi.mesh_closest_hit_tlas_sn if st.tlas_sn else mi.mesh_closest_hit_tlas
+    t, enc, obj, n = fn(o, d, tl.p1, tl.e1, tl.e2, tl.sn if st.tlas_sn else tl.n,
+                        tl.caabb, tl.inst_ab, tl.inst_aabb, tl.inst_mesh,
+                        tl.inst_obj, st.cluster_size, st.tlas_cm, cfg.epsilon)
+    idx = torch.where(enc >= 0, tl.gid.reshape(-1)[enc.clamp_min(0).long()], 0)
+    return t, idx, normalize(n), obj
+
+
 def mesh_closest(scene: Scene, o, d, cfg: RenderConfig):
     """Closest triangle hit: (t, idx, n); t == BIG, idx == 0 and n == 0 on
     a miss. n is the winner's unit world normal: its face normal, or for a
     smooth scene its corner normals blended by (u, v) and normalized
-    (rtc_tpu :605-618). 'kernel' launches K1 (with_n or with_sn);
-    'bruteforce' is the dense sweep."""
-    kernel = _resolve_mesh_impl(scene, cfg, o) == "kernel"
+    (rtc_tpu :605-618). 'kernel' launches K1 (with_n or with_sn), or K5
+    for an instanced scene; 'bruteforce' is the dense sweep of the world
+    table."""
+    impl = _resolve_mesh_impl(scene, cfg, o)
+    if _use_tlas(scene, cfg, impl):
+        return _tlas_closest(scene, o, d, cfg)[:3]
+    kernel = impl == "kernel"
     tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
     if scene.static.any_smooth:
         snc = corner_normals(scene)
@@ -165,7 +194,10 @@ def closest_hit(scene: Scene, o, d, cfg: RenderConfig) -> HitInfo:
     idx_t = torch.zeros((R,), **i32)
     tri_obj = torch.zeros((R,), **i32)
     tri_n = torch.zeros_like(o)
-    if st.n_tris:
+    if st.n_tris and _use_tlas(scene, cfg, _resolve_mesh_impl(scene, cfg, o)):
+        # K5 selects the winner's object id itself
+        t_t, idx_t, tri_n, tri_obj = _tlas_closest(scene, o, d, cfg)
+    elif st.n_tris:
         t_t, idx_t, tri_n = mesh_closest(scene, o, d, cfg)
         tri_obj = _tri_obj(scene, idx_t)
     is_tri = t_t < t_p
@@ -200,8 +232,9 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
     """Shadow ray toward the light (reference: src/world.rs:100-114).
 
     `hit().t < distance` is "any candidate t in [0, distance)": a dense
-    prim sweep OR the any-hit kernel (or its plain sweep) on the
-    triangles. live: optional (R,) bool; dead lanes get max_t = -1 and
+    prim sweep OR the any-hit kernel on the triangles (K6 on an instanced
+    scene's tables, K2 otherwise; the plain sweep of the world table on
+    'bruteforce'). live: optional (R,) bool; dead lanes get max_t = -1 and
     report unshadowed.
     """
     px, py, pz = unpack3(point)
@@ -219,7 +252,15 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
                               & (t < distance[:, None, None])).flatten(1), dim=1)
     if st.n_tris:
         tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
-        if _resolve_mesh_impl(scene, cfg, point) == "kernel":
+        impl = _resolve_mesh_impl(scene, cfg, point)
+        if _use_tlas(scene, cfg, impl):
+            tl = scene.tlas
+            found = mi.mesh_any_hit_tlas(point, direction, distance, tl.p1,
+                                         tl.e1, tl.e2, tl.caabb, tl.inst_ab,
+                                         tl.inst_aabb, tl.inst_mesh,
+                                         st.cluster_size, st.tlas_cm,
+                                         cfg.epsilon)
+        elif impl == "kernel":
             found = mi.mesh_any_hit(point, direction, distance, *tabs,
                                     scene.cluster_aabb,
                                     st.cluster_size, cfg.epsilon)

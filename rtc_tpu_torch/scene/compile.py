@@ -14,16 +14,17 @@ made once, at the end, on the requested device.
 Object ids: analytic prims come first, then triangle leaves
 (n_prims + leaf index), as in rtc_tpu.
 
-Not ported: the instanced (TLAS) tables. A multi-mesh world large enough
-for rtc_tpu to instance raises NotImplementedError naming its ROADMAP item
-rather than rendering on another path. rtc_tpu's refr_tri_* container
-slabs are not kept: the port's census reads tri_cid over the global
-triangle tables.
+A world of many mesh leaves that rtc_tpu renders through its instanced
+(TLAS) path also gets rtc_tpu's TlasTables (_build_tlas), minus inst_rf,
+the Plücker feature transform that only feeds rtc_tpu's MXU. rtc_tpu's
+refr_tri_* container slabs are not kept: the port's census reads tri_cid
+over the global triangle tables.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -40,9 +41,13 @@ CLUSTER_SIZE = 128
 # equal rtc_tpu's; the port's kernels read cluster_aabb only)
 SUPER_WIDTH = 8
 
-# above this many triangles rtc_tpu renders a multi-mesh world through its
-# instanced TLAS tables (rtc_tpu/ops/pallas/mesh_intersect.py VMEM_TRI_BUDGET)
-TLAS_TRI_THRESHOLD = 49152
+# rtc_tpu's VMEM triangle budget (rtc_tpu/ops/pallas/mesh_intersect.py
+# VMEM_TRI_BUDGET). It is a TPU artifact: a world of mesh leaves whose
+# padded table exceeds it, and whose unique meshes fit it, takes the
+# instanced (TLAS) path. The port keeps the rule unchanged so that the same
+# worlds take that path in both packages and the tables compare element
+# for element; the CUDA kernels themselves take any size.
+VMEM_TRI_BUDGET = 49152
 
 # infinite cylinder/cone extents are clamped so f32 arithmetic stays finite
 Y_INF = 1e9
@@ -68,6 +73,37 @@ class SceneStatic(NamedTuple):
     # triangles carry slot k = position in this tuple in Scene.tri_cid
     refr_prim_ids: Tuple[int, ...] = ()
     refr_mesh_obj_ids: Tuple[int, ...] = ()
+    # instanced (TLAS) tables: tlas_n_inst instances (0: Scene.tlas is
+    # None) of tlas_n_mesh unique meshes, each padded to tlas_cm clusters,
+    # so an instance-local winner is enc = inst * tlas_cm * cluster_size +
+    # row; tlas_sn: TlasTables.sn carries object-space corner normals
+    tlas_n_inst: int = 0
+    tlas_n_mesh: int = 0
+    tlas_cm: int = 0
+    tlas_sn: bool = False
+
+
+class TlasTables(NamedTuple):
+    """Instanced two-level tables (rtc_tpu/scene/compile.py:78-108): the
+    unique meshes once, in OBJECT space, and per instance the world->object
+    map and world box. A ray mapped by A o + b, A d (not renormalized) hits
+    at the same t as in world space, so one carried t_best serves every
+    instance. Padding instances carry the identity, mesh 0 and an empty box
+    (lo 1 > hi -1): only the box keeps them out."""
+
+    p1: torch.Tensor         # (M * cm * leaf, 3) object space
+    e1: torch.Tensor         # (M * cm * leaf, 3)
+    e2: torch.Tensor         # (M * cm * leaf, 3)
+    n: torch.Tensor          # (M * cm * leaf, 3) unit object face normals
+    caabb: torch.Tensor      # (M * cm, 6) object-space cluster boxes
+    inst_ab: torch.Tensor    # (I, 12) world->object [A row-major | b]
+    inst_aabb: torch.Tensor  # (I, 6) world box per instance
+    inst_obj: torch.Tensor   # (I,) i32 object id
+    inst_mesh: torch.Tensor  # (I,) i32 unique-mesh index
+    gid: torch.Tensor        # (I, cm * leaf) i32 world-table row (pad 0)
+    # (M * cm * leaf, 9) object-space corner normals [sn1 | sn2 | sn3]
+    # ((0, 9) unless static.tlas_sn); flat meshes repeat the face normal
+    sn: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -122,11 +158,15 @@ class Scene:
     light_pos: torch.Tensor        # (3,)
     light_intensity: torch.Tensor  # (3,)
 
+    # instanced tables; None unless static.tlas_n_inst
+    tlas: TlasTables = None
     static: SceneStatic = None
 
 
-_INT_FIELDS = ("prim_kind", "prim_obj", "tri_obj", "tri_cid", "pat_kind")
-TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(Scene) if f.name != "static")
+_INT_FIELDS = ("prim_kind", "prim_obj", "tri_obj", "tri_cid", "pat_kind",
+               "inst_obj", "inst_mesh", "gid")
+TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(Scene)
+                      if f.name not in ("tlas", "static"))
 
 
 def _kd_order(centroid: np.ndarray, leaf: int) -> np.ndarray:
@@ -163,10 +203,13 @@ def _cluster_triangles(p1, e1, e2, n, obj, sn, leaf: int):
     """Spatially order the triangles (balanced k-d median split) and chunk
     them into fixed-size clusters with AABBs. sn: (3, T, 3) corner normals
     or None, permuted and padded with the rows. Padding rows have zero
-    edges, which the Möller-Trumbore det guard rejects."""
+    edges, which the Möller-Trumbore det guard rejects. Also returns src
+    (T_padded,) i32, the input row of each output row (-1 for padding),
+    which the TLAS gid table needs."""
     t = len(p1)
     order = _kd_order(p1 + (e1 + e2) / 3.0, leaf)
     p1, e1, e2, n, obj = p1[order], e1[order], e2[order], n[order], obj[order]
+    src = order.astype(np.int32)
     if sn is not None:
         sn = sn[:, order]
 
@@ -178,6 +221,7 @@ def _cluster_triangles(p1, e1, e2, n, obj, sn, leaf: int):
         z3 = np.zeros((pad, 3))
         p1, e1, e2, n = (np.concatenate([a, z3]) for a in (p1, e1, e2, n))
         obj = np.concatenate([obj, np.zeros((pad,), dtype=obj.dtype)])
+        src = np.concatenate([src, np.full((pad,), -1, dtype=np.int32)])
         if sn is not None:
             sn = np.concatenate([sn, np.zeros((3, pad, 3))], axis=1)
 
@@ -196,7 +240,126 @@ def _cluster_triangles(p1, e1, e2, n, obj, sn, leaf: int):
         if real.any():
             sup[si, :3] = block[real, :3].min(axis=0)
             sup[si, 3:] = block[real, 3:].max(axis=0)
-    return p1, e1, e2, n, obj, sn, aabb, sup
+    return p1, e1, e2, n, obj, sn, aabb, sup, src
+
+
+def _box(verts: np.ndarray) -> np.ndarray:
+    return np.concatenate([verts.min(axis=0), verts.max(axis=0)])
+
+
+def _cluster_mesh(p1, e1, e2, n, sn, leaf: int):
+    """One unique mesh in object space for the TLAS tables (rtc_tpu
+    :305-331): k-d order, chunks of `leaf`, cluster boxes. sn: (T, 9) or
+    None. Returns the padded rows, src (-1 for padding) and the boxes."""
+    t = len(p1)
+    order = _kd_order(p1 + (e1 + e2) / 3.0, leaf)
+    rows = [a[order] for a in (p1, e1, e2, n)]
+    sn = None if sn is None else sn[order]
+    src = order.astype(np.int32)
+    pad = (-t) % leaf
+    if pad:
+        rows = [np.concatenate([a, np.zeros((pad, 3))]) for a in rows]
+        sn = None if sn is None else np.concatenate([sn, np.zeros((pad, 9))])
+        src = np.concatenate([src, np.full((pad,), -1, np.int32)])
+    p1, e1, e2, n = rows
+    boxes = np.stack([
+        _box(np.concatenate([p1[s], p1[s] + e1[s], p1[s] + e2[s]]))
+        for s in (slice(c * leaf, min((c + 1) * leaf, t))
+                  for c in range(len(p1) // leaf))])
+    return p1, e1, e2, n, sn, src, boxes
+
+
+def _mesh_key(s: Shape):
+    """Meshes with equal object-space vertices (and normals) share rows."""
+    h = hashlib.blake2b(digest_size=16)
+    for a in (s.v1, s.v2, s.v3, s.vn1, s.vn2, s.vn3):
+        if a is not None:
+            h.update(np.ascontiguousarray(a).tobytes())
+    return h.digest(), len(s.v1), s.vn1 is not None
+
+
+def _build_tlas(tri_leaves, inv_of, leaf: int, n_tris: int, tri_src,
+                leaf_offsets, n_prims: int):
+    """rtc_tpu's instanced tables (scene/compile.py:334-471), as numpy.
+
+    Eligible, exactly as rtc_tpu: at least 2 triangle leaves, all meshes,
+    the PADDED world table above VMEM_TRI_BUDGET, and the unique meshes'
+    rows within it (43/49 of it when any mesh is smooth: rtc_tpu's VMEM
+    cost of the 9-row corner slab). Returns (tables | None, n_inst padded
+    to 8, n_mesh, cm)."""
+    if (len(tri_leaves) < 2 or n_tris <= VMEM_TRI_BUDGET
+            or any(s.kind != "mesh" for s in tri_leaves)):
+        return None, 0, 0, 0
+    use_sn = any(s.vn1 is not None for s in tri_leaves)
+    unique, inst_mesh = {}, []
+    for s in tri_leaves:
+        inst_mesh.append(unique.setdefault(_mesh_key(s), (len(unique), s))[0])
+    meshes = [rep for _, rep in sorted(unique.values(), key=lambda v: v[0])]
+
+    clustered = []
+    for rep in meshes:
+        e1o, e2o, no = triangle_edges(rep.v1, rep.v2, rep.v3)
+        sn_m = None
+        if use_sn:
+            corners = ((rep.vn1, rep.vn2, rep.vn3) if rep.vn1 is not None
+                       else (no, no, no))
+            sn_m = np.concatenate([_unit_rows(c) for c in corners], axis=1)
+        clustered.append(_cluster_mesh(rep.v1, e1o, e2o, no, sn_m, leaf))
+    cm = -(-max(len(c[6]) for c in clustered) // 8) * 8
+    n_mesh = len(meshes)
+    budget = VMEM_TRI_BUDGET * 43 // 49 if use_sn else VMEM_TRI_BUDGET
+    if n_mesh * cm * leaf > budget:
+        return None, 0, 0, 0
+
+    tm = cm * leaf
+    p1, e1, e2, nrm = (np.zeros((n_mesh * tm, 3)) for _ in range(4))
+    snc = np.zeros((n_mesh * tm if use_sn else 0, 9))
+    caabb = _empty_boxes(n_mesh * cm)
+    mesh_src = np.full((n_mesh, tm), -1, np.int32)
+    for m, (mp1, me1, me2, mn, msn, msrc, mab) in enumerate(clustered):
+        rows = slice(m * tm, m * tm + len(mp1))
+        p1[rows], e1[rows], e2[rows], nrm[rows] = mp1, me1, me2, mn
+        if use_sn:
+            snc[rows] = msn
+        mesh_src[m, :len(mp1)] = msrc
+        caabb[m * cm:m * cm + len(mab)] = mab
+
+    # pre-cluster row of the world table -> its final (clustered) row
+    world_of = np.zeros((max(int(tri_src.max()) + 1, 1),), np.int64)
+    real = tri_src >= 0
+    world_of[tri_src[real]] = np.nonzero(real)[0]
+
+    n_inst = len(tri_leaves)
+    i_pad = -(-n_inst // 8) * 8
+    inst_ab = np.zeros((i_pad, 12))
+    inst_ab[:, [0, 4, 8]] = 1.0  # identity padding
+    inst_aabb = _empty_boxes(i_pad)
+    inst_obj = np.zeros((i_pad,), np.int32)
+    inst_mesh_p = np.zeros((i_pad,), np.int32)
+    inst_mesh_p[:n_inst] = inst_mesh
+    gid = np.zeros((i_pad, tm), np.int32)
+    corners = np.stack(np.meshgrid(*[[0, 1]] * 3, indexing="ij"),
+                       axis=-1).reshape(8, 3)
+    for i, s in enumerate(tri_leaves):
+        m = inst_mesh[i]
+        inv = inv_of[id(s)]
+        inst_ab[i, :9] = inv[:3, :3].reshape(9)
+        inst_ab[i, 9:] = inv[:3, 3]
+        inst_obj[i] = n_prims + i
+        # world box: the mesh's cluster boxes' 8 corners through the
+        # instance's object->world map
+        boxes = clustered[m][6]
+        pts = (boxes[:, None, :3] * (1 - corners)[None]
+               + boxes[:, None, 3:] * corners[None]).reshape(-1, 3)
+        o2w = s.transform
+        inst_aabb[i] = _box(pts @ o2w[:3, :3].T + o2w[:3, 3])
+        msrc = mesh_src[m]
+        gid[i] = np.where(msrc >= 0,
+                          world_of[leaf_offsets[i] + np.maximum(msrc, 0)], 0)
+    tables = dict(p1=p1, e1=e1, e2=e2, n=nrm, caabb=caabb, inst_ab=inst_ab,
+                  inst_aabb=inst_aabb, inst_obj=inst_obj,
+                  inst_mesh=inst_mesh_p, gid=gid, sn=snc)
+    return tables, i_pad, n_mesh, cm
 
 
 def _flatten(world: World):
@@ -212,15 +375,6 @@ def _flatten(world: World):
     for obj in world.objects:
         walk(obj)
     return leaves
-
-
-def _refuse_unported(tri_leaves, n_tris: int) -> None:
-    """Raise for a world that rtc_tpu renders through its instanced tables."""
-    if (len(tri_leaves) >= 2 and n_tris > TLAS_TRI_THRESHOLD
-            and all(s.kind == "mesh" for s in tri_leaves)):
-        raise NotImplementedError(
-            "rtc_tpu_torch does not render instanced multi-mesh worlds "
-            "(TLAS, ROADMAP queue 1 item 14) yet")
 
 
 def _unit_rows(a: np.ndarray) -> np.ndarray:
@@ -246,7 +400,6 @@ def compile_scene(world: World, dtype: torch.dtype = torch.float32,
     objects = prims + tri_leaves  # object-id space
     n_prims, n_objects = len(prims), len(prims) + len(tri_leaves)
     n_tris_raw = sum(1 if s.kind == "triangle" else len(s.v1) for s in tri_leaves)
-    _refuse_unported(tri_leaves, n_tris_raw)
     inv_of = {id(s): np.linalg.inv(s.transform) for s in objects}
 
     # --- analytic prims ---------------------------------------------------
@@ -264,6 +417,7 @@ def compile_scene(world: World, dtype: torch.dtype = torch.float32,
     # --- triangles ----------------------------------------------------------
     any_smooth = any(s.kind == "mesh" and s.vn1 is not None for s in tri_leaves)
     tp1, te1, te2, tn, tobj, tsn = [], [], [], [], [], []
+    leaf_offsets = []  # first pre-cluster row of each leaf
     for li, s in enumerate(tri_leaves):
         if s.kind == "triangle":
             v1, v2, v3 = s.p1[None, :], s.p2[None, :], s.p3[None, :]
@@ -279,6 +433,7 @@ def compile_scene(world: World, dtype: torch.dtype = torch.float32,
         w3 = v3 @ m[:3, :3].T + m[:3, 3]
         # world normal = normalize(invT @ n_obj) (src/shape.rs:623-635)
         nw = _unit_rows(n_obj @ inv[:3, :3])
+        leaf_offsets.append(sum(len(a) for a in tp1))
         tp1.append(w1)
         te1.append(w2 - w1)
         te2.append(w3 - w1)
@@ -294,12 +449,16 @@ def compile_scene(world: World, dtype: torch.dtype = torch.float32,
     tri_sn = np.concatenate(tsn, axis=1) if tsn else None
 
     n_clusters = 0
+    tlas, n_inst, n_mesh, cm = None, 0, 0, 0
     if n_tris_raw:
         (tri_p1, tri_e1, tri_e2, tri_n, tri_obj, tri_sn, cluster_aabb,
-         super_aabb) = _cluster_triangles(
+         super_aabb, tri_src) = _cluster_triangles(
             np.concatenate(tp1), np.concatenate(te1), np.concatenate(te2),
             np.concatenate(tn), np.concatenate(tobj), tri_sn, CLUSTER_SIZE)
         n_clusters = len(cluster_aabb)
+        tlas, n_inst, n_mesh, cm = _build_tlas(
+            tri_leaves, inv_of, CLUSTER_SIZE, len(tri_p1), tri_src,
+            leaf_offsets, n_prims)
     else:
         tri_p1 = tri_e1 = tri_e2 = tri_n = np.zeros((0, 3))
         tri_obj = np.zeros((0,), dtype=np.int32)
@@ -386,34 +545,44 @@ def compile_scene(world: World, dtype: torch.dtype = torch.float32,
         single_tri_obj=n_prims if len(tri_leaves) == 1 else -1,
         refr_prim_ids=refr_prim_ids,
         refr_mesh_obj_ids=refr_mesh_obj_ids,
+        tlas_n_inst=n_inst,
+        tlas_n_mesh=n_mesh,
+        tlas_cm=cm,
+        tlas_sn=bool(tlas is not None and len(tlas["sn"])),
     )
-    return _to_scene(arrays, static, dtype, device)
+    return _to_scene(arrays, static, dtype, device, tlas)
 
 
-def _to_scene(arrays: dict, static: SceneStatic, dtype, device) -> Scene:
-    tensors = {
-        k: torch.tensor(np.asarray(arrays[k]),
-                        dtype=torch.int32 if k in _INT_FIELDS else dtype,
-                        device=device)
-        for k in TENSOR_FIELDS
-    }
-    return Scene(**tensors, static=static)
+def _tensors(arrays: dict, names, dtype, device) -> dict:
+    return {k: torch.tensor(np.asarray(arrays[k]),
+                            dtype=torch.int32 if k in _INT_FIELDS else dtype,
+                            device=device)
+            for k in names}
+
+
+def _to_scene(arrays: dict, static: SceneStatic, dtype, device,
+              tlas: dict | None = None) -> Scene:
+    if tlas is not None:
+        tlas = TlasTables(**_tensors(tlas, TlasTables._fields, dtype, device))
+    return Scene(**_tensors(arrays, TENSOR_FIELDS, dtype, device), tlas=tlas,
+                 static=static)
 
 
 def scene_from_numpy(arrays: dict, static: dict, device) -> Scene:
     """The port's Scene from another compiler's tables, passed as numpy.
 
     arrays: field name -> numpy array (rtc_tpu's Scene fields of the same
-    names; extra fields are ignored), in float32 or float64. static:
-    rtc_tpu's SceneStatic as a dict (extra keys are ignored). Raises
-    NotImplementedError for an instanced (TLAS) scene, as compile_scene
-    does.
+    names; extra fields are ignored), in float32 or float64; for an
+    instanced scene (static["tlas_n_inst"] > 0) also arrays["tlas"], a
+    dict of rtc_tpu's TlasTables fields (inst_rf and other extra fields
+    are ignored). static: rtc_tpu's SceneStatic as a dict (extra keys are
+    ignored).
     """
-    if static.get("tlas_n_inst", 0):
-        raise NotImplementedError(
-            "scene_from_numpy: instanced (TLAS) scenes are not ported yet "
-            "(ROADMAP queue 1 item 14)")
     dtype = {np.dtype(np.float32): torch.float32,
              np.dtype(np.float64): torch.float64}[np.asarray(arrays["tri_p1"]).dtype]
     st = SceneStatic(**{k: static[k] for k in SceneStatic._fields})
-    return _to_scene(arrays, st, dtype, device)
+    tlas = arrays.get("tlas") if st.tlas_n_inst else None
+    if st.tlas_n_inst and tlas is None:
+        raise ValueError("scene_from_numpy: static.tlas_n_inst > 0 but "
+                         "arrays has no 'tlas' tables")
+    return _to_scene(arrays, st, dtype, device, tlas)

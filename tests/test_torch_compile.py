@@ -11,15 +11,17 @@ import torch
 
 import jax.numpy as jnp
 from rtc_tpu.models.scenes import REGISTRY as JAX_REGISTRY
+from rtc_tpu.models.scenes import cow_herd_smooth_world as jax_cow_herd_smooth_world
 from rtc_tpu.render.camera import camera_rays as jax_camera_rays
 from rtc_tpu.scene.compile import compile_scene as jax_compile_scene
 from rtc_tpu.utils.profiling import rays_per_pixel as jax_rays_per_pixel
 from rtc_tpu_torch.io.obj import Parser
-from rtc_tpu_torch.models.scenes import ASSETS, REGISTRY
+from rtc_tpu_torch.models.scenes import ASSETS, REGISTRY, cow_herd_smooth_world
 from rtc_tpu_torch.render.camera import camera_rays
 from rtc_tpu_torch.scene import shapes
 from rtc_tpu_torch.scene.compile import (TENSOR_FIELDS, SceneStatic,
-                                         compile_scene, scene_from_numpy)
+                                         TlasTables, compile_scene,
+                                         scene_from_numpy)
 from rtc_tpu_torch.scene.materials import STRIPE, Material, Pattern
 from rtc_tpu_torch.scene.world import PointLight, World
 from rtc_tpu_torch.utils.config import RenderConfig
@@ -74,28 +76,22 @@ def _tri_world(**material):
     return World(objects=[tri], light=PointLight((0, 5, -5), (1, 1, 1)))
 
 
-def _unported_worlds():
-    herd = World(objects=[shapes.mesh(*(np.zeros((30000, 3)),) * 3)
-                          for _ in range(2)])
-    return {"instanced": herd}
-
-
-@pytest.mark.parametrize("kind", sorted(_unported_worlds()))
-def test_unported_features_raise(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_scene(_unported_worlds()[kind])
-
-
 def _slice_worlds():
     """Worlds with one feature each that compile_scene refused before the
-    smooth and glass meshes were ported."""
+    smooth and glass meshes, and then instanced meshes, were ported. The
+    instanced world is two copies of one 30,000-triangle mesh: 60,416
+    padded world rows exceed rtc_tpu's VMEM budget of 49,152, so both
+    packages build TLAS tables for it."""
     glass = _tri_world(transparency=0.9, refractive_index=1.5)
     patterned = _tri_world(pattern=Pattern(STRIPE))
     smooth = World(objects=[shapes.mesh(
         [[0, 1, 0]], [[-1, 0, 0]], [[1, 0, 0]],
         vn1=[[0, 0, -1]], vn2=[[0, 0, -1]], vn3=[[0, 0, -1]])])
+    herd = World(objects=[shapes.mesh(*(np.zeros((30000, 3)),) * 3)
+                          for _ in range(2)])
     return {"sphere": World(objects=[shapes.sphere()]),
-            "pattern": patterned, "refractive": glass, "smooth": smooth}
+            "pattern": patterned, "refractive": glass, "smooth": smooth,
+            "instanced": herd}
 
 
 @pytest.mark.parametrize("kind", sorted(_slice_worlds()))
@@ -104,11 +100,21 @@ def test_slice_features_compile(kind):
     flags = dict(sphere=st.n_prims == 1 and st.n_tris == 0,
                  pattern=st.any_pattern,
                  refractive=st.any_refractive and st.refr_mesh_obj_ids == (0,),
-                 smooth=st.any_smooth)
+                 smooth=st.any_smooth,
+                 # rtc_tpu's counts for this world
+                 instanced=(st.tlas_n_inst, st.tlas_n_mesh, st.tlas_cm) == (8, 1, 240))
     assert flags[kind]
 
 
-SLICE_SCENES = ("teapot_smooth", "glass_teapot", "teddy")
+# the smooth 3x3 herd: 9 instances of the smooth cow (52,236 triangles),
+# instanced in both packages
+SLICE_SCENES = ("teapot_smooth", "glass_teapot", "teddy", "herd3x3_smooth")
+
+
+def _slice_world(name: str, jax: bool):
+    if name == "herd3x3_smooth":
+        return (jax_cow_herd_smooth_world if jax else cow_herd_smooth_world)(3, 3)
+    return (JAX_REGISTRY if jax else REGISTRY)[name](24)[0]
 
 
 @pytest.fixture(scope="module")
@@ -118,20 +124,25 @@ def slice_scenes():
     for name in SLICE_SCENES:
         for dtype, (np_dt, torch_dt) in DTYPES.items():
             out[name, dtype] = (
-                jax_compile_scene(JAX_REGISTRY[name](24)[0], dtype=np_dt),
-                compile_scene(REGISTRY[name](24)[0], dtype=torch_dt))
+                jax_compile_scene(_slice_world(name, True), dtype=np_dt),
+                compile_scene(_slice_world(name, False), dtype=torch_dt))
     return out
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("name", SLICE_SCENES)
 def test_compile_matches_rtc_tpu_slice_scenes(slice_scenes, name, dtype):
-    """Corner normals, prim, pattern and container tables, object ids and
-    static fields equal rtc_tpu's element for element."""
+    """Corner normals, prim, pattern and container tables, object ids,
+    instanced (TLAS) tables and static fields equal rtc_tpu's element for
+    element."""
     jax_scene, scene = slice_scenes[name, dtype]
-    for field in TENSOR_FIELDS:
-        ref = np.asarray(getattr(jax_scene, field))
-        got = getattr(scene, field).numpy()
+    tables = [(f, getattr(jax_scene, f), getattr(scene, f)) for f in TENSOR_FIELDS]
+    assert (scene.tlas is None) == (jax_scene.tlas is None)
+    if scene.tlas is not None:
+        tables += [(f, getattr(jax_scene.tlas, f), getattr(scene.tlas, f))
+                   for f in TlasTables._fields]
+    for field, ref, got in tables:
+        ref, got = np.asarray(ref), got.numpy()
         assert got.dtype == ref.dtype and got.shape == ref.shape, field
         assert np.array_equal(got, ref), field
     for field in SceneStatic._fields:
@@ -142,6 +153,8 @@ def test_compile_matches_rtc_tpu_slice_scenes(slice_scenes, name, dtype):
         # the plane is object 0, so the teapot's triangles are object 1
         assert (st.n_prims, st.single_tri_obj, st.refr_mesh_obj_ids) == (1, 1, (1,))
         assert int((scene.tri_cid == 0).sum()) == 6320
+    if name == "herd3x3_smooth":
+        assert (st.tlas_n_inst, st.tlas_n_mesh, st.tlas_cm, st.tlas_sn) == (16, 1, 48, True)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -152,7 +165,7 @@ def test_scene_from_numpy_round_trips_glass_teapot(slice_scenes, dtype):
     assert carried.static == scene.static
     for field in TENSOR_FIELDS:
         assert torch.equal(getattr(carried, field), getattr(scene, field)), field
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="tlas"):
         scene_from_numpy(arrays, dict(jax_scene.static._asdict(), tlas_n_inst=8),
                          device="cpu")
 

@@ -1,7 +1,8 @@
-"""The CUDA kernels K1-K4 against their plain PyTorch versions on the card,
-at small sizes and on edge cases: ragged ray counts, padding clusters,
-parked rays, axis-parallel directions, empty batches and bad inputs; and
-the smooth and glass scenes rendered through the kernels.
+"""The CUDA kernels K1-K6 against their plain PyTorch versions on the card,
+at small sizes and on edge cases: ragged ray counts, padding clusters and
+padding instances, parked rays, axis-parallel directions, dead lanes,
+empty batches and bad inputs; and the smooth, glass and instanced scenes
+rendered through the kernels.
 
 These tests need a CUDA device and nvcc, and skip elsewhere. This file
 imports neither jax nor rtc_tpu, so on the GPU machine it runs without the
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from rtc_tpu_torch.models.scenes import REGISTRY
+from rtc_tpu_torch.models.scenes import REGISTRY, _cam, cow_herd_world
 from rtc_tpu_torch.ops.kernels import mesh_intersect as mi
 from rtc_tpu_torch.render import integrator
 from rtc_tpu_torch.render.camera import camera_rays
@@ -326,6 +327,159 @@ def test_render_slice_scene_through_kernels_matches_plain(cuda, name):
             {"closest_hit_sn": 6, "any_hit": 6, "crossing_count": 2})
     assert mi.LAUNCHES == dict(dict.fromkeys(mi.LAUNCHES, 0), **want)
     ref = render(scene, cam, RenderConfig(ray_tile=4096, mesh_impl="bruteforce"))
+    err = (img - ref).abs().amax(dim=2).flatten()
+    assert float(torch.quantile(err, 0.999)) < 2e-3
+    assert int((err > 0.05).sum()) <= 3
+
+
+# --- instanced meshes (TLAS): K5 flat and with_sn, K6 ----------------------
+
+def _rotation(rng):
+    """A random rotation (Rodrigues' formula about a random axis)."""
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    a = rng.uniform(0.0, 2.0 * np.pi)
+    return np.eye(3) + np.sin(a) * k + (1.0 - np.cos(a)) * (k @ k)
+
+
+def _instanced_soup(rng, cuda, smooth=False, n_inst=45):
+    """Two unique random meshes of 10 clusters, instanced n_inst times in
+    turn with random rotations, non-uniform scales (0.4-2 per axis) and
+    translations: 58,368 padded world rows, so the scene compiles to TLAS
+    tables (M = 2, cm = 16, 45 instances padded to 48). Random unit corner
+    normals when smooth. Plus 2,000 rays from a sphere of radius 25 toward
+    points of the herd's box, 64 of them through the world origin, where
+    the padding instances' untransformed mesh 0 sits."""
+    meshes = []
+    for _ in range(2):
+        c = rng.uniform(-1.5, 1.5, (1280, 3))
+        v = [c + rng.normal(0, 0.15, (1280, 3)) for _ in range(3)]
+        vn = [rng.normal(size=(1280, 3)) for _ in range(3)] if smooth else [None] * 3
+        meshes.append(v + vn)
+    objects = []
+    for k in range(n_inst):
+        m = np.eye(4)
+        m[:3, :3] = _rotation(rng) @ np.diag(rng.uniform(0.4, 2.0, 3))
+        m[:3, 3] = rng.uniform(-8.0, 8.0, 3)
+        objects.append(mesh(*meshes[k % 2], transform=m))
+    scene = compile_scene(World(objects=objects,
+                                light=PointLight((0, 30, -20), (1, 1, 1))),
+                          device=cuda)
+    st = scene.static
+    assert (st.tlas_n_inst, st.tlas_n_mesh, st.tlas_cm, st.tlas_sn) == (48, 2, 16, smooth)
+    o = rng.normal(size=(2000, 3))
+    o *= 25.0 / np.linalg.norm(o, axis=1, keepdims=True)
+    target = rng.uniform(-8.0, 8.0, (2000, 3))
+    target[:64] = 0.0
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return scene, *_scene_rays(scene, o, d)
+
+
+def _tlas_args(scene, k5: bool):
+    tl, st = scene.tlas, scene.static
+    if not k5:
+        return (tl.p1, tl.e1, tl.e2, tl.caabb, tl.inst_ab, tl.inst_aabb,
+                tl.inst_mesh, st.cluster_size, st.tlas_cm)
+    return (tl.p1, tl.e1, tl.e2, tl.sn if st.tlas_sn else tl.n, tl.caabb,
+            tl.inst_ab, tl.inst_aabb, tl.inst_mesh, tl.inst_obj,
+            st.cluster_size, st.tlas_cm)
+
+
+def _tlas_pair(scene, o, d, max_t):
+    """K5 (of the scene's payload mode) and K6 with their plain versions."""
+    args = _tlas_args(scene, True)
+    plain_args = args[:4] + args[5:]  # the plain versions take no caabb
+    k6_args = _tlas_args(scene, False)
+    if scene.static.tlas_sn:
+        k5 = mi.mesh_closest_hit_tlas_sn(o, d, *args)
+        p5 = mi.closest_hit_tlas_sn_plain(o, d, *plain_args)
+    else:
+        k5 = mi.mesh_closest_hit_tlas(o, d, *args)
+        p5 = mi.closest_hit_tlas_plain(o, d, *plain_args)
+    k6 = mi.mesh_any_hit_tlas(o, d, max_t, *k6_args)
+    p6 = mi.any_hit_tlas_plain(o, d, max_t, *(k6_args[:3] + k6_args[4:]))
+    torch.cuda.synchronize()
+    return (k5, p5), (k6, p6)
+
+
+@pytest.mark.parametrize("smooth", [False, True])
+def test_tlas_kernels_match_plain(cuda, smooth):
+    """K5 (flat, with_sn) and K6 on the random instanced soup: K5 and its
+    plain version transform the ray and run the pair test in one order, so
+    t, enc, obj and n are bit-equal (ties between two triangles at one f32
+    t, where the winners could differ, do not occur on this soup); K6
+    within max(2, R/2048) flips; a quarter of K6's lanes dead."""
+    scene, o, d = _instanced_soup(np.random.default_rng(7), cuda, smooth)
+    max_t = torch.rand((2000,), generator=torch.Generator().manual_seed(7)) * 40.0
+    max_t[::4] = -1.0
+    (k5, p5), (k6, p6) = _tlas_pair(scene, o, d, max_t.to(cuda))
+    for got, ref in zip(k5, p5):
+        assert torch.equal(got, ref)
+    t, enc, obj, n = k5
+    hit = enc >= 0
+    assert 500 < int(hit.sum()) < 2000
+    tm = scene.static.tlas_cm * scene.static.cluster_size
+    assert torch.equal(obj[hit], scene.tlas.inst_obj[(enc[hit] // tm).long()])
+    assert (enc // tm < 45).all()  # no padding instance ever wins
+    assert int((k6 != p6).sum()) <= 2 and not k6[::4].any() and k6.any()
+
+
+def test_tlas_edge_cases(cuda):
+    """A ray that misses every instance box, parked rays, dead lanes
+    (max_t <= 0 and NaN), R = 0 launching nothing, and bad inputs raising."""
+    scene, _, _ = _instanced_soup(np.random.default_rng(8), cuda)
+    o = torch.tensor([[100.0, 100.0, 100.0], [1e12, 1e12, 1e12],
+                      [0.0, 0.0, -25.0], [0.0, 0.0, -25.0]], device=cuda)
+    d = torch.tensor([[1.0, 0.0, 0.0], [0.5773502692] * 3, [0.0, 0.0, 1.0],
+                      [0.0, 0.0, 1.0]], device=cuda)
+    max_t = torch.tensor([50.0, 50.0, 0.0, float("nan")], device=cuda)
+    (k5, p5), (k6, p6) = _tlas_pair(scene, o, d, max_t)
+    for got, ref in zip(k5, p5):
+        assert torch.equal(got, ref)
+    t, enc, obj, n = k5
+    assert (enc[:2] == -1).all() and (t[:2] == BIG).all()
+    assert (obj[:2] == 0).all() and (n[:2] == 0).all()
+    assert not k6.any() and not p6.any()
+
+    args = _tlas_args(scene, True)
+    mi.reset_launch_counts()
+    empty = torch.zeros((0, 3), device=cuda)
+    out = mi.mesh_closest_hit_tlas(empty, empty, *args)
+    assert [tuple(x.shape) for x in out] == [(0,), (0,), (0,), (0, 3)]
+    hit = mi.mesh_any_hit_tlas(empty, empty, empty[:, 0], *_tlas_args(scene, False))
+    assert hit.shape == (0,)
+    assert mi.LAUNCHES == dict.fromkeys(mi.LAUNCHES, 0)
+    o4 = torch.zeros((4, 3), device=cuda)
+    tl = scene.tlas
+    with pytest.raises(ValueError, match="dtype"):
+        mi.mesh_closest_hit_tlas(o4, o4, *args[:7], tl.inst_mesh.long(), *args[8:])
+    with pytest.raises(ValueError, match="shape"):
+        mi.mesh_closest_hit_tlas(o4, o4, *args[:3], tl.sn, *args[4:])
+    with pytest.raises(ValueError, match="cm"):
+        mi.mesh_closest_hit_tlas(o4, o4, *args[:-1], 3)
+    with pytest.raises(ValueError, match="shape"):
+        mi.mesh_any_hit_tlas(o4, o4, max_t[:3], *_tlas_args(scene, False))
+
+
+@pytest.mark.parametrize("smooth", [False, True])
+def test_render_herd_through_kernels_matches_plain(cuda, smooth):
+    """The 3x3 herd at 128x64, depth 5: K5 and K6 render it, one launch of
+    each per tile (2 tiles, one node: the herd is not reflective) and no
+    other kernel; the image within the f32 budget of
+    tests/test_pallas_mesh.py of the plain render, which sweeps the world
+    table."""
+    scene = compile_scene(cow_herd_world(3, 3, smooth), device=cuda)
+    cam = _cam(128, [0, 10, -18], [0, 3, 2])
+    mi.reset_launch_counts()
+    img = render(scene, cam, RenderConfig(ray_tile=4096))
+    k5 = "closest_hit_tlas_sn" if smooth else "closest_hit_tlas"
+    assert mi.LAUNCHES == dict(dict.fromkeys(mi.LAUNCHES, 0),
+                               **{k5: 2, "any_hit_tlas": 2})
+    ref = render(scene, cam, RenderConfig(ray_tile=4096, mesh_impl="bruteforce"))
+    assert float(img.amax()) > 0.1
     err = (img - ref).abs().amax(dim=2).flatten()
     assert float(torch.quantile(err, 0.999)) < 2e-3
     assert int((err > 0.05).sum()) <= 3
