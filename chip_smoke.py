@@ -13,11 +13,19 @@ each against its plain PyTorch version on the card: K1-K3 on the cow
 the instanced K5 (flat on cow_herd, with_sn on cow_herd_smooth) and K6
 (phase 9), timed on the herds' 460,800-ray wavefronts and held against
 their plain versions, which sweep every instance densely, on a
-57,600-ray subset of them. It renders cow (phase 5), teapot_smooth,
-glass_teapot, cow_herd and cow_herd_smooth (phase 8) at 1920x960, depth
-5, f32 through render(), counting each kernel's launches in each frame,
-and checks each image against the plain render and, where
-tests/golden has one, the golden. Each phase prints lines with the
+57,600-ray subset of them. Phase 10 holds the elementwise kernels K7a
+and K7b on cow's and cow_herd's world-table wavefronts to their plain
+versions on a subset and to one K1/K2 launch on every ray; phase 11
+checks K1's t0 contract, the superblock drivers (streamed K1, K2 and K4
+against one launch, at 2 clusters a block) and, on the 90-cow herd baked
+into one mesh leaf (11 superblocks), streamed K1 t0 and K1 uv against
+K7a on every ray. It renders cow (phase 5), teapot_smooth, glass_teapot,
+cow_herd and cow_herd_smooth (phase 8), and the new routes (phase 12:
+cow and cow_herd under mesh_impl="elementwise", the one-mesh herds
+streamed, teapot and pumpkin) at 1920x960 (the smooth one-mesh herd at
+480x240), depth 5, f32 through render(), counting each kernel's
+launches in each frame, and checks each image against the plain render
+and, where tests/golden has one, the golden. Each phase prints lines with the
 card's name and power limit. Before the last line it prints the kernels'
 JSON record (times and max_abs_err from those wavefronts; launches from
 the frame that runs each kernel, named in "frame") and the card line;
@@ -37,7 +45,7 @@ import time
 import numpy as np
 import torch
 
-from rtc_tpu_torch.models.scenes import REGISTRY
+from rtc_tpu_torch.models.scenes import REGISTRY, TEST_WORLDS
 from rtc_tpu_torch.ops.kernels import mesh_intersect as mi
 from rtc_tpu_torch.ops.vec import normalize, normalize3
 from rtc_tpu_torch.render import integrator
@@ -232,6 +240,225 @@ def image_gate(what: str, img, ref, knife_edges: bool = False) -> str:
 
 
 # ---------------------------------------------------------------------------
+# bounds: the least time the card could take for a kernel's work
+# ---------------------------------------------------------------------------
+#
+# bound_ms = max(operation time, bytes / HBM_RATE). The bytes are those
+# the function must move (each input read once, each output written once).
+# The operations are those of the box and pair tests THESE inputs need,
+# counted on the card from the wavefront itself, by type: FP32 add, sub and
+# mul (FLOPs); FP32 compare, min and max (abs is a free operand modifier);
+# reciprocals. Rates for an H100 SXM at its 700 W limit, 132 SMs at 1.98
+# GHz: NVIDIA's data sheet gives 67 TFLOP/s, which counts an FMA as two
+# FLOPs (128 FP32 lanes a clock an SM), so FLOPs over it assume every mul
+# fuses with an add; the CUDA C++ Programming Guide's throughput table for
+# compute capability 9.0 gives 64 compares/min/max and 16 reciprocals
+# (MUFU) a clock an SM. The operation time is the largest of the three
+# units' times and the dispatch time (one instruction a lane a clock:
+# FLOPs / 2 + compares + reciprocals).
+
+FP32_PEAK = 67e12              # FLOP/s, an FMA counted as two
+INSTR_RATE = FP32_PEAK / 2     # instructions/s
+CMP_RATE = 132 * 64 * 1.98e9   # compares, min, max /s
+RCP_RATE = 132 * 16 * 1.98e9   # reciprocals/s
+HBM_RATE = 3.35e12             # bytes/s
+# Operations as (FLOPs, compares, reciprocals). tri_hit
+# (csrc/mesh_intersect.cu) by where it stops: the det guard (h 9 and det 5
+# FLOPs, |det| >= eps), u (1/det, s 3, u 6, two compares), v (q 9, v 6,
+# u + v 1, two compares), or t (t 6 and the caller's t >= 0 and t < bound)
+STAGES = ("det", "u", "v", "t")
+PAIR_OPS = np.array([[14, 1, 0], [23, 3, 1], [39, 5, 1], [45, 7, 1]], float)
+BOX_CHUNK = 1 << 24   # (rays x boxes) entries per counting pass
+PAIR_CHUNK = 1 << 22  # pair tests per counting pass
+
+
+class Work:
+    """A kernel's needed work: operations by type (FLOPs, compares,
+    reciprocals) and its pair tests by the stage where they stop."""
+
+    def __init__(self, ops=(0, 0, 0), stages=(0, 0, 0, 0)):
+        self.ops = np.asarray(ops, dtype=float)
+        self.stages = np.asarray(stages, dtype=np.int64)
+
+    @staticmethod
+    def pairs(stages) -> "Work":
+        stages = np.asarray(stages, dtype=np.int64)
+        return Work(stages.astype(float) @ PAIR_OPS, stages)
+
+    def __add__(self, other: "Work") -> "Work":
+        return Work(self.ops + other.ops, self.stages + other.stages)
+
+    def __mul__(self, n) -> "Work":
+        return Work(self.ops * float(n), self.stages * int(n))
+
+
+# a ray's slab test of one box (three axes of 2 sub, 2 mul and 4 min/max)
+# and cluster_entry's three compares with the caller's one
+BOX = Work((12, 16, 0))
+# the box's own emptiness test, scale, pad and widening: once per box
+WIDEN = Work((7, 8, 0))
+# make_ray's slab reciprocals and near-zero guards: once per ray
+RAY = Work((0, 3, 3))
+# instance_ray: o' 18 and d' 15 FLOPs, then make_ray
+INSTANCE = Work((33, 3, 3))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(work: Work, n_bytes: float):
+    """(bound_ms, bound_by, pair tests by stage) of a kernel's work."""
+    flops, cmp, rcp = work.ops
+    t_ops = max(flops / FP32_PEAK, cmp / CMP_RATE, rcp / RCP_RATE,
+                (flops / 2 + cmp + rcp) / INSTR_RATE)
+    t_bytes = n_bytes / HBM_RATE
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            dict(zip(STAGES, work.stages.tolist())))
+
+
+def _slabs(o, d, aabb):
+    """(R, C) signed slab intervals (tmin, tmax) of rays through boxes
+    widened as cluster_slab widens them, and the boxes' emptiness (C,)."""
+    lo, hi = aabb[:, :3], aabb[:, 3:]
+    empty = (lo > hi).any(1)
+    pad = 4e-6 * torch.maximum(lo.abs(), hi.abs()).amax(1, keepdim=True)
+    lo, hi = lo - pad, hi + pad
+    near0 = d.abs() < 1e-30
+    inv = torch.where(near0, torch.where(d >= 0, BIG, -BIG), 1.0 / torch.where(near0, 1.0, d))
+    t1 = (lo[None] - o[:, None]) * inv[:, None]
+    t2 = (hi[None] - o[:, None]) * inv[:, None]
+    return torch.minimum(t1, t2).amax(2), torch.maximum(t1, t2).amin(2), empty
+
+
+def entered(o, d, aabb, limit, strict: bool = False, signed: bool = False,
+            keep=None):
+    """The (ray, box) pairs, as two (P,) index tensors, of the boxes of aabb
+    each ray enters at or before limit (strictly before with strict).
+    signed: the census's test, a signed slab interval starting before
+    limit, behind the origin included. keep (C,) bool: only those boxes."""
+    R, C = o.shape[0], aabb.shape[0]
+    none = torch.zeros((0,), dtype=torch.int64, device=o.device)
+    rays, boxes = [none], [none]
+    step = max(1, BOX_CHUNK // max(C, 1))
+    for s in range(0, R, step):
+        tmin, tmax, empty = _slabs(o[s:s + step], d[s:s + step], aabb)
+        lim = limit[s:s + step, None]
+        ok = ~empty[None] & (tmax >= tmin)
+        if signed:
+            ok &= tmin < lim
+        else:
+            e = torch.clamp_min(tmin, 0.0)
+            ok &= (tmax >= 0.0) & ((e < lim) if strict else (e <= lim))
+        if keep is not None:
+            ok &= keep[None]
+        r, c = ok.nonzero(as_tuple=True)
+        rays.append(r + s)
+        boxes.append(c)
+    return torch.cat(rays), torch.cat(boxes)
+
+
+def pair_stages(o, d, p1, e1, e2, eps, rays, clusters, leaf, cid=None,
+                self_row=None) -> np.ndarray:
+    """(4,) counts of the pair tests of every row of each (ray, cluster)
+    pair, by the stage where tri_hit stops (STAGES), in tri_hit's
+    arithmetic. The census's rows: cid (T,) skips rows with no container
+    slot, self_row (R,) each ray's own hit row."""
+    counts = torch.zeros(4, dtype=torch.int64, device=o.device)
+    lane = torch.arange(leaf, device=o.device)
+    step = max(1, PAIR_CHUNK // leaf)
+    for s in range(0, rays.numel(), step):
+        r = rays[s:s + step]
+        j = clusters[s:s + step, None] * leaf + lane
+        (ox, oy, oz), (dx, dy, dz) = (x[r][:, None].unbind(2) for x in (o, d))
+        (ax, ay, az), (bx, by, bz), (cx, cy, cz) = (x[j].unbind(2) for x in (e1, e2, p1))
+        hx, hy, hz = dy * bz - dz * by, dz * bx - dx * bz, dx * by - dy * bx
+        det = ax * hx + ay * hy + az * hz
+        f = 1.0 / det
+        sx, sy, sz = ox - cx, oy - cy, oz - cz
+        u = f * (sx * hx + sy * hy + sz * hz)
+        qx, qy, qz = sy * az - sz * ay, sz * ax - sx * az, sx * ay - sy * ax
+        v = f * (dx * qx + dy * qy + dz * qz)
+        stage = torch.where((v >= 0.0) & (u + v <= 1.0), 3, 2)
+        stage = torch.where((u >= 0.0) & (u <= 1.0), stage, 1)
+        stage = torch.where(det.abs() >= eps, stage, 0)
+        test = torch.ones_like(stage, dtype=torch.bool)
+        if cid is not None:
+            test &= cid[j] >= 0
+        if self_row is not None:
+            test &= j != self_row[r][:, None]
+        counts += torch.bincount(stage[test], minlength=4)
+    return counts.cpu().numpy()
+
+
+def cluster_work(o, d, tabs, aabb, leaf, eps, limit, strict=False, signed=False,
+                 keep=None, cid=None, self_row=None, offset=0) -> Work:
+    """A box test for every (ray, cluster) pair entered by limit, and the
+    pair tests of the cluster's rows (offset: the clusters' first index in
+    the tables)."""
+    rays, clus = entered(o, d, aabb, limit, strict, signed, keep)
+    return BOX * rays.numel() + Work.pairs(
+        pair_stages(o, d, *tabs, eps, rays, clus + offset, leaf, cid, self_row))
+
+
+def one_cluster(leaf: int) -> Work:
+    """The least an occluded lane can cost: one cluster's box test and its
+    leaf pair tests, all but the occluder's stopping at det."""
+    return BOX + Work.pairs((leaf - 1, 0, 0, 1))
+
+
+def closest_work(o, d, tabs, aabb, t_final, leaf, eps) -> Work:
+    """K1's work: every cluster entered at or before the ray's final t
+    (every cluster it enters, on a miss)."""
+    return (cluster_work(o, d, tabs, aabb, leaf, eps, t_final)
+            + RAY * o.shape[0] + WIDEN * aabb.shape[0])
+
+
+def any_work(o, d, tabs, aabb, max_t, hit, leaf, eps) -> Work:
+    """K2's work: every cluster entered before max_t on an unoccluded live
+    lane, one cluster on an occluded lane."""
+    live = max_t > 0
+    free = torch.where(live & ~hit, max_t, -1.0)
+    return (cluster_work(o, d, tabs, aabb, leaf, eps, free, strict=True)
+            + one_cluster(leaf) * int((live & hit).sum())
+            + RAY * int(live.sum()) + WIDEN * aabb.shape[0])
+
+
+def census_work(o, d, tabs, aabb, t_hit, hit_gid, tri_cid, leaf, eps) -> Work:
+    """K4's work: on a live lane, every container cluster whose signed slab
+    interval starts before t_hit, and there each container row but the
+    ray's own hit."""
+    live = (t_hit > -BIG).nonzero().squeeze(1)
+    has = (tri_cid.view(-1, leaf) >= 0).any(1)
+    return (cluster_work(o[live], d[live], tabs, aabb, leaf, eps, t_hit[live],
+                         signed=True, keep=has, cid=tri_cid, self_row=hit_gid[live])
+            + RAY * live.numel() + WIDEN * aabb.shape[0])
+
+
+def tlas_work(o, d, tl, st, eps, limit, strict: bool = False, occluded=None) -> Work:
+    """K5's work (limit: the final t) or K6's (limit: max_t, strict; one
+    instance and one cluster on an occluded lane): every real instance
+    entered by the limit (its box test and ray transform), and in its
+    object space every cluster of its mesh entered by the limit."""
+    leaf, cm = st.cluster_size, st.tlas_cm
+    tabs = (tl.p1, tl.e1, tl.e2)
+    work = RAY * o.shape[0] + WIDEN * (tl.caabb.shape[0] + tl.inst_aabb.shape[0])
+    if occluded is not None:
+        limit = torch.where(occluded, -1.0, limit)
+        work += (BOX + INSTANCE + one_cluster(leaf)) * int(occluded.sum())
+    for k, m in mi._real_instances(tl.p1, tl.inst_aabb, tl.inst_mesh, cm * leaf):
+        inside, _ = entered(o, d, tl.inst_aabb[k:k + 1], limit, strict)
+        oi, di = mi.instance_rays(o[inside], d[inside], tl.inst_ab[k])
+        work += (BOX + INSTANCE) * inside.numel() + cluster_work(
+            oi, di, tabs, tl.caabb[m * cm:(m + 1) * cm], leaf, eps, limit[inside],
+            strict, offset=m * cm)
+    return work
+
+
+BOUNDS = {}  # kernel key -> (bound_ms, bound_by)
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -337,6 +564,18 @@ def phase_timing(scene, cam, leaf, eps):
           f"main-path K3: shadow flags differ on {flips3} of {hits} hits")
     parity = {"closest_hit": (err1, None), "any_hit": (float(flips2 > 0), flips2),
               "closest_shadow": (err3, flips3)}
+    tab_bytes = nbytes(p1, e1, e2, scene.cluster_aabb)
+    R = o.shape[0]
+    tri = (p1, e1, e2)
+    work1 = closest_work(o, d, tri, scene.cluster_aabb, outs["closest_hit"][0][0],
+                         leaf, eps)
+    BOUNDS["closest_hit"] = bound(work1, nbytes(o, d, scene.tri_n) + tab_bytes + R * 20)
+    BOUNDS["any_hit"] = bound(any_work(so, sd, tri, scene.cluster_aabb, max_t, k2,
+                                       leaf, eps),
+                              nbytes(so, sd, max_t) + tab_bytes + R)
+    BOUNDS["closest_shadow"] = bound(
+        work1 + any_work(so, sd, tri, scene.cluster_aabb, max_t, k3[3], leaf, eps),
+        nbytes(o, d, scene.tri_n, scene.light_pos) + tab_bytes + R * 21)
     say("3 kernel timing",
         f"{o.shape[0]} primary rays ({hits} hits, "
         f"{int((max_t > 0).sum())} live shadow rays): " + "; ".join(
@@ -458,15 +697,27 @@ SCENES = {}  # name -> (scene on the card, compile seconds)
 
 
 def slice_scene(name: str, width: int):
-    """A registry scene on the card (compiled once per name: the tables do
-    not depend on the canvas) and its camera at width."""
-    world, cam = REGISTRY[name](width)
+    """A registry scene or test world on the card (compiled once per name:
+    the tables do not depend on the canvas) and its camera at width."""
+    world, cam = (REGISTRY.get(name) or TEST_WORLDS[name])(width)
     if name not in SCENES:
         t0 = time.perf_counter()
         scene = compile_scene(world, dtype=torch.float32, device="cuda")
         torch.cuda.synchronize()
         SCENES[name] = (scene, time.perf_counter() - t0)
     return SCENES[name][0], cam
+
+
+PLAIN_IMAGES = {}  # (scene, width) -> the plain render on the card
+
+
+def plain_render(name: str, width: int):
+    """The plain (bruteforce) render of a scene at width, rendered once."""
+    if (name, width) not in PLAIN_IMAGES:
+        scene, cam = slice_scene(name, width)
+        PLAIN_IMAGES[name, width] = render(scene, cam,
+                                           RenderConfig(mesh_impl="bruteforce"))
+    return PLAIN_IMAGES[name, width]
 
 
 def time_pair(kernel, plain, plain_warmup: int = 1, plain_iters: int = 2):
@@ -497,6 +748,15 @@ def phase_smooth(eps):
         lambda: mi.closest_shadow_sn_plain(o, d, *tabs, light, eps))
     err1 = closest_gate("teapot_smooth K1 with_sn", k1, p1)
     err3 = closest_gate("teapot_smooth K3 with_sn", k3, p3)
+    aabb, R = scene.cluster_aabb, o.shape[0]
+    work1 = closest_work(o, d, tabs[:3], aabb, k1[0], leaf, eps)
+    in_bytes = nbytes(o, d, *tabs, aabb)
+    BOUNDS["closest_hit_sn"] = bound(work1, in_bytes + R * 20)
+    so, sd, smax = mi.shadow_rays_plain(o, d, k3[0], k3[1], k3[2], light, eps,
+                                        unit_n=False)
+    BOUNDS["closest_shadow_sn"] = bound(work1 + any_work(so, sd, tabs[:3], aabb, smax,
+                                                         k3[3], leaf, eps),
+                                        in_bytes + nbytes(light) + R * 21)
     hits = int((p3[1] >= 0).sum())
     flips3 = int((k3[3] != p3[3]).sum())
     check(flips3 <= max(2, hits // 1000),
@@ -572,6 +832,12 @@ def phase_census(eps):
                                             scene.tri_cid, K, eps))
         err, crossings = census_gate(f"glass_teapot K4 {key}", got, ref)
         out[key] = (ms, pms, err, crossings, int((tt > -BIG).sum()))
+        if key == "main path":
+            BOUNDS["crossing_count"] = bound(
+                census_work(oo, d, tabs, scene.cluster_aabb, tt, gg, scene.tri_cid,
+                            leaf, eps),
+                nbytes(oo, d, tt, gg, *tabs, scene.tri_cid, scene.cluster_aabb)
+                + oo.shape[0] * K * 8)
     say("7 census", f"glass_teapot {o.shape[0]} primary rays, K={K}, "
         f"{int(live.sum())} transparent hits: " + "; ".join(
             f"{k}: {v[4]} live lanes, {v[3]} crossings, K4 {v[0]:.3f} ms vs "
@@ -649,7 +915,7 @@ def phase_frames():
         gw = GATE_WIDTHS.get(name, 480)
         small, cam_s = slice_scene(name, gw)
         kern = render(small, cam_s, RenderConfig())
-        plain = render(small, cam_s, RenderConfig(mesh_impl="bruteforce"))
+        plain = plain_render(name, gw)
         gate = image_gate(f"{name} {gw}x{gw // 2} kernels vs plain", kern,
                           plain, knife_edges=bool(scene.static.tlas_n_inst))
         if name not in GOLDEN_SPECS:
@@ -721,6 +987,9 @@ def phase_tlas(eps):
               f"{name} K5: object ids differ at equal enc")
         hits = int((ref[1] >= 0).sum())
         times[key], parity[key] = (ms_full, pms), (err, None)
+        BOUNDS[key] = bound(tlas_work(o, d, tl, st, eps, full[0]),
+                            nbytes(o, d, tl.p1, tl.e1, tl.e2, pay, tl.caabb, *inst,
+                                   tl.inst_obj) + o.shape[0] * 24)
         sizes[key] = dict(rays=o.shape[0], plain_rays=os_.shape[0],
                           ms_at_plain_rays=ms)
         summary = (f"{name} ({st.tlas_n_inst} instances, cm {st.tlas_cm}): "
@@ -734,7 +1003,12 @@ def phase_tlas(eps):
                 so, sd, mt, tl.p1, tl.e1, tl.e2, tl.caabb, *inst, *leaf_cm)
             fo, fd, fmax = occlusion_rays(scene, o, d, full[0], full[1])
             so, sd, smax = occlusion_rays(scene, os_, ds_, ref[0], ref[1])
-            ms6_full, _ = timed_ms(lambda: k6(fo, fd, fmax), 2, 10)
+            ms6_full, occluded = timed_ms(lambda: k6(fo, fd, fmax), 2, 10)
+            BOUNDS["any_hit_tlas"] = bound(
+                tlas_work(fo, fd, tl, st, eps, fmax, strict=True,
+                         occluded=occluded & (fmax > 0)),
+                nbytes(fo, fd, fmax, tl.p1, tl.e1, tl.e2, tl.caabb, *inst)
+                + fo.shape[0])
             ms6, pms6, k6_out, p6_out = time_pair(
                 lambda: k6(so, sd, smax),
                 lambda: mi.any_hit_tlas_plain(so, sd, smax, tl.p1, tl.e1,
@@ -755,6 +1029,314 @@ def phase_tlas(eps):
                         f"{flips} flips")
         say("9 instanced kernels", summary)
     return times, parity, sizes
+
+
+# ---------------------------------------------------------------------------
+# the elementwise backend (K7a, K7b), K1's t0 and uv modes, and streaming
+# ---------------------------------------------------------------------------
+
+# the plain versions' subsets: every 8th ray on cow, every 64th on the
+# herd's 523,264-row world table
+PLAIN_STEPS = {"cow": 8, "cow_herd": 64}
+
+
+def winners_gate(what: str, got, ref, exact: bool = True):
+    """Equal hit masks and t bit-equal (exact) or within bench.py's 1e-3;
+    idx may differ only at ties. Returns (max |dt|, idx mismatches)."""
+    err = closest_gate(what, (got[0], got[1], torch.zeros_like(got[0])[:, None]),
+                       (ref[0], ref[1], torch.zeros_like(ref[0])[:, None]))
+    if exact:
+        check(torch.equal(got[0], ref[0]), f"{what}: t is not bit-equal")
+    return err, int((got[1] != ref[1]).sum())
+
+
+def flags_gate(what: str, got, ref, exact: bool = False) -> int:
+    flips = int((got != ref).sum())
+    limit = 0 if exact else max(2, got.shape[0] // 2048)
+    check(flips <= limit, f"{what}: {flips} occlusion flags differ (limit {limit})")
+    return flips
+
+
+def phase_elementwise(eps):
+    """K7a and K7b on cow's 460,800-ray wavefront and on cow_herd's
+    world-table wavefront (4,088 clusters, 511 supers), timed with CUDA
+    events, held to their plain versions on every 8th (cow) or 64th (herd)
+    ray, and on every ray to K1 and K2 launched once over the same table:
+    K7a's t bit-equal to K1's, K7b's flags equal to K2's on free-space
+    occlusion rays. Returns the cow wavefront's (times, parity, sizes)."""
+    times, parity, sizes = {}, {}, {}
+    for name, step in PLAIN_STEPS.items():
+        scene, cam = slice_scene(name, WIDTH)
+        st = scene.static
+        leaf, aabb, sup = st.cluster_size, scene.cluster_aabb, scene.super_aabb
+        tabs = tables(scene)
+        whole = scene.tri_p1.shape[0]  # a budget that makes one launch
+        o, d = main_path_rays(cam)
+        sub = lambda x: x[::step].contiguous()
+        k7a = lambda oo, dd: mi.mesh_closest_hit_elementwise(oo, dd, *tabs, aabb,
+                                                             sup, leaf, eps)
+        ms_a, full = timed_ms(lambda: k7a(o, d), 1, 5)
+        ms_a_sub, pms_a, got, ref = time_pair(
+            lambda: k7a(sub(o), sub(d)),
+            lambda: mi._closest_plain(sub(o), sub(d), *tabs, eps),
+            plain_warmup=0, plain_iters=1)
+        check(all(torch.equal(a[::step], b) for a, b in zip(full, got)),
+              f"{name} K7a: the subset's outputs differ from the full run's")
+        err_a, ties_plain = winners_gate(f"{name} K7a vs plain", got, ref)
+        k1 = mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, aabb, leaf, eps,
+                                 block_budget=whole)
+        _, ties_k1 = winners_gate(f"{name} K7a vs K1", full, k1)
+
+        fo, fd, fmax = occlusion_rays(scene, o, d, full[0], full[1])
+        k7b = lambda oo, dd, mm: mi.mesh_any_hit_elementwise(oo, dd, mm, *tabs, aabb,
+                                                             sup, leaf, eps)
+        ms_b, hit = timed_ms(lambda: k7b(fo, fd, fmax), 1, 5)
+        ms_b_sub, pms_b, got_b, ref_b = time_pair(
+            lambda: k7b(sub(fo), sub(fd), sub(fmax)),
+            lambda: mi.any_hit_plain(sub(fo), sub(fd), sub(fmax), *tabs, eps),
+            plain_warmup=0, plain_iters=1)
+        check(torch.equal(hit[::step], got_b), f"{name} K7b: subset differs")
+        flips_plain = flags_gate(f"{name} K7b vs plain", got_b, ref_b)
+        k2 = mi.mesh_any_hit(fo, fd, fmax, *tabs, aabb, leaf, eps, block_budget=whole)
+        flags_gate(f"{name} K7b vs K2", hit, k2, exact=True)
+        say("10 elementwise",
+            f"{name} (C={st.n_clusters}, S={st.n_super}): K7a {ms_a:.3f} ms on "
+            f"{o.shape[0]} rays ({int((full[1] >= 0).sum())} hits), t bit-equal "
+            f"to one K1 launch on every ray ({ties_k1} idx ties); on {got[0].shape[0]} "
+            f"rays {ms_a_sub:.3f} ms vs plain {pms_a:.1f} ms, max|dt| {err_a:.3g}, "
+            f"{ties_plain} idx mismatches; K7b {ms_b:.3f} ms on {fo.shape[0]} "
+            f"occlusion rays ({int(hit.sum())} occluded), equal to K2 on every "
+            f"ray; on {got_b.shape[0]} rays {ms_b_sub:.3f} ms vs plain "
+            f"{pms_b:.1f} ms, {flips_plain} flips")
+        if name != "cow":
+            continue
+        R, t_bytes = o.shape[0], nbytes(*tabs, aabb, sup)
+        work_a = closest_work(o, d, tabs, aabb, full[0], leaf, eps)  # K1's: the same function
+        BOUNDS["closest_hit_elementwise"] = bound(work_a, nbytes(o, d) + t_bytes + R * 8)
+        BOUNDS["any_hit_elementwise"] = bound(any_work(fo, fd, tabs, aabb, fmax, hit,
+                                                       leaf, eps),
+                                              nbytes(fo, fd, fmax) + t_bytes + fo.shape[0])
+        times.update(closest_hit_elementwise=(ms_a, pms_a), any_hit_elementwise=(ms_b, pms_b))
+        parity.update(closest_hit_elementwise=(err_a, None),
+                      any_hit_elementwise=(float(flips_plain > 0), flips_plain))
+        sizes.update(closest_hit_elementwise=dict(rays=R, plain_rays=got[0].shape[0],
+                                                  ms_at_plain_rays=ms_a_sub),
+                     any_hit_elementwise=dict(rays=fo.shape[0], plain_rays=got_b.shape[0],
+                                              ms_at_plain_rays=ms_b_sub))
+    return times, parity, sizes
+
+
+def streamed_vs_single(name, eps):
+    """At 2 clusters a block: streamed K1 (t0 launches) and K2 against one
+    launch each on a scene's main-path wavefront and its occlusion rays; on
+    glass_teapot also streamed K4, on the main path's census input and on
+    the rays re-seated past their hits (t_hit = BIG)."""
+    scene, cam = slice_scene(name, WIDTH)
+    leaf, aabb = scene.static.cluster_size, scene.cluster_aabb
+    tabs = tables(scene)
+    small = 2 * leaf
+    n_blocks = mi._blocked(scene.tri_p1, leaf, small)
+    o, d = main_path_rays(cam)
+    single = mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, aabb, leaf, eps)
+    streamed = mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, aabb, leaf, eps,
+                                   block_budget=small)
+    _, ties = winners_gate(f"{name} streamed K1", streamed, single)
+    same = streamed[1] == single[1]
+    check(torch.equal(streamed[2][same], single[2][same]),
+          f"{name} streamed K1: normals differ at equal idx")
+    fo, fd, fmax = occlusion_rays(scene, o, d, single[0], single[1])
+    k2 = (fo, fd, fmax, *tabs, aabb, leaf, eps)
+    flags_gate(f"{name} streamed K2", mi.mesh_any_hit(*k2, block_budget=small),
+               mi.mesh_any_hit(*k2), exact=True)
+    line = (f"{name} in {n_blocks} blocks: K1 t bit-equal on {o.shape[0]} rays "
+            f"({ties} idx ties across blocks), K2 flags equal on {fo.shape[0]}")
+    if scene.static.refr_mesh_obj_ids:
+        K = len(scene.static.refr_mesh_obj_ids)
+        hit = integrator.closest_hit(scene, o, d, RenderConfig())
+        gid = torch.where(hit.is_tri, hit.tri, -2).to(torch.int32).contiguous()
+        o2 = (o + d * (torch.where(hit.valid, hit.t, 0.0)[:, None] + 1e-3)).contiguous()
+        crossings = 0
+        for oo, tt, gg in ((o, hit.t.contiguous(), gid),
+                           (o2, torch.full_like(hit.t, BIG), torch.full_like(gid, -2))):
+            k4 = (oo, d, tt, gg, *tabs, aabb, scene.tri_cid, K, leaf, eps)
+            crossings += census_gate(f"{name} streamed K4",
+                                     mi.mesh_crossing_count(*k4, block_budget=small),
+                                     mi.mesh_crossing_count(*k4))[1]
+        line += f", K4 counts and latest crossings equal ({crossings} crossings)"
+    say("11 streaming", line)
+
+
+def phase_streaming(eps):
+    """The t0 contract on cow; streamed against single-launch K1, K2 and K4
+    on cow and glass_teapot at 2 clusters a block; then the 90-cow one-mesh
+    world (11 blocks of rtc_tpu's budget): streamed K1 (t0), K1 uv and K2
+    against K7a and K7b on every ray and against their plain versions on
+    every 64th, and streamed K1 timed against one K1 launch over all 4,088
+    clusters. Returns (times, parity, sizes) of K1 t0 and K1 uv."""
+    scene, cam = slice_scene("cow", WIDTH)
+    leaf, aabb = scene.static.cluster_size, scene.cluster_aabb
+    tabs = tables(scene)
+    o, d = main_path_rays(cam)
+    t, idx, n = mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, aabb, leaf, eps)
+    hit = idx >= 0
+    k1 = lambda t0: mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, aabb, leaf, eps,
+                                        t0=t0.contiguous())
+    low = k1(torch.where(hit, t * 0.5, 1e-3))
+    at = k1(torch.where(hit, t, 1e-3))
+    for what, out in (("below", low), ("at", at)):
+        check(bool((out[1] == -1).all() & (out[0] == BIG).all() & (out[2] == 0).all()),
+              f"t0 {what} each hit: a hit was reported")
+    high = k1(torch.where(hit, t * 1.5, BIG))
+    check(all(torch.equal(a, b) for a, b in zip(high, (t, idx, n))),
+          "t0 above each hit: the free winners did not come back exactly")
+    say("11 streaming", f"t0 contract on cow's {o.shape[0]} rays ({int(hit.sum())} "
+        "hits): a bound below or at each hit reports every lane as a miss, a "
+        "bound above it gives back t, idx and n bit for bit")
+    for name in ("cow", "glass_teapot"):
+        streamed_vs_single(name, eps)
+
+    scene, cam = slice_scene("cow_herd_mesh", WIDTH)
+    st = scene.static
+    leaf, aabb, sup = st.cluster_size, scene.cluster_aabb, scene.super_aabb
+    tabs = tables(scene)
+    whole = scene.tri_p1.shape[0]
+    n_blocks = mi._blocked(scene.tri_p1, leaf, mi.VMEM_TRI_BUDGET)
+    check(n_blocks == 11 and st.n_clusters == 4088,
+          f"one-mesh herd: {n_blocks} blocks of {st.n_clusters} clusters")
+    step = PLAIN_STEPS["cow_herd"]
+    sub = lambda x: x[::step].contiguous()
+    o, d = main_path_rays(cam)
+    k7a = mi.mesh_closest_hit_elementwise(o, d, *tabs, aabb, sup, leaf, eps)
+    streamed = lambda: mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, aabb, leaf, eps)
+    mi.reset_launch_counts()
+    out = streamed()
+    check(mi.LAUNCHES["closest_hit_t0"] == n_blocks, f"{mi.LAUNCHES}")
+    ms_single, single = timed_ms(lambda: mi.mesh_closest_hit(
+        o, d, *tabs, scene.tri_n, aabb, leaf, eps, block_budget=whole), 1, 3)
+    ms_t0, out = timed_ms(streamed, 1, 3)
+    ms_single2, _ = timed_ms(lambda: mi.mesh_closest_hit(
+        o, d, *tabs, scene.tri_n, aabb, leaf, eps, block_budget=whole), 0, 3)
+    _, ties_k7a = winners_gate("one-mesh herd streamed K1 vs K7a", out, k7a)
+    _, ties_single = winners_gate("one-mesh herd streamed K1 vs one launch", out, single)
+    pms_t0, ref = timed_ms(lambda: mi.closest_hit_plain(sub(o), sub(d), *tabs,
+                                                       scene.tri_n, eps), 0, 1)
+    err_t0, _ = winners_gate("one-mesh herd streamed K1 vs plain",
+                             tuple(x[::step] for x in out), ref)
+    uv_call = lambda: mi.mesh_closest_hit_uv(o, d, *tabs, aabb, leaf, eps)
+    ms_uv, uv = timed_ms(uv_call, 1, 3)
+    _, ties_uv = winners_gate("one-mesh herd streamed K1 uv vs K7a", uv, k7a)
+    pms_uv, uv_ref = timed_ms(lambda: mi.closest_hit_uv_plain(sub(o), sub(d), *tabs,
+                                                             eps), 0, 1)
+    uv_sub = tuple(x[::step] for x in uv)
+    err_uv, _ = winners_gate("one-mesh herd streamed K1 uv vs plain", uv_sub, uv_ref)
+    same = uv_sub[1] == uv_ref[1]
+    check(torch.equal(uv_sub[2][same], uv_ref[2][same]),
+          "one-mesh herd streamed K1 uv: (u, v) differ from plain at equal idx")
+    fo, fd, fmax = occlusion_rays(scene, o, d, k7a[0], k7a[1])
+    k7b = mi.mesh_any_hit_elementwise(fo, fd, fmax, *tabs, aabb, sup, leaf, eps)
+    flags_gate("one-mesh herd streamed K2 vs K7b",
+               mi.mesh_any_hit(fo, fd, fmax, *tabs, aabb, leaf, eps), k7b, exact=True)
+    say("11 streaming",
+        f"one-mesh 90-cow herd, {n_blocks} blocks of {-(-st.n_clusters // n_blocks)} "
+        f"clusters: streamed K1 ({n_blocks} t0 launches) {ms_t0:.3f} ms vs one K1 "
+        f"launch over all {st.n_clusters} clusters {ms_single:.3f} / "
+        f"{ms_single2:.3f} ms on {o.shape[0]} rays ({int((out[1] >= 0).sum())} "
+        f"hits); t bit-equal to K7a ({ties_k7a} idx ties) and to one launch "
+        f"({ties_single} ties); on {ref[0].shape[0]} rays vs plain "
+        f"{pms_t0:.1f} ms, max|dt| {err_t0:.3g}; streamed K1 uv {ms_uv:.3f} ms, "
+        f"t bit-equal to K7a ({ties_uv} ties), (u, v) bit-equal to plain "
+        f"({pms_uv:.1f} ms) at equal idx; streamed K2 equal to K7b on "
+        f"{fo.shape[0]} occlusion rays")
+    R, t_bytes = o.shape[0], nbytes(*tabs, aabb)
+    work = closest_work(o, d, tabs, aabb, k7a[0], leaf, eps)
+    BOUNDS["closest_hit_t0"] = bound(work, nbytes(o, d, scene.tri_n) + t_bytes + R * 20)
+    BOUNDS["closest_hit_uv"] = bound(work, nbytes(o, d) + t_bytes + R * 16)
+    size = dict(rays=R, plain_rays=ref[0].shape[0], launches_per_call=n_blocks,
+                single_launch_ms=(ms_single + ms_single2) / 2)
+    return ({"closest_hit_t0": (ms_t0, pms_t0), "closest_hit_uv": (ms_uv, pms_uv)},
+            {"closest_hit_t0": (err_t0, None), "closest_hit_uv": (err_uv, None)},
+            {"closest_hit_t0": size, "closest_hit_uv": dict(size)})
+
+
+# the new routes' frames: (scene, canvas width, mesh_impl, launches(tiles))
+NEW_FRAMES = {
+    "cow elementwise": ("cow", WIDTH, "elementwise",
+                        lambda n: {"closest_hit_elementwise": 2 * n,
+                                   "any_hit_elementwise": 2 * n}),
+    "cow_herd elementwise": ("cow_herd", WIDTH, "elementwise",
+                             lambda n: {"closest_hit_elementwise": n,
+                                        "any_hit_elementwise": n}),
+    "cow_herd_mesh": ("cow_herd_mesh", WIDTH, "auto",
+                      lambda n: {"closest_hit_t0": 11 * n, "any_hit": 11 * n}),
+    "cow_herd_mesh_smooth": ("cow_herd_mesh_smooth", 480, "auto",
+                             lambda n: {"closest_hit_uv": 11 * n, "any_hit": 11 * n}),
+    "teapot": ("teapot", WIDTH, "auto", lambda n: {"closest_shadow": n}),
+    "pumpkin": ("pumpkin", WIDTH, "auto", lambda n: {"closest_shadow_sn": n}),
+}
+NEW_GOLDENS = {"teapot": (24, 5, (0.99, 2)), "pumpkin": (24, 5, (0.98, 2))}
+
+
+def phase_new_frames():
+    """render() of each new route (NEW_FRAMES) at depth 5, f32, tile
+    460,800, with the counts set to 0 just before each frame and read just
+    after; then its kernel render against the plain render at 480x240
+    (herds 240x120, with the knife-edge budget) and, for teapot and pumpkin,
+    the golden-width render against tests/golden. Returns {frame:
+    launches}."""
+    launches = {}
+    q = lambda a: np.clip(np.asarray(a, np.float64) * 255 + 0.5, 0, 255).astype(np.uint8)
+    for frame, (name, width, impl, want) in NEW_FRAMES.items():
+        scene, cam = slice_scene(name, width)
+        n_tiles = -(-cam.hsize * cam.vsize // RAY_TILE)
+        cfg = RenderConfig(ray_tile=RAY_TILE, mesh_impl=impl)
+        render(scene, cam, cfg)  # warm-up
+        walls = []
+        for _ in range(3):
+            mi.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = render(scene, cam, cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = dict(mi.LAUNCHES)
+            expected = dict(dict.fromkeys(mi.LAUNCHES, 0), **want(n_tiles))
+            check(counts == expected,
+                  f"{frame} frame: launch counts {counts}, expected {expected}")
+        launches[frame] = counts
+        check(img.shape == (cam.vsize, cam.hsize, 3), f"{frame}: image shape")
+        check(bool(torch.isfinite(img).all()), f"{frame}: non-finite values")
+        check(float(img.min()) >= 0.0 and float(img.amax()) > 0.1,
+              f"{frame}: image is black or negative")
+        st = scene.static
+        casts = cam.hsize * cam.vsize * rays_per_pixel(DEPTH, st.any_reflective,
+                                                       st.any_refractive)
+        wall = sorted(walls)[1]
+        line = (f"{frame} {cam.hsize}x{cam.vsize} depth {DEPTH} f32, tile "
+                f"{RAY_TILE}: compile {SCENES[name][1]:.2f} s; frame median "
+                f"{wall * 1e3:.1f} ms of [{', '.join(f'{w * 1e3:.1f}' for w in walls)}]"
+                f" = {casts / wall / 1e6:.1f}M rays/s ({casts} casts); launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+        herd = name.startswith("cow_herd")
+        gw = 240 if herd else 480
+        small, cam_s = slice_scene(name, gw)
+        kern = render(small, cam_s, RenderConfig(mesh_impl=impl))
+        line += f"; {gw}x{gw // 2} vs plain: " + image_gate(
+            f"{frame} {gw}x{gw // 2} vs plain", kern, plain_render(name, gw),
+            knife_edges=herd)
+        if name in NEW_GOLDENS:
+            gwid, depth, (min_frac, flip_budget) = NEW_GOLDENS[name]
+            golden = np.load(os.path.join(ROOT, "tests", "golden", f"{name}.npy"))
+            tiny, cam_t = slice_scene(name, gwid)
+            img32 = render(tiny, cam_t, RenderConfig(ray_tile=512, max_depth=depth)
+                           ).cpu().numpy()
+            match = float(np.all(q(golden) == q(img32), axis=2).mean())
+            flips = int((np.abs(golden - img32).max(axis=2) > 0.15).sum())
+            check(match >= min_frac and flips <= flip_budget,
+                  f"{name} f32 kernels vs f64 golden: match {match:.4f}, flips {flips}")
+            line += (f"; width {gwid} vs tests/golden/{name}.npy (f64): 8-bit "
+                     f"match {match:.4f}, structural flips {flips}")
+        say("12 new routes", line)
+    return launches
 
 
 def main() -> int:
@@ -782,13 +1364,24 @@ def main() -> int:
     t, p, sizes = phase_tlas(eps)
     times.update(t)
     parity.update(p)
+    for phase in (phase_elementwise, phase_streaming):
+        t, p, z = phase(eps)
+        times.update(t)
+        parity.update(p)
+        sizes.update(z)
+    launches.update(phase_new_frames())
 
     # each kernel's launches come from the frame that runs it: K3 from the
     # cow's default fused frame, K1 and K2 from its fused_shadow=False
     # frame, K3 with_sn from teapot_smooth's, K1 with_sn and K4 from
     # glass_teapot's, K5 and K6 from cow_herd's, K5 with_sn from
-    # cow_herd_smooth's. "ms" is at "rays" and "plain_ms" at "plain_rays"
-    # (the same count, except for K5 and K6)
+    # cow_herd_smooth's, K7a and K7b from the cow's elementwise frame, K1
+    # t0 from the one-mesh herd's and K1 uv from the smooth one-mesh herd's.
+    # "ms" is at "rays" and "plain_ms" at "plain_rays" (the same count,
+    # except for K5, K6 and K7); K1 t0's and K1 uv's "ms" is one streamed
+    # call of "launches_per_call" launches. "bound_ms" is the least time for
+    # the work at "rays" (see bound()); no single PyTorch call computes any
+    # of these functions, so "library_ms" is null.
     lines = {"closest_hit": ("K1 closest hit", 413, "split"),
              "any_hit": ("K2 any-hit occlusion", 861, "split"),
              "closest_shadow": ("K3 fused closest hit + shadow", 720, "fused"),
@@ -800,13 +1393,23 @@ def main() -> int:
              "closest_hit_tlas_sn": ("K5 instanced closest hit, with_sn", 978,
                                      "cow_herd_smooth"),
              "any_hit_tlas": ("K6 instanced any-hit occlusion", 1169,
-                              "cow_herd")}
+                              "cow_herd"),
+             "closest_hit_elementwise": ("K7a elementwise closest hit", 58,
+                                         "cow elementwise"),
+             "any_hit_elementwise": ("K7b elementwise any-hit occlusion", 145,
+                                     "cow elementwise"),
+             "closest_hit_t0": ("K1 closest hit, with_t0 (streamed)", 413,
+                                "cow_herd_mesh"),
+             "closest_hit_uv": ("K1 closest hit, with_uv (streamed)", 413,
+                                "cow_herd_mesh_smooth")}
     record = {"kernels": [
         {"name": label, "route": "cuda", "source": SOURCE,
          "replaces": f"{TPU_KERNELS}:{line}", "frame": frame,
          "launches": launches[frame][key], "max_abs_err": parity[key][0],
          "flips": parity[key][1], "ms": times[key][0],
-         "plain_ms": times[key][1],
+         "plain_ms": times[key][1], "bound_ms": BOUNDS[key][0],
+         "bound_by": BOUNDS[key][1], "pair_tests": BOUNDS[key][2],
+         "library_ms": None,
          **sizes.get(key, dict(rays=MAIN_RAYS, plain_rays=MAIN_RAYS))}
         for key, (label, line, frame) in lines.items()]}
     print(json.dumps(record))

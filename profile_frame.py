@@ -3,19 +3,22 @@
 
 Run from the repository root:
 
-    python3 profile_frame.py [--scene cow] [--tile 460800] [--frames 10]
+    python3 profile_frame.py [--scene cow] [--impl auto] [--tile 460800] [--frames 10]
 
---scene is any registry scene: cow, teapot_smooth, glass_teapot, teddy,
-cow_herd, cow_herd_smooth. For the fused (default) and the split
+--scene is any registry scene (cow, teapot, pumpkin, teapot_smooth,
+glass_teapot, teddy, cow_herd, cow_herd_smooth) or a test world
+(cow_herd_mesh, cow_herd_mesh_smooth: the herd baked into one mesh leaf,
+whose table streams in superblocks); --impl is RenderConfig.mesh_impl
+(auto, or elementwise for K7a/K7b). For the fused (default) and the split
 (fused_shadow=False) frame of the scene (only the default one where the
-scene has analytic prims or is instanced: neither takes the fused kernel)
-it times --frames unprofiled frames at 1920x960, depth 5, f32 on the host
+route takes no fused kernel: analytic prims, instancing, a streamed
+table, or the elementwise backend) it times --frames unprofiled frames at 1920x960, depth 5, f32 on the host
 clock around render() and torch.cuda.synchronize(), after 3 warm-up
 frames, then profiles one more with torch.profiler and sums the device
-time of its kernels by name (the port's kernels K1-K6 under their own
+time of its kernels by name (the port's kernels K1-K7 under their own
 CUDA names, e.g. closest_hit_tlas_kernel and any_hit_tlas_kernel for the
 herds' K5 and K6). It prints one JSON line per frame kind and writes the
-full record to build/profile/frame_<scene>.json.
+full record to build/profile/frame_<scene>[_<impl>].json.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from rtc_tpu_torch.models.scenes import REGISTRY
+from rtc_tpu_torch.models.scenes import REGISTRY, TEST_WORLDS
+from rtc_tpu_torch.render import integrator
 from rtc_tpu_torch.render.renderer import render
 from rtc_tpu_torch.scene.compile import compile_scene
 from rtc_tpu_torch.utils.config import RenderConfig
@@ -42,7 +46,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT, DEPTH = 1920, 960, 5
 OUR_KERNELS = ("closest_hit_kernel", "any_hit_kernel", "closest_shadow_kernel",
                "crossing_count_kernel", "closest_hit_tlas_kernel",
-               "any_hit_tlas_kernel")
+               "any_hit_tlas_kernel", "closest_hit_elementwise_kernel", "any_hit_elementwise_kernel")
+SCENES = dict(REGISTRY, **TEST_WORLDS)
 
 
 def frame_seconds(scene, cam, cfg) -> float:
@@ -83,7 +88,8 @@ def profiled_frame(scene, cam, cfg) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", default="cow", choices=sorted(REGISTRY))
+    ap.add_argument("--scene", default="cow", choices=sorted(SCENES))
+    ap.add_argument("--impl", default="auto", choices=("auto", "elementwise"))
     ap.add_argument("--tile", type=int, default=460800,
                     help="RenderConfig.ray_tile (default: bench.py's cow tile)")
     ap.add_argument("--frames", type=int, default=10)
@@ -95,17 +101,19 @@ def main() -> int:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    world, cam = REGISTRY[args.scene](WIDTH)
+    world, cam = SCENES[args.scene](WIDTH)
     scene = compile_scene(world, dtype=torch.float32, device="cuda")
     st = scene.static
     casts = WIDTH * HEIGHT * rays_per_pixel(DEPTH, st.any_reflective,
                                             st.any_refractive)
-    record = {"card": card, "scene": args.scene, "tile": args.tile,
-              "casts": casts, "frames": {}}
-    kinds = ((("fused", True), ("split", False))
-             if not (st.n_prims or st.tlas_n_inst) else (("default", True),))
+    record = {"card": card, "scene": args.scene, "impl": args.impl,
+              "tile": args.tile, "casts": casts, "frames": {}}
+    impl = "kernel" if args.impl == "auto" else args.impl  # f32 on the card
+    fusable = integrator._use_fused_shadow(scene, RenderConfig(), impl)
+    kinds = (("fused", True), ("split", False)) if fusable else (("default", True),)
     for kind, fused in kinds:
-        cfg = RenderConfig(ray_tile=args.tile, fused_shadow=fused)
+        cfg = RenderConfig(ray_tile=args.tile, fused_shadow=fused,
+                           mesh_impl=args.impl)
         for _ in range(3):
             render(scene, cam, cfg)
         walls = sorted(frame_seconds(scene, cam, cfg) * 1e3
@@ -118,9 +126,10 @@ def main() -> int:
         summary = {k: v for k, v in entry.items() if k != "by_kernel"}
         summary["top"] = [f"{k['ms']:.3f} ms x{k['launches']} {k['name'][:60]}"
                           for k in entry["by_kernel"][:6]]
-        print(json.dumps({"card": card, "scene": args.scene, "tile": args.tile,
-                          "frame": kind, **summary}), flush=True)
-    out = os.path.join(ROOT, "build", "profile", f"frame_{args.scene}.json")
+        print(json.dumps({"card": card, "scene": args.scene, "impl": args.impl,
+                          "tile": args.tile, "frame": kind, **summary}), flush=True)
+    tag = "" if args.impl == "auto" else f"_{args.impl}"
+    out = os.path.join(ROOT, "build", "profile", f"frame_{args.scene}{tag}.json")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as f:
         json.dump(record, f, indent=1)

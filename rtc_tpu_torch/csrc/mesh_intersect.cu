@@ -1,10 +1,11 @@
 // Mesh intersection kernels for NVIDIA Hopper (sm_90a): K1 closest hit,
 // K2 any-hit occlusion, K3 fused closest hit + shadow, K4 crossing census,
-// K5 instanced closest hit, K6 instanced occlusion.
+// K5 instanced closest hit, K6 instanced occlusion, and the elementwise
+// cross-check backend K7a (closest hit) and K7b (occlusion).
 //
 // Replaces (rtc_tpu/ops/pallas/mesh_intersect.py):
-//   K1 _kernel_mxu / _kernel_mxu_body, with_n and with_sn modes
-//                                                 (mesh_closest_hit_mxu)
+//   K1 _kernel_mxu / _kernel_mxu_body, with_n, with_sn, with_t0 and
+//      with_uv modes                              (mesh_closest_hit_mxu)
 //   K2 _anyhit_kernel_mxu                         (mesh_any_hit_mxu)
 //   K3 _kernel_mxu_cs, flat and with_sn modes     (mesh_closest_shadow_mxu)
 //   K4 _crossing_kernel_mxu + _mt_cluster_mxu_signed
@@ -12,13 +13,17 @@
 //   K5 _kernel_mxu_tlas + _inst_ray_features + _slab_full_t, with_n and
 //      with_sn modes                              (mesh_closest_hit_tlas_mxu)
 //   K6 _anyhit_kernel_tlas                        (mesh_any_hit_tlas_mxu)
+//   K7a _kernel                                   (mesh_closest_hit_pallas)
+//   K7b _anyhit_kernel                            (mesh_any_hit_pallas)
 //
 // What the TPU kernels compute is kept; their TPU layout is not. There is
 // no Plücker matmul (that factoring exists to feed the MXU; K5/K6 map the
 // ray itself into instance space instead of its Plücker features), no
 // lane-major transposes, no per-tile union gate or selection sort, no
-// seeded t_best, no two-probe loop and no VMEM superblocks. Each thread
-// owns one ray.
+// seeded t_best, no two-probe loop and no VMEM superblocks inside a
+// kernel. Each thread owns one ray. rtc_tpu's superblock streaming of
+// oversized tables is kept as plain PyTorch around K1/K2/K4
+// (ops/kernels/mesh_intersect.py), which K1's t0 mode serves.
 //
 // What bounds these kernels on an H100: divergent per-ray traversal, not
 // bytes. A mesh's triangle tables (T x 9 floats, ~221 KB for the cow), its
@@ -309,24 +314,52 @@ __device__ __forceinline__ void write_hit(int i, float t, int idx, float nx,
   n_out[3 * i + 2] = nz;
 }
 
-template <bool SN>
+// K1, in one of three payload modes: kFlat writes the winner's tri_n row
+// and kSn its corner blend (hit_payload, pay = tri_n or tri_sn); kUv writes
+// the winner's raw (u, v) from tri_uv, zeros on a miss, in place of a
+// normal (:546-549), and reads no payload. T0 is the carried-bound mode
+// (:435-460): t_best starts at t0[i], a strict bound, so next_box never
+// schedules a cluster entered at or beyond it and only hits strictly
+// before it win (the cross-superblock carry of the streaming drivers,
+// mesh_intersect.py:1479-1520); a lane whose bound is never beaten reports
+// t = BIG and idx = -1 (:1761-1764). Without T0, t0 is never read and the
+// code is the walk of closest_hit_dev, as K3's phase 1.
+enum Payload { kFlat, kSn, kUv };
+
+template <Payload P, bool T0>
 __global__ void __launch_bounds__(kThreads)
 closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                   int R, const float* __restrict__ p1,
-                   const float* __restrict__ e1, const float* __restrict__ e2,
-                   const float* __restrict__ pay,
+                   const float* __restrict__ t0, int R,
+                   const float* __restrict__ p1, const float* __restrict__ e1,
+                   const float* __restrict__ e2, const float* __restrict__ pay,
                    const float* __restrict__ aabb, int C, int leaf, float eps,
                    float* __restrict__ t_out, int* __restrict__ idx_out,
-                   float* __restrict__ n_out) {
+                   float* __restrict__ pay_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
   const Ray r = load_ray(o, d, i);
   float t;
   int idx;
-  closest_hit_dev(r, p1, e1, e2, aabb, C, leaf, eps, t, idx);
-  float nx, ny, nz;
-  hit_payload<SN>(r, idx, pay, p1, e1, e2, nx, ny, nz);
-  write_hit(i, t, idx, nx, ny, nz, t_out, idx_out, n_out);
+  if constexpr (T0) {
+    t = t0[i];
+    idx = -1;
+    closest_in_clusters(r, p1, e1, e2, aabb, 0, C, leaf, eps, t, idx);
+    if (idx < 0) t = kBig;
+  } else {
+    closest_hit_dev(r, p1, e1, e2, aabb, C, leaf, eps, t, idx);
+  }
+  if constexpr (P == kUv) {
+    float u = 0.f, v = 0.f;
+    if (idx >= 0) tri_uv(r, p1, e1, e2, idx, u, v);
+    t_out[i] = t;
+    idx_out[i] = idx;
+    pay_out[2 * i] = u;
+    pay_out[2 * i + 1] = v;
+  } else {
+    float nx, ny, nz;
+    hit_payload<P == kSn>(r, idx, pay, p1, e1, e2, nx, ny, nz);
+    write_hit(i, t, idx, nx, ny, nz, t_out, idx_out, pay_out);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -592,6 +625,89 @@ any_hit_tlas_kernel(const float* __restrict__ o, const float* __restrict__ d,
   hit_out[i] = hit;
 }
 
+// ---- the elementwise cross-check backend: K7a and K7b ----
+//
+// rtc_tpu's _kernel and _anyhit_kernel are its debug backend
+// (mesh_impl="pallas"), an independently structured traversal kept to
+// cross-check the production kernels: a static three-level walk in TABLE
+// order, superclusters of kSuperWidth clusters (super_aabb, their union
+// boxes), then clusters, then each cluster's leaf rows through the same
+// tri_hit as K1. There is no front-to-back order, so a lane visits every
+// super and cluster it enters before its running bound, more than K1
+// visits: a divergent per-ray walk bound by the FP32 pair tests, like
+// K1-K6. Speed is not its purpose; agreement is. Since the pair test is
+// shared, K7a's t equals K1's bit for bit on every ray, whatever the order.
+// The Pallas kernels gate a cluster for a whole tile of rays; here each ray
+// gates its own, on cluster_slab's widened boxes, so the cull never cuts
+// off a hit on a box face.
+
+constexpr int kSuperWidth = 8;  // mesh_intersect.py SUPER_WIDTH
+
+// K7a: t_best improves strictly, rows in table order, so the earliest row
+// at the least t wins a tie (as _kernel's masked iota-min, then strict <
+// across clusters). Miss: t = BIG, idx = -1.
+__global__ void __launch_bounds__(kThreads)
+closest_hit_elementwise_kernel(const float* __restrict__ o,
+                               const float* __restrict__ d, int R,
+                               const float* __restrict__ p1,
+                               const float* __restrict__ e1,
+                               const float* __restrict__ e2,
+                               const float* __restrict__ aabb, int C,
+                               const float* __restrict__ sup, int S,
+                               int leaf, float eps, float* __restrict__ t_out,
+                               int* __restrict__ idx_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R) return;
+  const Ray r = load_ray(o, d, i);
+  float t_best = kBig;
+  int best = -1;
+  for (int s = 0; s < S; ++s) {
+    if (!(cluster_entry(r, sup, s) < t_best)) continue;
+    const int c1 = min((s + 1) * kSuperWidth, C);
+    for (int c = s * kSuperWidth; c < c1; ++c) {
+      if (!(cluster_entry(r, aabb, c) < t_best)) continue;
+      for (int j = c * leaf; j < (c + 1) * leaf; ++j) {
+        float t;
+        if (tri_hit(r, p1, e1, e2, j, eps, t) && t >= 0.f && t < t_best) {
+          t_best = t;
+          best = j;
+        }
+      }
+    }
+  }
+  t_out[i] = t_best;
+  idx_out[i] = best;
+}
+
+// K7b: any triangle at t in [0, max_t)? Supers in table order, each
+// entered before max_t descending into K2's cluster loop over its
+// clusters; the lane stops at its first occluder. max_t <= 0 (or NaN) is
+// a dead lane.
+__global__ void __launch_bounds__(kThreads)
+any_hit_elementwise_kernel(const float* __restrict__ o,
+                           const float* __restrict__ d,
+                           const float* __restrict__ max_t, int R,
+                           const float* __restrict__ p1,
+                           const float* __restrict__ e1,
+                           const float* __restrict__ e2,
+                           const float* __restrict__ aabb, int C,
+                           const float* __restrict__ sup, int S, int leaf,
+                           float eps, uint8_t* __restrict__ hit_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R) return;
+  const float mt = max_t[i];
+  bool hit = false;
+  if (mt > 0.f) {
+    const Ray r = load_ray(o, d, i);
+    for (int s = 0; s < S && !hit; ++s) {
+      if (!(cluster_entry(r, sup, s) < mt)) continue;
+      hit = any_hit_dev(r, mt, p1, e1, e2, aabb, s * kSuperWidth,
+                        min((s + 1) * kSuperWidth, C), leaf, eps);
+    }
+  }
+  hit_out[i] = hit;
+}
+
 inline unsigned blocks_for(int R) { return (unsigned)((R + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -607,8 +723,9 @@ int rtc_closest_hit(int device, void* stream, const float* o, const float* d,
                     float eps, float* t_out, int* idx_out, float* n_out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  closest_hit_kernel<false><<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
-      o, d, R, p1, e1, e2, tri_n, aabb, C, leaf, eps, t_out, idx_out, n_out);
+  closest_hit_kernel<kFlat, false><<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, nullptr, R, p1, e1, e2, tri_n, aabb, C, leaf, eps, t_out, idx_out,
+      n_out);
   return (int)cudaGetLastError();
 }
 
@@ -619,8 +736,9 @@ int rtc_closest_hit_sn(int device, void* stream, const float* o,
                        float* t_out, int* idx_out, float* n_out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  closest_hit_kernel<true><<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
-      o, d, R, p1, e1, e2, tri_sn, aabb, C, leaf, eps, t_out, idx_out, n_out);
+  closest_hit_kernel<kSn, false><<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, nullptr, R, p1, e1, e2, tri_sn, aabb, C, leaf, eps, t_out, idx_out,
+      n_out);
   return (int)cudaGetLastError();
 }
 
@@ -722,6 +840,53 @@ int rtc_any_hit_tlas(int device, void* stream, const float* o, const float* d,
   any_hit_tlas_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
       o, d, max_t, R, p1, e1, e2, caabb, M, cm, leaf, inst_ab, inst_aabb,
       inst_mesh, I, eps, hit_out);
+  return (int)cudaGetLastError();
+}
+
+// K1's t0 and uv modes. t0 may be null: no carried bound. tri_n null: the
+// (u, v) payload (pay_out (R, 2)); else the flat normal (pay_out (R, 3)).
+int rtc_closest_hit_bounded(int device, void* stream, const float* o,
+                            const float* d, const float* t0, int R,
+                            const float* p1, const float* e1, const float* e2,
+                            const float* tri_n, const float* aabb, int C,
+                            int leaf, float eps, float* t_out, int* idx_out,
+                            float* pay_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const auto kernel =
+      tri_n == nullptr
+          ? (t0 != nullptr ? closest_hit_kernel<kUv, true>
+                           : closest_hit_kernel<kUv, false>)
+          : (t0 != nullptr ? closest_hit_kernel<kFlat, true>
+                           : closest_hit_kernel<kFlat, false>);
+  kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, t0, R, p1, e1, e2, tri_n, aabb, C, leaf, eps, t_out, idx_out,
+      pay_out);
+  return (int)cudaGetLastError();
+}
+
+int rtc_closest_hit_elementwise(int device, void* stream, const float* o,
+                                const float* d, int R, const float* p1,
+                                const float* e1, const float* e2,
+                                const float* aabb, int C, const float* sup,
+                                int S, int leaf, float eps, float* t_out,
+                                int* idx_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  closest_hit_elementwise_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, R, p1, e1, e2, aabb, C, sup, S, leaf, eps, t_out, idx_out);
+  return (int)cudaGetLastError();
+}
+
+int rtc_any_hit_elementwise(int device, void* stream, const float* o,
+                            const float* d, const float* max_t, int R,
+                            const float* p1, const float* e1, const float* e2,
+                            const float* aabb, int C, const float* sup, int S,
+                            int leaf, float eps, uint8_t* hit_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  any_hit_elementwise_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, max_t, R, p1, e1, e2, aabb, C, sup, S, leaf, eps, hit_out);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,13 @@
-"""Mesh intersection: the hand-written CUDA kernels K1-K6
-(rtc_tpu_torch/csrc/mesh_intersect.cu) and their plain PyTorch versions.
+"""Mesh intersection: the hand-written CUDA kernels K1-K7
+(rtc_tpu_torch/csrc/mesh_intersect.cu), their plain PyTorch versions, and
+the superblock streaming drivers around K1, K2 and K4.
 
 Counterpart of rtc_tpu/ops/pallas/mesh_intersect.py:
 
   K1 mesh_closest_hit          <- mesh_closest_hit_mxu(tri_n=...)  (_kernel_mxu)
+     mesh_closest_hit(t0=...)  <- mesh_closest_hit_mxu(tri_n=..., t0=...)
      mesh_closest_hit_sn       <- mesh_closest_hit_mxu(tri_sn=...)
+     mesh_closest_hit_uv       <- mesh_closest_hit_mxu(want_uv=True)
   K2 mesh_any_hit              <- mesh_any_hit_mxu                 (_anyhit_kernel_mxu)
   K3 mesh_closest_shadow       <- mesh_closest_shadow_mxu          (_kernel_mxu_cs)
      mesh_closest_shadow_sn    <- mesh_closest_shadow_mxu(tri_sn=...)
@@ -12,10 +15,19 @@ Counterpart of rtc_tpu/ops/pallas/mesh_intersect.py:
   K5 mesh_closest_hit_tlas     <- mesh_closest_hit_tlas_mxu(tri_n=...)  (_kernel_mxu_tlas)
      mesh_closest_hit_tlas_sn  <- mesh_closest_hit_tlas_mxu(tri_sn=...)
   K6 mesh_any_hit_tlas         <- mesh_any_hit_tlas_mxu            (_anyhit_kernel_tlas)
+  K7a mesh_closest_hit_elementwise <- mesh_closest_hit_pallas      (_kernel)
+  K7b mesh_any_hit_elementwise     <- mesh_any_hit_pallas          (_anyhit_kernel)
 
 Each wrapper takes f32 tensors. Given tensors on the CPU it returns its
 plain version's result; given CUDA tensors it launches its kernel, or
 raises. LAUNCHES counts the kernel launches of each wrapper.
+
+mesh_closest_hit, mesh_closest_hit_uv, mesh_any_hit and
+mesh_crossing_count stream a table of more than block_budget rows
+(default VMEM_TRI_BUDGET) in cluster superblocks, as rtc_tpu does
+(_blocked, :1413-1564): the drivers below are device-agnostic PyTorch that
+call the wrappers once per block, so on the CPU they run the plain
+versions block by block.
 
 The kernels are built from the checkout's sources with nvcc at first use,
 into a plain-C shared library under build/kernels/ (content-addressed, so
@@ -45,9 +57,19 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
+# rtc_tpu's VMEM triangle budget (mesh_intersect.py:1408-1410), a TPU
+# artifact kept unchanged so that the same tables stream, and the same
+# worlds take the instanced path (scene/compile.py), in both packages; the
+# CUDA kernels themselves take any size
+VMEM_TRI_BUDGET = 49152
+# clusters per supercluster, the kernels' kSuperWidth (K7a/K7b)
+SUPER_WIDTH = 8
+
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "closest_shadow": 0,
             "closest_hit_sn": 0, "closest_shadow_sn": 0, "crossing_count": 0,
-            "closest_hit_tlas": 0, "closest_hit_tlas_sn": 0, "any_hit_tlas": 0}
+            "closest_hit_tlas": 0, "closest_hit_tlas_sn": 0, "any_hit_tlas": 0,
+            "closest_hit_t0": 0, "closest_hit_uv": 0,
+            "closest_hit_elementwise": 0, "any_hit_elementwise": 0}
 
 
 def reset_launch_counts() -> None:
@@ -72,10 +94,12 @@ def _pair_tests(o, d, p1, e1, e2, eps):
                     eps)[:2]
 
 
-def _closest_plain(o, d, p1, e1, e2, eps):
+def _closest_plain(o, d, p1, e1, e2, eps, t0=None):
     """Nearest triangle with t >= 0 by a dense sweep (rtc_tpu
     integrator.mesh_closest bruteforce, :640-644): t (BIG on a miss) and
-    idx (-1 on a miss, the lowest index on a tie)."""
+    idx (-1 on a miss, the lowest index on a tie). K7a's plain version.
+    t0 (R,): a strict bound, as K1's t0 mode: a winner at t >= t0 becomes
+    a miss."""
     R = o.shape[0]
     t_out = torch.full((R,), BIG, dtype=o.dtype, device=o.device)
     idx_out = torch.full((R,), -1, dtype=torch.int32, device=o.device)
@@ -89,18 +113,34 @@ def _closest_plain(o, d, p1, e1, e2, eps):
         t_min = torch.gather(tt, 1, idx[:, None])[:, 0]
         t_out[s:s + step] = t_min
         idx_out[s:s + step] = torch.where(t_min < BIG * 0.5, idx, -1).to(torch.int32)
+    if t0 is not None:
+        below = t_out < t0
+        t_out = torch.where(below, t_out, BIG)
+        idx_out = torch.where(below, idx_out, -1)
     return t_out, idx_out
 
 
-def closest_hit_plain(o, d, p1, e1, e2, tri_n, eps: float = EPSILON):
+def closest_hit_plain(o, d, p1, e1, e2, tri_n, eps: float = EPSILON, t0=None):
     """K1's plain version: the dense sweep's (t, idx) and the winner's
-    tri_n row (zeros on a miss)."""
-    t, idx = _closest_plain(o, d, p1, e1, e2, eps)
+    tri_n row (zeros on a miss); t0 as _closest_plain."""
+    t, idx = _closest_plain(o, d, p1, e1, e2, eps, t0)
     hit = idx >= 0
     if p1.shape[0] == 0:
         return t, idx, torch.zeros_like(o)
     n = torch.where(hit[:, None], tri_n[idx.clamp_min(0).long()], 0.0)
     return t, idx, n
+
+
+def closest_hit_uv_plain(o, d, p1, e1, e2, eps: float = EPSILON, t0=None):
+    """K1 with_uv's plain version: the dense sweep's (t, idx) and the
+    winner's raw barycentric (u, v) (R, 2) from triangle() at its row
+    (zeros on a miss); t0 as _closest_plain."""
+    t, idx = _closest_plain(o, d, p1, e1, e2, eps, t0)
+    if p1.shape[0] == 0:
+        return t, idx, o.new_zeros((o.shape[0], 2))
+    i = idx.clamp_min(0).long()
+    _, _, u, v = triangle(o, d, p1[i], e1[i], e2[i], eps)
+    return t, idx, torch.where((idx >= 0)[:, None], torch.stack([u, v], 1), 0.0)
 
 
 def smooth_blend(o, d, p1, e1, e2, tri_sn, idx, eps: float = EPSILON):
@@ -393,10 +433,18 @@ def library() -> ctypes.CDLL:
     lib.rtc_closest_hit_tlas_sn.argtypes = closest_tlas
     lib.rtc_any_hit_tlas.argtypes = [I, P, P, P, P, I, P, P, P, P, I, I, I, P,
                                      P, P, I, F, P]
+    lib.rtc_closest_hit_bounded.argtypes = [I, P, P, P, P, I, P, P, P, P, P,
+                                            I, I, F, P, P, P]
+    lib.rtc_closest_hit_elementwise.argtypes = [I, P, P, P, I, P, P, P, P, I,
+                                                P, I, I, F, P, P]
+    lib.rtc_any_hit_elementwise.argtypes = [I, P, P, P, P, I, P, P, P, P, I, P,
+                                            I, I, F, P]
     for fn in (lib.rtc_closest_hit, lib.rtc_closest_hit_sn, lib.rtc_any_hit,
                lib.rtc_closest_shadow, lib.rtc_closest_shadow_sn,
                lib.rtc_crossing_count, lib.rtc_closest_hit_tlas,
-               lib.rtc_closest_hit_tlas_sn, lib.rtc_any_hit_tlas):
+               lib.rtc_closest_hit_tlas_sn, lib.rtc_any_hit_tlas,
+               lib.rtc_closest_hit_bounded,
+               lib.rtc_closest_hit_elementwise, lib.rtc_any_hit_elementwise):
         fn.restype = I
     lib.rtc_error_string.argtypes = [I]
     lib.rtc_error_string.restype = ctypes.c_char_p
@@ -446,31 +494,76 @@ def _stream(device) -> int:
 
 
 def _closest_launch(name, fn, o, d, tri_p1, tri_e1, tri_e2, payload,
-                    payload_name, cluster_aabb, leaf, eps):
-    """K1 in either payload mode: (t, idx, n)."""
+                    payload_name, cluster_aabb, leaf, eps, t0=None,
+                    bounded: bool = False):
+    """K1 in a payload mode (tri_n, tri_sn, or None for (u, v)), with or
+    without the carried bound t0: (t, idx, n or uv). The bounded entry
+    point takes the t0 pointer right after d, and null for t0 or payload
+    where there is none."""
     device, R, C = _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
                                 leaf, payload, payload_name)
+    if t0 is not None:
+        _check("t0", t0, torch.float32, (R,), device)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    bound = (ptr(t0),) if bounded else ()
     t = torch.empty((R,), dtype=torch.float32, device=device)
     idx = torch.empty((R,), dtype=torch.int32, device=device)
-    n = torch.empty((R, 3), dtype=torch.float32, device=device)
+    pay = torch.empty((R, 3 if payload is not None else 2),
+                      dtype=torch.float32, device=device)
     if R:
         err = fn(device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(),
-                 R, tri_p1.data_ptr(), tri_e1.data_ptr(), tri_e2.data_ptr(),
-                 payload.data_ptr(), cluster_aabb.data_ptr(), C, leaf, eps,
-                 t.data_ptr(), idx.data_ptr(), n.data_ptr())
+                 *bound, R, tri_p1.data_ptr(), tri_e1.data_ptr(),
+                 tri_e2.data_ptr(), ptr(payload), cluster_aabb.data_ptr(), C,
+                 leaf, eps, t.data_ptr(), idx.data_ptr(), pay.data_ptr())
         _raise_on(err, name)
         LAUNCHES[name] += 1
-    return t, idx, n
+    return t, idx, pay
+
+
+def _no_bound_when_streaming(t0) -> None:
+    if t0 is not None:
+        # as rtc_tpu (mesh_intersect.py:1691): the drivers carry their own
+        raise ValueError("t0 is not taken by a streamed call "
+                         "(the table exceeds block_budget)")
 
 
 def mesh_closest_hit(o, d, tri_p1, tri_e1, tri_e2, tri_n, cluster_aabb,
-                     leaf: int, eps: float = EPSILON):
-    """K1: (t, idx, n) as closest_hit_plain."""
+                     leaf: int, eps: float = EPSILON, t0=None,
+                     block_budget: int = VMEM_TRI_BUDGET):
+    """K1: (t, idx, n) as closest_hit_plain. t0 (R,): a strict bound (K1's
+    t0 mode). A table of more than block_budget rows streams in
+    superblocks (closest_hit_blocked)."""
+    n_blocks = _blocked(tri_p1, leaf, block_budget)
+    if n_blocks > 1:
+        _no_bound_when_streaming(t0)
+        return closest_hit_blocked(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
+                                   n_blocks, leaf, eps, tri_n=tri_n)
     if o.device.type == "cpu":
-        return closest_hit_plain(o, d, tri_p1, tri_e1, tri_e2, tri_n, eps)
-    return _closest_launch("closest_hit", library().rtc_closest_hit, o, d,
-                           tri_p1, tri_e1, tri_e2, tri_n, "tri_n",
-                           cluster_aabb, leaf, eps)
+        return closest_hit_plain(o, d, tri_p1, tri_e1, tri_e2, tri_n, eps, t0)
+    if t0 is None:
+        return _closest_launch("closest_hit", library().rtc_closest_hit, o, d,
+                               tri_p1, tri_e1, tri_e2, tri_n, "tri_n",
+                               cluster_aabb, leaf, eps)
+    return _closest_launch("closest_hit_t0", library().rtc_closest_hit_bounded,
+                           o, d, tri_p1, tri_e1, tri_e2, tri_n, "tri_n",
+                           cluster_aabb, leaf, eps, t0, bounded=True)
+
+
+def mesh_closest_hit_uv(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
+                        leaf: int, eps: float = EPSILON, t0=None,
+                        block_budget: int = VMEM_TRI_BUDGET):
+    """K1 with_uv: (t, idx, uv (R, 2)) as closest_hit_uv_plain; t0 and
+    block_budget as mesh_closest_hit."""
+    n_blocks = _blocked(tri_p1, leaf, block_budget)
+    if n_blocks > 1:
+        _no_bound_when_streaming(t0)
+        return closest_hit_blocked(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
+                                   n_blocks, leaf, eps, want_uv=True)
+    if o.device.type == "cpu":
+        return closest_hit_uv_plain(o, d, tri_p1, tri_e1, tri_e2, eps, t0)
+    return _closest_launch("closest_hit_uv", library().rtc_closest_hit_bounded,
+                           o, d, tri_p1, tri_e1, tri_e2, None, "", cluster_aabb,
+                           leaf, eps, t0, bounded=True)
 
 
 def mesh_closest_hit_sn(o, d, tri_p1, tri_e1, tri_e2, tri_sn, cluster_aabb,
@@ -485,8 +578,14 @@ def mesh_closest_hit_sn(o, d, tri_p1, tri_e1, tri_e2, tri_sn, cluster_aabb,
 
 
 def mesh_any_hit(o, d, max_t, tri_p1, tri_e1, tri_e2, cluster_aabb,
-                 leaf: int, eps: float = EPSILON):
-    """K2: (R,) bool as any_hit_plain."""
+                 leaf: int, eps: float = EPSILON,
+                 block_budget: int = VMEM_TRI_BUDGET):
+    """K2: (R,) bool as any_hit_plain. A table of more than block_budget
+    rows streams in superblocks (any_hit_blocked)."""
+    n_blocks = _blocked(tri_p1, leaf, block_budget)
+    if n_blocks > 1:
+        return any_hit_blocked(o, d, max_t, tri_p1, tri_e1, tri_e2,
+                               cluster_aabb, n_blocks, leaf, eps)
     if o.device.type == "cpu":
         return any_hit_plain(o, d, max_t, tri_p1, tri_e1, tri_e2, eps)
     device, R, C = _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb, leaf)
@@ -548,10 +647,17 @@ def mesh_closest_shadow_sn(o, d, tri_p1, tri_e1, tri_e2, tri_sn, cluster_aabb,
 
 def mesh_crossing_count(o, d, t_hit, hit_gid, tri_p1, tri_e1, tri_e2,
                         cluster_aabb, tri_cid, n_containers: int, leaf: int,
-                        eps: float = EPSILON):
+                        eps: float = EPSILON,
+                        block_budget: int = VMEM_TRI_BUDGET):
     """K4: (cnt (R, K) i32, last (R, K) f32) as crossing_count_plain.
     t_hit <= -BIG marks a dead lane; hit_gid (R,) i32 is -2 where the hit
-    is not a triangle."""
+    is not a triangle. A table of more than block_budget rows streams in
+    superblocks (crossing_count_blocked)."""
+    n_blocks = _blocked(tri_p1, leaf, block_budget)
+    if n_blocks > 1:
+        return crossing_count_blocked(o, d, t_hit, hit_gid, tri_p1, tri_e1,
+                                      tri_e2, cluster_aabb, tri_cid,
+                                      n_containers, n_blocks, leaf, eps)
     if o.device.type == "cpu":
         return crossing_count_plain(o, d, t_hit, hit_gid, tri_p1, tri_e1,
                                     tri_e2, tri_cid, n_containers, eps)
@@ -670,3 +776,192 @@ def mesh_any_hit_tlas(o, d, max_t, p1, e1, e2, caabb, inst_ab, inst_aabb,
         _raise_on(err, "any_hit_tlas")
         LAUNCHES["any_hit_tlas"] += 1
     return hit
+
+
+# --- the elementwise cross-check backend: K7a and K7b ----------------------
+#
+# rtc_tpu's mesh_impl="pallas": an independent three-level walk over the
+# world table in table order (superclusters of SUPER_WIDTH clusters,
+# super_aabb (S, 6), then clusters, then rows). Their plain versions are
+# the dense sweeps _closest_plain and any_hit_plain, which compute the same
+# functions.
+
+def _elementwise_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb, super_aabb,
+                      leaf):
+    """Validate a K7 launch's inputs. Returns (device, R, C, S)."""
+    device, R, C = _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
+                                leaf)
+    S = super_aabb.shape[0]
+    _check("super_aabb", super_aabb, torch.float32, (S, 6), device)
+    if C != S * SUPER_WIDTH:
+        raise ValueError(f"{S} super boxes do not cover {C} clusters in "
+                         f"groups of {SUPER_WIDTH}")
+    return device, R, C, S
+
+
+def mesh_closest_hit_elementwise(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
+                                 super_aabb, leaf: int, eps: float = EPSILON):
+    """K7a: (t, idx) as _closest_plain: t (BIG on a miss), idx (-1 on a
+    miss; the earliest row in table order at the least t)."""
+    if o.device.type == "cpu":
+        return _closest_plain(o, d, tri_p1, tri_e1, tri_e2, eps)
+    device, R, C, S = _elementwise_args(o, d, tri_p1, tri_e1, tri_e2,
+                                        cluster_aabb, super_aabb, leaf)
+    t = torch.empty((R,), dtype=torch.float32, device=device)
+    idx = torch.empty((R,), dtype=torch.int32, device=device)
+    if R:
+        err = library().rtc_closest_hit_elementwise(
+            device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(), R,
+            tri_p1.data_ptr(), tri_e1.data_ptr(), tri_e2.data_ptr(),
+            cluster_aabb.data_ptr(), C, super_aabb.data_ptr(), S, leaf, eps,
+            t.data_ptr(), idx.data_ptr())
+        _raise_on(err, "closest_hit_elementwise")
+        LAUNCHES["closest_hit_elementwise"] += 1
+    return t, idx
+
+
+def mesh_any_hit_elementwise(o, d, max_t, tri_p1, tri_e1, tri_e2,
+                             cluster_aabb, super_aabb, leaf: int,
+                             eps: float = EPSILON):
+    """K7b: (R,) bool as any_hit_plain."""
+    if o.device.type == "cpu":
+        return any_hit_plain(o, d, max_t, tri_p1, tri_e1, tri_e2, eps)
+    device, R, C, S = _elementwise_args(o, d, tri_p1, tri_e1, tri_e2,
+                                        cluster_aabb, super_aabb, leaf)
+    _check("max_t", max_t, torch.float32, (R,), device)
+    hit = torch.empty((R,), dtype=torch.bool, device=device)
+    if R:
+        err = library().rtc_any_hit_elementwise(
+            device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(),
+            max_t.data_ptr(), R, tri_p1.data_ptr(), tri_e1.data_ptr(),
+            tri_e2.data_ptr(), cluster_aabb.data_ptr(), C,
+            super_aabb.data_ptr(), S, leaf, eps, hit.data_ptr())
+        _raise_on(err, "any_hit_elementwise")
+        LAUNCHES["any_hit_elementwise"] += 1
+    return hit
+
+
+# ---------------------------------------------------------------------------
+# superblock streaming (rtc_tpu mesh_intersect.py:1413-1564)
+# ---------------------------------------------------------------------------
+#
+# A table of more than block_budget rows is cut into n_blocks superblocks of
+# per_block = ceil(C / n_blocks) clusters, rtc_tpu's cut. Each block is a
+# view of the tables (no copy): the last one may be short where rtc_tpu pads
+# it with empty clusters, which no ray enters. The drivers call the wrappers
+# once per block with a budget that the block fits.
+
+def _blocked(tri_p1, leaf: int, budget: int) -> int:
+    """Number of cluster superblocks for a table of tri_p1.shape[0] padded
+    rows (1: no split)."""
+    t = tri_p1.shape[0]
+    if t <= budget:
+        return 1
+    per_block = max(budget // leaf, 1)
+    return -(-(t // leaf) // per_block)
+
+
+def _block_tables(n_clusters: int, n_blocks: int, leaf: int):
+    """(per_block, [(first cluster, row slice, cluster slice)] per block):
+    the slices that cut the tables into superblock views."""
+    per_block = -(-n_clusters // n_blocks)
+    blocks = []
+    for b in range(n_blocks):
+        c0, c1 = b * per_block, min((b + 1) * per_block, n_clusters)
+        blocks.append((c0, slice(c0 * leaf, c1 * leaf), slice(c0, c1)))
+    return per_block, blocks
+
+
+def _block_order(o, d, aabb, per_block: int):
+    """Global front-to-back superblock order for a wavefront, as rtc_tpu
+    (:1453-1476): each block's union box over its non-empty clusters, a
+    slab test of every ray, the earliest entry any ray has into each block,
+    and a stable argsort. Parked and dead lanes (origin 1e12) enter no
+    block, so they leave the minimum alone. Returns (B,) int64."""
+    C = aabb.shape[0]
+    n_blocks = -(-C // per_block)
+    bid = (torch.arange(C, device=aabb.device) // per_block)[:, None].expand(C, 3)
+    empty = (aabb[:, :3] > aabb[:, 3:]).any(1, keepdim=True)
+    inf = float("inf")
+    lo = aabb.new_full((n_blocks, 3), inf).scatter_reduce(
+        0, bid, torch.where(empty, inf, aabb[:, :3]), "amin")
+    hi = aabb.new_full((n_blocks, 3), -inf).scatter_reduce(
+        0, bid, torch.where(empty, -inf, aabb[:, 3:]), "amax")
+    near0 = d.abs() < 1e-30
+    inv = torch.where(near0, torch.where(d >= 0, BIG, -BIG).to(d.dtype),
+                      1.0 / torch.where(near0, 1.0, d))
+    t1 = (lo[None] - o[:, None]) * inv[:, None]                # (R, B, 3)
+    t2 = (hi[None] - o[:, None]) * inv[:, None]
+    tmin = torch.minimum(t1, t2).amax(2)                       # (R, B)
+    tmax = torch.maximum(t1, t2).amin(2)
+    ov = (tmax >= tmin) & (tmax >= 0.0)
+    entry = torch.where(ov, torch.clamp_min(tmin, 0.0), BIG).amin(0)
+    return torch.argsort(entry, stable=True)
+
+
+def closest_hit_blocked(o, d, p1, e1, e2, aabb, n_blocks: int, leaf: int,
+                        eps: float = EPSILON, tri_n=None,
+                        want_uv: bool = False):
+    """Streamed K1 (rtc_tpu _closest_hit_blocked, :1479-1520): the blocks
+    in _block_order, each a K1 t0 launch whose bound is the best t carried
+    so far, so clusters at or beyond it are never scheduled. Returns (t,
+    idx, n) with tri_n, or (t, idx, uv) with want_uv. t equals a single
+    launch's bit for bit; idx may differ only at exact ties that straddle
+    blocks (a later block cannot beat an equal t)."""
+    per_block, blocks = _block_tables(aabb.shape[0], n_blocks, leaf)
+    order = _block_order(o, d, aabb, per_block).tolist()
+    R = o.shape[0]
+    t_c = torch.full((R,), BIG, dtype=o.dtype, device=o.device)
+    idx_c = torch.full((R,), -1, dtype=torch.int32, device=o.device)
+    pay_c = o.new_zeros((R, 2 if want_uv else 3))
+    budget = per_block * leaf
+    for b in order:
+        c0, rows, cl = blocks[b]
+        tabs = (p1[rows], e1[rows], e2[rows])
+        if want_uv:
+            t_b, idx_b, pay_b = mesh_closest_hit_uv(
+                o, d, *tabs, aabb[cl], leaf, eps, t0=t_c, block_budget=budget)
+        else:
+            t_b, idx_b, pay_b = mesh_closest_hit(
+                o, d, *tabs, tri_n[rows], aabb[cl], leaf, eps, t0=t_c,
+                block_budget=budget)
+        won = idx_b >= 0
+        t_c = torch.where(won, t_b, t_c)
+        idx_c = torch.where(won, idx_b + c0 * leaf, idx_c)
+        pay_c = torch.where(won[:, None], pay_b, pay_c)
+    return t_c, idx_c, pay_c
+
+
+def any_hit_blocked(o, d, max_t, p1, e1, e2, aabb, n_blocks: int, leaf: int,
+                    eps: float = EPSILON):
+    """Streamed K2 (rtc_tpu _any_hit_blocked, :1523-1542): blocks in
+    _block_order with a carried found mask; found lanes get max_t = -1, so
+    later blocks drop them."""
+    per_block, blocks = _block_tables(aabb.shape[0], n_blocks, leaf)
+    order = _block_order(o, d, aabb, per_block).tolist()
+    found = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
+    for b in order:
+        _, rows, cl = blocks[b]
+        m = torch.where(found, -1.0, max_t)
+        found = found | mesh_any_hit(o, d, m, p1[rows], e1[rows], e2[rows],
+                                     aabb[cl], leaf, eps,
+                                     block_budget=per_block * leaf)
+    return found
+
+
+def crossing_count_blocked(o, d, t_hit, hit_gid, p1, e1, e2, aabb, tri_cid,
+                           n_containers: int, n_blocks: int, leaf: int,
+                           eps: float = EPSILON):
+    """Streamed K4 (rtc_tpu _crossing_blocked, :1545-1564): counts summed
+    over the blocks and the latest crossings maxed; hit_gid is rebased per
+    block, so the hit triangle is excluded exactly once."""
+    per_block, blocks = _block_tables(aabb.shape[0], n_blocks, leaf)
+    cnt = last = None
+    for c0, rows, cl in blocks:
+        c, l = mesh_crossing_count(o, d, t_hit, hit_gid - c0 * leaf, p1[rows],
+                                   e1[rows], e2[rows], aabb[cl],
+                                   tri_cid[rows], n_containers, leaf, eps,
+                                   block_budget=per_block * leaf)
+        cnt = c if cnt is None else cnt + c
+        last = l if last is None else torch.maximum(last, l)
+    return cnt, last

@@ -8,8 +8,10 @@ and one refraction child).
 
 Ported: analytic prims, flat and smooth triangle meshes, instanced meshes
 (on the kernel path, K5 for closest hit and K6 for shadows, as rtc_tpu's
-TLAS path), patterns, shadows, reflection, refraction with the n1/n2
-crossing census, and the Schlick blend. Not ported: primitive sharding
+TLAS path), tables over rtc_tpu's VMEM budget (streamed in superblocks by
+the kernel wrappers), the elementwise cross-check backend (K7a, K7b),
+patterns, shadows, reflection, refraction with the n1/n2 crossing census,
+and the Schlick blend. Not ported: primitive sharding
 (ROADMAP queue 1 item 16) and the custom derivatives (item 8). Masked
 lanes carry finite dummy values, and dead lanes are parked outside every
 box so the kernels' traversal drops them at once.
@@ -43,38 +45,46 @@ class HitInfo(NamedTuple):
     tri_n: torch.Tensor    # (R, 3) the winning triangle's unit world normal
 
 
+KERNEL_IMPLS = ("kernel", "elementwise")
+
+
 def _resolve_mesh_impl(scene: Scene, cfg: RenderConfig, x) -> str:
-    """'kernel' or 'bruteforce' for rays x. 'auto' takes the kernels for
-    f32 tensors on CUDA and the dense sweep otherwise; an explicit
-    'kernel' on a CPU or f64 tensor raises."""
+    """'kernel', 'elementwise' or 'bruteforce' for rays x. 'auto' takes the
+    kernels for f32 tensors on CUDA and the dense sweep otherwise; an
+    explicit 'kernel' or 'elementwise' on a CPU or f64 tensor raises."""
     impl = cfg.mesh_impl
     if impl == "auto":
         impl = ("kernel" if scene.static.n_clusters and x.is_cuda
                 and x.dtype == torch.float32 else "bruteforce")
-    if impl == "kernel" and not scene.static.n_clusters:
+    if impl in KERNEL_IMPLS and not scene.static.n_clusters:
         impl = "bruteforce"
-    if impl == "kernel" and not (x.is_cuda and x.dtype == torch.float32):
+    if impl in KERNEL_IMPLS and not (x.is_cuda and x.dtype == torch.float32):
         raise ValueError(
-            "mesh_impl='kernel' runs the CUDA kernels, which take float32 "
+            f"mesh_impl={impl!r} runs the CUDA kernels, which take float32 "
             f"tensors on a CUDA device (got {x.dtype} on {x.device})")
     return impl
 
 
 def _use_tlas(scene: Scene, cfg: RenderConfig, impl: str) -> bool:
     """The instanced path (K5, K6) serves a scene with TLAS tables on the
-    kernel backend (rtc_tpu :510-519); 'bruteforce' sweeps the world
-    table."""
+    kernel backend (rtc_tpu :510-519); 'bruteforce' and 'elementwise'
+    sweep the world table."""
     return bool(scene.static.tlas_n_inst) and impl == "kernel"
 
 
 def _use_fused_shadow(scene: Scene, cfg: RenderConfig, impl: str) -> bool:
-    """Fused closest+shadow eligibility: kernel backend, shadows on, a
-    pure-mesh scene, flat or smooth, not instanced (rtc_tpu :535: K3 would
-    sweep the instanced scene's whole world table). (rtc_tpu also asks
-    that the mesh fit one VMEM block; the card has no such budget.)"""
+    """Fused closest+shadow eligibility (rtc_tpu :522-536): kernel backend,
+    shadows on, a pure-mesh scene, flat or smooth, not instanced (K3 would
+    sweep the instanced scene's whole world table), and a table that fits
+    one superblock of rtc_tpu's VMEM budget (43/49 of it when smooth: the
+    corner-normal slab), so a larger one streams through K1 and K2. The
+    budget is a TPU artifact, kept so both packages take the same route."""
+    st = scene.static
+    budget = (mi.VMEM_TRI_BUDGET * 43) // 49 if st.any_smooth else mi.VMEM_TRI_BUDGET
     return (cfg.fused_shadow and cfg.shadows and impl == "kernel"
-            and scene.static.n_prims == 0 and scene.static.n_tris > 0
-            and not _use_tlas(scene, cfg, impl))
+            and st.n_prims == 0 and st.n_tris > 0
+            and not _use_tlas(scene, cfg, impl)
+            and mi._blocked(scene.tri_p1, st.cluster_size, budget) == 1)
 
 
 def corner_normals(scene: Scene):
@@ -141,27 +151,44 @@ def mesh_closest(scene: Scene, o, d, cfg: RenderConfig):
     """Closest triangle hit: (t, idx, n); t == BIG, idx == 0 and n == 0 on
     a miss. n is the winner's unit world normal: its face normal, or for a
     smooth scene its corner normals blended by (u, v) and normalized
-    (rtc_tpu :605-618). 'kernel' launches K1 (with_n or with_sn), or K5
-    for an instanced scene; 'bruteforce' is the dense sweep of the world
-    table."""
+    (rtc_tpu :605-618). 'kernel' launches K1 (with_n or with_sn; streamed
+    over a table above the VMEM budget, K1 t0 with_n or, smooth, with_uv
+    and one gathered blend, :619-630), or K5 for an instanced scene;
+    'elementwise' launches K7a and gathers the normal (:702-717);
+    'bruteforce' is the dense sweep of the world table."""
     impl = _resolve_mesh_impl(scene, cfg, o)
     if _use_tlas(scene, cfg, impl):
         return _tlas_closest(scene, o, d, cfg)[:3]
-    kernel = impl == "kernel"
+    st = scene.static
     tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
-    if scene.static.any_smooth:
-        snc = corner_normals(scene)
-        if kernel:
-            t, idx, n = mi.mesh_closest_hit_sn(
-                o, d, *tabs, snc, scene.cluster_aabb,
-                scene.static.cluster_size, cfg.epsilon)
+    args = (scene.cluster_aabb, st.cluster_size, cfg.epsilon)
+    if impl == "elementwise":
+        t, idx = mi.mesh_closest_hit_elementwise(
+            o, d, *tabs, scene.cluster_aabb, scene.super_aabb,
+            st.cluster_size, cfg.epsilon)
+        hit = idx >= 0
+        if st.any_smooth:
+            n = normalize(mi.smooth_blend(o, d, *tabs, corner_normals(scene),
+                                          idx, cfg.epsilon))
         else:
+            n = torch.where(hit[:, None], scene.tri_n[idx.clamp_min(0).long()], 0.0)
+    elif st.any_smooth:
+        snc = corner_normals(scene)
+        if impl != "kernel":
             t, idx, n = mi.closest_hit_sn_plain(o, d, *tabs, snc, cfg.epsilon)
+        elif st.n_tris <= mi.VMEM_TRI_BUDGET:
+            t, idx, n = mi.mesh_closest_hit_sn(o, d, *tabs, snc, *args)
+        else:
+            # streamed: the winner's (u, v), then one (R, 9) gather and
+            # the blend in rtc_tpu's order
+            t, idx, uv = mi.mesh_closest_hit_uv(o, d, *tabs, *args)
+            g = snc[idx.clamp_min(0).long()]
+            u, v = uv[:, 0:1], uv[:, 1:2]
+            n = (1.0 - u - v) * g[:, 0:3] + u * g[:, 3:6] + v * g[:, 6:9]
+            n = torch.where((idx >= 0)[:, None], n, 0.0)
         n = normalize(n)
-    elif kernel:
-        t, idx, n = mi.mesh_closest_hit(
-            o, d, *tabs, scene.tri_n, scene.cluster_aabb,
-            scene.static.cluster_size, cfg.epsilon)
+    elif impl == "kernel":
+        t, idx, n = mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, *args)
     else:
         t, idx, n = mi.closest_hit_plain(o, d, *tabs, scene.tri_n, cfg.epsilon)
     return t, idx.clamp_min(0), n
@@ -233,7 +260,8 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
 
     `hit().t < distance` is "any candidate t in [0, distance)": a dense
     prim sweep OR the any-hit kernel on the triangles (K6 on an instanced
-    scene's tables, K2 otherwise; the plain sweep of the world table on
+    scene's tables, K2 otherwise, streamed over a table above the VMEM
+    budget; K7b on 'elementwise'; the plain sweep of the world table on
     'bruteforce'). live: optional (R,) bool; dead lanes get max_t = -1 and
     report unshadowed.
     """
@@ -264,6 +292,10 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
             found = mi.mesh_any_hit(point, direction, distance, *tabs,
                                     scene.cluster_aabb,
                                     st.cluster_size, cfg.epsilon)
+        elif impl == "elementwise":
+            found = mi.mesh_any_hit_elementwise(
+                point, direction, distance, *tabs, scene.cluster_aabb,
+                scene.super_aabb, st.cluster_size, cfg.epsilon)
         else:
             found = mi.any_hit_plain(point, direction, distance, *tabs,
                                      cfg.epsilon)
@@ -336,7 +368,11 @@ def refraction_indices(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
         hit_gid = torch.where(hit.is_tri, hit.tri, -2).to(torch.int32)
         t_census = hit.t if live is None else torch.where(live, hit.t, -BIG)
         tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
-        if _resolve_mesh_impl(scene, cfg, o) == "kernel":
+        # rtc_tpu's 'pallas' backend runs its dense refr_tri_* sweep here,
+        # which is no Pallas kernel (rtc_tpu :1041-1052); the port keeps no
+        # such slabs, so 'elementwise' launches K4 too: it counts exactly
+        # on the card, and it keeps the plain census off the card's path
+        if _resolve_mesh_impl(scene, cfg, o) in KERNEL_IMPLS:
             cnt_m, last_m = mi.mesh_crossing_count(
                 o, d, t_census.contiguous(), hit_gid.contiguous(), *tabs,
                 scene.cluster_aabb, scene.tri_cid, len(mesh_ids),

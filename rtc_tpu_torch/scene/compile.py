@@ -30,6 +30,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..ops.kernels.mesh_intersect import SUPER_WIDTH, VMEM_TRI_BUDGET
 from .materials import NONE
 from .shapes import KIND_CODES, Shape, triangle_edges
 from .world import World
@@ -37,17 +38,12 @@ from .world import World
 # triangles per cluster, rtc_tpu's default
 CLUSTER_SIZE = 128
 
-# clusters per supercluster of the K7 debug hierarchy (kept so the tables
-# equal rtc_tpu's; the port's kernels read cluster_aabb only)
-SUPER_WIDTH = 8
-
-# rtc_tpu's VMEM triangle budget (rtc_tpu/ops/pallas/mesh_intersect.py
-# VMEM_TRI_BUDGET). It is a TPU artifact: a world of mesh leaves whose
-# padded table exceeds it, and whose unique meshes fit it, takes the
-# instanced (TLAS) path. The port keeps the rule unchanged so that the same
-# worlds take that path in both packages and the tables compare element
-# for element; the CUDA kernels themselves take any size.
-VMEM_TRI_BUDGET = 49152
+# SUPER_WIDTH clusters per supercluster: the elementwise kernels' (K7a/K7b)
+# middle level. VMEM_TRI_BUDGET is rtc_tpu's VMEM triangle budget, a TPU
+# artifact: a world of mesh leaves whose padded table exceeds it, and whose
+# unique meshes fit it, takes the instanced (TLAS) path. The port keeps the
+# rule unchanged so that the same worlds take that path in both packages
+# and the tables compare element for element.
 
 # infinite cylinder/cone extents are clamped so f32 arithmetic stays finite
 Y_INF = 1e9
@@ -383,8 +379,10 @@ def _unit_rows(a: np.ndarray) -> np.ndarray:
 
 
 def compile_scene(world: World, dtype: torch.dtype = torch.float32,
-                  device="cpu", containers: str = "refractive") -> Scene:
-    """Compile a world into tensors on `device`.
+                  device="cuda", containers: str = "refractive") -> Scene:
+    """Compile a world into tensors on `device`: the card by default, so
+    that render() runs the kernels; pass device="cpu" for the plain
+    versions. Without a card the default raises, as torch does.
 
     containers selects the n1/n2 census membership, as rtc_tpu:
     "refractive" (default) takes objects with ior != 1 or transparency > 0;

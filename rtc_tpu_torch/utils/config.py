@@ -13,7 +13,7 @@ import torch
 
 from .constants import EPSILON
 
-MESH_IMPLS = ("auto", "bruteforce", "kernel")
+MESH_IMPLS = ("auto", "bruteforce", "kernel", "elementwise")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,7 +30,11 @@ class RenderConfig:
       mesh_impl: triangle intersector. 'kernel' runs the hand-written CUDA
         kernels (f32 tensors on a CUDA device only); 'bruteforce' the dense
         PyTorch sweep; 'auto' picks 'kernel' for f32 tensors on CUDA and
-        'bruteforce' otherwise (f64 conformance mode, CPU).
+        'bruteforce' otherwise (f64 conformance mode, CPU). 'elementwise'
+        is the cross-check backend, the elementwise kernels K7a/K7b over
+        the world table in table order (f32 tensors on a CUDA device
+        only). rtc_tpu names its backends 'mxu' (here 'kernel') and
+        'pallas' (here 'elementwise').
       shadows: cast shadow rays (the reference always does).
       ray_order: 'morton' renders pixels in compact screen blocks (16x16
         block-major, or Z-order when the canvas does not divide into

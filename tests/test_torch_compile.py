@@ -29,6 +29,12 @@ from rtc_tpu_torch.utils.profiling import rays_per_pixel
 
 torch.set_num_threads(2)
 
+
+def _compile(world, **kw):
+    """The port's compile_scene on the CPU: its default device is the card."""
+    return compile_scene(world, device="cpu", **kw)
+
+
 DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}
 
@@ -41,7 +47,7 @@ def cows():
         jax_world, _ = JAX_REGISTRY["cow"](32)
         world, _ = REGISTRY["cow"](32)
         out[name] = (jax_compile_scene(jax_world, dtype=np_dt),
-                     compile_scene(world, dtype=torch_dt))
+                     _compile(world, dtype=torch_dt))
     return out
 
 
@@ -96,7 +102,7 @@ def _slice_worlds():
 
 @pytest.mark.parametrize("kind", sorted(_slice_worlds()))
 def test_slice_features_compile(kind):
-    st = compile_scene(_slice_worlds()[kind]).static
+    st = _compile(_slice_worlds()[kind]).static
     flags = dict(sphere=st.n_prims == 1 and st.n_tris == 0,
                  pattern=st.any_pattern,
                  refractive=st.any_refractive and st.refr_mesh_obj_ids == (0,),
@@ -125,7 +131,7 @@ def slice_scenes():
         for dtype, (np_dt, torch_dt) in DTYPES.items():
             out[name, dtype] = (
                 jax_compile_scene(_slice_world(name, True), dtype=np_dt),
-                compile_scene(_slice_world(name, False), dtype=torch_dt))
+                _compile(_slice_world(name, False), dtype=torch_dt))
     return out
 
 
@@ -180,17 +186,17 @@ def test_containers_all_matches_rtc_tpu():
 
     ref = jax_compile_scene(world(jax_shapes, JaxWorld), dtype=np.float64,
                             containers="all")
-    scene = compile_scene(world(shapes, World), dtype=torch.float64,
+    scene = _compile(world(shapes, World), dtype=torch.float64,
                           containers="all")
     assert scene.static.refr_prim_ids == ref.static.refr_prim_ids == (0,)
     assert scene.static.refr_mesh_obj_ids == ref.static.refr_mesh_obj_ids == (1,)
     assert np.array_equal(scene.tri_cid.numpy(), np.asarray(ref.tri_cid))
     with pytest.raises(ValueError, match="containers"):
-        compile_scene(world(shapes, World), containers="some")
+        _compile(world(shapes, World), containers="some")
 
 
 def test_triangle_world_compiles_with_padding():
-    scene = compile_scene(_tri_world())
+    scene = _compile(_tri_world())
     st = scene.static
     assert (st.n_tris, st.n_clusters, st.single_tri_obj) == (1024, 8, 0)
     # padding clusters carry empty boxes: lo = 1 > hi = -1
@@ -242,6 +248,15 @@ def test_config_knobs():
         RenderConfig(mesh_impl="mxu")
     with pytest.raises(NotImplementedError):
         RenderConfig(prim_axis="prims")
+
+
+def test_compile_defaults_to_the_card():
+    """compile_scene's tables, and so render(), go to the card unless the
+    caller asks for the CPU, as the CPU tests here do."""
+    import inspect
+
+    sig = inspect.signature(compile_scene)
+    assert sig.parameters["device"].default == "cuda"
 
 
 def test_import_loads_no_jax():

@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from rtc_tpu_torch.models.scenes import REGISTRY, _cam, cow_herd_world
+from rtc_tpu_torch.models.scenes import (REGISTRY, _cam, cow_herd_mesh_world,
+                                         cow_herd_world)
 from rtc_tpu_torch.ops.kernels import mesh_intersect as mi
 from rtc_tpu_torch.render import integrator
 from rtc_tpu_torch.render.camera import camera_rays
@@ -478,6 +479,168 @@ def test_render_herd_through_kernels_matches_plain(cuda, smooth):
     k5 = "closest_hit_tlas_sn" if smooth else "closest_hit_tlas"
     assert mi.LAUNCHES == dict(dict.fromkeys(mi.LAUNCHES, 0),
                                **{k5: 2, "any_hit_tlas": 2})
+    ref = render(scene, cam, RenderConfig(ray_tile=4096, mesh_impl="bruteforce"))
+    assert float(img.amax()) > 0.1
+    err = (img - ref).abs().amax(dim=2).flatten()
+    assert float(torch.quantile(err, 0.999)) < 2e-3
+    assert int((err > 0.05).sum()) <= 3
+
+
+# --- the elementwise backend (K7a, K7b), K1's t0 and uv modes, streaming ---
+
+def _elementwise_pair(scene, o, d, max_t):
+    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+    boxes = (scene.cluster_aabb, scene.super_aabb, scene.static.cluster_size)
+    k7a = mi.mesh_closest_hit_elementwise(o, d, *tabs, *boxes)
+    k7b = mi.mesh_any_hit_elementwise(o, d, max_t, *tabs, *boxes)
+    torch.cuda.synchronize()
+    return k7a, k7b
+
+
+@pytest.mark.parametrize("where", ["soup", "teapot"])
+def test_elementwise_kernels_match_plain_and_k1(cuda, where):
+    """K7a: t bit-equal to its plain version and to K1 (the same pair
+    test), idx equal to the plain version's (both take the earliest row at
+    the least t); K7b: flags equal to the plain version's and to K2's, a
+    quarter of the lanes dead."""
+    if where == "soup":
+        scene, o, d = _soup(np.random.default_rng(11), 120, cuda)
+    else:
+        world, cam = REGISTRY["teapot"](128)
+        scene = compile_scene(world, device=cuda)
+        o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize,
+                           cam.half_width, cam.half_height, cam.pixel_size,
+                           device=cuda)
+        o, d = o.contiguous(), d.contiguous()
+    # occlusion up to the soup's middle, or up to past the teapot
+    max_t = torch.full((o.shape[0],), 6.0 if where == "soup" else 30.0,
+                       device=cuda)
+    max_t[::4] = -1.0
+    (t, idx), hit = _elementwise_pair(scene, o, d, max_t)
+    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+    pt, pidx = mi._closest_plain(o, d, *tabs, 1e-5)
+    assert torch.equal(t, pt) and torch.equal(idx, pidx)
+    assert int((idx >= 0).sum()) > 300
+    k1 = mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, scene.cluster_aabb,
+                             scene.static.cluster_size)
+    assert torch.equal(t, k1[0])
+    assert torch.equal(hit, mi.any_hit_plain(o, d, max_t, *tabs))
+    assert torch.equal(hit, mi.mesh_any_hit(o, d, max_t, *tabs,
+                                            scene.cluster_aabb,
+                                            scene.static.cluster_size))
+    assert hit.any() and not hit[::4].any()
+
+
+def test_elementwise_bad_inputs(cuda):
+    world, _ = REGISTRY["cow"](16)
+    scene = compile_scene(world, device=cuda)
+    o = torch.zeros((4, 3), device=cuda)
+    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.cluster_aabb)
+    with pytest.raises(ValueError, match="super"):
+        mi.mesh_closest_hit_elementwise(o, o, *tabs, scene.super_aabb[:-1],
+                                        scene.static.cluster_size)
+    mi.reset_launch_counts()
+    empty = torch.zeros((0, 3), device=cuda)
+    t, idx = mi.mesh_closest_hit_elementwise(empty, empty, *tabs,
+                                             scene.super_aabb,
+                                             scene.static.cluster_size)
+    assert t.shape == (0,) and mi.LAUNCHES["closest_hit_elementwise"] == 0
+
+
+def test_t0_and_uv_modes_match_plain(cuda):
+    """K1 t0 (flat payload) and K1 uv, with and without t0, against their
+    plain versions on a 120-cluster soup: bounds above, at and below each
+    hit, BIG, -1 and NaN. t bit-equal, idx equal off ties, the payload
+    bit-equal at equal idx."""
+    scene, o, d = _soup(np.random.default_rng(12), 120, cuda)
+    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+    leaf = scene.static.cluster_size
+    t_free = mi._closest_plain(o, d, *tabs, 1e-5)[0]
+    gen = torch.Generator().manual_seed(12)
+    scale = (torch.rand((o.shape[0],), generator=gen) + 0.5).to(cuda)
+    t0 = t_free * scale
+    t0[::7] = t_free[::7]
+    t0[1::11] = BIG
+    t0[2::13] = -1.0
+    t0[3::17] = float("nan")
+    t0 = t0.contiguous()
+    mi.reset_launch_counts()
+    k = mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, scene.cluster_aabb,
+                            leaf, t0=t0)
+    p = mi.closest_hit_plain(o, d, *tabs, scene.tri_n, t0=t0)
+    _assert_closest_equal(k, p)
+    assert 200 < int((k[1] >= 0).sum()) < int((t_free < BIG).sum())
+    for bound in (None, t0):
+        k = mi.mesh_closest_hit_uv(o, d, *tabs, scene.cluster_aabb, leaf,
+                                   t0=bound)
+        p = mi.closest_hit_uv_plain(o, d, *tabs, t0=bound)
+        _assert_closest_equal(k, p)
+    torch.cuda.synchronize()
+    assert (mi.LAUNCHES["closest_hit_t0"], mi.LAUNCHES["closest_hit_uv"]) == (1, 2)
+
+
+def test_streamed_matches_single_launch(cuda):
+    """A 120-cluster soup at 2 clusters a block (60 blocks): streamed K1
+    (t0 launches), K1 uv, K2 and K4 against one launch each: t bit-equal,
+    flags and counts equal, the latest crossings bit-equal."""
+    scene, o, d = _soup(np.random.default_rng(13), 120, cuda, n_containers=2)
+    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+    leaf = scene.static.cluster_size
+    small = dict(block_budget=2 * leaf)
+    args = (*tabs, scene.tri_n, scene.cluster_aabb, leaf)
+    mi.reset_launch_counts()
+    streamed = mi.mesh_closest_hit(o, d, *args, **small)
+    assert mi.LAUNCHES["closest_hit_t0"] == 60
+    single = mi.mesh_closest_hit(o, d, *args)
+    assert torch.equal(streamed[0], single[0])
+    same = streamed[1] == single[1]
+    assert float(same.float().mean()) > 0.99
+    assert torch.equal(streamed[2][same], single[2][same])
+    uv_s = mi.mesh_closest_hit_uv(o, d, *tabs, scene.cluster_aabb, leaf, **small)
+    uv_1 = mi.mesh_closest_hit_uv(o, d, *tabs, scene.cluster_aabb, leaf)
+    assert torch.equal(uv_s[0], uv_1[0])
+    same = uv_s[1] == uv_1[1]
+    assert torch.equal(uv_s[2][same], uv_1[2][same])
+    max_t = torch.full((o.shape[0],), 8.0, device=cuda)
+    max_t[::5] = -1.0
+    k2 = (o, d, max_t, *tabs, scene.cluster_aabb, leaf)
+    assert torch.equal(mi.mesh_any_hit(*k2, **small), mi.mesh_any_hit(*k2))
+    gid = torch.where(single[1] >= 0, single[1], -2).to(torch.int32)
+    for t_hit in (single[0], torch.full_like(single[0], BIG)):
+        k4 = (o, d, t_hit.contiguous(), gid.contiguous(), *tabs,
+              scene.cluster_aabb, scene.tri_cid, 2, leaf)
+        cnt_s, last_s = mi.mesh_crossing_count(*k4, **small)
+        cnt_1, last_1 = mi.mesh_crossing_count(*k4)
+        assert torch.equal(cnt_s, cnt_1) and torch.equal(last_s, last_1)
+    assert int(cnt_1.sum()) > 100
+
+
+@pytest.mark.parametrize("name", ["cow", "cow_herd_mesh", "cow_herd_mesh_smooth",
+                                  "teapot", "pumpkin"])
+def test_new_routes_render_and_match_plain(cuda, name):
+    """128x64, depth 5, two tiles: cow under 'elementwise' (K7a and K7b, 2
+    nodes a tile); the one-mesh 3x3 herd, flat and smooth, streamed in 2
+    blocks (K1 t0 or K1 uv, and K2, once per block and tile); teapot and
+    pumpkin on the default path (K3 flat and with_sn). Each image within
+    the f32 budget of tests/test_pallas_mesh.py of the plain render."""
+    cfg = RenderConfig(ray_tile=4096)
+    if name.startswith("cow_herd_mesh"):
+        smooth = name.endswith("smooth")
+        scene = compile_scene(cow_herd_mesh_world(3, 3, smooth), device=cuda)
+        cam = _cam(128, [0, 10, -18], [0, 3, 2])
+        want = {"closest_hit_uv" if smooth else "closest_hit_t0": 4,
+                "any_hit": 4}
+    else:
+        world, cam = REGISTRY[name](128)
+        scene = compile_scene(world, device=cuda)
+        want = {"cow": {"closest_hit_elementwise": 4, "any_hit_elementwise": 4},
+                "teapot": {"closest_shadow": 2},
+                "pumpkin": {"closest_shadow_sn": 2}}[name]
+        if name == "cow":
+            cfg = RenderConfig(ray_tile=4096, mesh_impl="elementwise")
+    mi.reset_launch_counts()
+    img = render(scene, cam, cfg)
+    assert mi.LAUNCHES == dict(dict.fromkeys(mi.LAUNCHES, 0), **want)
     ref = render(scene, cam, RenderConfig(ray_tile=4096, mesh_impl="bruteforce"))
     assert float(img.amax()) > 0.1
     err = (img - ref).abs().amax(dim=2).flatten()

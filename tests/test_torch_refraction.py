@@ -39,6 +39,12 @@ from rtc_tpu_torch.utils.constants import BIG
 
 torch.set_num_threads(2)
 
+
+def _compile(world, **kw):
+    """The port's compile_scene on the CPU: its default device is the card."""
+    return compile_scene(world, device="cpu", **kw)
+
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 CFG64 = RenderConfig(dtype="float64")
 
@@ -113,7 +119,7 @@ def test_census_counts_crossings_on_a_cube():
     """A closed cube mesh (z in [-1, 1]) and rays along +z: the census
     counts negative-t crossings, excludes the hit triangle by id, and a
     dead lane (t_hit = -BIG) counts nothing."""
-    scene = compile_scene(World(objects=[_cube_mesh(material=_glass(1.5))]),
+    scene = _compile(World(objects=[_cube_mesh(material=_glass(1.5))]),
                           dtype=torch.float64)
     o = torch.tensor([[0.3, 0.1, -4.0], [0.3, 0.1, 0.0], [0.3, 0.1, 4.0],
                       [0.3, 0.1, -4.0]], dtype=torch.float64)
@@ -202,7 +208,7 @@ def _ladder_scene():
     a = _cube_mesh(material=_glass(1.5), transform=X.scaling(2, 2, 2))
     b = _cube_mesh(material=_glass(2.0), transform=X.translation(0, 0, -0.25))
     c = _cube_mesh(material=_glass(2.5), transform=X.translation(0, 0, 0.25))
-    return compile_scene(World(objects=[a, b, c],
+    return _compile(World(objects=[a, b, c],
                                light=PointLight((-10, 10, -10), (1, 1, 1))),
                          dtype=torch.float64)
 
@@ -230,7 +236,7 @@ def test_n1_n2_match_the_containers_walk(case):
         world = World(objects=[_cube_mesh(material=_glass(1.5),
                                           transform=X.scaling(2, 2, 2)),
                                sphere(material=_glass(2.0))])
-        scene, o = compile_scene(world, dtype=torch.float64), [0.2, 0.1, -5.0]
+        scene, o = _compile(world, dtype=torch.float64), [0.2, 0.1, -5.0]
     d = [0.0, 0.0, 1.0]
     xs = _crossings(scene, o, d)
     assert len(xs) == (6 if case == "ladder" else 4)
@@ -251,7 +257,7 @@ def test_glass_mesh_bends_light():
         cube = _cube_mesh(material=Material(transparency=0.9, refractive_index=ior,
                                             diffuse=0.1, ambient=0.0, specular=0.0),
                           transform=X.translation(0, 2.0, 0))
-        scene = compile_scene(World(objects=[floor, cube],
+        scene = _compile(World(objects=[floor, cube],
                                     light=PointLight((-10, 10, -10), (1, 1, 1))),
                               dtype=torch.float64)
         d = torch.tensor([[-0.12, -1.0, 0.35]], dtype=torch.float64)
@@ -333,7 +339,7 @@ def test_glass_teapot_f64_matches_golden_and_rtc_tpu():
     at depth 5 against rtc_tpu's f64 render (its depth-8 program takes
     most of this file's time budget to build)."""
     world, cam = REGISTRY["glass_teapot"](24)
-    scene = compile_scene(world, dtype=torch.float64)
+    scene = _compile(world, dtype=torch.float64)
     img = render(scene, cam, RenderConfig(dtype="float64", ray_tile=512,
                                           max_depth=8)).numpy()
     np.testing.assert_allclose(img, np.load(os.path.join(GOLDEN, "glass_teapot.npy")),
@@ -352,7 +358,7 @@ def test_glass_teapot_f32_matches_f64_golden():
     byte-equal after 8-bit quantization, no structural flip."""
     golden = np.load(os.path.join(GOLDEN, "glass_teapot.npy"))
     world, cam = REGISTRY["glass_teapot"](24)
-    img = render(compile_scene(world, dtype=torch.float32), cam,
+    img = render(_compile(world, dtype=torch.float32), cam,
                  RenderConfig(ray_tile=512, max_depth=8)).numpy()
     match_frac = float(np.all(_quantize(golden) == _quantize(img), axis=2).mean())
     flips = int((np.abs(golden - img).max(axis=2) > 0.15).sum())

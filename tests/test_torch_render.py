@@ -22,6 +22,12 @@ from rtc_tpu_torch.utils.config import RenderConfig
 
 torch.set_num_threads(2)
 
+
+def _compile(world, **kw):
+    """The port's compile_scene on the CPU: its default device is the card."""
+    return compile_scene(world, device="cpu", **kw)
+
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 # tests/test_golden.py: cow golden width, and its f32 budget
 # (min exact-match fraction after 8-bit quantization, structural flips)
@@ -36,13 +42,13 @@ def _quantize(img):
 @pytest.fixture(scope="module")
 def cow64():
     world, cam = REGISTRY["cow"](64)
-    return compile_scene(world, dtype=torch.float32), cam
+    return _compile(world, dtype=torch.float32), cam
 
 
 def test_render_f64_matches_golden_and_rtc_tpu():
     golden = np.load(os.path.join(GOLDEN, "cow.npy"))
     world, cam = REGISTRY["cow"](COW_WIDTH)
-    scene = compile_scene(world, dtype=torch.float64)
+    scene = _compile(world, dtype=torch.float64)
     img = render(scene, cam, RenderConfig(dtype="float64", ray_tile=512)).numpy()
     np.testing.assert_allclose(img, golden, atol=1e-9, rtol=0)
     jax_world, jax_cam = JAX_REGISTRY["cow"](COW_WIDTH)
@@ -65,7 +71,7 @@ def test_color_at_matches_reference_oracle_f64():
     o, d = (np.array(a) for a in zip(*rays))
     ref = oracle.Oracle(world, max_depth=5)
     expected = np.array([ref.color_at(o[i], d[i]) for i in range(len(o))])
-    got = integrator.color_at(compile_scene(world, dtype=torch.float64),
+    got = integrator.color_at(_compile(world, dtype=torch.float64),
                               torch.from_numpy(o), torch.from_numpy(d),
                               RenderConfig(dtype="float64"))
     np.testing.assert_allclose(got.numpy(), expected, atol=1e-9, rtol=0)
@@ -74,7 +80,7 @@ def test_color_at_matches_reference_oracle_f64():
 def test_render_f32_matches_f64_golden():
     golden = np.load(os.path.join(GOLDEN, "cow.npy"))
     world, cam = REGISTRY["cow"](COW_WIDTH)
-    img = render(compile_scene(world, dtype=torch.float32), cam,
+    img = render(_compile(world, dtype=torch.float32), cam,
                  RenderConfig(ray_tile=512)).numpy()
     match_frac = float(np.all(_quantize(golden) == _quantize(img), axis=2).mean())
     flips = int((np.abs(golden - img).max(axis=2) > 0.15).sum())
@@ -139,7 +145,7 @@ def test_morton_fallback_is_a_permutation():
     """A canvas that does not divide into 16x16 blocks renders in Z-order;
     pixels come out exactly as in scanline order."""
     world, cam = REGISTRY["cow"](40)
-    scene = compile_scene(world, dtype=torch.float32)
+    scene = _compile(world, dtype=torch.float32)
     cfg = RenderConfig(ray_tile=256)
     morton = render(scene, cam, cfg)
     scanline = render(scene, cam, RenderConfig(ray_tile=256, ray_order="scanline"))

@@ -35,6 +35,12 @@ from rtc_tpu_torch.utils.constants import BIG
 
 torch.set_num_threads(2)
 
+
+def _compile(world, **kw):
+    """The port's compile_scene on the CPU: its default device is the card."""
+    return compile_scene(world, device="cpu", **kw)
+
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 # tests/test_golden.py: golden widths and F32_BUDGET (min exact-match
 # fraction after 8-bit quantization, structural flips)
@@ -149,7 +155,7 @@ def _smooth_triangle_world(extra=()):
 def test_smooth_normal_interpolates_with_uv():
     """The book's smooth-triangle normal at u = 0.45, v = 0.25
     (tests/test_smooth.py), through closest_hit in f64."""
-    scene = compile_scene(_smooth_triangle_world(), dtype=torch.float64)
+    scene = _compile(_smooth_triangle_world(), dtype=torch.float64)
     assert scene.static.any_smooth
     u, v = 0.45, 0.25
     o = torch.tensor([[-u + v, 1 - u - v, -2.0]], dtype=torch.float64)
@@ -163,7 +169,7 @@ def test_smooth_normal_interpolates_with_uv():
 
 def test_flat_mesh_in_smooth_scene_keeps_face_normal():
     flat = shapes.mesh([[0, 1, 5]], [[-1, 0, 5]], [[1, 0, 5]])
-    scene = compile_scene(_smooth_triangle_world([flat]), dtype=torch.float64)
+    scene = _compile(_smooth_triangle_world([flat]), dtype=torch.float64)
     o = torch.tensor([[0.0, 0.5, 2.0]], dtype=torch.float64)
     d = torch.tensor([[0.0, 0.0, 1.0]], dtype=torch.float64)
     hit = integrator.closest_hit(scene, o, d, RenderConfig(dtype="float64"))
@@ -177,7 +183,7 @@ def test_fused_sn_branch_equals_split_branch(monkeypatch):
     plain versions, which normalize the blend with the same operations, so
     the two branches agree bit for bit."""
     world, cam = REGISTRY["teapot_smooth"](48)
-    scene = compile_scene(world, dtype=torch.float32)
+    scene = _compile(world, dtype=torch.float32)
     o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize,
                        cam.half_width, cam.half_height, cam.pixel_size)
     monkeypatch.setattr(integrator, "_resolve_mesh_impl",
@@ -193,7 +199,7 @@ def test_render_f64_matches_golden_and_rtc_tpu(name):
     width, _ = SMOOTH_SCENES[name]
     golden = np.load(os.path.join(GOLDEN, f"{name}.npy"))
     world, cam = REGISTRY[name](width)
-    img = render(compile_scene(world, dtype=torch.float64), cam,
+    img = render(_compile(world, dtype=torch.float64), cam,
                  RenderConfig(dtype="float64", ray_tile=512)).numpy()
     np.testing.assert_allclose(img, golden, atol=1e-9, rtol=0)
     jax_world, jax_cam = JAX_REGISTRY[name](width)
@@ -208,7 +214,7 @@ def test_render_f32_matches_f64_golden(name):
     width, (min_frac, flip_budget) = SMOOTH_SCENES[name]
     golden = np.load(os.path.join(GOLDEN, f"{name}.npy"))
     world, cam = REGISTRY[name](width)
-    img = render(compile_scene(world, dtype=torch.float32), cam,
+    img = render(_compile(world, dtype=torch.float32), cam,
                  RenderConfig(ray_tile=512)).numpy()
     match_frac = float(np.all(_quantize(golden) == _quantize(img), axis=2).mean())
     flips = int((np.abs(golden - img).max(axis=2) > 0.15).sum())

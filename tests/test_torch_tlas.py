@@ -34,6 +34,12 @@ from rtc_tpu_torch.utils.constants import BIG
 
 torch.set_num_threads(2)
 
+
+def _compile(world, **kw):
+    """The port's compile_scene on the CPU: its default device is the card."""
+    return compile_scene(world, device="cpu", **kw)
+
+
 # tests/test_tlas.py's camera for the 3x3 herd
 EYE, LOOK = [0, 10, -18], [0, 3, 2]
 JAX_KERN = JaxRenderConfig(dtype="float32", mesh_impl="mxu_interpret")
@@ -73,7 +79,7 @@ def herds():
                                dtype=np.float32)
         carried = scene_from_numpy(_numpy_tables(js), js.static._asdict(),
                                    device="cpu")
-        out[kind] = (js, carried, compile_scene(cow_herd_world(3, 3, smooth)),
+        out[kind] = (js, carried, _compile(cow_herd_world(3, 3, smooth)),
                      o, d)
     return out
 
@@ -102,7 +108,7 @@ def test_tlas_tables_match_rtc_tpu(dtype):
     np_dt, torch_dt = {"float32": (np.float32, torch.float32),
                        "float64": (np.float64, torch.float64)}[dtype]
     js = jax_compile_scene(jax_cow_herd_world(3, 3), dtype=np_dt)
-    scene = compile_scene(cow_herd_world(3, 3), dtype=torch_dt)
+    scene = _compile(cow_herd_world(3, 3), dtype=torch_dt)
     st = scene.static
     assert (st.tlas_n_inst, st.tlas_n_mesh, st.tlas_cm, st.tlas_sn) == (16, 1, 48, False)
     assert st == type(st)(**{f: getattr(js.static, f) for f in type(st)._fields})
@@ -119,7 +125,7 @@ def test_registry_herds_compile_to_tlas():
     unique 5,804-triangle mesh of 48 clusters, over a 4,088-cluster world
     table."""
     for name in ("cow_herd", "cow_herd_smooth"):
-        st = compile_scene(REGISTRY[name](32)[0]).static
+        st = _compile(REGISTRY[name](32)[0]).static
         assert (st.tlas_n_inst, st.tlas_n_mesh, st.tlas_cm) == (96, 1, 48), name
         assert (st.n_tris, st.n_clusters, st.n_objects) == (523264, 4088, 90), name
         assert st.tlas_sn == (name == "cow_herd_smooth")
@@ -284,7 +290,7 @@ def test_render_f64_matches_rtc_tpu():
     """The f64 render of the 3x3 herd (bruteforce over the world table in
     both packages) at width 32 equals rtc_tpu's at 1e-9."""
     cam = _cam(32, EYE, LOOK)
-    img = render(compile_scene(cow_herd_world(3, 3), dtype=torch.float64), cam,
+    img = render(_compile(cow_herd_world(3, 3), dtype=torch.float64), cam,
                  RenderConfig(dtype="float64", ray_tile=512)).numpy()
     ref = np.asarray(jax_render(
         jax_compile_scene(jax_cow_herd_world(3, 3), dtype=np.float64),
