@@ -25,11 +25,16 @@ cow and cow_herd under mesh_impl="elementwise", the one-mesh herds
 streamed, teapot and pumpkin) at 1920x960 (the smooth one-mesh herd at
 480x240), depth 5, f32 through render(), counting each kernel's
 launches in each frame, and checks each image against the plain render
-and, where tests/golden has one, the golden. Each phase prints lines with the
-card's name and power limit. Before the last line it prints the kernels'
-JSON record (times and max_abs_err from those wavefronts; launches from
-the frame that runs each kernel, named in "frame") and the card line;
-the last line is {"ok": true, "device": {...}}. Any failure raises and
+and, where tests/golden has one, the golden. Phase 2 prints the ordered
+walk's list lengths and the registers, memory and resident blocks of the
+kernels that walk (K1, K3, K5); phases 3, 6, 9 and 11 print the boxes
+each ray visits (median, 99th percentile, maximum: clusters, and for K5
+instances) and the scans and box tests a ray of the ordered walk against
+a scan per visit, modelled from those visits. Each phase prints lines
+with the card's name and power limit. Before the last line it prints the
+kernels' JSON record (times and max_abs_err from those wavefronts;
+launches from the frame that runs each kernel, named in "frame") and the
+card line; the last line is {"ok": true, "device": {...}}. Any failure raises and
 exits non-zero. Without a CUDA device it exits non-zero and prints no
 result.
 """
@@ -317,20 +322,6 @@ def bound(work: Work, n_bytes: float):
             dict(zip(STAGES, work.stages.tolist())))
 
 
-def _slabs(o, d, aabb):
-    """(R, C) signed slab intervals (tmin, tmax) of rays through boxes
-    widened as cluster_slab widens them, and the boxes' emptiness (C,)."""
-    lo, hi = aabb[:, :3], aabb[:, 3:]
-    empty = (lo > hi).any(1)
-    pad = 4e-6 * torch.maximum(lo.abs(), hi.abs()).amax(1, keepdim=True)
-    lo, hi = lo - pad, hi + pad
-    near0 = d.abs() < 1e-30
-    inv = torch.where(near0, torch.where(d >= 0, BIG, -BIG), 1.0 / torch.where(near0, 1.0, d))
-    t1 = (lo[None] - o[:, None]) * inv[:, None]
-    t2 = (hi[None] - o[:, None]) * inv[:, None]
-    return torch.minimum(t1, t2).amax(2), torch.maximum(t1, t2).amin(2), empty
-
-
 def entered(o, d, aabb, limit, strict: bool = False, signed: bool = False,
             keep=None):
     """The (ray, box) pairs, as two (P,) index tensors, of the boxes of aabb
@@ -342,7 +333,7 @@ def entered(o, d, aabb, limit, strict: bool = False, signed: bool = False,
     rays, boxes = [none], [none]
     step = max(1, BOX_CHUNK // max(C, 1))
     for s in range(0, R, step):
-        tmin, tmax, empty = _slabs(o[s:s + step], d[s:s + step], aabb)
+        tmin, tmax, empty = mi.box_slabs(o[s:s + step], d[s:s + step], aabb)
         lim = limit[s:s + step, None]
         ok = ~empty[None] & (tmax >= tmin)
         if signed:
@@ -392,13 +383,14 @@ def pair_stages(o, d, p1, e1, e2, eps, rays, clusters, leaf, cid=None,
 
 
 def cluster_work(o, d, tabs, aabb, leaf, eps, limit, strict=False, signed=False,
-                 keep=None, cid=None, self_row=None, offset=0) -> Work:
+                 keep=None, cid=None, self_row=None, offset=0):
     """A box test for every (ray, cluster) pair entered by limit, and the
     pair tests of the cluster's rows (offset: the clusters' first index in
-    the tables)."""
+    the tables). Returns (Work, rays, clusters): the pairs' indices."""
     rays, clus = entered(o, d, aabb, limit, strict, signed, keep)
-    return BOX * rays.numel() + Work.pairs(
+    work = BOX * rays.numel() + Work.pairs(
         pair_stages(o, d, *tabs, eps, rays, clus + offset, leaf, cid, self_row))
+    return work, rays, clus
 
 
 def one_cluster(leaf: int) -> Work:
@@ -407,11 +399,12 @@ def one_cluster(leaf: int) -> Work:
     return BOX + Work.pairs((leaf - 1, 0, 0, 1))
 
 
-def closest_work(o, d, tabs, aabb, t_final, leaf, eps) -> Work:
+def closest_work(o, d, tabs, aabb, t_final, leaf, eps):
     """K1's work: every cluster entered at or before the ray's final t
-    (every cluster it enters, on a miss)."""
-    return (cluster_work(o, d, tabs, aabb, leaf, eps, t_final)
-            + RAY * o.shape[0] + WIDEN * aabb.shape[0])
+    (every cluster it enters, on a miss). Returns (Work, rays, clusters):
+    the (ray, cluster) pairs, which are K1's visits."""
+    work, rays, clus = cluster_work(o, d, tabs, aabb, leaf, eps, t_final)
+    return work + RAY * o.shape[0] + WIDEN * aabb.shape[0], rays, clus
 
 
 def any_work(o, d, tabs, aabb, max_t, hit, leaf, eps) -> Work:
@@ -419,7 +412,7 @@ def any_work(o, d, tabs, aabb, max_t, hit, leaf, eps) -> Work:
     lane, one cluster on an occluded lane."""
     live = max_t > 0
     free = torch.where(live & ~hit, max_t, -1.0)
-    return (cluster_work(o, d, tabs, aabb, leaf, eps, free, strict=True)
+    return (cluster_work(o, d, tabs, aabb, leaf, eps, free, strict=True)[0]
             + one_cluster(leaf) * int((live & hit).sum())
             + RAY * int(live.sum()) + WIDEN * aabb.shape[0])
 
@@ -431,31 +424,106 @@ def census_work(o, d, tabs, aabb, t_hit, hit_gid, tri_cid, leaf, eps) -> Work:
     live = (t_hit > -BIG).nonzero().squeeze(1)
     has = (tri_cid.view(-1, leaf) >= 0).any(1)
     return (cluster_work(o[live], d[live], tabs, aabb, leaf, eps, t_hit[live],
-                         signed=True, keep=has, cid=tri_cid, self_row=hit_gid[live])
+                         signed=True, keep=has, cid=tri_cid, self_row=hit_gid[live])[0]
             + RAY * live.numel() + WIDEN * aabb.shape[0])
 
 
-def tlas_work(o, d, tl, st, eps, limit, strict: bool = False, occluded=None) -> Work:
+def tlas_work(o, d, tl, st, eps, limit, strict: bool = False, occluded=None):
     """K5's work (limit: the final t) or K6's (limit: max_t, strict; one
     instance and one cluster on an occluded lane): every real instance
     entered by the limit (its box test and ray transform), and in its
-    object space every cluster of its mesh entered by the limit."""
-    leaf, cm = st.cluster_size, st.tlas_cm
+    object space every cluster of its mesh entered by the limit. Returns
+    (Work, instance visits and cluster visits per ray, the walk_census of
+    K5's two walks per ray: the instances, and in each visited instance
+    its mesh's clusters)."""
+    leaf, cm, I = st.cluster_size, st.tlas_cm, tl.inst_aabb.shape[0]
     tabs = (tl.p1, tl.e1, tl.e2)
-    work = RAY * o.shape[0] + WIDEN * (tl.caabb.shape[0] + tl.inst_aabb.shape[0])
+    work = RAY * o.shape[0] + WIDEN * (tl.caabb.shape[0] + I)
     if occluded is not None:
         limit = torch.where(occluded, -1.0, limit)
         work += (BOX + INSTANCE + one_cluster(leaf)) * int(occluded.sum())
+    inst_visits = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
+    clus_visits = torch.zeros_like(inst_visits)
+    L = WALK_L["K5"]
+    census = walk_census(torch.zeros_like(inst_visits), 0, L)
     for k, m in mi._real_instances(tl.p1, tl.inst_aabb, tl.inst_mesh, cm * leaf):
         inside, _ = entered(o, d, tl.inst_aabb[k:k + 1], limit, strict)
         oi, di = mi.instance_rays(o[inside], d[inside], tl.inst_ab[k])
-        work += (BOX + INSTANCE) * inside.numel() + cluster_work(
-            oi, di, tabs, tl.caabb[m * cm:(m + 1) * cm], leaf, eps, limit[inside],
-            strict, offset=m * cm)
-    return work
+        w, rays, _ = cluster_work(oi, di, tabs, tl.caabb[m * cm:(m + 1) * cm], leaf,
+                                  eps, limit[inside], strict, offset=m * cm)
+        work += (BOX + INSTANCE) * inside.numel() + w
+        inst_visits[inside] += 1
+        visits = torch.bincount(rays, minlength=inside.numel())
+        clus_visits.index_add_(0, inside, visits)
+        for key, v in walk_census(visits, cm, L).items():
+            census[key].index_add_(0, inside, v)
+    outer = walk_census(inst_visits, I, L)
+    return (work, inst_visits, clus_visits,
+            {k: census[k] + outer[k] for k in census})
 
 
 BOUNDS = {}  # kernel key -> (bound_ms, bound_by)
+
+
+# ---------------------------------------------------------------------------
+# the ordered walk's scans: K1 and K5 against a scan per visit
+# ---------------------------------------------------------------------------
+#
+# The visits are counted, the scans modelled from them; the kernels count
+# neither. A walk over a range of n boxes that visits v of them scans the
+# range v + 1 times when each visit finds the next box by a scan (the last
+# scan finds none), and v // L + 1 times with the ordered walk's list of L
+# keys (a refill follows L visits), which is one too many where v is a
+# multiple of L and the scan that filled the list found no more. The visits
+# are counted as the bounds count them: the boxes entered by the ray's
+# final t. That is K1's visits on one launch; a streamed block or a later
+# instance may also visit boxes entered before a t_best not yet lowered, so
+# there it is a lower bound.
+
+WALK_L = {}  # the built kernels' list lengths, {"K1": L, "K5": L} (phase 2)
+
+
+def walk_census(visits, n_boxes: int, L: int) -> dict:
+    """Per ray, of one walk over a range of n_boxes boxes that visits
+    visits (R,) of them: the scans and box tests, modelled, of a scan per
+    visit (old) and of the ordered walk with a list of L keys (new)."""
+    old, new = visits + 1, visits // L + 1
+    return {"old_scans": old, "new_scans": new, "old_tests": old * n_boxes,
+            "new_tests": new * n_boxes}
+
+
+def block_census(counts, n_boxes: int, L: int) -> dict:
+    """walk_census summed over a streamed table's blocks, each walked for
+    every ray; counts (R, B): each ray's visits in each block of
+    ceil(n_boxes / B) boxes."""
+    per = -(-n_boxes // counts.shape[1])
+    parts = [walk_census(v, min(per, n_boxes - b * per), L)
+             for b, v in enumerate(counts.unbind(1))]
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+def k1_walk_line(what: str, rays, R: int, n_clusters: int) -> str:
+    """walk_line of K1's walk over one range, from the (ray, cluster)
+    visits' ray indices."""
+    visits, L = torch.bincount(rays, minlength=R), WALK_L["K1"]
+    return walk_line(what, {"clusters": visits}, walk_census(visits, n_clusters, L), L)
+
+
+def walk_line(what: str, visits: dict, census: dict, L: int) -> str:
+    """Visits per ray (median, 99th percentile, max), counted, and the mean
+    scans and box tests a ray of a scan per visit against the ordered walk,
+    modelled from the visits (walk_census)."""
+    parts = []
+    for name, v in visits.items():
+        q = torch.quantile(v.double(), torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                                    device=v.device)).tolist()
+        parts.append(f"{name} median {q[0]:g}, p99 {q[1]:g}, max {int(v.max())}")
+    mean = lambda k: float(census[k].double().mean())
+    return (f"{what}: visits a ray, " + "; ".join(parts)
+            + "; modelled from the visits: scans a ray "
+            f"{mean('old_scans'):.3f} per visit -> "
+            f"{mean('new_scans'):.3f} with L={L}; box tests a ray "
+            f"{mean('old_tests'):.1f} -> {mean('new_tests'):.1f}")
 
 
 # ---------------------------------------------------------------------------
@@ -486,6 +554,15 @@ def phase_build() -> None:
         ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
     say("2 build", f"{os.path.relpath(lib, ROOT)} in {seconds:.1f} s; "
         + " | ".join(ptxas))
+    global WALK_L
+    k1, k5 = mi.walk_list()
+    WALK_L = {"K1": k1, "K5": k5}
+    say("2 build", f"ordered walk: lists of {k1} keys (K1, K3) and {k5} keys "
+        "(each of K5's two) in registers; " + "; ".join(
+            f"{k} {r['registers']} registers, {r['local_bytes']} B local, "
+            f"{r['shared_bytes']} B shared a block, {r['blocks_per_sm']} blocks "
+            f"= {r['threads_per_sm']} threads an SM"
+            for k, r in mi.walk_kernel_report().items()))
 
 
 MAIN_RAYS = WIDTH * HEIGHT // 4  # main_path_rays' wavefront
@@ -512,6 +589,11 @@ def phase_parity(scene, cam, leaf, eps):
     check(soup.static.n_clusters >= 200, "soup has fewer than 200 clusters")
     say("3 kernel parity", kernel_parity("soup", soup, so, sd,
                                          soup.static.cluster_size, eps))
+    t = mi.mesh_closest_hit(so, sd, *tables(soup), soup.tri_n, soup.cluster_aabb,
+                            soup.static.cluster_size, eps)[0]
+    say("3 walk", k1_walk_line(f"soup K1 ({soup.static.n_clusters} clusters)",
+                               entered(so, sd, soup.cluster_aabb, t)[0], so.shape[0],
+                               soup.static.n_clusters))
 
 
 def phase_timing(scene, cam, leaf, eps):
@@ -567,8 +649,10 @@ def phase_timing(scene, cam, leaf, eps):
     tab_bytes = nbytes(p1, e1, e2, scene.cluster_aabb)
     R = o.shape[0]
     tri = (p1, e1, e2)
-    work1 = closest_work(o, d, tri, scene.cluster_aabb, outs["closest_hit"][0][0],
-                         leaf, eps)
+    work1, rays1, _ = closest_work(o, d, tri, scene.cluster_aabb,
+                                   outs["closest_hit"][0][0], leaf, eps)
+    say("3 walk", k1_walk_line(f"cow main path K1, K3's phase 1 ({scene.static.n_clusters} "
+                               "clusters)", rays1, R, scene.static.n_clusters))
     BOUNDS["closest_hit"] = bound(work1, nbytes(o, d, scene.tri_n) + tab_bytes + R * 20)
     BOUNDS["any_hit"] = bound(any_work(so, sd, tri, scene.cluster_aabb, max_t, k2,
                                        leaf, eps),
@@ -749,7 +833,9 @@ def phase_smooth(eps):
     err1 = closest_gate("teapot_smooth K1 with_sn", k1, p1)
     err3 = closest_gate("teapot_smooth K3 with_sn", k3, p3)
     aabb, R = scene.cluster_aabb, o.shape[0]
-    work1 = closest_work(o, d, tabs[:3], aabb, k1[0], leaf, eps)
+    work1, rays1, _ = closest_work(o, d, tabs[:3], aabb, k1[0], leaf, eps)
+    say("6 walk", k1_walk_line(f"teapot_smooth K1 and K3 with_sn ({scene.static.n_clusters} "
+                               "clusters)", rays1, R, scene.static.n_clusters))
     in_bytes = nbytes(o, d, *tabs, aabb)
     BOUNDS["closest_hit_sn"] = bound(work1, in_bytes + R * 20)
     so, sd, smax = mi.shadow_rays_plain(o, d, k3[0], k3[1], k3[2], light, eps,
@@ -987,9 +1073,13 @@ def phase_tlas(eps):
               f"{name} K5: object ids differ at equal enc")
         hits = int((ref[1] >= 0).sum())
         times[key], parity[key] = (ms_full, pms), (err, None)
-        BOUNDS[key] = bound(tlas_work(o, d, tl, st, eps, full[0]),
-                            nbytes(o, d, tl.p1, tl.e1, tl.e2, pay, tl.caabb, *inst,
-                                   tl.inst_obj) + o.shape[0] * 24)
+        work5, inst_visits, clus_visits, census = tlas_work(o, d, tl, st, eps, full[0])
+        BOUNDS[key] = bound(work5, nbytes(o, d, tl.p1, tl.e1, tl.e2, pay, tl.caabb,
+                                          *inst, tl.inst_obj) + o.shape[0] * 24)
+        say("9 walk", walk_line(f"{name} K5 ({st.tlas_n_inst} instance boxes, "
+                                f"{st.tlas_cm} cluster boxes each)",
+                                {"instances": inst_visits, "clusters": clus_visits},
+                                census, WALK_L["K5"]))
         sizes[key] = dict(rays=o.shape[0], plain_rays=os_.shape[0],
                           ms_at_plain_rays=ms)
         summary = (f"{name} ({st.tlas_n_inst} instances, cm {st.tlas_cm}): "
@@ -1006,7 +1096,7 @@ def phase_tlas(eps):
             ms6_full, occluded = timed_ms(lambda: k6(fo, fd, fmax), 2, 10)
             BOUNDS["any_hit_tlas"] = bound(
                 tlas_work(fo, fd, tl, st, eps, fmax, strict=True,
-                         occluded=occluded & (fmax > 0)),
+                          occluded=occluded & (fmax > 0))[0],
                 nbytes(fo, fd, fmax, tl.p1, tl.e1, tl.e2, tl.caabb, *inst)
                 + fo.shape[0])
             ms6, pms6, k6_out, p6_out = time_pair(
@@ -1111,7 +1201,7 @@ def phase_elementwise(eps):
         if name != "cow":
             continue
         R, t_bytes = o.shape[0], nbytes(*tabs, aabb, sup)
-        work_a = closest_work(o, d, tabs, aabb, full[0], leaf, eps)  # K1's: the same function
+        work_a = closest_work(o, d, tabs, aabb, full[0], leaf, eps)[0]  # K1's: the same function
         BOUNDS["closest_hit_elementwise"] = bound(work_a, nbytes(o, d) + t_bytes + R * 8)
         BOUNDS["any_hit_elementwise"] = bound(any_work(fo, fd, tabs, aabb, fmax, hit,
                                                        leaf, eps),
@@ -1248,7 +1338,15 @@ def phase_streaming(eps):
         f"({pms_uv:.1f} ms) at equal idx; streamed K2 equal to K7b on "
         f"{fo.shape[0]} occlusion rays")
     R, t_bytes = o.shape[0], nbytes(*tabs, aabb)
-    work = closest_work(o, d, tabs, aabb, k7a[0], leaf, eps)
+    work, rays, boxes = closest_work(o, d, tabs, aabb, k7a[0], leaf, eps)
+    C, L = st.n_clusters, WALK_L["K1"]
+    say("11 walk", k1_walk_line(f"one-mesh herd, one K1 launch over {C} clusters",
+                                rays, R, C))
+    counts = torch.bincount(rays * n_blocks + boxes // -(-C // n_blocks),
+                            minlength=R * n_blocks).view(R, n_blocks)
+    say("11 walk", walk_line(f"one-mesh herd, streamed K1 t0 and uv ({n_blocks} blocks)",
+                             {"clusters a ray and block": counts.flatten()},
+                             block_census(counts, C, L), L))
     BOUNDS["closest_hit_t0"] = bound(work, nbytes(o, d, scene.tri_n) + t_bytes + R * 20)
     BOUNDS["closest_hit_uv"] = bound(work, nbytes(o, d) + t_bytes + R * 16)
     size = dict(rays=R, plain_rays=ref[0].shape[0], launches_per_call=n_blocks,

@@ -44,15 +44,28 @@
 // bit-identical t, idx and n.
 //
 // Any C, T, container count K and instance count I: no array is sized by
-// the scene. The closest-hit traversal re-derives the next cluster by
-// scanning all C slab entries (O(C) per visited cluster; K5 likewise
-// scans all I instance boxes per visited instance, then only its mesh's
-// cm cluster boxes), which is exact front-to-back order with no per-ray
-// storage. K5/K6 read one copy of each unique mesh (the cow: 6,144 rows,
+// the scene. K5/K6 read one copy of each unique mesh (the cow: 6,144 rows,
 // ~300 KB with its normals), so ninety instances cost the caches no more
 // than one.
+//
+// K1 and K5 (and K3's phase 1, which is K1) visit boxes in exact
+// front-to-back (entry, id) order with an ordered early exit. What bounds
+// them is the box tests of that order, beside the pair tests: finding the
+// next box by a scan of every box of the range costs a visit O(C) box
+// tests (C clusters, or K5's I instance boxes), so a ray that visits v
+// boxes tests (v + 1) C, which on a table of thousands of clusters dwarfs
+// its pair tests; and a warp waits for its lane with the most visits. The
+// ordered walk (below) keeps a sorted list of the L nearest unvisited
+// boxes a scan found, so a visit pops a key and the ray scans once per L
+// visits, (floor(v / L) + 1) C box tests, in the same order and with the
+// same cull: the outputs stay bit for bit those of a scan per visit. What
+// is left is the first scan of each range, C box tests a ray however few
+// boxes it enters, and the pair tests. The list costs 2 L registers a
+// lane (K5 keeps two lists: instances, and the clusters of the current
+// instance).
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -197,23 +210,107 @@ __device__ __forceinline__ void tri_uv(const Ray& r,
   v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
 }
 
-// The next box of [c0, c1) to visit in increasing (entry, id) order after
-// (last_e, last_i), among those entered before t_best; -1 when none is
-// left. A scan of all the boxes: exact order with no per-ray storage.
-__device__ __forceinline__ int next_box(const Ray& r,
-                                        const float* __restrict__ aabb,
-                                        int c0, int c1, float t_best,
-                                        float last_e, int last_i,
-                                        float& ne) {
-  ne = kBig;
-  int nc = -1;
-  for (int c = c0; c < c1; ++c) {
-    const float e = cluster_entry(r, aabb, c);
-    if (!(e < t_best)) continue;
-    if (e < last_e || (e == last_e && c <= last_i)) continue;
-    if (e < ne) { ne = e; nc = c; }
+// ---- the ordered walk: K1's clusters and K5's instances ----
+//
+// A lane's list holds up to L keys (entry, id), sorted, of the boxes that
+// one scan of the range found entered before t_best and after the last
+// visited key. The scan offers boxes in increasing id, so a key goes after
+// every key of equal entry already listed: sorting by entry alone, stably,
+// sorts by (entry, id). The list lives in registers, and L is fixed at
+// compile time for each kernel. Both were chosen by measurement, in turns
+// on an H100 (kernel_ab.py): a list in dynamic shared memory, laid out
+// [slot][thread], was no faster than registers in any kernel and slower in
+// most; K1 and K3 gain up to L = 16 (a ray of the one-mesh herd visits up
+// to 24 clusters), while K5, which keeps two lists, loses more to their
+// registers beyond L = 8 than shorter walks give back. To sweep L, edit
+// these constants and compare the builds with kernel_ab.py.
+
+constexpr int kListK1 = 16;  // K1, and K3's phase 1
+constexpr int kListK5 = 8;   // each of K5's two lists
+static_assert(kListK1 >= 1 && kListK5 >= 1, "a list holds at least one key");
+
+// Every index is a constant once the loops unroll, so the arrays stay in
+// registers. Free slots hold +inf, above any key (a key's entry is
+// < t_best, so finite).
+template <int L>
+struct WalkList {
+  float e[L];
+  int c[L];
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int j = 0; j < L; ++j) { e[j] = INFINITY; c[j] = -1; }
   }
-  return nc;
+  __device__ __forceinline__ bool empty() const { return !(e[0] < INFINITY); }
+  // insert behind every key of entry <= ke; the last key falls off when full
+  __device__ __forceinline__ void offer(float ke, int kc) {
+    if (!(ke < e[L - 1])) return;
+    bool shift = false;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      shift = shift || ke < e[j];
+      if (shift) {
+        const float te = e[j];
+        const int tc = c[j];
+        e[j] = ke; c[j] = kc;
+        ke = te; kc = tc;
+      }
+    }
+  }
+  __device__ __forceinline__ void pop(float& ke, int& kc) {
+    ke = e[0];
+    kc = c[0];
+#pragma unroll
+    for (int j = 0; j + 1 < L; ++j) { e[j] = e[j + 1]; c[j] = c[j + 1]; }
+    e[L - 1] = INFINITY;
+    c[L - 1] = -1;
+  }
+};
+
+// Visits the boxes of [c0, c1) entered before t_best in increasing
+// (entry, id) order, calling visit(id) for each; visit may lower t_best.
+// One scan tests every box once and fills the list with the L least keys
+// after the last visited one; the walk pops them in order, each
+// re-checked against the current t_best, and the first key at or beyond
+// t_best ends it. When the list runs dry, it scans again from the last
+// visited key, but only if that scan found more keys than the list held.
+//
+// Why this visits exactly what a scan per visit would (the next box being
+// the least key after the last among those entered before the CURRENT
+// t_best): t_best only falls, so every key that scan could return was
+// found by the scan that filled the list, and the list holds the least of
+// those after the last visited key. The next popped key is therefore the
+// least candidate left, unless it is entered at or beyond t_best, and then
+// so is every later one. So t, idx and every payload are those of the
+// per-visit scan bit for bit, at a cost of one scan per L visits.
+template <int L, class Visit>
+__device__ __forceinline__ void ordered_walk(const Ray& r,
+                                             const float* __restrict__ aabb,
+                                             int c0, int c1,
+                                             const float& t_best,
+                                             WalkList<L>& list, Visit visit) {
+  float last_e = -1.f;
+  int last_c = -1;
+  for (;;) {
+    list.clear();
+    int found = 0;
+    for (int c = c0; c < c1; ++c) {
+      const float e = cluster_entry(r, aabb, c);
+      if (!(e < t_best)) continue;
+      if (e < last_e || (e == last_e && c <= last_c)) continue;
+      ++found;
+      list.offer(e, c);
+    }
+    while (!list.empty()) {
+      float e;
+      int c;
+      list.pop(e, c);
+      if (!(e < t_best)) return;
+      visit(c);
+      last_e = e;
+      last_c = c;
+    }
+    if (found <= L) return;
+  }
 }
 
 // K1 body over clusters [c0, c1): lowers t_best (and sets best to the
@@ -222,17 +319,14 @@ __device__ __forceinline__ int next_box(const Ray& r,
 // and the walk stops once no unvisited cluster starts before t_best (the
 // ordered early exit of _kernel_mxu_body). K5 carries t_best from one
 // instance into the next.
+template <int L>
 __device__ __forceinline__ void closest_in_clusters(
     const Ray& r, const float* __restrict__ p1, const float* __restrict__ e1,
     const float* __restrict__ e2, const float* __restrict__ aabb, int c0,
-    int c1, int leaf, float eps, float& t_best, int& best) {
-  float last_e = -1.f;
-  int last_c = -1;
-  for (;;) {
-    float ne;
-    const int nc = next_box(r, aabb, c0, c1, t_best, last_e, last_c, ne);
-    if (nc < 0) return;
-    const int base = nc * leaf;
+    int c1, int leaf, float eps, float& t_best, int& best,
+    WalkList<L>& list) {
+  ordered_walk<L>(r, aabb, c0, c1, t_best, list, [&](int c) {
+    const int base = c * leaf;
     for (int j = base; j < base + leaf; ++j) {
       float t;
       if (tri_hit(r, p1, e1, e2, j, eps, t) && t >= 0.f && t < t_best) {
@@ -240,9 +334,7 @@ __device__ __forceinline__ void closest_in_clusters(
         best = j;
       }
     }
-    last_e = ne;
-    last_c = nc;
-  }
+  });
 }
 
 // K1 body over the whole table: t_best = kBig and best = -1 on a miss.
@@ -252,7 +344,9 @@ __device__ __forceinline__ void closest_hit_dev(
     int leaf, float eps, float& t_best, int& best) {
   t_best = kBig;
   best = -1;
-  closest_in_clusters(r, p1, e1, e2, aabb, 0, C, leaf, eps, t_best, best);
+  WalkList<kListK1> list;
+  closest_in_clusters<kListK1>(r, p1, e1, e2, aabb, 0, C, leaf, eps, t_best,
+                               best, list);
 }
 
 // K2 body over clusters [c0, c1): does any triangle lie at t in
@@ -318,7 +412,7 @@ __device__ __forceinline__ void write_hit(int i, float t, int idx, float nx,
 // and kSn its corner blend (hit_payload, pay = tri_n or tri_sn); kUv writes
 // the winner's raw (u, v) from tri_uv, zeros on a miss, in place of a
 // normal (:546-549), and reads no payload. T0 is the carried-bound mode
-// (:435-460): t_best starts at t0[i], a strict bound, so next_box never
+// (:435-460): t_best starts at t0[i], a strict bound, so the walk never
 // schedules a cluster entered at or beyond it and only hits strictly
 // before it win (the cross-superblock carry of the streaming drivers,
 // mesh_intersect.py:1479-1520); a lane whose bound is never beaten reports
@@ -343,7 +437,9 @@ closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
   if constexpr (T0) {
     t = t0[i];
     idx = -1;
-    closest_in_clusters(r, p1, e1, e2, aabb, 0, C, leaf, eps, t, idx);
+    WalkList<kListK1> list;
+    closest_in_clusters<kListK1>(r, p1, e1, e2, aabb, 0, C, leaf, eps, t, idx,
+                                 list);
     if (idx < 0) t = kBig;
   } else {
     closest_hit_dev(r, p1, e1, e2, aabb, C, leaf, eps, t, idx);
@@ -528,17 +624,21 @@ __device__ __forceinline__ void normal_to_world(const float* __restrict__ ab,
   nz = (n0 * __ldg(ab + 2) + n1 * __ldg(ab + 5)) + n2 * __ldg(ab + 8);
 }
 
-// K5: instances in increasing (world-box entry, instance id) order, found
-// by next_box's scan as K1 finds clusters; the walk stops once no
-// unvisited instance starts before t_best. Each visit runs K1's cluster
-// loop over the instance's mesh in its object space with t_best carried
-// in, so the winner is the strict-< minimum over every instance. Outputs:
+// K5: instances in increasing (world-box entry, instance id) order, by the
+// ordered walk over inst_aabb with a list of its own; the walk stops once
+// no unvisited instance starts before t_best. Each visit runs K1's walk
+// over the instance's mesh in its object space with t_best carried in (a
+// second list, reused from instance to instance), so the winner is the
+// strict-< minimum over every instance. Outputs:
 // t (kBig on a miss), enc = instance * cm * leaf + mesh-local row (-1),
 // obj = inst_obj of the winning instance (0), and the payload (0): flat,
 // the winner's object face normal; with_sn, its corner normals blended by
 // its (u, v) in the winning instance's object space; both pushed to world
 // by normal_to_world. The winning instance's ray is rebuilt for the
-// payload, bit for bit as during the walk.
+// payload, bit for bit as during the walk. At 80 registers ptxas spills one
+// value to local memory, best_inst (a load and at most a store per visited
+// instance, and a load at the end); both lists stay in registers
+// (local_memory.py prints each local access with its source line).
 template <bool SN>
 __global__ void __launch_bounds__(kThreads)
 closest_hit_tlas_kernel(const float* __restrict__ o,
@@ -559,21 +659,16 @@ closest_hit_tlas_kernel(const float* __restrict__ o,
   const Ray r = load_ray(o, d, i);
   float t_best = kBig;
   int best = -1, best_inst = -1;
-  float last_e = -1.f;
-  int last_k = -1;
-  for (;;) {
-    float ne;
-    const int k = next_box(r, inst_aabb, 0, I, t_best, last_e, last_k, ne);
-    if (k < 0) break;
-    last_e = ne;
-    last_k = k;
+  WalkList<kListK5> instances, clusters;
+  ordered_walk<kListK5>(r, inst_aabb, 0, I, t_best, instances, [&](int k) {
     const int mi = __ldg(inst_mesh + k);
-    if (mi < 0 || mi >= M) continue;
+    if (mi < 0 || mi >= M) return;
     const float t_before = t_best;
-    closest_in_clusters(instance_ray(r, inst_ab + 12 * k), p1, e1, e2, caabb,
-                        mi * cm, (mi + 1) * cm, leaf, eps, t_best, best);
+    closest_in_clusters<kListK5>(instance_ray(r, inst_ab + 12 * k), p1, e1,
+                                 e2, caabb, mi * cm, (mi + 1) * cm, leaf, eps,
+                                 t_best, best, clusters);
     if (t_best < t_before) best_inst = k;
-  }
+  });
   int enc = -1, obj = 0;
   float nx = 0.f, ny = 0.f, nz = 0.f;
   if (best >= 0) {
@@ -888,6 +983,42 @@ int rtc_any_hit_elementwise(int device, void* stream, const float* o,
   any_hit_elementwise_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
       o, d, max_t, R, p1, e1, e2, aabb, C, sup, S, leaf, eps, hit_out);
   return (int)cudaGetLastError();
+}
+
+// The ordered walk's list lengths: K1's (and K3's), and K5's.
+int rtc_walk_list(int* k1_len, int* k5_len) {
+  *k1_len = kListK1;
+  *k5_len = kListK5;
+  return 0;
+}
+
+// What a block of one walking kernel takes on the device it runs on: its
+// registers a thread, local and shared bytes, and the blocks of kThreads
+// that fit on one SM. which: 0-4 K1 flat, with_sn, with_t0, with_uv,
+// with_uv + t0; 5-6 K3 flat, with_sn; 7-8 K5 flat, with_sn (the order of
+// WALK_KERNELS in ops/kernels/mesh_intersect.py).
+int rtc_walk_kernel_report(int which, int* regs, int* local_bytes,
+                           int* shared_bytes, int* blocks_per_sm) {
+  const void* const kernels[] = {
+      (const void*)closest_hit_kernel<kFlat, false>,
+      (const void*)closest_hit_kernel<kSn, false>,
+      (const void*)closest_hit_kernel<kFlat, true>,
+      (const void*)closest_hit_kernel<kUv, false>,
+      (const void*)closest_hit_kernel<kUv, true>,
+      (const void*)closest_shadow_kernel<false>,
+      (const void*)closest_shadow_kernel<true>,
+      (const void*)closest_hit_tlas_kernel<false>,
+      (const void*)closest_hit_tlas_kernel<true>};
+  if (which < 0 || which >= (int)(sizeof(kernels) / sizeof(kernels[0])))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernels[which]);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  *shared_bytes = (int)attr.sharedSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernels[which], kThreads, 0);
 }
 
 const char* rtc_error_string(int err) {

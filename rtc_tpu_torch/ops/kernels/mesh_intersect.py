@@ -64,6 +64,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 VMEM_TRI_BUDGET = 49152
 # clusters per supercluster, the kernels' kSuperWidth (K7a/K7b)
 SUPER_WIDTH = 8
+# threads a block, the kernels' kThreads
+BLOCK_THREADS = 128
 
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "closest_shadow": 0,
             "closest_hit_sn": 0, "closest_shadow_sn": 0, "crossing_count": 0,
@@ -92,6 +94,32 @@ def _pair_tests(o, d, p1, e1, e2, eps):
     """(rays, T) t and validity of every ray against every triangle."""
     return triangle(o[:, None, :], d[:, None, :], p1[None], e1[None], e2[None],
                     eps)[:2]
+
+
+def box_slabs(o, d, aabb):
+    """The plain version of the kernels' cluster_slab: (R, C) signed slab
+    interval (tmin, tmax) of each ray through each box, the box widened by
+    4e-6 of its largest coordinate, and the boxes' emptiness (C,)."""
+    lo, hi = aabb[:, :3], aabb[:, 3:]
+    empty = (lo > hi).any(1)
+    pad = 4e-6 * torch.maximum(lo.abs(), hi.abs()).amax(1, keepdim=True)
+    lo, hi = lo - pad, hi + pad
+    near0 = d.abs() < 1e-30
+    inv = torch.where(near0, torch.where(d >= 0, BIG, -BIG).to(d.dtype),
+                      1.0 / torch.where(near0, 1.0, d))
+    t1 = (lo[None] - o[:, None]) * inv[:, None]                # (R, C, 3)
+    t2 = (hi[None] - o[:, None]) * inv[:, None]
+    return (torch.minimum(t1, t2).amax(2).clamp_min(-BIG),
+            torch.maximum(t1, t2).amin(2).clamp_max(BIG), empty)
+
+
+def box_entries(o, d, aabb):
+    """The plain version of cluster_entry: (R, C) entry t >= 0 of each ray
+    into each box; BIG where the ray misses the box, the box lies behind
+    it, or the box is empty. K1 and K5 visit boxes in (entry, id) order."""
+    tmin, tmax, empty = box_slabs(o, d, aabb)
+    ok = ~empty[None] & (tmax >= tmin) & (tmax >= 0.0)
+    return torch.where(ok, tmin.clamp_min(0.0), BIG)
 
 
 def _closest_plain(o, d, p1, e1, e2, eps, t0=None):
@@ -393,21 +421,21 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build() -> str:
-    """Compile the kernels (once per source and flag set) and return the
-    shared library's path. nvcc's ptxas report (registers, spills) is kept
-    beside it as <library>.log."""
-    with open(SOURCE, "rb") as f:
+def build(source: str = SOURCE) -> str:
+    """Compile the kernels of source (once per source text and flag set)
+    and return the shared library's path. nvcc's ptxas report (registers,
+    spills) is kept beside it as <library>.log."""
+    with open(source, "rb") as f:
         key = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = os.path.join(BUILD_DIR, f"libmesh_intersect_{key}.so")
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
     with open(lib + ".log", "w") as f:
         f.write(proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
@@ -416,7 +444,12 @@ def build() -> str:
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build())
+    return bind(build())
+
+
+def bind(path: str) -> ctypes.CDLL:
+    """Load a build of the kernels and declare its entry points' types."""
+    lib = ctypes.CDLL(path)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     closest = [I, P, P, P, I, P, P, P, P, P, I, I, F, P, P, P]
     shadow = [I, P, P, P, I, P, P, P, P, P, I, I, F, P, P, P, P, P]
@@ -449,6 +482,38 @@ def library() -> ctypes.CDLL:
     lib.rtc_error_string.argtypes = [I]
     lib.rtc_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# the kernels that walk boxes in order, by rtc_walk_kernel_report's index
+WALK_KERNELS = ("K1 flat", "K1 with_sn", "K1 with_t0", "K1 with_uv",
+                "K1 with_uv t0", "K3 flat", "K3 with_sn", "K5 flat",
+                "K5 with_sn")
+
+
+def walk_list(lib=None) -> tuple:
+    """(L of K1 and K3, L of each of K5's two lists): the ordered walk's
+    list lengths, as the kernels were built."""
+    fn = (lib or library()).rtc_walk_list
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 2, ctypes.c_int
+    v = [ctypes.c_int() for _ in range(2)]
+    fn(*map(ctypes.byref, v))
+    return v[0].value, v[1].value
+
+
+def walk_kernel_report(lib=None) -> dict:
+    """{kernel: registers a thread, local and shared bytes a block, blocks
+    and threads resident on one SM} of each kernel in WALK_KERNELS, as the
+    CUDA runtime reports them for the current device."""
+    fn = (lib or library()).rtc_walk_kernel_report
+    fn.argtypes, fn.restype = [ctypes.c_int] + [ctypes.c_void_p] * 4, ctypes.c_int
+    out = {}
+    for k, name in enumerate(WALK_KERNELS):
+        v = [ctypes.c_int() for _ in range(4)]
+        _raise_on(fn(k, *map(ctypes.byref, v)), f"report of {name}")
+        regs, local, shared, blocks = (x.value for x in v)
+        out[name] = dict(registers=regs, local_bytes=local, shared_bytes=shared,
+                         blocks_per_sm=blocks, threads_per_sm=blocks * BLOCK_THREADS)
+    return out
 
 
 def _check(name: str, x, dtype, shape, device) -> None:

@@ -1,8 +1,9 @@
 """The CUDA kernels K1-K6 against their plain PyTorch versions on the card,
 at small sizes and on edge cases: ragged ray counts, padding clusters and
 padding instances, parked rays, axis-parallel directions, dead lanes,
-empty batches and bad inputs; and the smooth, glass and instanced scenes
-rendered through the kernels.
+empty batches and bad inputs; the ordered walk of K1, K3 and K5 on tables
+that force its list to refill and its keys to tie; and the smooth, glass
+and instanced scenes rendered through the kernels.
 
 These tests need a CUDA device and nvcc, and skip elsewhere. This file
 imports neither jax nor rtc_tpu, so on the GPU machine it runs without the
@@ -345,34 +346,37 @@ def _rotation(rng):
     return np.eye(3) + np.sin(a) * k + (1.0 - np.cos(a)) * (k @ k)
 
 
-def _instanced_soup(rng, cuda, smooth=False, n_inst=45):
+def _instanced_soup(rng, cuda, smooth=False, n_inst=45, spread=8.0, size=0.15):
     """Two unique random meshes of 10 clusters, instanced n_inst times in
     turn with random rotations, non-uniform scales (0.4-2 per axis) and
-    translations: 58,368 padded world rows, so the scene compiles to TLAS
-    tables (M = 2, cm = 16, 45 instances padded to 48). Random unit corner
-    normals when smooth. Plus 2,000 rays from a sphere of radius 25 toward
-    points of the herd's box, 64 of them through the world origin, where
-    the padding instances' untransformed mesh 0 sits."""
+    translations within +-spread: at 45 instances 58,368 padded world rows,
+    so the scene compiles to TLAS tables (M = 2, cm = 16, the instances
+    padded to a multiple of 8). Triangles of corners normal around their
+    center with deviation size; random unit corner normals when smooth.
+    Plus 2,000 rays from a sphere of radius 25 toward points of the herd's
+    box, 64 of them through the world origin, where the padding instances'
+    untransformed mesh 0 sits."""
     meshes = []
     for _ in range(2):
         c = rng.uniform(-1.5, 1.5, (1280, 3))
-        v = [c + rng.normal(0, 0.15, (1280, 3)) for _ in range(3)]
+        v = [c + rng.normal(0, size, (1280, 3)) for _ in range(3)]
         vn = [rng.normal(size=(1280, 3)) for _ in range(3)] if smooth else [None] * 3
         meshes.append(v + vn)
     objects = []
     for k in range(n_inst):
         m = np.eye(4)
         m[:3, :3] = _rotation(rng) @ np.diag(rng.uniform(0.4, 2.0, 3))
-        m[:3, 3] = rng.uniform(-8.0, 8.0, 3)
+        m[:3, 3] = rng.uniform(-spread, spread, 3)
         objects.append(mesh(*meshes[k % 2], transform=m))
     scene = compile_scene(World(objects=objects,
                                 light=PointLight((0, 30, -20), (1, 1, 1))),
                           device=cuda)
     st = scene.static
-    assert (st.tlas_n_inst, st.tlas_n_mesh, st.tlas_cm, st.tlas_sn) == (48, 2, 16, smooth)
+    assert (st.tlas_n_inst, st.tlas_n_mesh, st.tlas_cm, st.tlas_sn) == (
+        -(-n_inst // 8) * 8, 2, 16, smooth)
     o = rng.normal(size=(2000, 3))
     o *= 25.0 / np.linalg.norm(o, axis=1, keepdims=True)
-    target = rng.uniform(-8.0, 8.0, (2000, 3))
+    target = rng.uniform(-spread, spread, (2000, 3))
     target[:64] = 0.0
     d = target - o
     d /= np.linalg.norm(d, axis=1, keepdims=True)
@@ -646,3 +650,248 @@ def test_new_routes_render_and_match_plain(cuda, name):
     err = (img - ref).abs().amax(dim=2).flatten()
     assert float(torch.quantile(err, 0.999)) < 2e-3
     assert int((err > 0.05).sum()) <= 3
+
+
+# --- the ordered walk (K1, K3's phase 1, K5): list refills and ties ---------
+
+EPS = 1e-5
+LIGHT = (0.0, 6.9, -5.0)
+
+
+def _visits(o, d, aabb, t):
+    """Boxes each ray enters by its final t: what a closest-hit walk over
+    them visits."""
+    e = mi.box_entries(o, d, aabb)
+    return ((e < BIG) & (e <= t[:, None])).sum(1)
+
+
+def _walk_winner(o, d, p1, e1, e2, aabb, leaf, t0=None):
+    """The row an ordered walk returns: of the rows at the least t >= 0
+    (below t0), the one whose cluster comes first in (entry, cluster id)
+    order, then the lowest row; -1 on a miss. The dense sweep's argmin
+    takes the lowest row instead, which differs where two clusters hold a
+    triangle at the same t."""
+    t, valid = mi._pair_tests(o, d, p1, e1, e2, EPS)
+    hit = valid & (t >= 0.0)
+    if t0 is not None:
+        hit &= t < t0[:, None]
+    t_min = torch.where(hit, t, float("inf")).amin(1)
+    tie = hit & (t == t_min[:, None])
+    row_e = mi.box_entries(o, d, aabb).repeat_interleave(leaf, dim=1)
+    e_min = torch.where(tie, row_e, float("inf")).amin(1)
+    rows = torch.arange(p1.shape[0], device=o.device).expand_as(tie)
+    first = torch.where(tie & (row_e == e_min[:, None]), rows, p1.shape[0]).amin(1)
+    return torch.where(tie.any(1), first, -1).to(torch.int32)
+
+
+def _fill_boxes(rng, lo, hi, leaf, size):
+    """leaf random triangles inside each box [lo, hi] (n, 3): corners
+    within size of a point at least size inside the box. Returns the
+    tables (p1, e1, e2, tri_n, tri_sn, aabb) on the CPU, in f32."""
+    n = lo.shape[0]
+    base = rng.uniform(lo[:, None] + size, hi[:, None] - size, (n, leaf, 3))
+    v = [base + rng.uniform(-size, size, (n, leaf, 3)) for _ in range(2)]
+    f = lambda a: torch.tensor(np.asarray(a).reshape(-1, a.shape[-1]), dtype=torch.float32)
+    return (f(base), f(v[0] - base), f(v[1] - base),
+            f(rng.normal(size=(n, leaf, 3))), f(rng.normal(size=(n, leaf, 9))),
+            f(np.concatenate([lo, hi], 1)))
+
+
+def _layers(rng, cuda):
+    """96 overlapping slabs stacked along z (each 2 deep, one every 0.25),
+    8 triangles in each; 2,000 rays from below, tilted up to 0.1 off +z:
+    a ray enters most slabs before its hit, or all it crosses on a miss."""
+    k = np.arange(96)[:, None]
+    lo = np.concatenate([np.full((96, 2), -4.0), 0.25 * k], 1)
+    hi = np.concatenate([np.full((96, 2), 4.0), 0.25 * k + 2.0], 1)
+    tabs = [x.to(cuda) for x in _fill_boxes(rng, lo, hi, 8, 0.35)]
+    o = np.concatenate([rng.uniform(-3, 3, (2000, 2)), np.full((2000, 1), -5.0)], 1)
+    d = np.concatenate([rng.uniform(-0.1, 0.1, (2000, 2)), np.ones((2000, 1))], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return tabs, 8, *(torch.tensor(x, dtype=torch.float32, device=cuda) for x in (o, d))
+
+
+def _lattice(rng, cuda):
+    """Ties in entry and in t. A 4x4x4 lattice of unit cells in [-2, 2]^3,
+    three times over: A, the cells themselves (neighbours share faces), 4
+    triangles each; B, the same boxes and triangles in reversed rows (each
+    box ties A's entry on every ray, so the id decides, and each triangle
+    ties A's t); C, the cells widened by 0.02 with A's triangles rotated by
+    a row (entered before A and B from outside, after them by rays that
+    start inside, where every entry is 0). 2,000 rays: a quarter from
+    inside the lattice, 200 along the axes in lattice planes, the rest from
+    a sphere of radius 6 toward lattice points, half of them integer."""
+    g = np.arange(-2.0, 2.0)
+    lo = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    p1, e1, e2, n, sn, box = _fill_boxes(rng, lo, lo + 1.0, 4, 0.45)
+    rows = lambda x, order: x.view(64, 4, -1)[:, order].reshape(x.shape)
+    rev, rot = [3, 2, 1, 0], [1, 2, 3, 0]
+    wide = box + torch.tensor([-0.02] * 3 + [0.02] * 3)
+    tabs = [torch.cat([x, rows(x, rev), rows(x, rot)]) for x in (p1, e1, e2, n, sn)]
+    tabs.append(torch.cat([box, box, wide]))
+    R = 2000
+    o = rng.normal(size=(R, 3))
+    o *= 6.0 / np.linalg.norm(o, axis=1, keepdims=True)
+    target = rng.uniform(-2, 2, (R, 3))
+    target[::2] = np.round(target[::2])
+    o[:500] = rng.uniform(-2, 2, (500, 3))
+    d = target - o
+    axis = np.eye(3)[rng.integers(0, 3, 200)] * rng.choice([-1.0, 1.0], (200, 1))
+    o[500:700] = np.round(rng.uniform(-2, 2, (200, 3))) - 3.0 * axis
+    d[500:700] = axis
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return ([x.to(cuda) for x in tabs], 4,
+            *(torch.tensor(x, dtype=torch.float32, device=cuda) for x in (o, d)))
+
+
+def _walk_table(where, cuda):
+    """(tables (p1, e1, e2, tri_n, tri_sn, aabb), leaf, o, d) of a named
+    table on the card."""
+    rng = np.random.default_rng(21)
+    if where == "layers":
+        return _layers(rng, cuda)
+    if where == "lattice":
+        return _lattice(rng, cuda)
+    if where == "soup":  # 26,000 triangles, 208 clusters, made as chip_smoke.py's
+        centers = rng.uniform(-4.0, 4.0, (26000, 3))
+        v = [centers + rng.normal(0.0, 0.2, (26000, 3)) for _ in range(3)]
+        vn = [rng.normal(size=(26000, 3)) for _ in range(3)]
+        scene = compile_scene(World(objects=[mesh(*v, *vn)],
+                                    light=PointLight(LIGHT, (1, 1, 1))), device=cuda)
+        o = rng.normal(size=(2000, 3))
+        o *= 12.0 / np.linalg.norm(o, axis=1, keepdims=True)
+        d = rng.uniform(-4.0, 4.0, (2000, 3)) - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        o, d = _scene_rays(scene, o, d)
+    else:  # the one-mesh 3x3 herd: 416 clusters, in one launch
+        scene = compile_scene(cow_herd_mesh_world(3, 3, smooth=True), device=cuda)
+        cam = _cam(128, [0, 10, -18], [0, 3, 2])
+        o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize,
+                           cam.half_width, cam.half_height, cam.pixel_size,
+                           device=cuda)
+    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.tri_n,
+            integrator.corner_normals(scene), scene.cluster_aabb)
+    return tabs, scene.static.cluster_size, o.contiguous(), d.contiguous()
+
+
+def _k1_every_mode_and_k3(tabs, leaf, o, d, cuda):
+    """K1 flat, with_sn, with_t0 and with_uv (with and without t0), and K3
+    flat and with_sn, in one launch each over the whole table. Returns
+    ({mode: K1 outputs}, {mode: K3 outputs}, t0)."""
+    p1, e1, e2, n, sn, aabb = tabs
+    whole = dict(block_budget=p1.shape[0])
+    t_free = mi._closest_plain(o, d, p1, e1, e2, EPS)[0]
+    gen = torch.Generator().manual_seed(5)
+    t0 = t_free * (torch.rand((o.shape[0],), generator=gen) + 0.5).to(cuda)
+    t0[::7] = t_free[::7]
+    t0[1::11] = BIG
+    t0[2::13] = float("nan")
+    t0 = t0.contiguous()
+    k1 = {"flat": mi.mesh_closest_hit(o, d, p1, e1, e2, n, aabb, leaf, **whole),
+          "sn": mi.mesh_closest_hit_sn(o, d, p1, e1, e2, sn, aabb, leaf),
+          "t0": mi.mesh_closest_hit(o, d, p1, e1, e2, n, aabb, leaf, t0=t0, **whole),
+          "uv": mi.mesh_closest_hit_uv(o, d, p1, e1, e2, aabb, leaf, **whole),
+          "uv_t0": mi.mesh_closest_hit_uv(o, d, p1, e1, e2, aabb, leaf, t0=t0,
+                                          **whole)}
+    light = torch.tensor(LIGHT, device=cuda)
+    k3 = {"flat": mi.mesh_closest_shadow(o, d, p1, e1, e2, n, aabb, light, leaf),
+          "sn": mi.mesh_closest_shadow_sn(o, d, p1, e1, e2, sn, aabb, light, leaf)}
+    torch.cuda.synchronize()
+    return k1, k3, t0
+
+
+def _assert_k3_is_split(k3, k1, tabs, leaf, o, d):
+    """Fused K3 against split K1 + K2: t, idx and n equal to K1's bit for
+    bit, and every shadow flag equal to K2's on the shadow rays of K1's
+    hits (shadow_rays_plain, which rounds as K3's phase 2)."""
+    p1, e1, e2 = tabs[:3]
+    light = torch.tensor(LIGHT, device=o.device)
+    for mode, unit_n in (("flat", True), ("sn", False)):
+        t, idx, n, sh = k3[mode]
+        assert torch.equal(t, k1[mode][0]) and torch.equal(idx, k1[mode][1])
+        assert torch.equal(n, k1[mode][2])
+        so, sd, max_t = mi.shadow_rays_plain(o, d, t, idx, n, light, EPS, unit_n)
+        k2 = mi.mesh_any_hit(so.contiguous(), sd.contiguous(), max_t.contiguous(),
+                             p1, e1, e2, tabs[5], leaf, block_budget=p1.shape[0])
+        assert torch.equal(sh, k2)
+
+
+@pytest.mark.parametrize("where", ["layers", "soup", "herd_mesh"])
+def test_walk_k1_every_mode_and_k3_match_plain(cuda, where):
+    """The ordered walk on three tables, each in one launch: a stack of
+    overlapping slabs whose rays enter more than twice the list's length
+    of boxes (so the list refills at least twice), a 208-cluster soup of
+    its own made as chip_smoke.py's, and the one-mesh 3x3 herd (416
+    clusters). K1 in
+    every mode against its plain version (t bit-equal, idx off ties, the
+    payload bit-equal at equal idx); K3 flat and with_sn against split K1
+    + K2 bit for bit."""
+    tabs, leaf, o, d = _walk_table(where, cuda)
+    p1, e1, e2, n, sn, aabb = tabs
+    k1, k3, t0 = _k1_every_mode_and_k3(tabs, leaf, o, d, cuda)
+    plain = {"flat": mi.closest_hit_plain(o, d, p1, e1, e2, n),
+             "sn": mi.closest_hit_sn_plain(o, d, p1, e1, e2, sn),
+             "t0": mi.closest_hit_plain(o, d, p1, e1, e2, n, t0=t0),
+             "uv": mi.closest_hit_uv_plain(o, d, p1, e1, e2),
+             "uv_t0": mi.closest_hit_uv_plain(o, d, p1, e1, e2, t0=t0)}
+    for mode in k1:
+        _assert_closest_equal(k1[mode], plain[mode])
+    _assert_k3_is_split(k3, k1, tabs, leaf, o, d)
+    hits = k1["flat"][1] >= 0
+    assert int(hits.sum()) > 200
+    if where == "layers":
+        L = mi.walk_list()[0]  # K1's list
+        visits = _visits(o, d, aabb, k1["flat"][0])
+        assert float((visits > 2 * L).float().mean()) > 0.25
+
+
+def test_walk_ties_follow_entry_then_id(cuda):
+    """The lattice of _lattice, where boxes tie in entry and triangles tie
+    in t across clusters: K1 in every mode returns the row of the cluster
+    first in (entry, id) order (_walk_winner), which the dense sweep's
+    lowest-row rule misses on many rays; t bit-equal to the plain version,
+    the payload that row's; K3 equal to split K1 + K2."""
+    tabs, leaf, o, d = _walk_table("lattice", cuda)
+    p1, e1, e2, n, sn, aabb = tabs
+    k1, k3, t0 = _k1_every_mode_and_k3(tabs, leaf, o, d, cuda)
+    free = _walk_winner(o, d, p1, e1, e2, aabb, leaf)
+    bounded = _walk_winner(o, d, p1, e1, e2, aabb, leaf, t0)
+    plain = mi._closest_plain(o, d, p1, e1, e2, EPS)
+    assert int((free != plain[1]).sum()) > 50  # ties the walk's order decides
+    assert int((free >= 0).sum()) > 400
+    for mode, want in (("flat", free), ("sn", free), ("uv", free),
+                       ("t0", bounded), ("uv_t0", bounded)):
+        t, idx, pay = k1[mode]
+        assert torch.equal(idx, want), mode
+        ref = mi._closest_plain(o, d, p1, e1, e2, EPS, t0 if want is bounded else None)
+        assert torch.equal(t, ref[0]), mode
+    hit = free >= 0
+    assert torch.equal(k1["flat"][2][hit], n[free[hit].long()])
+    blend = mi.smooth_blend(o, d, p1, e1, e2, sn, free)
+    assert torch.equal(k1["sn"][2], blend)
+    _assert_k3_is_split(k3, k1, tabs, leaf, o, d)
+
+
+@pytest.mark.parametrize("smooth", [False, True])
+def test_walk_refills_k5_match_plain(cuda, smooth):
+    """K5 on 90 instances (padded to 96) packed within +-4 with small
+    triangles, so that rays enter more than twice the list's length of
+    instance boxes before their hit: t, enc, obj and n bit-equal to the
+    plain version, which sweeps every instance."""
+    scene, o, d = _instanced_soup(np.random.default_rng(23), cuda, smooth,
+                                  n_inst=90, spread=4.0, size=0.02)
+    args = _tlas_args(scene, True)
+    plain_args = args[:4] + args[5:]
+    if smooth:
+        k5 = mi.mesh_closest_hit_tlas_sn(o, d, *args)
+        p5 = mi.closest_hit_tlas_sn_plain(o, d, *plain_args)
+    else:
+        k5 = mi.mesh_closest_hit_tlas(o, d, *args)
+        p5 = mi.closest_hit_tlas_plain(o, d, *plain_args)
+    torch.cuda.synchronize()
+    for got, ref in zip(k5, p5):
+        assert torch.equal(got, ref)
+    assert int((k5[1] >= 0).sum()) > 100
+    L = mi.walk_list()[1]  # each of K5's lists
+    visits = _visits(o, d, scene.tlas.inst_aabb, k5[0])
+    assert float((visits > 2 * L).float().mean()) > 0.25
