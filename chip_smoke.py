@@ -12,8 +12,15 @@ each against its plain PyTorch version on the card: K1-K3 on the cow
 (phase 7, exact counts), each at its path's 460,800-ray wavefront; and
 the instanced K5 (flat on cow_herd, with_sn on cow_herd_smooth) and K6
 (phase 9), timed on the herds' 460,800-ray wavefronts and held against
-their plain versions, which sweep every instance densely, on a
-57,600-ray subset of them. Phase 10 holds the elementwise kernels K7a
+their plain versions, which sweep every instance densely, on every 8th
+ray of them; K6 on two wavefronts, cow_herd's 921,600 free-space
+occlusion rays and the 460,800 shadow rays its frame casts from its
+surfaces, its flags equal to the plain version's on every ray of the
+subset. Phases 3 and 6 also hold K3's shadow flags equal, on every ray,
+to K2's on K3's own shadow rays. Phase 3 prints K3's phases 2-3 alone (K3
+less K1 on one wavefront). K3's and K6's bound is the lesser of two: the
+tests their occlusion walk needs, and those of the table-order loop it
+replaced, which their lines keep beside it. Phase 10 holds the elementwise kernels K7a
 and K7b on cow's and cow_herd's world-table wavefronts to their plain
 versions on a subset and to one K1/K2 launch on every ray; phase 11
 checks K1's t0 contract, the superblock drivers (streamed K1, K2 and K4
@@ -56,7 +63,7 @@ from rtc_tpu_torch.ops.vec import normalize, normalize3
 from rtc_tpu_torch.render import integrator
 from rtc_tpu_torch.render.camera import camera_rays, camera_rays_for_pixels
 from rtc_tpu_torch.render.renderer import blocked_pixels, render
-from rtc_tpu_torch.scene.compile import compile_scene
+from rtc_tpu_torch.scene.compile import GROUP, compile_scene
 from rtc_tpu_torch.scene.materials import Material
 from rtc_tpu_torch.scene.shapes import mesh
 from rtc_tpu_torch.scene.world import PointLight, World
@@ -170,9 +177,31 @@ def occlusion_rays(scene, o, d, t, idx):
     return origin, (v / dist[:, None]).contiguous(), max_t.contiguous()
 
 
+def k3_shadow_rays(scene, o, d, eps, hit=None, unit_n: bool = True):
+    """K3's phase-2 shadow rays from the closest hits hit = (t, idx, n) of
+    rays (o, d) (K1's, launched here, when None): shadow_rays_plain, which
+    rounds as K3's phase 2 (unit_n=False: a smooth blend, normalized first)."""
+    if hit is None:
+        hit = mi.mesh_closest_hit(o, d, *tables(scene), scene.tri_n, scene.cluster_aabb,
+                                  scene.static.cluster_size, eps)
+    so, sd, max_t = mi.shadow_rays_plain(o, d, *hit[:3], scene.light_pos, eps,
+                                         unit_n=unit_n)
+    return so.contiguous(), sd.contiguous(), max_t.contiguous()
+
+
 # ---------------------------------------------------------------------------
 # gates
 # ---------------------------------------------------------------------------
+
+def k3_flags_gate(what: str, k3_flags, k2_flags, max_t) -> None:
+    """K3's shadow flags equal, on every ray, K2's on K3's phase-2 shadow
+    rays (k3_shadow_rays). A flag is the OR of pair tests that K3's
+    occlusion walk and K2's table-order loop compute alike, so a culled hit
+    is the only way they can differ."""
+    flips = int((k3_flags != k2_flags).sum())
+    check(flips == 0, f"{what}: K3's shadow flags differ from K2's on {flips} of "
+          f"{int((max_t > 0).sum())} live shadow rays")
+
 
 def closest_gate(what: str, got, ref, n_atol: float = 0.0) -> float:
     """bench.py's gate: equal hit masks, |dt| <= 1e-3, index mismatches only
@@ -213,19 +242,23 @@ def kernel_parity(name, scene, o, d, leaf, eps):
           f"{name} K2: occlusion parity: {flips2} rays differ")
 
     k3 = mi.mesh_closest_shadow(o, d, *args, scene.cluster_aabb,
-                                scene.light_pos, leaf, eps)
+                                scene.light_pos, leaf, eps, occ=scene.occ)
     p3 = mi.closest_shadow_plain(o, d, *args, scene.light_pos, eps)
     err3 = closest_gate(f"{name} K3", k3, p3)
     hits = int((p3[1] >= 0).sum())
     flips3 = int((k3[3] != p3[3]).sum())
     check(flips3 <= max(2, hits // 1000),
           f"{name} K3: shadow flags differ on {flips3} of {hits} hits")
+    s3o, s3d, s3max = k3_shadow_rays(scene, o, d, eps, k3)
+    k3_flags_gate(f"{name} K3", k3[3],
+                  mi.mesh_any_hit(s3o, s3d, s3max, p1, e1, e2, scene.cluster_aabb, leaf, eps),
+                  s3max)
     torch.cuda.synchronize()
     summary = (f"{name}: {o.shape[0]} rays, C={scene.cluster_aabb.shape[0]}, "
                f"hits {int((k1[1] >= 0).sum())}, K1 max|dt| {err1:.3g}; "
                f"K2 {int(p2.sum())} occluded, {flips2} flips of {so.shape[0]}; "
                f"K3 max|dt| {err3:.3g}, {int(p3[3].sum())} shadowed, "
-               f"{flips3} flips")
+               f"{flips3} flips against plain, 0 against K2 on its shadow rays")
     return summary
 
 
@@ -279,11 +312,13 @@ PAIR_CHUNK = 1 << 22  # pair tests per counting pass
 
 class Work:
     """A kernel's needed work: operations by type (FLOPs, compares,
-    reciprocals) and its pair tests by the stage where they stop."""
+    reciprocals), its pair tests by the stage where they stop, and its box
+    tests."""
 
-    def __init__(self, ops=(0, 0, 0), stages=(0, 0, 0, 0)):
+    def __init__(self, ops=(0, 0, 0), stages=(0, 0, 0, 0), boxes=0):
         self.ops = np.asarray(ops, dtype=float)
         self.stages = np.asarray(stages, dtype=np.int64)
+        self.boxes = int(boxes)
 
     @staticmethod
     def pairs(stages) -> "Work":
@@ -291,15 +326,16 @@ class Work:
         return Work(stages.astype(float) @ PAIR_OPS, stages)
 
     def __add__(self, other: "Work") -> "Work":
-        return Work(self.ops + other.ops, self.stages + other.stages)
+        return Work(self.ops + other.ops, self.stages + other.stages,
+                    self.boxes + other.boxes)
 
     def __mul__(self, n) -> "Work":
-        return Work(self.ops * float(n), self.stages * int(n))
+        return Work(self.ops * float(n), self.stages * int(n), self.boxes * int(n))
 
 
 # a ray's slab test of one box (three axes of 2 sub, 2 mul and 4 min/max)
 # and cluster_entry's three compares with the caller's one
-BOX = Work((12, 16, 0))
+BOX = Work((12, 16, 0), boxes=1)
 # the box's own emptiness test, scale, pad and widening: once per box
 WIDEN = Work((7, 8, 0))
 # make_ray's slab reciprocals and near-zero guards: once per ray
@@ -312,6 +348,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def occ_bytes(occ) -> int:
+    """The bytes of the occlusion tables the kernels read (row_id, on the
+    host, is for the tests)."""
+    return nbytes(*(x for k, x in occ._asdict().items() if k != "row_id"))
+
+
 def bound(work: Work, n_bytes: float):
     """(bound_ms, bound_by, pair tests by stage) of a kernel's work."""
     flops, cmp, rcp = work.ops
@@ -322,18 +364,25 @@ def bound(work: Work, n_bytes: float):
             dict(zip(STAGES, work.stages.tolist())))
 
 
+def least(*bounds):
+    """The least of bound()'s results for one function's work as different
+    walks do it: the least time the card could take for that function."""
+    return min(bounds, key=lambda b: b[0])
+
+
 def entered(o, d, aabb, limit, strict: bool = False, signed: bool = False,
-            keep=None):
+            keep=None, widen: bool = True):
     """The (ray, box) pairs, as two (P,) index tensors, of the boxes of aabb
     each ray enters at or before limit (strictly before with strict).
     signed: the census's test, a signed slab interval starting before
-    limit, behind the origin included. keep (C,) bool: only those boxes."""
+    limit, behind the origin included. keep (C,) bool: only those boxes.
+    widen=False: boxes widened at compile time (the occlusion walk's)."""
     R, C = o.shape[0], aabb.shape[0]
     none = torch.zeros((0,), dtype=torch.int64, device=o.device)
     rays, boxes = [none], [none]
     step = max(1, BOX_CHUNK // max(C, 1))
     for s in range(0, R, step):
-        tmin, tmax, empty = mi.box_slabs(o[s:s + step], d[s:s + step], aabb)
+        tmin, tmax, empty = mi.box_slabs(o[s:s + step], d[s:s + step], aabb, widen)
         lim = limit[s:s + step, None]
         ok = ~empty[None] & (tmax >= tmin)
         if signed:
@@ -462,7 +511,78 @@ def tlas_work(o, d, tl, st, eps, limit, strict: bool = False, occluded=None):
             {k: census[k] + outer[k] for k in census})
 
 
-BOUNDS = {}  # kernel key -> (bound_ms, bound_by)
+def occ_rows(occ):
+    """The occlusion copy's p1, e1 and e2 (T, 3) views."""
+    return occ.rows[:, 0:3], occ.rows[:, 4:7], occ.rows[:, 8:11]
+
+
+def walk_levels(o, d, occ, leaf, eps, limit, g0: int, g1: int) -> Work:
+    """The tests of the occlusion walk over groups [g0, g1) of occ for
+    lanes that find no occluder (limit: max_t, -1 elsewhere): every group
+    box, the 8 cluster boxes of each entered group, the sub-boxes of each
+    entered cluster, and the rows of each entered sub-box. A group box
+    holds its clusters' boxes, so clusters entered are counted alone."""
+    C = occ.cluster_box.shape[0]
+    n_sub = occ.sub_box.shape[0] // C
+    sub_rows = leaf // n_sub
+    c0, c1 = g0 * GROUP, min(g1 * GROUP, C)
+    lane = (limit > 0).sum().item()
+    groups = entered(o, d, occ.group_box[g0:g1], limit, True, widen=False)[0].numel()
+    cr, cc = entered(o, d, occ.cluster_box[c0:c1], limit, True, widen=False)
+    sr, sb = entered(o, d, occ.sub_box[c0 * n_sub:c1 * n_sub], limit, True, widen=False)
+    keep = torch.isin(sr * C + sb // n_sub, cr * C + cc)  # the walk enters the cluster first
+    stages = pair_stages(o, d, *occ_rows(occ), eps, sr[keep], sb[keep] + c0 * n_sub, sub_rows)
+    return BOX * (lane * (g1 - g0) + GROUP * groups + n_sub * cr.numel()) + Work.pairs(stages)
+
+
+def walk_least(occ, leaf: int) -> Work:
+    """The least an occluded lane costs the walk: a box test at each level
+    and one sub-box's rows, all but the occluder stopping at det."""
+    sub_rows = leaf * occ.cluster_box.shape[0] // occ.sub_box.shape[0]
+    return BOX * 3 + Work.pairs((sub_rows - 1, 0, 0, 1))
+
+
+def occlusion_walk_work(o, d, occ, leaf, eps, max_t, hit) -> Work:
+    """The tests K3's phase 3 needs with the occlusion walk (the second
+    bound, beside any_work's): walk_levels on the free live lanes, the
+    least on the occluded ones."""
+    live = max_t > 0
+    free = torch.where(live & ~hit, max_t, -1.0)
+    return (walk_levels(o, d, occ, leaf, eps, free, 0, occ.group_box.shape[0])
+            + walk_least(occ, leaf) * int((live & hit).sum()) + RAY * int(live.sum()))
+
+
+def tlas_walk_work(o, d, tl, st, occ, eps, max_t, hit) -> Work:
+    """K6's work with the occlusion walk: on a free live lane every
+    instance group box, the 8 slot boxes of each entered group and, for
+    each entered instance, its ray transform and walk_levels over its
+    mesh's groups in object space; the least on an occluded lane (an
+    instance group, a slot and a mesh walk's least)."""
+    leaf, cm = st.cluster_size, st.tlas_cm
+    live = max_t > 0
+    free = torch.where(live & ~hit, max_t, -1.0)
+    n_free = int((free > 0).sum())
+    groups = entered(o, d, occ.inst_group, free, True, widen=False)[0].numel()
+    work = (BOX * (n_free * occ.inst_group.shape[0] + GROUP * groups)
+            + (BOX * 2 + INSTANCE + walk_least(occ, leaf)) * int((live & hit).sum())
+            + RAY * int(live.sum()))
+    for s, k in enumerate(occ.inst_perm.tolist()):
+        if k < 0:
+            continue
+        m = int(tl.inst_mesh[k])
+        inside, _ = entered(o, d, occ.inst_box[s:s + 1], free, True, widen=False)
+        oi, di = mi.instance_rays(o[inside], d[inside], tl.inst_ab[k])
+        work += INSTANCE * inside.numel() + walk_levels(
+            oi, di, occ, leaf, eps, free[inside], m * cm // GROUP, (m + 1) * cm // GROUP)
+    return work
+
+
+BOUNDS = {}  # kernel key -> bound(): (bound_ms, bound_by, pair tests)
+# K3 and K6: bound() of the tests of the table-order loop, which their
+# occlusion walk replaced; their BOUNDS entry is the lesser of it and the
+# walk's (least)
+TABLE_ORDER_BOUNDS = {}
+EXTRA = {}  # kernel key -> further keys of its kernels line
 
 
 # ---------------------------------------------------------------------------
@@ -602,10 +722,7 @@ def phase_timing(scene, cam, leaf, eps):
     Returns {kernel: (ms, plain_ms)} and {kernel: (max_abs_err, flips)}."""
     o, d = main_path_rays(cam)
     p1, e1, e2 = tables(scene)
-    t, idx, n = mi.mesh_closest_hit(o, d, p1, e1, e2, scene.tri_n,
-                                    scene.cluster_aabb, leaf, eps)
-    so, sd, max_t = mi.shadow_rays_plain(o, d, t, idx, n, scene.light_pos, eps)
-    so, sd = so.contiguous(), sd.contiguous()
+    so, sd, max_t = k3_shadow_rays(scene, o, d, eps)
     runs = {
         "closest_hit": (
             lambda: mi.mesh_closest_hit(o, d, p1, e1, e2, scene.tri_n,
@@ -618,7 +735,7 @@ def phase_timing(scene, cam, leaf, eps):
         "closest_shadow": (
             lambda: mi.mesh_closest_shadow(o, d, p1, e1, e2, scene.tri_n,
                                            scene.cluster_aabb,
-                                           scene.light_pos, leaf, eps),
+                                           scene.light_pos, leaf, eps, occ=scene.occ),
             lambda: mi.closest_shadow_plain(o, d, p1, e1, e2, scene.tri_n,
                                             scene.light_pos, eps)),
     }
@@ -644,6 +761,7 @@ def phase_timing(scene, cam, leaf, eps):
     flips3 = int((k3[3] != p3[3]).sum())
     check(flips3 <= max(2, hits // 1000),
           f"main-path K3: shadow flags differ on {flips3} of {hits} hits")
+    k3_flags_gate("main-path K3", k3[3], k2, max_t)
     parity = {"closest_hit": (err1, None), "any_hit": (float(flips2 > 0), flips2),
               "closest_shadow": (err3, flips3)}
     tab_bytes = nbytes(p1, e1, e2, scene.cluster_aabb)
@@ -657,22 +775,29 @@ def phase_timing(scene, cam, leaf, eps):
     BOUNDS["any_hit"] = bound(any_work(so, sd, tri, scene.cluster_aabb, max_t, k2,
                                        leaf, eps),
                               nbytes(so, sd, max_t) + tab_bytes + R)
-    BOUNDS["closest_shadow"] = bound(
-        work1 + any_work(so, sd, tri, scene.cluster_aabb, max_t, k3[3], leaf, eps),
-        nbytes(o, d, scene.tri_n, scene.light_pos) + tab_bytes + R * 21)
+    k3_bytes = nbytes(o, d, scene.tri_n, scene.light_pos) + tab_bytes + R * 21
+    old = bound(work1 + any_work(so, sd, tri, scene.cluster_aabb, max_t, k3[3], leaf, eps),
+                k3_bytes)
+    new = bound(work1 + occlusion_walk_work(so, sd, scene.occ, leaf, eps, max_t, k3[3]),
+                k3_bytes + occ_bytes(scene.occ))
+    BOUNDS["closest_shadow"], TABLE_ORDER_BOUNDS["closest_shadow"] = least(old, new), old
+    phases_23 = times["closest_shadow"][0] - times["closest_hit"][0]
+    EXTRA["closest_shadow"] = {"phases_2_3_ms": phases_23}
     say("3 kernel timing",
         f"{o.shape[0]} primary rays ({hits} hits, "
         f"{int((max_t > 0).sum())} live shadow rays): " + "; ".join(
             f"{k} {v[0]:.3f} ms vs plain {v[1]:.1f} ms" for k, v in times.items())
-        + f"; vs plain: K1 max|dt| {err1:.3g}, K2 {flips2} flips of "
-        f"{so.shape[0]}, K3 max|dt| {err3:.3g}, {flips3} shadow flips")
+        + f"; K3's phases 2-3 (K3 - K1) {phases_23:.3f} ms; vs plain: K1 max|dt| "
+        f"{err1:.3g}, K2 {flips2} flips of {so.shape[0]}, K3 max|dt| {err3:.3g}, "
+        f"{flips3} shadow flips against plain, 0 against K2; K3 bound {old[0]:.4f} ms "
+        f"(the table-order loop's tests), {new[0]:.4f} ms (the occlusion walk's)")
     return times, parity
 
 
-def split_path(scene, o, d):
-    """The split path of one node (fused_shadow=False): K1, then K2 on the
-    shadow rays the integrator derives. Returns (hit, shadowed)."""
-    cfg = RenderConfig(fused_shadow=False)
+def surface_points(scene, o, d, cfg):
+    """A node's closest hits and the points its shadow rays leave from, as
+    color_at derives them: (hit, over_point (FAR on misses), live: hits
+    whose normal faces the light)."""
     hit = integrator.closest_hit(scene, o, d, cfg)
     comps = integrator.prepare_hit3(scene, o, d, hit, cfg)
     over = torch.stack([torch.where(hit.valid, c, FAR)
@@ -681,7 +806,24 @@ def split_path(scene, o, d):
                                  for k in range(3)))
     nx, ny, nz = comps.normalv
     facing = (lvx * nx + lvy * ny + lvz * nz) >= 0.0
-    return hit, integrator.is_shadowed(scene, over, cfg, live=hit.valid & facing)
+    return hit, over, hit.valid & facing
+
+
+def split_path(scene, o, d):
+    """The split path of one node (fused_shadow=False): K1, then K2 on the
+    shadow rays the integrator derives. Returns (hit, shadowed)."""
+    cfg = RenderConfig(fused_shadow=False)
+    hit, over, live = surface_points(scene, o, d, cfg)
+    return hit, integrator.is_shadowed(scene, over, cfg, live=live)
+
+
+def surface_shadow_rays(scene, o, d):
+    """The shadow rays a frame casts from its surfaces for primary rays
+    (o, d), on its default route: (origin, direction, max_t), dead lanes
+    at max_t -1 (integrator.shadow_query)."""
+    _, over, live = surface_points(scene, o, d, RenderConfig())
+    direction, distance = integrator.shadow_query(scene, over, live)
+    return over.contiguous(), direction.contiguous(), distance.contiguous()
 
 
 def phase_fused_vs_split(scene, cam, eps):
@@ -690,7 +832,7 @@ def phase_fused_vs_split(scene, cam, eps):
     leaf = scene.static.cluster_size
     t, idx, n, sh = mi.mesh_closest_shadow(
         o, d, *tables(scene), scene.tri_n, scene.cluster_aabb,
-        scene.light_pos, leaf, eps)
+        scene.light_pos, leaf, eps, occ=scene.occ)
     hit, sh_split = split_path(scene, o, d)
     valid = idx >= 0
     check(torch.equal(valid, hit.valid), "fused/split hit masks differ")
@@ -828,7 +970,7 @@ def phase_smooth(eps):
         lambda: mi.closest_hit_sn_plain(o, d, *tabs, eps))
     ms3, pms3, k3, p3 = time_pair(
         lambda: mi.mesh_closest_shadow_sn(o, d, *tabs, scene.cluster_aabb,
-                                          light, leaf, eps),
+                                          light, leaf, eps, occ=scene.occ),
         lambda: mi.closest_shadow_sn_plain(o, d, *tabs, light, eps))
     err1 = closest_gate("teapot_smooth K1 with_sn", k1, p1)
     err3 = closest_gate("teapot_smooth K3 with_sn", k3, p3)
@@ -838,21 +980,26 @@ def phase_smooth(eps):
                                "clusters)", rays1, R, scene.static.n_clusters))
     in_bytes = nbytes(o, d, *tabs, aabb)
     BOUNDS["closest_hit_sn"] = bound(work1, in_bytes + R * 20)
-    so, sd, smax = mi.shadow_rays_plain(o, d, k3[0], k3[1], k3[2], light, eps,
-                                        unit_n=False)
-    BOUNDS["closest_shadow_sn"] = bound(work1 + any_work(so, sd, tabs[:3], aabb, smax,
-                                                         k3[3], leaf, eps),
-                                        in_bytes + nbytes(light) + R * 21)
+    so, sd, smax = k3_shadow_rays(scene, o, d, eps, k3, unit_n=False)
+    old = bound(work1 + any_work(so, sd, tabs[:3], aabb, smax, k3[3], leaf, eps),
+                in_bytes + nbytes(light) + R * 21)
+    new = bound(work1 + occlusion_walk_work(so, sd, scene.occ, leaf, eps, smax, k3[3]),
+                in_bytes + nbytes(light) + occ_bytes(scene.occ) + R * 21)
+    BOUNDS["closest_shadow_sn"] = least(old, new)
+    TABLE_ORDER_BOUNDS["closest_shadow_sn"] = old
     hits = int((p3[1] >= 0).sum())
     flips3 = int((k3[3] != p3[3]).sum())
     check(flips3 <= max(2, hits // 1000),
           f"teapot_smooth K3 with_sn: shadow flags differ on {flips3} of {hits} hits")
+    k3_flags_gate("teapot_smooth K3 with_sn", k3[3],
+                  mi.mesh_any_hit(so, sd, smax, *tabs[:3], aabb, leaf, eps), smax)
     say("6 smooth kernels",
         f"teapot_smooth {o.shape[0]} primary rays ({hits} hits, C="
         f"{scene.static.n_clusters}): K1 with_sn {ms1:.3f} ms vs plain "
         f"{pms1:.1f} ms, max|dt| {err1:.3g}; K3 with_sn {ms3:.3f} ms vs plain "
-        f"{pms3:.1f} ms, max|dt| {err3:.3g}, {flips3} shadow flips "
-        f"({int(p3[3].sum())} shadowed)")
+        f"{pms3:.1f} ms, max|dt| {err3:.3g}, {flips3} shadow flips against plain, "
+        f"0 against K2 ({int(p3[3].sum())} shadowed); K3 with_sn bound {old[0]:.4f} ms "
+        f"(the table-order loop's tests), {new[0]:.4f} ms (the occlusion walk's)")
 
     # fused against split: rtc_tpu's split path normalizes the blend with a
     # sum-reduced dot, so the two may differ by an ulp there; the port's
@@ -1089,36 +1236,63 @@ def phase_tlas(eps):
                    f"{hits} hits, max|dt| {err:.3g}, "
                    f"{int((~same).sum())} enc mismatches")
         if not st.tlas_sn:
-            k6 = lambda so, sd, mt: mi.mesh_any_hit_tlas(
-                so, sd, mt, tl.p1, tl.e1, tl.e2, tl.caabb, *inst, *leaf_cm)
-            fo, fd, fmax = occlusion_rays(scene, o, d, full[0], full[1])
-            so, sd, smax = occlusion_rays(scene, os_, ds_, ref[0], ref[1])
-            ms6_full, occluded = timed_ms(lambda: k6(fo, fd, fmax), 2, 10)
-            BOUNDS["any_hit_tlas"] = bound(
-                tlas_work(fo, fd, tl, st, eps, fmax, strict=True,
-                          occluded=occluded & (fmax > 0))[0],
-                nbytes(fo, fd, fmax, tl.p1, tl.e1, tl.e2, tl.caabb, *inst)
-                + fo.shape[0])
-            ms6, pms6, k6_out, p6_out = time_pair(
-                lambda: k6(so, sd, smax),
-                lambda: mi.any_hit_tlas_plain(so, sd, smax, tl.p1, tl.e1,
-                                              tl.e2, *inst, *leaf_cm),
-                plain_warmup=0, plain_iters=1)
-            flips = int((k6_out != p6_out).sum())
-            check(flips <= max(2, so.shape[0] // 2048),
-                  f"{name} K6: occlusion parity: {flips} rays differ")
-            times["any_hit_tlas"] = (ms6_full, pms6)
-            parity["any_hit_tlas"] = (float(flips > 0), flips)
-            sizes["any_hit_tlas"] = dict(rays=fo.shape[0],
-                                         plain_rays=so.shape[0],
-                                         ms_at_plain_rays=ms6)
-            summary += (f"; K6 {ms6_full:.3f} ms on {fo.shape[0]} occlusion "
-                        f"rays ({int((fmax > 0).sum())} live); on "
-                        f"{so.shape[0]} rays {ms6:.3f} ms vs plain "
-                        f"{pms6:.1f} ms, {int(p6_out.sum())} occluded, "
-                        f"{flips} flips")
+            summary += "; " + k6_wavefronts(name, scene, o, d, full, eps, times,
+                                            parity, sizes)
         say("9 instanced kernels", summary)
     return times, parity, sizes
+
+
+def k6_wavefronts(name, scene, o, d, k5_out, eps, times, parity, sizes) -> str:
+    """K6 on two wavefronts of cow_herd's primary rays (o, d) and their K5
+    outputs: the 921,600 free-space occlusion rays (occlusion_rays: the
+    kernels line's) and the 460,800 shadow rays the frame casts from its
+    surfaces (surface_shadow_rays). Each timed in full, and with its plain
+    version on every TLAS_PLAIN_STEP-th ray, where the flags must agree
+    on every ray; each with its two bounds (tlas_work's tests of the
+    table-order walk, tlas_walk_work's of the occlusion walk), the lesser
+    its bound_ms. Returns the phase's summary."""
+    st, tl, occ = scene.static, scene.tlas, scene.tlas_occ
+    inst = (tl.inst_ab, tl.inst_aabb, tl.inst_mesh)
+    leaf_cm = (st.cluster_size, st.tlas_cm, eps)
+    k6 = lambda so, sd, mt: mi.mesh_any_hit_tlas(so, sd, mt, tl.p1, tl.e1, tl.e2,
+                                                 tl.caabb, *inst, *leaf_cm, occ=occ)
+    plain = lambda so, sd, mt: mi.any_hit_tlas_plain(so, sd, mt, tl.p1, tl.e1, tl.e2,
+                                                     *inst, *leaf_cm)
+    sub = lambda x: x[::TLAS_PLAIN_STEP].contiguous()
+    waves = {"free-space": occlusion_rays(scene, o, d, k5_out[0], k5_out[1]),
+             "surface": surface_shadow_rays(scene, o, d)}
+    parts = []
+    for wave, (fo, fd, fmax) in waves.items():
+        ms_full, occluded = timed_ms(lambda: k6(fo, fd, fmax), 2, 10)
+        ms, pms, got, ref = time_pair(lambda: k6(sub(fo), sub(fd), sub(fmax)),
+                                      lambda: plain(sub(fo), sub(fd), sub(fmax)),
+                                      plain_warmup=0, plain_iters=1)
+        check(torch.equal(occluded[::TLAS_PLAIN_STEP], got),
+              f"{name} K6 {wave}: the subset's flags differ from the full run's")
+        flips = flags_gate(f"{name} K6 {wave} vs plain", got, ref, exact=True)
+        live = fmax > 0
+        in_bytes = nbytes(fo, fd, fmax, tl.p1, tl.e1, tl.e2, tl.caabb, *inst) + fo.shape[0]
+        old = bound(tlas_work(fo, fd, tl, st, eps, fmax, strict=True,
+                              occluded=occluded & live)[0], in_bytes)
+        new = bound(tlas_walk_work(fo, fd, tl, st, occ, eps, fmax, occluded),
+                    in_bytes + occ_bytes(occ))
+        if wave == "free-space":
+            BOUNDS["any_hit_tlas"], TABLE_ORDER_BOUNDS["any_hit_tlas"] = least(old, new), old
+            times["any_hit_tlas"] = (ms_full, pms)
+            parity["any_hit_tlas"] = (float(flips > 0), flips)
+            sizes["any_hit_tlas"] = dict(rays=fo.shape[0], plain_rays=got.shape[0],
+                                         ms_at_plain_rays=ms)
+        else:
+            EXTRA["any_hit_tlas"] = dict(
+                surface_rays=fo.shape[0], surface_ms=ms_full,
+                surface_bound_ms=least(old, new)[0], surface_table_order_bound_ms=old[0],
+                surface_flips=flips)
+        parts.append(f"K6 {wave} {ms_full:.3f} ms on {fo.shape[0]} rays "
+                     f"({int(live.sum())} live, {int(occluded.sum())} occluded); on "
+                     f"{got.shape[0]} rays {ms:.3f} ms vs plain {pms:.1f} ms, {flips} "
+                     f"flips; bound {old[0]:.4f} ms (table-order walk's tests), "
+                     f"{new[0]:.4f} ms (the occlusion walk's)")
+    return "; ".join(parts)
 
 
 # ---------------------------------------------------------------------------
@@ -1479,7 +1653,13 @@ def main() -> int:
     # except for K5, K6 and K7); K1 t0's and K1 uv's "ms" is one streamed
     # call of "launches_per_call" launches. "bound_ms" is the least time for
     # the work at "rays" (see bound()); no single PyTorch call computes any
-    # of these functions, so "library_ms" is null.
+    # of these functions, so "library_ms" is null. K3's and K6's "bound_ms"
+    # is the lesser of two: the tests their occlusion walk needs
+    # (occlusion_walk_work, tlas_walk_work) and those of the table-order
+    # loop it replaced (any_work, tlas_work), which their lines add as
+    # "table_order_bound_ms"; K3's lines add "phases_2_3_ms" (K3 - K1 on
+    # one wavefront), K6's "surface_*" (its wavefront of the frame's
+    # surface shadow rays).
     lines = {"closest_hit": ("K1 closest hit", 413, "split"),
              "any_hit": ("K2 any-hit occlusion", 861, "split"),
              "closest_shadow": ("K3 fused closest hit + shadow", 720, "fused"),
@@ -1508,6 +1688,11 @@ def main() -> int:
          "plain_ms": times[key][1], "bound_ms": BOUNDS[key][0],
          "bound_by": BOUNDS[key][1], "pair_tests": BOUNDS[key][2],
          "library_ms": None,
+         **({"table_order_bound_ms": TABLE_ORDER_BOUNDS[key][0],
+             "table_order_bound_by": TABLE_ORDER_BOUNDS[key][1],
+             "table_order_pair_tests": TABLE_ORDER_BOUNDS[key][2]}
+            if key in TABLE_ORDER_BOUNDS else {}),
+         **EXTRA.get(key, {}),
          **sizes.get(key, dict(rays=MAIN_RAYS, plain_rays=MAIN_RAYS))}
         for key, (label, line, frame) in lines.items()]}
     print(json.dumps(record))

@@ -33,7 +33,8 @@
 // design answers that with ordering, not staging: rays come in 16x16 screen
 // blocks, so a warp's 32 rays usually visit the same clusters in the same
 // order and read the same triangle rows (one broadcast load per warp).
-// Shared-memory staging, TMA and wgmma are left for later work.
+// Staging the occlusion walk's box tables in shared memory was measured
+// no faster (PERF.md); TMA and wgmma are left for later work.
 //
 // Rounding. The file is compiled with -fmad=false, and every formula
 // below keeps the association order of the plain PyTorch versions
@@ -63,6 +64,14 @@
 // boxes it enters, and the pair tests. The list costs 2 L registers a
 // lane (K5 keeps two lists: instances, and the clusters of the current
 // instance).
+//
+// Occlusion (K3's phase 3, K6) needs no order: it returns the OR of pair
+// tests. Those walk tables of their own (scene/compile.py
+// OcclusionTables): groups of 8 boxes above the clusters (and the
+// instances), and below each cluster sub-boxes of 8 rows over a copy of
+// its rows in a finer k-d order, packed as 16-byte float4s, every box
+// widened once at compile time (see "the occlusion walk" below). K2 and
+// K7b keep the table-order loop.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -150,37 +159,68 @@ __device__ __forceinline__ float cluster_entry(const Ray& r,
   return fmaxf(tmin, 0.f);
 }
 
-// Möller-Trumbore (rtc_tpu/ops/intersect.py:207-227) for triangle row j,
-// in full FP32 and in the order of rtc_tpu_torch/ops/intersect.py. True
-// with t set when the ray crosses the triangle (any sign of t). Padding
-// rows have zero edges, so det = 0 and the det guard rejects them.
+// The rows a pair test reads: the (T, 3) tables of the world and the
+// TLAS (SplitRows), or the occlusion walk's copy, packed as three float4 a
+// row (PackedRows). Both hand over the same f32 values.
+struct SplitRows {
+  const float *p1_, *e1_, *e2_;
+  __device__ __forceinline__ float4 row(const float* x, int j) const {
+    return make_float4(__ldg(x + 3 * j), __ldg(x + 3 * j + 1), __ldg(x + 3 * j + 2), 0.f);
+  }
+  __device__ __forceinline__ float4 e1(int j) const { return row(e1_, j); }
+  __device__ __forceinline__ float4 e2(int j) const { return row(e2_, j); }
+  __device__ __forceinline__ float4 p1(int j) const { return row(p1_, j); }
+};
+
+struct PackedRows {  // (T, 3) float4: p1, e1, e2, each with w = 0
+  const float4* __restrict__ rows;
+  __device__ __forceinline__ float4 e1(int j) const { return __ldg(rows + 3 * j + 1); }
+  __device__ __forceinline__ float4 e2(int j) const { return __ldg(rows + 3 * j + 2); }
+  __device__ __forceinline__ float4 p1(int j) const { return __ldg(rows + 3 * j); }
+};
+
+// The one pair test of every kernel: Möller-Trumbore
+// (rtc_tpu/ops/intersect.py:207-227) for triangle row j, in full FP32 and
+// in the order of rtc_tpu_torch/ops/intersect.py, the edges loaded first
+// and p1 past the det guard. Returns the stage where the test stops: the
+// det guard, u, v, or kCrosses when the ray crosses the triangle (any sign
+// of t), with t set. Padding rows have zero edges, so det = 0 and the det
+// guard rejects them.
+enum PairStop { kStopDet, kStopU, kStopV, kCrosses };
+
+template <class Rows>
+__device__ __forceinline__ int pair_stage(const Ray& r, const Rows& rows, int j,
+                                          float eps, float& t) {
+  const float4 a = rows.e1(j), b = rows.e2(j);
+  const float hx = r.dy * b.z - r.dz * b.y;
+  const float hy = r.dz * b.x - r.dx * b.z;
+  const float hz = r.dx * b.y - r.dy * b.x;
+  const float det = a.x * hx + a.y * hy + a.z * hz;
+  if (!(fabsf(det) >= eps)) return kStopDet;
+  const float f = 1.0f / det;
+  const float4 p = rows.p1(j);
+  const float sx = r.ox - p.x;
+  const float sy = r.oy - p.y;
+  const float sz = r.oz - p.z;
+  const float u = f * (sx * hx + sy * hy + sz * hz);
+  if (!(u >= 0.f && u <= 1.f)) return kStopU;
+  const float qx = sy * a.z - sz * a.y;
+  const float qy = sz * a.x - sx * a.z;
+  const float qz = sx * a.y - sy * a.x;
+  const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
+  if (!(v >= 0.f && u + v <= 1.f)) return kStopV;
+  t = f * (b.x * qx + b.y * qy + b.z * qz);
+  return kCrosses;
+}
+
+// The pair test on the (T, 3) tables: true with t set when the ray
+// crosses triangle row j.
 __device__ __forceinline__ bool tri_hit(const Ray& r,
                                         const float* __restrict__ p1,
                                         const float* __restrict__ e1,
                                         const float* __restrict__ e2, int j,
                                         float eps, float& t) {
-  const float e1x = __ldg(e1 + 3 * j), e1y = __ldg(e1 + 3 * j + 1),
-              e1z = __ldg(e1 + 3 * j + 2);
-  const float e2x = __ldg(e2 + 3 * j), e2y = __ldg(e2 + 3 * j + 1),
-              e2z = __ldg(e2 + 3 * j + 2);
-  const float hx = r.dy * e2z - r.dz * e2y;
-  const float hy = r.dz * e2x - r.dx * e2z;
-  const float hz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * hx + e1y * hy + e1z * hz;
-  if (!(fabsf(det) >= eps)) return false;
-  const float f = 1.0f / det;
-  const float sx = r.ox - __ldg(p1 + 3 * j);
-  const float sy = r.oy - __ldg(p1 + 3 * j + 1);
-  const float sz = r.oz - __ldg(p1 + 3 * j + 2);
-  const float u = f * (sx * hx + sy * hy + sz * hz);
-  if (!(u >= 0.f && u <= 1.f)) return false;
-  const float qx = sy * e1z - sz * e1y;
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
-  const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-  if (!(v >= 0.f && u + v <= 1.f)) return false;
-  t = f * (e2x * qx + e2y * qy + e2z * qz);
-  return true;
+  return pair_stage(r, SplitRows{p1, e1, e2}, j, eps, t) == kCrosses;
 }
 
 // Barycentric (u, v) of the ray on triangle row j, with tri_hit's
@@ -349,22 +389,135 @@ __device__ __forceinline__ void closest_hit_dev(
                                best, list);
 }
 
-// K2 body over clusters [c0, c1): does any triangle lie at t in
-// [0, max_t)? max_t <= 0 marks a dead lane, which never hits. Occlusion
-// needs no order, so clusters are taken in table order (k-d order, so
-// still spatially coherent), skipping those the ray misses or enters at or
-// beyond max_t; the lane stops at its first occluder.
-__device__ __forceinline__ bool any_hit_dev(
+// ---- the counting build (-DRTC_COUNT) ----
+//
+// Built as a library of its own (ops/kernels/mesh_intersect.py
+// counting_library), the occlusion loops tally, per ray, the box tests
+// and boxes entered at each level and the pair tests by the stage where
+// they stop, into the (R, kCounters) i32 buffer that rtc_set_count_buffer
+// names (the K2 table-order loop, K3's phase 3, K6). In the production
+// build tally() is empty and nothing else differs.
+enum Counter {
+  kInstGroupTests, kInstTests, kGroupTests, kClusterTests, kSubTests,
+  kInstEntered, kGroupsEntered, kClustersEntered, kSubsEntered,
+  kPairDet, kPairU, kPairV, kPairT, kCounters
+};
+
+#ifdef RTC_COUNT
+__device__ int* g_count;
+__device__ __forceinline__ void tally(int k) {
+  if (g_count)
+    g_count[(size_t)(blockIdx.x * blockDim.x + threadIdx.x) * kCounters + k] += 1;
+}
+#else
+__device__ __forceinline__ void tally(int) {}
+#endif
+
+// K2 body over clusters [c0, c1), the loop of K2 and K7b: does any
+// triangle lie at t in [0, max_t)? max_t <= 0 marks a dead lane, which
+// never hits. Clusters in table order (k-d order, so still spatially
+// coherent), skipping those the ray misses or enters at or beyond max_t;
+// each entered cluster's leaf rows; the lane stops at its first occluder.
+// K3's phase 3 and K6 walk the occlusion tables instead (occluded).
+__device__ __forceinline__ bool any_hit_table_order(
     const Ray& r, float max_t, const float* __restrict__ p1,
     const float* __restrict__ e1, const float* __restrict__ e2,
     const float* __restrict__ aabb, int c0, int c1, int leaf, float eps) {
   if (!(max_t > 0.f)) return false;
   for (int c = c0; c < c1; ++c) {
+    tally(kClusterTests);
     if (!(cluster_entry(r, aabb, c) < max_t)) continue;
+    tally(kClustersEntered);
     for (int j = c * leaf; j < (c + 1) * leaf; ++j) {
       float t;
-      if (tri_hit(r, p1, e1, e2, j, eps, t) && t >= 0.f && t < max_t)
-        return true;
+      const int stage = pair_stage(r, SplitRows{p1, e1, e2}, j, eps, t);
+      tally(kPairDet + stage);
+      if (stage == kCrosses && t >= 0.f && t < max_t) return true;
+    }
+  }
+  return false;
+}
+
+// ---- the occlusion walk: K3's phase 3 and K6 ----
+//
+// Occlusion returns the OR of pair tests over rows, and each pair test
+// depends only on the ray and the row. So a cull that never drops a row
+// which hits, any visiting order, and a permuted copy of the rows all
+// leave every flag bit as K2's table-order loop gives it. The walk (the
+// tables: scene/compile.py OcclusionTables) culls at three box levels
+// before the rows: groups of 8 clusters, the clusters, and the sub-boxes
+// of 8 rows inside each cluster (its rows copied in a k-d order, packed
+// as three float4 a row). A box counts as entered when the ray enters it
+// before max_t; the lane stops at its first occluder.
+//
+// What it saves over the table-order loop: a ray there tests every
+// cluster box (48 on the cow) and all 128 rows of each cluster it enters.
+// A shadow ray leaves the surface from inside its own cluster's box, so
+// it enters that box and usually a neighbour's; the sub-boxes then keep
+// only the rows near its line. Every box is widened once at compile time,
+// in f32 with cluster_slab's operations (compile.py widen_boxes), so a
+// test is the bare slab test; an empty box is stored as a point at 1e30
+// that no ray enters before its max_t. Padding rows have zero edges and
+// never hit, so a padding box needs no test of its own.
+//
+// Why the cull never drops a hit: a group box is the union of its
+// children's unwidened boxes, widened afterwards, and f32 rounding is
+// monotone, so its slab interval contains each child's (compile.py
+// widen_boxes); a cluster box and a sub-box each contain their rows'
+// vertices and are widened as cluster_slab widens (the test that a hit
+// lies in an entered box at every level: tests/test_torch_occlusion_tables.py).
+
+constexpr int kGroup = 8;  // children a group box covers, at every level
+
+// Does the ray enter box k (widened: [lx ly lz hx hy hz]) at some t in
+// [0, max_t)? cluster_entry(...) < max_t for a live lane (max_t > 0),
+// with the box's widening already done. The box tables are read through
+// L1 (__ldg): a copy into shared memory at block start (cp.async, ~20 KB
+// a block) was no faster on an H100 (PERF.md).
+__device__ __forceinline__ bool enters(const Ray& r, const float* __restrict__ box,
+                                       int k, float max_t) {
+  const float2* b = reinterpret_cast<const float2*>(box) + 3 * k;
+  const float2 a = __ldg(b), bb = __ldg(b + 1), c = __ldg(b + 2);  // lx ly | lz hx | hy hz
+  float tmin = -kBig, tmax = kBig;
+  slab_axis(a.x, bb.y, r.ox, r.ix, tmin, tmax);
+  slab_axis(a.y, c.x, r.oy, r.iy, tmin, tmax);
+  slab_axis(bb.x, c.y, r.oz, r.iz, tmin, tmax);
+  return tmax >= tmin && tmax >= 0.f && tmin < max_t;
+}
+
+struct OccTables {
+  PackedRows rows;
+  const float* sub;   // (C * n_sub, 6) widened sub-boxes of sub_rows rows
+  const float* clus;  // (C, 6) widened cluster boxes
+  const float* grp;   // (ceil(C / 8), 6) widened group boxes
+  int n_sub, sub_rows;
+};
+
+// Any row of clusters [g0 * kGroup, c_end) at t in [0, max_t), max_t > 0:
+// groups g0.. in order, the clusters of each entered group, the sub-boxes
+// of each entered cluster, the rows of each entered sub-box.
+__device__ __forceinline__ bool occluded(const Ray& r, float max_t, const OccTables& tb,
+                                         int g0, int c_end, float eps) {
+  for (int g = g0; g * kGroup < c_end; ++g) {
+    tally(kGroupTests);
+    if (!enters(r, tb.grp, g, max_t)) continue;
+    tally(kGroupsEntered);
+    const int c1 = min((g + 1) * kGroup, c_end);
+    for (int c = g * kGroup; c < c1; ++c) {
+      tally(kClusterTests);
+      if (!enters(r, tb.clus, c, max_t)) continue;
+      tally(kClustersEntered);
+      for (int s = c * tb.n_sub; s < (c + 1) * tb.n_sub; ++s) {
+        tally(kSubTests);
+        if (!enters(r, tb.sub, s, max_t)) continue;
+        tally(kSubsEntered);
+        for (int j = s * tb.sub_rows; j < (s + 1) * tb.sub_rows; ++j) {
+          float t;
+          const int stage = pair_stage(r, tb.rows, j, eps, t);
+          tally(kPairDet + stage);
+          if (stage == kCrosses && t >= 0.f && t < max_t) return true;
+        }
+      }
     }
   }
   return false;
@@ -467,15 +620,16 @@ any_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
   const Ray r = load_ray(o, d, i);
-  hit_out[i] = any_hit_dev(r, max_t[i], p1, e1, e2, aabb, 0, C, leaf, eps);
+  hit_out[i] = any_hit_table_order(r, max_t[i], p1, e1, e2, aabb, 0, C, leaf, eps);
 }
 
 // K3: phase 1 is K1; phase 2 derives the shadow ray in registers, formula
 // for formula as _kernel_mxu_cs (mesh_intersect.py:767-818), which copies
 // prepare_hit3's normal flip and over_point, color_at's facing test and
-// is_shadowed's direction, distance and live rules; phase 3 is K2 on it.
-// Smooth meshes normalize the blend before the flip (:782-786); n_out
-// keeps the raw blend, as K1's.
+// is_shadowed's direction, distance and live rules; phase 3 is the
+// occlusion walk on it (occluded), whose flags equal K2's. Smooth meshes
+// normalize the blend before the flip (:782-786); n_out keeps the raw
+// blend, as K1's.
 template <bool SN>
 __global__ void __launch_bounds__(kThreads)
 closest_shadow_kernel(const float* __restrict__ o, const float* __restrict__ d,
@@ -484,7 +638,7 @@ closest_shadow_kernel(const float* __restrict__ o, const float* __restrict__ d,
                       const float* __restrict__ e2,
                       const float* __restrict__ pay,
                       const float* __restrict__ aabb, int C, int leaf,
-                      float eps, const float* __restrict__ light,
+                      float eps, const float* __restrict__ light, OccTables occ,
                       float* __restrict__ t_out, int* __restrict__ idx_out,
                       float* __restrict__ n_out, uint8_t* __restrict__ sh_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -528,7 +682,7 @@ closest_shadow_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const Ray s = make_ray(ovx, ovy, ovz, vx / dist, vy / dist, vz / dist);
 
   // ---- phase 3: occlusion ----
-  sh_out[i] = any_hit_dev(s, max_t, p1, e1, e2, aabb, 0, C, leaf, eps);
+  sh_out[i] = max_t > 0.f && occluded(s, max_t, occ, 0, C, eps);
 }
 
 // K4: per ray and container slot k, the number of crossings of slot-k
@@ -687,20 +841,21 @@ closest_hit_tlas_kernel(const float* __restrict__ o,
   n_out[3 * i + 2] = nz;
 }
 
-// K6: instances in table order, skipping those whose world box the ray
-// misses, enters at or beyond max_t, or that are empty (padding); K2's
-// loop over each remaining instance's clusters on the instance-space ray.
-// The lane stops at its first occluder; max_t <= 0 is a dead lane.
+// K6: the occlusion walk one level up. The instance slots (the real
+// instances in a k-d order of their boxes' centres, inst_perm; -1 marks a
+// padding slot) in groups of 8: each group box, then each slot box of an
+// entered group, then for each entered instance the walk over its mesh's
+// groups (occluded) on the instance-space ray, built once an instance.
+// That ray is not renormalized, so max_t bounds object-space t too. The
+// lane stops at its first occluder; max_t <= 0 is a dead lane.
 __global__ void __launch_bounds__(kThreads)
 any_hit_tlas_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                    const float* __restrict__ max_t, int R,
-                    const float* __restrict__ p1,
-                    const float* __restrict__ e1,
-                    const float* __restrict__ e2,
-                    const float* __restrict__ caabb, int M, int cm, int leaf,
-                    const float* __restrict__ inst_ab,
-                    const float* __restrict__ inst_aabb,
-                    const int* __restrict__ inst_mesh, int I, float eps,
+                    const float* __restrict__ max_t, int R, OccTables mesh,
+                    int M, int cm, const float* __restrict__ inst_ab,
+                    const int* __restrict__ inst_mesh,
+                    const int* __restrict__ inst_perm,
+                    const float* __restrict__ inst_box,
+                    const float* __restrict__ inst_grp, int I, float eps,
                     uint8_t* __restrict__ hit_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
@@ -708,13 +863,21 @@ any_hit_tlas_kernel(const float* __restrict__ o, const float* __restrict__ d,
   bool hit = false;
   if (mt > 0.f) {
     const Ray r = load_ray(o, d, i);
-    for (int k = 0; k < I && !hit; ++k) {
-      const float e = cluster_entry(r, inst_aabb, k);
-      if (!(e < mt && e < kBig)) continue;
-      const int mi = __ldg(inst_mesh + k);
-      if (mi < 0 || mi >= M) continue;
-      hit = any_hit_dev(instance_ray(r, inst_ab + 12 * k), mt, p1, e1, e2,
-                        caabb, mi * cm, (mi + 1) * cm, leaf, eps);
+    for (int g = 0; g * kGroup < I && !hit; ++g) {
+      tally(kInstGroupTests);
+      if (!enters(r, inst_grp, g, mt)) continue;
+      const int s1 = min((g + 1) * kGroup, I);
+      for (int s = g * kGroup; s < s1 && !hit; ++s) {
+        tally(kInstTests);
+        if (!enters(r, inst_box, s, mt)) continue;
+        const int k = __ldg(inst_perm + s);
+        if (k < 0) continue;
+        const int mi = __ldg(inst_mesh + k);
+        if (mi < 0 || mi >= M) continue;
+        tally(kInstEntered);
+        hit = occluded(instance_ray(r, inst_ab + 12 * k), mt, mesh,
+                       mi * cm / kGroup, (mi + 1) * cm, eps);
+      }
     }
   }
   hit_out[i] = hit;
@@ -796,14 +959,39 @@ any_hit_elementwise_kernel(const float* __restrict__ o,
     const Ray r = load_ray(o, d, i);
     for (int s = 0; s < S && !hit; ++s) {
       if (!(cluster_entry(r, sup, s) < mt)) continue;
-      hit = any_hit_dev(r, mt, p1, e1, e2, aabb, s * kSuperWidth,
-                        min((s + 1) * kSuperWidth, C), leaf, eps);
+      hit = any_hit_table_order(r, mt, p1, e1, e2, aabb, s * kSuperWidth,
+                                min((s + 1) * kSuperWidth, C), leaf, eps);
     }
   }
   hit_out[i] = hit;
 }
 
 inline unsigned blocks_for(int R) { return (unsigned)((R + kThreads - 1) / kThreads); }
+
+// K3 and K6 read the occlusion tables (scene/compile.py OcclusionTables):
+// rows (T, 12) packed, sub (T / sub_rows, 6), clus (C, 6) and grp
+// (ceil(C / 8), 6) widened boxes, n_sub sub-boxes a cluster.
+OccTables occ_tables(const float* rows, const float* sub, const float* clus,
+                     const float* grp, int leaf, int n_sub) {
+  return OccTables{PackedRows{reinterpret_cast<const float4*>(rows)}, sub, clus, grp,
+                   n_sub, leaf / n_sub};
+}
+
+template <bool SN>
+int launch_closest_shadow(int device, void* stream, const float* o, const float* d,
+                          int R, const float* p1, const float* e1, const float* e2,
+                          const float* pay, const float* aabb, int C, int leaf,
+                          float eps, const float* light, const float* rows,
+                          const float* sub, const float* clus, const float* grp,
+                          int n_sub, float* t_out, int* idx_out, float* n_out,
+                          uint8_t* sh_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  closest_shadow_kernel<SN><<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, R, p1, e1, e2, pay, aabb, C, leaf, eps, light,
+      occ_tables(rows, sub, clus, grp, leaf, n_sub), t_out, idx_out, n_out, sh_out);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -852,14 +1040,12 @@ int rtc_closest_shadow(int device, void* stream, const float* o,
                        const float* d, int R, const float* p1,
                        const float* e1, const float* e2, const float* tri_n,
                        const float* aabb, int C, int leaf, float eps,
-                       const float* light, float* t_out, int* idx_out,
-                       float* n_out, uint8_t* sh_out) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  closest_shadow_kernel<false><<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
-      o, d, R, p1, e1, e2, tri_n, aabb, C, leaf, eps, light, t_out, idx_out,
-      n_out, sh_out);
-  return (int)cudaGetLastError();
+                       const float* light, const float* rows, const float* sub,
+                       const float* clus, const float* grp, int n_sub,
+                       float* t_out, int* idx_out, float* n_out, uint8_t* sh_out) {
+  return launch_closest_shadow<false>(device, stream, o, d, R, p1, e1, e2, tri_n,
+                                      aabb, C, leaf, eps, light, rows, sub, clus,
+                                      grp, n_sub, t_out, idx_out, n_out, sh_out);
 }
 
 int rtc_closest_shadow_sn(int device, void* stream, const float* o,
@@ -867,14 +1053,12 @@ int rtc_closest_shadow_sn(int device, void* stream, const float* o,
                           const float* e1, const float* e2,
                           const float* tri_sn, const float* aabb, int C,
                           int leaf, float eps, const float* light,
-                          float* t_out, int* idx_out, float* n_out,
-                          uint8_t* sh_out) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  closest_shadow_kernel<true><<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
-      o, d, R, p1, e1, e2, tri_sn, aabb, C, leaf, eps, light, t_out, idx_out,
-      n_out, sh_out);
-  return (int)cudaGetLastError();
+                          const float* rows, const float* sub, const float* clus,
+                          const float* grp, int n_sub, float* t_out, int* idx_out,
+                          float* n_out, uint8_t* sh_out) {
+  return launch_closest_shadow<true>(device, stream, o, d, R, p1, e1, e2, tri_sn,
+                                     aabb, C, leaf, eps, light, rows, sub, clus,
+                                     grp, n_sub, t_out, idx_out, n_out, sh_out);
 }
 
 int rtc_crossing_count(int device, void* stream, const float* o,
@@ -924,17 +1108,21 @@ int rtc_closest_hit_tlas_sn(int device, void* stream, const float* o,
   return (int)cudaGetLastError();
 }
 
+// K6 on the unique meshes' occlusion tables (M meshes of cm clusters, cm
+// a multiple of 8) and the instance slots: inst_perm (I,), inst_box (I, 6),
+// inst_grp (I / 8, 6); inst_ab and inst_mesh by instance id.
 int rtc_any_hit_tlas(int device, void* stream, const float* o, const float* d,
-                     const float* max_t, int R, const float* p1,
-                     const float* e1, const float* e2, const float* caabb,
-                     int M, int cm, int leaf, const float* inst_ab,
-                     const float* inst_aabb, const int* inst_mesh, int I,
+                     const float* max_t, int R, const float* rows,
+                     const float* sub, const float* clus, const float* grp, int M,
+                     int cm, int leaf, int n_sub, const float* inst_ab,
+                     const int* inst_mesh, const int* inst_perm,
+                     const float* inst_box, const float* inst_grp, int I,
                      float eps, uint8_t* hit_out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   any_hit_tlas_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
-      o, d, max_t, R, p1, e1, e2, caabb, M, cm, leaf, inst_ab, inst_aabb,
-      inst_mesh, I, eps, hit_out);
+      o, d, max_t, R, occ_tables(rows, sub, clus, grp, leaf, n_sub), M, cm, inst_ab,
+      inst_mesh, inst_perm, inst_box, inst_grp, I, eps, hit_out);
   return (int)cudaGetLastError();
 }
 
@@ -995,8 +1183,8 @@ int rtc_walk_list(int* k1_len, int* k5_len) {
 // What a block of one walking kernel takes on the device it runs on: its
 // registers a thread, local and shared bytes, and the blocks of kThreads
 // that fit on one SM. which: 0-4 K1 flat, with_sn, with_t0, with_uv,
-// with_uv + t0; 5-6 K3 flat, with_sn; 7-8 K5 flat, with_sn (the order of
-// WALK_KERNELS in ops/kernels/mesh_intersect.py).
+// with_uv + t0; 5-6 K3 flat, with_sn; 7-8 K5 flat, with_sn; 9 K6 (the
+// order of WALK_KERNELS in ops/kernels/mesh_intersect.py).
 int rtc_walk_kernel_report(int which, int* regs, int* local_bytes,
                            int* shared_bytes, int* blocks_per_sm) {
   const void* const kernels[] = {
@@ -1008,7 +1196,8 @@ int rtc_walk_kernel_report(int which, int* regs, int* local_bytes,
       (const void*)closest_shadow_kernel<false>,
       (const void*)closest_shadow_kernel<true>,
       (const void*)closest_hit_tlas_kernel<false>,
-      (const void*)closest_hit_tlas_kernel<true>};
+      (const void*)closest_hit_tlas_kernel<true>,
+      (const void*)any_hit_tlas_kernel};
   if (which < 0 || which >= (int)(sizeof(kernels) / sizeof(kernels[0])))
     return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
@@ -1020,6 +1209,16 @@ int rtc_walk_kernel_report(int which, int* regs, int* local_bytes,
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, kernels[which], kThreads, 0);
 }
+
+#ifdef RTC_COUNT
+// The counting build's buffer: (R, kCounters) i32 for the next launches,
+// or null (no tallies). Synchronous.
+int rtc_set_count_buffer(int* buf) {
+  return (int)cudaMemcpyToSymbol(g_count, &buf, sizeof(buf));
+}
+
+int rtc_counters() { return kCounters; }
+#endif
 
 const char* rtc_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

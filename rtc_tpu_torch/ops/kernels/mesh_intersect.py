@@ -20,7 +20,9 @@ Counterpart of rtc_tpu/ops/pallas/mesh_intersect.py:
 
 Each wrapper takes f32 tensors. Given tensors on the CPU it returns its
 plain version's result; given CUDA tensors it launches its kernel, or
-raises. LAUNCHES counts the kernel launches of each wrapper.
+raises. LAUNCHES counts the kernel launches of each wrapper. K3 and K6
+also take the occlusion walk's tables (occ: scene/compile.py
+OcclusionTables), which only their kernels read.
 
 mesh_closest_hit, mesh_closest_hit_uv, mesh_any_hit and
 mesh_crossing_count stream a table of more than block_budget rows
@@ -96,14 +98,17 @@ def _pair_tests(o, d, p1, e1, e2, eps):
                     eps)[:2]
 
 
-def box_slabs(o, d, aabb):
+def box_slabs(o, d, aabb, widen: bool = True):
     """The plain version of the kernels' cluster_slab: (R, C) signed slab
     interval (tmin, tmax) of each ray through each box, the box widened by
-    4e-6 of its largest coordinate, and the boxes' emptiness (C,)."""
+    4e-6 of its largest coordinate, and the boxes' emptiness (C,).
+    widen=False: the boxes are widened already (the occlusion walk's,
+    scene/compile.py widen_boxes), and are tested as they are."""
     lo, hi = aabb[:, :3], aabb[:, 3:]
     empty = (lo > hi).any(1)
-    pad = 4e-6 * torch.maximum(lo.abs(), hi.abs()).amax(1, keepdim=True)
-    lo, hi = lo - pad, hi + pad
+    if widen:
+        pad = 4e-6 * torch.maximum(lo.abs(), hi.abs()).amax(1, keepdim=True)
+        lo, hi = lo - pad, hi + pad
     near0 = d.abs() < 1e-30
     inv = torch.where(near0, torch.where(d >= 0, BIG, -BIG).to(d.dtype),
                       1.0 / torch.where(near0, 1.0, d))
@@ -421,18 +426,29 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build(source: str = SOURCE) -> str:
+# the counting build (-DRTC_COUNT): the occlusion loops tally each ray's
+# box tests, boxes entered and pair tests by stage (the kernels' enum
+# Counter, in this order; bind checks their number against rtc_counters)
+# into the buffer rtc_set_count_buffer names
+COUNT_FLAGS = ("-DRTC_COUNT",)
+COUNTERS = ("inst_group_tests", "inst_tests", "group_tests", "cluster_tests",
+            "sub_tests", "inst_entered", "groups_entered", "clusters_entered",
+            "subs_entered", "pair_det", "pair_u", "pair_v", "pair_t")
+
+
+def build(source: str = SOURCE, extra_flags: tuple = ()) -> str:
     """Compile the kernels of source (once per source text and flag set)
     and return the shared library's path. nvcc's ptxas report (registers,
     spills) is kept beside it as <library>.log."""
+    flags = NVCC_FLAGS + tuple(extra_flags)
     with open(source, "rb") as f:
-        key = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        key = hashlib.sha1(f.read() + " ".join(flags).encode()).hexdigest()[:16]
     lib = os.path.join(BUILD_DIR, f"libmesh_intersect_{key}.so")
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+    proc = subprocess.run([find_nvcc(), *flags, "-o", tmp, source],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
@@ -452,7 +468,7 @@ def bind(path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     closest = [I, P, P, P, I, P, P, P, P, P, I, I, F, P, P, P]
-    shadow = [I, P, P, P, I, P, P, P, P, P, I, I, F, P, P, P, P, P]
+    shadow = [I, P, P, P, I, P, P, P, P, P, I, I, F, P, P, P, P, P, I, P, P, P, P]
     lib.rtc_closest_hit.argtypes = closest
     lib.rtc_closest_hit_sn.argtypes = closest
     lib.rtc_any_hit.argtypes = [I, P, P, P, P, I, P, P, P, P, I, I, F, P]
@@ -464,8 +480,8 @@ def bind(path: str) -> ctypes.CDLL:
                     P, P, P, P]
     lib.rtc_closest_hit_tlas.argtypes = closest_tlas
     lib.rtc_closest_hit_tlas_sn.argtypes = closest_tlas
-    lib.rtc_any_hit_tlas.argtypes = [I, P, P, P, P, I, P, P, P, P, I, I, I, P,
-                                     P, P, I, F, P]
+    lib.rtc_any_hit_tlas.argtypes = [I, P, P, P, P, I, P, P, P, P, I, I, I, I,
+                                     P, P, P, P, P, I, F, P]
     lib.rtc_closest_hit_bounded.argtypes = [I, P, P, P, P, I, P, P, P, P, P,
                                             I, I, F, P, P, P]
     lib.rtc_closest_hit_elementwise.argtypes = [I, P, P, P, I, P, P, P, P, I,
@@ -481,13 +497,19 @@ def bind(path: str) -> ctypes.CDLL:
         fn.restype = I
     lib.rtc_error_string.argtypes = [I]
     lib.rtc_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "rtc_set_count_buffer"):  # the counting build
+        lib.rtc_set_count_buffer.argtypes, lib.rtc_set_count_buffer.restype = [P], I
+        lib.rtc_counters.argtypes, lib.rtc_counters.restype = [], I
+        if lib.rtc_counters() != len(COUNTERS):
+            raise RuntimeError(f"{path} tallies {lib.rtc_counters()} counters, "
+                               f"COUNTERS names {len(COUNTERS)}")
     return lib
 
 
-# the kernels that walk boxes in order, by rtc_walk_kernel_report's index
+# the kernels that walk boxes, by rtc_walk_kernel_report's index
 WALK_KERNELS = ("K1 flat", "K1 with_sn", "K1 with_t0", "K1 with_uv",
                 "K1 with_uv t0", "K3 flat", "K3 with_sn", "K5 flat",
-                "K5 with_sn")
+                "K5 with_sn", "K6")
 
 
 def walk_list(lib=None) -> tuple:
@@ -667,12 +689,35 @@ def mesh_any_hit(o, d, max_t, tri_p1, tri_e1, tri_e2, cluster_aabb,
     return hit
 
 
+def _occ_args(occ, C: int, leaf: int, device, what: str):
+    """Validate the occlusion walk's tables (scene/compile.py
+    OcclusionTables) of a table of C clusters of leaf rows. Returns the
+    pointers of rows, sub_box, cluster_box and group_box, and the
+    sub-boxes a cluster."""
+    if occ is None:
+        raise ValueError(f"{what} walks the occlusion tables (Scene.occ, "
+                         "Scene.tlas_occ; scene/compile.py occlusion_tables), "
+                         "and none were given")
+    n_sub = occ.sub_box.shape[0] // max(C, 1)
+    if n_sub < 1 or leaf % n_sub or n_sub * C != occ.sub_box.shape[0]:
+        raise ValueError(f"{occ.sub_box.shape[0]} sub-boxes do not cut {C} "
+                         f"clusters of {leaf} rows evenly")
+    f32 = torch.float32
+    _check("occ.rows", occ.rows, f32, (C * leaf, 12), device)
+    _check("occ.sub_box", occ.sub_box, f32, (C * n_sub, 6), device)
+    _check("occ.cluster_box", occ.cluster_box, f32, (C, 6), device)
+    _check("occ.group_box", occ.group_box, f32, (-(-C // SUPER_WIDTH), 6), device)
+    return (occ.rows.data_ptr(), occ.sub_box.data_ptr(), occ.cluster_box.data_ptr(),
+            occ.group_box.data_ptr(), n_sub)
+
+
 def _shadow_launch(name, fn, o, d, tri_p1, tri_e1, tri_e2, payload,
-                   payload_name, cluster_aabb, light_pos, leaf, eps):
+                   payload_name, cluster_aabb, light_pos, leaf, eps, occ):
     """K3 in either payload mode: (t, idx, n, shadowed)."""
     device, R, C = _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
                                 leaf, payload, payload_name)
     _check("light_pos", light_pos, torch.float32, (3,), device)
+    tables = _occ_args(occ, C, leaf, device, name)
     t = torch.empty((R,), dtype=torch.float32, device=device)
     idx = torch.empty((R,), dtype=torch.int32, device=device)
     n = torch.empty((R, 3), dtype=torch.float32, device=device)
@@ -681,7 +726,7 @@ def _shadow_launch(name, fn, o, d, tri_p1, tri_e1, tri_e2, payload,
         err = fn(device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(),
                  R, tri_p1.data_ptr(), tri_e1.data_ptr(), tri_e2.data_ptr(),
                  payload.data_ptr(), cluster_aabb.data_ptr(), C, leaf, eps,
-                 light_pos.data_ptr(), t.data_ptr(), idx.data_ptr(),
+                 light_pos.data_ptr(), *tables, t.data_ptr(), idx.data_ptr(),
                  n.data_ptr(), sh.data_ptr())
         _raise_on(err, name)
         LAUNCHES[name] += 1
@@ -689,25 +734,28 @@ def _shadow_launch(name, fn, o, d, tri_p1, tri_e1, tri_e2, payload,
 
 
 def mesh_closest_shadow(o, d, tri_p1, tri_e1, tri_e2, tri_n, cluster_aabb,
-                        light_pos, leaf: int, eps: float = EPSILON):
-    """K3: (t, idx, n, shadowed) as closest_shadow_plain."""
+                        light_pos, leaf: int, eps: float = EPSILON, occ=None):
+    """K3: (t, idx, n, shadowed) as closest_shadow_plain. occ: the table's
+    OcclusionTables (Scene.occ), which the kernel's shadow phase walks; a
+    launch without them raises."""
     if o.device.type == "cpu":
         return closest_shadow_plain(o, d, tri_p1, tri_e1, tri_e2, tri_n,
                                     light_pos, eps)
     return _shadow_launch("closest_shadow", library().rtc_closest_shadow, o,
                           d, tri_p1, tri_e1, tri_e2, tri_n, "tri_n",
-                          cluster_aabb, light_pos, leaf, eps)
+                          cluster_aabb, light_pos, leaf, eps, occ)
 
 
 def mesh_closest_shadow_sn(o, d, tri_p1, tri_e1, tri_e2, tri_sn, cluster_aabb,
-                           light_pos, leaf: int, eps: float = EPSILON):
-    """K3 with_sn: (t, idx, n_blend, shadowed) as closest_shadow_sn_plain."""
+                           light_pos, leaf: int, eps: float = EPSILON, occ=None):
+    """K3 with_sn: (t, idx, n_blend, shadowed) as closest_shadow_sn_plain;
+    occ as mesh_closest_shadow."""
     if o.device.type == "cpu":
         return closest_shadow_sn_plain(o, d, tri_p1, tri_e1, tri_e2, tri_sn,
                                        light_pos, eps)
     return _shadow_launch("closest_shadow_sn", library().rtc_closest_shadow_sn,
                           o, d, tri_p1, tri_e1, tri_e2, tri_sn, "tri_sn",
-                          cluster_aabb, light_pos, leaf, eps)
+                          cluster_aabb, light_pos, leaf, eps, occ)
 
 
 def mesh_crossing_count(o, d, t_hit, hit_gid, tri_p1, tri_e1, tri_e2,
@@ -823,21 +871,32 @@ def mesh_closest_hit_tlas_sn(o, d, p1, e1, e2, tri_sn, caabb, inst_ab,
 
 
 def mesh_any_hit_tlas(o, d, max_t, p1, e1, e2, caabb, inst_ab, inst_aabb,
-                      inst_mesh, leaf: int, cm: int, eps: float = EPSILON):
-    """K6: (R,) bool as any_hit_tlas_plain."""
+                      inst_mesh, leaf: int, cm: int, eps: float = EPSILON, occ=None):
+    """K6: (R,) bool as any_hit_tlas_plain. occ: the instanced meshes'
+    OcclusionTables with their instance slots (Scene.tlas_occ), which the
+    kernel walks in place of the rows, cluster boxes and instance boxes; a
+    launch without them raises."""
     if o.device.type == "cpu":
         return any_hit_tlas_plain(o, d, max_t, p1, e1, e2, inst_ab, inst_aabb,
                                   inst_mesh, leaf, cm, eps)
     device, R, M, I = _tlas_launch_args(o, d, p1, e1, e2, caabb, inst_ab,
                                         inst_aabb, inst_mesh, None, leaf, cm)
     _check("max_t", max_t, torch.float32, (R,), device)
+    if cm % SUPER_WIDTH:
+        raise ValueError(f"cm={cm} is not a multiple of the {SUPER_WIDTH}-cluster groups")
+    tables = _occ_args(occ, M * cm, leaf, device, "any_hit_tlas")
+    _check("occ.inst_perm", occ.inst_perm, torch.int32, (I,), device)
+    _check("occ.inst_box", occ.inst_box, torch.float32, (I, 6), device)
+    _check("occ.inst_group", occ.inst_group, torch.float32, (-(-I // SUPER_WIDTH), 6),
+           device)
     hit = torch.empty((R,), dtype=torch.bool, device=device)
     if R:
         err = library().rtc_any_hit_tlas(
             device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(),
-            max_t.data_ptr(), R, p1.data_ptr(), e1.data_ptr(), e2.data_ptr(),
-            caabb.data_ptr(), M, cm, leaf, inst_ab.data_ptr(),
-            inst_aabb.data_ptr(), inst_mesh.data_ptr(), I, eps, hit.data_ptr())
+            max_t.data_ptr(), R, *tables[:4], M, cm, leaf, tables[4],
+            inst_ab.data_ptr(), inst_mesh.data_ptr(), occ.inst_perm.data_ptr(),
+            occ.inst_box.data_ptr(), occ.inst_group.data_ptr(), I, eps,
+            hit.data_ptr())
         _raise_on(err, "any_hit_tlas")
         LAUNCHES["any_hit_tlas"] += 1
     return hit

@@ -255,6 +255,20 @@ def normal_at(scene: Scene, hit: HitInfo, world_point, eps):
     return torch.where(hit.is_tri[:, None], hit.tri_n, n_p)
 
 
+def shadow_query(scene: Scene, point, live=None):
+    """is_shadowed's query from each point toward the light: (unit
+    direction (R, 3), distance (R,)), the distance -1 on dead lanes (live
+    False), which never report a hit."""
+    px, py, pz = unpack3(point)
+    lx, ly, lz = scene.light_pos.unbind(0)
+    vx, vy, vz = lx - px, ly - py, lz - pz
+    distance = torch.sqrt(torch.clamp_min(vx * vx + vy * vy + vz * vz, 1e-30))
+    direction = pack3(vx / distance, vy / distance, vz / distance)
+    if live is not None:
+        distance = torch.where(live, distance, -1.0)
+    return direction, distance
+
+
 def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
     """Shadow ray toward the light (reference: src/world.rs:100-114).
 
@@ -265,13 +279,7 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
     'bruteforce'). live: optional (R,) bool; dead lanes get max_t = -1 and
     report unshadowed.
     """
-    px, py, pz = unpack3(point)
-    lx, ly, lz = scene.light_pos.unbind(0)
-    vx, vy, vz = lx - px, ly - py, lz - pz
-    distance = torch.sqrt(torch.clamp_min(vx * vx + vy * vy + vz * vz, 1e-30))
-    direction = pack3(vx / distance, vy / distance, vz / distance)
-    if live is not None:
-        distance = torch.where(live, distance, -1.0)
+    direction, distance = shadow_query(scene, point, live)
     st = scene.static
     shadowed = torch.zeros(point.shape[:1], dtype=torch.bool, device=point.device)
     if st.n_prims:
@@ -287,7 +295,7 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
                                          tl.e1, tl.e2, tl.caabb, tl.inst_ab,
                                          tl.inst_aabb, tl.inst_mesh,
                                          st.cluster_size, st.tlas_cm,
-                                         cfg.epsilon)
+                                         cfg.epsilon, occ=scene.tlas_occ)
         elif impl == "kernel":
             found = mi.mesh_any_hit(point, direction, distance, *tabs,
                                     scene.cluster_aabb,
@@ -521,12 +529,12 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
         if st.any_smooth:
             t, idx, n, shadowed = mi.mesh_closest_shadow_sn(
                 o, d, *tabs, corner_normals(scene), scene.cluster_aabb,
-                scene.light_pos, st.cluster_size, cfg.epsilon)
+                scene.light_pos, st.cluster_size, cfg.epsilon, occ=scene.occ)
             n = normalize(n)
         else:
             t, idx, n, shadowed = mi.mesh_closest_shadow(
                 o, d, *tabs, scene.tri_n, scene.cluster_aabb,
-                scene.light_pos, st.cluster_size, cfg.epsilon)
+                scene.light_pos, st.cluster_size, cfg.epsilon, occ=scene.occ)
         idx = idx.clamp_min(0)
         valid = t < BIG * 0.5
         hit = HitInfo(t=t, valid=valid, obj=_tri_obj(scene, idx),

@@ -19,6 +19,11 @@ A world of many mesh leaves that rtc_tpu renders through its instanced
 the Plücker feature transform that only feeds rtc_tpu's MXU. rtc_tpu's
 refr_tri_* container slabs are not kept: the port's census reads tri_cid
 over the global triangle tables.
+
+The occlusion kernels (K3's shadow phase, K6) read tables of their own,
+which rtc_tpu has no counterpart of (OcclusionTables, built by
+occlusion_tables): a copy of the rows in a finer spatial order with a box
+for every 8 of them, and boxes widened once, here.
 """
 
 from __future__ import annotations
@@ -102,6 +107,38 @@ class TlasTables(NamedTuple):
     sn: torch.Tensor
 
 
+class OcclusionTables(NamedTuple):
+    """What the occlusion walk of K3's phase 3 and K6 reads, in f32 and
+    built once at compile time (occlusion_tables): three box levels above
+    a copy of a table's rows.
+
+    Each cluster's rows are ordered by a k-d split of their centroids down
+    to sub_rows (8 of the 128) and copied, packed as three float4 (p1, e1,
+    e2, each with w = 0), so a pair test makes three 16-byte loads. The
+    copy is a permutation inside each cluster of the table's rows: the same
+    values, so a pair test on it rounds as on the table. Every box is
+    widened here, in f32, with cluster_slab's operations (widen_boxes), so
+    the walk tests it as stored; an empty box (padding) becomes EMPTY_BOX.
+    A group box is the union of its 8 children's unwidened boxes, widened
+    afterwards, so its slab interval contains each child's (widen_boxes).
+
+    For an instanced scene (Scene.tlas_occ) the tables are the unique
+    meshes', and the instances get a level of their own: the real
+    instances in a k-d order of their boxes' centres (inst_perm, -1 for
+    padding slots), their widened world boxes in that order, and a box a
+    group of 8. Only K6 reads the order; K5's instance ids do not change.
+    A world-table scene (Scene.occ) has no instances: inst_* are empty."""
+
+    rows: torch.Tensor         # (T, 12) f32: p1, 0, e1, 0, e2, 0 of row_id
+    row_id: torch.Tensor       # (T,) i32 on the host: the table row each row copies
+    sub_box: torch.Tensor      # (T / sub_rows, 6) widened
+    cluster_box: torch.Tensor  # (C, 6) widened cluster boxes
+    group_box: torch.Tensor    # (ceil(C / 8), 6) widened
+    inst_perm: torch.Tensor    # (I,) i32 instance in each slot, -1: none
+    inst_box: torch.Tensor     # (I, 6) widened world box of each slot
+    inst_group: torch.Tensor   # (I / 8, 6) widened
+
+
 @dataclasses.dataclass
 class Scene:
     """SoA scene: N analytic prims, T triangles in C clusters, O objects."""
@@ -157,12 +194,16 @@ class Scene:
     # instanced tables; None unless static.tlas_n_inst
     tlas: TlasTables = None
     static: SceneStatic = None
+    # the occlusion walk's tables of the world table and of the instanced
+    # meshes (None without triangles, or without TLAS tables)
+    occ: OcclusionTables = None
+    tlas_occ: OcclusionTables = None
 
 
 _INT_FIELDS = ("prim_kind", "prim_obj", "tri_obj", "tri_cid", "pat_kind",
                "inst_obj", "inst_mesh", "gid")
 TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(Scene)
-                      if f.name not in ("tlas", "static"))
+                      if f.name not in ("tlas", "static", "occ", "tlas_occ"))
 
 
 def _kd_order(centroid: np.ndarray, leaf: int) -> np.ndarray:
@@ -227,16 +268,127 @@ def _cluster_triangles(p1, e1, e2, n, obj, sn, leaf: int):
         verts = np.concatenate([p1[s], p1[s] + e1[s], p1[s] + e2[s]])
         aabb[c, :3] = verts.min(axis=0)
         aabb[c, 3:] = verts.max(axis=0)
+    return p1, e1, e2, n, obj, sn, aabb, _group_boxes(aabb), src
 
-    n_super = n_padded // SUPER_WIDTH
-    sup = _empty_boxes(n_super)
-    for si in range(n_super):
-        block = aabb[si * SUPER_WIDTH:(si + 1) * SUPER_WIDTH]
+
+def _group_boxes(aabb: np.ndarray, width: int = SUPER_WIDTH) -> np.ndarray:
+    """The union box of each run of `width` boxes, over its non-empty ones
+    (empty where it has none): super_aabb, and the occlusion walk's group
+    boxes (before widening)."""
+    out = _empty_boxes(-(-len(aabb) // width))
+    for g in range(len(out)):
+        block = aabb[g * width:(g + 1) * width]
         real = block[:, 0] <= block[:, 3]
         if real.any():
-            sup[si, :3] = block[real, :3].min(axis=0)
-            sup[si, 3:] = block[real, 3:].max(axis=0)
-    return p1, e1, e2, n, obj, sn, aabb, sup, src
+            out[g, :3] = block[real, :3].min(axis=0)
+            out[g, 3:] = block[real, 3:].max(axis=0)
+    return out
+
+
+# --- the occlusion walk's tables (OcclusionTables) ---------------------------
+
+SUB_ROWS = 8       # rows a sub-box, where the cluster size is a multiple of it
+GROUP = SUPER_WIDTH  # boxes a group, at the cluster and the instance level
+# every coordinate of an empty box once widened: a point no ray reaches
+# before any max_t it is given (the kernels' kBig)
+EMPTY_BOX = 1e30
+
+
+def widen_boxes(box) -> np.ndarray:
+    """Boxes (n, 6) rounded to f32 and widened as the kernels' cluster_slab
+    widens them, each operation rounded in f32: pad = 4e-6f times the
+    largest |coordinate| of the box, then lo - pad and hi + pad. An empty
+    box (lo > hi on an axis) becomes EMPTY_BOX.
+
+    Why a group box (the union of its children's unwidened boxes, widened
+    afterwards) never culls a ray that enters a child: f32 rounding is
+    monotone, so the union's largest |coordinate| is at least each
+    child's, its pad at least the child's, its lo - pad at most the
+    child's and its hi + pad at least the child's; and a slab interval,
+    (lo - o) * inv and (hi - o) * inv per axis with min and max, only grows
+    as lo falls and hi rises."""
+    b = np.asarray(box, np.float32).reshape(-1, 6)
+    lo, hi = b[:, :3], b[:, 3:]
+    empty = (lo > hi).any(1)
+    scale = np.maximum(np.abs(lo), np.abs(hi)).max(1, keepdims=True)
+    pad = np.float32(4e-6) * scale
+    out = np.concatenate([lo - pad, hi + pad], 1)
+    out[empty] = EMPTY_BOX
+    return out
+
+
+def _sub_order(centroid, real, leaf: int, sub_rows: int) -> np.ndarray:
+    """(T,) table rows in the occlusion order: inside each cluster of leaf
+    rows, a balanced k-d split at the median of the widest centroid axis,
+    halving down to sub_rows, with padding rows (real False) last. Every
+    cluster splits at once (each level sorts equal-sized segments)."""
+    order = np.arange(len(centroid))
+    size = leaf
+    while size > sub_rows and size % (2 * sub_rows) == 0:
+        seg = order.reshape(-1, size)
+        c, r = centroid[seg], real[seg]
+        lo = np.where(r[..., None], c, np.inf).min(1)
+        hi = np.where(r[..., None], c, -np.inf).max(1)
+        ax = np.argmax(hi - lo, 1)
+        key = np.where(r, np.take_along_axis(c, ax[:, None, None], 2)[..., 0], np.inf)
+        order = np.take_along_axis(seg, np.argsort(key, 1, kind="stable"), 1).reshape(-1)
+        size //= 2
+    return order
+
+
+def _instance_order(inst_aabb: np.ndarray, inst_mesh: np.ndarray, n_mesh: int):
+    """(I,) i32 slots: the instances that K6 may enter (a non-empty box, a
+    mesh in the tables) in a k-d order of their boxes' centres, then -1."""
+    real = np.nonzero((inst_aabb[:, :3] <= inst_aabb[:, 3:]).all(1)
+                      & (inst_mesh >= 0) & (inst_mesh < n_mesh))[0]
+    perm = np.full((len(inst_aabb),), -1, np.int32)
+    if len(real):
+        centre = (inst_aabb[real, :3] + inst_aabb[real, 3:]) / 2.0
+        perm[:len(real)] = real[_kd_order(centre, GROUP)]
+    return perm
+
+
+def occlusion_tables(p1, e1, e2, aabb, leaf: int, device="cpu", inst_aabb=None,
+                     inst_mesh=None, n_mesh: int = 0) -> OcclusionTables:
+    """The occlusion walk's tables (OcclusionTables) of a table of C
+    clusters of leaf rows (p1, e1, e2 (C * leaf, 3); aabb (C, 6) the
+    unwidened cluster boxes), as numpy or tensors in f32 or f64, on device:
+    the same tables from either, built from the f32 values. A sub-box
+    holds SUB_ROWS rows where leaf is a multiple of it, else a whole
+    cluster. With inst_aabb and inst_mesh (I,), the instance level of an
+    instanced scene's n_mesh unique meshes."""
+    npy = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                     else np.asarray(a))
+    # the f32 values the kernels read, in f64 for the vertex sums
+    p1, e1, e2, aabb = (npy(a).astype(np.float32).astype(np.float64)
+                        for a in (p1, e1, e2, aabb))
+    sub_rows = SUB_ROWS if leaf % SUB_ROWS == 0 else leaf
+    real = (e1 != 0).any(1) | (e2 != 0).any(1)  # padding rows have zero edges
+    order = _sub_order(p1 + (e1 + e2) / 3.0, real, leaf, sub_rows)
+    rows = np.zeros((len(order), 12), np.float32)
+    for k, a in enumerate((p1, e1, e2)):
+        rows[:, 4 * k:4 * k + 3] = a[order]
+    verts = np.stack([p1, p1 + e1, p1 + e2], 1)[order].reshape(-1, 3 * sub_rows, 3)
+    keep = np.repeat(real[order], 3).reshape(verts.shape[:2])[..., None]
+    sub = np.concatenate([np.where(keep, verts, np.inf).min(1),
+                          np.where(keep, verts, -np.inf).max(1)], 1)
+    sub[~keep.any(1)[:, 0]] = _empty_boxes(1)[0]
+    out = dict(rows=rows, row_id=order.astype(np.int32), sub_box=widen_boxes(sub),
+               cluster_box=widen_boxes(aabb), group_box=widen_boxes(_group_boxes(aabb)),
+               inst_perm=np.zeros((0,), np.int32), inst_box=np.zeros((0, 6), np.float32),
+               inst_group=np.zeros((0, 6), np.float32))
+    if inst_aabb is not None:
+        inst_aabb = npy(inst_aabb).astype(np.float32).astype(np.float64)
+        perm = _instance_order(inst_aabb, npy(inst_mesh), n_mesh)
+        boxes = np.where((perm >= 0)[:, None], inst_aabb[np.maximum(perm, 0)],
+                         _empty_boxes(1))
+        out.update(inst_perm=perm, inst_box=widen_boxes(boxes),
+                   inst_group=widen_boxes(_group_boxes(boxes)))
+    # row_id stays on the host: no kernel reads it
+    return OcclusionTables(**{
+        k: torch.tensor(v, dtype=torch.int32 if v.dtype == np.int32 else torch.float32,
+                        device="cpu" if k == "row_id" else device)
+        for k, v in out.items()})
 
 
 def _box(verts: np.ndarray) -> np.ndarray:
@@ -560,10 +712,18 @@ def _tensors(arrays: dict, names, dtype, device) -> dict:
 
 def _to_scene(arrays: dict, static: SceneStatic, dtype, device,
               tlas: dict | None = None) -> Scene:
+    leaf = static.cluster_size
+    occ = tlas_occ = None
+    if static.n_clusters:
+        occ = occlusion_tables(arrays["tri_p1"], arrays["tri_e1"], arrays["tri_e2"],
+                               arrays["cluster_aabb"], leaf, device)
     if tlas is not None:
+        tlas_occ = occlusion_tables(tlas["p1"], tlas["e1"], tlas["e2"], tlas["caabb"],
+                                    leaf, device, tlas["inst_aabb"], tlas["inst_mesh"],
+                                    static.tlas_n_mesh)
         tlas = TlasTables(**_tensors(tlas, TlasTables._fields, dtype, device))
     return Scene(**_tensors(arrays, TENSOR_FIELDS, dtype, device), tlas=tlas,
-                 static=static)
+                 static=static, occ=occ, tlas_occ=tlas_occ)
 
 
 def scene_from_numpy(arrays: dict, static: dict, device) -> Scene:

@@ -2,8 +2,11 @@
 at small sizes and on edge cases: ragged ray counts, padding clusters and
 padding instances, parked rays, axis-parallel directions, dead lanes,
 empty batches and bad inputs; the ordered walk of K1, K3 and K5 on tables
-that force its list to refill and its keys to tie; and the smooth, glass
-and instanced scenes rendered through the kernels.
+that force its list to refill and its keys to tie; the occlusion walk of
+K3 and K6 on rays that graze its boxes, bounds at a triangle's own t and
+a world whose every instance group is entered, and launches without its
+tables; and the smooth, glass and instanced scenes rendered through the
+kernels.
 
 These tests need a CUDA device and nvcc, and skip elsewhere. This file
 imports neither jax nor rtc_tpu, so on the GPU machine it runs without the
@@ -11,6 +14,8 @@ repository's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -22,7 +27,7 @@ from rtc_tpu_torch.ops.kernels import mesh_intersect as mi
 from rtc_tpu_torch.render import integrator
 from rtc_tpu_torch.render.camera import camera_rays
 from rtc_tpu_torch.render.renderer import render
-from rtc_tpu_torch.scene.compile import compile_scene
+from rtc_tpu_torch.scene.compile import compile_scene, occlusion_tables
 from rtc_tpu_torch.scene.shapes import mesh, triangle
 from rtc_tpu_torch.scene.world import PointLight, World
 from rtc_tpu_torch.utils.config import RenderConfig
@@ -55,7 +60,7 @@ def _all_three(scene, o, d, max_t):
     k2 = mi.mesh_any_hit(o, d, max_t, *tabs, scene.cluster_aabb, leaf)
     p2 = mi.any_hit_plain(o, d, max_t, *tabs)
     k3 = mi.mesh_closest_shadow(o, d, *tabs, scene.tri_n, scene.cluster_aabb,
-                                scene.light_pos, leaf)
+                                scene.light_pos, leaf, occ=scene.occ)
     p3 = mi.closest_shadow_plain(o, d, *tabs, scene.tri_n, scene.light_pos)
     torch.cuda.synchronize()
     return (k1, p1), (k2, p2), (k3, p3)
@@ -197,7 +202,7 @@ def _sn_pair(scene, o, d):
     k1 = mi.mesh_closest_hit_sn(o, d, *tabs, snc, scene.cluster_aabb, leaf)
     p1 = mi.closest_hit_sn_plain(o, d, *tabs, snc)
     k3 = mi.mesh_closest_shadow_sn(o, d, *tabs, snc, scene.cluster_aabb,
-                                   scene.light_pos, leaf)
+                                   scene.light_pos, leaf, occ=scene.occ)
     p3 = mi.closest_shadow_sn_plain(o, d, *tabs, snc, scene.light_pos)
     torch.cuda.synchronize()
     return (k1, p1), (k3, p3)
@@ -237,7 +242,7 @@ def test_fused_sn_matches_split(cuda):
     t, idx, n, sh = mi.mesh_closest_shadow_sn(
         o, d, scene.tri_p1, scene.tri_e1, scene.tri_e2,
         integrator.corner_normals(scene), scene.cluster_aabb, scene.light_pos,
-        scene.static.cluster_size)
+        scene.static.cluster_size, occ=scene.occ)
     cfg = RenderConfig(fused_shadow=False)
     hit = integrator.closest_hit(scene, o, d, cfg)
     comps = integrator.prepare_hit3(scene, o, d, hit, cfg)
@@ -404,7 +409,7 @@ def _tlas_pair(scene, o, d, max_t):
     else:
         k5 = mi.mesh_closest_hit_tlas(o, d, *args)
         p5 = mi.closest_hit_tlas_plain(o, d, *plain_args)
-    k6 = mi.mesh_any_hit_tlas(o, d, max_t, *k6_args)
+    k6 = mi.mesh_any_hit_tlas(o, d, max_t, *k6_args, occ=scene.tlas_occ)
     p6 = mi.any_hit_tlas_plain(o, d, max_t, *(k6_args[:3] + k6_args[4:]))
     torch.cuda.synchronize()
     return (k5, p5), (k6, p6)
@@ -454,7 +459,8 @@ def test_tlas_edge_cases(cuda):
     empty = torch.zeros((0, 3), device=cuda)
     out = mi.mesh_closest_hit_tlas(empty, empty, *args)
     assert [tuple(x.shape) for x in out] == [(0,), (0,), (0,), (0, 3)]
-    hit = mi.mesh_any_hit_tlas(empty, empty, empty[:, 0], *_tlas_args(scene, False))
+    hit = mi.mesh_any_hit_tlas(empty, empty, empty[:, 0], *_tlas_args(scene, False),
+                               occ=scene.tlas_occ)
     assert hit.shape == (0,)
     assert mi.LAUNCHES == dict.fromkeys(mi.LAUNCHES, 0)
     o4 = torch.zeros((4, 3), device=cuda)
@@ -466,7 +472,8 @@ def test_tlas_edge_cases(cuda):
     with pytest.raises(ValueError, match="cm"):
         mi.mesh_closest_hit_tlas(o4, o4, *args[:-1], 3)
     with pytest.raises(ValueError, match="shape"):
-        mi.mesh_any_hit_tlas(o4, o4, max_t[:3], *_tlas_args(scene, False))
+        mi.mesh_any_hit_tlas(o4, o4, max_t[:3], *_tlas_args(scene, False),
+                             occ=scene.tlas_occ)
 
 
 @pytest.mark.parametrize("smooth", [False, True])
@@ -794,8 +801,10 @@ def _k1_every_mode_and_k3(tabs, leaf, o, d, cuda):
           "uv_t0": mi.mesh_closest_hit_uv(o, d, p1, e1, e2, aabb, leaf, t0=t0,
                                           **whole)}
     light = torch.tensor(LIGHT, device=cuda)
-    k3 = {"flat": mi.mesh_closest_shadow(o, d, p1, e1, e2, n, aabb, light, leaf),
-          "sn": mi.mesh_closest_shadow_sn(o, d, p1, e1, e2, sn, aabb, light, leaf)}
+    occ = occlusion_tables(p1, e1, e2, aabb, leaf, cuda)
+    k3 = {"flat": mi.mesh_closest_shadow(o, d, p1, e1, e2, n, aabb, light, leaf, occ=occ),
+          "sn": mi.mesh_closest_shadow_sn(o, d, p1, e1, e2, sn, aabb, light, leaf,
+                                          occ=occ)}
     torch.cuda.synchronize()
     return k1, k3, t0
 
@@ -895,3 +904,216 @@ def test_walk_refills_k5_match_plain(cuda, smooth):
     L = mi.walk_list()[1]  # each of K5's lists
     visits = _visits(o, d, scene.tlas.inst_aabb, k5[0])
     assert float((visits > 2 * L).float().mean()) > 0.25
+
+
+# --- the occlusion walk (K3's phase 3, K6): forced edge cases -----------------
+
+def _lattice_mesh(rng, n=8, step=0.5):
+    """One axis-aligned right triangle in each cell of an n^3 lattice of
+    cells of side step from -n * step / 2: in the plane of one of the
+    cell's lower faces (its axis at random), with legs along the other two
+    axes, so every vertex lies on a lattice point and every box face on a
+    lattice plane. Returns (p1, e1, e2, tri_n) as numpy f64, rows in cell
+    order (2 slabs of cells a cluster of 128)."""
+    g = np.arange(n) * step - n * step / 2
+    corner = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    axis = rng.integers(0, 3, len(corner))
+    eye = np.eye(3) * step
+    e1, e2 = eye[(axis + 1) % 3], eye[(axis + 2) % 3]
+    return corner, e1, e2, np.eye(3)[axis]
+
+
+def _table(p1, e1, e2, leaf, cuda, n=None):
+    """p1, e1, e2 (and n) padded to whole groups of clusters of leaf rows
+    with their cluster boxes, as f32 tensors on the card."""
+    T = len(p1)
+    C = -(-(-(-T // leaf)) // 8) * 8
+    pad = lambda a: np.concatenate([a, np.zeros((C * leaf - T, a.shape[1]))])
+    p1, e1, e2 = pad(p1), pad(e1), pad(e2)
+    aabb = np.tile([1.0, 1, 1, -1, -1, -1], (C, 1))
+    verts = np.stack([p1, p1 + e1, p1 + e2], 1)
+    for c in range(-(-T // leaf)):
+        v = verts[c * leaf:min((c + 1) * leaf, T)].reshape(-1, 3)
+        aabb[c] = np.concatenate([v.min(0), v.max(0)])
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    out = [f(p1), f(e1), f(e2), f(aabb)]
+    return out + ([f(pad(n))] if n is not None else [])
+
+
+def _grazing_rays(rng, R, half):
+    """R rays of the lattice's edge cases, a quarter each: in a lattice
+    plane (one direction component exactly 0, so a reciprocal of +-BIG);
+    along a lattice line (two components 0, of either sign); through
+    lattice points; and random. Origins outside the lattice's half-width
+    half, on lattice values where the ray lies in lattice planes."""
+    q = R // 4
+    lattice = lambda k: np.round(rng.uniform(-half, half, (k, 3)) * 2) / 2
+    o, d = np.zeros((R, 3)), np.zeros((R, 3))
+    axis = rng.integers(0, 3, R)
+    # in a lattice plane: o on it, d without that component
+    o[:q] = rng.uniform(-half, half, (q, 3))
+    o[:q, 1] = 2 * half
+    d[:q] = rng.normal(size=(q, 3))
+    o[np.arange(q), axis[:q]] = lattice(q)[:, 0]
+    d[np.arange(q), axis[:q]] = 0.0
+    d[:q, 1] = -np.abs(d[:q, 1]) - 0.1
+    # along a lattice line: from outside, +-e_axis
+    o[q:2 * q] = lattice(q)
+    sign = rng.choice([-1.0, 1.0], q)
+    o[np.arange(q, 2 * q), axis[q:2 * q]] = -sign * 2 * half
+    d[np.arange(q, 2 * q), axis[q:2 * q]] = sign
+    # through lattice points from a sphere around the lattice
+    o[2 * q:] = rng.normal(size=(R - 2 * q, 3))
+    o[2 * q:] *= 3 * half / np.linalg.norm(o[2 * q:], axis=1, keepdims=True)
+    target = lattice(R - 2 * q)
+    target[q:] = rng.uniform(-half, half, (R - 3 * q, 3))
+    d[2 * q:] = target - o[2 * q:]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+def _tlas_lattice(rng, cuda):
+    """The lattice mesh instanced 12 times (16 slots): identity, scaled by
+    0.5 (so |d'| = 2 in object space), by (1, 2, 0.5), turned a quarter
+    about y, and translated by whole lattice steps; its tables, occlusion
+    tables and the world->object maps."""
+    leaf, cm = 128, 8
+    p1, e1, e2, _ = _lattice_mesh(rng)
+    p1, e1, e2, caabb = _table(p1, e1, e2, leaf, cuda)
+    box = caabb[:4].cpu().numpy()
+    lo, hi = box[:, :3].min(0), box[:, 3:].max(0)
+    corners = np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+                        for z in (lo[2], hi[2])])
+    turn = np.array([[0.0, 0, 1], [0, 1, 0], [-1, 0, 0]])
+    o2w = [np.eye(3), np.eye(3) * 0.5, np.diag([1.0, 2.0, 0.5]), turn] + [np.eye(3)] * 8
+    shift = [np.zeros(3), np.array([4.5, 0, 0]), np.array([0, 0, 4.5]),
+             np.array([-4.5, 0, 0])] + [np.array([x, 0.5 * k, z]) * 4.5
+                                        for k, (x, z) in enumerate(
+                                            [(1, 1), (-1, 1), (1, -1), (-1, -1),
+                                             (0, 2), (2, 0), (0, -2), (-2, 0)])]
+    I = 16
+    inst_ab = np.tile([1.0, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0], (I, 1))
+    inst_aabb = np.tile([1.0, 1, 1, -1, -1, -1], (I, 1))
+    for k, (m, t) in enumerate(zip(o2w, shift)):
+        inv = np.linalg.inv(m)
+        inst_ab[k, :9] = inv.reshape(9)
+        inst_ab[k, 9:] = -inv @ t
+        w = corners @ m.T + t
+        inst_aabb[k] = np.concatenate([w.min(0), w.max(0)])
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    inst_mesh = torch.zeros((I,), dtype=torch.int32, device=cuda)
+    occ = occlusion_tables(p1, e1, e2, caabb, leaf, cuda, inst_aabb, inst_mesh.cpu(), 1)
+    return (p1, e1, e2, caabb, f(inst_ab), f(inst_aabb), inst_mesh, leaf, cm), occ
+
+
+def test_occlusion_walk_k6_edge_cases(cuda):
+    """K6 on the lattice mesh instanced 12 times (scaled 0.5 and
+    non-uniformly, turned, shifted by lattice steps): rays in lattice planes
+    and along lattice lines (+-BIG reciprocals, grazing box faces), through
+    lattice points; max_t at a triangle's own t (not occluded by it) and
+    one ulp above it; dead lanes (-1, 0, NaN) and parked origins. Flags
+    equal the plain sweep's on every ray: 0 flips."""
+    rng = np.random.default_rng(31)
+    args, occ = _tlas_lattice(rng, cuda)
+    p1, e1, e2, caabb, inst_ab, inst_aabb, inst_mesh, leaf, cm = args
+    o, d = _grazing_rays(rng, 4000, 9.0)
+    o[:2000:7] *= 0.25  # some origins inside the instances
+    o, d = (torch.tensor(x, dtype=torch.float32, device=cuda) for x in (o, d))
+    plain_args = (p1, e1, e2, inst_ab, inst_aabb, inst_mesh, leaf, cm)
+    t_hit = mi.closest_hit_tlas_plain(o, d, p1, e1, e2, e1, inst_ab, inst_aabb, inst_mesh,
+                                      inst_mesh, leaf, cm)[0]
+    lane = torch.arange(4000, device=cuda)
+    special = lane % 50 < 4  # dead lanes and parked origins
+    hit = (t_hit < BIG) & ~special
+    at_t = hit & (lane % 3 == 1)      # max_t = the nearest triangle's t
+    above = hit & (lane % 3 == 2)     # one ulp above it
+    max_t = torch.full((4000,), 40.0, device=cuda)
+    max_t = torch.where(at_t, t_hit, max_t)
+    max_t = torch.where(above, torch.nextafter(t_hit, torch.full_like(t_hit, BIG)), max_t)
+    max_t[::50], max_t[1::50], max_t[2::50] = -1.0, 0.0, float("nan")
+    o[3::50] = 1e12
+    o, d, max_t = o.contiguous(), d.contiguous(), max_t.contiguous()
+    got = mi.mesh_any_hit_tlas(o, d, max_t, p1, e1, e2, caabb, inst_ab, inst_aabb,
+                               inst_mesh, leaf, cm, occ=occ)
+    ref = mi.any_hit_tlas_plain(o, d, max_t, *plain_args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert int(hit.sum()) > 1000
+    assert not got[at_t].any() and got[above].all() and not got[special].any()
+
+
+def test_occlusion_walk_k3_edge_cases(cuda):
+    """K3 on the lattice as a world table, its light on a lattice point
+    above it, primary rays straight down in the lattice planes x = 0 and
+    z = 0 (so shadow rays from horizontal faces keep a zero component and
+    graze sub-box faces) and through lattice points: K3's flags equal the
+    plain sweep's on its own shadow rays and K2's (the table-order loop),
+    flat and with_sn; t, idx and n equal K1's."""
+    rng = np.random.default_rng(32)
+    p1, e1, e2, n = _lattice_mesh(rng)
+    p1, e1, e2, aabb, n = _table(p1, e1, e2, 128, cuda, n)
+    sn = n.repeat(1, 3).contiguous()
+    R = 3000
+    o = np.concatenate([rng.uniform(-2, 2, (R, 1)), np.full((R, 1), 3.0),
+                        np.zeros((R, 1))], 1)
+    o[::2] = o[::2, [2, 1, 0]]  # in the plane x = 0 or z = 0, as the light
+    d = np.tile([0.0, -1.0, 0.0], (R, 1))
+    o[2::3], d[2::3] = _grazing_rays(rng, len(o[2::3]), 2.0)
+    o, d = (torch.tensor(x, dtype=torch.float32, device=cuda).contiguous() for x in (o, d))
+    light = torch.tensor([0.0, 3.5, 0.0], device=cuda)
+    occ = occlusion_tables(p1, e1, e2, aabb, 128, cuda)
+    for payload, fn, k1, unit_n in ((n, mi.mesh_closest_shadow, mi.mesh_closest_hit, True),
+                                    (sn, mi.mesh_closest_shadow_sn, mi.mesh_closest_hit_sn,
+                                     False)):
+        t, idx, nk, sh = fn(o, d, p1, e1, e2, payload, aabb, light, 128, occ=occ)
+        ref = k1(o, d, p1, e1, e2, payload, aabb, 128)
+        assert torch.equal(t, ref[0]) and torch.equal(idx, ref[1]) and torch.equal(nk, ref[2])
+        so, sd, max_t = mi.shadow_rays_plain(o, d, t, idx, nk, light, EPS, unit_n)
+        so, sd, max_t = so.contiguous(), sd.contiguous(), max_t.contiguous()
+        assert torch.equal(sh, mi.any_hit_plain(so, sd, max_t, p1, e1, e2))
+        assert torch.equal(sh, mi.mesh_any_hit(so, sd, max_t, p1, e1, e2, aabb, 128))
+        assert int((idx >= 0).sum()) > 1500 and sh.any() and not sh[idx >= 0].all()
+        assert int((sd[:, 0] == 0).sum() + (sd[:, 2] == 0).sum()) > 200
+
+
+def test_occlusion_walk_every_group_entered(cuda):
+    """K6 on 90 overlapping instances (12 groups) whose boxes all hold the
+    origin region, rays through it with max_t past it: most rays enter
+    every instance group, and the flags equal the plain sweep's (0 flips),
+    with occluded and free lanes both common."""
+    scene, o, d = _instanced_soup(np.random.default_rng(33), cuda, n_inst=90,
+                                  spread=0.1, size=0.01)
+    occ = scene.tlas_occ
+    max_t = torch.full((o.shape[0],), 50.0, device=cuda)
+    tmin, tmax, _ = mi.box_slabs(o, d, occ.inst_group, widen=False)
+    every = ((tmax >= tmin) & (tmax >= 0.0) & (tmin < 50.0)).all(1)
+    assert occ.inst_group.shape[0] == 12 and float(every.float().mean()) > 0.9
+    args = _tlas_args(scene, False)
+    got = mi.mesh_any_hit_tlas(o, d, max_t, *args, occ=occ)
+    ref = mi.any_hit_tlas_plain(o, d, max_t, *(args[:3] + args[4:]))
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert 0.05 < float(got.float().mean()) < 0.95
+
+
+def test_occlusion_kernels_raise_without_tables(cuda):
+    """K3 (flat, with_sn) and K6 walk the occlusion tables: a launch without
+    them raises, and so does a render of a scene that lacks them."""
+    world, cam = REGISTRY["cow"](32)
+    scene = compile_scene(world, device=cuda)
+    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+    o = torch.zeros((4, 3), device=cuda)
+    leaf = scene.static.cluster_size
+    with pytest.raises(ValueError, match="occlusion tables"):
+        mi.mesh_closest_shadow(o, o, *tabs, scene.tri_n, scene.cluster_aabb,
+                               scene.light_pos, leaf)
+    with pytest.raises(ValueError, match="occlusion tables"):
+        mi.mesh_closest_shadow_sn(o, o, *tabs, scene.tri_n.repeat(1, 3).contiguous(),
+                                  scene.cluster_aabb, scene.light_pos, leaf)
+    with pytest.raises(ValueError, match="occlusion tables"):
+        render(dataclasses.replace(scene, occ=None), cam, RenderConfig())
+    herd, _, _ = _instanced_soup(np.random.default_rng(34), cuda)
+    with pytest.raises(ValueError, match="occlusion tables"):
+        mi.mesh_any_hit_tlas(o, o, torch.ones((4,), device=cuda), *_tlas_args(herd, False))
+    with pytest.raises(ValueError, match="occlusion tables"):
+        render(dataclasses.replace(herd, tlas_occ=None), cam, RenderConfig())
