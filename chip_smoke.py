@@ -17,16 +17,20 @@ ray of them; K6 on two wavefronts, cow_herd's 921,600 free-space
 occlusion rays and the 460,800 shadow rays its frame casts from its
 surfaces, its flags equal to the plain version's on every ray of the
 subset. Phases 3 and 6 also hold K3's shadow flags equal, on every ray,
-to K2's on K3's own shadow rays. Phase 3 prints K3's phases 2-3 alone (K3
-less K1 on one wavefront). K3's and K6's bound is the lesser of two: the
-tests their occlusion walk needs, and those of the table-order loop it
-replaced, which their lines keep beside it. Phase 10 holds the elementwise kernels K7a
-and K7b on cow's and cow_herd's world-table wavefronts to their plain
-versions on a subset and to one K1/K2 launch on every ray; phase 11
-checks K1's t0 contract, the superblock drivers (streamed K1, K2 and K4
-against one launch, at 2 clusters a block) and, on the 90-cow herd baked
-into one mesh leaf (11 superblocks), streamed K1 t0 and K1 uv against
-K7a on every ray. It renders cow (phase 5), teapot_smooth, glass_teapot,
+to K2's on K3's own shadow rays, and phases 3, 7 and 11 K2's flags to
+those of the table-order loop it ran before its occlusion walk (K7b's).
+Phase 3 prints K3's phases 2-3 alone (K3 less K1 on one wavefront).
+K2's, K3's, K4's and K6's bound is the lesser of two: the tests their
+walk needs, and those of the table-order loop it replaced, which their
+lines keep beside it. Phase 7 also times K2 on glass_teapot's surface
+shadow rays. Phase 10 holds the elementwise kernels K7a and K7b on cow's
+and cow_herd's world-table wavefronts to their plain versions on a
+subset and to one K1/K2 launch on every ray; phase 11 checks K1's t0
+contract, the superblock drivers (streamed K1, K2 and K4 against one
+launch, at 2 clusters a block) and, on the 90-cow herd baked into one
+mesh leaf (11 superblocks), streamed K1 t0 and K1 uv against K7a on
+every ray, and times streamed K2 against one launch on the herd's
+surface shadow rays. It renders cow (phase 5), teapot_smooth, glass_teapot,
 cow_herd and cow_herd_smooth (phase 8), and the new routes (phase 12:
 cow and cow_herd under mesh_impl="elementwise", the one-mesh herds
 streamed, teapot and pumpkin) at 1920x960 (the smooth one-mesh herd at
@@ -34,7 +38,7 @@ streamed, teapot and pumpkin) at 1920x960 (the smooth one-mesh herd at
 launches in each frame, and checks each image against the plain render
 and, where tests/golden has one, the golden. Phase 2 prints the ordered
 walk's list lengths and the registers, memory and resident blocks of the
-kernels that walk (K1, K3, K5); phases 3, 6, 9 and 11 print the boxes
+kernels that walk (K1-K6); phases 3, 6, 9 and 11 print the boxes
 each ray visits (median, 99th percentile, maximum: clusters, and for K5
 instances) and the scans and box tests a ray of the ordered walk against
 a scan per visit, modelled from those visits. Each phase prints lines
@@ -130,6 +134,42 @@ def timed_ms(fn, warmup: int, iters: int):
     return start.elapsed_time(stop) / iters, out
 
 
+DEVICE_MS = {}  # kernel key -> device_ms() of the call its "ms" times
+# a spin of ~25 ms at the card's clock, longer than the host takes to queue
+# a timed run's calls
+SPIN_CYCLES = 50_000_000
+
+
+def device_ms(fn, iters: int = 10, tries: int = 3):
+    """Mean device time of a call of fn() with the host's dispatch hidden:
+    CUDA events around iters calls that the host queues behind a spin
+    kernel (torch.cuda._sleep), so that the device runs them back to back
+    once the spin ends. timed_ms also holds the dispatch where it outlasts
+    a short kernel. None when the host did not queue every call before the
+    spin ended in any of tries runs: a call that waits on the device (a
+    streaming driver's block order) cannot be hidden so."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        spun, start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spun.record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        stop.record()
+        torch.cuda.synchronize()
+        if queued_ms < spun.elapsed_time(start):
+            return start.elapsed_time(stop) / iters
+    return None
+
+
+def shown(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 # ---------------------------------------------------------------------------
 # inputs
 # ---------------------------------------------------------------------------
@@ -195,12 +235,20 @@ def k3_shadow_rays(scene, o, d, eps, hit=None, unit_n: bool = True):
 
 def k3_flags_gate(what: str, k3_flags, k2_flags, max_t) -> None:
     """K3's shadow flags equal, on every ray, K2's on K3's phase-2 shadow
-    rays (k3_shadow_rays). A flag is the OR of pair tests that K3's
-    occlusion walk and K2's table-order loop compute alike, so a culled hit
-    is the only way they can differ."""
+    rays (k3_shadow_rays). A flag is the OR of pair tests that K3's phase 3
+    and K2 compute alike, so a culled hit is the only way they can differ."""
     flips = int((k3_flags != k2_flags).sum())
     check(flips == 0, f"{what}: K3's shadow flags differ from K2's on {flips} of "
           f"{int((max_t > 0).sum())} live shadow rays")
+
+
+def k2_table_order_gate(what: str, scene, k2_flags, o, d, max_t, eps) -> None:
+    """K2's flags equal, on every ray, those of the table-order loop that K2
+    ran before its occlusion walk, which K7b still runs (its supercluster
+    level culls exactly): the parent's K2 flags."""
+    k7b = mi.mesh_any_hit_elementwise(o, d, max_t, *tables(scene), scene.cluster_aabb,
+                                      scene.super_aabb, scene.static.cluster_size, eps)
+    flags_gate(f"{what} vs the table-order loop (K7b)", k2_flags, k7b, exact=True)
 
 
 def closest_gate(what: str, got, ref, n_atol: float = 0.0) -> float:
@@ -235,11 +283,13 @@ def kernel_parity(name, scene, o, d, leaf, eps):
     err1 = closest_gate(f"{name} K1", k1, p)
 
     so, sd, max_t = occlusion_rays(scene, o, d, p[0], p[1])
-    k2 = mi.mesh_any_hit(so, sd, max_t, p1, e1, e2, scene.cluster_aabb, leaf, eps)
+    k2 = mi.mesh_any_hit(so, sd, max_t, p1, e1, e2, scene.cluster_aabb, leaf, eps,
+                         occ=scene.occ)
     p2 = mi.any_hit_plain(so, sd, max_t, p1, e1, e2, eps)
     flips2 = int((k2 != p2).sum())
     check(flips2 <= max(2, so.shape[0] // 2048),
           f"{name} K2: occlusion parity: {flips2} rays differ")
+    k2_table_order_gate(f"{name} K2", scene, k2, so, sd, max_t, eps)
 
     k3 = mi.mesh_closest_shadow(o, d, *args, scene.cluster_aabb,
                                 scene.light_pos, leaf, eps, occ=scene.occ)
@@ -251,12 +301,13 @@ def kernel_parity(name, scene, o, d, leaf, eps):
           f"{name} K3: shadow flags differ on {flips3} of {hits} hits")
     s3o, s3d, s3max = k3_shadow_rays(scene, o, d, eps, k3)
     k3_flags_gate(f"{name} K3", k3[3],
-                  mi.mesh_any_hit(s3o, s3d, s3max, p1, e1, e2, scene.cluster_aabb, leaf, eps),
-                  s3max)
+                  mi.mesh_any_hit(s3o, s3d, s3max, p1, e1, e2, scene.cluster_aabb, leaf, eps,
+                                  occ=scene.occ), s3max)
     torch.cuda.synchronize()
     summary = (f"{name}: {o.shape[0]} rays, C={scene.cluster_aabb.shape[0]}, "
                f"hits {int((k1[1] >= 0).sum())}, K1 max|dt| {err1:.3g}; "
-               f"K2 {int(p2.sum())} occluded, {flips2} flips of {so.shape[0]}; "
+               f"K2 {int(p2.sum())} occluded, {flips2} flips of {so.shape[0]}, 0 "
+               "against the table-order loop; "
                f"K3 max|dt| {err3:.3g}, {int(p3[3].sum())} shadowed, "
                f"{flips3} flips against plain, 0 against K2 on its shadow rays")
     return summary
@@ -334,8 +385,10 @@ class Work:
 
 
 # a ray's slab test of one box (three axes of 2 sub, 2 mul and 4 min/max)
-# and cluster_entry's three compares with the caller's one
+# and cluster_entry's three compares with the caller's one (the occlusion
+# walk's enters: three compares); the census's signed test has two
 BOX = Work((12, 16, 0), boxes=1)
+SIGNED_BOX = Work((12, 14, 0), boxes=1)
 # the box's own emptiness test, scale, pad and widening: once per box
 WIDEN = Work((7, 8, 0))
 # make_ray's slab reciprocals and near-zero guards: once per ray
@@ -348,10 +401,26 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def occ_bytes(occ) -> int:
-    """The bytes of the occlusion tables the kernels read (row_id, on the
-    host, is for the tests)."""
-    return nbytes(*(x for k, x in occ._asdict().items() if k != "row_id"))
+def live_bytes(live, *tensors) -> int:
+    """The bytes of the rows of tensors (R, ...) on the lanes where live
+    (R,) holds. An any-hit or census lane that is dead (max_t <= 0, t_hit
+    <= -BIG) has its output fixed by that value alone, so the function
+    needs its ray (and hit row) only on a live lane."""
+    n = int(live.sum())
+    return sum(n * (t.numel() // max(t.shape[0], 1)) * t.element_size() for t in tensors)
+
+
+# the occlusion tables' fields the occlusion walk reads, and those the
+# census walk reads besides its boxes and rows
+WALK_FIELDS = ("rows", "sub_box", "cluster_box", "group_box", "inst_perm", "inst_box",
+               "inst_group")
+CENSUS_FIELDS = ("rows", "sub_box", "cluster_box", "group_box", "row_id", "row_cid",
+                 "cluster_census", "group_census")
+
+
+def occ_bytes(occ, fields=WALK_FIELDS) -> int:
+    """The bytes of the occlusion tables a walk reads."""
+    return nbytes(*(getattr(occ, k) for k in fields))
 
 
 def bound(work: Work, n_bytes: float):
@@ -399,11 +468,12 @@ def entered(o, d, aabb, limit, strict: bool = False, signed: bool = False,
 
 
 def pair_stages(o, d, p1, e1, e2, eps, rays, clusters, leaf, cid=None,
-                self_row=None) -> np.ndarray:
+                self_row=None, row_id=None) -> np.ndarray:
     """(4,) counts of the pair tests of every row of each (ray, cluster)
     pair, by the stage where tri_hit stops (STAGES), in tri_hit's
     arithmetic. The census's rows: cid (T,) skips rows with no container
-    slot, self_row (R,) each ray's own hit row."""
+    slot, self_row (R,) each ray's own hit row (a table row: row_id (T,)
+    maps a packed copy's rows to it)."""
     counts = torch.zeros(4, dtype=torch.int64, device=o.device)
     lane = torch.arange(leaf, device=o.device)
     step = max(1, PAIR_CHUNK // leaf)
@@ -426,7 +496,7 @@ def pair_stages(o, d, p1, e1, e2, eps, rays, clusters, leaf, cid=None,
         if cid is not None:
             test &= cid[j] >= 0
         if self_row is not None:
-            test &= j != self_row[r][:, None]
+            test &= (j if row_id is None else row_id[j]) != self_row[r][:, None]
         counts += torch.bincount(stage[test], minlength=4)
     return counts.cpu().numpy()
 
@@ -516,23 +586,77 @@ def occ_rows(occ):
     return occ.rows[:, 0:3], occ.rows[:, 4:7], occ.rows[:, 8:11]
 
 
-def walk_levels(o, d, occ, leaf, eps, limit, g0: int, g1: int) -> Work:
-    """The tests of the occlusion walk over groups [g0, g1) of occ for
-    lanes that find no occluder (limit: max_t, -1 elsewhere): every group
-    box, the 8 cluster boxes of each entered group, the sub-boxes of each
-    entered cluster, and the rows of each entered sub-box. A group box
-    holds its clusters' boxes, so clusters entered are counted alone."""
+def slab_pairs(o, d, boxes, rays, which, limit, signed: bool = False):
+    """(P,) whether ray rays[p] enters widened box which[p], pair by pair in
+    the kernels' slab arithmetic (mi.slab_interval, as box_slabs does it
+    densely): the occlusion walk's test (at some t in [0, limit)), or
+    signed, the census's (a slab interval starting before limit, behind
+    the origin included)."""
+    out = [torch.zeros((0,), dtype=torch.bool, device=o.device)]
+    inv = mi.slab_reciprocal(d)
+    for s in range(0, rays.numel(), PAIR_CHUNK):
+        r, w = rays[s:s + PAIR_CHUNK], which[s:s + PAIR_CHUNK]
+        b = boxes[w]
+        tmin, tmax = mi.slab_interval(o[r], inv[r], b[:, :3], b[:, 3:])
+        ok = (tmax >= tmin) & (tmin < limit[r])
+        out.append(ok if signed else ok & (tmax >= 0.0))
+    return torch.cat(out)
+
+
+def descend(o, d, boxes, limit, rays, parents, fanout: int, lo: int, hi: int,
+            keep=None, signed: bool = False):
+    """One level of a walk below the entered (ray, parent) pairs: the
+    children parent * fanout + [0, fanout) that lie in [lo, hi) (and keep),
+    each box-tested (slab_pairs). Returns (tests, rays, children) of the
+    pairs entered."""
+    none = torch.zeros((0,), dtype=torch.int64, device=o.device)
+    tests, out_r, out_c = 0, [none], [none]
+    lane = torch.arange(fanout, device=o.device)
+    step = max(1, PAIR_CHUNK // fanout)
+    for s in range(0, rays.numel(), step):
+        r = rays[s:s + step, None].expand(-1, fanout).reshape(-1)
+        c = (parents[s:s + step, None] * fanout + lane).reshape(-1)
+        m = (c >= lo) & (c < hi)
+        if keep is not None:
+            m &= keep[c.clamp(0, keep.numel() - 1)]
+        r, c = r[m], c[m]
+        ok = slab_pairs(o, d, boxes, r, c, limit, signed)
+        tests += r.numel()
+        out_r.append(r[ok])
+        out_c.append(c[ok])
+    return tests, torch.cat(out_r), torch.cat(out_c)
+
+
+def walk_levels(o, d, occ, leaf, eps, limit, c0: int, c1: int, signed: bool = False,
+                self_row=None) -> Work:
+    """The tests of a walk over clusters [c0, c1) of occ, each level below
+    the boxes entered at the one above (a group box holds its clusters',
+    and they their sub-boxes'). The occlusion walk, for the lanes that find
+    no occluder (limit: max_t, -1 elsewhere): every group box of the range,
+    the range's clusters of each entered group, the sub-boxes of each
+    entered cluster and the rows of each entered sub-box. signed, K4's
+    census walk (limit: t_hit, -BIG on dead lanes): the same with the
+    signed test, over the groups and clusters that hold a container row,
+    and of each entered sub-box its container rows but the ray's own hit
+    (self_row (R,), a table row)."""
     C = occ.cluster_box.shape[0]
     n_sub = occ.sub_box.shape[0] // C
     sub_rows = leaf // n_sub
-    c0, c1 = g0 * GROUP, min(g1 * GROUP, C)
-    lane = (limit > 0).sum().item()
-    groups = entered(o, d, occ.group_box[g0:g1], limit, True, widen=False)[0].numel()
-    cr, cc = entered(o, d, occ.cluster_box[c0:c1], limit, True, widen=False)
-    sr, sb = entered(o, d, occ.sub_box[c0 * n_sub:c1 * n_sub], limit, True, widen=False)
-    keep = torch.isin(sr * C + sb // n_sub, cr * C + cc)  # the walk enters the cluster first
-    stages = pair_stages(o, d, *occ_rows(occ), eps, sr[keep], sb[keep] + c0 * n_sub, sub_rows)
-    return BOX * (lane * (g1 - g0) + GROUP * groups + n_sub * cr.numel()) + Work.pairs(stages)
+    g0, g1 = c0 // GROUP, -(-c1 // GROUP)
+    gkeep = occ.group_census[g0:g1] if signed else None
+    lanes = int(((limit > -BIG) if signed else (limit > 0)).sum())
+    gr, gg = entered(o, d, occ.group_box[g0:g1], limit, strict=True, signed=signed,
+                     keep=gkeep, widen=False)
+    n_groups = (g1 - g0) if gkeep is None else int(gkeep.sum())
+    tc, cr, cc = descend(o, d, occ.cluster_box, limit, gr, gg + g0, GROUP, c0, c1,
+                         occ.cluster_census if signed else None, signed)
+    ts, sr, sb = descend(o, d, occ.sub_box, limit, cr, cc, n_sub, 0, C * n_sub,
+                         signed=signed)
+    stages = pair_stages(o, d, *occ_rows(occ), eps, sr, sb, sub_rows,
+                         occ.row_cid if signed else None, self_row,
+                         occ.row_id if signed else None)
+    box = SIGNED_BOX if signed else BOX
+    return box * (lanes * n_groups + tc + ts) + Work.pairs(stages)
 
 
 def walk_least(occ, leaf: int) -> Work:
@@ -548,8 +672,17 @@ def occlusion_walk_work(o, d, occ, leaf, eps, max_t, hit) -> Work:
     least on the occluded ones."""
     live = max_t > 0
     free = torch.where(live & ~hit, max_t, -1.0)
-    return (walk_levels(o, d, occ, leaf, eps, free, 0, occ.group_box.shape[0])
+    return (walk_levels(o, d, occ, leaf, eps, free, 0, occ.cluster_box.shape[0])
             + walk_least(occ, leaf) * int((live & hit).sum()) + RAY * int(live.sum()))
+
+
+def census_walk_work(o, d, occ, leaf, eps, t_hit, hit_gid) -> Work:
+    """The tests K4's census walk needs (the second bound, beside
+    census_work's table-order ones): walk_levels' signed walk on every
+    live lane (t_hit > -BIG)."""
+    return (walk_levels(o, d, occ, leaf, eps, t_hit, 0, occ.cluster_box.shape[0],
+                        signed=True, self_row=hit_gid)
+            + RAY * int((t_hit > -BIG).sum()))
 
 
 def tlas_walk_work(o, d, tl, st, occ, eps, max_t, hit) -> Work:
@@ -573,13 +706,13 @@ def tlas_walk_work(o, d, tl, st, occ, eps, max_t, hit) -> Work:
         inside, _ = entered(o, d, occ.inst_box[s:s + 1], free, True, widen=False)
         oi, di = mi.instance_rays(o[inside], d[inside], tl.inst_ab[k])
         work += INSTANCE * inside.numel() + walk_levels(
-            oi, di, occ, leaf, eps, free[inside], m * cm // GROUP, (m + 1) * cm // GROUP)
+            oi, di, occ, leaf, eps, free[inside], m * cm, (m + 1) * cm)
     return work
 
 
 BOUNDS = {}  # kernel key -> bound(): (bound_ms, bound_by, pair tests)
-# K3 and K6: bound() of the tests of the table-order loop, which their
-# occlusion walk replaced; their BOUNDS entry is the lesser of it and the
+# K2, K3, K4 and K6: bound() of the tests of the table-order loop, which
+# their walk replaced; their BOUNDS entry is the lesser of it and the
 # walk's (least)
 TABLE_ORDER_BOUNDS = {}
 EXTRA = {}  # kernel key -> further keys of its kernels line
@@ -716,6 +849,19 @@ def phase_parity(scene, cam, leaf, eps):
                                soup.static.n_clusters))
 
 
+def k2_bounds(scene, o, d, max_t, flags, eps) -> tuple:
+    """(the lesser, the table-order loop's) of K2's two bounds on a
+    wavefront of one launch over the whole table: any_work's tests, and
+    those of the occlusion walk (occlusion_walk_work)."""
+    leaf, aabb, tabs = scene.static.cluster_size, scene.cluster_aabb, tables(scene)
+    in_bytes = nbytes(max_t) + o.shape[0] + live_bytes(max_t > 0, o, d)
+    old = bound(any_work(o, d, tabs, aabb, max_t, flags, leaf, eps),
+                in_bytes + nbytes(*tabs, aabb))
+    new = bound(occlusion_walk_work(o, d, scene.occ, leaf, eps, max_t, flags),
+                in_bytes + occ_bytes(scene.occ))
+    return least(old, new), old
+
+
 def phase_timing(scene, cam, leaf, eps):
     """Each kernel against its plain version at the main path's shapes:
     the times of both, and the parity gates on the timed calls' outputs.
@@ -730,7 +876,7 @@ def phase_timing(scene, cam, leaf, eps):
             lambda: mi.closest_hit_plain(o, d, p1, e1, e2, scene.tri_n, eps)),
         "any_hit": (
             lambda: mi.mesh_any_hit(so, sd, max_t, p1, e1, e2,
-                                    scene.cluster_aabb, leaf, eps),
+                                    scene.cluster_aabb, leaf, eps, occ=scene.occ),
             lambda: mi.any_hit_plain(so, sd, max_t, p1, e1, e2, eps)),
         "closest_shadow": (
             lambda: mi.mesh_closest_shadow(o, d, p1, e1, e2, scene.tri_n,
@@ -748,6 +894,7 @@ def phase_timing(scene, cam, leaf, eps):
         e, ref = timed_ms(plain, 0, 2)
         times[name] = ((b + c) / 2, (a + e) / 2)
         outs[name] = (got, ref)
+        DEVICE_MS[name] = device_ms(kernel)
 
     # the same gates as phase 3, on the outputs of the timed calls
     err1 = closest_gate("main-path K1", *outs["closest_hit"])
@@ -762,6 +909,7 @@ def phase_timing(scene, cam, leaf, eps):
     check(flips3 <= max(2, hits // 1000),
           f"main-path K3: shadow flags differ on {flips3} of {hits} hits")
     k3_flags_gate("main-path K3", k3[3], k2, max_t)
+    k2_table_order_gate("main-path K2", scene, k2, so, sd, max_t, eps)
     parity = {"closest_hit": (err1, None), "any_hit": (float(flips2 > 0), flips2),
               "closest_shadow": (err3, flips3)}
     tab_bytes = nbytes(p1, e1, e2, scene.cluster_aabb)
@@ -772,9 +920,8 @@ def phase_timing(scene, cam, leaf, eps):
     say("3 walk", k1_walk_line(f"cow main path K1, K3's phase 1 ({scene.static.n_clusters} "
                                "clusters)", rays1, R, scene.static.n_clusters))
     BOUNDS["closest_hit"] = bound(work1, nbytes(o, d, scene.tri_n) + tab_bytes + R * 20)
-    BOUNDS["any_hit"] = bound(any_work(so, sd, tri, scene.cluster_aabb, max_t, k2,
-                                       leaf, eps),
-                              nbytes(so, sd, max_t) + tab_bytes + R)
+    BOUNDS["any_hit"], TABLE_ORDER_BOUNDS["any_hit"] = k2_bounds(scene, so, sd, max_t,
+                                                                 k2, eps)
     k3_bytes = nbytes(o, d, scene.tri_n, scene.light_pos) + tab_bytes + R * 21
     old = bound(work1 + any_work(so, sd, tri, scene.cluster_aabb, max_t, k3[3], leaf, eps),
                 k3_bytes)
@@ -786,11 +933,16 @@ def phase_timing(scene, cam, leaf, eps):
     say("3 kernel timing",
         f"{o.shape[0]} primary rays ({hits} hits, "
         f"{int((max_t > 0).sum())} live shadow rays): " + "; ".join(
-            f"{k} {v[0]:.3f} ms vs plain {v[1]:.1f} ms" for k, v in times.items())
+            f"{k} {v[0]:.3f} ms (dispatch hidden {shown(DEVICE_MS[k])}) vs plain "
+            f"{v[1]:.1f} ms"
+            for k, v in times.items())
         + f"; K3's phases 2-3 (K3 - K1) {phases_23:.3f} ms; vs plain: K1 max|dt| "
         f"{err1:.3g}, K2 {flips2} flips of {so.shape[0]}, K3 max|dt| {err3:.3g}, "
-        f"{flips3} shadow flips against plain, 0 against K2; K3 bound {old[0]:.4f} ms "
-        f"(the table-order loop's tests), {new[0]:.4f} ms (the occlusion walk's)")
+        f"{flips3} shadow flips against plain, 0 against K2; K2 0 flips against the "
+        f"table-order loop; K2 bound {TABLE_ORDER_BOUNDS['any_hit'][0]:.4f} ms (the "
+        f"table-order loop's tests), {BOUNDS['any_hit'][0]:.4f} ms (the lesser); K3 "
+        f"bound {old[0]:.4f} ms (the table-order loop's tests), {new[0]:.4f} ms (the "
+        "occlusion walk's)")
     return times, parity
 
 
@@ -946,13 +1098,16 @@ def plain_render(name: str, width: int):
     return PLAIN_IMAGES[name, width]
 
 
-def time_pair(kernel, plain, plain_warmup: int = 1, plain_iters: int = 2):
+def time_pair(kernel, plain, plain_warmup: int = 1, plain_iters: int = 2, key=None):
     """Device ms of a kernel and its plain version at one input, in the
-    order plain, kernel, kernel, plain; and the last outputs of both."""
+    order plain, kernel, kernel, plain; and the last outputs of both. key:
+    also the kernel alone (device_ms) into DEVICE_MS[key]."""
     a, _ = timed_ms(plain, plain_warmup, plain_iters)
     b, got = timed_ms(kernel, 2, 10)
     c, _ = timed_ms(kernel, 0, 10)
     e, ref = timed_ms(plain, 0, plain_iters)
+    if key is not None:
+        DEVICE_MS[key] = device_ms(kernel)
     return (b + c) / 2, (a + e) / 2, got, ref
 
 
@@ -967,11 +1122,12 @@ def phase_smooth(eps):
     light = scene.light_pos
     ms1, pms1, k1, p1 = time_pair(
         lambda: mi.mesh_closest_hit_sn(o, d, *tabs, scene.cluster_aabb, leaf, eps),
-        lambda: mi.closest_hit_sn_plain(o, d, *tabs, eps))
+        lambda: mi.closest_hit_sn_plain(o, d, *tabs, eps), key="closest_hit_sn")
     ms3, pms3, k3, p3 = time_pair(
         lambda: mi.mesh_closest_shadow_sn(o, d, *tabs, scene.cluster_aabb,
                                           light, leaf, eps, occ=scene.occ),
-        lambda: mi.closest_shadow_sn_plain(o, d, *tabs, light, eps))
+        lambda: mi.closest_shadow_sn_plain(o, d, *tabs, light, eps),
+        key="closest_shadow_sn")
     err1 = closest_gate("teapot_smooth K1 with_sn", k1, p1)
     err3 = closest_gate("teapot_smooth K3 with_sn", k3, p3)
     aabb, R = scene.cluster_aabb, o.shape[0]
@@ -992,7 +1148,8 @@ def phase_smooth(eps):
     check(flips3 <= max(2, hits // 1000),
           f"teapot_smooth K3 with_sn: shadow flags differ on {flips3} of {hits} hits")
     k3_flags_gate("teapot_smooth K3 with_sn", k3[3],
-                  mi.mesh_any_hit(so, sd, smax, *tabs[:3], aabb, leaf, eps), smax)
+                  mi.mesh_any_hit(so, sd, smax, *tabs[:3], aabb, leaf, eps, occ=scene.occ),
+                  smax)
     say("6 smooth kernels",
         f"teapot_smooth {o.shape[0]} primary rays ({hits} hits, C="
         f"{scene.static.n_clusters}): K1 with_sn {ms1:.3f} ms vs plain "
@@ -1041,7 +1198,10 @@ def phase_census(eps):
     -BIG elsewhere; hit_gid of triangle hits, -2 elsewhere), and on the
     same rays re-seated 1e-3 past their hit with t_hit = BIG, so
     negative-t crossings and counts from inside the glass are exercised.
-    Both timed; the kernels line takes the main-path input's."""
+    Both timed, each with its two bounds (census_work's tests of the
+    table-order census, census_walk_work's of the census walk); the kernels
+    line takes the main-path input's. Then K2 on glass_teapot's surface
+    shadow rays (glass_teapot_k2)."""
     scene, cam = slice_scene("glass_teapot", WIDTH)
     o, d = main_path_rays(cam)
     leaf = scene.static.cluster_size
@@ -1060,25 +1220,57 @@ def phase_census(eps):
         ms, pms, got, ref = time_pair(
             lambda: mi.mesh_crossing_count(oo, d, tt, gg, *tabs,
                                            scene.cluster_aabb, scene.tri_cid,
-                                           K, leaf, eps),
+                                           K, leaf, eps, occ=scene.occ),
             lambda: mi.crossing_count_plain(oo, d, tt, gg, *tabs,
-                                            scene.tri_cid, K, eps))
+                                            scene.tri_cid, K, eps),
+            key="crossing_count" if key == "main path" else "crossing_count_reseated")
         err, crossings = census_gate(f"glass_teapot K4 {key}", got, ref)
-        out[key] = (ms, pms, err, crossings, int((tt > -BIG).sum()))
-        if key == "main path":
-            BOUNDS["crossing_count"] = bound(
-                census_work(oo, d, tabs, scene.cluster_aabb, tt, gg, scene.tri_cid,
-                            leaf, eps),
-                nbytes(oo, d, tt, gg, *tabs, scene.tri_cid, scene.cluster_aabb)
-                + oo.shape[0] * K * 8)
+        in_bytes = nbytes(tt) + oo.shape[0] * K * 8 + live_bytes(tt > -BIG, oo, d, gg)
+        old = bound(census_work(oo, d, tabs, scene.cluster_aabb, tt, gg, scene.tri_cid,
+                                leaf, eps),
+                    in_bytes + nbytes(*tabs, scene.tri_cid, scene.cluster_aabb))
+        new = bound(census_walk_work(oo, d, scene.occ, leaf, eps, tt, gg),
+                    in_bytes + occ_bytes(scene.occ, CENSUS_FIELDS))
+        out[key] = (ms, pms, err, crossings, int((tt > -BIG).sum()), old, new)
+    main, again = out["main path"], out["re-seated"]
+    BOUNDS["crossing_count"] = least(main[5], main[6])
+    TABLE_ORDER_BOUNDS["crossing_count"] = main[5]
+    EXTRA["crossing_count"] = dict(
+        reseated_ms=again[0], reseated_device_ms=DEVICE_MS.pop("crossing_count_reseated"),
+        reseated_plain_ms=again[1],
+        reseated_bound_ms=least(again[5], again[6])[0],
+        reseated_table_order_bound_ms=again[5][0], reseated_crossings=again[3])
     say("7 census", f"glass_teapot {o.shape[0]} primary rays, K={K}, "
         f"{int(live.sum())} transparent hits: " + "; ".join(
             f"{k}: {v[4]} live lanes, {v[3]} crossings, K4 {v[0]:.3f} ms vs "
-            f"plain {v[1]:.1f} ms, 0 count mismatches, max|d last| {v[2]:.3g}"
-            for k, v in out.items()))
-    ms, pms, err = out["main path"][:3]
-    return ({"crossing_count": (ms, pms)},
-            {"crossing_count": (max(err, out["re-seated"][2]), 0)})
+            f"plain {v[1]:.1f} ms, 0 count mismatches, max|d last| {v[2]:.3g}, bound "
+            f"{v[5][0]:.4f} ms (the table-order census's tests), {v[6][0]:.4f} ms (the "
+            "census walk's)" for k, v in out.items()))
+    glass_teapot_k2(scene, o, d, eps)
+    return ({"crossing_count": (main[0], main[1])},
+            {"crossing_count": (max(main[2], again[2]), 0)})
+
+
+def glass_teapot_k2(scene, o, d, eps) -> None:
+    """K2 on the shadow rays glass_teapot's root node casts from its
+    surfaces for the primary rays (o, d): timed, its flags equal to the
+    table-order loop's on every ray, with its two bounds (k2_bounds); into
+    the K2 line's glass_teapot_* keys."""
+    so, sd, smax = surface_shadow_rays(scene, o, d)
+    k2 = lambda: mi.mesh_any_hit(so, sd, smax, *tables(scene), scene.cluster_aabb,
+                                 scene.static.cluster_size, eps, occ=scene.occ)
+    ms, flags = timed_ms(k2, 2, 10)
+    dev = device_ms(k2)
+    k2_table_order_gate("glass_teapot K2", scene, flags, so, sd, smax, eps)
+    lesser, old = k2_bounds(scene, so, sd, smax, flags, eps)
+    EXTRA.setdefault("any_hit", {}).update(
+        glass_teapot_rays=so.shape[0], glass_teapot_ms=ms, glass_teapot_device_ms=dev,
+        glass_teapot_bound_ms=lesser[0], glass_teapot_table_order_bound_ms=old[0])
+    say("7 census", f"glass_teapot K2 on {so.shape[0]} surface shadow rays "
+        f"({int((smax > 0).sum())} live, {int(flags.sum())} occluded): {ms:.3f} ms "
+        f"(dispatch hidden {shown(dev)}), 0 "
+        f"flips against the table-order loop; bound {old[0]:.4f} ms (the table-order "
+        f"loop's tests), {lesser[0]:.4f} ms (the lesser)")
 
 
 # the slice's frames: each kernel of the scene's path, launches per frame
@@ -1206,6 +1398,7 @@ def phase_tlas(eps):
         k5 = lambda oo, dd: kernel(oo, dd, tl.p1, tl.e1, tl.e2, pay, tl.caabb,
                                    *inst, tl.inst_obj, *leaf_cm)
         ms_full, full = timed_ms(lambda: k5(o, d), 2, 10)
+        DEVICE_MS[key] = device_ms(lambda: k5(o, d))
         ms, pms, got, ref = time_pair(
             lambda: k5(os_, ds_),
             lambda: plain(os_, ds_, tl.p1, tl.e1, tl.e2, pay, *inst,
@@ -1264,6 +1457,7 @@ def k6_wavefronts(name, scene, o, d, k5_out, eps, times, parity, sizes) -> str:
     parts = []
     for wave, (fo, fd, fmax) in waves.items():
         ms_full, occluded = timed_ms(lambda: k6(fo, fd, fmax), 2, 10)
+        dev = device_ms(lambda: k6(fo, fd, fmax))
         ms, pms, got, ref = time_pair(lambda: k6(sub(fo), sub(fd), sub(fmax)),
                                       lambda: plain(sub(fo), sub(fd), sub(fmax)),
                                       plain_warmup=0, plain_iters=1)
@@ -1271,7 +1465,8 @@ def k6_wavefronts(name, scene, o, d, k5_out, eps, times, parity, sizes) -> str:
               f"{name} K6 {wave}: the subset's flags differ from the full run's")
         flips = flags_gate(f"{name} K6 {wave} vs plain", got, ref, exact=True)
         live = fmax > 0
-        in_bytes = nbytes(fo, fd, fmax, tl.p1, tl.e1, tl.e2, tl.caabb, *inst) + fo.shape[0]
+        in_bytes = (nbytes(fmax, tl.p1, tl.e1, tl.e2, tl.caabb, *inst) + fo.shape[0]
+                    + live_bytes(live, fo, fd))
         old = bound(tlas_work(fo, fd, tl, st, eps, fmax, strict=True,
                               occluded=occluded & live)[0], in_bytes)
         new = bound(tlas_walk_work(fo, fd, tl, st, occ, eps, fmax, occluded),
@@ -1279,12 +1474,13 @@ def k6_wavefronts(name, scene, o, d, k5_out, eps, times, parity, sizes) -> str:
         if wave == "free-space":
             BOUNDS["any_hit_tlas"], TABLE_ORDER_BOUNDS["any_hit_tlas"] = least(old, new), old
             times["any_hit_tlas"] = (ms_full, pms)
+            DEVICE_MS["any_hit_tlas"] = dev
             parity["any_hit_tlas"] = (float(flips > 0), flips)
             sizes["any_hit_tlas"] = dict(rays=fo.shape[0], plain_rays=got.shape[0],
                                          ms_at_plain_rays=ms)
         else:
             EXTRA["any_hit_tlas"] = dict(
-                surface_rays=fo.shape[0], surface_ms=ms_full,
+                surface_rays=fo.shape[0], surface_ms=ms_full, surface_device_ms=dev,
                 surface_bound_ms=least(old, new)[0], surface_table_order_bound_ms=old[0],
                 surface_flips=flips)
         parts.append(f"K6 {wave} {ms_full:.3f} ms on {fo.shape[0]} rays "
@@ -1361,7 +1557,8 @@ def phase_elementwise(eps):
             plain_warmup=0, plain_iters=1)
         check(torch.equal(hit[::step], got_b), f"{name} K7b: subset differs")
         flips_plain = flags_gate(f"{name} K7b vs plain", got_b, ref_b)
-        k2 = mi.mesh_any_hit(fo, fd, fmax, *tabs, aabb, leaf, eps, block_budget=whole)
+        k2 = mi.mesh_any_hit(fo, fd, fmax, *tabs, aabb, leaf, eps, block_budget=whole,
+                             occ=scene.occ)
         flags_gate(f"{name} K7b vs K2", hit, k2, exact=True)
         say("10 elementwise",
             f"{name} (C={st.n_clusters}, S={st.n_super}): K7a {ms_a:.3f} ms on "
@@ -1374,12 +1571,15 @@ def phase_elementwise(eps):
             f"{pms_b:.1f} ms, {flips_plain} flips")
         if name != "cow":
             continue
+        DEVICE_MS["closest_hit_elementwise"] = device_ms(lambda: k7a(o, d), 5)
+        DEVICE_MS["any_hit_elementwise"] = device_ms(lambda: k7b(fo, fd, fmax), 5)
         R, t_bytes = o.shape[0], nbytes(*tabs, aabb, sup)
         work_a = closest_work(o, d, tabs, aabb, full[0], leaf, eps)[0]  # K1's: the same function
         BOUNDS["closest_hit_elementwise"] = bound(work_a, nbytes(o, d) + t_bytes + R * 8)
         BOUNDS["any_hit_elementwise"] = bound(any_work(fo, fd, tabs, aabb, fmax, hit,
                                                        leaf, eps),
-                                              nbytes(fo, fd, fmax) + t_bytes + fo.shape[0])
+                                              nbytes(fmax) + live_bytes(fmax > 0, fo, fd)
+                                              + t_bytes + fo.shape[0])
         times.update(closest_hit_elementwise=(ms_a, pms_a), any_hit_elementwise=(ms_b, pms_b))
         parity.update(closest_hit_elementwise=(err_a, None),
                       any_hit_elementwise=(float(flips_plain > 0), flips_plain))
@@ -1410,8 +1610,9 @@ def streamed_vs_single(name, eps):
           f"{name} streamed K1: normals differ at equal idx")
     fo, fd, fmax = occlusion_rays(scene, o, d, single[0], single[1])
     k2 = (fo, fd, fmax, *tabs, aabb, leaf, eps)
-    flags_gate(f"{name} streamed K2", mi.mesh_any_hit(*k2, block_budget=small),
-               mi.mesh_any_hit(*k2), exact=True)
+    flags_gate(f"{name} streamed K2",
+               mi.mesh_any_hit(*k2, block_budget=small, occ=scene.occ),
+               mi.mesh_any_hit(*k2, occ=scene.occ), exact=True)
     line = (f"{name} in {n_blocks} blocks: K1 t bit-equal on {o.shape[0]} rays "
             f"({ties} idx ties across blocks), K2 flags equal on {fo.shape[0]}")
     if scene.static.refr_mesh_obj_ids:
@@ -1423,11 +1624,47 @@ def streamed_vs_single(name, eps):
         for oo, tt, gg in ((o, hit.t.contiguous(), gid),
                            (o2, torch.full_like(hit.t, BIG), torch.full_like(gid, -2))):
             k4 = (oo, d, tt, gg, *tabs, aabb, scene.tri_cid, K, leaf, eps)
-            crossings += census_gate(f"{name} streamed K4",
-                                     mi.mesh_crossing_count(*k4, block_budget=small),
-                                     mi.mesh_crossing_count(*k4))[1]
+            crossings += census_gate(
+                f"{name} streamed K4",
+                mi.mesh_crossing_count(*k4, block_budget=small, occ=scene.occ),
+                mi.mesh_crossing_count(*k4, occ=scene.occ))[1]
         line += f", K4 counts and latest crossings equal ({crossings} crossings)"
     say("11 streaming", line)
+
+
+def herd_k2(scene, o, d, n_blocks: int, eps) -> str:
+    """K2 on the one-mesh herd's surface shadow rays for its primary rays
+    (o, d), the frame's K2 input: streamed (n_blocks launches) and in one
+    launch over all its clusters, timed in turns, the flags of both equal
+    to the table-order loop's on every ray; the bounds of the function
+    (k2_bounds, over the whole table) into the K2 line's herd_* keys.
+    Returns the phase's summary."""
+    so, sd, smax = surface_shadow_rays(scene, o, d)
+    leaf, whole = scene.static.cluster_size, scene.tri_p1.shape[0]
+    call = lambda **kw: mi.mesh_any_hit(so, sd, smax, *tables(scene), scene.cluster_aabb,
+                                        leaf, eps, occ=scene.occ, **kw)
+    mi.reset_launch_counts()
+    streamed = call()
+    check(mi.LAUNCHES["any_hit"] == n_blocks, f"{mi.LAUNCHES}")
+    ms_single, single = timed_ms(lambda: call(block_budget=whole), 1, 5)
+    ms_streamed, streamed = timed_ms(call, 1, 5)
+    ms_single2, _ = timed_ms(lambda: call(block_budget=whole), 0, 5)
+    flags_gate("one-mesh herd streamed K2 vs one launch", streamed, single, exact=True)
+    k2_table_order_gate("one-mesh herd streamed K2", scene, streamed, so, sd, smax, eps)
+    lesser, old = k2_bounds(scene, so, sd, smax, streamed, eps)
+    dev_single = device_ms(lambda: call(block_budget=whole))
+    EXTRA.setdefault("any_hit", {}).update(
+        herd_rays=so.shape[0], herd_streamed_ms=ms_streamed,
+        herd_single_launch_device_ms=dev_single,
+        herd_launches_per_call=n_blocks, herd_single_launch_ms=(ms_single + ms_single2) / 2,
+        herd_bound_ms=lesser[0], herd_table_order_bound_ms=old[0])
+    return (f"K2 on {so.shape[0]} surface shadow rays ({int((smax > 0).sum())} live, "
+            f"{int(streamed.sum())} occluded): streamed ({n_blocks} launches) "
+            f"{ms_streamed:.3f} ms, one launch {ms_single:.3f} / {ms_single2:.3f} ms "
+            f"(dispatch hidden {shown(dev_single)}), "
+            f"flags equal to each other and to the table-order loop; bound "
+            f"{old[0]:.4f} ms (the table-order loop's tests), {lesser[0]:.4f} ms (the "
+            "lesser)")
 
 
 def phase_streaming(eps):
@@ -1478,6 +1715,7 @@ def phase_streaming(eps):
     ms_single, single = timed_ms(lambda: mi.mesh_closest_hit(
         o, d, *tabs, scene.tri_n, aabb, leaf, eps, block_budget=whole), 1, 3)
     ms_t0, out = timed_ms(streamed, 1, 3)
+    DEVICE_MS["closest_hit_t0"] = None  # device_ms: a streamed call waits on the device
     ms_single2, _ = timed_ms(lambda: mi.mesh_closest_hit(
         o, d, *tabs, scene.tri_n, aabb, leaf, eps, block_budget=whole), 0, 3)
     _, ties_k7a = winners_gate("one-mesh herd streamed K1 vs K7a", out, k7a)
@@ -1488,6 +1726,7 @@ def phase_streaming(eps):
                              tuple(x[::step] for x in out), ref)
     uv_call = lambda: mi.mesh_closest_hit_uv(o, d, *tabs, aabb, leaf, eps)
     ms_uv, uv = timed_ms(uv_call, 1, 3)
+    DEVICE_MS["closest_hit_uv"] = None
     _, ties_uv = winners_gate("one-mesh herd streamed K1 uv vs K7a", uv, k7a)
     pms_uv, uv_ref = timed_ms(lambda: mi.closest_hit_uv_plain(sub(o), sub(d), *tabs,
                                                              eps), 0, 1)
@@ -1499,7 +1738,9 @@ def phase_streaming(eps):
     fo, fd, fmax = occlusion_rays(scene, o, d, k7a[0], k7a[1])
     k7b = mi.mesh_any_hit_elementwise(fo, fd, fmax, *tabs, aabb, sup, leaf, eps)
     flags_gate("one-mesh herd streamed K2 vs K7b",
-               mi.mesh_any_hit(fo, fd, fmax, *tabs, aabb, leaf, eps), k7b, exact=True)
+               mi.mesh_any_hit(fo, fd, fmax, *tabs, aabb, leaf, eps, occ=scene.occ), k7b,
+               exact=True)
+    k2_line = herd_k2(scene, o, d, n_blocks, eps)
     say("11 streaming",
         f"one-mesh 90-cow herd, {n_blocks} blocks of {-(-st.n_clusters // n_blocks)} "
         f"clusters: streamed K1 ({n_blocks} t0 launches) {ms_t0:.3f} ms vs one K1 "
@@ -1510,7 +1751,7 @@ def phase_streaming(eps):
         f"{pms_t0:.1f} ms, max|dt| {err_t0:.3g}; streamed K1 uv {ms_uv:.3f} ms, "
         f"t bit-equal to K7a ({ties_uv} ties), (u, v) bit-equal to plain "
         f"({pms_uv:.1f} ms) at equal idx; streamed K2 equal to K7b on "
-        f"{fo.shape[0]} occlusion rays")
+        f"{fo.shape[0]} occlusion rays; " + k2_line)
     R, t_bytes = o.shape[0], nbytes(*tabs, aabb)
     work, rays, boxes = closest_work(o, d, tabs, aabb, k7a[0], leaf, eps)
     C, L = st.n_clusters, WALK_L["K1"]
@@ -1653,13 +1894,17 @@ def main() -> int:
     # except for K5, K6 and K7); K1 t0's and K1 uv's "ms" is one streamed
     # call of "launches_per_call" launches. "bound_ms" is the least time for
     # the work at "rays" (see bound()); no single PyTorch call computes any
-    # of these functions, so "library_ms" is null. K3's and K6's "bound_ms"
-    # is the lesser of two: the tests their occlusion walk needs
-    # (occlusion_walk_work, tlas_walk_work) and those of the table-order
-    # loop it replaced (any_work, tlas_work), which their lines add as
-    # "table_order_bound_ms"; K3's lines add "phases_2_3_ms" (K3 - K1 on
-    # one wavefront), K6's "surface_*" (its wavefront of the frame's
-    # surface shadow rays).
+    # of these functions, so "library_ms" is null. "device_ms" is the same
+    # call with the host's dispatch hidden (device_ms; null for a streamed
+    # call, which waits on the device). K2's, K3's, K4's and K6's
+    # "bound_ms" is the lesser of two: the tests their walk needs
+    # (occlusion_walk_work, census_walk_work, tlas_walk_work) and those of
+    # the table-order loop it replaced (any_work, census_work, tlas_work),
+    # which their lines add as "table_order_bound_ms"; K2's line adds
+    # "glass_teapot_*" (glass_teapot's surface shadow rays) and "herd_*"
+    # (the one-mesh herd's, streamed), K3's "phases_2_3_ms" (K3 - K1 on one
+    # wavefront), K4's "reseated_*" (the re-seated census input), K6's
+    # "surface_*" (its wavefront of the frame's surface shadow rays).
     lines = {"closest_hit": ("K1 closest hit", 413, "split"),
              "any_hit": ("K2 any-hit occlusion", 861, "split"),
              "closest_shadow": ("K3 fused closest hit + shadow", 720, "fused"),
@@ -1684,7 +1929,7 @@ def main() -> int:
         {"name": label, "route": "cuda", "source": SOURCE,
          "replaces": f"{TPU_KERNELS}:{line}", "frame": frame,
          "launches": launches[frame][key], "max_abs_err": parity[key][0],
-         "flips": parity[key][1], "ms": times[key][0],
+         "flips": parity[key][1], "ms": times[key][0], "device_ms": DEVICE_MS[key],
          "plain_ms": times[key][1], "bound_ms": BOUNDS[key][0],
          "bound_by": BOUNDS[key][1], "pair_tests": BOUNDS[key][2],
          "library_ms": None,

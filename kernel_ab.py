@@ -27,13 +27,14 @@ DIR/rtc_tpu_torch/{ops/kernels,csrc}/, edit the copy and pass DIR as
 The cases are the wavefronts of chip_smoke.py: 460,800 primary rays
 (every 4th ray of 1920x960, block-major) of cow (K1 flat, K3 flat, and K2
 on K3's shadow rays and on the free-space occlusion rays), teapot_smooth
-(K1 and K3 with_sn), glass_teapot (K1 with_sn, K4 on the main path's
-census input), the 90-cow one-mesh herd (K1 t0 streamed in 11 blocks, K1
-uv streamed, and one K1 launch over all 4,088 clusters), cow_herd (K5
-flat, K6 on its 921,600 free-space occlusion rays and on the 460,800
-shadow rays the frame casts from its surfaces) and cow_herd_smooth (K5
-with_sn); cow's K7a and K7b; and the 10,240 rays of chip_smoke.py's
-208-cluster soup (K1 flat). Each case runs the builds in the order
+(K1 and K3 with_sn), glass_teapot (K1 with_sn, K2 on its surface shadow
+rays, K4 on the main path's census input and on the rays re-seated past
+their hits), the 90-cow one-mesh herd (K1 t0 streamed in 11 blocks, K1
+uv streamed, one K1 launch over all 4,088 clusters, and K2 streamed on
+its surface shadow rays), cow_herd (K5 flat, K6 on its 921,600
+free-space occlusion rays and on the 460,800 shadow rays the frame casts
+from its surfaces) and cow_herd_smooth (K5 with_sn); cow's K7a and K7b;
+and the 10,240 rays of chip_smoke.py's 208-cluster soup (K1 flat). Each case runs the builds in the order
 first..last, last..first, each timed with CUDA events around repeated
 calls after a warm-up, so every build sees the same card state; every
 build's outputs must equal the first build's bit for bit (t, idx or enc,
@@ -42,26 +43,33 @@ object id, payload, shadow flags, counts).
 Prints, per build, the ptxas registers of its walking kernels and, for
 builds that report them, the ordered walk's list lengths and each walking
 kernel's registers, local and shared bytes and occupancy; then one JSON
-line per case, with each build's two times, the mean of them, and a digest
-of its outputs; writes the whole record to --out (default
+line per case, with each build's two times, the mean of them, the time
+with the host's dispatch hidden (chip_smoke.py device_ms, null for a
+streamed call), and a digest of its outputs; writes the whole record to --out (default
 build/kernel_ab.json). Exits non-zero if any output differs.
 
 --count builds the counting library (-DRTC_COUNT) and counts, per ray, the
 box tests and boxes entered at each level and the pair tests by the stage
-where they stop, of the old walk (the table-order loop: K2 on K3's shadow
-rays; for K6, K2's loop over each instance in table order, as the old K6
-ran it) and of the new (K3's phase 3, K6) on cow's wavefront and on
-cow_herd's two: per walk the mean and 99th percentile a ray, and a warp's
-max lane over its mean lane (the sum over warps of the most a lane of the
-warp does, over the sum of what its lanes do), beside the tests
-chip_smoke.py's bounds count. The counted flags must equal the
-production build's. Writes build/kernel_ab_count.json by default. Needs
-one CUDA device.
+where they stop, of the old walk (the table-order loop, which the
+counting build alone still exports as K2's old loop: on cow's K3 shadow
+rays; block by block, as the old streamed K2 ran it, on the one-mesh
+herd's surface shadow rays; for K6, over each instance in table order,
+as the old K6 ran it) and of the new (K2's and K3's phase 3's occlusion
+walk, K6) on cow's two wavefronts (K3's shadow rays, the free-space
+occlusion rays), the one-mesh herd's and cow_herd's two;
+and of K4's census walk on glass_teapot's two census inputs (its old
+loop is not kept: the table-order census's tests are modelled only): per
+walk the mean and 99th percentile a ray, and a warp's max lane over its
+mean lane (the sum over warps of the most a lane of the warp does, over
+the sum of what its lanes do), beside the tests chip_smoke.py's bounds
+count. The counted flags and counts must equal the production build's.
+Writes build/kernel_ab_count.json by default. Needs one CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import importlib.util
 import inspect
@@ -139,11 +147,16 @@ def digest(outputs) -> str:
     return h.hexdigest()[:16]
 
 
+@functools.lru_cache(maxsize=None)
+def takes_occ(m, fn: str) -> bool:
+    return "occ" in inspect.signature(getattr(m, fn)).parameters
+
+
 def occ_kw(m, fn: str, occ) -> dict:
     """The occlusion tables, for a build whose wrapper takes them. Builds
     from before the occlusion walk take none; once no build compared is
     that old, pass occ=... in the cases and delete this."""
-    return {"occ": occ} if "occ" in inspect.signature(getattr(m, fn)).parameters else {}
+    return {"occ": occ} if takes_occ(m, fn) else {}
 
 
 def cases(eps: float) -> list:
@@ -162,11 +175,11 @@ def cases(eps: float) -> list:
                                                          scene.occ)), 10))
     so, sd, smax = cs.k3_shadow_rays(scene, o, d, eps)
     out.append(("K2, cow's surface shadow rays (K3's phase 3 input)", so.shape[0],
-                lambda m: m.mesh_any_hit(so, sd, smax, *tabs, aabb, leaf, eps), 10))
+                k2_case(scene, so, sd, smax, eps), 10))
     t, idx = mi.mesh_closest_hit(*args, leaf, eps)[:2]
     fo, fd, fmax = cs.occlusion_rays(scene, o, d, t, idx)
     out.append(("K2, cow's free-space occlusion rays", fo.shape[0],
-                lambda m: m.mesh_any_hit(fo, fd, fmax, *tabs, aabb, leaf, eps), 10))
+                k2_case(scene, fo, fd, fmax, eps), 10))
     sup = scene.super_aabb
     out.append(("K7a, cow", o.shape[0], lambda m: m.mesh_closest_hit_elementwise(
         o, d, *tabs, aabb, sup, leaf, eps), 5))
@@ -193,8 +206,12 @@ def cases(eps: float) -> list:
                             *a, sc.light_pos, lf, eps,
                             **occ_kw(m, "mesh_closest_shadow_sn", sc.occ)), 10))
         else:
-            out.append(("K4, glass_teapot's census", oo.shape[0],
-                        census_case(sc, oo, dd, eps), 10))
+            for key, (co, t, g) in census_inputs(sc, oo, dd).items():
+                out.append((f"K4, glass_teapot's census ({key})", oo.shape[0],
+                            census_call(sc, co, dd, t, g, eps), 10))
+            qo, qd, qmax = cs.surface_shadow_rays(sc, oo, dd)
+            out.append(("K2, glass_teapot's surface shadow rays", qo.shape[0],
+                        k2_case(sc, qo, qd, qmax, eps), 10))
 
     sc, cam = cs.slice_scene("cow_herd_mesh", cs.WIDTH)
     oo, dd = cs.main_path_rays(cam)
@@ -207,6 +224,9 @@ def cases(eps: float) -> list:
                 "clusters", oo.shape[0],
                 lambda m: m.mesh_closest_hit(oo, dd, *tb, sc.tri_n, ab, lf, eps,
                                              block_budget=sc.tri_p1.shape[0]), 3))
+    qo, qd, qmax = cs.surface_shadow_rays(sc, oo, dd)
+    out.append(("K2 streamed (11 launches), the one-mesh herd's surface shadow rays",
+                qo.shape[0], k2_case(sc, qo, qd, qmax, eps), 5))
 
     for name in ("cow_herd", "cow_herd_smooth"):
         sc, cam = cs.slice_scene(name, cs.WIDTH)
@@ -229,16 +249,33 @@ def cases(eps: float) -> list:
     return out
 
 
-def census_case(scene, o, d, eps):
-    """K4 on glass_teapot's main-path census input (chip_smoke.py phase 7)."""
-    K = len(scene.static.refr_mesh_obj_ids)
+def k2_case(scene, o, d, max_t, eps):
+    """K2 on one wavefront over a world table: one launch, or streamed
+    where the table exceeds the budget."""
+    tabs, leaf = cs.tables(scene), scene.static.cluster_size
+    return lambda m: m.mesh_any_hit(o, d, max_t, *tabs, scene.cluster_aabb, leaf, eps,
+                                    **occ_kw(m, "mesh_any_hit", scene.occ))
+
+
+def census_inputs(scene, o, d) -> dict:
+    """glass_teapot's two census inputs (chip_smoke.py phase 7): {name: (o,
+    t_hit, hit_gid)}, the main path's (t_hit of the transparent hits) and
+    the rays re-seated 1e-3 past their hits (t_hit = BIG)."""
     hit = integrator.closest_hit(scene, o, d, RenderConfig())
     live = hit.valid & (integrator.object_record(scene, hit.obj)["transparency"] > 0.0)
-    t_main = torch.where(live, hit.t, -BIG).contiguous()
     g_main = torch.where(hit.is_tri, hit.tri, -2).to(torch.int32).contiguous()
+    o2 = (o + d * (torch.where(hit.valid, hit.t, 0.0)[:, None] + 1e-3)).contiguous()
+    return {"main path": (o, torch.where(live, hit.t, -BIG).contiguous(), g_main),
+            "re-seated": (o2, torch.full_like(hit.t, BIG), torch.full_like(g_main, -2))}
+
+
+def census_call(scene, o, d, t_hit, hit_gid, eps):
+    """call(m): K4 on one of glass_teapot's census inputs."""
+    K = len(scene.static.refr_mesh_obj_ids)
     tabs, leaf = cs.tables(scene), scene.static.cluster_size
-    return lambda m: m.mesh_crossing_count(o, d, t_main, g_main, *tabs, scene.cluster_aabb,
-                                           scene.tri_cid, K, leaf, eps)
+    return lambda m: m.mesh_crossing_count(o, d, t_hit, hit_gid, *tabs, scene.cluster_aabb,
+                                           scene.tri_cid, K, leaf, eps,
+                                           **occ_kw(m, "mesh_crossing_count", scene.occ))
 
 
 def herd_wavefronts(scene, o, d) -> dict:
@@ -271,12 +308,13 @@ def stats(x) -> dict:
             "warp_max_over_mean": float(w.amax(1).sum()) * WARP / total if total else 0.0}
 
 
-def summary(counts, flags) -> dict:
-    """The count record of one walk on one wavefront."""
+def summary(counts, out) -> dict:
+    """The count record of one walk on one wavefront; out: its flags, or
+    K4's counts."""
     return {"box_tests": stats(counts[:, BOX_TESTS].sum(1)),
             "pair_tests": stats(counts[:, PAIRS].sum(1)),
             "mean_a_ray": {k: float(counts[:, C[k]].double().mean()) for k in mi.COUNTERS},
-            "occluded": int(flags.sum())}
+            "occluded" if out.dtype == torch.bool else "crossings": int(out.sum())}
 
 
 def model(work) -> dict:
@@ -294,9 +332,9 @@ def counting_library():
 def counted(call, n_rays: int, lib):
     """call(), a wrapper call of n_rays rays, launched on the counting
     build lib: (its outputs, per-ray tallies (n_rays, len(mi.COUNTERS))
-    i32) of the occlusion loops it ran (K2's table-order loop, K3's phase
-    3, K6). The scratch buffer starts at zero and every launch in call
-    adds to it."""
+    i32) of the walks it ran (K2, K3's phase 3, K4, K6, the table-order
+    loop). The scratch buffer starts at zero and every launch in call adds
+    to it."""
     buf = torch.zeros((n_rays, len(mi.COUNTERS)), dtype=torch.int32, device="cuda")
     production = mi.library
     mi.library = lambda: lib
@@ -308,6 +346,37 @@ def counted(call, n_rays: int, lib):
         lib.rtc_set_count_buffer(None)
         mi.library = production
     return out, buf
+
+
+def table_order(o, d, max_t, p1, e1, e2, aabb, leaf: int, eps):
+    """K2's old loop, the table-order loop over a (C * leaf, 3) table and
+    its (C, 6) cluster boxes, on the counting build (its
+    rtc_count_any_hit_table_order): (R,) bool, as any_hit_plain."""
+    R, C = o.shape[0], aabb.shape[0]
+    hit = torch.empty((R,), dtype=torch.bool, device=o.device)
+    if R:
+        mi._raise_on(mi.library().rtc_count_any_hit_table_order(
+            o.device.index or 0, mi._stream(o.device), o.data_ptr(), d.data_ptr(),
+            max_t.data_ptr(), R, p1.data_ptr(), e1.data_ptr(), e2.data_ptr(),
+            aabb.data_ptr(), C, leaf, eps, hit.data_ptr()), "the table-order loop")
+    return hit
+
+
+def old_streamed_k2(o, d, max_t, scene, eps):
+    """The old streamed K2 (before the occlusion walk): the table-order loop
+    on views of each superblock's rows, in _block_order, with the carried
+    found mask (mi.any_hit_blocked's schedule)."""
+    leaf, aabb = scene.static.cluster_size, scene.cluster_aabb
+    n_blocks = mi._blocked(scene.tri_p1, leaf, mi.VMEM_TRI_BUDGET)
+    per_block, blocks = mi._block_tables(aabb.shape[0], n_blocks)
+    found = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
+    for b in mi._block_order(o, d, aabb, per_block).tolist():
+        c0, c1 = blocks[b]
+        rows = slice(c0 * leaf, c1 * leaf)
+        m = torch.where(found, -1.0, max_t)
+        found = found | table_order(o, d, m, *(x[rows] for x in cs.tables(scene)),
+                                    aabb[c0:c1], leaf, eps)
+    return found
 
 
 def old_k6(lib, fo, fd, fmax, scene, eps):
@@ -334,7 +403,7 @@ def old_k6(lib, fo, fd, fmax, scene, eps):
         counts[idx, C["inst_entered"]] += 1
         oi, di = (x.contiguous() for x in mi.instance_rays(fo[idx], fd[idx], tl.inst_ab[k]))
         rows, clusters = slice(m * tm, (m + 1) * tm), slice(m * cm, (m + 1) * cm)
-        hit, c = counted(lambda: mi.mesh_any_hit(
+        hit, c = counted(lambda: table_order(
             oi, di, fmax[idx].contiguous(), tl.p1[rows], tl.e1[rows], tl.e2[rows],
             tl.caabb[clusters], leaf, eps), idx.numel(), lib)
         counts[idx] += c.long()
@@ -350,14 +419,16 @@ def count_main(out_path: str) -> int:
     record = {"card": cs.CARD, "counters": list(mi.COUNTERS), "walks": []}
     ok = True
 
-    def report(case, walk, counts, flags, production, work=None):
+    def report(case, walk, counts, flags, production, work=None, **extra):
         nonlocal ok
-        same = torch.equal(flags.cpu(), production.cpu())
+        same = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(flags, production))
         ok &= same
-        line = {"card": cs.CARD, "case": case, "walk": walk, "rays": int(flags.numel()),
-                "flags_equal_production": same, **summary(counts, flags)}
+        rays = int(counts.shape[0])
+        line = {"card": cs.CARD, "case": case, "walk": walk, "rays": rays,
+                "outputs_equal_production": same, **summary(counts, flags[0])}
         if work is not None:
-            line["bound_model_a_ray"] = {k: v / flags.numel() for k, v in model(work).items()}
+            line["bound_model_a_ray"] = {k: v / rays for k, v in model(work).items()}
+        line.update({k: {m: v / rays for m, v in model(w).items()} for k, w in extra.items()})
         record["walks"].append(line)
         print(json.dumps(line), flush=True)
 
@@ -368,14 +439,55 @@ def count_main(out_path: str) -> int:
                                         leaf, eps, occ=scene.occ)
     production = k3()[3]
     so, sd, smax = cs.k3_shadow_rays(scene, o, d, eps)
-    case = "cow K3 phase 3 (460,800 surface shadow rays)"
-    flags, counts = counted(lambda: mi.mesh_any_hit(so, sd, smax, *tabs, aabb, leaf, eps),
-                               o.shape[0], lib)
-    report(case, "old: table-order loop (K2)", counts, flags, production,
+    case = "cow K3 phase 3 and K2 (460,800 surface shadow rays)"
+    flags, counts = counted(lambda: table_order(so, sd, smax, *tabs, aabb, leaf, eps),
+                            o.shape[0], lib)
+    report(case, "old: table-order loop (K2)", counts, (flags,), (production,),
            cs.any_work(so, sd, tabs, aabb, smax, production, leaf, eps))
     out, counts = counted(k3, o.shape[0], lib)
-    report(case, "new: occlusion walk (K3)", counts, out[3], production,
+    report(case, "new: occlusion walk (K3)", counts, (out[3],), (production,),
            cs.occlusion_walk_work(so, sd, scene.occ, leaf, eps, smax, production))
+    flags, counts = counted(lambda: mi.mesh_any_hit(so, sd, smax, *tabs, aabb, leaf, eps,
+                                                    occ=scene.occ), o.shape[0], lib)
+    report(case, "new: occlusion walk (K2)", counts, (flags,), (production,),
+           cs.occlusion_walk_work(so, sd, scene.occ, leaf, eps, smax, production))
+    t, idx = mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, aabb, leaf, eps)[:2]
+    fo, fd, fmax = cs.occlusion_rays(scene, o, d, t, idx)
+    production = mi.mesh_any_hit(fo, fd, fmax, *tabs, aabb, leaf, eps, occ=scene.occ)
+    case = f"cow K2 ({fo.shape[0]} free-space occlusion rays)"
+    for walk, call in (("old: table-order loop", lambda: table_order(
+                            fo, fd, fmax, *tabs, aabb, leaf, eps)),
+                       ("new: occlusion walk (K2)", lambda: mi.mesh_any_hit(
+                            fo, fd, fmax, *tabs, aabb, leaf, eps, occ=scene.occ))):
+        flags, counts = counted(call, fo.shape[0], lib)
+        report(case, walk, counts, (flags,), (production,))
+
+    herd, cam = cs.slice_scene("cow_herd_mesh", cs.WIDTH)
+    o, d = cs.main_path_rays(cam)
+    so, sd, smax = cs.surface_shadow_rays(herd, o, d)
+    k2 = lambda: mi.mesh_any_hit(so, sd, smax, *cs.tables(herd), herd.cluster_aabb,
+                                 herd.static.cluster_size, eps, occ=herd.occ)
+    production = k2()
+    case = f"one-mesh herd K2 streamed ({so.shape[0]} surface shadow rays)"
+    flags, counts = counted(lambda: old_streamed_k2(so, sd, smax, herd, eps), so.shape[0],
+                            lib)
+    report(case, "old: table-order loop, block by block", counts, (flags,), (production,))
+    flags, counts = counted(k2, so.shape[0], lib)
+    report(case, "new: occlusion walk, block by block (K2)", counts, (flags,),
+           (production,))
+
+    glass, cam = cs.slice_scene("glass_teapot", cs.WIDTH)
+    o, d = cs.main_path_rays(cam)
+    tabs, leaf = cs.tables(glass), glass.static.cluster_size
+    for key, (oo, tt, gg) in census_inputs(glass, o, d).items():
+        call = census_call(glass, oo, d, tt, gg, eps)
+        production = call(mi)
+        out, counts = counted(lambda: call(mi), o.shape[0], lib)
+        report(f"glass_teapot K4, {key} census input ({o.shape[0]} rays)",
+               "new: census walk (K4)", counts, out, production,
+               cs.census_walk_work(oo, d, glass.occ, leaf, eps, tt, gg),
+               table_order_model_a_ray=cs.census_work(
+                   oo, d, tabs, glass.cluster_aabb, tt, gg, glass.tri_cid, leaf, eps))
 
     herd, cam = cs.slice_scene("cow_herd", cs.WIDTH)
     st, tl = herd.static, herd.tlas
@@ -389,16 +501,16 @@ def count_main(out_path: str) -> int:
         case = f"cow_herd K6 ({fo.shape[0]} {wave} rays)"
         counts, flags = old_k6(lib, fo, fd, fmax, herd, eps)
         live = fmax > 0
-        report(case, "old: instances and the table-order loop", counts, flags, production,
-               cs.tlas_work(fo, fd, tl, st, eps, fmax, strict=True,
-                            occluded=production & live)[0])
+        report(case, "old: instances and the table-order loop", counts, (flags,),
+               (production,), cs.tlas_work(fo, fd, tl, st, eps, fmax, strict=True,
+                                           occluded=production & live)[0])
         flags, counts = counted(k6, fo.shape[0], lib)
-        report(case, "new: occlusion walk (K6)", counts, flags, production,
+        report(case, "new: occlusion walk (K6)", counts, (flags,), (production,),
                cs.tlas_walk_work(fo, fd, tl, st, herd.tlas_occ, eps, fmax, production))
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(record, f, indent=1)
-    print(f"wrote {os.path.relpath(out_path, ROOT)}; counted flags "
+    print(f"wrote {os.path.relpath(out_path, ROOT)}; counted outputs "
           + ("equal the production build's" if ok else "DIFFER from the production build's"))
     return 0 if ok else 1
 
@@ -439,10 +551,12 @@ def main() -> int:
     for case, rays, call, iters in cases(eps):
         order = list(libs) + list(libs)[::-1]
         ms = {name: [] for name in libs}
+        device = {name: [] for name in libs}
         outs = {}
         for name in order:
             t, got = cs.timed_ms(lambda: call(mods[name]), 2, iters)
             ms[name].append(t)
+            device[name].append(cs.device_ms(lambda: call(mods[name]), iters))
             outs[name] = got if isinstance(got, tuple) else (got,)
         first = next(iter(libs))
         equal = {name: all(torch.equal(a, b) for a, b in
@@ -451,6 +565,9 @@ def main() -> int:
         ok &= all(equal.values())
         line = {"card": cs.CARD, "case": case, "rays": rays,
                 "ms": {n: sum(v) / len(v) for n, v in ms.items()}, "ms_each": ms,
+                "device_ms": {n: None if None in v else sum(v) / len(v)
+                              for n, v in device.items()},
+                "device_ms_each": device,
                 "bit_equal_to_" + first: equal,
                 "digest": {n: digest(outs[n]) for n in libs}}
         record["cases"].append(line)

@@ -65,13 +65,14 @@
 // lane (K5 keeps two lists: instances, and the clusters of the current
 // instance).
 //
-// Occlusion (K3's phase 3, K6) needs no order: it returns the OR of pair
-// tests. Those walk tables of their own (scene/compile.py
+// Occlusion (K2, K3's phase 3, K6) needs no order: it returns the OR of
+// pair tests. Those walk tables of their own (scene/compile.py
 // OcclusionTables): groups of 8 boxes above the clusters (and the
 // instances), and below each cluster sub-boxes of 8 rows over a copy of
 // its rows in a finer k-d order, packed as 16-byte float4s, every box
-// widened once at compile time (see "the occlusion walk" below). K2 and
-// K7b keep the table-order loop.
+// widened once at compile time (see "the occlusion walk" below). The
+// census (K4) needs no order either: it sums crossings, and walks the same
+// tables with a signed box test. K7b keeps the table-order loop.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -391,11 +392,12 @@ __device__ __forceinline__ void closest_hit_dev(
 
 // ---- the counting build (-DRTC_COUNT) ----
 //
-// Built as a library of its own (ops/kernels/mesh_intersect.py
-// counting_library), the occlusion loops tally, per ray, the box tests
-// and boxes entered at each level and the pair tests by the stage where
-// they stop, into the (R, kCounters) i32 buffer that rtc_set_count_buffer
-// names (the K2 table-order loop, K3's phase 3, K6). In the production
+// Built as a library of its own (kernel_ab.py counting_library), the
+// walks tally, per ray, the box tests and boxes entered at each level and
+// the pair tests by the stage where they stop, into the (R, kCounters)
+// i32 buffer that rtc_set_count_buffer names (the occlusion walk of K2,
+// K3's phase 3 and K6, K4's census walk, and the table-order loop, which
+// this build alone also exports as K2's old loop). In the production
 // build tally() is empty and nothing else differs.
 enum Counter {
   kInstGroupTests, kInstTests, kGroupTests, kClusterTests, kSubTests,
@@ -413,12 +415,12 @@ __device__ __forceinline__ void tally(int k) {
 __device__ __forceinline__ void tally(int) {}
 #endif
 
-// K2 body over clusters [c0, c1), the loop of K2 and K7b: does any
-// triangle lie at t in [0, max_t)? max_t <= 0 marks a dead lane, which
-// never hits. Clusters in table order (k-d order, so still spatially
-// coherent), skipping those the ray misses or enters at or beyond max_t;
-// each entered cluster's leaf rows; the lane stops at its first occluder.
-// K3's phase 3 and K6 walk the occlusion tables instead (occluded).
+// The table-order loop over clusters [c0, c1), K7b's: does any triangle
+// lie at t in [0, max_t)? max_t <= 0 marks a dead lane, which never hits.
+// Clusters in table order (k-d order, so still spatially coherent),
+// skipping those the ray misses or enters at or beyond max_t; each entered
+// cluster's leaf rows; the lane stops at its first occluder. K2, K3's
+// phase 3 and K6 walk the occlusion tables instead (occluded).
 __device__ __forceinline__ bool any_hit_table_order(
     const Ray& r, float max_t, const float* __restrict__ p1,
     const float* __restrict__ e1, const float* __restrict__ e2,
@@ -438,12 +440,12 @@ __device__ __forceinline__ bool any_hit_table_order(
   return false;
 }
 
-// ---- the occlusion walk: K3's phase 3 and K6 ----
+// ---- the occlusion walk: K2, K3's phase 3 and K6 ----
 //
 // Occlusion returns the OR of pair tests over rows, and each pair test
 // depends only on the ray and the row. So a cull that never drops a row
 // which hits, any visiting order, and a permuted copy of the rows all
-// leave every flag bit as K2's table-order loop gives it. The walk (the
+// leave every flag bit as the table-order loop gives it. The walk (the
 // tables: scene/compile.py OcclusionTables) culls at three box levels
 // before the rows: groups of 8 clusters, the clusters, and the sub-boxes
 // of 8 rows inside each cluster (its rows copied in a k-d order, packed
@@ -469,19 +471,28 @@ __device__ __forceinline__ bool any_hit_table_order(
 
 constexpr int kGroup = 8;  // children a group box covers, at every level
 
-// Does the ray enter box k (widened: [lx ly lz hx hy hz]) at some t in
-// [0, max_t)? cluster_entry(...) < max_t for a live lane (max_t > 0),
-// with the box's widening already done. The box tables are read through
-// L1 (__ldg): a copy into shared memory at block start (cp.async, ~20 KB
-// a block) was no faster on an H100 (PERF.md).
-__device__ __forceinline__ bool enters(const Ray& r, const float* __restrict__ box,
-                                       int k, float max_t) {
+// The ray's signed slab interval [tmin, tmax] through box k of a widened
+// table ([lx ly lz hx hy hz]): cluster_slab's, with the box's widening
+// already done. The box tables are read through L1 (__ldg): a copy into
+// shared memory at block start (cp.async, ~20 KB a block) was no faster on
+// an H100 (PERF.md).
+__device__ __forceinline__ void box_slab(const Ray& r, const float* __restrict__ box,
+                                         int k, float& tmin, float& tmax) {
   const float2* b = reinterpret_cast<const float2*>(box) + 3 * k;
   const float2 a = __ldg(b), bb = __ldg(b + 1), c = __ldg(b + 2);  // lx ly | lz hx | hy hz
-  float tmin = -kBig, tmax = kBig;
+  tmin = -kBig;
+  tmax = kBig;
   slab_axis(a.x, bb.y, r.ox, r.ix, tmin, tmax);
   slab_axis(a.y, c.x, r.oy, r.iy, tmin, tmax);
   slab_axis(bb.x, c.y, r.oz, r.iz, tmin, tmax);
+}
+
+// Does the ray enter box k at some t in [0, max_t)? cluster_entry(...) <
+// max_t for a live lane (max_t > 0).
+__device__ __forceinline__ bool enters(const Ray& r, const float* __restrict__ box,
+                                       int k, float max_t) {
+  float tmin, tmax;
+  box_slab(r, box, k, tmin, tmax);
   return tmax >= tmin && tmax >= 0.f && tmin < max_t;
 }
 
@@ -493,17 +504,20 @@ struct OccTables {
   int n_sub, sub_rows;
 };
 
-// Any row of clusters [g0 * kGroup, c_end) at t in [0, max_t), max_t > 0:
-// groups g0.. in order, the clusters of each entered group, the sub-boxes
-// of each entered cluster, the rows of each entered sub-box.
+// Any row of clusters [c0, c1) at t in [0, max_t), max_t > 0: the groups
+// that hold the range in order, the range's clusters of each entered group,
+// the sub-boxes of each entered cluster, the rows of each entered sub-box.
+// A range whose ends fall inside a group (a streamed superblock of 372
+// clusters, 46.5 groups) is walked exactly: the group box holds every
+// cluster of the group, and the clusters outside the range are skipped.
 __device__ __forceinline__ bool occluded(const Ray& r, float max_t, const OccTables& tb,
-                                         int g0, int c_end, float eps) {
-  for (int g = g0; g * kGroup < c_end; ++g) {
+                                         int c0, int c1, float eps) {
+  for (int g = c0 / kGroup; g * kGroup < c1; ++g) {
     tally(kGroupTests);
     if (!enters(r, tb.grp, g, max_t)) continue;
     tally(kGroupsEntered);
-    const int c1 = min((g + 1) * kGroup, c_end);
-    for (int c = g * kGroup; c < c1; ++c) {
+    const int cb = min((g + 1) * kGroup, c1);
+    for (int c = max(g * kGroup, c0); c < cb; ++c) {
       tally(kClusterTests);
       if (!enters(r, tb.clus, c, max_t)) continue;
       tally(kClustersEntered);
@@ -611,17 +625,35 @@ closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
   }
 }
 
+// K2: the occlusion walk (occluded) over clusters [c0, c1) of the world
+// table's occlusion tables: the whole table in one launch, or one streamed
+// superblock (ops/kernels/mesh_intersect.py any_hit_blocked) of the same
+// tables. max_t <= 0 (or NaN) is a dead lane, which loads no ray.
 __global__ void __launch_bounds__(kThreads)
 any_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
-               const float* __restrict__ max_t, int R,
-               const float* __restrict__ p1, const float* __restrict__ e1,
-               const float* __restrict__ e2, const float* __restrict__ aabb,
-               int C, int leaf, float eps, uint8_t* __restrict__ hit_out) {
+               const float* __restrict__ max_t, int R, OccTables tb, int c0,
+               int c1, float eps, uint8_t* __restrict__ hit_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
-  const Ray r = load_ray(o, d, i);
-  hit_out[i] = any_hit_table_order(r, max_t[i], p1, e1, e2, aabb, 0, C, leaf, eps);
+  const float mt = max_t[i];
+  hit_out[i] = mt > 0.f && occluded(load_ray(o, d, i), mt, tb, c0, c1, eps);
 }
+
+#ifdef RTC_COUNT
+// The table-order loop as K2 ran it before the occlusion walk, built only
+// to be counted (rtc_count_any_hit_table_order).
+__global__ void __launch_bounds__(kThreads)
+any_hit_table_order_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                           const float* __restrict__ max_t, int R,
+                           const float* __restrict__ p1, const float* __restrict__ e1,
+                           const float* __restrict__ e2, const float* __restrict__ aabb,
+                           int C, int leaf, float eps, uint8_t* __restrict__ hit_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R) return;
+  hit_out[i] = any_hit_table_order(load_ray(o, d, i), max_t[i], p1, e1, e2, aabb, 0, C,
+                                   leaf, eps);
+}
+#endif
 
 // K3: phase 1 is K1; phase 2 derives the shadow ray in registers, formula
 // for formula as _kernel_mxu_cs (mesh_intersect.py:767-818), which copies
@@ -688,25 +720,56 @@ closest_shadow_kernel(const float* __restrict__ o, const float* __restrict__ d,
 // K4: per ray and container slot k, the number of crossings of slot-k
 // triangles at t < t_hit, NEGATIVE t included (the reference's containers
 // walk runs over the whole intersection list, src/intersection.rs:29-62),
-// and the latest such t. The hit triangle itself (hit_gid) is excluded by
-// id. Every crossing counts, so there is no early exit and no order: the
-// lane takes every cluster that holds a container triangle (has[c]) and
-// whose signed slab interval starts before t_hit. t_hit <= -BIG marks a
-// dead lane, which visits nothing. The lane accumulates straight into its
-// own output rows, so K is not bounded by the kernel.
+// and the latest such t. The hit triangle itself (hit_gid, a world table
+// row) is excluded by id. t_hit <= -BIG marks a dead lane, which visits
+// nothing. The lane accumulates straight into its own output rows, so K
+// is not bounded by the kernel; a row whose slot lies at or past K counts
+// nowhere, as in the plain version.
+//
+// The census walk: every crossing counts, so there is no early exit and
+// no order, and the walk descends the occlusion tables over clusters
+// [c0, c1) (the whole table, or one streamed superblock): the groups that
+// hold a container row, their clusters that do, the sub-boxes of each
+// entered cluster, and each entered sub-box's container rows. A box counts
+// as entered when the ray's signed slab interval through it is not empty
+// and starts before t_hit (behind the origin included): the test the
+// table-order census made on cluster_slab's box, which the stored cluster
+// box equals bit for bit. Counts are integer sums and the latest crossing
+// an fmaxf, so any order and any cull that keeps every crossing row gives
+// the same cnt and last bit for bit; a group box holds its clusters' and a
+// sub-box holds its rows' vertices, each widened (compile.py widen_boxes).
+//
+// Padding. Without the tmax >= 0 condition an empty box (EMPTY_BOX, a
+// point at 1e30) can be entered by a ray whose three slabs meet there at
+// a t inside the slab's start interval [-kBig, kBig]: not by a unit
+// direction (it meets the point at +-1.7e30), but by one of magnitude >= 1
+// on every axis, such as -2 (at t = -5e29). No count changes: an empty
+// cluster or group holds no container row and is skipped by its census
+// flag before its box; an empty sub-box inside a real cluster holds only
+// padding rows, whose slot is -1 (and whose zero edges never cross), and
+// they are skipped before their pair test (tests/test_torch_census_walk.py).
+struct CensusTables {
+  const int* row_id;      // (T,) the table row of each packed row
+  const int* row_cid;     // (T,) its container slot, -1: none
+  const uint8_t* clus;    // (C,) the cluster holds a container row
+  const uint8_t* grp;     // (ceil(C / 8),) a cluster of the group does
+};
+
+// The census's test of box k: a signed slab interval starting before limit.
+__device__ __forceinline__ bool enters_signed(const Ray& r, const float* __restrict__ box,
+                                              int k, float limit) {
+  float tmin, tmax;
+  box_slab(r, box, k, tmin, tmax);
+  return tmax >= tmin && tmin < limit;
+}
+
 __global__ void __launch_bounds__(kThreads)
 crossing_count_kernel(const float* __restrict__ o,
                       const float* __restrict__ d,
                       const float* __restrict__ t_hit,
-                      const int* __restrict__ hit_gid, int R,
-                      const float* __restrict__ p1,
-                      const float* __restrict__ e1,
-                      const float* __restrict__ e2,
-                      const int* __restrict__ tri_cid,
-                      const uint8_t* __restrict__ has,
-                      const float* __restrict__ aabb, int C, int leaf,
-                      float eps, int K, int* __restrict__ cnt_out,
-                      float* __restrict__ last_out) {
+                      const int* __restrict__ hit_gid, int R, OccTables tb,
+                      CensusTables cs, int c0, int c1, float eps, int K,
+                      int* __restrict__ cnt_out, float* __restrict__ last_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
   int* cnt = cnt_out + (size_t)i * K;
@@ -719,18 +782,32 @@ crossing_count_kernel(const float* __restrict__ o,
   if (!(th > -kBig)) return;
   const Ray r = load_ray(o, d, i);
   const int self = hit_gid[i];
-  for (int c = 0; c < C; ++c) {
-    if (!__ldg(has + c)) continue;
-    float tmin, tmax;
-    if (!cluster_slab(r, aabb, c, tmin, tmax)) continue;
-    if (!(tmax >= tmin && tmin < th)) continue;
-    for (int j = c * leaf; j < (c + 1) * leaf; ++j) {
-      const int k = __ldg(tri_cid + j);
-      if (k < 0 || j == self) continue;
-      float t;
-      if (tri_hit(r, p1, e1, e2, j, eps, t) && t < th) {
-        cnt[k] += 1;
-        last[k] = fmaxf(last[k], t);
+  for (int g = c0 / kGroup; g * kGroup < c1; ++g) {
+    if (!__ldg(cs.grp + g)) continue;
+    tally(kGroupTests);
+    if (!enters_signed(r, tb.grp, g, th)) continue;
+    tally(kGroupsEntered);
+    const int cb = min((g + 1) * kGroup, c1);
+    for (int c = max(g * kGroup, c0); c < cb; ++c) {
+      if (!__ldg(cs.clus + c)) continue;
+      tally(kClusterTests);
+      if (!enters_signed(r, tb.clus, c, th)) continue;
+      tally(kClustersEntered);
+      for (int s = c * tb.n_sub; s < (c + 1) * tb.n_sub; ++s) {
+        tally(kSubTests);
+        if (!enters_signed(r, tb.sub, s, th)) continue;
+        tally(kSubsEntered);
+        for (int j = s * tb.sub_rows; j < (s + 1) * tb.sub_rows; ++j) {
+          const int k = __ldg(cs.row_cid + j);
+          if (k < 0 || k >= K || __ldg(cs.row_id + j) == self) continue;
+          float t;
+          const int stage = pair_stage(r, tb.rows, j, eps, t);
+          tally(kPairDet + stage);
+          if (stage == kCrosses && t < th) {
+            cnt[k] += 1;
+            last[k] = fmaxf(last[k], t);
+          }
+        }
       }
     }
   }
@@ -875,8 +952,8 @@ any_hit_tlas_kernel(const float* __restrict__ o, const float* __restrict__ d,
         const int mi = __ldg(inst_mesh + k);
         if (mi < 0 || mi >= M) continue;
         tally(kInstEntered);
-        hit = occluded(instance_ray(r, inst_ab + 12 * k), mt, mesh,
-                       mi * cm / kGroup, (mi + 1) * cm, eps);
+        hit = occluded(instance_ray(r, inst_ab + 12 * k), mt, mesh, mi * cm,
+                       (mi + 1) * cm, eps);
       }
     }
   }
@@ -968,7 +1045,7 @@ any_hit_elementwise_kernel(const float* __restrict__ o,
 
 inline unsigned blocks_for(int R) { return (unsigned)((R + kThreads - 1) / kThreads); }
 
-// K3 and K6 read the occlusion tables (scene/compile.py OcclusionTables):
+// K2, K3, K4 and K6 read the occlusion tables (scene/compile.py OcclusionTables):
 // rows (T, 12) packed, sub (T / sub_rows, 6), clus (C, 6) and grp
 // (ceil(C / 8), 6) widened boxes, n_sub sub-boxes a cluster.
 OccTables occ_tables(const float* rows, const float* sub, const float* clus,
@@ -1025,14 +1102,16 @@ int rtc_closest_hit_sn(int device, void* stream, const float* o,
   return (int)cudaGetLastError();
 }
 
+// K2 over clusters [c0, c1) of the occlusion tables.
 int rtc_any_hit(int device, void* stream, const float* o, const float* d,
-                const float* max_t, int R, const float* p1, const float* e1,
-                const float* e2, const float* aabb, int C, int leaf, float eps,
-                uint8_t* hit_out) {
+                const float* max_t, int R, const float* rows, const float* sub,
+                const float* clus, const float* grp, int leaf, int n_sub, int c0,
+                int c1, float eps, uint8_t* hit_out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   any_hit_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
-      o, d, max_t, R, p1, e1, e2, aabb, C, leaf, eps, hit_out);
+      o, d, max_t, R, occ_tables(rows, sub, clus, grp, leaf, n_sub), c0, c1, eps,
+      hit_out);
   return (int)cudaGetLastError();
 }
 
@@ -1061,17 +1140,23 @@ int rtc_closest_shadow_sn(int device, void* stream, const float* o,
                                      grp, n_sub, t_out, idx_out, n_out, sh_out);
 }
 
+// K4 over clusters [c0, c1) of the occlusion tables and their census
+// fields: row_id and row_cid (T,), the census flags of the clusters (C,)
+// and of the groups (ceil(C / 8),).
 int rtc_crossing_count(int device, void* stream, const float* o,
                        const float* d, const float* t_hit,
-                       const int* hit_gid, int R, const float* p1,
-                       const float* e1, const float* e2, const int* tri_cid,
-                       const uint8_t* has, const float* aabb, int C, int leaf,
-                       float eps, int K, int* cnt_out, float* last_out) {
+                       const int* hit_gid, int R, const float* rows,
+                       const float* sub, const float* clus, const float* grp,
+                       int leaf, int n_sub, const int* row_id, const int* row_cid,
+                       const uint8_t* clus_census, const uint8_t* grp_census,
+                       int c0, int c1, float eps, int K, int* cnt_out,
+                       float* last_out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   crossing_count_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
-      o, d, t_hit, hit_gid, R, p1, e1, e2, tri_cid, has, aabb, C, leaf, eps,
-      K, cnt_out, last_out);
+      o, d, t_hit, hit_gid, R, occ_tables(rows, sub, clus, grp, leaf, n_sub),
+      CensusTables{row_id, row_cid, clus_census, grp_census}, c0, c1, eps, K,
+      cnt_out, last_out);
   return (int)cudaGetLastError();
 }
 
@@ -1183,8 +1268,8 @@ int rtc_walk_list(int* k1_len, int* k5_len) {
 // What a block of one walking kernel takes on the device it runs on: its
 // registers a thread, local and shared bytes, and the blocks of kThreads
 // that fit on one SM. which: 0-4 K1 flat, with_sn, with_t0, with_uv,
-// with_uv + t0; 5-6 K3 flat, with_sn; 7-8 K5 flat, with_sn; 9 K6 (the
-// order of WALK_KERNELS in ops/kernels/mesh_intersect.py).
+// with_uv + t0; 5-6 K3 flat, with_sn; 7-8 K5 flat, with_sn; 9 K6; 10 K2;
+// 11 K4 (the order of WALK_KERNELS in ops/kernels/mesh_intersect.py).
 int rtc_walk_kernel_report(int which, int* regs, int* local_bytes,
                            int* shared_bytes, int* blocks_per_sm) {
   const void* const kernels[] = {
@@ -1197,7 +1282,9 @@ int rtc_walk_kernel_report(int which, int* regs, int* local_bytes,
       (const void*)closest_shadow_kernel<true>,
       (const void*)closest_hit_tlas_kernel<false>,
       (const void*)closest_hit_tlas_kernel<true>,
-      (const void*)any_hit_tlas_kernel};
+      (const void*)any_hit_tlas_kernel,
+      (const void*)any_hit_kernel,
+      (const void*)crossing_count_kernel};
   if (which < 0 || which >= (int)(sizeof(kernels) / sizeof(kernels[0])))
     return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
@@ -1218,6 +1305,21 @@ int rtc_set_count_buffer(int* buf) {
 }
 
 int rtc_counters() { return kCounters; }
+
+// K2's old loop, kept to be counted against the walks that replaced it
+// (kernel_ab.py --count): the table-order loop over a (C * leaf, 3) table
+// and its (C, 6) cluster boxes.
+int rtc_count_any_hit_table_order(int device, void* stream, const float* o,
+                                  const float* d, const float* max_t, int R,
+                                  const float* p1, const float* e1, const float* e2,
+                                  const float* aabb, int C, int leaf, float eps,
+                                  uint8_t* hit_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  any_hit_table_order_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, max_t, R, p1, e1, e2, aabb, C, leaf, eps, hit_out);
+  return (int)cudaGetLastError();
+}
 #endif
 
 const char* rtc_error_string(int err) {

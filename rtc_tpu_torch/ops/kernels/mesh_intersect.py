@@ -20,8 +20,8 @@ Counterpart of rtc_tpu/ops/pallas/mesh_intersect.py:
 
 Each wrapper takes f32 tensors. Given tensors on the CPU it returns its
 plain version's result; given CUDA tensors it launches its kernel, or
-raises. LAUNCHES counts the kernel launches of each wrapper. K3 and K6
-also take the occlusion walk's tables (occ: scene/compile.py
+raises. LAUNCHES counts the kernel launches of each wrapper. K2, K3, K4
+and K6 also take the walks' tables (occ: scene/compile.py
 OcclusionTables), which only their kernels read.
 
 mesh_closest_hit, mesh_closest_hit_uv, mesh_any_hit and
@@ -29,7 +29,9 @@ mesh_crossing_count stream a table of more than block_budget rows
 (default VMEM_TRI_BUDGET) in cluster superblocks, as rtc_tpu does
 (_blocked, :1413-1564): the drivers below are device-agnostic PyTorch that
 call the wrappers once per block, so on the CPU they run the plain
-versions block by block.
+versions block by block. K1 gets views of each block's rows; K2 and K4
+walk the whole table's occlusion tables, limited to the block's cluster
+range (clusters=).
 
 The kernels are built from the checkout's sources with nvcc at first use,
 into a plain-C shared library under build/kernels/ (content-addressed, so
@@ -98,6 +100,25 @@ def _pair_tests(o, d, p1, e1, e2, eps):
                     eps)[:2]
 
 
+def slab_reciprocal(d):
+    """The slab reciprocals of directions d (..., 3), as make_ray takes
+    them: 1 / d, and +-BIG (by the sign) where a component is near zero."""
+    near0 = d.abs() < 1e-30
+    return torch.where(near0, torch.where(d >= 0, BIG, -BIG).to(d.dtype),
+                       1.0 / torch.where(near0, 1.0, d))
+
+
+def slab_interval(o, inv, lo, hi, clamp: bool = True):
+    """The kernels' slab arithmetic (cluster_slab, box_slab): the signed
+    interval (tmin, tmax) of rays with origins o and slab reciprocals inv
+    (slab_reciprocal) through boxes lo..hi, all (..., 3) and broadcast
+    against each other. clamp: tmin >= -BIG and tmax <= BIG, as the
+    kernels clamp; rtc_tpu's superblock order does not."""
+    t1, t2 = (lo - o) * inv, (hi - o) * inv
+    tmin, tmax = torch.minimum(t1, t2).amax(-1), torch.maximum(t1, t2).amin(-1)
+    return (tmin.clamp_min(-BIG), tmax.clamp_max(BIG)) if clamp else (tmin, tmax)
+
+
 def box_slabs(o, d, aabb, widen: bool = True):
     """The plain version of the kernels' cluster_slab: (R, C) signed slab
     interval (tmin, tmax) of each ray through each box, the box widened by
@@ -109,13 +130,9 @@ def box_slabs(o, d, aabb, widen: bool = True):
     if widen:
         pad = 4e-6 * torch.maximum(lo.abs(), hi.abs()).amax(1, keepdim=True)
         lo, hi = lo - pad, hi + pad
-    near0 = d.abs() < 1e-30
-    inv = torch.where(near0, torch.where(d >= 0, BIG, -BIG).to(d.dtype),
-                      1.0 / torch.where(near0, 1.0, d))
-    t1 = (lo[None] - o[:, None]) * inv[:, None]                # (R, C, 3)
-    t2 = (hi[None] - o[:, None]) * inv[:, None]
-    return (torch.minimum(t1, t2).amax(2).clamp_min(-BIG),
-            torch.maximum(t1, t2).amin(2).clamp_max(BIG), empty)
+    tmin, tmax = slab_interval(o[:, None], slab_reciprocal(d)[:, None], lo[None],
+                               hi[None])                       # (R, C)
+    return tmin, tmax, empty
 
 
 def box_entries(o, d, aabb):
@@ -426,10 +443,10 @@ def find_nvcc() -> str:
     return nvcc
 
 
-# the counting build (-DRTC_COUNT): the occlusion loops tally each ray's
-# box tests, boxes entered and pair tests by stage (the kernels' enum
-# Counter, in this order; bind checks their number against rtc_counters)
-# into the buffer rtc_set_count_buffer names
+# the counting build (-DRTC_COUNT): the walks tally each ray's box tests,
+# boxes entered and pair tests by stage (the kernels' enum Counter, in this
+# order; bind checks their number against rtc_counters) into the buffer
+# rtc_set_count_buffer names
 COUNT_FLAGS = ("-DRTC_COUNT",)
 COUNTERS = ("inst_group_tests", "inst_tests", "group_tests", "cluster_tests",
             "sub_tests", "inst_entered", "groups_entered", "clusters_entered",
@@ -471,11 +488,11 @@ def bind(path: str) -> ctypes.CDLL:
     shadow = [I, P, P, P, I, P, P, P, P, P, I, I, F, P, P, P, P, P, I, P, P, P, P]
     lib.rtc_closest_hit.argtypes = closest
     lib.rtc_closest_hit_sn.argtypes = closest
-    lib.rtc_any_hit.argtypes = [I, P, P, P, P, I, P, P, P, P, I, I, F, P]
+    lib.rtc_any_hit.argtypes = [I, P, P, P, P, I, P, P, P, P, I, I, I, I, F, P]
     lib.rtc_closest_shadow.argtypes = shadow
     lib.rtc_closest_shadow_sn.argtypes = shadow
-    lib.rtc_crossing_count.argtypes = [I, P, P, P, P, P, I, P, P, P, P, P, P,
-                                       I, I, F, I, P, P]
+    lib.rtc_crossing_count.argtypes = [I, P, P, P, P, P, I, P, P, P, P, I, I, P, P,
+                                       P, P, I, I, F, I, P, P]
     closest_tlas = [I, P, P, P, I, P, P, P, P, P, I, I, I, P, P, P, P, I, F,
                     P, P, P, P]
     lib.rtc_closest_hit_tlas.argtypes = closest_tlas
@@ -503,13 +520,16 @@ def bind(path: str) -> ctypes.CDLL:
         if lib.rtc_counters() != len(COUNTERS):
             raise RuntimeError(f"{path} tallies {lib.rtc_counters()} counters, "
                                f"COUNTERS names {len(COUNTERS)}")
+        lib.rtc_count_any_hit_table_order.argtypes = [I, P, P, P, P, I, P, P, P, P, I,
+                                                      I, F, P]
+        lib.rtc_count_any_hit_table_order.restype = I
     return lib
 
 
 # the kernels that walk boxes, by rtc_walk_kernel_report's index
 WALK_KERNELS = ("K1 flat", "K1 with_sn", "K1 with_t0", "K1 with_uv",
                 "K1 with_uv t0", "K3 flat", "K3 with_sn", "K5 flat",
-                "K5 with_sn", "K6")
+                "K5 with_sn", "K6", "K2", "K4")
 
 
 def walk_list(lib=None) -> tuple:
@@ -664,25 +684,48 @@ def mesh_closest_hit_sn(o, d, tri_p1, tri_e1, tri_e2, tri_sn, cluster_aabb,
                            cluster_aabb, leaf, eps)
 
 
+def _cluster_range(clusters, C: int) -> tuple:
+    """(c0, c1) of a call's cluster range: clusters, or the whole table."""
+    c0, c1 = (0, C) if clusters is None else (int(c) for c in clusters)
+    if not 0 <= c0 <= c1 <= C:
+        raise ValueError(f"cluster range [{c0}, {c1}) is not inside the {C} clusters")
+    return c0, c1
+
+
+def _range_rows(clusters, leaf: int, *tables):
+    """The rows of the cluster range clusters = (c0, c1) of each (T, ...)
+    table (all of them without a range), for the plain versions."""
+    if clusters is None:
+        return tables
+    rows = slice(clusters[0] * leaf, clusters[1] * leaf)
+    return tuple(x[rows] for x in tables)
+
+
 def mesh_any_hit(o, d, max_t, tri_p1, tri_e1, tri_e2, cluster_aabb,
                  leaf: int, eps: float = EPSILON,
-                 block_budget: int = VMEM_TRI_BUDGET):
-    """K2: (R,) bool as any_hit_plain. A table of more than block_budget
-    rows streams in superblocks (any_hit_blocked)."""
-    n_blocks = _blocked(tri_p1, leaf, block_budget)
-    if n_blocks > 1:
-        return any_hit_blocked(o, d, max_t, tri_p1, tri_e1, tri_e2,
-                               cluster_aabb, n_blocks, leaf, eps)
+                 block_budget: int = VMEM_TRI_BUDGET, occ=None, clusters=None):
+    """K2: (R,) bool as any_hit_plain. occ: the table's OcclusionTables
+    (Scene.occ), which the kernel walks; a launch without them raises.
+    clusters = (c0, c1): only the rows of clusters [c0, c1) count, in one
+    call (a streamed superblock). Without it, a table of more than
+    block_budget rows streams in superblocks (any_hit_blocked)."""
+    if clusters is None:
+        n_blocks = _blocked(tri_p1, leaf, block_budget)
+        if n_blocks > 1:
+            return any_hit_blocked(o, d, max_t, tri_p1, tri_e1, tri_e2,
+                                   cluster_aabb, n_blocks, leaf, eps, occ)
     if o.device.type == "cpu":
-        return any_hit_plain(o, d, max_t, tri_p1, tri_e1, tri_e2, eps)
+        return any_hit_plain(o, d, max_t,
+                             *_range_rows(clusters, leaf, tri_p1, tri_e1, tri_e2), eps)
     device, R, C = _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb, leaf)
     _check("max_t", max_t, torch.float32, (R,), device)
+    c0, c1 = _cluster_range(clusters, C)
+    rows, sub, clus, grp, n_sub = _occ_args(occ, C, leaf, device, "any_hit")
     hit = torch.empty((R,), dtype=torch.bool, device=device)
     if R:
         err = library().rtc_any_hit(
             device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(),
-            max_t.data_ptr(), R, tri_p1.data_ptr(), tri_e1.data_ptr(),
-            tri_e2.data_ptr(), cluster_aabb.data_ptr(), C, leaf, eps,
+            max_t.data_ptr(), R, rows, sub, clus, grp, leaf, n_sub, c0, c1, eps,
             hit.data_ptr())
         _raise_on(err, "any_hit")
         LAUNCHES["any_hit"] += 1
@@ -709,6 +752,30 @@ def _occ_args(occ, C: int, leaf: int, device, what: str):
     _check("occ.group_box", occ.group_box, f32, (-(-C // SUPER_WIDTH), 6), device)
     return (occ.rows.data_ptr(), occ.sub_box.data_ptr(), occ.cluster_box.data_ptr(),
             occ.group_box.data_ptr(), n_sub)
+
+
+def _census_args(occ, tri_cid, C: int, leaf: int, device) -> tuple:
+    """Validate the census fields of a world table's occlusion tables (built
+    with its container slots: occlusion_tables(tri_cid=...)), which must be
+    built from tri_cid: the kernel counts by them, not by tri_cid. The
+    tables keep the tensor they were built from, so a caller passing that
+    one (Scene.tri_cid) is checked by identity, any other by value. Returns
+    the pointers of row_id, row_cid, cluster_census and group_census."""
+    if occ.row_cid.shape[0] == 0 and C:
+        raise ValueError("crossing_count walks the occlusion tables' census fields, "
+                         "and these tables were built without container slots "
+                         "(occlusion_tables(tri_cid=...))")
+    if tri_cid is not occ.tri_cid and not torch.equal(tri_cid, occ.tri_cid):
+        raise ValueError("crossing_count counts by the occlusion tables' census "
+                         "fields, and these were built from other container slots "
+                         "than tri_cid (occlusion_tables(tri_cid=...))")
+    _check("occ.row_id", occ.row_id, torch.int32, (C * leaf,), device)
+    _check("occ.row_cid", occ.row_cid, torch.int32, (C * leaf,), device)
+    _check("occ.cluster_census", occ.cluster_census, torch.bool, (C,), device)
+    _check("occ.group_census", occ.group_census, torch.bool, (-(-C // SUPER_WIDTH),),
+           device)
+    return (occ.row_id.data_ptr(), occ.row_cid.data_ptr(), occ.cluster_census.data_ptr(),
+            occ.group_census.data_ptr())
 
 
 def _shadow_launch(name, fn, o, d, tri_p1, tri_e1, tri_e2, payload,
@@ -761,37 +828,50 @@ def mesh_closest_shadow_sn(o, d, tri_p1, tri_e1, tri_e2, tri_sn, cluster_aabb,
 def mesh_crossing_count(o, d, t_hit, hit_gid, tri_p1, tri_e1, tri_e2,
                         cluster_aabb, tri_cid, n_containers: int, leaf: int,
                         eps: float = EPSILON,
-                        block_budget: int = VMEM_TRI_BUDGET):
+                        block_budget: int = VMEM_TRI_BUDGET, occ=None,
+                        clusters=None):
     """K4: (cnt (R, K) i32, last (R, K) f32) as crossing_count_plain.
-    t_hit <= -BIG marks a dead lane; hit_gid (R,) i32 is -2 where the hit
-    is not a triangle. A table of more than block_budget rows streams in
-    superblocks (crossing_count_blocked)."""
-    n_blocks = _blocked(tri_p1, leaf, block_budget)
-    if n_blocks > 1:
-        return crossing_count_blocked(o, d, t_hit, hit_gid, tri_p1, tri_e1,
-                                      tri_e2, cluster_aabb, tri_cid,
-                                      n_containers, n_blocks, leaf, eps)
+    t_hit <= -BIG marks a dead lane; hit_gid (R,) i32, a row of the whole
+    table, is -2 where the hit is not a triangle. occ: the table's
+    OcclusionTables with the census fields of the same tri_cid (Scene.occ;
+    compile_scene builds them from Scene.tri_cid), which the kernel walks
+    in place of tri_cid; a launch without them, or with tables built from
+    other slots, raises. A row whose slot is n_containers or more counts
+    nowhere, on the card as in the plain version. clusters = (c0,
+    c1): only the rows of clusters [c0, c1) count, in one call (a streamed
+    superblock). Without it, a table of more than block_budget rows
+    streams in superblocks (crossing_count_blocked)."""
+    if clusters is None:
+        n_blocks = _blocked(tri_p1, leaf, block_budget)
+        if n_blocks > 1:
+            return crossing_count_blocked(o, d, t_hit, hit_gid, tri_p1, tri_e1,
+                                          tri_e2, cluster_aabb, tri_cid,
+                                          n_containers, n_blocks, leaf, eps, occ)
     if o.device.type == "cpu":
-        return crossing_count_plain(o, d, t_hit, hit_gid, tri_p1, tri_e1,
-                                    tri_e2, tri_cid, n_containers, eps)
+        # the plain version sweeps the range's rows, so the hit row is
+        # rebased to them
+        first = 0 if clusters is None else clusters[0] * leaf
+        return crossing_count_plain(
+            o, d, t_hit, hit_gid - first,
+            *_range_rows(clusters, leaf, tri_p1, tri_e1, tri_e2, tri_cid),
+            n_containers, eps)
     device, R, C = _launch_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb, leaf)
     _check("t_hit", t_hit, torch.float32, (R,), device)
     _check("hit_gid", hit_gid, torch.int32, (R,), device)
     _check("tri_cid", tri_cid, torch.int32, (C * leaf,), device)
     if n_containers < 1:
         raise ValueError(f"n_containers must be >= 1, got {n_containers}")
-    # clusters without a container triangle leave the schedule (as rtc_tpu
-    # masks their boxes, mesh_intersect.py:1610-1615)
-    has = (tri_cid.view(C, leaf) >= 0).any(1).to(torch.uint8)
+    c0, c1 = _cluster_range(clusters, C)
+    rows, sub, clus, grp, n_sub = _occ_args(occ, C, leaf, device, "crossing_count")
+    census = _census_args(occ, tri_cid, C, leaf, device)
     cnt = torch.empty((R, n_containers), dtype=torch.int32, device=device)
     last = torch.empty((R, n_containers), dtype=torch.float32, device=device)
     if R:
         err = library().rtc_crossing_count(
             device.index or 0, _stream(device), o.data_ptr(), d.data_ptr(),
-            t_hit.data_ptr(), hit_gid.data_ptr(), R, tri_p1.data_ptr(),
-            tri_e1.data_ptr(), tri_e2.data_ptr(), tri_cid.data_ptr(),
-            has.data_ptr(), cluster_aabb.data_ptr(), C, leaf, eps,
-            n_containers, cnt.data_ptr(), last.data_ptr())
+            t_hit.data_ptr(), hit_gid.data_ptr(), R, rows, sub, clus, grp, leaf,
+            n_sub, *census, c0, c1, eps, n_containers, cnt.data_ptr(),
+            last.data_ptr())
         _raise_on(err, "crossing_count")
         LAUNCHES["crossing_count"] += 1
     return cnt, last
@@ -970,10 +1050,11 @@ def mesh_any_hit_elementwise(o, d, max_t, tri_p1, tri_e1, tri_e2,
 # ---------------------------------------------------------------------------
 #
 # A table of more than block_budget rows is cut into n_blocks superblocks of
-# per_block = ceil(C / n_blocks) clusters, rtc_tpu's cut. Each block is a
-# view of the tables (no copy): the last one may be short where rtc_tpu pads
-# it with empty clusters, which no ray enters. The drivers call the wrappers
-# once per block with a budget that the block fits.
+# per_block = ceil(C / n_blocks) clusters, rtc_tpu's cut: the last one may be
+# short where rtc_tpu pads it with empty clusters, which no ray enters. The
+# drivers call the wrappers once per block: K1 on views of the block's rows
+# (no copy) with a budget that the block fits, K2 and K4 on the whole
+# table's occlusion tables with the block's cluster range.
 
 def _blocked(tri_p1, leaf: int, budget: int) -> int:
     """Number of cluster superblocks for a table of tri_p1.shape[0] padded
@@ -985,15 +1066,12 @@ def _blocked(tri_p1, leaf: int, budget: int) -> int:
     return -(-(t // leaf) // per_block)
 
 
-def _block_tables(n_clusters: int, n_blocks: int, leaf: int):
-    """(per_block, [(first cluster, row slice, cluster slice)] per block):
-    the slices that cut the tables into superblock views."""
+def _block_tables(n_clusters: int, n_blocks: int):
+    """(per_block, [(first cluster, end cluster)] per block): the cluster
+    ranges of the superblocks."""
     per_block = -(-n_clusters // n_blocks)
-    blocks = []
-    for b in range(n_blocks):
-        c0, c1 = b * per_block, min((b + 1) * per_block, n_clusters)
-        blocks.append((c0, slice(c0 * leaf, c1 * leaf), slice(c0, c1)))
-    return per_block, blocks
+    return per_block, [(b * per_block, min((b + 1) * per_block, n_clusters))
+                       for b in range(n_blocks)]
 
 
 def _block_order(o, d, aabb, per_block: int):
@@ -1011,13 +1089,8 @@ def _block_order(o, d, aabb, per_block: int):
         0, bid, torch.where(empty, inf, aabb[:, :3]), "amin")
     hi = aabb.new_full((n_blocks, 3), -inf).scatter_reduce(
         0, bid, torch.where(empty, -inf, aabb[:, 3:]), "amax")
-    near0 = d.abs() < 1e-30
-    inv = torch.where(near0, torch.where(d >= 0, BIG, -BIG).to(d.dtype),
-                      1.0 / torch.where(near0, 1.0, d))
-    t1 = (lo[None] - o[:, None]) * inv[:, None]                # (R, B, 3)
-    t2 = (hi[None] - o[:, None]) * inv[:, None]
-    tmin = torch.minimum(t1, t2).amax(2)                       # (R, B)
-    tmax = torch.maximum(t1, t2).amin(2)
+    tmin, tmax = slab_interval(o[:, None], slab_reciprocal(d)[:, None], lo[None],
+                               hi[None], clamp=False)          # (R, B)
     ov = (tmax >= tmin) & (tmax >= 0.0)
     entry = torch.where(ov, torch.clamp_min(tmin, 0.0), BIG).amin(0)
     return torch.argsort(entry, stable=True)
@@ -1032,7 +1105,7 @@ def closest_hit_blocked(o, d, p1, e1, e2, aabb, n_blocks: int, leaf: int,
     idx, n) with tri_n, or (t, idx, uv) with want_uv. t equals a single
     launch's bit for bit; idx may differ only at exact ties that straddle
     blocks (a later block cannot beat an equal t)."""
-    per_block, blocks = _block_tables(aabb.shape[0], n_blocks, leaf)
+    per_block, blocks = _block_tables(aabb.shape[0], n_blocks)
     order = _block_order(o, d, aabb, per_block).tolist()
     R = o.shape[0]
     t_c = torch.full((R,), BIG, dtype=o.dtype, device=o.device)
@@ -1040,7 +1113,8 @@ def closest_hit_blocked(o, d, p1, e1, e2, aabb, n_blocks: int, leaf: int,
     pay_c = o.new_zeros((R, 2 if want_uv else 3))
     budget = per_block * leaf
     for b in order:
-        c0, rows, cl = blocks[b]
+        c0, c1 = blocks[b]
+        rows, cl = slice(c0 * leaf, c1 * leaf), slice(c0, c1)
         tabs = (p1[rows], e1[rows], e2[rows])
         if want_uv:
             t_b, idx_b, pay_b = mesh_closest_hit_uv(
@@ -1057,35 +1131,34 @@ def closest_hit_blocked(o, d, p1, e1, e2, aabb, n_blocks: int, leaf: int,
 
 
 def any_hit_blocked(o, d, max_t, p1, e1, e2, aabb, n_blocks: int, leaf: int,
-                    eps: float = EPSILON):
+                    eps: float = EPSILON, occ=None):
     """Streamed K2 (rtc_tpu _any_hit_blocked, :1523-1542): blocks in
     _block_order with a carried found mask; found lanes get max_t = -1, so
-    later blocks drop them."""
-    per_block, blocks = _block_tables(aabb.shape[0], n_blocks, leaf)
+    later blocks drop them. Each block is one call over its cluster range of
+    the whole table (occ: its OcclusionTables)."""
+    per_block, blocks = _block_tables(aabb.shape[0], n_blocks)
     order = _block_order(o, d, aabb, per_block).tolist()
     found = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
     for b in order:
-        _, rows, cl = blocks[b]
         m = torch.where(found, -1.0, max_t)
-        found = found | mesh_any_hit(o, d, m, p1[rows], e1[rows], e2[rows],
-                                     aabb[cl], leaf, eps,
-                                     block_budget=per_block * leaf)
+        found = found | mesh_any_hit(o, d, m, p1, e1, e2, aabb, leaf, eps, occ=occ,
+                                     clusters=blocks[b])
     return found
 
 
 def crossing_count_blocked(o, d, t_hit, hit_gid, p1, e1, e2, aabb, tri_cid,
                            n_containers: int, n_blocks: int, leaf: int,
-                           eps: float = EPSILON):
+                           eps: float = EPSILON, occ=None):
     """Streamed K4 (rtc_tpu _crossing_blocked, :1545-1564): counts summed
-    over the blocks and the latest crossings maxed; hit_gid is rebased per
-    block, so the hit triangle is excluded exactly once."""
-    per_block, blocks = _block_tables(aabb.shape[0], n_blocks, leaf)
+    over the blocks and the latest crossings maxed. Each block is one call
+    over its cluster range of the whole table (occ: its OcclusionTables),
+    where hit_gid names a row of the whole table, so the hit triangle is
+    excluded exactly once."""
+    per_block, blocks = _block_tables(aabb.shape[0], n_blocks)
     cnt = last = None
-    for c0, rows, cl in blocks:
-        c, l = mesh_crossing_count(o, d, t_hit, hit_gid - c0 * leaf, p1[rows],
-                                   e1[rows], e2[rows], aabb[cl],
-                                   tri_cid[rows], n_containers, leaf, eps,
-                                   block_budget=per_block * leaf)
+    for block in blocks:
+        c, l = mesh_crossing_count(o, d, t_hit, hit_gid, p1, e1, e2, aabb, tri_cid,
+                                   n_containers, leaf, eps, occ=occ, clusters=block)
         cnt = c if cnt is None else cnt + c
         last = l if last is None else torch.maximum(last, l)
     return cnt, last

@@ -299,7 +299,7 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
         elif impl == "kernel":
             found = mi.mesh_any_hit(point, direction, distance, *tabs,
                                     scene.cluster_aabb,
-                                    st.cluster_size, cfg.epsilon)
+                                    st.cluster_size, cfg.epsilon, occ=scene.occ)
         elif impl == "elementwise":
             found = mi.mesh_any_hit_elementwise(
                 point, direction, distance, *tabs, scene.cluster_aabb,
@@ -384,7 +384,7 @@ def refraction_indices(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
             cnt_m, last_m = mi.mesh_crossing_count(
                 o, d, t_census.contiguous(), hit_gid.contiguous(), *tabs,
                 scene.cluster_aabb, scene.tri_cid, len(mesh_ids),
-                st.cluster_size, cfg.epsilon)
+                st.cluster_size, cfg.epsilon, occ=scene.occ)
         else:
             cnt_m, last_m = mi.crossing_count_plain(
                 o, d, t_census, hit_gid, *tabs, scene.tri_cid,

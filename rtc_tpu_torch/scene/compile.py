@@ -20,10 +20,11 @@ the Plücker feature transform that only feeds rtc_tpu's MXU. rtc_tpu's
 refr_tri_* container slabs are not kept: the port's census reads tri_cid
 over the global triangle tables.
 
-The occlusion kernels (K3's shadow phase, K6) read tables of their own,
-which rtc_tpu has no counterpart of (OcclusionTables, built by
+The walking kernels (K2, K3's shadow phase, K4 and K6) read tables of
+their own, which rtc_tpu has no counterpart of (OcclusionTables, built by
 occlusion_tables): a copy of the rows in a finer spatial order with a box
-for every 8 of them, and boxes widened once, here.
+for every 8 of them, boxes widened once, here, and the census's container
+slots in the copy's order.
 """
 
 from __future__ import annotations
@@ -108,9 +109,9 @@ class TlasTables(NamedTuple):
 
 
 class OcclusionTables(NamedTuple):
-    """What the occlusion walk of K3's phase 3 and K6 reads, in f32 and
-    built once at compile time (occlusion_tables): three box levels above
-    a copy of a table's rows.
+    """What the occlusion walk of K2, K3's phase 3 and K6, and the census
+    walk of K4, read, built once at compile time (occlusion_tables): three
+    box levels above a copy of a table's rows.
 
     Each cluster's rows are ordered by a k-d split of their centroids down
     to sub_rows (8 of the 128) and copied, packed as three float4 (p1, e1,
@@ -127,16 +128,29 @@ class OcclusionTables(NamedTuple):
     instances in a k-d order of their boxes' centres (inst_perm, -1 for
     padding slots), their widened world boxes in that order, and a box a
     group of 8. Only K6 reads the order; K5's instance ids do not change.
-    A world-table scene (Scene.occ) has no instances: inst_* are empty."""
+    A world-table scene (Scene.occ) has no instances: inst_* are empty.
+
+    The census (K4) reads, of a world table built with its container
+    slots tri_cid, each copied row's table row (row_id, for the exclusion
+    of the ray's own hit) and slot (row_cid), and which clusters and
+    groups hold a container row at all (cluster_census, group_census):
+    the others it skips unseen. tri_cid is the slots these were built
+    from (the caller's own tensor where it gave one), which a K4 launch
+    holds its tri_cid argument to. Without tri_cid (an instanced scene's
+    unique meshes) these five are empty."""
 
     rows: torch.Tensor         # (T, 12) f32: p1, 0, e1, 0, e2, 0 of row_id
-    row_id: torch.Tensor       # (T,) i32 on the host: the table row each row copies
+    row_id: torch.Tensor       # (T,) i32: the table row each row copies
     sub_box: torch.Tensor      # (T / sub_rows, 6) widened
     cluster_box: torch.Tensor  # (C, 6) widened cluster boxes
     group_box: torch.Tensor    # (ceil(C / 8), 6) widened
     inst_perm: torch.Tensor    # (I,) i32 instance in each slot, -1: none
     inst_box: torch.Tensor     # (I, 6) widened world box of each slot
     inst_group: torch.Tensor   # (I / 8, 6) widened
+    row_cid: torch.Tensor      # (T,) i32 tri_cid[row_id], -1: no container
+    cluster_census: torch.Tensor  # (C,) bool: the cluster holds a container row
+    group_census: torch.Tensor    # (ceil(C / 8),) bool: a cluster of the group does
+    tri_cid: torch.Tensor      # (C * leaf,) i32: the slots of the table's rows
 
 
 @dataclasses.dataclass
@@ -349,14 +363,15 @@ def _instance_order(inst_aabb: np.ndarray, inst_mesh: np.ndarray, n_mesh: int):
 
 
 def occlusion_tables(p1, e1, e2, aabb, leaf: int, device="cpu", inst_aabb=None,
-                     inst_mesh=None, n_mesh: int = 0) -> OcclusionTables:
+                     inst_mesh=None, n_mesh: int = 0, tri_cid=None) -> OcclusionTables:
     """The occlusion walk's tables (OcclusionTables) of a table of C
     clusters of leaf rows (p1, e1, e2 (C * leaf, 3); aabb (C, 6) the
     unwidened cluster boxes), as numpy or tensors in f32 or f64, on device:
     the same tables from either, built from the f32 values. A sub-box
     holds SUB_ROWS rows where leaf is a multiple of it, else a whole
     cluster. With inst_aabb and inst_mesh (I,), the instance level of an
-    instanced scene's n_mesh unique meshes."""
+    instanced scene's n_mesh unique meshes; with tri_cid (C * leaf,), the
+    census's fields for those container slots."""
     npy = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
                      else np.asarray(a))
     # the f32 values the kernels read, in f64 for the vertex sums
@@ -376,7 +391,15 @@ def occlusion_tables(p1, e1, e2, aabb, leaf: int, device="cpu", inst_aabb=None,
     out = dict(rows=rows, row_id=order.astype(np.int32), sub_box=widen_boxes(sub),
                cluster_box=widen_boxes(aabb), group_box=widen_boxes(_group_boxes(aabb)),
                inst_perm=np.zeros((0,), np.int32), inst_box=np.zeros((0, 6), np.float32),
-               inst_group=np.zeros((0, 6), np.float32))
+               inst_group=np.zeros((0, 6), np.float32), row_cid=np.zeros((0,), np.int32),
+               cluster_census=np.zeros((0,), bool), group_census=np.zeros((0,), bool),
+               tri_cid=np.zeros((0,), np.int32))
+    if tri_cid is not None:
+        slots = npy(tri_cid).astype(np.int32)
+        cid = slots[order]
+        has = (cid.reshape(-1, leaf) >= 0).any(1)
+        out.update(row_cid=cid, cluster_census=has, group_census=np.pad(
+            has, (0, -len(has) % GROUP)).reshape(-1, GROUP).any(1), tri_cid=slots)
     if inst_aabb is not None:
         inst_aabb = npy(inst_aabb).astype(np.float32).astype(np.float64)
         perm = _instance_order(inst_aabb, npy(inst_mesh), n_mesh)
@@ -384,11 +407,13 @@ def occlusion_tables(p1, e1, e2, aabb, leaf: int, device="cpu", inst_aabb=None,
                          _empty_boxes(1))
         out.update(inst_perm=perm, inst_box=widen_boxes(boxes),
                    inst_group=widen_boxes(_group_boxes(boxes)))
-    # row_id stays on the host: no kernel reads it
-    return OcclusionTables(**{
-        k: torch.tensor(v, dtype=torch.int32 if v.dtype == np.int32 else torch.float32,
-                        device="cpu" if k == "row_id" else device)
-        for k, v in out.items()})
+    types = {np.dtype(np.int32): torch.int32, np.dtype(bool): torch.bool}
+    tables = {k: torch.tensor(v, dtype=types.get(v.dtype, torch.float32), device=device)
+              for k, v in out.items()}
+    if isinstance(tri_cid, torch.Tensor):
+        # the caller's tensor, which a K4 launch then knows by identity
+        tables["tri_cid"] = torch.as_tensor(tri_cid, dtype=torch.int32, device=device)
+    return OcclusionTables(**tables)
 
 
 def _box(verts: np.ndarray) -> np.ndarray:
@@ -713,17 +738,18 @@ def _tensors(arrays: dict, names, dtype, device) -> dict:
 def _to_scene(arrays: dict, static: SceneStatic, dtype, device,
               tlas: dict | None = None) -> Scene:
     leaf = static.cluster_size
+    tensors = _tensors(arrays, TENSOR_FIELDS, dtype, device)
     occ = tlas_occ = None
     if static.n_clusters:
         occ = occlusion_tables(arrays["tri_p1"], arrays["tri_e1"], arrays["tri_e2"],
-                               arrays["cluster_aabb"], leaf, device)
+                               arrays["cluster_aabb"], leaf, device,
+                               tri_cid=tensors["tri_cid"])
     if tlas is not None:
         tlas_occ = occlusion_tables(tlas["p1"], tlas["e1"], tlas["e2"], tlas["caabb"],
                                     leaf, device, tlas["inst_aabb"], tlas["inst_mesh"],
                                     static.tlas_n_mesh)
         tlas = TlasTables(**_tensors(tlas, TlasTables._fields, dtype, device))
-    return Scene(**_tensors(arrays, TENSOR_FIELDS, dtype, device), tlas=tlas,
-                 static=static, occ=occ, tlas_occ=tlas_occ)
+    return Scene(**tensors, tlas=tlas, static=static, occ=occ, tlas_occ=tlas_occ)
 
 
 def scene_from_numpy(arrays: dict, static: dict, device) -> Scene:

@@ -3,8 +3,9 @@ at small sizes and on edge cases: ragged ray counts, padding clusters and
 padding instances, parked rays, axis-parallel directions, dead lanes,
 empty batches and bad inputs; the ordered walk of K1, K3 and K5 on tables
 that force its list to refill and its keys to tie; the occlusion walk of
-K3 and K6 on rays that graze its boxes, bounds at a triangle's own t and
-a world whose every instance group is entered, and launches without its
+K2, K3 and K6 on rays that graze its boxes, bounds at a triangle's own t,
+a world whose every instance group is entered and cluster ranges whose
+ends fall inside a group; K4's census walk; launches without their
 tables; and the smooth, glass and instanced scenes rendered through the
 kernels.
 
@@ -57,7 +58,7 @@ def _all_three(scene, o, d, max_t):
     leaf = scene.static.cluster_size
     k1 = mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, scene.cluster_aabb, leaf)
     p1 = mi.closest_hit_plain(o, d, *tabs, scene.tri_n)
-    k2 = mi.mesh_any_hit(o, d, max_t, *tabs, scene.cluster_aabb, leaf)
+    k2 = mi.mesh_any_hit(o, d, max_t, *tabs, scene.cluster_aabb, leaf, occ=scene.occ)
     p2 = mi.any_hit_plain(o, d, max_t, *tabs)
     k3 = mi.mesh_closest_shadow(o, d, *tabs, scene.tri_n, scene.cluster_aabb,
                                 scene.light_pos, leaf, occ=scene.occ)
@@ -192,6 +193,8 @@ def _soup(rng, n_clusters, cuda, smooth=False, n_containers=0):
         real = scene.tri_e1.abs().sum(1) > 0
         cid = torch.arange(scene.tri_cid.shape[0], device=cuda) % n_containers
         scene.tri_cid = torch.where(real, cid, -1).to(torch.int32)
+        scene.occ = occlusion_tables(scene.tri_p1, scene.tri_e1, scene.tri_e2,
+                                     scene.cluster_aabb, 128, cuda, tri_cid=scene.tri_cid)
     return scene, *_scene_rays(scene, o, d)
 
 
@@ -295,7 +298,7 @@ def test_crossing_count_matches_plain(cuda, where):
         args = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
         cnt, last = mi.mesh_crossing_count(oo, dd, t_hit, gid, *args,
                                            scene.cluster_aabb, scene.tri_cid,
-                                           K, leaf)
+                                           K, leaf, occ=scene.occ)
         pcnt, plast = mi.crossing_count_plain(oo, dd, t_hit, gid, *args,
                                               scene.tri_cid, K)
         torch.cuda.synchronize()
@@ -317,6 +320,45 @@ def test_crossing_count_bad_inputs(cuda):
         mi.mesh_crossing_count(o, o, t_hit, gid.long(), *args, scene.tri_cid, 1, leaf)
     with pytest.raises(ValueError, match="n_containers"):
         mi.mesh_crossing_count(o, o, t_hit, gid, *args, scene.tri_cid, 0, leaf)
+
+
+def test_crossing_count_holds_tri_cid_to_its_tables(cuda):
+    """K4 counts by the occlusion tables' census fields, not by tri_cid:
+    a copy of the slots they were built from counts as the scene's own
+    tensor, and other slots raise."""
+    scene, o, d = _soup(np.random.default_rng(5), 20, cuda, n_containers=2)
+    t_hit = torch.full((1000,), BIG, device=cuda)
+    gid = torch.full((1000,), -2, dtype=torch.int32, device=cuda)
+    args = (o, d, t_hit, gid, scene.tri_p1, scene.tri_e1, scene.tri_e2,
+            scene.cluster_aabb)
+    leaf = scene.static.cluster_size
+    own = mi.mesh_crossing_count(*args, scene.tri_cid, 2, leaf, occ=scene.occ)
+    copy = mi.mesh_crossing_count(*args, scene.tri_cid.clone(), 2, leaf, occ=scene.occ)
+    assert torch.equal(own[0], copy[0]) and torch.equal(own[1], copy[1])
+    other = torch.where(scene.tri_cid >= 0, 1 - scene.tri_cid, -1).to(torch.int32)
+    with pytest.raises(ValueError, match="other container slots"):
+        mi.mesh_crossing_count(*args, other, 2, leaf, occ=scene.occ)
+
+
+def test_crossing_count_ignores_slots_past_k(cuda):
+    """Rows whose container slot is n_containers or more count nowhere, on
+    the card as in the plain version: a soup of three slots counted with
+    K = 1 and 2 equals the plain sweep, and the first columns of K = 3."""
+    scene, o, d = _soup(np.random.default_rng(6), 30, cuda, n_containers=3)
+    t_hit = torch.full((1000,), BIG, device=cuda)
+    gid = torch.full((1000,), -2, dtype=torch.int32, device=cuda)
+    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+    leaf = scene.static.cluster_size
+    full = mi.mesh_crossing_count(o, d, t_hit, gid, *tabs, scene.cluster_aabb,
+                                  scene.tri_cid, 3, leaf, occ=scene.occ)
+    for K in (1, 2):
+        cnt, last = mi.mesh_crossing_count(o, d, t_hit, gid, *tabs, scene.cluster_aabb,
+                                           scene.tri_cid, K, leaf, occ=scene.occ)
+        pcnt, plast = mi.crossing_count_plain(o, d, t_hit, gid, *tabs, scene.tri_cid, K)
+        torch.cuda.synchronize()
+        assert torch.equal(cnt, pcnt) and torch.equal(last, plast)
+        assert torch.equal(cnt, full[0][:, :K]) and torch.equal(last, full[1][:, :K])
+    assert int(full[0][:, 2].sum()) > 0
 
 
 @pytest.mark.parametrize("name", ["teapot_smooth", "glass_teapot"])
@@ -538,7 +580,7 @@ def test_elementwise_kernels_match_plain_and_k1(cuda, where):
     assert torch.equal(hit, mi.any_hit_plain(o, d, max_t, *tabs))
     assert torch.equal(hit, mi.mesh_any_hit(o, d, max_t, *tabs,
                                             scene.cluster_aabb,
-                                            scene.static.cluster_size))
+                                            scene.static.cluster_size, occ=scene.occ))
     assert hit.any() and not hit[::4].any()
 
 
@@ -615,13 +657,14 @@ def test_streamed_matches_single_launch(cuda):
     max_t = torch.full((o.shape[0],), 8.0, device=cuda)
     max_t[::5] = -1.0
     k2 = (o, d, max_t, *tabs, scene.cluster_aabb, leaf)
-    assert torch.equal(mi.mesh_any_hit(*k2, **small), mi.mesh_any_hit(*k2))
+    occ = dict(occ=scene.occ)
+    assert torch.equal(mi.mesh_any_hit(*k2, **small, **occ), mi.mesh_any_hit(*k2, **occ))
     gid = torch.where(single[1] >= 0, single[1], -2).to(torch.int32)
     for t_hit in (single[0], torch.full_like(single[0], BIG)):
         k4 = (o, d, t_hit.contiguous(), gid.contiguous(), *tabs,
               scene.cluster_aabb, scene.tri_cid, 2, leaf)
-        cnt_s, last_s = mi.mesh_crossing_count(*k4, **small)
-        cnt_1, last_1 = mi.mesh_crossing_count(*k4)
+        cnt_s, last_s = mi.mesh_crossing_count(*k4, **small, **occ)
+        cnt_1, last_1 = mi.mesh_crossing_count(*k4, **occ)
         assert torch.equal(cnt_s, cnt_1) and torch.equal(last_s, last_1)
     assert int(cnt_1.sum()) > 100
 
@@ -821,7 +864,8 @@ def _assert_k3_is_split(k3, k1, tabs, leaf, o, d):
         assert torch.equal(n, k1[mode][2])
         so, sd, max_t = mi.shadow_rays_plain(o, d, t, idx, n, light, EPS, unit_n)
         k2 = mi.mesh_any_hit(so.contiguous(), sd.contiguous(), max_t.contiguous(),
-                             p1, e1, e2, tabs[5], leaf, block_budget=p1.shape[0])
+                             p1, e1, e2, tabs[5], leaf, block_budget=p1.shape[0],
+                             occ=occlusion_tables(p1, e1, e2, tabs[5], leaf, o.device))
         assert torch.equal(sh, k2)
 
 
@@ -1071,7 +1115,8 @@ def test_occlusion_walk_k3_edge_cases(cuda):
         so, sd, max_t = mi.shadow_rays_plain(o, d, t, idx, nk, light, EPS, unit_n)
         so, sd, max_t = so.contiguous(), sd.contiguous(), max_t.contiguous()
         assert torch.equal(sh, mi.any_hit_plain(so, sd, max_t, p1, e1, e2))
-        assert torch.equal(sh, mi.mesh_any_hit(so, sd, max_t, p1, e1, e2, aabb, 128))
+        assert torch.equal(sh, mi.mesh_any_hit(so, sd, max_t, p1, e1, e2, aabb, 128,
+                                               occ=occ))
         assert int((idx >= 0).sum()) > 1500 and sh.any() and not sh[idx >= 0].all()
         assert int((sd[:, 0] == 0).sum() + (sd[:, 2] == 0).sum()) > 200
 
@@ -1117,3 +1162,95 @@ def test_occlusion_kernels_raise_without_tables(cuda):
         mi.mesh_any_hit_tlas(o, o, torch.ones((4,), device=cuda), *_tlas_args(herd, False))
     with pytest.raises(ValueError, match="occlusion tables"):
         render(dataclasses.replace(herd, tlas_occ=None), cam, RenderConfig())
+
+
+# --- K2's occlusion walk over cluster ranges, K4's census walk ---------------
+
+def test_k2_walk_with_and_without_a_cluster_range(cuda):
+    """K2 on a 120-cluster soup, over the whole table and over cluster
+    ranges whose ends fall inside a group (a streamed superblock's case),
+    a fifth of the lanes dead: the flags equal any_hit_plain on the range's
+    rows on every ray, one launch each."""
+    scene, o, d = _soup(np.random.default_rng(40), 120, cuda)
+    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+    leaf = scene.static.cluster_size
+    max_t = torch.full((o.shape[0],), 9.0, device=cuda)
+    max_t[::5] = -1.0
+    ranges = [None, (0, 120), (3, 13), (5, 61), (37, 38), (57, 120), (60, 60)]
+    mi.reset_launch_counts()
+    for clusters in ranges:
+        got = mi.mesh_any_hit(o, d, max_t, *tabs, scene.cluster_aabb, leaf,
+                              occ=scene.occ, clusters=clusters)
+        c0, c1 = clusters or (0, 120)
+        rows = slice(c0 * leaf, c1 * leaf)
+        ref = mi.any_hit_plain(o, d, max_t, *(x[rows] for x in tabs))
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), clusters
+        assert not got[::5].any()
+        if c1 - c0 >= 56:
+            assert int(got.sum()) > 50
+    assert mi.LAUNCHES["any_hit"] == len(ranges)
+
+
+def test_k4_census_walk_over_cluster_ranges(cuda):
+    """K4 over cluster ranges of glass_teapot's table whose ends fall inside
+    a group, on its primary rays and on the same rays re-seated past their
+    hits (t_hit = BIG): the counts summed and the latest crossings maxed
+    over a cover of ranges equal one launch and the plain sweep; the census
+    fields sit on the card."""
+    world, cam = REGISTRY["glass_teapot"](128)
+    scene = compile_scene(world, device=cuda)
+    occ, leaf = scene.occ, scene.static.cluster_size
+    assert occ.row_id.device.type == occ.row_cid.device.type == "cuda"
+    assert torch.equal(occ.row_cid, scene.tri_cid[occ.row_id.long()])
+    o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize, cam.half_width,
+                       cam.half_height, cam.pixel_size, device=cuda)
+    o, d = o.contiguous(), d.contiguous()
+    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+    t, idx, _ = mi.closest_hit_sn_plain(o, d, *tabs, integrator.corner_normals(scene))
+    hit = idx >= 0
+    gid = torch.where(hit, idx, -2).to(torch.int32).contiguous()
+    o2 = (o + d * (torch.where(hit, t, 0.0)[:, None] + 1e-3)).contiguous()
+    C = scene.static.n_clusters
+    cover = [(0, 5), (5, 19), (19, 19), (19, 43), (43, C)]
+    crossings = 0
+    for oo, t_hit, g in ((o, torch.where(hit, t, -BIG).contiguous(), gid),
+                         (o2, torch.full_like(t, BIG), torch.full_like(gid, -2))):
+        args = (oo, d, t_hit, g, *tabs, scene.cluster_aabb, scene.tri_cid, 1, leaf)
+        one = mi.mesh_crossing_count(*args, occ=occ)
+        parts = [mi.mesh_crossing_count(*args, occ=occ, clusters=c) for c in cover]
+        cnt = sum(p[0] for p in parts)
+        last = torch.stack([p[1] for p in parts]).amax(0)
+        ref = mi.crossing_count_plain(oo, d, t_hit, g, *tabs, scene.tri_cid, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], ref[0]) and torch.equal(one[1], ref[1])
+        assert torch.equal(cnt, ref[0]) and torch.equal(last, ref[1])
+        crossings += int(cnt.sum())
+    assert crossings > 100
+
+
+def test_k2_k4_raise_without_tables(cuda):
+    """K2 and K4 walk the occlusion tables: a launch without them raises,
+    K4 also with tables built without container slots (an instanced
+    scene's kind), and so does a render of glass_teapot (K2 and K4 on its
+    path) without them."""
+    world, cam = REGISTRY["glass_teapot"](32)
+    scene = compile_scene(world, device=cuda)
+    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+    leaf = scene.static.cluster_size
+    o = torch.zeros((4, 3), device=cuda)
+    ones = torch.ones((4,), device=cuda)
+    gid = torch.full((4,), -2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="occlusion tables"):
+        mi.mesh_any_hit(o, o, ones, *tabs, scene.cluster_aabb, leaf)
+    k4 = (o, o, ones, gid, *tabs, scene.cluster_aabb, scene.tri_cid, 1, leaf)
+    with pytest.raises(ValueError, match="occlusion tables"):
+        mi.mesh_crossing_count(*k4)
+    bare = occlusion_tables(*tabs, scene.cluster_aabb, leaf, cuda)
+    with pytest.raises(ValueError, match="container slots"):
+        mi.mesh_crossing_count(*k4, occ=bare)
+    with pytest.raises(ValueError, match="cluster range"):
+        mi.mesh_any_hit(o, o, ones, *tabs, scene.cluster_aabb, leaf, occ=scene.occ,
+                        clusters=(0, scene.static.n_clusters + 1))
+    with pytest.raises(ValueError, match="occlusion tables"):
+        render(dataclasses.replace(scene, occ=None), cam, RenderConfig())
