@@ -18,7 +18,8 @@ occlusion rays and the 460,800 shadow rays its frame casts from its
 surfaces, its flags equal to the plain version's on every ray of the
 subset. Phases 3 and 6 also hold K3's shadow flags equal, on every ray,
 to K2's on K3's own shadow rays, and phases 3, 7 and 11 K2's flags to
-those of the table-order loop it ran before its occlusion walk (K7b's).
+K7b's, whose tile walk (the world table in table order, a block of rays
+at a time) shares no table with K2's occlusion walk.
 Phase 3 prints K3's phases 2-3 alone (K3 less K1 on one wavefront).
 K2's, K3's, K4's and K6's bound is the lesser of two: the tests their
 walk needs, and those of the table-order loop it replaced, which their
@@ -243,9 +244,10 @@ def k3_flags_gate(what: str, k3_flags, k2_flags, max_t) -> None:
 
 
 def k2_table_order_gate(what: str, scene, k2_flags, o, d, max_t, eps) -> None:
-    """K2's flags equal, on every ray, those of the table-order loop that K2
-    ran before its occlusion walk, which K7b still runs (its supercluster
-    level culls exactly): the parent's K2 flags."""
+    """K2's flags equal, on every ray, K7b's: its tile walk over the world
+    table in table order (supers, clusters, rows; a block's vote, staged
+    rows, a warp a ray) is another independent structure computing the same
+    flags, and reads none of the occlusion tables K2 walks."""
     k7b = mi.mesh_any_hit_elementwise(o, d, max_t, *tables(scene), scene.cluster_aabb,
                                       scene.super_aabb, scene.static.cluster_size, eps)
     flags_gate(f"{what} vs the table-order loop (K7b)", k2_flags, k7b, exact=True)
@@ -810,12 +812,18 @@ def phase_build() -> None:
     global WALK_L
     k1, k5 = mi.walk_list()
     WALK_L = {"K1": k1, "K5": k5}
+    report = mi.walk_kernel_report()
+    line = lambda k, r: (f"{k} {r['registers']} registers, {r['local_bytes']} B "
+                         f"local (spills), {r['shared_bytes']} B shared a block of "
+                         f"{r['block_threads']} threads, {r['blocks_per_sm']} blocks "
+                         f"= {r['threads_per_sm']} threads an SM")
     say("2 build", f"ordered walk: lists of {k1} keys (K1, K3) and {k5} keys "
         "(each of K5's two) in registers; " + "; ".join(
-            f"{k} {r['registers']} registers, {r['local_bytes']} B local, "
-            f"{r['shared_bytes']} B shared a block, {r['blocks_per_sm']} blocks "
-            f"= {r['threads_per_sm']} threads an SM"
-            for k, r in mi.walk_kernel_report().items()))
+            line(k, r) for k, r in report.items() if not k.startswith("K7")))
+    say("2 build", f"K7's tile walk: {mi.ELEMENTWISE_TILE} rays a block; shared memory "
+        "holds two staged clusters of 128 rows and a chunk of widened super boxes; "
+        + "; ".join(
+            line(k, r) for k, r in report.items() if k.startswith("K7")))
 
 
 MAIN_RAYS = WIDTH * HEIGHT // 4  # main_path_rays' wavefront
@@ -1569,17 +1577,25 @@ def phase_elementwise(eps):
             f"occlusion rays ({int(hit.sum())} occluded), equal to K2 on every "
             f"ray; on {got_b.shape[0]} rays {ms_b_sub:.3f} ms vs plain "
             f"{pms_b:.1f} ms, {flips_plain} flips")
-        if name != "cow":
+        R, t_bytes = o.shape[0], nbytes(*tabs, aabb, sup)
+        work_a = closest_work(o, d, tabs, aabb, full[0], leaf, eps)[0]  # K1's: the same function
+        bound_a = bound(work_a, nbytes(o, d) + t_bytes + R * 8)
+        bound_b = bound(any_work(fo, fd, tabs, aabb, fmax, hit, leaf, eps),
+                        nbytes(fmax) + live_bytes(fmax > 0, fo, fd) + t_bytes + fo.shape[0])
+        say("10 elementwise", f"{name}: bound K7a {bound_a[0]:.4f} ms ({bound_a[1]}), "
+            f"{ms_a / bound_a[0]:.0f}x; K7b {bound_b[0]:.4f} ms ({bound_b[1]}), "
+            f"{ms_b / bound_b[0]:.0f}x")
+        if name != "cow":  # the herd's world table, beside the cow's line
+            for key, ms, b, rays in (("closest_hit_elementwise", ms_a, bound_a, R),
+                                     ("any_hit_elementwise", ms_b, bound_b, fo.shape[0])):
+                EXTRA.setdefault(key, {}).update(
+                    herd_rays=rays, herd_clusters=st.n_clusters, herd_ms=ms,
+                    herd_bound_ms=b[0], herd_bound_by=b[1])
             continue
         DEVICE_MS["closest_hit_elementwise"] = device_ms(lambda: k7a(o, d), 5)
         DEVICE_MS["any_hit_elementwise"] = device_ms(lambda: k7b(fo, fd, fmax), 5)
-        R, t_bytes = o.shape[0], nbytes(*tabs, aabb, sup)
-        work_a = closest_work(o, d, tabs, aabb, full[0], leaf, eps)[0]  # K1's: the same function
-        BOUNDS["closest_hit_elementwise"] = bound(work_a, nbytes(o, d) + t_bytes + R * 8)
-        BOUNDS["any_hit_elementwise"] = bound(any_work(fo, fd, tabs, aabb, fmax, hit,
-                                                       leaf, eps),
-                                              nbytes(fmax) + live_bytes(fmax > 0, fo, fd)
-                                              + t_bytes + fo.shape[0])
+        BOUNDS["closest_hit_elementwise"] = bound_a
+        BOUNDS["any_hit_elementwise"] = bound_b
         times.update(closest_hit_elementwise=(ms_a, pms_a), any_hit_elementwise=(ms_b, pms_b))
         parity.update(closest_hit_elementwise=(err_a, None),
                       any_hit_elementwise=(float(flips_plain > 0), flips_plain))
@@ -1902,7 +1918,8 @@ def main() -> int:
     # the table-order loop it replaced (any_work, census_work, tlas_work),
     # which their lines add as "table_order_bound_ms"; K2's line adds
     # "glass_teapot_*" (glass_teapot's surface shadow rays) and "herd_*"
-    # (the one-mesh herd's, streamed), K3's "phases_2_3_ms" (K3 - K1 on one
+    # (the one-mesh herd's, streamed), K7a's and K7b's "herd_*" (cow_herd's
+    # world-table wavefronts), K3's "phases_2_3_ms" (K3 - K1 on one
     # wavefront), K4's "reseated_*" (the re-seated census input), K6's
     # "surface_*" (its wavefront of the frame's surface shadow rays).
     lines = {"closest_hit": ("K1 closest hit", 413, "split"),

@@ -5,7 +5,7 @@ the occlusion walks' tests counted per ray by the counting build.
 
 Run from the repository root:
 
-    python3 kernel_ab.py [--parent DIR] [--out FILE]
+    python3 kernel_ab.py [--parent DIR] [--variant DIR ...] [--only REGEX] [--out FILE]
     python3 kernel_ab.py --count [--out FILE]
 
 Builds, compiled at once, each from rtc_tpu_torch/csrc/mesh_intersect.cu:
@@ -14,6 +14,8 @@ Builds, compiled at once, each from rtc_tpu_torch/csrc/mesh_intersect.cu:
           commit to compare with, unpacked into a git-ignored directory
           such as build/parent); only with --parent
   change  this checkout's source as it stands
+  DIR     with --variant, another checkout (or a copy of the two files
+          below with a constant edited), named by its directory
 
 Each build is launched through its own checkout's wrappers
 (rtc_tpu_torch/ops/kernels/mesh_intersect.py, loaded from DIR for the
@@ -33,7 +35,9 @@ their hits), the 90-cow one-mesh herd (K1 t0 streamed in 11 blocks, K1
 uv streamed, one K1 launch over all 4,088 clusters, and K2 streamed on
 its surface shadow rays), cow_herd (K5 flat, K6 on its 921,600
 free-space occlusion rays and on the 460,800 shadow rays the frame casts
-from its surfaces) and cow_herd_smooth (K5 with_sn); cow's K7a and K7b;
+from its surfaces) and cow_herd_smooth (K5 with_sn); K7a on the primary
+rays and K7b on the free-space occlusion rays of cow and of cow_herd's
+world table (4,088 clusters, 511 supers);
 and the 10,240 rays of chip_smoke.py's 208-cluster soup (K1 flat). Each case runs the builds in the order
 first..last, last..first, each timed with CUDA events around repeated
 calls after a warm-up, so every build sees the same card state; every
@@ -57,8 +61,12 @@ herd's surface shadow rays; for K6, over each instance in table order,
 as the old K6 ran it) and of the new (K2's and K3's phase 3's occlusion
 walk, K6) on cow's two wavefronts (K3's shadow rays, the free-space
 occlusion rays), the one-mesh herd's and cow_herd's two;
-and of K4's census walk on glass_teapot's two census inputs (its old
-loop is not kept: the table-order census's tests are modelled only): per
+of K4's census walk on glass_teapot's two census inputs (its old
+loop is not kept: the table-order census's tests are modelled only);
+and of K7a and K7b, old (one ray a lane, which the counting build alone
+still exports) and new (the tile walk, which also tallies the lanes that
+hold a row in its 32-row rounds and the share of its warps' ray slots
+that hold a listed ray), on their wavefronts of cow and cow_herd: per
 walk the mean and 99th percentile a ray, and a warp's max lane over its
 mean lane (the sum over warps of the most a lane of the warp does, over
 the sum of what its lanes do), beside the tests chip_smoke.py's bounds
@@ -92,7 +100,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join("rtc_tpu_torch", "csrc", "mesh_intersect.cu")
 # the walking kernels' names in nvcc's ptxas report
 PTXAS_KERNELS = ("closest_hit_kernel", "closest_shadow_kernel", "closest_hit_tlas_kernel",
-                 "any_hit_tlas_kernel")
+                 "any_hit_tlas_kernel", "elementwise_kernel")
 WARP = 32
 
 
@@ -111,12 +119,16 @@ def wrappers(root: str, name: str):
     return module
 
 
-def builds(parent: str | None) -> dict:
-    """{name: wrappers module} in the order the cases run them."""
+def builds(parent: str | None, variants=()) -> dict:
+    """{name: wrappers module} in the order the cases run them: the parent,
+    this checkout ("change"), then each variant, named by its directory."""
     out = {}
     if parent:
         out["parent"] = wrappers(parent, "parent")
     out["change"] = mi
+    for root in variants:
+        name = os.path.basename(os.path.normpath(root))
+        out[name] = wrappers(root, name)
     return out
 
 
@@ -186,6 +198,7 @@ def cases(eps: float) -> list:
     out.append(("K7b, cow's free-space occlusion rays", fo.shape[0],
                 lambda m: m.mesh_any_hit_elementwise(fo, fd, fmax, *tabs, aabb, sup,
                                                      leaf, eps), 5))
+    out += k7_herd_cases(eps)
 
     soup, so_, sd_ = cs.soup_scene(np.random.default_rng(0))
     out.append((f"K1 flat, soup ({soup.static.n_clusters} clusters)", so_.shape[0],
@@ -249,6 +262,30 @@ def cases(eps: float) -> list:
     return out
 
 
+def k7_wavefronts(name: str, eps):
+    """K7's two wavefronts on a scene's world table (chip_smoke.py phase
+    10): the 460,800 primary rays, and the free-space occlusion rays of
+    their hits. Returns (scene, (o, d), (fo, fd, fmax))."""
+    scene, cam = cs.slice_scene(name, cs.WIDTH)
+    o, d = cs.main_path_rays(cam)
+    t, idx = mi.mesh_closest_hit_elementwise(o, d, *cs.tables(scene), scene.cluster_aabb,
+                                             scene.super_aabb, scene.static.cluster_size,
+                                             eps)
+    return scene, (o, d), cs.occlusion_rays(scene, o, d, t, idx)
+
+
+def k7_herd_cases(eps) -> list:
+    """K7a and K7b on cow_herd's world table (4,088 clusters, 511 supers)."""
+    scene, (o, d), (fo, fd, fmax) = k7_wavefronts("cow_herd", eps)
+    st = scene.static
+    args = (*cs.tables(scene), scene.cluster_aabb, scene.super_aabb, st.cluster_size, eps)
+    where = f"cow_herd's world table ({st.n_clusters} clusters, {st.n_super} supers)"
+    return [(f"K7a, {where}", o.shape[0],
+             lambda m: m.mesh_closest_hit_elementwise(o, d, *args), 3),
+            (f"K7b, {where}, free-space occlusion rays", fo.shape[0],
+             lambda m: m.mesh_any_hit_elementwise(fo, fd, fmax, *args), 3)]
+
+
 def k2_case(scene, o, d, max_t, eps):
     """K2 on one wavefront over a world table: one launch, or streamed
     where the table exceeds the budget."""
@@ -293,7 +330,7 @@ def herd_wavefronts(scene, o, d) -> dict:
 
 C = {name: k for k, name in enumerate(mi.COUNTERS)}
 BOX_TESTS = [C[k] for k in ("inst_group_tests", "inst_tests", "group_tests",
-                            "cluster_tests", "sub_tests")]
+                            "cluster_tests", "sub_tests", "super_tests")]
 PAIRS = [C[k] for k in ("pair_det", "pair_u", "pair_v", "pair_t")]
 
 
@@ -309,12 +346,33 @@ def stats(x) -> dict:
 
 
 def summary(counts, out) -> dict:
-    """The count record of one walk on one wavefront; out: its flags, or
-    K4's counts."""
-    return {"box_tests": stats(counts[:, BOX_TESTS].sum(1)),
+    """The count record of one walk on one wavefront; out: its flags, K4's
+    counts, or K7a's t. K7's tile walk adds the share of lanes that held a
+    row in its 32-row rounds, the share of its ray slots that held an
+    entered ray (a warp a ray: a tile's warps take kTileWarps listed rays a
+    round; a lane a ray: 32 slots a warp holding an entered lane), the
+    clusters a tile tested, and the share of those it tested a lane a ray."""
+    line = {"box_tests": stats(counts[:, BOX_TESTS].sum(1)),
             "pair_tests": stats(counts[:, PAIRS].sum(1)),
-            "mean_a_ray": {k: float(counts[:, C[k]].double().mean()) for k in mi.COUNTERS},
-            "occluded" if out.dtype == torch.bool else "crossings": int(out.sum())}
+            "mean_a_ray": {k: float(counts[:, C[k]].double().mean()) for k in mi.COUNTERS}}
+    if out.dtype == torch.bool:
+        line["occluded"] = int(out.sum())
+    elif out.dtype == torch.float32:
+        line["hits"] = int((out < BIG).sum())
+    else:
+        line["crossings"] = int(out.sum())
+    total = counts.double().sum(0)
+    if total[C["tile_clusters"]]:
+        tiles = -(-counts.shape[0] // mi.ELEMENTWISE_TILE)
+        if total[C["rounds"]]:
+            line["lanes_busy_a_round"] = float(total[C["round_lanes"]]
+                                               / (WARP * total[C["rounds"]]))
+        line["listed_share_of_warp_slots"] = float(total[C["clusters_entered"]]
+                                                   / total[C["tile_slots"]])
+        line["clusters_tested_a_tile"] = float(total[C["tile_clusters"]] / tiles)
+        line["clusters_a_lane_a_ray_share"] = float(total[C["tile_by_lane"]]
+                                                    / total[C["tile_clusters"]])
+    return line
 
 
 def model(work) -> dict:
@@ -359,6 +417,30 @@ def table_order(o, d, max_t, p1, e1, e2, aabb, leaf: int, eps):
             o.device.index or 0, mi._stream(o.device), o.data_ptr(), d.data_ptr(),
             max_t.data_ptr(), R, p1.data_ptr(), e1.data_ptr(), e2.data_ptr(),
             aabb.data_ptr(), C, leaf, eps, hit.data_ptr()), "the table-order loop")
+    return hit
+
+
+def k7_old(o, d, max_t, scene, eps):
+    """K7a's loop before the tile walk (max_t None: (t, idx)) or K7b's ((R,)
+    bool), one ray a lane, on the counting build
+    (rtc_count_*_elementwise_old), over the scene's world table."""
+    st, R = scene.static, o.shape[0]
+    lib = mi.library()
+    dev = (o.device.index or 0, mi._stream(o.device))
+    tabs = [x.data_ptr() for x in cs.tables(scene)]
+    boxes = (scene.cluster_aabb.data_ptr(), st.n_clusters, scene.super_aabb.data_ptr(),
+             st.n_super, st.cluster_size, eps)
+    if max_t is None:
+        t = torch.empty((R,), dtype=torch.float32, device=o.device)
+        idx = torch.empty((R,), dtype=torch.int32, device=o.device)
+        mi._raise_on(lib.rtc_count_closest_hit_elementwise_old(
+            *dev, o.data_ptr(), d.data_ptr(), R, *tabs, *boxes, t.data_ptr(),
+            idx.data_ptr()), "K7a's old loop")
+        return t, idx
+    hit = torch.empty((R,), dtype=torch.bool, device=o.device)
+    mi._raise_on(lib.rtc_count_any_hit_elementwise_old(
+        *dev, o.data_ptr(), d.data_ptr(), max_t.data_ptr(), R, *tabs, *boxes,
+        hit.data_ptr()), "K7b's old loop")
     return hit
 
 
@@ -507,6 +589,28 @@ def count_main(out_path: str) -> int:
         flags, counts = counted(k6, fo.shape[0], lib)
         report(case, "new: occlusion walk (K6)", counts, (flags,), (production,),
                cs.tlas_walk_work(fo, fd, tl, st, herd.tlas_occ, eps, fmax, production))
+    for name in ("cow", "cow_herd"):
+        scene, (o, d), (fo, fd, fmax) = k7_wavefronts(name, eps)
+        st = scene.static
+        tabs, aabb, leaf = cs.tables(scene), scene.cluster_aabb, st.cluster_size
+        args = (*tabs, aabb, scene.super_aabb, leaf, eps)
+        where = f"{name}'s world table ({st.n_clusters} clusters)"
+        k7a = lambda: mi.mesh_closest_hit_elementwise(o, d, *args)
+        production = k7a()
+        work = cs.closest_work(o, d, tabs, aabb, production[0], leaf, eps)[0]
+        case = f"{name} K7a ({o.shape[0]} primary rays, {where})"
+        out, counts = counted(lambda: k7_old(o, d, None, scene, eps), o.shape[0], lib)
+        report(case, "old: one ray a lane (K7a)", counts, out, production, work)
+        out, counts = counted(k7a, o.shape[0], lib)
+        report(case, "new: tile walk (K7a)", counts, out, production, work)
+        k7b = lambda: mi.mesh_any_hit_elementwise(fo, fd, fmax, *args)
+        production = k7b()
+        work = cs.any_work(fo, fd, tabs, aabb, fmax, production, leaf, eps)
+        case = f"{name} K7b ({fo.shape[0]} free-space occlusion rays, {where})"
+        out, counts = counted(lambda: k7_old(fo, fd, fmax, scene, eps), fo.shape[0], lib)
+        report(case, "old: one ray a lane (K7b)", counts, (out,), (production,), work)
+        out, counts = counted(k7b, fo.shape[0], lib)
+        report(case, "new: tile walk (K7b)", counts, (out,), (production,), work)
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(record, f, indent=1)
@@ -518,6 +622,11 @@ def count_main(out_path: str) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="a checkout of the commit to compare with")
+    ap.add_argument("--variant", action="append", metavar="DIR",
+                    help="another checkout to time beside the change (repeatable; "
+                    "a copy with an edited kernel constant, as --parent)")
+    ap.add_argument("--only", metavar="REGEX",
+                    help="time only the cases whose name matches")
     ap.add_argument("--count", action="store_true",
                     help="count the occlusion walks' tests (the counting build)")
     ap.add_argument("--out", help="the record's path (default build/kernel_ab.json, "
@@ -530,7 +639,7 @@ def main() -> int:
     if args.count:
         return count_main(args.out or os.path.join(ROOT, "build", "kernel_ab_count.json"))
     eps = RenderConfig().epsilon
-    mods = builds(args.parent)
+    mods = builds(args.parent, args.variant or ())
     with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per build, all at once
         paths = dict(zip(mods, pool.map(lambda m: m.build(), mods.values())))
     libs = {name: mods[name].bind(path) for name, path in paths.items()}
@@ -549,6 +658,8 @@ def main() -> int:
 
     ok = True
     for case, rays, call, iters in cases(eps):
+        if args.only and not re.search(args.only, case):
+            continue
         order = list(libs) + list(libs)[::-1]
         ms = {name: [] for name in libs}
         device = {name: [] for name in libs}

@@ -21,7 +21,8 @@
 // ray itself into instance space instead of its Plücker features), no
 // lane-major transposes, no per-tile union gate or selection sort, no
 // seeded t_best, no two-probe loop and no VMEM superblocks inside a
-// kernel. Each thread owns one ray. rtc_tpu's superblock streaming of
+// kernel. Each thread owns one ray (K7 also shares a block's rays across
+// its warps, below). rtc_tpu's superblock streaming of
 // oversized tables is kept as plain PyTorch around K1/K2/K4
 // (ops/kernels/mesh_intersect.py), which K1's t0 mode serves.
 //
@@ -34,7 +35,9 @@
 // blocks, so a warp's 32 rays usually visit the same clusters in the same
 // order and read the same triangle rows (one broadcast load per warp).
 // Staging the occlusion walk's box tables in shared memory was measured
-// no faster (PERF.md); TMA and wgmma are left for later work.
+// no faster (PERF.md); TMA and wgmma are left for later work. K7, which
+// tests every row of each cluster it enters, stages those rows in shared
+// memory instead, one copy a block (the tile walk, below).
 //
 // Rounding. The file is compiled with -fmad=false, and every formula
 // below keeps the association order of the plain PyTorch versions
@@ -72,7 +75,8 @@
 // its rows in a finer k-d order, packed as 16-byte float4s, every box
 // widened once at compile time (see "the occlusion walk" below). The
 // census (K4) needs no order either: it sums crossings, and walks the same
-// tables with a signed box test. K7b keeps the table-order loop.
+// tables with a signed box test. K7a and K7b walk the world table in table
+// order, a block of rays at a time (the tile walk).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -121,29 +125,44 @@ __device__ __forceinline__ void slab_axis(float lo, float hi, float o,
   tmax = fminf(tmax, fmaxf(t1, t2));
 }
 
-// The ray's signed slab interval [tmin, tmax] through cluster c's box;
-// false for an empty padding box (lo = 1 > hi = -1, compile.py). The box is
-// widened by a few ulps of its largest coordinate so that rounding in the
-// f32 box or in the slab arithmetic never cuts off a hit on its faces.
-__device__ __forceinline__ bool cluster_slab(const Ray& r,
-                                             const float* __restrict__ aabb,
-                                             int c, float& tmin,
-                                             float& tmax) {
+// Cluster c's box widened by a few ulps of its largest coordinate, so that
+// rounding in the f32 box or in the slab arithmetic never cuts off a hit on
+// its faces: w = [lx ly lz hx hy hz]; false (w unset) for an empty padding
+// box (lo = 1 > hi = -1, compile.py).
+__device__ __forceinline__ bool widened_box(const float* __restrict__ aabb, int c,
+                                            float* w) {
   const float* b = aabb + 6 * c;
-  float lx = __ldg(b), ly = __ldg(b + 1), lz = __ldg(b + 2);
-  float hx = __ldg(b + 3), hy = __ldg(b + 4), hz = __ldg(b + 5);
+  const float lx = __ldg(b), ly = __ldg(b + 1), lz = __ldg(b + 2);
+  const float hx = __ldg(b + 3), hy = __ldg(b + 4), hz = __ldg(b + 5);
   if (lx > hx || ly > hy || lz > hz) return false;
   const float scale = fmaxf(fmaxf(fmaxf(fabsf(lx), fabsf(hx)),
                                   fmaxf(fabsf(ly), fabsf(hy))),
                             fmaxf(fabsf(lz), fabsf(hz)));
   const float pad = 4e-6f * scale;
-  lx -= pad; ly -= pad; lz -= pad;
-  hx += pad; hy += pad; hz += pad;
+  w[0] = lx - pad; w[1] = ly - pad; w[2] = lz - pad;
+  w[3] = hx + pad; w[4] = hy + pad; w[5] = hz + pad;
+  return true;
+}
+
+// The ray's signed slab interval [tmin, tmax] through a widened box w.
+__device__ __forceinline__ void widened_slab(const Ray& r, const float* w, float& tmin,
+                                             float& tmax) {
   tmin = -kBig;
   tmax = kBig;
-  slab_axis(lx, hx, r.ox, r.ix, tmin, tmax);
-  slab_axis(ly, hy, r.oy, r.iy, tmin, tmax);
-  slab_axis(lz, hz, r.oz, r.iz, tmin, tmax);
+  slab_axis(w[0], w[3], r.ox, r.ix, tmin, tmax);
+  slab_axis(w[1], w[4], r.oy, r.iy, tmin, tmax);
+  slab_axis(w[2], w[5], r.oz, r.iz, tmin, tmax);
+}
+
+// The ray's signed slab interval [tmin, tmax] through cluster c's widened
+// box; false for an empty box.
+__device__ __forceinline__ bool cluster_slab(const Ray& r,
+                                             const float* __restrict__ aabb,
+                                             int c, float& tmin,
+                                             float& tmax) {
+  float w[6];
+  if (!widened_box(aabb, c, w)) return false;
+  widened_slab(r, w, tmin, tmax);
   return true;
 }
 
@@ -161,8 +180,9 @@ __device__ __forceinline__ float cluster_entry(const Ray& r,
 }
 
 // The rows a pair test reads: the (T, 3) tables of the world and the
-// TLAS (SplitRows), or the occlusion walk's copy, packed as three float4 a
-// row (PackedRows). Both hand over the same f32 values.
+// TLAS (SplitRows), the occlusion walk's copy, packed as three float4 a
+// row (PackedRows), or one cluster of the world table staged in shared
+// memory by K7's tile walk (SharedRows). All hand over the same f32 values.
 struct SplitRows {
   const float *p1_, *e1_, *e2_;
   __device__ __forceinline__ float4 row(const float* x, int j) const {
@@ -178,6 +198,17 @@ struct PackedRows {  // (T, 3) float4: p1, e1, e2, each with w = 0
   __device__ __forceinline__ float4 e1(int j) const { return __ldg(rows + 3 * j + 1); }
   __device__ __forceinline__ float4 e2(int j) const { return __ldg(rows + 3 * j + 2); }
   __device__ __forceinline__ float4 p1(int j) const { return __ldg(rows + 3 * j); }
+};
+
+struct SharedRows {  // a staged cluster: (leaf, 3) p1, then e1, then e2; j local
+  const float* p1_;
+  int n;  // 3 * leaf
+  __device__ __forceinline__ float4 row(const float* x, int j) const {
+    return make_float4(x[3 * j], x[3 * j + 1], x[3 * j + 2], 0.f);
+  }
+  __device__ __forceinline__ float4 e1(int j) const { return row(p1_ + n, j); }
+  __device__ __forceinline__ float4 e2(int j) const { return row(p1_ + 2 * n, j); }
+  __device__ __forceinline__ float4 p1(int j) const { return row(p1_, j); }
 };
 
 // The one pair test of every kernel: Möller-Trumbore
@@ -396,31 +427,44 @@ __device__ __forceinline__ void closest_hit_dev(
 // walks tally, per ray, the box tests and boxes entered at each level and
 // the pair tests by the stage where they stop, into the (R, kCounters)
 // i32 buffer that rtc_set_count_buffer names (the occlusion walk of K2,
-// K3's phase 3 and K6, K4's census walk, and the table-order loop, which
-// this build alone also exports as K2's old loop). In the production
-// build tally() is empty and nothing else differs.
+// K3's phase 3 and K6, K4's census walk, K7's tile walk, and the
+// table-order loops, which this build alone also exports: K2's old loop,
+// and K7a's and K7b's old per-lane loops). K7's tile walk also tallies
+// its 32-row rounds and the lanes holding a row in them on the ray, and,
+// on the first ray of each tile, the clusters the tile tested, those it
+// tested a lane a ray, and the ray slots its warps ran for them (a warp a
+// ray: kTileWarps a round of listed rays; a lane a ray: 32 for each warp
+// holding an entered lane). In
+// the production build the tallies are empty and nothing else differs.
 enum Counter {
   kInstGroupTests, kInstTests, kGroupTests, kClusterTests, kSubTests,
   kInstEntered, kGroupsEntered, kClustersEntered, kSubsEntered,
-  kPairDet, kPairU, kPairV, kPairT, kCounters
+  kPairDet, kPairU, kPairV, kPairT,
+  kSuperTests, kSupersEntered, kRounds, kRoundLanes, kTileClusters, kTileSlots,
+  kTileByLane, kCounters
 };
 
 #ifdef RTC_COUNT
 __device__ int* g_count;
+// adds n to counter k of ray i of the launch
+__device__ __forceinline__ void tally_at(int i, int k, int n) {
+  if (g_count) g_count[(size_t)i * kCounters + k] += n;
+}
 __device__ __forceinline__ void tally(int k) {
-  if (g_count)
-    g_count[(size_t)(blockIdx.x * blockDim.x + threadIdx.x) * kCounters + k] += 1;
+  tally_at(blockIdx.x * blockDim.x + threadIdx.x, k, 1);
 }
 #else
+__device__ __forceinline__ void tally_at(int, int, int) {}
 __device__ __forceinline__ void tally(int) {}
 #endif
 
-// The table-order loop over clusters [c0, c1), K7b's: does any triangle
-// lie at t in [0, max_t)? max_t <= 0 marks a dead lane, which never hits.
-// Clusters in table order (k-d order, so still spatially coherent),
-// skipping those the ray misses or enters at or beyond max_t; each entered
-// cluster's leaf rows; the lane stops at its first occluder. K2, K3's
-// phase 3 and K6 walk the occlusion tables instead (occluded).
+#ifdef RTC_COUNT
+// The table-order loop over clusters [c0, c1), K2's and K7b's before their
+// walks: does any triangle lie at t in [0, max_t)? max_t <= 0 marks a dead
+// lane, which never hits. Clusters in table order (k-d order, so still
+// spatially coherent), skipping those the ray misses or enters at or
+// beyond max_t; each entered cluster's leaf rows; the lane stops at its
+// first occluder. Built only to be counted.
 __device__ __forceinline__ bool any_hit_table_order(
     const Ray& r, float max_t, const float* __restrict__ p1,
     const float* __restrict__ e1, const float* __restrict__ e2,
@@ -439,6 +483,7 @@ __device__ __forceinline__ bool any_hit_table_order(
   }
   return false;
 }
+#endif
 
 // ---- the occlusion walk: K2, K3's phase 3 and K6 ----
 //
@@ -966,44 +1011,405 @@ any_hit_tlas_kernel(const float* __restrict__ o, const float* __restrict__ d,
 // (mesh_impl="pallas"), an independently structured traversal kept to
 // cross-check the production kernels: a static three-level walk in TABLE
 // order, superclusters of kSuperWidth clusters (super_aabb, their union
-// boxes), then clusters, then each cluster's leaf rows through the same
-// tri_hit as K1. There is no front-to-back order, so a lane visits every
-// super and cluster it enters before its running bound, more than K1
-// visits: a divergent per-ray walk bound by the FP32 pair tests, like
-// K1-K6. Speed is not its purpose; agreement is. Since the pair test is
-// shared, K7a's t equals K1's bit for bit on every ray, whatever the order.
-// The Pallas kernels gate a cluster for a whole tile of rays; here each ray
-// gates its own, on cluster_slab's widened boxes, so the cull never cuts
-// off a hit on a box face.
+// boxes), then clusters, then each cluster's leaf rows, through the same
+// pair test as K1. It reads the world table it is given and none of the
+// other kernels' structures: no ordered walk, no occlusion tables. Since
+// the pair test is shared, K7a's t equals K1's bit for bit on every ray,
+// whatever the order.
+//
+// The tile walk. The TPU kernels gate a whole tile of rays on
+// jnp.any(overlap) and test an entered cluster as an (RT, L) batch, rays
+// by rows. Here the tile is a block of kTileK7 rays, one a thread for the
+// box tests, and:
+// - the gate is a block-wide vote (__syncthreads_or) over each lane's own
+//   cull, entry < its bound (K7a: t_best; K7b: max_t on a live lane not yet
+//   found), for each super in table order, then for each cluster of an
+//   entered super; the block skips what no lane enters, in uniform control
+//   flow. Every lane tests every super box it reaches, so the block widens
+//   the super boxes once, as cluster_slab widens them, into shared memory
+//   (kSupChunk at a time), and a lane's super test is the bare slab test;
+// - VMEM becomes shared memory: each cluster that passes the vote is
+//   copied once a block (cp.async, three contiguous slices of leaf x 12 B)
+//   into a ring of two buffers. While the block tests one cluster, the copy
+//   of the next cluster in table order that passes the vote under the
+//   bounds of that moment is in flight. Once the tested cluster's results
+//   are back in shared memory (a barrier), the lanes vote on the next one
+//   again with their new bounds, and drop it if no lane still enters it;
+// - the (RT, L) batch becomes a warp a ray: the block lists the lanes whose
+//   ray entered the cluster (a ballot per warp, prefix offsets), its warps
+//   take the listed rays in turn, and lane l tests rows l, l + 32, ... of
+//   the staged cluster (SharedRows). K7a reduces (t, row) over the warp
+//   lexicographically, least t and then least row: the earliest row at the
+//   least t, which the table order's strict-< sequence keeps; across
+//   clusters t_best still improves only by a strict <. K7b stops a ray after
+//   the first 32-row round that finds an occluder (__any_sync), and the
+//   block leaves its walk once every lane is found or dead
+//   (__syncthreads_and), the TPU's found == 0.
+// A warp a ray costs a warp-wide reduction (K7a) and the list; one ray a
+// lane costs the lanes of a warp that did not enter the cluster. So a
+// cluster whose entered lanes fill their warps densely (kK7LaneMin a warp on
+// average, as coherent primary rays do) goes a lane a ray over the same
+// staged rows, each lane on its own ray, and the block decides this per
+// cluster from its counts. Measured on an H100 (PERF.md): one
+// mapping alone lost on cow's primary rays (a warp a ray) or on the
+// 4,088-cluster herd table (a lane a ray, barriers idling the warps with
+// no entered lane), and the mix beat both.
+//
+// Bits. A cull that never drops a row hitting before the running bound
+// leaves K7a's (t, idx) at the earliest row of least t over the whole table
+// (the plain sweep's), and K7b's flag at the OR of its pair tests, in any
+// order of visits: the cluster boxes are widened as cluster_slab widens, and
+// a super box holds its clusters'. The staged rows hand the pair test the
+// same f32 values, and the staged super boxes are widened with the same
+// operations, so every output equals the per-lane loop's bit for bit.
 
-constexpr int kSuperWidth = 8;  // mesh_intersect.py SUPER_WIDTH
+constexpr int kSuperWidth = 8;    // mesh_intersect.py SUPER_WIDTH
+constexpr int kTileK7 = 256;      // rays a block: a 16x16 screen block's worth
+constexpr int kTileWarps = kTileK7 / 32;
+constexpr int kMaxLeafK7 = 1024;  // rows a cluster, the most K7 stages
+static_assert(kTileK7 % 32 == 0 && kTileK7 <= 1024, "a tile is whole warps");
+constexpr int kNoRow = 0x7fffffff;
+// A tested cluster goes a lane a ray when its entered lanes average at
+// least kK7LaneMin in the warps holding any of them, else a warp a ray.
+constexpr int kK7LaneMin = 28;
+constexpr int kSupChunk = 512;  // widened super boxes a block stages at a time
 
-// K7a: t_best improves strictly, rows in table order, so the earliest row
-// at the least t wins a tie (as _kernel's masked iota-min, then strict <
-// across clusters). Miss: t = BIG, idx = -1.
+// The dynamic shared memory of a K7 block: two staged clusters.
+inline size_t elementwise_smem(int leaf) { return 2 * 9 * (size_t)leaf * sizeof(float); }
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// cluster_entry on a box widened already (a block's staged supers); w[0] >
+// w[3] marks an empty box.
+__device__ __forceinline__ float widened_entry(const Ray& r, const float* w) {
+  if (w[0] > w[3]) return kBig;
+  float tmin, tmax;
+  widened_slab(r, w, tmin, tmax);
+  if (!(tmax >= tmin && tmax >= 0.f)) return kBig;
+  return fmaxf(tmin, 0.f);
+}
+
+// Starts the copy of cluster c's rows into buf (SharedRows' layout) and
+// commits it as one group of this thread's copies; every thread copies the
+// same chunks each time. vec16: 16-byte copies (leaf % 4 == 0 and 16-byte
+// aligned tables), else 4-byte ones.
+__device__ __forceinline__ void stage_cluster(float* buf, const float* __restrict__ p1,
+                                              const float* __restrict__ e1,
+                                              const float* __restrict__ e2, int c,
+                                              int leaf, bool vec16) {
+  const int n = 3 * leaf;
+  const size_t at = (size_t)c * n;
+  const float* const src[3] = {p1 + at, e1 + at, e2 + at};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    if (vec16) {
+      for (int k = 4 * threadIdx.x; k < n; k += 4 * kTileK7)
+        cp_async16(buf + a * n + k, src[a] + k);
+    } else {
+      for (int k = threadIdx.x; k < n; k += kTileK7) cp_async4(buf + a * n + k, src[a] + k);
+    }
+  }
+  cp_async_commit();
+}
+
+// The counting build's tallies of one 32-row round of ray i (stage < 0: the
+// lane held no row): its pair tests by stage, the round, and its lanes with
+// a row. Lane 0 adds them.
+__device__ __forceinline__ void count_round(int i, int stage, int lane) {
+#ifdef RTC_COUNT
+  const unsigned held = __ballot_sync(0xffffffffu, stage >= 0);
+  if (lane == 0) {
+    tally_at(i, kRounds, 1);
+    tally_at(i, kRoundLanes, __popc(held));
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const unsigned b = __ballot_sync(0xffffffffu, stage == k);
+    if (lane == 0) tally_at(i, kPairDet + k, __popc(b));
+  }
+#endif
+}
+
+// K7a (ANY = false): t (BIG on a miss) and idx (-1; the earliest row in
+// table order at the least t). K7b (ANY = true): any triangle at t in [0,
+// max_t)? max_t <= 0 (or NaN) is a dead lane, which loads no ray.
+template <bool ANY>
+__global__ void __launch_bounds__(kTileK7)
+elementwise_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                   const float* __restrict__ max_t, int R,
+                   const float* __restrict__ p1, const float* __restrict__ e1,
+                   const float* __restrict__ e2, const float* __restrict__ aabb,
+                   int C, const float* __restrict__ sup, int leaf, float eps,
+                   int vec16, float* __restrict__ t_out, int* __restrict__ idx_out,
+                   uint8_t* __restrict__ hit_out) {
+  extern __shared__ float4 k7_rows[];       // the ring: 2 x 9 * leaf floats
+  __shared__ float s_ray[6][kTileK7];       // each lane's o, d
+  __shared__ float s_bound[kTileK7];        // each lane's bound (below)
+  __shared__ int s_best[kTileK7];           // K7a: its best row; K7b: found
+  __shared__ int s_list[kTileK7];           // the lanes that entered the cluster
+  __shared__ int s_count[kTileWarps];       // the listed lanes of each warp
+  __shared__ float s_sup[kSupChunk][6];     // a chunk of widened super boxes
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i = blockIdx.x * kTileK7 + tid;
+  // A lane culls every box it enters at or beyond its bound, and tests no
+  // box once the bound is <= 0: K7a's t_best; K7b's max_t, or -1 on a dead
+  // lane and once found; -1 on the padding lanes of a ragged last tile.
+  float bound = -1.f;
+  if (i < R) {
+    if (ANY) {
+      const float mt = max_t[i];
+      bound = mt > 0.f ? mt : -1.f;
+    } else {
+      bound = kBig;
+    }
+  }
+  const Ray r = bound > 0.f ? load_ray(o, d, i) : make_ray(0.f, 0.f, 0.f, 0.f, 0.f, 0.f);
+  s_ray[0][tid] = r.ox; s_ray[1][tid] = r.oy; s_ray[2][tid] = r.oz;
+  s_ray[3][tid] = r.dx; s_ray[4][tid] = r.dy; s_ray[5][tid] = r.dz;
+  s_bound[tid] = bound;
+  s_best[tid] = ANY ? 0 : -1;
+  float* const ring = reinterpret_cast<float*>(k7_rows);
+  const int span = 9 * leaf;
+
+  // The scan: from cluster c on, in table order, the first cluster some
+  // lane enters before its bound, or C. A vote for each super reached (the
+  // lane's verdict on the current super, sup_in, is kept across calls, so
+  // each super box is tested once) and one for each cluster of an entered
+  // super. e: the lane's entry into the cluster found (kBig: none).
+  int sup_s = -1, sup_chunk = -1;
+  bool sup_in = false;
+  const int S = (C + kSuperWidth - 1) / kSuperWidth;
+  auto scan = [&](int c, float& e) -> int {
+    for (; c < C; ++c) {
+      const int s = c / kSuperWidth;
+      if (s != sup_s) {
+        sup_s = s;
+        sup_in = false;
+        if (s / kSupChunk != sup_chunk) {  // stage the next chunk of supers
+          sup_chunk = s / kSupChunk;
+          __syncthreads();  // no lane still reads the last chunk
+          const int base = sup_chunk * kSupChunk;
+          for (int k = tid; k < kSupChunk && base + k < S; k += kTileK7) {
+            if (!widened_box(sup, base + k, s_sup[k])) {
+              s_sup[k][0] = 1.f;
+              s_sup[k][3] = -1.f;
+            }
+          }
+          __syncthreads();
+        }
+        if (bound > 0.f) {
+          tally(kSuperTests);
+          sup_in = widened_entry(r, s_sup[s % kSupChunk]) < bound;
+          if (sup_in) tally(kSupersEntered);
+        }
+        if (!__syncthreads_or(sup_in)) {
+          c = (s + 1) * kSuperWidth - 1;
+          continue;
+        }
+      }
+      e = kBig;
+      if (sup_in && bound > 0.f) {
+        tally(kClusterTests);
+        e = cluster_entry(r, aabb, c);
+      }
+      if (__syncthreads_or(e < bound)) return c;
+    }
+    return C;
+  };
+
+  int cur = C;
+  float e_cur = kBig;
+  if (!ANY || !__syncthreads_and(!(bound > 0.f))) cur = scan(0, e_cur);
+  int b = 0;
+  if (cur < C) stage_cluster(ring, p1, e1, e2, cur, leaf, vec16);
+  while (cur < C) {
+    // the vote again, on the bounds the last tested cluster left
+    const bool mine = e_cur < bound;
+    if (!__syncthreads_or(mine)) {  // no lane enters it now: drop its copy
+      cp_async_wait<0>();
+      cur = scan(cur + 1, e_cur);
+      if (cur < C) stage_cluster(ring + b * span, p1, e1, e2, cur, leaf, vec16);
+      continue;
+    }
+    if (mine) tally(kClustersEntered);
+    float e_next = kBig;
+    const int next = scan(cur + 1, e_next);
+    if (next < C) {
+      stage_cluster(ring + (b ^ 1) * span, p1, e1, e2, next, leaf, vec16);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, mine);
+    if (lane == 0) s_count[warp] = __popc(ballot);
+    __syncthreads();  // cur's rows and the counts are in
+    const SharedRows rows{ring + b * span, 3 * leaf};
+    int first = 0, n = 0, warps = 0;
+#pragma unroll
+    for (int w = 0; w < kTileWarps; ++w) {
+      const int k = s_count[w];
+      first += w < warp ? k : 0;
+      n += k;
+      warps += k > 0;
+    }
+    const bool by_lane = n >= kK7LaneMin * warps;
+    if (tid == 0) {
+      tally(kTileClusters);
+      if (by_lane) tally(kTileByLane);
+      tally_at(i, kTileSlots, by_lane ? 32 * warps
+                                      : kTileWarps * ((n + kTileWarps - 1) / kTileWarps));
+    }
+    if (by_lane) {
+      if (mine) {
+        float bt = bound;
+        int bj = -1;
+        for (int j = 0; j < leaf; ++j) {
+          float t;
+          const int stage = pair_stage(r, rows, j, eps, t);
+          tally(kPairDet + stage);
+          if (stage == kCrosses && t >= 0.f && t < bt) {
+            bt = t;
+            bj = j;
+            if (ANY) break;
+          }
+        }
+        if (bj >= 0) {
+          s_bound[tid] = ANY ? -1.f : bt;
+          s_best[tid] = ANY ? 1 : cur * leaf + bj;
+        }
+      }
+    } else {
+      if (mine) s_list[first + __popc(ballot & ((1u << lane) - 1u))] = tid;
+      __syncthreads();  // the list is in
+      for (int k = warp; k < n; k += kTileWarps) {
+        const int q = s_list[k];
+        const int iq = blockIdx.x * kTileK7 + q;
+        Ray rq;  // the pair test reads o and d only
+        rq.ox = s_ray[0][q]; rq.oy = s_ray[1][q]; rq.oz = s_ray[2][q];
+        rq.dx = s_ray[3][q]; rq.dy = s_ray[4][q]; rq.dz = s_ray[5][q];
+        rq.ix = rq.iy = rq.iz = 0.f;
+        const float bq = s_bound[q];
+        if (ANY) {
+          bool hit = false;
+          for (int j0 = 0; j0 < leaf && !hit; j0 += 32) {
+            const int j = j0 + lane;
+            int stage = -1;
+            bool h = false;
+            if (j < leaf) {
+              float t;
+              stage = pair_stage(rq, rows, j, eps, t);
+              h = stage == kCrosses && t >= 0.f && t < bq;
+            }
+            count_round(iq, stage, lane);
+            hit = __any_sync(0xffffffffu, h);
+          }
+          if (hit && lane == 0) {
+            s_bound[q] = -1.f;
+            s_best[q] = 1;
+          }
+        } else {
+          float bt = bq;
+          int bj = kNoRow;
+  #pragma unroll 4
+          for (int j0 = 0; j0 < leaf; j0 += 32) {
+            const int j = j0 + lane;
+            int stage = -1;
+            if (j < leaf) {
+              float t;
+              stage = pair_stage(rq, rows, j, eps, t);
+              if (stage == kCrosses && t >= 0.f && t < bt) {
+                bt = t;
+                bj = j;
+              }
+            }
+            count_round(iq, stage, lane);
+          }
+          // The warp's least (t, row): t >= 0 and finite here, so its bits
+          // with the sign cleared order as t does (and -0 ties with +0); the
+          // least row among the lanes at that key; its t from the lane that
+          // holds that row (row % 32), with its own sign.
+          const unsigned key = bj == kNoRow ? 0xffffffffu : __float_as_uint(bt) & 0x7fffffffu;
+          const unsigned least = __reduce_min_sync(0xffffffffu, key);
+          if (least != 0xffffffffu) {
+            const int row = (int)__reduce_min_sync(0xffffffffu,
+                                                   key == least ? (unsigned)bj : 0xffffffffu);
+            const float t = __shfl_sync(0xffffffffu, bt, row & 31);
+            if (lane == 0) {
+              s_bound[q] = t;
+              s_best[q] = cur * leaf + row;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // every listed ray's result is in
+    bound = s_bound[tid];
+    if (ANY && __syncthreads_and(!(bound > 0.f))) break;  // all found or dead
+    cur = next;
+    e_cur = e_next;
+    b ^= 1;
+  }
+  cp_async_wait<0>();
+  if (i >= R) return;
+  if (ANY) {
+    hit_out[i] = s_best[tid] != 0;
+  } else {
+    t_out[i] = bound;
+    idx_out[i] = s_best[tid];
+  }
+}
+
+#ifdef RTC_COUNT
+// K7a's and K7b's loops before the tile walk, one ray a thread in blocks of
+// kThreads, each lane culling and testing on its own; built only to be
+// counted (rtc_count_closest_hit_elementwise_old, _any_hit_).
 __global__ void __launch_bounds__(kThreads)
-closest_hit_elementwise_kernel(const float* __restrict__ o,
-                               const float* __restrict__ d, int R,
-                               const float* __restrict__ p1,
-                               const float* __restrict__ e1,
-                               const float* __restrict__ e2,
-                               const float* __restrict__ aabb, int C,
-                               const float* __restrict__ sup, int S,
-                               int leaf, float eps, float* __restrict__ t_out,
-                               int* __restrict__ idx_out) {
+closest_hit_elementwise_old_kernel(const float* __restrict__ o,
+                                   const float* __restrict__ d, int R,
+                                   const float* __restrict__ p1,
+                                   const float* __restrict__ e1,
+                                   const float* __restrict__ e2,
+                                   const float* __restrict__ aabb, int C,
+                                   const float* __restrict__ sup, int S, int leaf,
+                                   float eps, float* __restrict__ t_out,
+                                   int* __restrict__ idx_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
   const Ray r = load_ray(o, d, i);
   float t_best = kBig;
   int best = -1;
   for (int s = 0; s < S; ++s) {
+    tally(kSuperTests);
     if (!(cluster_entry(r, sup, s) < t_best)) continue;
+    tally(kSupersEntered);
     const int c1 = min((s + 1) * kSuperWidth, C);
     for (int c = s * kSuperWidth; c < c1; ++c) {
+      tally(kClusterTests);
       if (!(cluster_entry(r, aabb, c) < t_best)) continue;
+      tally(kClustersEntered);
       for (int j = c * leaf; j < (c + 1) * leaf; ++j) {
         float t;
-        if (tri_hit(r, p1, e1, e2, j, eps, t) && t >= 0.f && t < t_best) {
+        const int stage = pair_stage(r, SplitRows{p1, e1, e2}, j, eps, t);
+        tally(kPairDet + stage);
+        if (stage == kCrosses && t >= 0.f && t < t_best) {
           t_best = t;
           best = j;
         }
@@ -1014,20 +1420,16 @@ closest_hit_elementwise_kernel(const float* __restrict__ o,
   idx_out[i] = best;
 }
 
-// K7b: any triangle at t in [0, max_t)? Supers in table order, each
-// entered before max_t descending into K2's cluster loop over its
-// clusters; the lane stops at its first occluder. max_t <= 0 (or NaN) is
-// a dead lane.
 __global__ void __launch_bounds__(kThreads)
-any_hit_elementwise_kernel(const float* __restrict__ o,
-                           const float* __restrict__ d,
-                           const float* __restrict__ max_t, int R,
-                           const float* __restrict__ p1,
-                           const float* __restrict__ e1,
-                           const float* __restrict__ e2,
-                           const float* __restrict__ aabb, int C,
-                           const float* __restrict__ sup, int S, int leaf,
-                           float eps, uint8_t* __restrict__ hit_out) {
+any_hit_elementwise_old_kernel(const float* __restrict__ o,
+                               const float* __restrict__ d,
+                               const float* __restrict__ max_t, int R,
+                               const float* __restrict__ p1,
+                               const float* __restrict__ e1,
+                               const float* __restrict__ e2,
+                               const float* __restrict__ aabb, int C,
+                               const float* __restrict__ sup, int S, int leaf,
+                               float eps, uint8_t* __restrict__ hit_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
   const float mt = max_t[i];
@@ -1035,13 +1437,16 @@ any_hit_elementwise_kernel(const float* __restrict__ o,
   if (mt > 0.f) {
     const Ray r = load_ray(o, d, i);
     for (int s = 0; s < S && !hit; ++s) {
+      tally(kSuperTests);
       if (!(cluster_entry(r, sup, s) < mt)) continue;
+      tally(kSupersEntered);
       hit = any_hit_table_order(r, mt, p1, e1, e2, aabb, s * kSuperWidth,
                                 min((s + 1) * kSuperWidth, C), leaf, eps);
     }
   }
   hit_out[i] = hit;
 }
+#endif
 
 inline unsigned blocks_for(int R) { return (unsigned)((R + kThreads - 1) / kThreads); }
 
@@ -1067,6 +1472,32 @@ int launch_closest_shadow(int device, void* stream, const float* o, const float*
   closest_shadow_kernel<SN><<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
       o, d, R, p1, e1, e2, pay, aabb, C, leaf, eps, light,
       occ_tables(rows, sub, clus, grp, leaf, n_sub), t_out, idx_out, n_out, sh_out);
+  return (int)cudaGetLastError();
+}
+
+// K7a (ANY = false) and K7b: blocks of kTileK7 rays with two staged
+// clusters of dynamic shared memory. Refuses a leaf outside [1,
+// kMaxLeafK7] on a table with clusters.
+template <bool ANY>
+int launch_elementwise(int device, void* stream, const float* o, const float* d,
+                       const float* max_t, int R, const float* p1, const float* e1,
+                       const float* e2, const float* aabb, int C, const float* sup,
+                       int leaf, float eps, float* t_out, int* idx_out,
+                       uint8_t* hit_out) {
+  if (C > 0 && (leaf < 1 || leaf > kMaxLeafK7)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = elementwise_smem(leaf);
+  if (smem > 16384) {  // past the 48 KB default with the ~22 KB static arrays
+    err = cudaFuncSetAttribute(elementwise_kernel<ANY>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int vec16 = leaf % 4 == 0 &&
+      ((uintptr_t)p1 | (uintptr_t)e1 | (uintptr_t)e2) % 16 == 0;
+  elementwise_kernel<ANY><<<(unsigned)((R + kTileK7 - 1) / kTileK7), kTileK7, smem,
+                            (cudaStream_t)stream>>>(
+      o, d, max_t, R, p1, e1, e2, aabb, C, sup, leaf, eps, vec16, t_out, idx_out, hit_out);
   return (int)cudaGetLastError();
 }
 
@@ -1239,11 +1670,9 @@ int rtc_closest_hit_elementwise(int device, void* stream, const float* o,
                                 const float* aabb, int C, const float* sup,
                                 int S, int leaf, float eps, float* t_out,
                                 int* idx_out) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  closest_hit_elementwise_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
-      o, d, R, p1, e1, e2, aabb, C, sup, S, leaf, eps, t_out, idx_out);
-  return (int)cudaGetLastError();
+  (void)S;  // the supers are C / kSuperWidth (the wrapper checks C == 8 S)
+  return launch_elementwise<false>(device, stream, o, d, nullptr, R, p1, e1, e2, aabb,
+                                   C, sup, leaf, eps, t_out, idx_out, nullptr);
 }
 
 int rtc_any_hit_elementwise(int device, void* stream, const float* o,
@@ -1251,11 +1680,9 @@ int rtc_any_hit_elementwise(int device, void* stream, const float* o,
                             const float* p1, const float* e1, const float* e2,
                             const float* aabb, int C, const float* sup, int S,
                             int leaf, float eps, uint8_t* hit_out) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  any_hit_elementwise_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
-      o, d, max_t, R, p1, e1, e2, aabb, C, sup, S, leaf, eps, hit_out);
-  return (int)cudaGetLastError();
+  (void)S;
+  return launch_elementwise<true>(device, stream, o, d, max_t, R, p1, e1, e2, aabb, C,
+                                  sup, leaf, eps, nullptr, nullptr, hit_out);
 }
 
 // The ordered walk's list lengths: K1's (and K3's), and K5's.
@@ -1265,13 +1692,15 @@ int rtc_walk_list(int* k1_len, int* k5_len) {
   return 0;
 }
 
-// What a block of one walking kernel takes on the device it runs on: its
-// registers a thread, local and shared bytes, and the blocks of kThreads
-// that fit on one SM. which: 0-4 K1 flat, with_sn, with_t0, with_uv,
+// What a block of one walking kernel takes on the device it runs on, K7's
+// at clusters of leaf rows: its registers a thread, local bytes a thread,
+// shared bytes a block (static and dynamic), threads a block, and the
+// blocks that fit on one SM. which: 0-4 K1 flat, with_sn, with_t0, with_uv,
 // with_uv + t0; 5-6 K3 flat, with_sn; 7-8 K5 flat, with_sn; 9 K6; 10 K2;
-// 11 K4 (the order of WALK_KERNELS in ops/kernels/mesh_intersect.py).
-int rtc_walk_kernel_report(int which, int* regs, int* local_bytes,
-                           int* shared_bytes, int* blocks_per_sm) {
+// 11 K4; 12-13 K7a, K7b (the order of WALK_KERNELS in
+// ops/kernels/mesh_intersect.py).
+int rtc_walk_kernel_report(int which, int leaf, int* regs, int* local_bytes,
+                           int* shared_bytes, int* block_threads, int* blocks_per_sm) {
   const void* const kernels[] = {
       (const void*)closest_hit_kernel<kFlat, false>,
       (const void*)closest_hit_kernel<kSn, false>,
@@ -1284,17 +1713,30 @@ int rtc_walk_kernel_report(int which, int* regs, int* local_bytes,
       (const void*)closest_hit_tlas_kernel<true>,
       (const void*)any_hit_tlas_kernel,
       (const void*)any_hit_kernel,
-      (const void*)crossing_count_kernel};
+      (const void*)crossing_count_kernel,
+      (const void*)elementwise_kernel<false>,
+      (const void*)elementwise_kernel<true>};
+  constexpr int kFirstK7 = 12;
   if (which < 0 || which >= (int)(sizeof(kernels) / sizeof(kernels[0])))
     return (int)cudaErrorInvalidValue;
+  const bool k7 = which >= kFirstK7;
+  if (k7 && (leaf < 1 || leaf > kMaxLeafK7)) return (int)cudaErrorInvalidValue;
+  const size_t smem = k7 ? elementwise_smem(leaf) : 0;
+  cudaError_t err;
+  if (smem > 16384) {
+    err = cudaFuncSetAttribute(kernels[which], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernels[which]);
+  err = cudaFuncGetAttributes(&attr, kernels[which]);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
-  *shared_bytes = (int)attr.sharedSizeBytes;
+  *shared_bytes = (int)(attr.sharedSizeBytes + smem);
+  *block_threads = k7 ? kTileK7 : kThreads;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernels[which], kThreads, 0);
+      blocks_per_sm, kernels[which], *block_threads, smem);
 }
 
 #ifdef RTC_COUNT
@@ -1318,6 +1760,34 @@ int rtc_count_any_hit_table_order(int device, void* stream, const float* o,
   if (err != cudaSuccess) return (int)err;
   any_hit_table_order_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
       o, d, max_t, R, p1, e1, e2, aabb, C, leaf, eps, hit_out);
+  return (int)cudaGetLastError();
+}
+
+// K7a's and K7b's loops before the tile walk (one ray a thread), kept to be
+// counted against it (kernel_ab.py --count); the arguments of
+// rtc_closest_hit_elementwise and rtc_any_hit_elementwise.
+int rtc_count_closest_hit_elementwise_old(int device, void* stream, const float* o,
+                                          const float* d, int R, const float* p1,
+                                          const float* e1, const float* e2,
+                                          const float* aabb, int C, const float* sup,
+                                          int S, int leaf, float eps, float* t_out,
+                                          int* idx_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  closest_hit_elementwise_old_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, R, p1, e1, e2, aabb, C, sup, S, leaf, eps, t_out, idx_out);
+  return (int)cudaGetLastError();
+}
+
+int rtc_count_any_hit_elementwise_old(int device, void* stream, const float* o,
+                                      const float* d, const float* max_t, int R,
+                                      const float* p1, const float* e1, const float* e2,
+                                      const float* aabb, int C, const float* sup, int S,
+                                      int leaf, float eps, uint8_t* hit_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  any_hit_elementwise_old_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      o, d, max_t, R, p1, e1, e2, aabb, C, sup, S, leaf, eps, hit_out);
   return (int)cudaGetLastError();
 }
 #endif

@@ -68,8 +68,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 VMEM_TRI_BUDGET = 49152
 # clusters per supercluster, the kernels' kSuperWidth (K7a/K7b)
 SUPER_WIDTH = 8
-# threads a block, the kernels' kThreads
+# threads a block, the kernels' kThreads (K7: ELEMENTWISE_TILE)
 BLOCK_THREADS = 128
+# K7's tile walk (kTileK7, kMaxLeafK7, kK7LaneMin): rays a block, the most
+# rows a cluster it stages in shared memory, and the entered lanes a warp,
+# on average over the warps holding any, from which a cluster goes a lane a
+# ray rather than a warp a ray
+ELEMENTWISE_TILE = 256
+ELEMENTWISE_MAX_LEAF = 1024
+ELEMENTWISE_LANE_MIN = 28
 
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "closest_shadow": 0,
             "closest_hit_sn": 0, "closest_shadow_sn": 0, "crossing_count": 0,
@@ -450,7 +457,9 @@ def find_nvcc() -> str:
 COUNT_FLAGS = ("-DRTC_COUNT",)
 COUNTERS = ("inst_group_tests", "inst_tests", "group_tests", "cluster_tests",
             "sub_tests", "inst_entered", "groups_entered", "clusters_entered",
-            "subs_entered", "pair_det", "pair_u", "pair_v", "pair_t")
+            "subs_entered", "pair_det", "pair_u", "pair_v", "pair_t",
+            "super_tests", "supers_entered", "rounds", "round_lanes",
+            "tile_clusters", "tile_slots", "tile_by_lane")
 
 
 def build(source: str = SOURCE, extra_flags: tuple = ()) -> str:
@@ -523,13 +532,19 @@ def bind(path: str) -> ctypes.CDLL:
         lib.rtc_count_any_hit_table_order.argtypes = [I, P, P, P, P, I, P, P, P, P, I,
                                                       I, F, P]
         lib.rtc_count_any_hit_table_order.restype = I
+        lib.rtc_count_closest_hit_elementwise_old.argtypes = \
+            lib.rtc_closest_hit_elementwise.argtypes
+        lib.rtc_count_any_hit_elementwise_old.argtypes = \
+            lib.rtc_any_hit_elementwise.argtypes
+        lib.rtc_count_closest_hit_elementwise_old.restype = I
+        lib.rtc_count_any_hit_elementwise_old.restype = I
     return lib
 
 
 # the kernels that walk boxes, by rtc_walk_kernel_report's index
 WALK_KERNELS = ("K1 flat", "K1 with_sn", "K1 with_t0", "K1 with_uv",
                 "K1 with_uv t0", "K3 flat", "K3 with_sn", "K5 flat",
-                "K5 with_sn", "K6", "K2", "K4")
+                "K5 with_sn", "K6", "K2", "K4", "K7a", "K7b")
 
 
 def walk_list(lib=None) -> tuple:
@@ -542,19 +557,22 @@ def walk_list(lib=None) -> tuple:
     return v[0].value, v[1].value
 
 
-def walk_kernel_report(lib=None) -> dict:
-    """{kernel: registers a thread, local and shared bytes a block, blocks
-    and threads resident on one SM} of each kernel in WALK_KERNELS, as the
-    CUDA runtime reports them for the current device."""
+def walk_kernel_report(lib=None, leaf: int = 128) -> dict:
+    """{kernel: registers a thread, local bytes a thread, shared bytes a
+    block (K7's with its two staged clusters of leaf rows), threads a block,
+    blocks and threads resident on one SM} of each kernel in WALK_KERNELS,
+    as the CUDA runtime reports them for the current device."""
     fn = (lib or library()).rtc_walk_kernel_report
-    fn.argtypes, fn.restype = [ctypes.c_int] + [ctypes.c_void_p] * 4, ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
     out = {}
     for k, name in enumerate(WALK_KERNELS):
-        v = [ctypes.c_int() for _ in range(4)]
-        _raise_on(fn(k, *map(ctypes.byref, v)), f"report of {name}")
-        regs, local, shared, blocks = (x.value for x in v)
+        v = [ctypes.c_int() for _ in range(5)]
+        _raise_on(fn(k, leaf, *map(ctypes.byref, v)), f"report of {name}")
+        regs, local, shared, threads, blocks = (x.value for x in v)
         out[name] = dict(registers=regs, local_bytes=local, shared_bytes=shared,
-                         blocks_per_sm=blocks, threads_per_sm=blocks * BLOCK_THREADS)
+                         block_threads=threads, blocks_per_sm=blocks,
+                         threads_per_sm=blocks * threads)
     return out
 
 
@@ -986,9 +1004,10 @@ def mesh_any_hit_tlas(o, d, max_t, p1, e1, e2, caabb, inst_ab, inst_aabb,
 #
 # rtc_tpu's mesh_impl="pallas": an independent three-level walk over the
 # world table in table order (superclusters of SUPER_WIDTH clusters,
-# super_aabb (S, 6), then clusters, then rows). Their plain versions are
-# the dense sweeps _closest_plain and any_hit_plain, which compute the same
-# functions.
+# super_aabb (S, 6), then clusters, then rows), a block of ELEMENTWISE_TILE
+# rays at a time (the tile walk: csrc/mesh_intersect.cu). Their plain
+# versions are the dense sweeps _closest_plain and any_hit_plain, which
+# compute the same functions.
 
 def _elementwise_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb, super_aabb,
                       leaf):
@@ -1000,6 +1019,9 @@ def _elementwise_args(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb, super_aabb,
     if C != S * SUPER_WIDTH:
         raise ValueError(f"{S} super boxes do not cover {C} clusters in "
                          f"groups of {SUPER_WIDTH}")
+    if C and not 1 <= leaf <= ELEMENTWISE_MAX_LEAF:
+        raise ValueError(f"leaf={leaf}: the elementwise kernels stage clusters of "
+                         f"1 to {ELEMENTWISE_MAX_LEAF} rows")
     return device, R, C, S
 
 

@@ -541,47 +541,109 @@ def test_render_herd_through_kernels_matches_plain(cuda, smooth):
 
 # --- the elementwise backend (K7a, K7b), K1's t0 and uv modes, streaming ---
 
-def _elementwise_pair(scene, o, d, max_t):
-    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
-    boxes = (scene.cluster_aabb, scene.super_aabb, scene.static.cluster_size)
-    k7a = mi.mesh_closest_hit_elementwise(o, d, *tabs, *boxes)
-    k7b = mi.mesh_any_hit_elementwise(o, d, max_t, *tabs, *boxes)
-    torch.cuda.synchronize()
-    return k7a, k7b
+def _k7_tables(rows, leaf, cuda):
+    """K7's world-table arguments for rows (p1, e1, e2) (T, 3) f32 numpy in
+    the order given: clusters of leaf rows padded to a multiple of
+    SUPER_WIDTH, their boxes and the supers' (compile.py's helpers)."""
+    from rtc_tpu_torch.scene import compile as compile_mod
+    T = rows[0].shape[0]
+    n_clusters = -(-T // leaf)
+    C = -(-n_clusters // mi.SUPER_WIDTH) * mi.SUPER_WIDTH
+    rows = [np.concatenate([x, np.zeros((C * leaf - T, 3), np.float32)]) for x in rows]
+    aabb = compile_mod._empty_boxes(C)
+    for c in range(n_clusters):
+        a, b, e = (x[c * leaf:min((c + 1) * leaf, T)].astype(np.float64) for x in rows)
+        verts = np.concatenate([a, a + b, a + e])
+        aabb[c, :3], aabb[c, 3:] = verts.min(0), verts.max(0)
+    dev = lambda x: torch.tensor(np.asarray(x, np.float32), device=cuda)
+    return (*map(dev, rows), dev(aabb), dev(compile_mod._group_boxes(aabb)))
 
 
-@pytest.mark.parametrize("where", ["soup", "teapot"])
+def _tied_rows(rng, leaf):
+    """16 triangles, each at rows 2m and 2m + 1 (neighbouring lanes), again
+    in every later 32-row round of a cluster (the same lanes) and again in
+    a second cluster: the closest hit always ties, and the earliest row
+    must win."""
+    c = rng.uniform(-1.0, 1.0, (16, 3))
+    v = [c + rng.normal(0, 1.0, (16, 3)) for _ in range(3)]
+    rows = [x.astype(np.float32) for x in (v[0], v[1] - v[0], v[2] - v[0])]
+    return [np.tile(np.tile(np.repeat(x, 2, axis=0), (leaf // 32, 1)), (2, 1)) for x in rows]
+
+
+@pytest.mark.parametrize("where", ["soup", "teapot", "ties", "leaf 50"])
 def test_elementwise_kernels_match_plain_and_k1(cuda, where):
     """K7a: t bit-equal to its plain version and to K1 (the same pair
     test), idx equal to the plain version's (both take the earliest row at
-    the least t); K7b: flags equal to the plain version's and to K2's, a
-    quarter of the lanes dead."""
+    the least t); K7b: flags equal to the plain version's and to K2's. Ray
+    counts that leave a ragged last tile; K7b with every 4th lane dead
+    (max_t -1, 0 or NaN) and a second run on the rays that hit, max_t past
+    every hit, so whole tiles are found and leave their walk. 'ties': every
+    triangle eight times (neighbouring lanes, later rounds, the next
+    cluster), where K7a must return the first copy; 'leaf 50': clusters of
+    50 rows, a last round of 18 lanes, staged by 4-byte copies (no K2 there:
+    no occlusion tables)."""
+    occ = None
     if where == "soup":
         scene, o, d = _soup(np.random.default_rng(11), 120, cuda)
-    else:
+        tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.cluster_aabb,
+                scene.super_aabb)
+        leaf, occ = scene.static.cluster_size, scene.occ
+    elif where == "teapot":
         world, cam = REGISTRY["teapot"](128)
         scene = compile_scene(world, device=cuda)
         o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize,
                            cam.half_width, cam.half_height, cam.pixel_size,
                            device=cuda)
-        o, d = o.contiguous(), d.contiguous()
-    # occlusion up to the soup's middle, or up to past the teapot
-    max_t = torch.full((o.shape[0],), 6.0 if where == "soup" else 30.0,
-                       device=cuda)
-    max_t[::4] = -1.0
-    (t, idx), hit = _elementwise_pair(scene, o, d, max_t)
-    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
-    pt, pidx = mi._closest_plain(o, d, *tabs, 1e-5)
+        o, d = o[:8000].contiguous(), d[:8000].contiguous()
+        tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.cluster_aabb,
+                scene.super_aabb)
+        leaf, occ = scene.static.cluster_size, scene.occ
+    else:
+        rng = np.random.default_rng(12)
+        leaf = 128 if where == "ties" else 50
+        if where == "ties":
+            rows = _tied_rows(rng, leaf)
+        else:
+            c = rng.uniform(-2.0, 2.0, (1500, 3))
+            v = [c + rng.normal(0, 0.4, (1500, 3)) for _ in range(3)]
+            rows = [x.astype(np.float32) for x in (v[0], v[1] - v[0], v[2] - v[0])]
+        tabs = _k7_tables(rows, leaf, cuda)
+        origin = rng.normal(size=(1000, 3))
+        origin *= 8.0 / np.linalg.norm(origin, axis=1, keepdims=True)
+        direction = rng.uniform(-1.5, 1.5, (1000, 3)) - origin
+        direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+        o, d = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                for x in (origin, direction))
+    R = o.shape[0]
+    assert R % mi.ELEMENTWISE_TILE
+    k7a = mi.mesh_closest_hit_elementwise(o, d, *tabs, leaf)
+    t, idx = k7a
+    pt, pidx = mi._closest_plain(o, d, *tabs[:3], 1e-5)
     assert torch.equal(t, pt) and torch.equal(idx, pidx)
-    assert int((idx >= 0).sum()) > 300
-    k1 = mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, scene.cluster_aabb,
-                             scene.static.cluster_size)
+    assert int((idx >= 0).sum()) > (300 if where in ("soup", "teapot") else 50)
+    k1 = mi.mesh_closest_hit(o, d, *tabs[:3], torch.zeros_like(tabs[0]), tabs[3], leaf)
     assert torch.equal(t, k1[0])
-    assert torch.equal(hit, mi.any_hit_plain(o, d, max_t, *tabs))
-    assert torch.equal(hit, mi.mesh_any_hit(o, d, max_t, *tabs,
-                                            scene.cluster_aabb,
-                                            scene.static.cluster_size, occ=scene.occ))
+    if where == "ties":
+        p1 = tabs[0]
+        hit = idx >= 0
+        first = torch.tensor([int((p1 == p1[i]).all(1).nonzero()[0])
+                              for i in idx[hit].tolist()], device=cuda)
+        assert torch.equal(idx[hit].long(), first)
+    # occlusion up to the scene's middle, or up to past the teapot
+    reach = {"soup": 6.0, "teapot": 30.0}.get(where, 8.0)
+    max_t = torch.full((R,), reach, device=cuda)
+    max_t[::4] = torch.tensor([-1.0, 0.0, float("nan")], device=cuda).repeat(R)[:max_t[::4].numel()]
+    past = torch.where(idx >= 0, t * 2.0, -1.0)      # every live lane occluded
+    for mt in (max_t, past):
+        hit = mi.mesh_any_hit_elementwise(o, d, mt, *tabs, leaf)
+        assert torch.equal(hit, mi.any_hit_plain(o, d, mt, *tabs[:3]))
+        if occ is not None:
+            assert torch.equal(hit, mi.mesh_any_hit(o, d, mt, *tabs[:3], tabs[3], leaf,
+                                                    occ=occ))
+    hit = mi.mesh_any_hit_elementwise(o, d, max_t, *tabs, leaf)
     assert hit.any() and not hit[::4].any()
+    assert torch.equal(mi.mesh_any_hit_elementwise(o, d, past, *tabs, leaf), idx >= 0)
+    torch.cuda.synchronize()
 
 
 def test_elementwise_bad_inputs(cuda):
@@ -598,6 +660,39 @@ def test_elementwise_bad_inputs(cuda):
                                              scene.super_aabb,
                                              scene.static.cluster_size)
     assert t.shape == (0,) and mi.LAUNCHES["closest_hit_elementwise"] == 0
+    # a leaf past the rows the tile walk stages: refused by the wrapper, and
+    # by the library's entry points when called past the wrapper
+    leaf = mi.ELEMENTWISE_MAX_LEAF + 1
+    rng = np.random.default_rng(13)
+    rows = [rng.normal(size=(leaf, 3)).astype(np.float32) for _ in range(3)]
+    big = _k7_tables(rows, leaf, cuda)
+    max_t = torch.ones((4,), device=cuda)
+    with pytest.raises(ValueError, match="leaf"):
+        mi.mesh_closest_hit_elementwise(o, o, *big, leaf)
+    with pytest.raises(ValueError, match="leaf"):
+        mi.mesh_any_hit_elementwise(o, o, max_t, *big, leaf)
+    out = torch.empty((4,), device=cuda)
+    err = mi.library().rtc_closest_hit_elementwise(
+        0, mi._stream(o.device), o.data_ptr(), o.data_ptr(), 4, big[0].data_ptr(),
+        big[1].data_ptr(), big[2].data_ptr(), big[3].data_ptr(), big[3].shape[0],
+        big[4].data_ptr(), big[4].shape[0], leaf, 1e-5, out.data_ptr(),
+        torch.empty((4,), dtype=torch.int32, device=cuda).data_ptr())
+    assert err != 0
+    assert mi.LAUNCHES == dict.fromkeys(mi.LAUNCHES, 0)
+    # the largest leaf it takes (dynamic shared memory past the 48 KB default)
+    leaf = mi.ELEMENTWISE_MAX_LEAF
+    tabs = _k7_tables([x[:leaf] for x in rows], leaf, cuda)
+    o = torch.tensor(rng.normal(size=(300, 3)) * 0.2 - [0.0, 0.0, 6.0], dtype=torch.float32,
+                     device=cuda)
+    d = torch.tensor(rng.normal(size=(300, 3)) * 0.1 + [0.0, 0.0, 1.0], dtype=torch.float32,
+                     device=cuda)
+    d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    t, idx = mi.mesh_closest_hit_elementwise(o, d, *tabs, leaf)
+    pt, pidx = mi._closest_plain(o, d, *tabs[:3], 1e-5)
+    assert torch.equal(t, pt) and torch.equal(idx, pidx) and bool((idx >= 0).any())
+    max_t = torch.full((300,), 12.0, device=cuda)
+    assert torch.equal(mi.mesh_any_hit_elementwise(o, d, max_t, *tabs, leaf),
+                       mi.any_hit_plain(o, d, max_t, *tabs[:3]))
 
 
 def test_t0_and_uv_modes_match_plain(cuda):
