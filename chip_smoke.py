@@ -37,7 +37,14 @@ cow and cow_herd under mesh_impl="elementwise", the one-mesh herds
 streamed, teapot and pumpkin) at 1920x960 (the smooth one-mesh herd at
 480x240), depth 5, f32 through render(), counting each kernel's
 launches in each frame, and checks each image against the plain render
-and, where tests/golden has one, the golden. Phase 2 prints the ordered
+and, where tests/golden has one, the golden. Phase 13 runs the gradient
+path (render/integrator.py's autograd Functions, diff.render_grad): the
+cow frame's loss_and_grad in 4 tiles through K3 (8 launches under
+autograd) against the whole frame in one graph, the split route and
+central finite differences, three Adam steps whose loss falls, a profiled
+step, each of the eight Functions with its kernel against autograd through
+the dense plain sweep, and K3 after inject_params moves triangles; it
+prints a "grads" JSON line before the kernels' record. Phase 2 prints the ordered
 walk's list lengths and the registers, memory and resident blocks of the
 kernels that walk (K1-K6); phases 3, 6, 9 and 11 print the boxes
 each ray visits (median, 99th percentile, maximum: clusters, and for K5
@@ -53,6 +60,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -62,6 +70,7 @@ import time
 import numpy as np
 import torch
 
+from rtc_tpu_torch.diff import render_grad as RG
 from rtc_tpu_torch.models.scenes import REGISTRY, TEST_WORLDS
 from rtc_tpu_torch.ops.kernels import mesh_intersect as mi
 from rtc_tpu_torch.ops.vec import normalize, normalize3
@@ -1868,6 +1877,408 @@ def phase_new_frames():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: gradients through the kernels (render/integrator.py's autograd
+# Functions and diff.render_grad)
+# ---------------------------------------------------------------------------
+
+# the target frame: the cow's material colour and light intensity both
+# lowered, which darkens the frame by half (most of it scales with their
+# product), so ADAM_STEPS steps of both (each moves a parameter by about
+# the learning rate) stay on the near side of the optimum; moves of
+# opposite sign nearly cancel in the product, and the first step overshoots
+PERTURB = {"mat_color": -0.3, "light_intensity": -0.3}
+GRAD_TILES = 4              # tiles of the gradient frame, 460,800 rays each
+FD_EPS, FD_RTOL = 1e-2, 2e-3
+ADAM_LR, ADAM_STEPS = 5e-2, 3
+FN_TOL = dict(rtol=1e-3, atol=1e-5)   # tests/test_pallas_mesh.py:109-110
+# each Function: its scene and the rays of that scene's wavefront it takes
+FUNCTIONS = {"K1 with_n": ("cow", 8192), "K3": ("cow", 8192),
+             "K7a": ("cow", 8192), "K1 with_sn": ("teapot_smooth", 8192),
+             "K3 with_sn": ("teapot_smooth", 8192),
+             "K1 with_uv streamed": ("cow_herd_mesh_smooth", 1024),
+             "K5": ("cow_herd", 1024), "K5 with_sn": ("cow_herd_smooth", 1024)}
+
+
+def frame_tiles(cam, n_tiles: int):
+    """The frame's primary rays in block order (as render() generates
+    them), cut into n_tiles tiles."""
+    px, py = blocked_pixels(cam.vsize, cam.hsize, "cuda")
+    o, d = camera_rays_for_pixels(cam.transform_inverse, px, py, cam.half_width,
+                                  cam.half_height, cam.pixel_size)
+    step = -(-o.shape[0] // n_tiles)
+    return [(o[i:i + step].contiguous(), d[i:i + step].contiguous())
+            for i in range(0, o.shape[0], step)]
+
+
+def tiled_loss_and_grad(params, scene, tiles, targets, cfg):
+    """The frame's loss_and_grad, one tile at a time (a backward each),
+    each tile's loss and gradients weighted by its share of the rays: the
+    frame mean's. The loss is accumulated in f64."""
+    n = sum(o.shape[0] for o, _ in tiles)
+    loss, grads = 0.0, {k: torch.zeros_like(v) for k, v in params.items()}
+    for (o, d), target in zip(tiles, targets):
+        tile_loss, g = RG.loss_and_grad(params, scene, o, d, target, cfg)
+        share = o.shape[0] / n
+        loss += share * float(tile_loss)
+        for k in grads:
+            grads[k] += share * g[k]
+    return loss, grads
+
+
+@torch.no_grad()
+def tiled_loss(params, scene, tiles, targets, cfg) -> float:
+    """The frame's loss at params, accumulated in f64 (finite differences)."""
+    s = RG.inject_params(scene, params)
+    total = sum(float(((integrator.color_at(s, o, d, cfg).double() - t) ** 2).sum())
+                for (o, d), t in zip(tiles, targets))
+    return total / (3 * sum(o.shape[0] for o, _ in tiles))
+
+
+def rel_norm(a, b) -> float:
+    """|a - b| / |b| over all elements (0 where both are zero)."""
+    nb = float(b.double().norm())
+    return float((a - b).double().norm()) / nb if nb else float((a != b).any())
+
+
+def wall_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def profiled_step(params, scene, o, d, target, cfg) -> dict:
+    """One Adam step of the frame, profiled: the device time of its
+    forward (render_loss), backward and optimizer update, split at spin
+    kernels (torch.cuda._sleep) queued between them, from the kernels
+    torch.profiler records (None where it recorded no spin kernel); and the
+    CUDA-event time of each part, each ended by a synchronize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("forward", "backward", "update")
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    opt = torch.optim.Adam(leaves.values(), lr=ADAM_LR)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        marks[0].record()
+        loss = RG.render_loss(leaves, scene, o, d, target, cfg)
+        marks[1].record()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        loss.backward()
+        marks[2].record()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        opt.step()
+        marks[3].record()
+        torch.cuda.synchronize()
+    ops = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    device, k = dict.fromkeys(names, 0.0), 0
+    for e in ops:
+        if "spin" in e.name:
+            k += 1
+        elif k < len(names):
+            device[names[k]] += e.time_range.elapsed_us() / 1e3
+    busy = sum(device.values()) if k == len(names) - 1 else 0.0
+    return {"event_ms": {n: marks[i].elapsed_time(marks[i + 1]) for i, n in enumerate(names)},
+            "device_busy_ms": device if busy else None,
+            "backward_share_of_device": device["backward"] / busy if busy else None}
+
+
+def function_case(name, s, eps):
+    """(Function, kernel search, plain search, differentiable tables, lead
+    arguments) of one autograd Function on scene s, as the integrator
+    routes it; the plain search is the kernel's plain version."""
+    leaf, I = s.static.cluster_size, integrator
+    flat = (s.tri_p1, s.tri_e1, s.tri_e2)
+    if name == "K7a":
+        return (I.KernelClosest, lambda *x: mi.mesh_closest_hit_elementwise(
+            *x, s.cluster_aabb, s.super_aabb, leaf, eps),
+            lambda *x: mi._closest_plain(*x, eps), flat, ())
+    if name == "K1 with_n":
+        return (I.KernelClosestN, lambda *x: mi.mesh_closest_hit(
+            *x, s.cluster_aabb, leaf, eps), lambda *x: mi.closest_hit_plain(*x, eps),
+            (*flat, s.tri_n), ())
+    if name == "K1 with_uv streamed":
+        return (I.KernelClosestUv, lambda *x: mi.mesh_closest_hit_uv(
+            *x, s.cluster_aabb, leaf, eps), lambda *x: mi.closest_hit_uv_plain(*x, eps),
+            flat, ())
+    if name == "K1 with_sn":
+        return (I.KernelClosestSn, lambda *x: mi.mesh_closest_hit_sn(
+            *x, s.cluster_aabb, leaf, eps), lambda *x: mi.closest_hit_sn_plain(*x, eps),
+            (*flat, I.corner_normals(s)), ())
+    if name == "K3":
+        return (I.KernelClosestShadow, lambda *x: mi.mesh_closest_shadow(
+            *x, s.cluster_aabb, s.light_pos, leaf, eps, occ=s.occ),
+            lambda *x: mi.closest_shadow_plain(*x, s.light_pos, eps), (*flat, s.tri_n), ())
+    if name == "K3 with_sn":
+        return (I.KernelClosestShadowSn, lambda *x: mi.mesh_closest_shadow_sn(
+            *x, s.cluster_aabb, s.light_pos, leaf, eps, occ=s.occ),
+            lambda *x: mi.closest_shadow_sn_plain(*x, s.light_pos, eps),
+            (*flat, I.corner_normals(s)), ())
+    tl, st = s.tlas, s.static
+    smooth = name == "K5 with_sn"
+    kernel = mi.mesh_closest_hit_tlas_sn if smooth else mi.mesh_closest_hit_tlas
+    plain = mi.closest_hit_tlas_sn_plain if smooth else mi.closest_hit_tlas_plain
+    rest = (tl.inst_aabb, tl.inst_mesh, tl.inst_obj, leaf, st.tlas_cm, eps)
+    return ((I.KernelClosestTlasSn if smooth else I.KernelClosestTlas),
+            lambda o, d, p1, e1, e2, n, ab: kernel(o, d, p1, e1, e2, n, tl.caabb, ab, *rest),
+            lambda o, d, p1, e1, e2, n, ab: plain(o, d, p1, e1, e2, n, ab, *rest),
+            (tl.p1, tl.e1, tl.e2, tl.sn if smooth else tl.n, tl.inst_ab),
+            (st.tlas_cm * leaf, tl.inst_mesh))
+
+
+def function_loss(outs, w, keep):
+    """sum(t on hits) + sum(n * w) (uv * w for K1 with_uv), over keep."""
+    loss = torch.where(keep & (outs[1] >= 0), outs[0], 0.0).sum()
+    for vec in (y for y in outs[2:] if y.is_floating_point()):
+        loss = loss + torch.where(keep[:, None], vec * w[:, :vec.shape[1]], 0.0).sum()
+    return loss
+
+
+def function_rays(scene, cam, n: int, search, tabs):
+    """n rays of the scene's 460,800-ray wavefront: 7/8 of them evenly over
+    the rays the kernel finds a hit for, the rest over its misses."""
+    o, d = main_path_rays(cam)
+    with torch.no_grad():
+        hit = search(o, d, *tabs)[1] >= 0
+    pick = []
+    for rays, k in ((torch.nonzero(hit)[:, 0], n - n // 8), (torch.nonzero(~hit)[:, 0], n // 8)):
+        pick.append(rays[torch.linspace(0, rays.numel() - 1, k, device="cuda").long()])
+    sel = torch.cat(pick)
+    return o[sel].contiguous(), d[sel].contiguous()
+
+
+def plain_reference(plain, inputs, w, keep, rows: int):
+    """Autograd through the dense plain sweep, in f64 on the same f32
+    values, over chunks of rays (the loss is a sum over rays) so the
+    graph's (rays, rows) intermediates stay near 2^25 elements."""
+    xs = [x.detach().double().requires_grad_() for x in inputs]
+    o, d, tabs = xs[0], xs[1], xs[2:]
+    grads = [torch.zeros_like(x) for x in xs]
+    step = max(1, (1 << 25) // rows)
+    for s in range(0, o.shape[0], step):
+        part = slice(s, s + step)
+        loss = function_loss(plain(o[part], d[part], *tabs), w[part].double(), keep[part])
+        for g, gk in zip(grads, torch.autograd.grad(loss, xs, allow_unused=True)):
+            if gk is not None:
+                g += gk
+    return grads
+
+
+def function_gate(name, eps) -> dict:
+    """One Function with its kernel as the forward against autograd through
+    the dense plain sweep (plain_reference), on its scene's rays."""
+    scene_name, n = FUNCTIONS[name]
+    scene, cam = slice_scene(scene_name, WIDTH)
+    fn, kernel, plain, tabs, lead = function_case(name, scene, eps)
+    o, d = function_rays(scene, cam, n, kernel, tabs)
+    with torch.no_grad():
+        won = kernel(o, d, *tabs)[1]
+        step = max(1, (1 << 25) // tabs[0].shape[0])
+        ref_won = torch.cat([plain(o[s:s + step].double(), d[s:s + step].double(),
+                                   *(x.double() for x in tabs))[1]
+                             for s in range(0, n, step)])
+    keep = won == ref_won
+    check(float(keep.float().mean()) > 0.99,
+          f"{name}: kernel and f64 plain winners differ on {int((~keep).sum())} of {n}")
+    w = torch.randn((n, 3), generator=torch.Generator("cuda").manual_seed(0), device="cuda")
+    xs = [x.detach().clone().requires_grad_() for x in (o, d, *tabs)]
+    mi.reset_launch_counts()
+    outs = fn.apply(kernel, eps, *lead, *xs)
+    launched = {k: v for k, v in mi.LAUNCHES.items() if v}
+    check(bool(launched), f"{name}: the Function launched no kernel")
+    got = torch.autograd.grad(function_loss(outs, w, keep), xs)
+    rows = tabs[0].shape[0]
+    if lead:  # K5's plain version sweeps each real instance's mesh
+        rows *= int((scene.tlas.inst_aabb[:, 0] <= scene.tlas.inst_aabb[:, 3]).sum())
+    ref = plain_reference(plain, (o, d, *tabs), w, keep, rows)
+    errs = []
+    for k, (a, b) in enumerate(zip(got, ref)):
+        b = b.float()
+        bad = ~torch.isclose(a, b, **FN_TOL)
+        check(not bool(bad.any()), f"{name}: input {k} gradients differ from plain on "
+              f"{int(bad.sum())} elements, max |diff| {float((a - b).abs().max()):.3g}")
+        errs.append(float((a - b).abs().max()))
+    check(any(float(g.abs().sum()) > 0 for g in got[2:]), f"{name}: no table gradient")
+    return dict(scene=scene_name, rays=n, hits=int((won >= 0).sum()),
+                winners_compared=int((keep & (won >= 0)).sum()), launches=launched,
+                max_abs_err=max(errs))
+
+
+def vertex_update_gate(scene, cam, eps) -> dict:
+    """inject_params moving the triangles of the 4 clusters the cow's
+    wavefront hits most: on the new scene K3's closest hits and shadow
+    flags equal the plain sweep's on the new rows (flags within the
+    knife-edge budget of phase 3, and equal to K2's on K3's own shadow
+    rays); the rows swapped in without the rebuild (stale boxes and
+    occlusion tables) miss that."""
+    leaf = scene.static.cluster_size
+    o, d = main_path_rays(cam)
+    o, d = o[::8].contiguous(), d[::8].contiguous()
+    idx = mi.mesh_closest_hit(o, d, *tables(scene), scene.tri_n, scene.cluster_aabb,
+                              leaf, eps)[1]
+    seen = torch.bincount(idx[idx >= 0].long() // leaf).argsort(descending=True)[:4]
+    rows = (seen[:, None] * leaf + torch.arange(leaf, device="cuda")).flatten()
+    p1 = scene.tri_p1.clone()
+    p1[rows] += torch.tensor([0.0, 0.3, -0.2], device="cuda")
+    new = RG.inject_params(scene, {"tri_p1": p1})
+    ref = mi.closest_shadow_plain(o, d, *tables(new), new.tri_n, new.light_pos, eps)
+    hits = int((ref[1] >= 0).sum())
+
+    def k3(s):
+        return mi.mesh_closest_shadow(o, d, *tables(s), s.tri_n, s.cluster_aabb,
+                                      s.light_pos, leaf, eps, occ=s.occ)
+
+    got = k3(new)
+    closest_gate("vertex update K3", got, ref)
+    flips = int((got[3] != ref[3]).sum())
+    check(flips <= max(2, hits // 1000),
+          f"vertex update: K3's shadow flags differ from plain on {flips} of {hits} hits")
+    so, sd, max_t = k3_shadow_rays(scene, o, d, eps, got)
+    k3_flags_gate("vertex update K3", got[3],
+                  mi.mesh_any_hit(so, sd, max_t, *tables(new), new.cluster_aabb, leaf,
+                                  eps, occ=new.occ), max_t)
+    stale = k3(dataclasses.replace(scene, tri_p1=p1))
+    stale_gaps = int((stale[1] != ref[1]).sum() + (stale[3] != ref[3]).sum())
+    check(stale_gaps > max(2, hits // 1000),
+          f"vertex update: stale tables differ from plain on only {stale_gaps} rays")
+    return dict(rays=o.shape[0], hits=hits, moved_rows=rows.numel(), flag_flips=flips,
+                stale_table_gaps=stale_gaps)
+
+
+def phase_gradients(eps):
+    """The gradient path on the card. (a) The cow frame at 1920x960, depth
+    5, f32, mesh_impl="kernel", fused K3: loss_and_grad of the mean squared
+    error against a target rendered with PERTURB, in GRAD_TILES tiles of
+    460,800 rays (K3 launched on both bounce nodes of every tile under
+    autograd), against the whole frame in one graph, the split route (K1 +
+    K2), and central finite differences; then ADAM_STEPS Adam steps of
+    make_train_step, and one profiled step. (b) Each autograd Function with
+    its kernel against the dense plain sweep (function_gate). (c) The
+    vertex update (vertex_update_gate). Returns the "grads" record."""
+    scene, cam = slice_scene("cow", WIDTH)
+    fused = RenderConfig(ray_tile=RAY_TILE, mesh_impl="kernel")
+    split = RenderConfig(ray_tile=RAY_TILE, mesh_impl="kernel", fused_shadow=False)
+    tiles = frame_tiles(cam, GRAD_TILES)
+    check(len(tiles) == GRAD_TILES and all(o.shape[0] == RAY_TILE for o, _ in tiles),
+          "gradient tiles")
+    base = RG.extract_params(scene)
+    moved = {k: base[k].detach() + v for k, v in PERTURB.items()}
+    with torch.no_grad():
+        target_scene = RG.inject_params(scene, moved)
+        targets = [integrator.color_at(target_scene, o, d, fused) for o, d in tiles]
+    params = RG.extract_params(scene, RG.DEFAULT_PARAMS + ("tri_p1",))
+    render(scene, cam, fused)
+    forward_s = sorted(wall_s(lambda: render(scene, cam, fused))[0] for _ in range(3))
+
+    tiled_loss_and_grad(params, scene, tiles, targets, fused)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    mi.reset_launch_counts()
+    lg_s, (loss, grads) = wall_s(lambda: tiled_loss_and_grad(params, scene, tiles,
+                                                             targets, fused))
+    launches = dict(mi.LAUNCHES)
+    tiled_peak = torch.cuda.max_memory_allocated()
+    lg2_s, _ = wall_s(lambda: tiled_loss_and_grad(params, scene, tiles, targets, fused))
+    want = dict(dict.fromkeys(mi.LAUNCHES, 0), closest_shadow=2 * GRAD_TILES)
+    check(launches == want, f"gradient frame: launch counts {launches}, expected {want}")
+    for k, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"gradient of {k} is not finite")
+    check(float(grads["tri_p1"].abs().sum()) > 0, "tri_p1's gradient is zero")
+
+    fd = {}
+    for name, index in (("mat_color", (0, 0)), ("light_intensity", (0,))):
+        at = []
+        for sign in (1, -1):
+            p = {k: v.detach().clone() for k, v in params.items()}
+            p[name][index] += sign * FD_EPS
+            at.append(tiled_loss(p, scene, tiles, targets, fused))
+        fd_val = (at[0] - at[1]) / (2 * FD_EPS)
+        ad = float(grads[name][index])
+        check(abs(ad - fd_val) <= FD_RTOL * abs(fd_val),
+              f"{name}{list(index)}: autograd {ad} vs finite difference {fd_val}")
+        fd[f"{name}{list(index)}"] = {"autograd": ad, "finite_difference": fd_val}
+
+    mi.reset_launch_counts()
+    loss_s, grads_s = tiled_loss_and_grad(params, scene, tiles, targets, split)
+    want = dict(dict.fromkeys(mi.LAUNCHES, 0), closest_hit=2 * GRAD_TILES,
+                any_hit=2 * GRAD_TILES)
+    check(dict(mi.LAUNCHES) == want, f"split gradient frame: launch counts {mi.LAUNCHES}")
+    check(loss_s == loss, f"split loss {loss_s} != fused loss {loss}")
+    for k in RG.DEFAULT_PARAMS:
+        check(torch.allclose(grads_s[k], grads[k], rtol=1e-5, atol=1e-10),
+              f"split vs fused gradient of {k}: rel {rel_norm(grads_s[k], grads[k]):.3g}")
+    split_tri = rel_norm(grads_s["tri_p1"], grads["tri_p1"])
+    check(split_tri <= 1e-5, f"split vs fused gradient of tri_p1: rel {split_tri:.3g}")
+
+    o_all = torch.cat([o for o, _ in tiles])
+    d_all = torch.cat([d for _, d in tiles])
+    t_all = torch.cat(targets)
+    torch.cuda.reset_peak_memory_stats()
+    one_s, (loss_one, grads_one) = wall_s(lambda: RG.loss_and_grad(
+        params, scene, o_all, d_all, t_all, fused))
+    one_peak = torch.cuda.max_memory_allocated()
+    one_rel = {k: rel_norm(grads_one[k], grads[k]) for k in grads}
+    check(max(one_rel.values()) <= 1e-5 and abs(float(loss_one) - loss) <= 1e-6 * loss,
+          f"one-graph frame vs tiles: loss {float(loss_one)} vs {loss}, gradients {one_rel}")
+
+    trained = RG.extract_params(scene, tuple(PERTURB))
+    step = RG.make_train_step(torch.optim.Adam(trained.values(), lr=ADAM_LR), fused)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(ADAM_STEPS):
+        sec, val = wall_s(lambda: step(trained, scene, o_all, d_all, t_all))
+        losses.append(float(val))
+        step_s.append(sec)
+    step_peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        losses.append(float(RG.render_loss(trained, scene, o_all, d_all, t_all, fused)))
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"Adam steps: the loss did not fall at each step: {losses}")
+    prof = profiled_step(RG.extract_params(scene, tuple(PERTURB)), scene, o_all, d_all,
+                         t_all, fused)
+
+    functions = {name: function_gate(name, eps) for name in FUNCTIONS}
+    vertex = vertex_update_gate(scene, cam, eps)
+    gib = 2 ** 30
+    record = {
+        "frame": f"cow {WIDTH}x{HEIGHT} depth {DEPTH} f32 kernel fused, "
+                 f"{GRAD_TILES} tiles of {RAY_TILE}",
+        "forward_frame_ms": [x * 1e3 for x in forward_s],
+        "loss_and_grad_frame_ms": [lg_s * 1e3, lg2_s * 1e3],
+        "loss_and_grad_one_graph_ms": one_s * 1e3,
+        "train_step_ms": [x * 1e3 for x in step_s],
+        "peak_gib": {"loss_and_grad_tiles": tiled_peak / gib,
+                     "loss_and_grad_one_graph": one_peak / gib,
+                     "train_step_one_graph": step_peak / gib},
+        "launches": {k: v for k, v in launches.items() if v},
+        "loss": loss, "finite_differences": fd,
+        "split_vs_fused_tri_p1_rel": split_tri,
+        "one_graph_vs_tiles_rel_max": max(one_rel.values()),
+        "adam_losses": losses, "profiled_step": prof,
+        "functions": functions, "vertex_update": vertex}
+    say("13 gradients",
+        f"{record['frame']}: forward frame (render, no_grad) "
+        f"{forward_s[1] * 1e3:.1f} ms; loss_and_grad {lg_s * 1e3:.1f} / "
+        f"{lg2_s * 1e3:.1f} ms (one graph {one_s * 1e3:.1f} ms); train step "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms; peak "
+        f"{tiled_peak / gib:.2f} GiB tiled, {one_peak / gib:.2f} one graph, "
+        f"{step_peak / gib:.2f} a step; K3 launches {launches['closest_shadow']}; "
+        f"finite differences {fd}; split == fused (tri_p1 rel {split_tri:.2g}); "
+        f"Adam losses {losses}; profiled step {prof}")
+    for name, r in functions.items():
+        say("13 gradients", f"{name} on {r['scene']}: {r['rays']} rays, {r['hits']} hits, "
+            f"{r['winners_compared']} compared; gradients vs f64 plain max|diff| "
+            f"{r['max_abs_err']:.3g}; launches {r['launches']}")
+    say("13 gradients", f"vertex update: {vertex}")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1899,6 +2310,7 @@ def main() -> int:
         parity.update(p)
         sizes.update(z)
     launches.update(phase_new_frames())
+    grads = phase_gradients(eps)
 
     # each kernel's launches come from the frame that runs it: K3 from the
     # cow's default fused frame, K1 and K2 from its fused_shadow=False
@@ -1957,6 +2369,7 @@ def main() -> int:
          **EXTRA.get(key, {}),
          **sizes.get(key, dict(rays=MAIN_RAYS, plain_rays=MAIN_RAYS))}
         for key, (label, line, frame) in lines.items()]}
+    print(json.dumps({"grads": grads}))
     print(json.dumps(record))
     print(f"card: {CARD}")
     print(json.dumps({"ok": True, "device": {

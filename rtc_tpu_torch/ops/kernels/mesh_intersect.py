@@ -200,19 +200,25 @@ def closest_hit_uv_plain(o, d, p1, e1, e2, eps: float = EPSILON, t0=None):
     return t, idx, torch.where((idx >= 0)[:, None], torch.stack([u, v], 1), 0.0)
 
 
+def corner_blend(u, v, g):
+    """Corner normals g (R, 9) = [sn1 | sn2 | sn3] blended by barycentric
+    (u, v) (R,), unnormalized: w0 = (1 - u) - v, then (w0 sn1 + u sn2) +
+    v sn3 per axis, as rtc_tpu (mesh_intersect.py:538-545,
+    integrator.py:707-715)."""
+    w0 = 1.0 - u - v
+    return w0[:, None] * g[:, 0:3] + u[:, None] * g[:, 3:6] + v[:, None] * g[:, 6:9]
+
+
 def smooth_blend(o, d, p1, e1, e2, tri_sn, idx, eps: float = EPSILON):
-    """The winner's corner normals (tri_sn: (T, 9) = [sn1 | sn2 | sn3])
-    blended by its barycentric (u, v), unnormalized, zeros where idx < 0:
-    w0 = (1 - u) - v, then (w0 sn1 + u sn2) + v sn3 per axis, as rtc_tpu
-    (mesh_intersect.py:538-545, integrator.py:707-715)."""
+    """The winner's corner normals (tri_sn: (T, 9)) blended by its
+    barycentric (u, v) (corner_blend), zeros where idx < 0."""
     if p1.shape[0] == 0:
         return torch.zeros_like(o)
     i = idx.clamp_min(0).long()
-    _, _, u, v = triangle(o, d, p1[i], e1[i], e2[i], eps)
-    g = tri_sn[i]
-    w0 = 1.0 - u - v
-    n = w0[:, None] * g[:, 0:3] + u[:, None] * g[:, 3:6] + v[:, None] * g[:, 6:9]
-    return torch.where((idx >= 0)[:, None], n, 0.0)
+    # index_select: its backward adds with atomics (render/integrator.py _pull)
+    p1, e1, e2, tri_sn = (x.index_select(0, i) for x in (p1, e1, e2, tri_sn))
+    _, _, u, v = triangle(o, d, p1, e1, e2, eps)
+    return torch.where((idx >= 0)[:, None], corner_blend(u, v, tri_sn), 0.0)
 
 
 def closest_hit_sn_plain(o, d, p1, e1, e2, tri_sn, eps: float = EPSILON):

@@ -3,7 +3,10 @@ branch of rtc_tpu/ops/transforms.py; reference: src/transformations.rs).
 
 All return (4, 4) float64 numpy matrices: scenes are built on the host, and
 compile_scene bakes every transform before any tensor exists. Composition
-order matches the reference: C @ B @ A applies A first.
+order matches the reference: C @ B @ A applies A first. view_transform
+also takes tensors, and then returns a differentiable (4, 4) tensor (the
+counterpart of rtc_tpu's traced branch), through which diff.render_grad
+differentiates the camera pose.
 """
 
 from __future__ import annotations
@@ -11,6 +14,9 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
+
+from .vec import cross3, normalize
 
 
 def translation(x, y, z):
@@ -59,7 +65,15 @@ def shearing(xy, xz, yx, yz, zx, zy):
 
 
 def view_transform(from_pt, to_pt, up):
-    """Camera world->view matrix (reference: src/transformations.rs:80-93)."""
+    """Camera world->view matrix (reference: src/transformations.rs:80-93).
+    Given any tensor argument, a tensor in that tensor's dtype and device,
+    differentiable with respect to every tensor argument (rtc_tpu
+    ops/transforms.py:103-130); else a float64 numpy matrix."""
+    ref = next((a for a in (from_pt, to_pt, up) if isinstance(a, torch.Tensor)), None)
+    if ref is not None:
+        return _view_transform_tensor(
+            *(torch.as_tensor(a, dtype=ref.dtype, device=ref.device)
+              for a in (from_pt, to_pt, up)))
     f = np.asarray(to_pt, dtype=np.float64) - np.asarray(from_pt, dtype=np.float64)
     f = f / np.linalg.norm(f)
     upn = np.asarray(up, dtype=np.float64)
@@ -71,3 +85,16 @@ def view_transform(from_pt, to_pt, up):
     orientation[1, :3] = true_up
     orientation[2, :3] = -f
     return orientation @ translation(*(-np.asarray(from_pt, dtype=np.float64)))
+
+
+def _view_transform_tensor(from_pt, to_pt, up):
+    forward = normalize(to_pt - from_pt)
+    left = torch.stack(cross3(*forward, *normalize(up)))
+    true_up = torch.stack(cross3(*left, *forward))
+    zero, one = from_pt.new_zeros(1), from_pt.new_ones(1)
+    orientation = torch.stack([torch.cat([left, zero]), torch.cat([true_up, zero]),
+                               torch.cat([-forward, zero]),
+                               torch.cat([zero, zero, zero, one])])
+    move = torch.cat([torch.eye(4, 3, dtype=from_pt.dtype, device=from_pt.device),
+                      torch.cat([-from_pt, one])[:, None]], 1)
+    return orientation @ move

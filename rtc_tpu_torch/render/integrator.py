@@ -12,9 +12,18 @@ TLAS path), tables over rtc_tpu's VMEM budget (streamed in superblocks by
 the kernel wrappers), the elementwise cross-check backend (K7a, K7b),
 patterns, shadows, reflection, refraction with the n1/n2 crossing census,
 and the Schlick blend. Not ported: primitive sharding
-(ROADMAP queue 1 item 16) and the custom derivatives (item 8). Masked
-lanes carry finite dummy values, and dead lanes are parked outside every
-box so the kernels' traversal drops them at once.
+(ROADMAP queue 1 item 16). Masked lanes carry finite dummy values, and
+dead lanes are parked outside every box so the kernels' traversal drops
+them at once.
+
+Gradients: the pure-PyTorch path is differentiable as it stands. Every
+closest-hit kernel call goes through a torch.autograd.Function (KernelClosest
+... KernelClosestTlasSn), the counterparts of rtc_tpu's eight custom JVPs
+(:130-458): the kernel's outputs come back unchanged, and the backward
+recomputes one Möller-Trumbore at the winning triangle, so the gradients
+are exact with respect to the rays, the triangle rows, the normals and the
+instance transforms. Occlusion and the crossing census stay
+non-differentiable, as in rtc_tpu (:892, :1027): they run under no_grad.
 """
 
 from __future__ import annotations
@@ -92,6 +101,212 @@ def corner_normals(scene: Scene):
     return torch.cat([scene.tri_sn1, scene.tri_sn2, scene.tri_sn3], dim=1)
 
 
+# --- exact gradients through the forward-only kernels ----------------------
+#
+# Each Function takes `search`, a kernel's wrapper (in the CPU tests, its
+# plain version) as a callable of the differentiable inputs in order, and
+# those inputs. forward runs the search on the detached inputs and returns
+# its outputs unchanged; backward mirrors the JVP's refined(...): it
+# recomputes the winner's Möller-Trumbore (and, where the JVP does, the
+# corner blend and the instance affine) under autograd and pulls the
+# incoming gradients through it on the hit rays only (a miss's tangent is
+# zero), which the raw winner id, the search's second output, marks (-1 on
+# a miss). Ids and shadow flags are non-differentiable, as rtc_tpu's
+# float0 tangents.
+# backward evaluates the closed form in float64: its partials cancel (t is
+# f * (e2 . q) with f = 1 / det), so float32 evaluations in two orders
+# differ by more than 1e-3 on some grazing hits, rtc_tpu's JVP and its
+# transpose included; in float64 the gradient is the exact derivative at
+# the kernel's float32 inputs, rounded once. Table rows are gathered with
+# index_select, whose backward adds with atomics: indexing's backward sorts
+# and sums each row's rays one by one, which took 0.24 s a tile of 460,800
+# cow rays with the misses on row 0.
+
+def _forward(ctx, search, eps, inputs):
+    with torch.no_grad():  # the kernels take contiguous rows (camera rays expand o)
+        outs = search(*(x.detach().contiguous() for x in inputs))
+    ctx.eps = eps
+    ctx.mark_non_differentiable(*(y for y in outs if not y.is_floating_point()))
+    ctx.save_for_backward(*inputs, outs[1])
+    return outs
+
+
+def _pull(ctx, lead: int, grads, refined):
+    """The gradients of a Function's inputs (saved by _forward after `lead`
+    leading arguments that are not differentiable): refined(o, d, *tables,
+    i), on the hit rays' o, d and winner ids i, gives one output per entry
+    of grads. None for the leading arguments and every input that needs no
+    gradient."""
+    *inputs, win = ctx.saved_tensors
+    needs = ctx.needs_input_grad[lead:]
+    if not any(needs):
+        return (None,) * (lead + len(inputs))
+    rays = torch.nonzero(win >= 0)[:, 0]
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(n) for x, n in zip(inputs, needs)]
+        # o and d are per ray, the rest are tables
+        ys = refined(*(x.double().index_select(0, rays) for x in xs[:2]),
+                     *(x.double() for x in xs[2:]), win.index_select(0, rays).long())
+        pairs = [(y, g.double().index_select(0, rays))
+                 for y, g in zip(ys, grads) if y.requires_grad]
+        got = iter(torch.autograd.grad(
+            [y for y, _ in pairs], [x for x, n in zip(xs, needs) if n],
+            [g for _, g in pairs], allow_unused=True))
+    return (None,) * lead + tuple(next(got) if n else None for n in needs)
+
+
+def _rows(i, *tables):
+    return (x.index_select(0, i) for x in tables)
+
+
+def _winner_t(o, d, p1, e1, e2, i, eps):
+    return intersect.triangle(o, d, *_rows(i, p1, e1, e2), eps)[0]
+
+
+def _winner_sn(o, d, p1, e1, e2, snc, i, eps):
+    """The winner's t and corner blend (rtc_tpu :236-249)."""
+    t, _, u, v = intersect.triangle(o, d, *_rows(i, p1, e1, e2), eps)
+    return t, mi.corner_blend(u, v, snc.index_select(0, i))
+
+
+class KernelClosest(torch.autograd.Function):
+    """(t, idx) of K7a, mesh_closest_hit_elementwise; gradients to o, d,
+    p1, e1, e2 (rtc_tpu _kernel_closest_jvp :155)."""
+
+    @staticmethod
+    def forward(ctx, search, eps, o, d, p1, e1, e2):
+        return _forward(ctx, search, eps, (o, d, p1, e1, e2))
+
+    @staticmethod
+    def backward(ctx, gt, _):
+        return _pull(ctx, 2, (gt,), lambda *x: (_winner_t(*x, ctx.eps),))
+
+
+class KernelClosestN(torch.autograd.Function):
+    """(t, idx, n) of K1 with_n, mesh_closest_hit (one launch or streamed
+    t0 launches); n is the winner's tri_n row, so tri_n gets gradients too
+    (rtc_tpu _kernel_closest_n_jvp :276)."""
+
+    @staticmethod
+    def forward(ctx, search, eps, o, d, p1, e1, e2, tri_n):
+        return _forward(ctx, search, eps, (o, d, p1, e1, e2, tri_n))
+
+    @staticmethod
+    def backward(ctx, gt, _, gn):
+        def refined(o, d, p1, e1, e2, tri_n, i):
+            return _winner_t(o, d, p1, e1, e2, i, ctx.eps), tri_n.index_select(0, i)
+        return _pull(ctx, 2, (gt, gn), refined)
+
+
+class KernelClosestUv(torch.autograd.Function):
+    """(t, idx, uv) of K1 with_uv, mesh_closest_hit_uv (streamed); uv
+    (R, 2) is the winner's barycentric (u, v) (rtc_tpu
+    _kernel_closest_uv_jvp :210)."""
+
+    @staticmethod
+    def forward(ctx, search, eps, o, d, p1, e1, e2):
+        return _forward(ctx, search, eps, (o, d, p1, e1, e2))
+
+    @staticmethod
+    def backward(ctx, gt, _, guv):
+        def refined(o, d, p1, e1, e2, i):
+            t, _, u, v = intersect.triangle(o, d, *_rows(i, p1, e1, e2), ctx.eps)
+            return t, torch.stack([u, v], 1)
+        return _pull(ctx, 2, (gt, guv), refined)
+
+
+class KernelClosestSn(torch.autograd.Function):
+    """(t, idx, n) of K1 with_sn, mesh_closest_hit_sn; n is the winner's
+    unnormalized corner blend, so the (T, 9) corner table snc gets
+    gradients too (rtc_tpu _kernel_closest_sn_jvp :251)."""
+
+    @staticmethod
+    def forward(ctx, search, eps, o, d, p1, e1, e2, snc):
+        return _forward(ctx, search, eps, (o, d, p1, e1, e2, snc))
+
+    @staticmethod
+    def backward(ctx, gt, _, gn):
+        return _pull(ctx, 2, (gt, gn), lambda *x: _winner_sn(*x, ctx.eps))
+
+
+class KernelClosestShadow(torch.autograd.Function):
+    """(t, idx, n, shadowed) of K3, mesh_closest_shadow: KernelClosestN's
+    gradients; the shadow flag has none (rtc_tpu
+    _kernel_closest_shadow_jvp :316)."""
+
+    @staticmethod
+    def forward(ctx, search, eps, o, d, p1, e1, e2, tri_n):
+        return _forward(ctx, search, eps, (o, d, p1, e1, e2, tri_n))
+
+    @staticmethod
+    def backward(ctx, gt, _, gn, __):
+        return KernelClosestN.backward(ctx, gt, None, gn)
+
+
+class KernelClosestShadowSn(torch.autograd.Function):
+    """(t, idx, n, shadowed) of K3 with_sn, mesh_closest_shadow_sn:
+    KernelClosestSn's gradients (rtc_tpu _kernel_closest_shadow_sn_jvp
+    :354)."""
+
+    @staticmethod
+    def forward(ctx, search, eps, o, d, p1, e1, e2, snc):
+        return _forward(ctx, search, eps, (o, d, p1, e1, e2, snc))
+
+    @staticmethod
+    def backward(ctx, gt, _, gn, __):
+        return KernelClosestSn.backward(ctx, gt, None, gn)
+
+
+def _tlas_refined(ctx, smooth: bool):
+    """The JVPs' refined(...) of K5 (rtc_tpu :420-431, :474-490): the
+    winner's Möller-Trumbore in its instance's object space, its normal
+    (face, or corner blend) pushed to world space. enc = instance * tm +
+    mesh-local row."""
+    def refined(o, d, p1, e1, e2, payload, inst_ab, enc):
+        k = enc // ctx.tm
+        row = ctx.inst_mesh[k].long() * ctx.tm + enc % ctx.tm
+        ab = inst_ab.index_select(0, k)
+        o2, d2 = mi.instance_rays(o, d, ab)
+        if smooth:
+            t, n = _winner_sn(o2, d2, p1, e1, e2, payload, row, ctx.eps)
+        else:
+            t = _winner_t(o2, d2, p1, e1, e2, row, ctx.eps)
+            n = payload.index_select(0, row)
+        return t, mi.normal_to_world(n, ab)
+    return refined
+
+
+class KernelClosestTlas(torch.autograd.Function):
+    """(t, enc, obj, n) of K5, mesh_closest_hit_tlas; gradients to o, d,
+    the unique meshes' p1, e1, e2 and face normals, and the instance
+    transforms inst_ab (rtc_tpu _kernel_closest_tlas_jvp :404). tm is the
+    rows a unique mesh (cm * leaf), inst_mesh each instance's mesh."""
+
+    @staticmethod
+    def forward(ctx, search, eps, tm, inst_mesh, o, d, p1, e1, e2, tri_n, inst_ab):
+        ctx.tm, ctx.inst_mesh = tm, inst_mesh
+        return _forward(ctx, search, eps, (o, d, p1, e1, e2, tri_n, inst_ab))
+
+    @staticmethod
+    def backward(ctx, gt, _, __, gn):
+        return _pull(ctx, 4, (gt, gn), _tlas_refined(ctx, False))
+
+
+class KernelClosestTlasSn(torch.autograd.Function):
+    """(t, enc, obj, n) of K5 with_sn, mesh_closest_hit_tlas_sn; as
+    KernelClosestTlas with the object-space corner table sn (rtc_tpu
+    _kernel_closest_tlas_sn_jvp :458)."""
+
+    @staticmethod
+    def forward(ctx, search, eps, tm, inst_mesh, o, d, p1, e1, e2, sn, inst_ab):
+        ctx.tm, ctx.inst_mesh = tm, inst_mesh
+        return _forward(ctx, search, eps, (o, d, p1, e1, e2, sn, inst_ab))
+
+    @staticmethod
+    def backward(ctx, gt, _, __, gn):
+        return _pull(ctx, 4, (gt, gn), _tlas_refined(ctx, True))
+
+
 def _local_rays(inv, o, d):
     """Rays in each prim's object space: inv (N, 3, 4), o/d (R, 3) ->
     (R, N, 3) each."""
@@ -139,10 +354,16 @@ def _tlas_closest(scene: Scene, o, d, cfg: RenderConfig):
     winner maps to its world-table row through tlas.gid (rtc_tpu :585-594,
     :673-691); idx == 0 on a miss."""
     st, tl = scene.static, scene.tlas
-    fn = mi.mesh_closest_hit_tlas_sn if st.tlas_sn else mi.mesh_closest_hit_tlas
-    t, enc, obj, n = fn(o, d, tl.p1, tl.e1, tl.e2, tl.sn if st.tlas_sn else tl.n,
-                        tl.caabb, tl.inst_ab, tl.inst_aabb, tl.inst_mesh,
-                        tl.inst_obj, st.cluster_size, st.tlas_cm, cfg.epsilon)
+    fn, kernel = ((KernelClosestTlasSn, mi.mesh_closest_hit_tlas_sn) if st.tlas_sn
+                  else (KernelClosestTlas, mi.mesh_closest_hit_tlas))
+
+    def search(o, d, p1, e1, e2, payload, inst_ab):
+        return kernel(o, d, p1, e1, e2, payload, tl.caabb, inst_ab, tl.inst_aabb,
+                      tl.inst_mesh, tl.inst_obj, st.cluster_size, st.tlas_cm,
+                      cfg.epsilon)
+    t, enc, obj, n = fn.apply(search, cfg.epsilon, st.tlas_cm * st.cluster_size,
+                              tl.inst_mesh, o, d, tl.p1, tl.e1, tl.e2,
+                              tl.sn if st.tlas_sn else tl.n, tl.inst_ab)
     idx = torch.where(enc >= 0, tl.gid.reshape(-1)[enc.clamp_min(0).long()], 0)
     return t, idx, normalize(n), obj
 
@@ -159,38 +380,42 @@ def mesh_closest(scene: Scene, o, d, cfg: RenderConfig):
     impl = _resolve_mesh_impl(scene, cfg, o)
     if _use_tlas(scene, cfg, impl):
         return _tlas_closest(scene, o, d, cfg)[:3]
-    st = scene.static
+    st, eps = scene.static, cfg.epsilon
     tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
-    args = (scene.cluster_aabb, st.cluster_size, cfg.epsilon)
+    args = (scene.cluster_aabb, st.cluster_size, eps)
     if impl == "elementwise":
-        t, idx = mi.mesh_closest_hit_elementwise(
-            o, d, *tabs, scene.cluster_aabb, scene.super_aabb,
-            st.cluster_size, cfg.epsilon)
+        t, idx = KernelClosest.apply(
+            lambda *x: mi.mesh_closest_hit_elementwise(
+                *x, scene.cluster_aabb, scene.super_aabb, st.cluster_size, eps),
+            eps, o, d, *tabs)
         hit = idx >= 0
         if st.any_smooth:
             n = normalize(mi.smooth_blend(o, d, *tabs, corner_normals(scene),
-                                          idx, cfg.epsilon))
+                                          idx, eps))
         else:
-            n = torch.where(hit[:, None], scene.tri_n[idx.clamp_min(0).long()], 0.0)
+            n = torch.where(hit[:, None],
+                            scene.tri_n.index_select(0, idx.clamp_min(0).long()), 0.0)
     elif st.any_smooth:
         snc = corner_normals(scene)
         if impl != "kernel":
-            t, idx, n = mi.closest_hit_sn_plain(o, d, *tabs, snc, cfg.epsilon)
+            t, idx, n = mi.closest_hit_sn_plain(o, d, *tabs, snc, eps)
         elif st.n_tris <= mi.VMEM_TRI_BUDGET:
-            t, idx, n = mi.mesh_closest_hit_sn(o, d, *tabs, snc, *args)
+            t, idx, n = KernelClosestSn.apply(
+                lambda *x: mi.mesh_closest_hit_sn(*x, *args), eps, o, d, *tabs, snc)
         else:
             # streamed: the winner's (u, v), then one (R, 9) gather and
             # the blend in rtc_tpu's order
-            t, idx, uv = mi.mesh_closest_hit_uv(o, d, *tabs, *args)
-            g = snc[idx.clamp_min(0).long()]
-            u, v = uv[:, 0:1], uv[:, 1:2]
-            n = (1.0 - u - v) * g[:, 0:3] + u * g[:, 3:6] + v * g[:, 6:9]
+            t, idx, uv = KernelClosestUv.apply(
+                lambda *x: mi.mesh_closest_hit_uv(*x, *args), eps, o, d, *tabs)
+            n = mi.corner_blend(uv[:, 0], uv[:, 1],
+                                snc.index_select(0, idx.clamp_min(0).long()))
             n = torch.where((idx >= 0)[:, None], n, 0.0)
         n = normalize(n)
     elif impl == "kernel":
-        t, idx, n = mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, *args)
+        t, idx, n = KernelClosestN.apply(
+            lambda *x: mi.mesh_closest_hit(*x, *args), eps, o, d, *tabs, scene.tri_n)
     else:
-        t, idx, n = mi.closest_hit_plain(o, d, *tabs, scene.tri_n, cfg.epsilon)
+        t, idx, n = mi.closest_hit_plain(o, d, *tabs, scene.tri_n, eps)
     return t, idx.clamp_min(0), n
 
 
@@ -269,6 +494,7 @@ def shadow_query(scene: Scene, point, live=None):
     return direction, distance
 
 
+@torch.no_grad()
 def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
     """Shadow ray toward the light (reference: src/world.rs:100-114).
 
@@ -277,7 +503,8 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
     scene's tables, K2 otherwise, streamed over a table above the VMEM
     budget; K7b on 'elementwise'; the plain sweep of the world table on
     'bruteforce'). live: optional (R,) bool; dead lanes get max_t = -1 and
-    report unshadowed.
+    report unshadowed. Not differentiable (rtc_tpu stops its gradients,
+    :892), so no graph is kept.
     """
     direction, distance = shadow_query(scene, point, live)
     st = scene.static
@@ -331,7 +558,7 @@ def object_record(scene: Scene, obj):
     if scene.static.n_objects == 1:
         g = tbl[0].expand(obj.shape[0], tbl.shape[1])
     else:
-        g = tbl[obj.long()]
+        g = tbl.index_select(0, obj.long())  # backward: atomics (see _pull)
     return dict(pat_kind=g[:, 0].to(torch.int32), pat_a=g[:, 1:4],
                 pat_b=g[:, 4:7], pat_inv=g[:, 7:19].reshape(-1, 3, 4),
                 color=g[:, 19:22], ambient=g[:, 22], diffuse=g[:, 23],
@@ -380,15 +607,17 @@ def refraction_indices(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
         # which is no Pallas kernel (rtc_tpu :1041-1052); the port keeps no
         # such slabs, so 'elementwise' launches K4 too: it counts exactly
         # on the card, and it keeps the plain census off the card's path
-        if _resolve_mesh_impl(scene, cfg, o) in KERNEL_IMPLS:
-            cnt_m, last_m = mi.mesh_crossing_count(
-                o, d, t_census.contiguous(), hit_gid.contiguous(), *tabs,
-                scene.cluster_aabb, scene.tri_cid, len(mesh_ids),
-                st.cluster_size, cfg.epsilon, occ=scene.occ)
-        else:
-            cnt_m, last_m = mi.crossing_count_plain(
-                o, d, t_census, hit_gid, *tabs, scene.tri_cid,
-                len(mesh_ids), cfg.epsilon)
+        # not differentiable (rtc_tpu stops its gradients, :1027)
+        with torch.no_grad():
+            if _resolve_mesh_impl(scene, cfg, o) in KERNEL_IMPLS:
+                cnt_m, last_m = mi.mesh_crossing_count(
+                    o, d, t_census.contiguous(), hit_gid.contiguous(), *tabs,
+                    scene.cluster_aabb, scene.tri_cid, len(mesh_ids),
+                    st.cluster_size, cfg.epsilon, occ=scene.occ)
+            else:
+                cnt_m, last_m = mi.crossing_count_plain(
+                    o, d, t_census, hit_gid, *tabs, scene.tri_cid,
+                    len(mesh_ids), cfg.epsilon)
         cnts.append(cnt_m)
         lasts.append(last_m)
         objs.extend(mesh_ids)
@@ -526,15 +755,16 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
     if _use_fused_shadow(scene, cfg, impl):
         # one K3 launch: closest hit + the in-register shadow query
         tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+        fn, kernel, payload = (
+            (KernelClosestShadowSn, mi.mesh_closest_shadow_sn, corner_normals(scene))
+            if st.any_smooth else
+            (KernelClosestShadow, mi.mesh_closest_shadow, scene.tri_n))
+        t, idx, n, shadowed = fn.apply(
+            lambda *x: kernel(*x, scene.cluster_aabb, scene.light_pos,
+                              st.cluster_size, cfg.epsilon, occ=scene.occ),
+            cfg.epsilon, o, d, *tabs, payload)
         if st.any_smooth:
-            t, idx, n, shadowed = mi.mesh_closest_shadow_sn(
-                o, d, *tabs, corner_normals(scene), scene.cluster_aabb,
-                scene.light_pos, st.cluster_size, cfg.epsilon, occ=scene.occ)
             n = normalize(n)
-        else:
-            t, idx, n, shadowed = mi.mesh_closest_shadow(
-                o, d, *tabs, scene.tri_n, scene.cluster_aabb,
-                scene.light_pos, st.cluster_size, cfg.epsilon, occ=scene.occ)
         idx = idx.clamp_min(0)
         valid = t < BIG * 0.5
         hit = HitInfo(t=t, valid=valid, obj=_tri_obj(scene, idx),

@@ -770,3 +770,56 @@ def scene_from_numpy(arrays: dict, static: dict, device) -> Scene:
         raise ValueError("scene_from_numpy: static.tlas_n_inst > 0 but "
                          "arrays has no 'tlas' tables")
     return _to_scene(arrays, st, dtype, device, tlas)
+
+
+def params_from_numpy(params: dict, device, dtype=None) -> dict:
+    """The port's trainable parameters from another package's parameter
+    dict (rtc_tpu's diff.render_grad.extract_params, as numpy): name ->
+    a leaf tensor on device that requires grad, in dtype (default: the
+    array's own), so both packages start an optimisation from the same
+    values."""
+    return {k: torch.tensor(np.asarray(v), dtype=dtype, device=device).requires_grad_()
+            for k, v in params.items()}
+
+
+# the triangle rows that the boxes and the occlusion tables derive from
+GEOMETRY_FIELDS = ("tri_p1", "tri_e1", "tri_e2")
+
+
+def derived_tables(scene: Scene, p1, e1, e2) -> dict:
+    """The fields of scene derived from its triangle rows, rebuilt for the
+    rows p1, e1, e2 (tensors, read detached): the boxes of every cluster
+    whose rows changed (over its real rows, as compile_scene), the
+    supercluster boxes, and the occlusion walk's tables (Scene.occ) as
+    _to_scene builds them. Returns the fields to replace: none when no row
+    changed. An instanced scene's kernels read its TLAS tables, which the
+    world table's rows do not determine, so new rows there raise."""
+    st = scene.static
+    npy = lambda a: a.detach().cpu().numpy().astype(np.float64)
+    new = [npy(a) for a in (p1, e1, e2)]
+    old = [npy(a) for a in (scene.tri_p1, scene.tri_e1, scene.tri_e2)]
+    if not st.n_clusters or all(np.array_equal(a, b) for a, b in zip(new, old)):
+        return {}
+    if scene.tlas is not None:
+        raise ValueError(
+            "new triangle rows on an instanced scene: its kernels read the "
+            "TLAS tables (unique meshes in object space), which cannot be "
+            "rebuilt from the world table's rows; compile the changed world")
+    leaf = st.cluster_size
+    p1, e1, e2 = new
+    changed = np.zeros(len(p1) // leaf, bool)
+    for a, b in zip(new, old):
+        changed |= (a != b).reshape(-1, leaf * 3).any(1)
+    real = (e1 != 0).any(1) | (e2 != 0).any(1)
+    aabb = npy(scene.cluster_aabb)
+    for c in np.nonzero(changed)[0]:
+        rows = slice(c * leaf, (c + 1) * leaf)
+        keep = real[rows]
+        verts = np.concatenate([p1[rows][keep], (p1 + e1)[rows][keep],
+                                (p1 + e2)[rows][keep]])
+        aabb[c] = _box(verts) if len(verts) else _empty_boxes(1)[0]
+    as_box = lambda a: torch.tensor(a, dtype=scene.cluster_aabb.dtype,
+                                    device=scene.cluster_aabb.device)
+    return dict(cluster_aabb=as_box(aabb), super_aabb=as_box(_group_boxes(aabb)),
+                occ=occlusion_tables(p1, e1, e2, aabb, leaf, scene.tri_p1.device,
+                                     tri_cid=scene.tri_cid))

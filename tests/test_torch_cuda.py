@@ -6,8 +6,10 @@ that force its list to refill and its keys to tie; the occlusion walk of
 K2, K3 and K6 on rays that graze its boxes, bounds at a triangle's own t,
 a world whose every instance group is entered and cluster ranges whose
 ends fall inside a group; K4's census walk; launches without their
-tables; and the smooth, glass and instanced scenes rendered through the
-kernels.
+tables; the smooth, glass and instanced scenes rendered through the
+kernels; the closest-hit autograd Functions with each kernel as their
+forward against their plain versions; and the tables inject_params
+rebuilds from new triangle rows.
 
 These tests need a CUDA device and nvcc, and skip elsewhere. This file
 imports neither jax nor rtc_tpu, so on the GPU machine it runs without the
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from rtc_tpu_torch.diff import render_grad as RG
 from rtc_tpu_torch.models.scenes import (REGISTRY, _cam, cow_herd_mesh_world,
                                          cow_herd_world)
 from rtc_tpu_torch.ops.kernels import mesh_intersect as mi
@@ -33,7 +36,7 @@ from rtc_tpu_torch.scene.shapes import mesh, triangle
 from rtc_tpu_torch.scene.world import PointLight, World
 from rtc_tpu_torch.utils.config import RenderConfig
 from rtc_tpu_torch.ops.vec import normalize, normalize3
-from rtc_tpu_torch.utils.constants import BIG
+from rtc_tpu_torch.utils.constants import BIG, EPSILON
 
 torch.set_num_threads(2)
 
@@ -1349,3 +1352,150 @@ def test_k2_k4_raise_without_tables(cuda):
                         clusters=(0, scene.static.n_clusters + 1))
     with pytest.raises(ValueError, match="occlusion tables"):
         render(dataclasses.replace(scene, occ=None), cam, RenderConfig())
+
+
+# --- the closest-hit autograd Functions (render/integrator.py) ---------------
+
+def _flat_rows(s):
+    return (s.tri_p1, s.tri_e1, s.tri_e2)
+
+
+def _corners(s):
+    return integrator.corner_normals(s)
+
+
+def _function_case(name, s):
+    """(Function, kernel search, plain search, differentiable tables, lead
+    arguments) of one Function on scene s, as the integrator routes it."""
+    leaf, eps, I = s.static.cluster_size, EPSILON, integrator
+    if name == "K7a":
+        return (I.KernelClosest, lambda *x: mi.mesh_closest_hit_elementwise(
+            *x, s.cluster_aabb, s.super_aabb, leaf, eps),
+            lambda *x: mi._closest_plain(*x, eps), _flat_rows(s), ())
+    if name == "K1 with_n":
+        return (I.KernelClosestN, lambda *x: mi.mesh_closest_hit(
+            *x, s.cluster_aabb, leaf, eps), lambda *x: mi.closest_hit_plain(*x, eps),
+            (*_flat_rows(s), s.tri_n), ())
+    if name == "K1 with_uv streamed":
+        return (I.KernelClosestUv, lambda *x: mi.mesh_closest_hit_uv(
+            *x, s.cluster_aabb, leaf, eps, block_budget=16 * leaf),
+            lambda *x: mi.closest_hit_uv_plain(*x, eps), _flat_rows(s), ())
+    if name == "K1 with_sn":
+        return (I.KernelClosestSn, lambda *x: mi.mesh_closest_hit_sn(
+            *x, s.cluster_aabb, leaf, eps), lambda *x: mi.closest_hit_sn_plain(*x, eps),
+            (*_flat_rows(s), _corners(s)), ())
+    if name == "K3":
+        return (I.KernelClosestShadow, lambda *x: mi.mesh_closest_shadow(
+            *x, s.cluster_aabb, s.light_pos, leaf, eps, occ=s.occ),
+            lambda *x: mi.closest_shadow_plain(*x, s.light_pos, eps),
+            (*_flat_rows(s), s.tri_n), ())
+    if name == "K3 with_sn":
+        return (I.KernelClosestShadowSn, lambda *x: mi.mesh_closest_shadow_sn(
+            *x, s.cluster_aabb, s.light_pos, leaf, eps, occ=s.occ),
+            lambda *x: mi.closest_shadow_sn_plain(*x, s.light_pos, eps),
+            (*_flat_rows(s), _corners(s)), ())
+    tl, st = s.tlas, s.static
+    smooth = name == "K5 with_sn"
+    kernel = mi.mesh_closest_hit_tlas_sn if smooth else mi.mesh_closest_hit_tlas
+    plain = mi.closest_hit_tlas_sn_plain if smooth else mi.closest_hit_tlas_plain
+    rest = (tl.inst_aabb, tl.inst_mesh, tl.inst_obj, leaf, st.tlas_cm, eps)
+    return ((I.KernelClosestTlasSn if smooth else I.KernelClosestTlas),
+            lambda o, d, p1, e1, e2, n, ab: kernel(o, d, p1, e1, e2, n, tl.caabb, ab,
+                                                   *rest),
+            lambda o, d, p1, e1, e2, n, ab: plain(o, d, p1, e1, e2, n, ab, *rest),
+            (tl.p1, tl.e1, tl.e2, tl.sn if smooth else tl.n, tl.inst_ab),
+            (st.tlas_cm * leaf, tl.inst_mesh))
+
+
+FUNCTION_SCENES = {"K7a": "teapot", "K1 with_n": "teapot",
+                   "K1 with_uv streamed": "teapot_smooth", "K1 with_sn": "teapot_smooth",
+                   "K3": "teapot", "K3 with_sn": "teapot_smooth", "K5": "herd",
+                   "K5 with_sn": "herd_smooth"}
+
+
+def _function_scene(name, cuda):
+    """The scene of a Function and its 64x32 camera rays."""
+    if name.startswith("herd"):
+        world = cow_herd_world(3, 3, name == "herd_smooth")
+        cam = _cam(64, [0, 10, -18], [0, 3, 2])
+    else:
+        world, cam = REGISTRY[name](64)
+    scene = compile_scene(world, device=cuda)
+    o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize, cam.half_width,
+                       cam.half_height, cam.pixel_size, device=cuda)
+    return scene, o.contiguous(), d.contiguous()
+
+
+def _function_grads(fn, search, lead, inputs, w, keep):
+    xs = [x.detach().clone().requires_grad_() for x in inputs]
+    outs = fn.apply(search, EPSILON, *lead, *xs)
+    loss = torch.where(keep & (outs[1] >= 0), outs[0], 0.0).sum()
+    for vec in (y for y in outs[2:] if y.is_floating_point()):  # n or uv
+        loss = loss + torch.where(keep[:, None], vec * w[:, :vec.shape[1]], 0.0).sum()
+    return outs, torch.autograd.grad(loss, xs)
+
+
+@pytest.mark.parametrize("name", list(FUNCTION_SCENES))
+def test_function_grads_kernel_vs_plain_forward(cuda, name):
+    """Each Function with its kernel as the forward against the same
+    Function with the kernel's plain version as the forward, on the same
+    rays: equal outputs (winners may differ only at ties), and equal
+    gradients with respect to every input on the rays whose winner
+    agrees, at rtc_tpu's tolerances."""
+    scene, o, d = _function_scene(FUNCTION_SCENES[name], cuda)
+    fn, kernel, plain, tabs, lead = _function_case(name, scene)
+    with torch.no_grad():
+        k, p = kernel(o, d, *tabs), plain(o, d, *tabs)
+    assert torch.equal(k[1] >= 0, p[1] >= 0) and int((k[1] >= 0).sum()) > 100
+    keep = k[1] == p[1]
+    assert float(keep.float().mean()) > 0.99
+    w = torch.randn((o.shape[0], 3), generator=torch.Generator(cuda).manual_seed(0),
+                    device=cuda)
+    mi.reset_launch_counts()
+    ko, kg = _function_grads(fn, kernel, lead, (o, d, *tabs), w, keep)
+    assert sum(mi.LAUNCHES.values()) >= 1
+    po, pg = _function_grads(fn, plain, lead, (o, d, *tabs), w, keep)
+    assert torch.equal(ko[0], k[0]) and torch.equal(ko[1], k[1])
+    for a, b in zip(kg, pg):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+    assert any(float(g.abs().sum()) > 0 for g in kg[2:])
+
+
+def test_inject_rows_refreshes_kernel_tables(cuda):
+    """inject_params moving the triangles of the clusters the camera sees
+    most: K1, K2 and K3 on the new scene equal their plain versions on the
+    new rows; the rows swapped in without the rebuild (stale boxes and
+    occlusion tables) do not."""
+    world, cam = REGISTRY["cow"](64)
+    scene = compile_scene(world, device=cuda)
+    leaf = scene.static.cluster_size
+    o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize, cam.half_width,
+                       cam.half_height, cam.pixel_size, device=cuda)
+    o, d = o.contiguous(), d.contiguous()
+    idx = mi.closest_hit_plain(o, d, *_flat_rows(scene), scene.tri_n)[1]
+    seen = torch.bincount(idx[idx >= 0].long() // leaf).argsort(descending=True)[:4]
+    rows = (seen[:, None] * leaf + torch.arange(leaf, device=cuda)).flatten()
+    p1 = scene.tri_p1.clone()
+    p1[rows] += torch.tensor([0.0, 0.3, -0.2], device=cuda)
+    new = RG.inject_params(scene, {"tri_p1": p1})
+    stale = dataclasses.replace(scene, tri_p1=p1)
+
+    def k3_gaps(s):
+        """Rays where K1's and K3's winners, and K3's shadow flags, differ
+        from the plain versions' on the new rows."""
+        args = (*_flat_rows(s), s.tri_n)
+        k1 = mi.mesh_closest_hit(o, d, *args, s.cluster_aabb, leaf)
+        k3 = mi.mesh_closest_shadow(o, d, *args, s.cluster_aabb, s.light_pos, leaf,
+                                    occ=s.occ)
+        p3 = mi.closest_shadow_plain(o, d, *_flat_rows(new), new.tri_n, new.light_pos)
+        return k3, (int((k1[1] != p3[1]).sum()), int((k3[1] != p3[1]).sum()),
+                    int((k3[3] != p3[3]).sum()))
+
+    k3, gaps = k3_gaps(new)
+    assert gaps[:2] == (0, 0) and gaps[2] <= 2
+    assert sum(k3_gaps(stale)[1]) > 2
+    # K2 walks the same rebuilt tables: K3's flags on K3's own shadow rays
+    so, sd, max_t = mi.shadow_rays_plain(o, d, *k3[:3], new.light_pos)
+    k2 = mi.mesh_any_hit(so.contiguous(), sd.contiguous(), max_t.contiguous(),
+                         *_flat_rows(new), new.cluster_aabb, leaf, occ=new.occ)
+    assert torch.equal(k2, k3[3])
