@@ -44,7 +44,19 @@ autograd) against the whole frame in one graph, the split route and
 central finite differences, three Adam steps whose loss falls, a profiled
 step, each of the eight Functions with its kernel against autograd through
 the dense plain sweep, and K3 after inject_params moves triangles; it
-prints a "grads" JSON line before the kernels' record. Phase 2 prints the ordered
+prints a "grads" JSON line before the kernels' record. Phase 14 runs the
+port's entry point as a user does: `python -m rtc_tpu_torch` in a
+subprocess (cow at 1920 with --ray-tile 460800 --report, glass_teapot at
+1920), each run's exit code 0 and its PPM (header, line width, values)
+held to render() of the same scene and config here, bit for bit after
+quantization or under the knife-edge budget with the count printed; the
+PPM writers (C++ and Python) timed on the cow frame; the CLI's main path
+(cow at the default tile) called in this process with its K3 launches
+counted; the cow's render_with_checkpoints frame (K3 counted) against
+render(); and the six prim-only scenes at their golden widths under
+tests/test_golden.py's F32_BUDGET and at width 1920 timed (median of 7,
+peak memory, no kernel launched). It prints a "cli" JSON line after the
+"grads" line. Phase 2 prints the ordered
 walk's list lengths and the registers, memory and resident blocks of the
 kernels that walk (K1-K6); phases 3, 6, 9 and 11 print the boxes
 each ray visits (median, 99th percentile, maximum: clusters, and for K5
@@ -60,7 +72,9 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -2279,6 +2293,241 @@ def phase_gradients(eps):
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the entry point on the card (python -m rtc_tpu_torch), the PPM
+# writer, progressive rendering and the prim-only scenes
+# ---------------------------------------------------------------------------
+
+CLI_DIR = os.path.join(ROOT, "build", "cli")
+# each CLI subprocess: (scene, extra arguments): cow at the shading tile of
+# the frames above, glass_teapot as a user calls it (the default tile)
+CLI_RUNS = {"cow_tile_460800": ("cow", ["--ray-tile", str(RAY_TILE), "--report"]),
+            "glass_teapot": ("glass_teapot", ["--report"])}
+CLI_TIMEOUT = 300  # seconds a CLI subprocess may take
+# the six scenes that hold no triangle; tests/test_golden.py's (width,
+# depth) and F32_BUDGET for each; square scenes at width x width
+PRIM_GOLDENS = {"hexagon": (32, 5, (0.95, 16)), "table": (32, 5, (0.99, 0)),
+                "single_sphere": (24, 5, (1.0, 0)),
+                "three_spheres": (32, 5, (0.99, 1)),
+                "glass_spheres": (32, 5, (0.98, 2)),
+                "default_world": (24, 5, (1.0, 0))}
+PRIM_FRAMES = 7  # timed frames a prim-only scene, after one warm-up
+
+
+def quantized(img) -> np.ndarray:
+    """The PPM's 0..255 values of an image: clamped and rounded half away
+    from zero in float64 (io/canvas.py)."""
+    a = img.detach().cpu().numpy().astype(np.float64) if torch.is_tensor(img) else img
+    return np.floor(np.clip(a, 0.0, 1.0) * 255.0 + 0.5).astype(np.int64)
+
+
+def ppm_values(data: bytes, width: int, height: int) -> np.ndarray:
+    header = f"P3\n{width} {height}\n255\n".encode()
+    check(data.startswith(header), f"PPM header {data[:24]!r}, expected {header!r}")
+    check(data.endswith(b"\n"), "PPM lacks its trailing newline")
+    check(max(len(ln) for ln in data.split(b"\n")) <= 70, "PPM line over 70 characters")
+    values = np.array(data[len(header):].split(), dtype=np.int64)
+    check(values.size == width * height * 3, f"PPM holds {values.size} values")
+    return values.reshape(height, width, 3)
+
+
+def ppm_gate(what: str, got: np.ndarray, img) -> str:
+    """PPM values against an image rendered here: equal on every pixel, or
+    else image_gate's knife-edge budget on the values / 255, with the
+    count of pixels that differ."""
+    want = quantized(img)
+    differ = int((got != want).any(axis=2).sum())
+    if differ == 0:
+        return "bit-equal after quantization"
+    gate = image_gate(what, torch.from_numpy(got / 255.0), torch.from_numpy(want / 255.0),
+                      knife_edges=True)
+    return f"{differ} pixels differ after quantization; {gate}"
+
+
+def cli_run(key: str, name: str, extra) -> tuple:
+    """`python -m rtc_tpu_torch <file> 1920 --scene name *extra` in a
+    subprocess; its exit code must be 0. Returns the PPM's values, the
+    report (or None) and the process's wall seconds."""
+    path = os.path.join(CLI_DIR, f"{key}.ppm")
+    if os.path.exists(path):
+        os.remove(path)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "rtc_tpu_torch", path, str(WIDTH),
+                           "--scene", name, *extra], cwd=ROOT, capture_output=True,
+                          text=True, timeout=CLI_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"CLI {key}: exit {proc.returncode}: "
+          f"{(proc.stdout + proc.stderr)[-2000:]}")
+    report = (json.loads(proc.stderr.strip().splitlines()[-1])
+              if "--report" in extra else None)
+    with open(path, "rb") as f:
+        values = ppm_values(f.read(), WIDTH, HEIGHT)
+    return values, report, seconds
+
+
+def golden_gate(name: str, width: int, depth: int, budget) -> str:
+    """The f32 render on the card at tests/test_golden.py's width and depth
+    against the f64 golden, under F32_BUDGET."""
+    min_frac, flip_budget = budget
+    golden = np.load(os.path.join(ROOT, "tests", "golden", f"{name}.npy"))
+    tiny, cam_t = slice_scene(name, width)
+    img32 = render(tiny, cam_t, RenderConfig(ray_tile=512, max_depth=depth)).cpu().numpy()
+    check(img32.shape == golden.shape, f"{name}: golden shape {golden.shape}")
+    q = lambda a: np.clip(np.asarray(a, np.float64) * 255 + 0.5, 0, 255).astype(np.uint8)
+    match = float(np.all(q(golden) == q(img32), axis=2).mean())
+    flips = int((np.abs(golden - img32).max(axis=2) > 0.15).sum())
+    check(match >= min_frac and flips <= flip_budget,
+          f"{name} f32 vs f64 golden: match {match:.4f}, flips {flips}")
+    return (f"{cam_t.hsize}x{cam_t.vsize} vs tests/golden/{name}.npy (f64): 8-bit "
+            f"match {match:.4f} (min {min_frac}), structural flips {flips} "
+            f"(budget {flip_budget})")
+
+
+def phase_cli() -> dict:
+    """The port's entry point as a user runs it: `python -m rtc_tpu_torch`
+    in a subprocess (CLI_RUNS), each PPM held to render() of the same scene
+    and config in this process; the PPM writers timed on the cow frame;
+    the CLI's main path (`python -m rtc_tpu_torch out.ppm 1920`: cow at the
+    default tile) called in this process with the counts set to 0 just
+    before it and read just after (two renders: time_render's first and
+    its timed one); the cow's render_with_checkpoints frame, counted the
+    same way, against render(); and the six prim-only scenes at their
+    golden widths under F32_BUDGET and at width 1920 timed, with their
+    peak memory and no kernel launched. Returns the `cli` record."""
+    from rtc_tpu_torch import cli
+    from rtc_tpu_torch import native
+    from rtc_tpu_torch.io.canvas import Canvas, write_ppm
+    from rtc_tpu_torch.render.progressive import render_with_checkpoints
+
+    os.makedirs(CLI_DIR, exist_ok=True)
+    record = {"runs": {}}
+    for key, (name, extra) in CLI_RUNS.items():
+        values, report, seconds = cli_run(key, name, extra)
+        scene, cam = slice_scene(name, WIDTH)
+        tile = int(extra[extra.index("--ray-tile") + 1]) if "--ray-tile" in extra \
+            else RenderConfig().ray_tile
+        img = render(scene, cam, RenderConfig(ray_tile=tile))
+        gate = ppm_gate(f"CLI {key}", values, img)
+        record["runs"][key] = {"scene": name, "ray_tile": tile,
+                               "process_s": seconds, "report": report, "ppm": gate}
+        say("14 cli", f"python -m rtc_tpu_torch <file> {WIDTH} --scene {name} "
+            f"{' '.join(extra)}: exit 0 in {seconds:.1f} s; report {report}; "
+            f"PPM against render() here: {gate}")
+
+    # the PPM writers on the cow frame: the C++ encoder (write_ppm) and the
+    # Python writer, each from the tensor on the card
+    scene, cam = slice_scene("cow", WIDTH)
+    img = render(scene, cam, RenderConfig(ray_tile=RAY_TILE))
+    torch.cuda.synchronize()
+    paths = {k: os.path.join(CLI_DIR, f"writer_{k}.ppm") for k in ("native", "python")}
+    t0 = time.perf_counter()
+    write_ppm(img, paths["native"])
+    native_s = time.perf_counter() - t0
+    check(native.encode_ppm(np.zeros((1, 1, 3))) is not None,
+          "native/librtc_native.so did not load: write_ppm took the Python writer")
+    t0 = time.perf_counter()
+    with open(paths["python"], "w") as f:
+        Canvas.from_image(img).write_ppm(f)
+    python_s = time.perf_counter() - t0
+    files = {}
+    for k, path in paths.items():
+        with open(path, "rb") as f:
+            files[k] = f.read()
+    check(files["native"] == files["python"], "the two PPM writers' bytes differ")
+    write_gate = ppm_gate("write_ppm", ppm_values(files["native"], WIDTH, HEIGHT), img)
+    record["ppm_write_s"] = {"native": native_s, "python": python_s,
+                             "bytes": len(files["native"])}
+    say("14 cli", f"PPM write of the cow frame ({len(files['native'])} bytes): native "
+        f"{native_s:.3f} s, Python {python_s:.3f} s, same bytes; {write_gate}")
+
+    # the main path through the entry point, in this process
+    path = os.path.join(CLI_DIR, "main_path.ppm")
+    stderr = io.StringIO()
+    mi.reset_launch_counts()
+    with contextlib.redirect_stderr(stderr):
+        rc = cli.main([path, str(WIDTH), "--report"])
+    counts = dict(mi.LAUNCHES)
+    check(rc == 0, f"cli.main returned {rc}")
+    n_tiles = -(-WIDTH * HEIGHT // RenderConfig().ray_tile)
+    expected = dict(dict.fromkeys(mi.LAUNCHES, 0), closest_shadow=2 * 2 * n_tiles)
+    check(counts == expected, f"CLI main path: launch counts {counts}, expected {expected}")
+    report = json.loads(stderr.getvalue().strip().splitlines()[-1])
+    with open(path, "rb") as f:
+        gate = ppm_gate("CLI main path", ppm_values(f.read(), WIDTH, HEIGHT),
+                        render(scene, cam, RenderConfig()))
+    record["main_path"] = {"launches": {k: v for k, v in counts.items() if v},
+                           "report": report, "ppm": gate}
+    EXTRA.setdefault("closest_shadow", {})["cli_launches"] = counts["closest_shadow"]
+    say("14 cli", f"cli.main([file, '{WIDTH}', '--report']) here: launches "
+        f"{record['main_path']['launches']} (2 renders x 2 nodes x {n_tiles} tiles); "
+        f"report {report}; PPM against render(): {gate}")
+
+    # progressive: the cow frame in scanline tiles with a checkpoint
+    ck = os.path.join(CLI_DIR, "cow_progressive.npz")
+    if os.path.exists(ck):
+        os.remove(ck)
+    cfg = RenderConfig(ray_tile=RAY_TILE)
+    mi.reset_launch_counts()
+    t0 = time.perf_counter()
+    flat = render_with_checkpoints(scene, cam, cfg, checkpoint_path=ck)
+    progressive_s = time.perf_counter() - t0
+    counts = dict(mi.LAUNCHES)
+    n_tiles = -(-WIDTH * HEIGHT // RAY_TILE)
+    expected = dict(dict.fromkeys(mi.LAUNCHES, 0), closest_shadow=2 * n_tiles)
+    check(counts == expected, f"progressive frame: launch counts {counts}, "
+          f"expected {expected}")
+    check(flat.shape == (HEIGHT, WIDTH, 3) and bool(np.isfinite(flat).all()),
+          "progressive frame: shape or non-finite values")
+    with np.load(ck) as saved:
+        check(int(saved["next_tile"]) == n_tiles, "progressive checkpoint incomplete")
+    gate = ppm_gate("progressive", quantized(flat), render(scene, cam, cfg))
+    record["progressive"] = {"s": progressive_s, "launches": counts["closest_shadow"],
+                             "ppm": gate}
+    say("14 cli", f"render_with_checkpoints, cow {WIDTH}x{HEIGHT} tile {RAY_TILE}: "
+        f"{progressive_s:.3f} s, K3 {counts['closest_shadow']} launches; against "
+        f"render(): {gate}")
+
+    # the prim-only scenes: no kernel runs; the sweep is plain PyTorch
+    record["prim_scenes"] = {}
+    for name, (gw, depth, budget) in PRIM_GOLDENS.items():
+        gate = golden_gate(name, gw, depth, budget)
+        scene, cam = slice_scene(name, WIDTH)
+        cfg = RenderConfig(ray_tile=RAY_TILE)
+        render(scene, cam, cfg)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(PRIM_FRAMES):
+            mi.reset_launch_counts()
+            t0 = time.perf_counter()
+            img = render(scene, cam, cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            check(mi.LAUNCHES == dict.fromkeys(mi.LAUNCHES, 0),
+                  f"{name}: a prim-only frame launched {mi.LAUNCHES}")
+        peak = torch.cuda.max_memory_allocated()
+        check(img.shape == (cam.vsize, cam.hsize, 3), f"{name}: image shape")
+        check(bool(torch.isfinite(img).all()), f"{name}: non-finite values")
+        check(float(img.min()) >= 0.0 and float(img.amax()) > 0.1,
+              f"{name}: image is black or negative")
+        st = scene.static
+        casts = cam.hsize * cam.vsize * rays_per_pixel(DEPTH, st.any_reflective,
+                                                       st.any_refractive)
+        median = sorted(walls)[len(walls) // 2]
+        record["prim_scenes"][name] = {
+            "width": cam.hsize, "height": cam.vsize, "n_prims": st.n_prims,
+            "frame_ms": [w * 1e3 for w in walls], "median_ms": median * 1e3,
+            "casts": casts, "rays_per_s": casts / median, "peak_bytes": peak,
+            "compile_s": SCENES[name][1], "golden": gate}
+        say("14 prim-only scenes",
+            f"{name} {cam.hsize}x{cam.vsize} depth {DEPTH} f32, tile {RAY_TILE}, "
+            f"{st.n_prims} prims: frame median {median * 1e3:.1f} ms of "
+            f"[{', '.join(f'{w * 1e3:.1f}' for w in walls)}] = "
+            f"{casts / median / 1e6:.1f}M rays/s ({casts} casts); peak "
+            f"{peak / 2**30:.2f} GiB; no kernel launched; {gate}")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2311,6 +2560,7 @@ def main() -> int:
         sizes.update(z)
     launches.update(phase_new_frames())
     grads = phase_gradients(eps)
+    cli_record = phase_cli()
 
     # each kernel's launches come from the frame that runs it: K3 from the
     # cow's default fused frame, K1 and K2 from its fused_shadow=False
@@ -2370,6 +2620,7 @@ def main() -> int:
          **sizes.get(key, dict(rays=MAIN_RAYS, plain_rays=MAIN_RAYS))}
         for key, (label, line, frame) in lines.items()]}
     print(json.dumps({"grads": grads}))
+    print(json.dumps({"cli": cli_record}))
     print(json.dumps(record))
     print(f"card: {CARD}")
     print(json.dumps({"ok": True, "device": {

@@ -5,14 +5,17 @@ Run from the repository root:
 
     python3 profile_frame.py [--scene cow] [--impl auto] [--tile 460800] [--frames 10]
 
---scene is any registry scene (cow, teapot, pumpkin, teapot_smooth,
-glass_teapot, teddy, cow_herd, cow_herd_smooth) or a test world
+--scene is any of the 14 registry scenes (cow, teapot, pumpkin,
+teapot_smooth, glass_teapot, teddy, cow_herd, cow_herd_smooth, and the
+prim-only hexagon, table, single_sphere, three_spheres, glass_spheres and
+default_world, the last two of those square) or a test world
 (cow_herd_mesh, cow_herd_mesh_smooth: the herd baked into one mesh leaf,
 whose table streams in superblocks); --impl is RenderConfig.mesh_impl
 (auto, or elementwise for K7a/K7b). For the fused (default) and the split
 (fused_shadow=False) frame of the scene (only the default one where the
 route takes no fused kernel: analytic prims, instancing, a streamed
-table, or the elementwise backend) it times --frames unprofiled frames at 1920x960, depth 5, f32 on the host
+table, or the elementwise backend) it times --frames unprofiled frames at width 1920 (1920x960, or
+1920x1920 for a square scene), depth 5, f32 on the host
 clock around render() and torch.cuda.synchronize(), after 3 warm-up
 frames, then profiles one more with torch.profiler and sums the device
 time of its kernels by name (the port's kernels K1-K7 under their own
@@ -59,7 +62,7 @@ from rtc_tpu_torch.utils.config import RenderConfig
 from rtc_tpu_torch.utils.profiling import rays_per_pixel
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-WIDTH, HEIGHT, DEPTH = 1920, 960, 5
+WIDTH, DEPTH = 1920, 5
 OUR_KERNELS = ("closest_hit_kernel", "any_hit_kernel", "closest_shadow_kernel",
                "crossing_count_kernel", "closest_hit_tlas_kernel",
                "any_hit_tlas_kernel", "closest_hit_elementwise_kernel", "any_hit_elementwise_kernel")
@@ -248,8 +251,8 @@ def main() -> int:
     world, cam = SCENES[args.scene](WIDTH)
     scene = compile_scene(world, dtype=torch.float32, device="cuda")
     st = scene.static
-    casts = WIDTH * HEIGHT * rays_per_pixel(DEPTH, st.any_reflective,
-                                            st.any_refractive)
+    casts = cam.hsize * cam.vsize * rays_per_pixel(DEPTH, st.any_reflective,
+                                                   st.any_refractive)
     record = {"card": card, "scene": args.scene, "impl": args.impl,
               "tile": args.tile, "casts": casts, "frames": {}}
     impl = "kernel" if args.impl == "auto" else args.impl  # f32 on the card

@@ -1,0 +1,1 @@
+from .canvas import Canvas, write_ppm  # noqa: F401

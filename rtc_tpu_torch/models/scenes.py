@@ -1,14 +1,18 @@
 """The shipped scenes (counterpart of rtc_tpu/models/scenes.py; reference:
-src/main.rs:84-397). Ported: the flat meshes `cow` and `teapot`, the
-smooth and glass meshes `teapot_smooth`, `glass_teapot`, `teddy` and
-`pumpkin`, and the instanced herds `cow_herd` and `cow_herd_smooth`; the
-other scenes wait for the items of ROADMAP queue 1 they need.
-`TEST_WORLDS` holds the test worlds outside the registry: the herd baked
-into one mesh leaf (`cow_herd_mesh_world`), whose table streams in
-superblocks.
+src/main.rs:84-397) and the benchmark configs of BASELINE.json: all 14 of
+rtc_tpu's registry, under its names and in its order. The prim-only
+scenes `hexagon`, `table`, `single_sphere`, `three_spheres`,
+`glass_spheres` and `default_world` hold no triangle; the others are the
+flat meshes `cow` and `teapot`, the smooth and glass meshes
+`teapot_smooth`, `glass_teapot`, `teddy` and `pumpkin`, and the instanced
+herds `cow_herd` and `cow_herd_smooth`. `TEST_WORLDS` holds the test
+worlds outside the registry: the herd baked into one mesh leaf
+(`cow_herd_mesh_world`), whose table streams in superblocks.
 
 Each builder returns (World, Camera) for a canvas width, with the
-reference CLI contract: height = width / 2, fov 0.785 (src/main.rs:77, 329).
+reference CLI contract: height = width / 2, fov 0.785 (src/main.rs:77,
+329); `single_sphere` and `default_world` are square, with fovs of their
+own.
 """
 
 from __future__ import annotations
@@ -22,9 +26,13 @@ import numpy as np
 from ..io.obj import Parser
 from ..ops import transforms as X
 from ..render.camera import Camera
-from ..scene.materials import Material, checkers_pattern, gradient_pattern
-from ..scene.shapes import mesh, plane
-from ..scene.world import PointLight, World
+from ..scene.materials import (Material, checkers_pattern, gradient_pattern,
+                               stripe_pattern)
+from ..scene.shapes import (cube, cylinder, glass_sphere, group, mesh, plane,
+                            sphere)
+from ..scene.world import PointLight, World, default_world
+
+PI = math.pi
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
                       "assets")
@@ -45,6 +53,120 @@ def _mm(*ms):
 
 def _light() -> PointLight:
     return PointLight((0.0, 6.9, -5.0), (1.0, 1.0, 0.9))
+
+
+# --- hexagon (reference: src/main.rs:84-146) --------------------------------
+
+def hexagon_world() -> World:
+    def corner():
+        return sphere(transform=_mm(X.translation(0, 0, -1), X.scaling(0.25, 0.25, 0.25)))
+
+    def edge():
+        return cylinder(
+            0.0, 1.0, True,
+            transform=_mm(
+                X.translation(0, 0, -1),
+                X.rotation_y(-PI / 6),
+                X.rotation_z(-PI / 2),
+                X.scaling(0.25, 1.0, 0.25),
+            ),
+        )
+
+    sides = []
+    for i in range(6):
+        side = group([corner(), edge()])
+        side.set_transform(X.rotation_y(i * PI / 3))
+        sides.append(side)
+    hexagon = group(sides)
+    hexagon.set_transform(X.scaling(2.5, 2.5, 2.5))
+    return World(objects=[hexagon], light=_light())
+
+
+def hexagon(width: int = 400) -> Tuple[World, Camera]:
+    return hexagon_world(), _cam(width, [8, 6, -8], [0, 0, 0])
+
+
+# --- table (reference: src/main.rs:151-323) ---------------------------------
+
+def table_world() -> World:
+    objects = []
+
+    floor_ceiling = cube(transform=_mm(X.scaling(20, 7, 20), X.translation(0, 1, 0.1)))
+    pat = checkers_pattern((0, 0, 0), (0.25, 0.25, 0.25)).set_transform(
+        X.scaling(0.07, 0.07, 0.07))
+    floor_ceiling.material = Material(
+        pattern=pat, ambient=0.25, diffuse=0.7, specular=0.9, shininess=300.0,
+        reflective=0.1)
+    objects.append(floor_ceiling)
+
+    walls = cube(transform=X.scaling(10, 10, 10))
+    pat = checkers_pattern(
+        (0.4863, 0.3765, 0.2941), (0.3725, 0.2902, 0.2275)
+    ).set_transform(X.scaling(0.05, 20.0, 0.05))
+    walls.material = Material(pattern=pat, ambient=0.1, diffuse=0.7, specular=0.9,
+                              shininess=300.0, reflective=0.1)
+    objects.append(walls)
+
+    table_top = cube(transform=_mm(X.translation(0, 3.1, 0), X.scaling(3, 0.1, 2)))
+    pat = stripe_pattern((0.5529, 0.4235, 0.3255), (0.6588, 0.5098, 0.4000)).set_transform(
+        _mm(X.scaling(0.05, 0.05, 0.05), X.rotation_y(0.1)))
+    table_top.material = Material(pattern=pat, ambient=0.1, diffuse=0.7, specular=0.9,
+                                  shininess=300.0, reflective=0.2)
+    objects.append(table_top)
+
+    for sx, sz in ((2.7, -1.7), (2.7, 1.7), (-2.7, -1.7), (-2.7, 1.7)):
+        leg = cube(transform=_mm(X.translation(sx, 1.5, sz), X.scaling(0.1, 1.5, 0.1)))
+        leg.material = Material(color=(0.5529, 0.4235, 0.3255), ambient=0.2, diffuse=0.7)
+        objects.append(leg)
+
+    glass_cube = cube(transform=_mm(
+        X.translation(0, 3.45001, 0), X.rotation_y(0.2), X.scaling(0.25, 0.25, 0.25)))
+    glass_cube.material = Material(
+        color=(1, 1, 0.8), ambient=0.0, diffuse=0.3, specular=0.9, shininess=300.0,
+        reflective=0.1, transparency=0.7, refractive_index=1.5)
+    objects.append(glass_cube)
+
+    little = [
+        ((1.0, 3.35, -0.9), -0.4, (0.15, 0.15, 0.15), (1.0, 0.5, 0.5), 0.6, 0.4),
+        ((-1.5, 3.27, 0.3), 0.4, (0.15, 0.7, 0.15), (1.0, 1.0, 0.5), None, None),
+        ((0.0, 3.25, 1.0), 0.4, (0.2, 0.05, 0.05), (0.5, 1.0, 0.5), None, None),
+        ((-0.6, 3.4, -1.0), 0.8, (0.05, 0.2, 0.05), (0.5, 0.5, 1.0), None, None),
+        ((2.0, 3.4, 1.0), 0.8, (0.05, 0.2, 0.05), (0.5, 1.0, 1.0), None, None),
+    ]
+    for pos, ry, scale, color, refl, diff in little:
+        c = cube(transform=_mm(X.translation(*pos), X.rotation_y(ry), X.scaling(*scale)))
+        kw = dict(color=color)
+        if refl is not None:
+            kw["reflective"] = refl
+        if diff is not None:
+            kw["diffuse"] = diff
+        c.material = Material(**kw)
+        objects.append(c)
+
+    frames = [
+        ((-10.0, 4.0, 1.0), (0.05, 1.0, 1.0), (0.7098, 0.2471, 0.2196)),
+        ((-10.0, 3.4, 2.7), (0.05, 0.4, 0.4), (0.2667, 0.2706, 0.6902)),
+        ((-10.0, 4.6, 2.7), (0.05, 0.4, 0.4), (0.3098, 0.5961, 0.3098)),
+    ]
+    for pos, scale, color in frames:
+        f = cube(transform=_mm(X.translation(*pos), X.scaling(*scale)))
+        f.material = Material(color=color, diffuse=0.6)
+        objects.append(f)
+
+    mirror_frame = cube(transform=_mm(X.translation(-2, 3.5, 9.95), X.scaling(5, 1.5, 0.05)))
+    mirror_frame.material = Material(color=(0.3882, 0.2627, 0.1882), diffuse=0.7)
+    objects.append(mirror_frame)
+
+    mirror = cube(transform=_mm(X.translation(-2, 3.5, 9.95), X.scaling(4.8, 1.4, 0.06)))
+    mirror.material = Material(color=(0, 0, 0), diffuse=0.0, ambient=0.0, specular=0.0,
+                               shininess=300.0, reflective=1.0)
+    objects.append(mirror)
+
+    return World(objects=objects, light=_light())
+
+
+def table(width: int = 400) -> Tuple[World, Camera]:
+    return table_world(), _cam(width, [8, 6, -8], [0, 3, 0])
 
 
 # --- cow (reference: src/main.rs:328-363) -----------------------------------
@@ -184,6 +306,71 @@ def cow_herd_smooth(width: int = 400) -> Tuple[World, Camera]:
     return cow_herd_smooth_world(), _herd_cam(width)
 
 
+# --- benchmark extras (BASELINE.json configs; rtc_tpu scenes.py:316-380) ----
+
+def _square_cam(width: int, fr, fov: float) -> Camera:
+    cam = Camera(width, width, fov)
+    cam.set_transform(X.view_transform(fr, [0, 0, 0], [0, 1, 0]))
+    return cam
+
+
+def single_sphere_world() -> World:
+    s = sphere(material=Material(color=(1.0, 0.2, 1.0)))
+    return World(objects=[s], light=PointLight((-10, 10, -10), (1, 1, 1)))
+
+
+def single_sphere(width: int = 256) -> Tuple[World, Camera]:
+    return single_sphere_world(), _square_cam(width, [0, 0, -3], PI / 3)
+
+
+def three_spheres_world() -> World:
+    """Multi-sphere world with floor plane, shadows, patterns (BASELINE
+    config 2)."""
+    # checkers shifted off y=0 so the floor doesn't sit on a parity knife-edge
+    floor = plane(material=Material(
+        color=(1, 0.9, 0.9), specular=0.0,
+        pattern=checkers_pattern((1, 0.9, 0.9), (0.2, 0.2, 0.25)).set_transform(
+            X.translation(0.0, 0.5, 0.0))))
+    middle = sphere(transform=X.translation(-0.5, 1, 0.5), material=Material(
+        color=(0.1, 1, 0.5), diffuse=0.7, specular=0.3,
+        pattern=stripe_pattern((0.1, 1, 0.5), (0.9, 0.2, 0.2))))
+    right = sphere(transform=_mm(X.translation(1.5, 0.5, -0.5), X.scaling(0.5, 0.5, 0.5)),
+                   material=Material(color=(0.5, 1, 0.1), diffuse=0.7, specular=0.3))
+    left = sphere(transform=_mm(X.translation(-1.5, 0.33, -0.75), X.scaling(0.33, 0.33, 0.33)),
+                  material=Material(color=(1, 0.8, 0.1), diffuse=0.7, specular=0.3))
+    return World(objects=[floor, middle, right, left],
+                 light=PointLight((-10, 10, -10), (1, 1, 1)))
+
+
+def three_spheres(width: int = 400) -> Tuple[World, Camera]:
+    return three_spheres_world(), _cam(width, [0, 1.5, -5], [0, 1, 0], fov=PI / 3)
+
+
+def glass_spheres_world() -> World:
+    """Reflective+refractive stress scene (BASELINE config 3)."""
+    floor = plane(material=Material(
+        pattern=checkers_pattern((0.8, 0.8, 0.8), (0.2, 0.2, 0.2)).set_transform(
+            X.translation(0.0, 0.5, 0.0)),
+        reflective=0.2))
+    outer = glass_sphere(transform=X.translation(0, 1, 0))
+    outer.material.reflective = 0.9
+    outer.material.color = (0.1, 0.1, 0.1)
+    outer.material.diffuse = 0.1
+    inner = sphere(transform=_mm(X.translation(0, 1, 0), X.scaling(0.5, 0.5, 0.5)),
+                   material=Material(transparency=1.0, refractive_index=1.0,
+                                     diffuse=0.1, color=(0.1, 0.1, 0.1)))
+    return World(objects=[floor, outer, inner],
+                 light=PointLight((-10, 10, -10), (1, 1, 1)))
+
+
+def glass_spheres(width: int = 400) -> Tuple[World, Camera]:
+    return glass_spheres_world(), _cam(width, [0, 1.5, -5], [0, 1, 0], fov=PI / 3)
+
+
+def default_world_scene(width: int = 400) -> Tuple[World, Camera]:
+    return default_world(), _square_cam(width, [0, 0, -5], PI / 2)
+
+
 def baked_meshes(world: World):
     """Every mesh leaf of a world baked into world space, concatenated:
     (v1, v2, v3, vn1, vn2, vn3) as (T, 3) float64 arrays, the normals None
@@ -239,12 +426,18 @@ TEST_WORLDS: Dict[str, Callable[[int], Tuple[World, Camera]]] = {
 
 
 REGISTRY: Dict[str, Callable[[int], Tuple[World, Camera]]] = {
+    "hexagon": hexagon,
+    "table": table,
     "cow": cow,
     "teapot": teapot,
-    "pumpkin": pumpkin,
     "teapot_smooth": teapot_smooth,
     "glass_teapot": glass_teapot,
+    "pumpkin": pumpkin,
     "teddy": teddy,
     "cow_herd": cow_herd,
     "cow_herd_smooth": cow_herd_smooth,
+    "single_sphere": single_sphere,
+    "three_spheres": three_spheres,
+    "glass_spheres": glass_spheres,
+    "default_world": default_world_scene,
 }

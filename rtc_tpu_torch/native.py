@@ -1,9 +1,10 @@
-"""ctypes binding to the framework-free C++ host runtime's OBJ parser
-(native/rtc_native.cpp, built as native/librtc_native.so with
-`make -C native`). Counterpart of rtc_tpu/native.py, OBJ part only.
+"""ctypes bindings to the framework-free C++ host runtime's OBJ parser and
+PPM encoder (native/rtc_native.cpp, built as native/librtc_native.so with
+`make -C native`). Counterpart of rtc_tpu/native.py, without its Morton
+order (the port orders rays in render/order.py).
 
-Parsing is host work: when the library is absent, io/obj.py parses in
-Python and gets the same result.
+Both are host work: when the library is absent, io/obj.py parses and
+io/canvas.py encodes in Python, with the same result.
 """
 
 from __future__ import annotations
@@ -45,6 +46,9 @@ def _load() -> Optional[ctypes.CDLL]:
                                    ctypes.c_char_p, ctypes.c_int64]
     lib.obj_free.restype = None
     lib.obj_free.argtypes = [ctypes.c_void_p]
+    lib.ppm_encode.restype = ctypes.c_int64
+    lib.ppm_encode.argtypes = [ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
+                               ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
     return lib
 
 
@@ -83,3 +87,22 @@ def parse_obj(text: str):
         return verts, faces, fgroups, names, int(ignored)
     finally:
         lib.obj_free(handle)
+
+
+def encode_ppm(pixels: np.ndarray) -> Optional[bytes]:
+    """P3 PPM bytes of an (H, W, 3) float image, or None when the library is
+    absent. The encoder reads float64: a float32 image is widened first,
+    exactly, so both packages quantize the same values."""
+    lib = _load()
+    if lib is None:
+        return None
+    pixels = np.ascontiguousarray(pixels, dtype=np.float64)
+    if pixels.ndim != 3 or pixels.shape[2] != 3:
+        raise ValueError(f"encode_ppm: expected an (H, W, 3) image, got "
+                         f"shape {pixels.shape}")
+    h, w = pixels.shape[0], pixels.shape[1]
+    ptr = pixels.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+    size = lib.ppm_encode(ptr, w, h, None, 0)
+    out = ctypes.create_string_buffer(size)
+    lib.ppm_encode(ptr, w, h, out, size)
+    return out.raw[:size]

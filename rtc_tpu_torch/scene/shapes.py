@@ -97,6 +97,12 @@ def sphere(transform=None, material: Optional[Material] = None) -> Shape:
     return _leaf("sphere", transform, material)
 
 
+def glass_sphere(transform=None) -> Shape:
+    """transparency 1.0, refractive index 1.5 (reference: src/shape.rs:63-76)."""
+    return _leaf("sphere", transform,
+                 Material(transparency=1.0, refractive_index=1.5))
+
+
 def plane(transform=None, material: Optional[Material] = None) -> Shape:
     return _leaf("plane", transform, material)
 
@@ -112,11 +118,19 @@ def cylinder(minimum=-np.inf, maximum=np.inf, capped=False,
                  maximum=float(maximum), capped=bool(capped))
 
 
+def infinite_cylinder(**kw) -> Shape:
+    return cylinder(-np.inf, np.inf, False, **kw)
+
+
 def cone(minimum=-np.inf, maximum=np.inf, capped=False,
          transform=None, material: Optional[Material] = None) -> Shape:
     """(reference: src/shape.rs:130-158)"""
     return _leaf("cone", transform, material, minimum=float(minimum),
                  maximum=float(maximum), capped=bool(capped))
+
+
+def infinite_cone(**kw) -> Shape:
+    return cone(-np.inf, np.inf, False, **kw)
 
 
 def triangle(p1, p2, p3, material: Optional[Material] = None) -> Shape:

@@ -261,7 +261,9 @@ def test_compile_defaults_to_the_card():
 
 def test_import_loads_no_jax():
     """The port never imports jax or rtc_tpu."""
-    code = ("import sys, rtc_tpu_torch, rtc_tpu_torch.render.integrator; "
+    code = ("import sys, rtc_tpu_torch, rtc_tpu_torch.render.integrator, "
+            "rtc_tpu_torch.cli, rtc_tpu_torch.render.progressive, "
+            "rtc_tpu_torch.utils.debug, rtc_tpu_torch.io.canvas; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'rtc_tpu')]; print(bad); sys.exit(bool(bad))")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

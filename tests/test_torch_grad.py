@@ -4,9 +4,10 @@ of tests/test_inverse_rendering.py, run through the port, held to
 rtc_tpu's gradients, to central finite differences, and to optax's Adam
 trajectory; and the parameter checkpoints, whose .npz rtc_tpu reads.
 
-glass_spheres and default_world are not in the port's registry yet: they
-are compiled by rtc_tpu and carried across with scene_from_numpy, their
-parameters with params_from_numpy.
+glass_spheres and default_world are compiled by rtc_tpu and carried
+across with scene_from_numpy, their parameters with params_from_numpy, so
+both packages start from the same tables (tests/test_torch_scenes.py holds
+the port's own compile of them equal to rtc_tpu's).
 """
 
 import math
