@@ -56,7 +56,22 @@ counted; the cow's render_with_checkpoints frame (K3 counted) against
 render(); and the six prim-only scenes at their golden widths under
 tests/test_golden.py's F32_BUDGET and at width 1920 timed (median of 7,
 peak memory, no kernel launched). It prints a "cli" JSON line after the
-"grads" line. Phase 2 prints the ordered
+"grads" line. Phase 15 runs rtc_tpu_torch.parallel: grids of ranks, each
+a process of this script (--parallel-worker) on the one card, the kernels
+built once by this process first. Cow at 1920x960 on a 2x2 grid over gloo
+(rays dealt over 'rays', the triangle table cut in two over 'prims', K1
+and K2 on each shard's own tables, the hits combined by least t and the
+occlusion ORed) and glass_teapot on a 1x2 grid (K1 with_sn, K2, and K4's
+census summed over the shards), each rank's image held to the single-rank
+render() under the knife-edge budget, its launches counted from a frame
+run with the counts set to 0 just before it, its frame timed beside the
+single-rank frame; on one glass_teapot tile the sharded closest hit and
+the reduced K4 counts against one K1 and one K4 on the whole table,
+exactly; train_step_multihost on 2 ranks against the single-rank
+loss_and_grad; and a 1x1 grid on NCCL whose render_sharded equals
+render() bit for bit. It prints a "parallel" JSON line after the "cli"
+line, and the K1, K2, K1 with_sn and K4 lines of the kernels' record gain
+"sharded_launches" (per rank, for each grid). Phase 2 prints the ordered
 walk's list lengths and the registers, memory and resident blocks of the
 kernels that walk (K1-K6); phases 3, 6, 9 and 11 print the boxes
 each ray visits (median, 99th percentile, maximum: clusters, and for K5
@@ -2528,7 +2543,320 @@ def phase_cli() -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 15: sharded rendering over a rank grid (rtc_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+PARALLEL_DIR = os.path.join(ROOT, "build", "parallel")
+PARALLEL_TIMEOUT = 300  # seconds a grid of ranks may take, start-up included
+PARALLEL_FRAMES = 3     # timed frames a rank, after a warm-up and the counted one
+SMALL_WIDTH = 480       # the NCCL render's and the train step's canvas
+# the grids, each in its own process group: (ranks, backend). Several ranks
+# share the one card over gloo (NCCL refuses two ranks on one device);
+# NCCL gets the 1x1 grid
+GRIDS = {"cow 2x2": (4, "gloo"), "glass_teapot 1x2": (2, "gloo"),
+         "1x1 nccl": (1, "nccl")}
+# the sharded train step against the single-rank loss_and_grad, in f32
+# over 115,200 rays summed in another order: the loss within a relative
+# 1e-5, each gradient within 1e-4 of its largest magnitude
+# (tests/multihost_worker.py's gate)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+
+
+def sharded_frames(key, scene, cam, cfg, mesh, rank, shard_prims=True) -> dict:
+    """render_sharded of scene on this rank: a warm-up, a frame run with
+    the kernels' and the collectives' counts set to 0 just before it and
+    read just after (its image saved for the parent), then PARALLEL_FRAMES
+    timed frames, each started together by a barrier."""
+    import torch.distributed as dist
+    from rtc_tpu_torch.parallel import collectives as coll
+    from rtc_tpu_torch.parallel.shard import render_sharded
+
+    render_sharded(scene, cam, cfg, mesh, shard_prims)
+    torch.cuda.synchronize()
+    dist.barrier()
+    mi.reset_launch_counts()
+    coll.reset_collective_counts()
+    img = render_sharded(scene, cam, cfg, mesh, shard_prims)
+    torch.cuda.synchronize()
+    out = dict(launches=dict(mi.LAUNCHES), collectives=dict(coll.COLLECTIVES),
+               collective_bytes=dict(coll.COLLECTIVE_BYTES), explicit_host_copies=0)
+    check(img.device.type == "cuda", f"{key}: the image is on {img.device}")
+    np.save(os.path.join(PARALLEL_DIR, f"{key.replace(' ', '_')}_r{rank}.npy"),
+            img.cpu().numpy())
+    walls = []
+    for _ in range(PARALLEL_FRAMES):
+        dist.barrier()
+        t0 = time.perf_counter()
+        render_sharded(scene, cam, cfg, mesh, shard_prims)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return dict(out, frame_ms=walls, median_ms=sorted(walls)[len(walls) // 2])
+
+
+def sharded_census(scene, cam, mesh, eps) -> dict:
+    """On one tile of glass_teapot's primary rays (main_path_rays): the
+    prim-sharded closest hit (t bit-equal to one rank's K1 on the whole
+    table) and the census of the shard reduced over 'prims'
+    (integrator.mesh_census: K4 on the shard's own tables, the counts
+    summed and the latest crossings maxed) against one K4 launch on the
+    whole table, exactly, with the main path's input and with the rays
+    re-seated past their hit."""
+    from rtc_tpu_torch.parallel import mesh as grid
+    from rtc_tpu_torch.parallel.shard import prim_shard
+
+    prims = grid.mesh_axis(mesh, "prims")
+    shard = prim_shard(scene, prims.rank, prims.size)  # the frames' shard
+    o, d = main_path_rays(cam)
+    sharded = RenderConfig(prim_axis="prims")
+    whole = integrator.closest_hit(scene, o, d, RenderConfig())
+    with grid.active_grid(mesh):
+        hit = integrator.closest_hit(shard, o, d, sharded)
+    check(torch.equal(hit.t, whole.t), "sharded closest hit: t differs from one K1")
+    ties = int((hit.tri != whole.tri).sum())
+    live = hit.valid & (integrator.object_record(scene, hit.obj)["transparency"] > 0.0)
+    gid = torch.where(hit.is_tri, hit.tri, -2).to(torch.int32)
+    o2 = (o + d * (torch.where(hit.valid, hit.t, 0.0)[:, None] + 1e-3)).contiguous()
+    out = dict(rays=o.shape[0], tri_ties=ties)
+    K = len(scene.static.refr_mesh_obj_ids)
+    for key, (oo, tt, gg) in (
+            ("main path", (o, torch.where(live, hit.t, -BIG), gid)),
+            ("re-seated", (o2, torch.full_like(hit.t, BIG), torch.full_like(gid, -2)))):
+        tt, gg = tt.contiguous(), gg.contiguous()
+        with grid.active_grid(mesh):
+            cnt, last = integrator.mesh_census(shard, oo, d, tt, gg, sharded)
+        ref = mi.mesh_crossing_count(oo, d, tt, gg, *tables(scene), scene.cluster_aabb,
+                                     scene.tri_cid, K, scene.static.cluster_size, eps,
+                                     occ=scene.occ)
+        census_gate(f"sharded census, {key}", (cnt, last), ref)
+        out[key] = int(cnt.sum())
+    return out
+
+
+def parallel_worker(argv) -> int:
+    """One rank of a phase-15 grid: python3 chip_smoke.py --parallel-worker
+    <grid> <rank> <port>. Prints its record as a PARALLEL_RESULT line."""
+    import torch.distributed as dist
+    from rtc_tpu_torch.parallel import mesh as grid
+    from rtc_tpu_torch.parallel import multihost
+
+    key, rank, port = argv[0], int(argv[1]), argv[2]
+    world, backend = GRIDS[key]
+    check(torch.cuda.is_available(), f"rank {rank} of {key} found no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize(f"localhost:{port}", world, rank, backend=backend)
+    try:
+        out = dict(grid=key, rank=rank, backend=dist.get_backend())
+        cfg = RenderConfig(ray_tile=RAY_TILE)
+        if key == "cow 2x2":
+            scene, cam = slice_scene("cow", WIDTH)
+            mesh = grid.make_mesh(2, 2)
+            out.update(place=[mesh.get_local_rank("rays"), mesh.get_local_rank("prims")],
+                       **sharded_frames(key, scene, cam, cfg, mesh, rank))
+        elif key == "glass_teapot 1x2":
+            scene, cam = slice_scene("glass_teapot", WIDTH)
+            mesh = grid.make_mesh(1, 2)
+            out.update(place=[0, mesh.get_local_rank("prims")],
+                       **sharded_frames(key, scene, cam, cfg, mesh, rank))
+            out["census"] = sharded_census(scene, cam, mesh, RenderConfig().epsilon)
+            scene, cam = slice_scene("cow", SMALL_WIDTH)
+            t0 = time.perf_counter()
+            loss, grads = multihost.train_step_multihost(scene, cam, RenderConfig())
+            torch.cuda.synchronize()
+            out["train_step"] = dict(s=time.perf_counter() - t0, loss=loss)
+            np.savez(os.path.join(PARALLEL_DIR, f"train_step_r{rank}.npz"),
+                     **{k: g.cpu().numpy() for k, g in grads.items()})
+        else:
+            scene, cam = slice_scene("cow", SMALL_WIDTH)
+            mesh = grid.single_device_mesh()
+            out.update(sharded_frames(key, scene, cam, RenderConfig(), mesh, rank,
+                                      shard_prims=False))
+            ref = render(scene, cam, RenderConfig())
+            got = np.load(os.path.join(PARALLEL_DIR, f"1x1_nccl_r{rank}.npy"))
+            out["bit_equal"] = bool(np.array_equal(got, ref.cpu().numpy()))
+        print("PARALLEL_RESULT " + json.dumps(out), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_grid(key: str) -> list:
+    """Start every rank of grid key on the card and wait for all of them;
+    a rank that fails or passes PARALLEL_TIMEOUT fails the phase (all its
+    ranks are stopped). Returns the ranks' records."""
+    world, _ = GRIDS[key]
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--parallel-worker", key, str(rank), port],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, cwd=ROOT) for rank in range(world)]
+    outs = []
+    deadline = time.monotonic() + PARALLEL_TIMEOUT
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise SmokeFailure(f"{key}: a rank passed {PARALLEL_TIMEOUT} s:\n"
+                           + "\n".join(o[-3000:] for o in outs))
+    records = []
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in text.splitlines() if ln.startswith("PARALLEL_RESULT ")]
+        check(p.returncode == 0 and len(lines) == 1,
+              f"{key}: rank {rank} exited {p.returncode}:\n{text[-4000:]}")
+        records.append(json.loads(lines[0][len("PARALLEL_RESULT "):]))
+    return records
+
+
+def single_frames(name: str, width: int, cfg):
+    """render() of name at width on this one rank: a warm-up, the counted
+    frame and PARALLEL_FRAMES timed ones. Returns (image, launches, ms)."""
+    scene, cam = slice_scene(name, width)
+    render(scene, cam, cfg)
+    torch.cuda.synchronize()
+    mi.reset_launch_counts()
+    img = render(scene, cam, cfg)
+    torch.cuda.synchronize()
+    counts = dict(mi.LAUNCHES)
+    walls = []
+    for _ in range(PARALLEL_FRAMES):
+        t0 = time.perf_counter()
+        render(scene, cam, cfg)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return img, counts, walls
+
+
+def phase_parallel() -> dict:
+    """rtc_tpu_torch.parallel on the card: cow at 1920x960, depth 5, f32 on
+    a 2x2 grid of ranks (rays dealt in Morton tiles over 'rays', the
+    triangle table cut in two over 'prims', K1 and K2 on each shard's own
+    tables) and glass_teapot on a 1x2 grid (K1 with_sn, K2 and K4 on the
+    shards), every rank on the one card over gloo, each image against the
+    single-rank kernel render under the knife-edge budget; glass_teapot's
+    sharded closest hit and reduced K4 census against one rank's K1 and K4
+    on one tile, exactly; train_step_multihost on 2 ranks (cow at 480x240)
+    against the single-rank loss_and_grad of DEFAULT_PARAMS; and a 1x1
+    grid on NCCL whose render_sharded of cow at 480x240 equals render()
+    bit for bit. Each rank's launches come from its counted frame, the
+    counts set to 0 just before it. Returns the "parallel" record."""
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    cfg = RenderConfig(ray_tile=RAY_TILE)
+    record = {"card": CARD, "frames": PARALLEL_FRAMES}
+    single = {"cow 2x2": single_frames("cow", WIDTH, cfg),
+              "glass_teapot 1x2": single_frames("glass_teapot", WIDTH, cfg)}
+    torch.cuda.empty_cache()
+    n_tiles = -(-WIDTH * HEIGHT // RAY_TILE)
+    # cow over 2 rays ranks: Morton tiles of RAY_TILE dealt two ways, so a
+    # rank shades half the tiles; two nodes (the root and its reflection),
+    # each a K1 and a K2 on the shard, no K3 under the prim axis
+    local_tiles = -(-n_tiles // 2)
+    expected = {"cow 2x2": dict(dict.fromkeys(mi.LAUNCHES, 0), closest_hit=2 * local_tiles,
+                                any_hit=2 * local_tiles),
+                "glass_teapot 1x2": single["glass_teapot 1x2"][1]}
+    for key in ("cow 2x2", "glass_teapot 1x2"):
+        ranks = run_grid(key)
+        ref, single_launches, single_ms = single[key]
+        gates, images = [], []
+        for r in ranks:
+            img = torch.from_numpy(np.load(os.path.join(
+                PARALLEL_DIR, f"{key.replace(' ', '_')}_r{r['rank']}.npy"))).to(ref.device)
+            images.append(img)
+            gates.append(image_gate(f"{key} rank {r['rank']}", img, ref, knife_edges=True))
+            check(r["backend"] == "gloo", f"{key}: backend {r['backend']}")
+            check(r["launches"] == expected[key],
+                  f"{key} rank {r['rank']}: launches {r['launches']}, expected "
+                  f"{expected[key]}")
+        check(all(torch.equal(images[0], im) for im in images[1:]),
+              f"{key}: the ranks' images differ")
+        single_median = sorted(single_ms)[len(single_ms) // 2]
+        record[key] = dict(ranks=ranks, image_gates=gates, single_rank_frame_ms=single_ms,
+                           single_rank_median_ms=single_median,
+                           single_rank_launches={k: v for k, v in single_launches.items() if v})
+        for r, gate in zip(ranks, gates):
+            say("15 parallel",
+                f"{key} rank {r['rank']} (rays {r['place'][0]}, prims {r['place'][1]}, "
+                f"gloo on cuda:0): launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} }; frame median "
+                f"{r['median_ms']:.1f} ms of [{', '.join(f'{w:.1f}' for w in r['frame_ms'])}]; "
+                f"collectives {r['collectives']} ({r['collective_bytes']} bytes), "
+                f"explicit host copies 0 (gloo takes the CUDA tensors); image vs "
+                f"the single-rank render: {gate}")
+        say("15 parallel", f"{key}: the single-rank render() of the same frame: median "
+            f"{single_median:.1f} ms of [{', '.join(f'{w:.1f}' for w in single_ms)}], "
+            f"launches { {k: v for k, v in single_launches.items() if v} }")
+        if key == "glass_teapot 1x2":
+            for r in ranks:
+                c = r["census"]
+                check(c["re-seated"] > 0, "sharded census: no crossing counted")
+                say("15 parallel",
+                    f"glass_teapot rank {r['rank']}: sharded closest hit on {c['rays']} "
+                    f"rays, t bit-equal to one K1 ({c['tri_ties']} winners differ at "
+                    f"ties); reduced K4 counts exact against one K4 on the whole table: "
+                    f"main path {c['main path']} crossings, re-seated {c['re-seated']}")
+
+    # the train step on 2 ranks (run by the glass_teapot grid's ranks)
+    scene, cam = slice_scene("cow", SMALL_WIDTH)
+    o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize, cam.half_width,
+                       cam.half_height, cam.pixel_size, device="cuda")
+    t0 = time.perf_counter()
+    loss, grads = RG.loss_and_grad(RG.extract_params(scene), scene, o, d,
+                                   torch.full_like(o, 0.5), RenderConfig())
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    errs = {}
+    for r in record["glass_teapot 1x2"]["ranks"]:
+        got = r["train_step"]["loss"]
+        check(abs(got - float(loss)) <= TRAIN_LOSS_RTOL * abs(float(loss)),
+              f"train step rank {r['rank']}: loss {got} against {float(loss)}")
+        with np.load(os.path.join(PARALLEL_DIR, f"train_step_r{r['rank']}.npz")) as f:
+            check(set(f.files) == set(grads), f"train step: gradients of {f.files}")
+            for k, g in grads.items():
+                ref = g.cpu().numpy()
+                err = float(np.abs(f[k] - ref).max()) / max(float(np.abs(ref).max()), 1e-30)
+                check(err <= TRAIN_GRAD_TOL, f"train step rank {r['rank']}: {k} off by "
+                      f"{err:.3g} of its largest magnitude")
+                errs[k] = max(errs.get(k, 0.0), err)
+    record["train_step"] = dict(loss=float(loss), single_rank_s=single_s,
+                                rank_s=[r["train_step"]["s"] for r in
+                                        record["glass_teapot 1x2"]["ranks"]],
+                                grad_rel_err=errs)
+    say("15 parallel", f"train_step_multihost, 2 ranks on 'rays', cow {SMALL_WIDTH}x"
+        f"{SMALL_WIDTH // 2}: loss {float(loss):.6g} as the single-rank loss_and_grad "
+        f"(rtol {TRAIN_LOSS_RTOL}), gradients within "
+        f"{max(errs.values()):.3g} of their largest magnitudes (limit {TRAIN_GRAD_TOL}); "
+        f"{record['train_step']['rank_s']} s a rank, {single_s:.3f} s single-rank")
+
+    nccl = run_grid("1x1 nccl")[0]
+    check(nccl["backend"] == "nccl", f"1x1 grid: backend {nccl['backend']}")
+    check(nccl["bit_equal"], "1x1 NCCL grid: render_sharded differs from render()")
+    record["1x1 nccl"] = nccl
+    say("15 parallel", f"1x1 grid on NCCL: render_sharded of cow {SMALL_WIDTH}x"
+        f"{SMALL_WIDTH // 2} equals render() bit for bit; launches "
+        f"{ {k: v for k, v in nccl['launches'].items() if v} }, collectives "
+        f"{nccl['collectives']}, frame median {nccl['median_ms']:.1f} ms")
+    for key, kernels in (("cow 2x2", ("closest_hit", "any_hit")),
+                         ("glass_teapot 1x2", ("closest_hit_sn", "any_hit",
+                                               "crossing_count"))):
+        for k in kernels:
+            EXTRA.setdefault(k, {}).setdefault("sharded_launches", {})[key] = [
+                r["launches"][k] for r in record[key]["ranks"]]
+    return record
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        return parallel_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -2561,6 +2889,7 @@ def main() -> int:
     launches.update(phase_new_frames())
     grads = phase_gradients(eps)
     cli_record = phase_cli()
+    parallel = phase_parallel()
 
     # each kernel's launches come from the frame that runs it: K3 from the
     # cow's default fused frame, K1 and K2 from its fused_shadow=False
@@ -2621,6 +2950,7 @@ def main() -> int:
         for key, (label, line, frame) in lines.items()]}
     print(json.dumps({"grads": grads}))
     print(json.dumps({"cli": cli_record}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps(record))
     print(f"card: {CARD}")
     print(json.dumps({"ok": True, "device": {

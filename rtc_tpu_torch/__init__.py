@@ -10,6 +10,9 @@ path. This package imports torch and numpy, never jax or rtc_tpu.
   diff/     gradients of the image w.r.t. scene parameters and camera pose,
             parameter checkpoints (from rtc_tpu_torch.diff import
             render_grad as RG)
+  parallel/ sharded rendering over a torch.distributed rank grid: rays
+            over 'rays', triangle shards over 'prims' (render_sharded,
+            render_multihost, train_step_multihost)
   io/       OBJ parser, PPM canvas
   models/   rtc_tpu's 14 shipped scenes (REGISTRY)
   utils/    config, ray accounting and reports, world checks

@@ -11,8 +11,10 @@ Ported: analytic prims, flat and smooth triangle meshes, instanced meshes
 TLAS path), tables over rtc_tpu's VMEM budget (streamed in superblocks by
 the kernel wrappers), the elementwise cross-check backend (K7a, K7b),
 patterns, shadows, reflection, refraction with the n1/n2 crossing census,
-and the Schlick blend. Not ported: primitive sharding
-(ROADMAP queue 1 item 16). Masked lanes carry finite dummy values, and
+the Schlick blend, and primitive sharding (cfg.prim_axis inside a sharded
+call of parallel/shard.py: the scene's triangle table is one rank's shard,
+and closest_hit, is_shadowed and refraction_indices combine their partial
+results over the prims group). Masked lanes carry finite dummy values, and
 dead lanes are parked outside every box so the kernels' traversal drops
 them at once.
 
@@ -35,6 +37,8 @@ import torch
 from ..ops import intersect, lighting, normals, patterns
 from ..ops.kernels import mesh_intersect as mi
 from ..ops.vec import normalize, normalize3, pack3, safe_sqrt, unpack3
+from ..parallel import collectives as coll
+from ..parallel import mesh as grid
 from ..scene.compile import Scene
 from ..scene.materials import NONE
 from ..utils.config import RenderConfig
@@ -57,16 +61,29 @@ class HitInfo(NamedTuple):
 KERNEL_IMPLS = ("kernel", "elementwise")
 
 
+def _prim_axis(cfg: RenderConfig):
+    """The prims axis of the active rank grid (parallel/mesh.py Axis), or
+    None without primitive sharding. A config that names a prim axis
+    outside a sharded call raises."""
+    return None if cfg.prim_axis is None else grid.axis(cfg.prim_axis)
+
+
 def _resolve_mesh_impl(scene: Scene, cfg: RenderConfig, x) -> str:
     """'kernel', 'elementwise' or 'bruteforce' for rays x. 'auto' takes the
     kernels for f32 tensors on CUDA and the dense sweep otherwise; an
-    explicit 'kernel' or 'elementwise' on a CPU or f64 tensor raises."""
+    explicit 'kernel' or 'elementwise' on a CPU or f64 tensor raises, and
+    so does 'elementwise' under the prim axis (rtc_tpu :552-560): its
+    tile walk is built for the whole world table."""
     impl = cfg.mesh_impl
     if impl == "auto":
         impl = ("kernel" if scene.static.n_clusters and x.is_cuda
                 and x.dtype == torch.float32 else "bruteforce")
     if impl in KERNEL_IMPLS and not scene.static.n_clusters:
         impl = "bruteforce"
+    if impl == "elementwise" and cfg.prim_axis is not None:
+        raise ValueError(
+            "mesh_impl='elementwise' does not support primitive sharding; use "
+            "'kernel' (K1, K2 and K4 on each shard's own tables) or 'bruteforce'")
     if impl in KERNEL_IMPLS and not (x.is_cuda and x.dtype == torch.float32):
         raise ValueError(
             f"mesh_impl={impl!r} runs the CUDA kernels, which take float32 "
@@ -77,13 +94,16 @@ def _resolve_mesh_impl(scene: Scene, cfg: RenderConfig, x) -> str:
 def _use_tlas(scene: Scene, cfg: RenderConfig, impl: str) -> bool:
     """The instanced path (K5, K6) serves a scene with TLAS tables on the
     kernel backend (rtc_tpu :510-519); 'bruteforce' and 'elementwise'
-    sweep the world table."""
-    return bool(scene.static.tlas_n_inst) and impl == "kernel"
+    sweep the world table, and so does the prim axis: the shards are of
+    the world table, and the TLAS tables stay whole and unused."""
+    return (bool(scene.static.tlas_n_inst) and impl == "kernel"
+            and cfg.prim_axis is None)
 
 
 def _use_fused_shadow(scene: Scene, cfg: RenderConfig, impl: str) -> bool:
     """Fused closest+shadow eligibility (rtc_tpu :522-536): kernel backend,
-    shadows on, a pure-mesh scene, flat or smooth, not instanced (K3 would
+    shadows on, no prim axis (a shard's shadow ray needs the whole combined
+    hit first), a pure-mesh scene, flat or smooth, not instanced (K3 would
     sweep the instanced scene's whole world table), and a table that fits
     one superblock of rtc_tpu's VMEM budget (43/49 of it when smooth: the
     corner-normal slab), so a larger one streams through K1 and K2. The
@@ -91,7 +111,7 @@ def _use_fused_shadow(scene: Scene, cfg: RenderConfig, impl: str) -> bool:
     st = scene.static
     budget = (mi.VMEM_TRI_BUDGET * 43) // 49 if st.any_smooth else mi.VMEM_TRI_BUDGET
     return (cfg.fused_shadow and cfg.shadows and impl == "kernel"
-            and st.n_prims == 0 and st.n_tris > 0
+            and cfg.prim_axis is None and st.n_prims == 0 and st.n_tris > 0
             and not _use_tlas(scene, cfg, impl)
             and mi._blocked(scene.tri_p1, st.cluster_size, budget) == 1)
 
@@ -427,10 +447,31 @@ def _tri_obj(scene: Scene, idx):
     return scene.tri_obj[idx.long()]
 
 
+def _min_by_t_over_axis(ax, t, obj, n, row):
+    """Combine the ranks' closest triangle hits over the prims axis
+    (rtc_tpu :731-745): the least t wins, a tie goes to the lowest rank
+    (argmin's first minimum), and its object id, normal and row come with
+    it. The gather of (t, n) is differentiable, so a hit's gradient flows
+    back to the rank whose shard holds the winner
+    (collectives.all_gather_replicated: every rank shades the combined
+    hit alike)."""
+    tn = coll.all_gather_replicated(torch.cat([t[:, None], n], 1), ax)  # (D, R, 4)
+    ids = coll.all_gather(torch.stack([obj, row], 1), ax)              # (D, R, 2)
+    win = torch.argmin(tn[:, :, 0], dim=0)[None, :, None]
+    tn = torch.gather(tn, 0, win.expand(1, -1, 4))[0]
+    ids = torch.gather(ids, 0, win.expand(1, -1, 2))[0]
+    return tn[:, 0], ids[:, 0], tn[:, 1:], ids[:, 1]
+
+
 def closest_hit(scene: Scene, o, d, cfg: RenderConfig) -> HitInfo:
     """World::intersect + Intersection::hit: the global min over t >= 0 of
     the prims' and the triangles' candidates; a tie goes to the prim
-    (reference: src/world.rs:43-54, src/intersection.rs:79-84)."""
+    (reference: src/world.rs:43-54, src/intersection.rs:79-84).
+
+    Under the prim axis the triangle table is this rank's shard: its
+    closest hit combines with the other ranks' by least t
+    (_min_by_t_over_axis), and tri is the winner's row of the whole
+    table, as a single device reports it."""
     R = o.shape[0]
     st = scene.static
     i32 = dict(dtype=torch.int32, device=o.device)
@@ -452,6 +493,10 @@ def closest_hit(scene: Scene, o, d, cfg: RenderConfig) -> HitInfo:
     elif st.n_tris:
         t_t, idx_t, tri_n = mesh_closest(scene, o, d, cfg)
         tri_obj = _tri_obj(scene, idx_t)
+        ax = _prim_axis(cfg)
+        if ax is not None:
+            t_t, tri_obj, tri_n, idx_t = _min_by_t_over_axis(
+                ax, t_t, tri_obj, tri_n, idx_t + scene.tri_offset)
     is_tri = t_t < t_p
     t_hit = torch.where(is_tri, t_t, t_p)
     prim_obj = scene.prim_obj[idx_p.long()] if st.n_prims else torch.zeros((R,), **i32)
@@ -502,9 +547,10 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
     prim sweep OR the any-hit kernel on the triangles (K6 on an instanced
     scene's tables, K2 otherwise, streamed over a table above the VMEM
     budget; K7b on 'elementwise'; the plain sweep of the world table on
-    'bruteforce'). live: optional (R,) bool; dead lanes get max_t = -1 and
-    report unshadowed. Not differentiable (rtc_tpu stops its gradients,
-    :892), so no graph is kept.
+    'bruteforce'); under the prim axis, of this rank's shard, ORed over
+    the prims group (rtc_tpu :916-920). live: optional (R,) bool; dead
+    lanes get max_t = -1 and report unshadowed. Not differentiable
+    (rtc_tpu stops its gradients, :892), so no graph is kept.
     """
     direction, distance = shadow_query(scene, point, live)
     st = scene.static
@@ -534,6 +580,9 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
         else:
             found = mi.any_hit_plain(point, direction, distance, *tabs,
                                      cfg.epsilon)
+        ax = _prim_axis(cfg)
+        if ax is not None:
+            found = coll.all_reduce(found.to(torch.int32), ax) > 0
         shadowed = shadowed | found
     return shadowed
 
@@ -566,6 +615,45 @@ def object_record(scene: Scene, obj):
                 transparency=g[:, 27], ior=g[:, 28])
 
 
+@torch.no_grad()
+def mesh_census(scene: Scene, o, d, t_hit, hit_gid, cfg: RenderConfig):
+    """The mesh containers' crossing census: (cnt (R, K) i32, last (R, K)),
+    per ray and container slot the crossings at t < t_hit (t_hit -BIG: a
+    dead lane) and the latest of them, the triangle hit_gid (a row of the
+    whole table; -2: none) excluded. K4 on the kernel path, its plain
+    sweep otherwise. Not differentiable (rtc_tpu stops its gradients,
+    :1027).
+
+    Under the prim axis each rank counts on its shard with its own
+    occlusion tables, excluding hit_gid where the shard holds that row,
+    and the counts SUM and the latest crossings MAX over the prims group:
+    exactly the whole table's census. (rtc_tpu sweeps replicated container
+    slabs densely there, :1041-1052; the port keeps no such slabs.)"""
+    st = scene.static
+    ax = _prim_axis(cfg)
+    if ax is not None:
+        local = hit_gid - scene.tri_offset
+        hit_gid = torch.where((local >= 0) & (local < scene.tri_p1.shape[0]),
+                              local, -2)
+    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+    K = len(st.refr_mesh_obj_ids)
+    # rtc_tpu's 'pallas' backend runs its dense refr_tri_* sweep here,
+    # which is no Pallas kernel (rtc_tpu :1041-1052); the port keeps no
+    # such slabs, so 'elementwise' launches K4 too: it counts exactly on
+    # the card, and it keeps the plain census off the card's path
+    if _resolve_mesh_impl(scene, cfg, o) in KERNEL_IMPLS:
+        cnt, last = mi.mesh_crossing_count(
+            o, d, t_hit.contiguous(), hit_gid.contiguous(), *tabs,
+            scene.cluster_aabb, scene.tri_cid, K, st.cluster_size, cfg.epsilon,
+            occ=scene.occ)
+    else:
+        cnt, last = mi.crossing_count_plain(o, d, t_hit, hit_gid, *tabs,
+                                            scene.tri_cid, K, cfg.epsilon)
+    if ax is not None:
+        cnt, last = coll.all_reduce(cnt, ax), coll.all_reduce(last, ax, "max")
+    return cnt, last
+
+
 def refraction_indices(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
                        n2_enter=None, live=None):
     """n1/n2 by crossing parity: the equivalent of the reference's
@@ -577,7 +665,8 @@ def refraction_indices(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
     parity means the ray is inside it, and the top of the containers stack
     is the inside container whose latest crossing is latest. Mesh
     crossings come from the census, K4 on the kernel path and its plain
-    sweep otherwise; the hit triangle is excluded by id.
+    sweep otherwise (mesh_census, which also combines a prim-sharded
+    table's counts); the hit triangle is excluded by id.
 
     live: optional (R,) bool of the rays whose shading reads n1/n2; the
     others leave the mesh census (t bound -BIG) and get defaults that no
@@ -602,22 +691,7 @@ def refraction_indices(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
     if mesh_ids:
         hit_gid = torch.where(hit.is_tri, hit.tri, -2).to(torch.int32)
         t_census = hit.t if live is None else torch.where(live, hit.t, -BIG)
-        tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
-        # rtc_tpu's 'pallas' backend runs its dense refr_tri_* sweep here,
-        # which is no Pallas kernel (rtc_tpu :1041-1052); the port keeps no
-        # such slabs, so 'elementwise' launches K4 too: it counts exactly
-        # on the card, and it keeps the plain census off the card's path
-        # not differentiable (rtc_tpu stops its gradients, :1027)
-        with torch.no_grad():
-            if _resolve_mesh_impl(scene, cfg, o) in KERNEL_IMPLS:
-                cnt_m, last_m = mi.mesh_crossing_count(
-                    o, d, t_census.contiguous(), hit_gid.contiguous(), *tabs,
-                    scene.cluster_aabb, scene.tri_cid, len(mesh_ids),
-                    st.cluster_size, cfg.epsilon, occ=scene.occ)
-            else:
-                cnt_m, last_m = mi.crossing_count_plain(
-                    o, d, t_census, hit_gid, *tabs, scene.tri_cid,
-                    len(mesh_ids), cfg.epsilon)
+        cnt_m, last_m = mesh_census(scene, o, d, t_census, hit_gid, cfg)
         cnts.append(cnt_m)
         lasts.append(last_m)
         objs.extend(mesh_ids)
@@ -747,6 +821,7 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
     if budget is None:
         budget = cfg.max_depth
     st = scene.static
+    _prim_axis(cfg)  # a prim axis outside a sharded call raises
     if budget < 1 or st.n_objects == 0:
         return torch.zeros_like(o)
 

@@ -212,12 +212,16 @@ class Scene:
     # meshes (None without triangles, or without TLAS tables)
     occ: OcclusionTables = None
     tlas_occ: OcclusionTables = None
+    # the row of the whole table that tri_p1's first row is: a prim shard's
+    # first row (parallel/shard.py shard_scene), 0 for a whole table
+    tri_offset: int = 0
 
 
 _INT_FIELDS = ("prim_kind", "prim_obj", "tri_obj", "tri_cid", "pat_kind",
                "inst_obj", "inst_mesh", "gid")
 TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(Scene)
-                      if f.name not in ("tlas", "static", "occ", "tlas_occ"))
+                      if f.name not in ("tlas", "static", "occ", "tlas_occ",
+                                        "tri_offset"))
 
 
 def _kd_order(centroid: np.ndarray, leaf: int) -> np.ndarray:

@@ -39,8 +39,12 @@ class RenderConfig:
       ray_order: 'morton' renders pixels in compact screen blocks (16x16
         block-major, or Z-order when the canvas does not divide into
         blocks); 'scanline' is the reference's order. Pure permutation.
-      prim_axis: kept for parity with rtc_tpu; primitive sharding is not
-        ported yet (ROADMAP queue 1 item 16), so it must stay None.
+      prim_axis: the name of the rank grid's axis over which the triangle
+        table is sharded ('prims'), or None. parallel/shard.py sets it
+        inside a sharded call, where the scene is one rank's shard and the
+        integrator combines its partial hits over that axis's group (the
+        grid the call made active, parallel/mesh.py); rendering with it
+        outside a sharded call raises.
       fused_shadow: let pure-mesh scenes run the fused closest+shadow
         kernel (integrator._use_fused_shadow); False forces the split
         closest-hit and any-hit sweeps.
@@ -60,10 +64,6 @@ class RenderConfig:
         if self.mesh_impl not in MESH_IMPLS:
             raise ValueError(f"mesh_impl must be one of {MESH_IMPLS}, "
                              f"got {self.mesh_impl!r}")
-        if self.prim_axis is not None:
-            raise NotImplementedError(
-                "primitive sharding is not ported yet (ROADMAP queue 1 "
-                "item 16)")
 
     def torch_dtype(self) -> torch.dtype:
         return {"float32": torch.float32, "float64": torch.float64}[self.dtype]

@@ -17,13 +17,14 @@ from rtc_tpu.scene.compile import compile_scene as jax_compile_scene
 from rtc_tpu.utils.profiling import rays_per_pixel as jax_rays_per_pixel
 from rtc_tpu_torch.io.obj import Parser
 from rtc_tpu_torch.models.scenes import ASSETS, REGISTRY, cow_herd_smooth_world
+from rtc_tpu_torch.render import integrator
 from rtc_tpu_torch.render.camera import camera_rays
 from rtc_tpu_torch.scene import shapes
 from rtc_tpu_torch.scene.compile import (TENSOR_FIELDS, SceneStatic,
                                          TlasTables, compile_scene,
                                          scene_from_numpy)
 from rtc_tpu_torch.scene.materials import STRIPE, Material, Pattern
-from rtc_tpu_torch.scene.world import PointLight, World
+from rtc_tpu_torch.scene.world import PointLight, World, default_world
 from rtc_tpu_torch.utils.config import RenderConfig
 from rtc_tpu_torch.utils.profiling import rays_per_pixel
 
@@ -246,8 +247,13 @@ def test_config_knobs():
         (5, 1e-5, "float32", 8192, "auto", True, "morton", True)
     with pytest.raises(ValueError):
         RenderConfig(mesh_impl="mxu")
-    with pytest.raises(NotImplementedError):
-        RenderConfig(prim_axis="prims")
+    # prim_axis names the rank grid's axis; rendering with it outside a
+    # sharded call (rtc_tpu_torch.parallel.shard) raises
+    cfg = RenderConfig(prim_axis="prims")
+    assert cfg.prim_axis == "prims"
+    with pytest.raises(RuntimeError, match="no sharded call"):
+        integrator.color_at(_compile(default_world()), torch.zeros((1, 3)),
+                            torch.ones((1, 3)), cfg)
 
 
 def test_compile_defaults_to_the_card():
@@ -263,7 +269,9 @@ def test_import_loads_no_jax():
     """The port never imports jax or rtc_tpu."""
     code = ("import sys, rtc_tpu_torch, rtc_tpu_torch.render.integrator, "
             "rtc_tpu_torch.cli, rtc_tpu_torch.render.progressive, "
-            "rtc_tpu_torch.utils.debug, rtc_tpu_torch.io.canvas; "
+            "rtc_tpu_torch.utils.debug, rtc_tpu_torch.io.canvas, "
+            "rtc_tpu_torch.parallel.mesh, rtc_tpu_torch.parallel.collectives, "
+            "rtc_tpu_torch.parallel.shard, rtc_tpu_torch.parallel.multihost; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'rtc_tpu')]; print(bad); sys.exit(bool(bad))")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -1499,3 +1499,69 @@ def test_inject_rows_refreshes_kernel_tables(cuda):
     k2 = mi.mesh_any_hit(so.contiguous(), sd.contiguous(), max_t.contiguous(),
                          *_flat_rows(new), new.cluster_aabb, leaf, occ=new.occ)
     assert torch.equal(k2, k3[3])
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_prim_shard_kernels_on_own_tables_match_plain(cuda, n):
+    """glass_teapot padded and cut into n prim shards
+    (rtc_tpu_torch.parallel.shard): on each shard, K1 with_sn, K2 on the
+    shard's own occlusion tables and K4 on its census fields (hit rows
+    rebased to the shard, -2 where another shard holds them) against their
+    plain versions on the shard's rows; and over the shards, the least t,
+    the OR of K2 and the summed K4 counts and maxed latest crossings equal
+    the whole table's launches (t bit-equal, counts exact)."""
+    from rtc_tpu_torch.parallel.shard import pad_tris, shard_scene
+
+    world, cam = REGISTRY["glass_teapot"](128)
+    scene = compile_scene(world, device=cuda)
+    o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize, cam.half_width,
+                       cam.half_height, cam.pixel_size, device=cuda)
+    o, d = o.contiguous(), d.contiguous()
+    leaf = scene.static.cluster_size
+
+    def tabs(s):
+        return s.tri_p1, s.tri_e1, s.tri_e2
+
+    t, idx, _ = mi.mesh_closest_hit_sn(o, d, *tabs(scene), integrator.corner_normals(scene),
+                                       scene.cluster_aabb, leaf)
+    hit = idx >= 0
+    gid = torch.where(hit, idx, -2).to(torch.int32)
+    o2 = (o + d * (torch.where(hit, t, 0.0)[:, None] + 1e-3)).contiguous()
+    sets = [(o, torch.where(hit, t, -BIG).contiguous(), gid),
+            (o2, torch.full_like(t, BIG), torch.full_like(gid, -2))]
+    max_t = torch.full_like(t, 3.0)
+    whole_k2 = mi.mesh_any_hit(o, d, max_t, *tabs(scene), scene.cluster_aabb, leaf,
+                               occ=scene.occ)
+    whole_k4 = [mi.mesh_crossing_count(oo, d, tt, gg, *tabs(scene), scene.cluster_aabb,
+                                       scene.tri_cid, 1, leaf, occ=scene.occ)
+                for oo, tt, gg in sets]
+    padded = pad_tris(scene, n)
+    best = torch.full_like(t, BIG)
+    k2_any = torch.zeros_like(whole_k2)
+    k4_sum = [(torch.zeros_like(c), torch.full_like(l, -BIG)) for c, l in whole_k4]
+    for index in range(n):
+        s = shard_scene(padded, index, n)
+        snc = integrator.corner_normals(s)
+        _assert_closest_equal(
+            mi.mesh_closest_hit_sn(o, d, *tabs(s), snc, s.cluster_aabb, leaf),
+            mi.closest_hit_sn_plain(o, d, *tabs(s), snc))
+        best = torch.minimum(best, mi.mesh_closest_hit_sn(o, d, *tabs(s), snc,
+                                                          s.cluster_aabb, leaf)[0])
+        k2 = mi.mesh_any_hit(o, d, max_t, *tabs(s), s.cluster_aabb, leaf, occ=s.occ)
+        assert torch.equal(k2, mi.any_hit_plain(o, d, max_t, *tabs(s)))
+        k2_any |= k2
+        for k, (oo, tt, gg) in enumerate(sets):
+            local = gg - s.tri_offset
+            local = torch.where((local >= 0) & (local < s.tri_p1.shape[0]), local, -2)
+            local = local.to(torch.int32).contiguous()
+            cnt, last = mi.mesh_crossing_count(oo, d, tt, local, *tabs(s), s.cluster_aabb,
+                                               s.tri_cid, 1, leaf, occ=s.occ)
+            pcnt, plast = mi.crossing_count_plain(oo, d, tt, local, *tabs(s), s.tri_cid, 1)
+            assert torch.equal(cnt, pcnt) and torch.equal(last, plast)
+            k4_sum[k] = (k4_sum[k][0] + cnt, torch.maximum(k4_sum[k][1], last))
+    torch.cuda.synchronize()
+    assert torch.equal(best, t)
+    assert torch.equal(k2_any, whole_k2) and bool(whole_k2.any())
+    for (cnt, last), (wcnt, wlast) in zip(k4_sum, whole_k4):
+        assert torch.equal(cnt, wcnt) and torch.equal(last, wlast)
+    assert int(whole_k4[1][0].sum()) > 100
