@@ -71,7 +71,20 @@ exactly; train_step_multihost on 2 ranks against the single-rank
 loss_and_grad; and a 1x1 grid on NCCL whose render_sharded equals
 render() bit for bit. It prints a "parallel" JSON line after the "cli"
 line, and the K1, K2, K1 with_sn and K4 lines of the kernels' record gain
-"sharded_launches" (per rank, for each grid). Phase 2 prints the ordered
+"sharded_launches" (per rank, for each grid). Phase 16 runs the book API
+(rtc_tpu_torch.testing, intersect_all, hit_index): hit_index(intersect_all
+(k=8)) on the cow's 460,800-ray main-path wavefront in tiles of 8,192 rays
+(wall time, peak memory), held to one K1 with_n launch on every ray with
+the bit-equal rays counted; on default_world's 1920x1920 primary frame
+in f32 and f64 against closest_hit, exactly (the rays from camera_rays
+on a camera matrix on the card); the book's world numbers through the
+testing helpers in f64 on the card (color_at, six shade_hit cases, the
+refracted ray, three Schlick cases) at each book test's tolerance; and
+color_at_single in f32 on 64 cow pixels against render()'s pixels, bit
+for bit, and is_shadowed on 64 cow surface points against one K2 launch,
+with the K3 and K2 launches the helpers made counted from counts set to
+0 just before (K3's and K2's lines gain "book_launches"). It prints a
+"book" JSON line after the "parallel" line. Phase 2 prints the ordered
 walk's list lengths and the registers, memory and resident blocks of the
 kernels that walk (K1-K6); phases 3, 6, 9 and 11 print the boxes
 each ray visits (median, 99th percentile, maximum: clusters, and for K5
@@ -91,6 +104,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -99,16 +113,18 @@ import time
 import numpy as np
 import torch
 
+from rtc_tpu_torch import Camera, default_world, testing
 from rtc_tpu_torch.diff import render_grad as RG
 from rtc_tpu_torch.models.scenes import REGISTRY, TEST_WORLDS
+from rtc_tpu_torch.ops import transforms as X
 from rtc_tpu_torch.ops.kernels import mesh_intersect as mi
 from rtc_tpu_torch.ops.vec import normalize, normalize3
 from rtc_tpu_torch.render import integrator
 from rtc_tpu_torch.render.camera import camera_rays, camera_rays_for_pixels
 from rtc_tpu_torch.render.renderer import blocked_pixels, render
 from rtc_tpu_torch.scene.compile import GROUP, compile_scene
-from rtc_tpu_torch.scene.materials import Material
-from rtc_tpu_torch.scene.shapes import mesh
+from rtc_tpu_torch.scene.materials import Material, test_pattern
+from rtc_tpu_torch.scene.shapes import glass_sphere, mesh, plane, sphere
 from rtc_tpu_torch.scene.world import PointLight, World
 from rtc_tpu_torch.utils.config import RenderConfig
 from rtc_tpu_torch.utils.constants import BIG, FAR
@@ -2854,6 +2870,259 @@ def phase_parallel() -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the book API on the card (intersect_all, hit_index, testing.py)
+# ---------------------------------------------------------------------------
+
+BOOK_TILE = 8192   # rays a tile of intersect_all on cow's triangle table
+BOOK_K = 8         # the lists' length there
+BOOK_WIDTH = 1920  # default_world's square frame
+BOOK_SAMPLES = 64  # pixels of color_at_single and points of is_shadowed
+WHITE = (1.0, 1.0, 1.0)
+S2 = math.sqrt(2.0)
+
+
+def _inside_light_world():
+    w = default_world()
+    w.light = PointLight((0.0, 0.25, 0.0), WHITE)
+    return w
+
+
+def _shadowed_pair_world():
+    return World(objects=[sphere(), sphere(transform=X.translation(0, 0, 10))],
+                 light=PointLight((0, 0, -10), WHITE))
+
+
+def _floor_world(reflective=0.5, transparency=0.0):
+    """default_world with tests/test_world.py's floor plane, and with a
+    transparent floor its red ball below."""
+    w = default_world()
+    w.objects.append(plane(transform=X.translation(0, -1, 0), material=Material(
+        reflective=reflective, transparency=transparency,
+        refractive_index=1.5 if transparency else 1.0)))
+    if transparency:
+        w.objects.append(sphere(transform=X.translation(0, -3.5, -0.5),
+                                material=Material(color=(1.0, 0.0, 0.0), ambient=0.5)))
+    return w
+
+
+def _refracted_ray_world():
+    w = default_world()
+    w.objects[0].material.ambient = 1.0
+    w.objects[0].material.pattern = test_pattern()
+    w.objects[1].material.transparency = 1.0
+    w.objects[1].material.refractive_index = 1.5
+    return w
+
+
+# tests/test_world.py's shade_hit cases: world, origin, direction, t, prim, color
+BOOK_SHADE_HIT = {
+    "an intersection": (default_world, [0, 0, -5], [0, 0, 1], 4.0, 0,
+                        [0.38066, 0.47583, 0.2855]),
+    "from the inside": (_inside_light_world, [0, 0, 0], [0, 0, 1], 0.5, 1,
+                        [0.90498, 0.90498, 0.90498]),
+    "in shadow": (_shadowed_pair_world, [0, 0, 5], [0, 0, 1], 4.0, 1, [0.1, 0.1, 0.1]),
+    "reflective": (lambda: _floor_world(0.5), [0, 0, -3], [0, -S2 / 2, S2 / 2], S2, 2,
+                   [0.87675, 0.92434, 0.82918]),
+    "transparent": (lambda: _floor_world(0.0, 0.5), [0, 0, -3], [0, -S2 / 2, S2 / 2], S2,
+                    2, [0.93642, 0.68642, 0.68642]),
+    "reflective transparent": (lambda: _floor_world(0.5, 0.5), [0, 0, -3],
+                               [0, -S2 / 2, S2 / 2], S2, 2, [0.93391, 0.69643, 0.69243]),
+}
+# tests/test_intersections.py:132-150: origin, direction, t, reflectance, tolerance
+BOOK_SCHLICK = {"total internal reflection": ([0, 0, S2 / 2], [0, 1, 0], S2 / 2, 1.0, 0.0),
+                "perpendicular": ([0, 0, 0], [0, 1, 0], 1.0, 0.04, 1e-5),
+                "small angle, n2 > n1": ([0, 0.99, -2], [0, 0, 1], 1.8589, 0.48873, 1e-5)}
+
+
+def book_gate(what: str, got, want, eps: float) -> float:
+    err = float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+    check(err < eps, f"{what}: {np.asarray(got).tolist()} against the book's {want} "
+          f"(|err| {err:.3g}, tolerance {eps})")
+    return err
+
+
+def book_sweep(scene, o, d, eps) -> dict:
+    """hit_index(intersect_all(...)) on cow's main-path wavefront in tiles
+    of BOOK_TILE rays, against one K1 with_n launch on every ray."""
+    cfg = RenderConfig()
+    R = o.shape[0]
+    ts, objs = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, R, BOOK_TILE):
+        xs = integrator.intersect_all(scene, o[s:s + BOOK_TILE], d[s:s + BOOK_TILE], cfg,
+                                      k=BOOK_K)
+        i = integrator.hit_index(xs)
+        pick = i.clamp_min(0).long()[:, None]
+        ts.append(torch.where(i >= 0, xs.t.gather(1, pick)[:, 0], BIG))
+        objs.append(torch.where(i >= 0, xs.obj.gather(1, pick)[:, 0], -1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t, obj = torch.cat(ts), torch.cat(objs)
+    kt, kidx, _ = mi.mesh_closest_hit(o, d, *tables(scene), scene.tri_n, scene.cluster_aabb,
+                                      scene.static.cluster_size, eps)
+    hit = obj >= 0
+    check(torch.equal(hit, kidx >= 0),
+          f"intersect_all vs K1: hit masks differ on {int((hit != (kidx >= 0)).sum())} rays")
+    check(bool((t[~hit] == kt[~hit]).all()), "intersect_all vs K1: miss t is not BIG")
+    max_dt = float((t - kt).abs()[hit].max()) if bool(hit.any()) else 0.0
+    check(max_dt <= 1e-3, f"intersect_all vs K1: t diverges, max |dt| {max_dt}")
+    check(torch.equal(obj[hit], scene.tri_obj[kidx[hit].long()]),
+          "intersect_all vs K1: the hit's object is not the kernel winner's")
+    return dict(rays=R, tiles=-(-R // BOOK_TILE), tile=BOOK_TILE, k=BOOK_K, wall_s=wall,
+                peak_gib=peak, hits=int(hit.sum()), max_dt=max_dt,
+                bit_equal=int((t == kt).sum()), bit_equal_hits=int((t == kt)[hit].sum()))
+
+
+def book_prims(dtype) -> dict:
+    """intersect_all and hit_index on default_world's whole primary frame
+    against closest_hit: t and obj exactly equal (both the least t >= 0
+    over the same candidates, ties to the first slot)."""
+    cam = Camera(BOOK_WIDTH, BOOK_WIDTH, math.pi / 2)
+    cam.set_transform(X.view_transform([0, 0, -5], [0, 0, 0], [0, 1, 0]))
+    inv = torch.tensor(cam.transform_inverse, dtype=dtype, device="cuda")
+    o, d = camera_rays(inv, cam.hsize, cam.vsize, cam.half_width, cam.half_height,
+                       cam.pixel_size, dtype)
+    check(o.is_cuda and d.is_cuda, "camera_rays: a card matrix gave rays off the card")
+    scene = compile_scene(default_world(), dtype=dtype, device="cuda")
+    cfg = RenderConfig(dtype=str(dtype).split(".")[-1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xs = integrator.intersect_all(scene, o, d, cfg)
+    i = integrator.hit_index(xs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ref = integrator.closest_hit(scene, o, d, cfg)
+    hit = i >= 0
+    pick = i.clamp_min(0).long()[:, None]
+    t, obj = xs.t.gather(1, pick)[:, 0], xs.obj.gather(1, pick)[:, 0]
+    name = f"default_world {BOOK_WIDTH}x{BOOK_WIDTH} {dtype}"
+    check(torch.equal(hit, ref.valid), f"{name}: hit masks differ on "
+          f"{int((hit != ref.valid).sum())} rays")
+    check(torch.equal(t[hit], ref.t[hit]), f"{name}: hit t differs from closest_hit")
+    check(torch.equal(obj[hit], ref.obj[hit]), f"{name}: hit object differs from closest_hit")
+    return dict(rays=o.shape[0], slots=xs.t.shape[1], hits=int(hit.sum()), wall_s=wall)
+
+
+def phase_book(eps) -> dict:
+    """The book API (rtc_tpu_torch.testing, intersect_all, hit_index) on
+    the card. hit_index(intersect_all(...)) on the cow's 460,800-ray
+    main-path wavefront (1920x960, f32) in tiles of BOOK_TILE rays, held
+    to one K1 with_n launch on every ray (closest_gate's rules: equal hit
+    masks, |dt| <= 1e-3, the winner's object), with the bit-equal rays
+    counted; on default_world's 1920x1920 primary frame in f32 and f64,
+    held to closest_hit exactly; the book's world numbers through the
+    testing helpers in f64 (color_at, six shade_hit cases, the refracted
+    ray, the three Schlick cases) at each test's tolerance; and the
+    kernels through the helpers in f32 on cow: color_at_single on
+    BOOK_SAMPLES pixels against render()'s pixels (K3), is_shadowed on
+    BOOK_SAMPLES surface points against one K2 launch on them (K2), with
+    the launches of both counted from counts set to 0 just before.
+    Returns the "book" record."""
+    record = {"card": CARD}
+    scene, cam = cow_scene(WIDTH)
+    o, d = main_path_rays(cam)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sweep = record["cow"] = book_sweep(scene, o, d, eps)
+    say("16 book", f"cow: hit_index(intersect_all(k={BOOK_K})) on the {sweep['rays']}-ray "
+        f"main-path wavefront in {sweep['tiles']} tiles of {BOOK_TILE}: "
+        f"{sweep['wall_s']:.3f} s wall, peak {sweep['peak_gib']:.2f} GiB; against one K1 "
+        f"with_n launch: {sweep['hits']} hits, max |dt| {sweep['max_dt']:.3g}, "
+        f"{sweep['bit_equal']} of {sweep['rays']} rays bit-equal "
+        f"({sweep['bit_equal_hits']} of the hits)")
+    torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.float64):
+        p = record[f"default_world {str(dtype).split('.')[-1]}"] = book_prims(dtype)
+        say("16 book", f"default_world {BOOK_WIDTH}x{BOOK_WIDTH} {dtype}: intersect_all "
+            f"+ hit_index on {p['rays']} rays x {p['slots']} slots in {p['wall_s']:.3f} s; "
+            f"t and obj equal to closest_hit's on all {p['hits']} hits")
+        torch.cuda.empty_cache()
+
+    errs = {"color_at": book_gate("color_at_single", testing.color_at_single(
+        compile_scene(default_world(), dtype=torch.float64), [0, 0, -5], [0, 0, 1]),
+        [0.38066, 0.47583, 0.2855], 1e-5)}
+    for case, (world, origin, direction, t, prim, want) in BOOK_SHADE_HIT.items():
+        errs[f"shade_hit {case}"] = book_gate(f"shade_hit {case}", testing.shade_hit(
+            compile_scene(world(), dtype=torch.float64), origin, direction, t, prim), want,
+            1e-5)
+    errs["refracted_color"] = book_gate("refracted_color with a refracted ray",
+                                        testing.refracted_color(
+        compile_scene(_refracted_ray_world(), dtype=torch.float64), [0, 0, 0.1], [0, 1, 0],
+        0.4899, 1, 5), [0.0, 0.99888, 0.04721], 1e-4)
+    glass = compile_scene(World(objects=[glass_sphere()]), dtype=torch.float64)
+    for case, (origin, direction, t, want, tol) in BOOK_SCHLICK.items():
+        c = testing.comps_at(glass, origin, direction, t)
+        cos, n1, n2 = (torch.tensor([v], dtype=torch.float64, device="cuda")
+                       for v in (float(np.dot(c.eyev, c.normalv)), c.n1, c.n2))
+        r = float(integrator.schlick(cos, n1, n2)[0])
+        if tol:
+            errs[f"schlick {case}"] = book_gate(f"schlick {case}", r, want, tol)
+        else:
+            check(r == want, f"schlick {case}: {r}, the book's {want} exactly")
+            errs[f"schlick {case}"] = 0.0
+    record["book_max_err"] = errs
+    say("16 book", f"the book's numbers through testing.py in f64 on the card: color_at, "
+        f"{len(BOOK_SHADE_HIT)} shade_hit cases, the refracted ray (1e-4) and "
+        f"{len(BOOK_SCHLICK)} Schlick cases; largest error {max(errs.values()):.3g}")
+
+    # the kernels through the helpers, f32 on cow
+    img = render(scene, cam, RenderConfig(ray_tile=RAY_TILE))
+    rng = np.random.default_rng(16)
+    lit = torch.nonzero(img.sum(2).flatten() > 0)[:, 0].cpu().numpy()
+    pix = torch.as_tensor(rng.choice(lit, BOOK_SAMPLES, replace=False), device="cuda")
+    px, py = pix % cam.hsize, pix // cam.hsize
+    po, pd = camera_rays_for_pixels(cam.transform_inverse, px, py, cam.half_width,
+                                    cam.half_height, cam.pixel_size)
+    _, over, live = surface_points(scene, o, d, RenderConfig())
+    direction, distance = integrator.shadow_query(scene, over, live)
+    flags = mi.mesh_any_hit(over.contiguous(), direction.contiguous(), distance.contiguous(),
+                            *tables(scene), scene.cluster_aabb, scene.static.cluster_size,
+                            eps, occ=scene.occ)
+    live_ids = torch.nonzero(live)[:, 0].cpu().numpy()
+    shadowed = flags[torch.as_tensor(live_ids, device="cuda")].cpu().numpy()
+    half = BOOK_SAMPLES // 2
+    pick = np.concatenate([rng.choice(live_ids[shadowed], half, replace=False),
+                           rng.choice(live_ids[~shadowed], BOOK_SAMPLES - half, replace=False)])
+    pts = over[torch.as_tensor(pick, device="cuda")]
+
+    mi.reset_launch_counts()
+    colors = np.stack([testing.color_at_single(scene, po[j].tolist(), pd[j].tolist(),
+                                               dtype=torch.float32)
+                       for j in range(BOOK_SAMPLES)])
+    k3 = mi.LAUNCHES["closest_shadow"]
+    helper_flags = np.array([testing.is_shadowed(scene, pts[j].tolist(), dtype=torch.float32)
+                             for j in range(BOOK_SAMPLES)])
+    launches = dict(mi.LAUNCHES)
+    k2 = launches["any_hit"]
+    check(k3 >= 1, f"color_at_single on cow launched K3 {k3} times")
+    check(k2 >= 1, f"is_shadowed on cow launched K2 {k2} times")
+    check(launches == dict(dict.fromkeys(mi.LAUNCHES, 0), closest_shadow=k3, any_hit=k2),
+          f"the helpers launched {launches}")
+    want = img[py, px].cpu().numpy()
+    bad = int((colors != want).any(1).sum())
+    check(bad == 0, f"color_at_single differs from render() on {bad} of {BOOK_SAMPLES} "
+          f"pixels, max {float(np.abs(colors - want).max()):.3g}")
+    pdir, pdist = integrator.shadow_query(scene, pts)
+    k2_flags = mi.mesh_any_hit(pts.contiguous(), pdir.contiguous(), pdist.contiguous(),
+                               *tables(scene), scene.cluster_aabb, scene.static.cluster_size,
+                               eps, occ=scene.occ).cpu().numpy()
+    flips = int((helper_flags != k2_flags).sum())
+    check(flips == 0, f"is_shadowed differs from K2 on {flips} of {BOOK_SAMPLES} points")
+    check(int(k2_flags.sum()) == half, f"K2 shadows {int(k2_flags.sum())} of the {half} "
+          "points it shadowed on the whole wavefront")
+    record["helpers"] = dict(pixels=BOOK_SAMPLES, points=BOOK_SAMPLES,
+                             shadowed=int(k2_flags.sum()), launches={"K3": k3, "K2": k2})
+    EXTRA.setdefault("closest_shadow", {})["book_launches"] = k3
+    EXTRA.setdefault("any_hit", {})["book_launches"] = k2
+    say("16 book", f"f32 on cow: color_at_single on {BOOK_SAMPLES} pixels equals render()'s "
+        f"bit for bit ({k3} K3 launches); is_shadowed on {BOOK_SAMPLES} surface points "
+        f"({half} shadowed) equals one K2 launch's flags ({k2} K2 launches)")
+    return record
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--parallel-worker"]:
         return parallel_worker(sys.argv[2:])
@@ -2890,6 +3159,7 @@ def main() -> int:
     grads = phase_gradients(eps)
     cli_record = phase_cli()
     parallel = phase_parallel()
+    book = phase_book(eps)
 
     # each kernel's launches come from the frame that runs it: K3 from the
     # cow's default fused frame, K1 and K2 from its fused_shadow=False
@@ -2951,6 +3221,7 @@ def main() -> int:
     print(json.dumps({"grads": grads}))
     print(json.dumps({"cli": cli_record}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"book": book}))
     print(json.dumps(record))
     print(f"card: {CARD}")
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ kernels for NVIDIA Hopper.
 The layout mirrors rtc_tpu/, so each module's counterpart sits at the same
 path. This package imports torch and numpy, never jax or rtc_tpu.
 
-  ops/      numeric core; ops/kernels: the CUDA kernels and plain versions
+  ops/      numeric core (with the book's tuples, matrices, rays and
+            colors); ops/kernels: the CUDA kernels and plain versions
   scene/    builder API + SoA compiler (host-side numpy, tensors at the end)
   render/   camera, wavefront integrator, renderer, progressive tiles
   diff/     gradients of the image w.r.t. scene parameters and camera pose,
@@ -17,16 +18,25 @@ path. This package imports torch and numpy, never jax or rtc_tpu.
   models/   rtc_tpu's 14 shipped scenes (REGISTRY)
   utils/    config, ray accounting and reports, world checks
   csrc/     CUDA C++ sources, built with nvcc at first use
+  testing.py the book's single-ray queries (intersections, normals,
+            prepare_computations, shade_hit, ...) through the real pipeline
 
 `python -m rtc_tpu_torch out.ppm [width]` renders a registry scene to a
 PPM file (cli.py), on the card unless `--device cpu` is given.
+intersect_all and hit_index are the book's World::intersect and
+Intersection::hit for a wavefront of rays.
 """
 
 from . import diff  # noqa: F401
 from .io.canvas import Canvas, write_ppm  # noqa: F401
 from .models.scenes import REGISTRY  # noqa: F401
 from .render.camera import Camera  # noqa: F401
-from .render.integrator import color_at  # noqa: F401
+from .render.integrator import (  # noqa: F401
+    Intersections,
+    color_at,
+    hit_index,
+    intersect_all,
+)
 from .render.renderer import render  # noqa: F401
 from .scene.compile import (Scene, compile_scene, params_from_numpy,  # noqa: F401
                             scene_from_numpy)

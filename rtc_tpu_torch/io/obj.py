@@ -166,3 +166,12 @@ class Parser:
         for name in self._group_order:
             children.append(self.group_mesh(name, smooth=smooth))
         return group(children)
+
+
+def load_obj(filename: str, smooth: bool = False, strict: Optional[bool] = None) -> Shape:
+    """Parse a file and wrap its groups in one group (rtc_tpu
+    io/obj.py:189-193). strict defaults to not smooth: a smooth load
+    reads `vn` records and `f v/vt/vn` faces."""
+    if strict is None:
+        strict = not smooth
+    return Parser.from_obj_file(filename, strict=strict).obj_to_group(smooth=smooth)

@@ -1,10 +1,11 @@
 """ctypes bindings to the framework-free C++ host runtime's OBJ parser and
 PPM encoder (native/rtc_native.cpp, built as native/librtc_native.so with
-`make -C native`). Counterpart of rtc_tpu/native.py, without its Morton
-order (the port orders rays in render/order.py).
+`make -C native`), and its Morton order of points. Counterpart of
+rtc_tpu/native.py.
 
-Both are host work: when the library is absent, io/obj.py parses and
-io/canvas.py encodes in Python, with the same result.
+All are host work: when the library is absent, io/obj.py parses and
+io/canvas.py encodes in Python, with the same result, and morton_order
+returns None (the renderer orders its rays in render/order.py).
 """
 
 from __future__ import annotations
@@ -49,7 +50,15 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.ppm_encode.restype = ctypes.c_int64
     lib.ppm_encode.argtypes = [ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
                                ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
+    lib.morton_order.restype = None
+    lib.morton_order.argtypes = [ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
+                                 ctypes.POINTER(ctypes.c_int64)]
     return lib
+
+
+def available() -> bool:
+    """Whether native/librtc_native.so was found and loaded."""
+    return _load() is not None
 
 
 def parse_obj(text: str):
@@ -106,3 +115,19 @@ def encode_ppm(pixels: np.ndarray) -> Optional[bytes]:
     out = ctypes.create_string_buffer(size)
     lib.ppm_encode(ptr, w, h, out, size)
     return out.raw[:size]
+
+
+def morton_order(centroids: np.ndarray) -> Optional[np.ndarray]:
+    """The Morton (Z-curve) order of (N, 3) points, (N,) i64 indices, or
+    None when the library is absent."""
+    lib = _load()
+    if lib is None:
+        return None
+    centroids = np.ascontiguousarray(centroids, dtype=np.float64)
+    if centroids.ndim != 2 or centroids.shape[1] != 3:
+        raise ValueError(f"morton_order: expected (N, 3) points, got shape "
+                         f"{centroids.shape}")
+    order = np.empty((len(centroids),), dtype=np.int64)
+    lib.morton_order(centroids.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                     len(centroids), order.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    return order

@@ -10,6 +10,7 @@ Each analytic kind is a branchless batched function over rays of shape
     cylinder -> 4 slots: wall0, wall1, cap_min, cap_max  (src/shape.rs:320-355)
     cone     -> 4 slots: wall0/linear, wall1, cap_min, cap_max (src/shape.rs:356-398)
     triangle -> 1 slot    (Möller-Trumbore, src/shape.rs:437-459)
+    aabb     -> 2 slots   (the group-bounds cull, src/shape.rs:399-425)
 
 Invalid slots carry arbitrary finite t values; callers mask with `valid`.
 Every formula keeps rtc_tpu's association order.
@@ -85,6 +86,18 @@ def cube(o, d, eps: float = EPSILON) -> Hits:
     tmin = torch.maximum(torch.maximum(xtmin, ytmin), ztmin)
     tmax = torch.minimum(torch.minimum(xtmax, ytmax), ztmax)
     valid = tmax >= tmin
+    return Hits(torch.stack([tmin, tmax], -1), torch.stack([valid, valid], -1))
+
+
+def aabb(o, d, box_min, box_max, eps: float = EPSILON) -> Hits:
+    """General AABB slab test, the group-bounds cull (reference:
+    src/shape.rs:399-425). box_min/box_max: (..., 3). The group cull hits
+    on tmax > tmin (strict), unlike the cube's >= (src/shape.rs:425)."""
+    tmins, tmaxs = zip(*(_check_axis(o[..., ax], d[..., ax], box_min[..., ax],
+                                     box_max[..., ax], eps) for ax in range(3)))
+    tmin = torch.maximum(torch.maximum(tmins[0], tmins[1]), tmins[2])
+    tmax = torch.minimum(torch.minimum(tmaxs[0], tmaxs[1]), tmaxs[2])
+    valid = tmax > tmin
     return Hits(torch.stack([tmin, tmax], -1), torch.stack([valid, valid], -1))
 
 

@@ -13,6 +13,20 @@ import torch
 from .vec import dot3, normalize3, pack3, unpack3
 
 
+def lighting(
+    surface_color,     # (R, 3) material color
+    ambient, diffuse, specular, shininess,     # (R,) each
+    light_position,    # (3,)
+    light_intensity,   # (3,)
+    point, eyev, normalv,  # (R, 3) each
+    in_shadow,         # (R,) bool
+):
+    """Packed-input view of lighting3 (rtc_tpu ops/lighting.py:19-35)."""
+    return lighting3(surface_color, ambient, diffuse, specular, shininess,
+                     light_position, light_intensity, unpack3(point),
+                     unpack3(eyev), unpack3(normalv), in_shadow)
+
+
 def lighting3(
     surface_color,     # (R, 3) material color
     ambient, diffuse, specular, shininess,     # (R,) each

@@ -7,6 +7,9 @@ order matches the reference: C @ B @ A applies A first. view_transform
 also takes tensors, and then returns a differentiable (4, 4) tensor (the
 counterpart of rtc_tpu's traced branch), through which diff.render_grad
 differentiates the camera pose.
+
+affine_inverse, transform_points and transform_dirs apply such a matrix
+(numpy or tensor) to tensors, on the points' or the matrix's device.
 """
 
 from __future__ import annotations
@@ -98,3 +101,35 @@ def _view_transform_tensor(from_pt, to_pt, up):
     move = torch.cat([torch.eye(4, 3, dtype=from_pt.dtype, device=from_pt.device),
                       torch.cat([-from_pt, one])[:, None]], 1)
     return orientation @ move
+
+
+def _tensor(m, like=None):
+    """m as a tensor: like's dtype and device when given, else its own
+    (a numpy matrix is a host tensor)."""
+    if like is None:
+        return torch.as_tensor(m)
+    return torch.as_tensor(m, dtype=like.dtype, device=like.device)
+
+
+def affine_inverse(m):
+    """Analytic inverse of an affine (..., 4, 4) transform:
+    [R t; 0 1]^-1 = [R^-1, -R^-1 t] (rtc_tpu ops/transforms.py:142-156;
+    the reference inverts by cofactors, src/matrix.rs:138-157)."""
+    m = _tensor(m)
+    lin_inv = torch.linalg.inv(m[..., :3, :3])
+    t_inv = -torch.einsum("...ij,...j->...i", lin_inv, m[..., :3, 3])
+    top = torch.cat([lin_inv, t_inv[..., :, None]], dim=-1)
+    bottom = m.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(m.shape[:-2] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def transform_points(m, pts):
+    """A (4, 4) (or (..., 3, 4) affine) transform applied to (..., 3) points."""
+    m = _tensor(m, pts)
+    return torch.einsum("...ij,...j->...i", m[..., :3, :3], pts) + m[..., :3, 3]
+
+
+def transform_dirs(m, dirs):
+    """The linear part of a transform applied to (..., 3) directions."""
+    m = _tensor(m, dirs)
+    return torch.einsum("...ij,...j->...i", m[..., :3, :3], dirs)

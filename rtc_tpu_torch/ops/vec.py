@@ -1,4 +1,5 @@
-"""Component-form 3-vector ops (counterpart of rtc_tpu/ops/vec.py).
+"""3-vector ops (counterpart of rtc_tpu/ops/vec.py), packed (..., 3) and
+in component form.
 
 The shading stage works on three (R,) tensors per vector. Every formula
 keeps rtc_tpu's association order, because its f64 goldens pin the
@@ -8,6 +9,28 @@ output to about 1 ulp.
 from __future__ import annotations
 
 import torch
+
+
+def dot(a, b):
+    """Batched dot product over the last axis (reference: src/tuple.rs:67-73)."""
+    return torch.sum(a * b, dim=-1)
+
+
+def cross(a, b):
+    """Batched 3D cross product over the last axis (reference:
+    src/tuple.rs:75-84). dim=-1 is explicit: torch.cross without it takes
+    the first axis of size 3, which is wrong for a (3, 3) batch."""
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def magnitude(v):
+    """Euclidean norm over the last axis (reference: src/tuple.rs:43-48)."""
+    return torch.sqrt(torch.clamp_min(dot(v, v), 0.0))
+
+
+def reflect(v, n):
+    """Reflect v about the unit normal n (reference: src/tuple.rs:86-91)."""
+    return v - n * (2.0 * dot(v, n))[..., None]
 
 
 def unpack3(v):
@@ -47,3 +70,9 @@ def safe_sqrt(x):
     """sqrt clamped at zero (rtc_tpu's double-where form)."""
     pos = x > 0.0
     return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
+def safe_div(num, den, eps=0.0):
+    """num / den, with 0 where |den| <= eps (finite gradients)."""
+    nonzero = torch.abs(den) > eps
+    return torch.where(nonzero, num / torch.where(nonzero, den, 1.0), 0.0)

@@ -69,9 +69,13 @@ def camera_rays_for_pixels(inv, px, py, half_width, half_height, pixel_size,
 
 
 def camera_rays(inv, hsize: int, vsize: int, half_width, half_height,
-                pixel_size, dtype=torch.float32, device="cpu"):
+                pixel_size, dtype=torch.float32, device=None):
     """All primary rays, row-major like the reference's y/x loop
-    (src/camera.rs:67-79). Returns (R, 3) origins and directions."""
+    (src/camera.rs:67-79). Returns (R, 3) origins and directions, on
+    device, which defaults to the camera matrix's: a tensor's device, the
+    CPU for a numpy matrix."""
+    if device is None:
+        device = inv.device if isinstance(inv, torch.Tensor) else "cpu"
     idx = torch.arange(hsize * vsize, dtype=torch.int64, device=device)
     return camera_rays_for_pixels(inv, idx % hsize, idx // hsize, half_width,
                                   half_height, pixel_size, dtype)

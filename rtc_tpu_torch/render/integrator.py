@@ -367,6 +367,15 @@ def prim_candidates(scene: Scene, o, d, eps, ids=None):
     return t, v
 
 
+def tri_candidates(scene: Scene, o, d, eps, with_uv: bool = False):
+    """The dense ray x triangle sweep of the world table: (R, T) t and
+    validity, and with_uv the barycentric u and v (rtc_tpu :108-117)."""
+    t, valid, u, v = intersect.triangle(
+        o[:, None, :], d[:, None, :], scene.tri_p1[None], scene.tri_e1[None],
+        scene.tri_e2[None], eps)
+    return (t, valid, u, v) if with_uv else (t, valid)
+
+
 def _tlas_closest(scene: Scene, o, d, cfg: RenderConfig):
     """K5 on the scene's instanced tables, with_sn where the instanced
     meshes are smooth (rtc_tpu :492-507), reported as mesh_closest reports
@@ -503,6 +512,83 @@ def closest_hit(scene: Scene, o, d, cfg: RenderConfig) -> HitInfo:
     return HitInfo(t=t_hit, valid=t_hit < BIG * 0.5,
                    obj=torch.where(is_tri, tri_obj, prim_obj), prim=idx_p,
                    tri=idx_t, is_tri=is_tri, tri_n=tri_n)
+
+
+class Intersections(NamedTuple):
+    """Per-ray sorted intersection lists, the wavefront form of the
+    reference's World::intersect -> Intersections (src/world.rs:43-54,
+    src/intersection.rs:86): (R, K) buffers sorted ascending by t,
+    negative ts included (only hit() filters, src/intersection.rs:79-84).
+    u and v are the barycentric coordinates of triangle entries (0 on
+    analytic prims'); a list built by hand may leave them None."""
+
+    t: torch.Tensor       # (R, K)
+    obj: torch.Tensor     # (R, K) i32 object ids
+    valid: torch.Tensor   # (R, K) bool
+    u: torch.Tensor = None
+    v: torch.Tensor = None
+
+
+def intersect_all(scene: Scene, o, d, cfg: RenderConfig,
+                  k: int | None = None) -> Intersections:
+    """World::intersect for a wavefront: every object's candidate ts,
+    merged and sorted ascending per ray (reference: src/world.rs:43-54;
+    rtc_tpu :767-816).
+
+    k bounds the list: K = min(k, candidate slots); None keeps them all.
+    This is the conformance and utility API: the render path takes the
+    kernels, which never build the list. Both sweeps are dense (the
+    prims' slots and the whole triangle table), O(R * (4N + T)) in time
+    and memory. Ties keep candidate order, prim slots first and then
+    triangle rows, in the order the objects were inserted, as the
+    reference's stable sort does (src/world.rs:51): a stable sort, since
+    torch.topk promises no order among equal keys."""
+    st = scene.static
+    R = o.shape[0]
+    parts_t, parts_v, parts_obj, parts_u, parts_w = [], [], [], [], []
+    if st.n_prims:
+        t, v = prim_candidates(scene, o, d, cfg.epsilon)     # (R, N, 4)
+        parts_t.append(t.reshape(R, -1))
+        parts_v.append(v.reshape(R, -1))
+        parts_obj.append(scene.prim_obj.repeat_interleave(4))
+        parts_u.append(t.new_zeros((R, 4 * st.n_prims)))
+        parts_w.append(t.new_zeros((R, 4 * st.n_prims)))
+    if st.n_tris:
+        t, v, bu, bv = tri_candidates(scene, o, d, cfg.epsilon, with_uv=True)
+        parts_t.append(t)
+        parts_v.append(v)
+        parts_obj.append(scene.tri_obj)
+        parts_u.append(bu)
+        parts_w.append(bv)
+    if not parts_t:
+        z = o.new_zeros((R, 0))
+        return Intersections(t=z, obj=z.to(torch.int32), valid=z.to(torch.bool),
+                             u=z, v=z)
+    t = torch.cat(parts_t, dim=1)
+    cols = torch.cat(parts_obj)
+    kk = t.shape[1] if k is None else min(k, t.shape[1])
+    tt, idx = torch.sort(torch.where(torch.cat(parts_v, dim=1), t, BIG), dim=1,
+                         stable=True)
+    tt, idx = tt[:, :kk], idx[:, :kk]
+    valid = tt < BIG * 0.5
+    sel = lambda parts: torch.where(
+        valid, torch.gather(torch.cat(parts, dim=1), 1, idx), 0.0)
+    return Intersections(t=tt, obj=cols[idx], valid=valid, u=sel(parts_u),
+                         v=sel(parts_w))
+
+
+def hit_index(xs: Intersections):
+    """Intersection::hit: per ray the index into the K axis of the lowest
+    non-negative valid t, or -1 when there is none (reference:
+    src/intersection.rs:79-84). The lists are sorted by t, so that is the
+    first such entry; argmax returns the first maximum, and takes no bool
+    tensor, hence the cast. An empty list (a world with no objects) gives
+    -1 on every ray, where rtc_tpu's argmax raises."""
+    ok = xs.valid & (xs.t >= 0.0)
+    if ok.shape[1] == 0:
+        return torch.full(ok.shape[:1], -1, dtype=torch.int32, device=ok.device)
+    first = torch.argmax(ok.to(torch.int8), dim=1).to(torch.int32)
+    return torch.where(ok.any(dim=1), first, -1)
 
 
 def normal_at(scene: Scene, hit: HitInfo, world_point, eps):

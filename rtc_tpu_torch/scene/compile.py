@@ -366,16 +366,19 @@ def _instance_order(inst_aabb: np.ndarray, inst_mesh: np.ndarray, n_mesh: int):
     return perm
 
 
-def occlusion_tables(p1, e1, e2, aabb, leaf: int, device="cpu", inst_aabb=None,
+def occlusion_tables(p1, e1, e2, aabb, leaf: int, device=None, inst_aabb=None,
                      inst_mesh=None, n_mesh: int = 0, tri_cid=None) -> OcclusionTables:
     """The occlusion walk's tables (OcclusionTables) of a table of C
     clusters of leaf rows (p1, e1, e2 (C * leaf, 3); aabb (C, 6) the
-    unwidened cluster boxes), as numpy or tensors in f32 or f64, on device:
-    the same tables from either, built from the f32 values. A sub-box
+    unwidened cluster boxes), as numpy or tensors in f32 or f64, on device
+    (by default p1's: a tensor's device, the CPU for numpy): the same
+    tables from either, built from the f32 values. A sub-box
     holds SUB_ROWS rows where leaf is a multiple of it, else a whole
     cluster. With inst_aabb and inst_mesh (I,), the instance level of an
     instanced scene's n_mesh unique meshes; with tri_cid (C * leaf,), the
     census's fields for those container slots."""
+    if device is None:
+        device = p1.device if isinstance(p1, torch.Tensor) else "cpu"
     npy = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
                      else np.asarray(a))
     # the f32 values the kernels read, in f64 for the vertex sums

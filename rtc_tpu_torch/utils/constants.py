@@ -1,7 +1,8 @@
 """Numeric tolerance policy (counterpart of rtc_tpu/utils/constants.py).
 
 EPSILON is the reference's single tolerance (src/utils.rs:2): the
-triangle parallel-ray guard and the shadow-acne offset of over_point.
+triangle parallel-ray guard, the shadow-acne offset of over_point and the
+book's float comparisons (is_almost_equal).
 """
 
 EPSILON = 1e-5
@@ -14,3 +15,10 @@ BIG = 1e30
 # cluster box lies behind them and the kernels' traversal drops them at once.
 FAR = 1e12
 PARK = 0.5773502692
+
+
+def is_almost_equal(a, b, eps: float = EPSILON):
+    """Scalar or elementwise approximate equality (reference:
+    src/utils.rs:4-6): |a - b| < eps, a bool for floats, a bool tensor
+    for tensors."""
+    return abs(a - b) < eps

@@ -271,7 +271,9 @@ def test_import_loads_no_jax():
             "rtc_tpu_torch.cli, rtc_tpu_torch.render.progressive, "
             "rtc_tpu_torch.utils.debug, rtc_tpu_torch.io.canvas, "
             "rtc_tpu_torch.parallel.mesh, rtc_tpu_torch.parallel.collectives, "
-            "rtc_tpu_torch.parallel.shard, rtc_tpu_torch.parallel.multihost; "
+            "rtc_tpu_torch.parallel.shard, rtc_tpu_torch.parallel.multihost, "
+            "rtc_tpu_torch.testing, rtc_tpu_torch.ops, rtc_tpu_torch.utils, "
+            "rtc_tpu_torch.io.obj; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'rtc_tpu')]; print(bad); sys.exit(bool(bad))")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

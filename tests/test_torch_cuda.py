@@ -9,7 +9,9 @@ ends fall inside a group; K4's census walk; launches without their
 tables; the smooth, glass and instanced scenes rendered through the
 kernels; the closest-hit autograd Functions with each kernel as their
 forward against their plain versions; and the tables inject_params
-rebuilds from new triangle rows.
+rebuilds from new triangle rows; and the book API on the card:
+intersect_all and hit_index against K1 on a cow wavefront, camera_rays
+on a card matrix, and the testing helpers' book numbers in float64.
 
 These tests need a CUDA device and nvcc, and skip elsewhere. This file
 imports neither jax nor rtc_tpu, so on the GPU machine it runs without the
@@ -24,12 +26,14 @@ import numpy as np
 import pytest
 import torch
 
+from rtc_tpu_torch import default_world, hit_index, intersect_all, testing
 from rtc_tpu_torch.diff import render_grad as RG
 from rtc_tpu_torch.models.scenes import (REGISTRY, _cam, cow_herd_mesh_world,
                                          cow_herd_world)
+from rtc_tpu_torch.ops import matrices
 from rtc_tpu_torch.ops.kernels import mesh_intersect as mi
 from rtc_tpu_torch.render import integrator
-from rtc_tpu_torch.render.camera import camera_rays
+from rtc_tpu_torch.render.camera import camera_rays, camera_rays_for_pixels
 from rtc_tpu_torch.render.renderer import render
 from rtc_tpu_torch.scene.compile import compile_scene, occlusion_tables
 from rtc_tpu_torch.scene.shapes import mesh, triangle
@@ -1529,8 +1533,10 @@ def test_prim_shard_kernels_on_own_tables_match_plain(cuda, n):
     o2 = (o + d * (torch.where(hit, t, 0.0)[:, None] + 1e-3)).contiguous()
     sets = [(o, torch.where(hit, t, -BIG).contiguous(), gid),
             (o2, torch.full_like(t, BIG), torch.full_like(gid, -2))]
+    # K2 from just past each hit (o2): the glass teapot's far walls lie
+    # within max_t of many of them; from the camera (o) nothing does
     max_t = torch.full_like(t, 3.0)
-    whole_k2 = mi.mesh_any_hit(o, d, max_t, *tabs(scene), scene.cluster_aabb, leaf,
+    whole_k2 = mi.mesh_any_hit(o2, d, max_t, *tabs(scene), scene.cluster_aabb, leaf,
                                occ=scene.occ)
     whole_k4 = [mi.mesh_crossing_count(oo, d, tt, gg, *tabs(scene), scene.cluster_aabb,
                                        scene.tri_cid, 1, leaf, occ=scene.occ)
@@ -1547,8 +1553,8 @@ def test_prim_shard_kernels_on_own_tables_match_plain(cuda, n):
             mi.closest_hit_sn_plain(o, d, *tabs(s), snc))
         best = torch.minimum(best, mi.mesh_closest_hit_sn(o, d, *tabs(s), snc,
                                                           s.cluster_aabb, leaf)[0])
-        k2 = mi.mesh_any_hit(o, d, max_t, *tabs(s), s.cluster_aabb, leaf, occ=s.occ)
-        assert torch.equal(k2, mi.any_hit_plain(o, d, max_t, *tabs(s)))
+        k2 = mi.mesh_any_hit(o2, d, max_t, *tabs(s), s.cluster_aabb, leaf, occ=s.occ)
+        assert torch.equal(k2, mi.any_hit_plain(o2, d, max_t, *tabs(s)))
         k2_any |= k2
         for k, (oo, tt, gg) in enumerate(sets):
             local = gg - s.tri_offset
@@ -1565,3 +1571,58 @@ def test_prim_shard_kernels_on_own_tables_match_plain(cuda, n):
     for (cnt, last), (wcnt, wlast) in zip(k4_sum, whole_k4):
         assert torch.equal(cnt, wcnt) and torch.equal(last, wlast)
     assert int(whole_k4[1][0].sum()) > 100
+
+
+def test_intersect_all_matches_k1_on_cow(cuda):
+    """The book API on the card: hit_index(intersect_all(...)) on a
+    2,048-ray cow wavefront in f32, held to one K1 with_n launch on every
+    ray: equal hit masks, |dt| <= 1e-3 (bit-equal expected: both evaluate
+    the same Möller-Trumbore), and the hit's object is the winner's."""
+    world, cam = REGISTRY["cow"](128)
+    scene = compile_scene(world, device=cuda)
+    o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize, cam.half_width,
+                       cam.half_height, cam.pixel_size, device=cuda)
+    o, d = o[::4].contiguous(), d[::4].contiguous()
+    assert o.shape[0] == 2048
+    xs = intersect_all(scene, o, d, RenderConfig(), k=8)
+    i = hit_index(xs)
+    hit = i >= 0
+    rows = torch.arange(o.shape[0], device=cuda)
+    t = torch.where(hit, xs.t[rows, i.clamp_min(0).long()], BIG)
+    obj = xs.obj[rows, i.clamp_min(0).long()]
+    kt, kidx, _ = mi.mesh_closest_hit(o, d, scene.tri_p1, scene.tri_e1, scene.tri_e2,
+                                      scene.tri_n, scene.cluster_aabb,
+                                      scene.static.cluster_size)
+    torch.cuda.synchronize()
+    assert torch.equal(hit, kidx >= 0) and int(hit.sum()) > 200
+    assert float((t - kt).abs()[hit].max()) <= 1e-3
+    assert torch.equal(obj[hit], scene.tri_obj[kidx[hit].long()])
+
+
+def test_camera_rays_follow_a_card_matrix(cuda):
+    """A camera matrix on the card gives rays on the card, bit for bit
+    those of camera_rays_for_pixels."""
+    _, cam = REGISTRY["cow"](64)
+    args = (cam.hsize, cam.vsize, cam.half_width, cam.half_height, cam.pixel_size)
+    inv = torch.tensor(cam.transform_inverse, dtype=torch.float32, device=cuda)
+    o, d = camera_rays(inv, *args)
+    assert o.is_cuda and d.is_cuda
+    idx = torch.arange(cam.hsize * cam.vsize, device=cuda)
+    po, pd = camera_rays_for_pixels(inv, idx % cam.hsize, idx // cam.hsize, *args[2:])
+    assert torch.equal(o, po) and torch.equal(d, pd)
+
+
+def test_book_helpers_on_the_card(cuda):
+    """The testing helpers on the card in f64 give the book's numbers, and
+    a singular matrix's inverse there is not finite, without an error."""
+    scene = compile_scene(default_world(), dtype=torch.float64, device=cuda)
+    want = np.array([0.38066, 0.47583, 0.2855])
+    np.testing.assert_allclose(testing.color_at_single(scene, [0, 0, -5], [0, 0, 1]), want,
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(testing.shade_hit(scene, [0, 0, -5], [0, 0, 1], 4.0, 0), want,
+                               atol=1e-5, rtol=0)
+    assert testing.is_shadowed(scene, [10, -10, 10])
+    assert not testing.is_shadowed(scene, [-2, 2, -2])
+    a = torch.tensor([[-4, 2, -2, -3], [9, 6, 2, 6], [0, -5, 1, -5], [0, 0, 0, 0]],
+                     dtype=torch.float64, device=cuda)
+    assert not bool(torch.isfinite(matrices.inverse(a)).all())
