@@ -84,7 +84,22 @@ color_at_single in f32 on 64 cow pixels against render()'s pixels, bit
 for bit, and is_shadowed on 64 cow surface points against one K2 launch,
 with the K3 and K2 launches the helpers made counted from counts set to
 0 just before (K3's and K2's lines gain "book_launches"). It prints a
-"book" JSON line after the "parallel" line. Phase 2 prints the ordered
+"book" JSON line after the "parallel" line. Phase 17 runs the tools
+(rtc_tpu_torch/tools) as a user does: `python -m rtc_tpu_torch.tools.bench
+1920` in a subprocess (cow with the kernel parity gate, then the suite:
+one stdout line shaped like bench.py's, the card's name in its metric),
+tools.perf_probe on cow at 1920 (the stages, and K1's visits on the
+primary and reflected wavefronts), tools.kernel_sweep at its defaults
+(leaf 64, 128, 256 x 64, 128, 256 threads a block, K1's t bit-equal to
+plain at every pair before it is timed), the cow frame at leaf 64 and 256
+(K3 fused, then K1 + K2 split, each kernel counted) and at those leaves
+the routes of K1 with_sn, K2 and K4 (glass_teapot), K5 with_sn and K6
+(cow_herd_smooth), K7a and K7b (cow, elementwise) and the streamed K1 t0
+and K2 (the one-mesh herd), each under the f32 image budget (the herds'
+knife-edge budget) against leaf 128, graft_entry.entry() and
+graft_entry.dryrun_multichip(4) (four gloo ranks on the card, every gate
+of __graft_entry__.py); it prints a "tools" JSON line after the "book"
+line. Phase 2 prints the ordered
 walk's list lengths and the registers, memory and resident blocks of the
 kernels that walk (K1-K6); phases 3, 6, 9 and 11 print the boxes
 each ray visits (median, 99th percentile, maximum: clusters, and for K5
@@ -126,6 +141,9 @@ from rtc_tpu_torch.scene.compile import GROUP, compile_scene
 from rtc_tpu_torch.scene.materials import Material, test_pattern
 from rtc_tpu_torch.scene.shapes import glass_sphere, mesh, plane, sphere
 from rtc_tpu_torch.scene.world import PointLight, World
+from rtc_tpu_torch.tools import graft_entry, kernel_sweep, perf_probe
+from rtc_tpu_torch.tools.walk import (block_census, entered, k1_walk_line, walk_census,
+                                     walk_line)
 from rtc_tpu_torch.utils.config import RenderConfig
 from rtc_tpu_torch.utils.constants import BIG, FAR
 from rtc_tpu_torch.utils.profiling import rays_per_pixel
@@ -413,7 +431,6 @@ HBM_RATE = 3.35e12             # bytes/s
 # u + v 1, two compares), or t (t 6 and the caller's t >= 0 and t < bound)
 STAGES = ("det", "u", "v", "t")
 PAIR_OPS = np.array([[14, 1, 0], [23, 3, 1], [39, 5, 1], [45, 7, 1]], float)
-BOX_CHUNK = 1 << 24   # (rays x boxes) entries per counting pass
 PAIR_CHUNK = 1 << 22  # pair tests per counting pass
 
 
@@ -493,34 +510,6 @@ def least(*bounds):
     """The least of bound()'s results for one function's work as different
     walks do it: the least time the card could take for that function."""
     return min(bounds, key=lambda b: b[0])
-
-
-def entered(o, d, aabb, limit, strict: bool = False, signed: bool = False,
-            keep=None, widen: bool = True):
-    """The (ray, box) pairs, as two (P,) index tensors, of the boxes of aabb
-    each ray enters at or before limit (strictly before with strict).
-    signed: the census's test, a signed slab interval starting before
-    limit, behind the origin included. keep (C,) bool: only those boxes.
-    widen=False: boxes widened at compile time (the occlusion walk's)."""
-    R, C = o.shape[0], aabb.shape[0]
-    none = torch.zeros((0,), dtype=torch.int64, device=o.device)
-    rays, boxes = [none], [none]
-    step = max(1, BOX_CHUNK // max(C, 1))
-    for s in range(0, R, step):
-        tmin, tmax, empty = mi.box_slabs(o[s:s + step], d[s:s + step], aabb, widen)
-        lim = limit[s:s + step, None]
-        ok = ~empty[None] & (tmax >= tmin)
-        if signed:
-            ok &= tmin < lim
-        else:
-            e = torch.clamp_min(tmin, 0.0)
-            ok &= (tmax >= 0.0) & ((e < lim) if strict else (e <= lim))
-        if keep is not None:
-            ok &= keep[None]
-        r, c = ok.nonzero(as_tuple=True)
-        rays.append(r + s)
-        boxes.append(c)
-    return torch.cat(rays), torch.cat(boxes)
 
 
 def pair_stages(o, d, p1, e1, e2, eps, rays, clusters, leaf, cid=None,
@@ -774,65 +763,9 @@ TABLE_ORDER_BOUNDS = {}
 EXTRA = {}  # kernel key -> further keys of its kernels line
 
 
-# ---------------------------------------------------------------------------
-# the ordered walk's scans: K1 and K5 against a scan per visit
-# ---------------------------------------------------------------------------
-#
-# The visits are counted, the scans modelled from them; the kernels count
-# neither. A walk over a range of n boxes that visits v of them scans the
-# range v + 1 times when each visit finds the next box by a scan (the last
-# scan finds none), and v // L + 1 times with the ordered walk's list of L
-# keys (a refill follows L visits), which is one too many where v is a
-# multiple of L and the scan that filled the list found no more. The visits
-# are counted as the bounds count them: the boxes entered by the ray's
-# final t. That is K1's visits on one launch; a streamed block or a later
-# instance may also visit boxes entered before a t_best not yet lowered, so
-# there it is a lower bound.
-
-WALK_L = {}  # the built kernels' list lengths, {"K1": L, "K5": L} (phase 2)
-
-
-def walk_census(visits, n_boxes: int, L: int) -> dict:
-    """Per ray, of one walk over a range of n_boxes boxes that visits
-    visits (R,) of them: the scans and box tests, modelled, of a scan per
-    visit (old) and of the ordered walk with a list of L keys (new)."""
-    old, new = visits + 1, visits // L + 1
-    return {"old_scans": old, "new_scans": new, "old_tests": old * n_boxes,
-            "new_tests": new * n_boxes}
-
-
-def block_census(counts, n_boxes: int, L: int) -> dict:
-    """walk_census summed over a streamed table's blocks, each walked for
-    every ray; counts (R, B): each ray's visits in each block of
-    ceil(n_boxes / B) boxes."""
-    per = -(-n_boxes // counts.shape[1])
-    parts = [walk_census(v, min(per, n_boxes - b * per), L)
-             for b, v in enumerate(counts.unbind(1))]
-    return {k: sum(p[k] for p in parts) for k in parts[0]}
-
-
-def k1_walk_line(what: str, rays, R: int, n_clusters: int) -> str:
-    """walk_line of K1's walk over one range, from the (ray, cluster)
-    visits' ray indices."""
-    visits, L = torch.bincount(rays, minlength=R), WALK_L["K1"]
-    return walk_line(what, {"clusters": visits}, walk_census(visits, n_clusters, L), L)
-
-
-def walk_line(what: str, visits: dict, census: dict, L: int) -> str:
-    """Visits per ray (median, 99th percentile, max), counted, and the mean
-    scans and box tests a ray of a scan per visit against the ordered walk,
-    modelled from the visits (walk_census)."""
-    parts = []
-    for name, v in visits.items():
-        q = torch.quantile(v.double(), torch.tensor([0.5, 0.99], dtype=torch.float64,
-                                                    device=v.device)).tolist()
-        parts.append(f"{name} median {q[0]:g}, p99 {q[1]:g}, max {int(v.max())}")
-    mean = lambda k: float(census[k].double().mean())
-    return (f"{what}: visits a ray, " + "; ".join(parts)
-            + "; modelled from the visits: scans a ray "
-            f"{mean('old_scans'):.3f} per visit -> "
-            f"{mean('new_scans'):.3f} with L={L}; box tests a ray "
-            f"{mean('old_tests'):.1f} -> {mean('new_tests'):.1f}")
+# the built kernels' list lengths, {"K1": L, "K5": L} (phase 2); the walk
+# lines model the scans from the visits (rtc_tpu_torch/tools/walk.py)
+WALK_L = {}
 
 
 # ---------------------------------------------------------------------------
@@ -908,7 +841,7 @@ def phase_parity(scene, cam, leaf, eps):
                             soup.static.cluster_size, eps)[0]
     say("3 walk", k1_walk_line(f"soup K1 ({soup.static.n_clusters} clusters)",
                                entered(so, sd, soup.cluster_aabb, t)[0], so.shape[0],
-                               soup.static.n_clusters))
+                               soup.static.n_clusters, WALK_L["K1"]))
 
 
 def k2_bounds(scene, o, d, max_t, flags, eps) -> tuple:
@@ -980,7 +913,8 @@ def phase_timing(scene, cam, leaf, eps):
     work1, rays1, _ = closest_work(o, d, tri, scene.cluster_aabb,
                                    outs["closest_hit"][0][0], leaf, eps)
     say("3 walk", k1_walk_line(f"cow main path K1, K3's phase 1 ({scene.static.n_clusters} "
-                               "clusters)", rays1, R, scene.static.n_clusters))
+                               "clusters)", rays1, R, scene.static.n_clusters,
+                               WALK_L["K1"]))
     BOUNDS["closest_hit"] = bound(work1, nbytes(o, d, scene.tri_n) + tab_bytes + R * 20)
     BOUNDS["any_hit"], TABLE_ORDER_BOUNDS["any_hit"] = k2_bounds(scene, so, sd, max_t,
                                                                  k2, eps)
@@ -1195,7 +1129,8 @@ def phase_smooth(eps):
     aabb, R = scene.cluster_aabb, o.shape[0]
     work1, rays1, _ = closest_work(o, d, tabs[:3], aabb, k1[0], leaf, eps)
     say("6 walk", k1_walk_line(f"teapot_smooth K1 and K3 with_sn ({scene.static.n_clusters} "
-                               "clusters)", rays1, R, scene.static.n_clusters))
+                               "clusters)", rays1, R, scene.static.n_clusters,
+                               WALK_L["K1"]))
     in_bytes = nbytes(o, d, *tabs, aabb)
     BOUNDS["closest_hit_sn"] = bound(work1, in_bytes + R * 20)
     so, sd, smax = k3_shadow_rays(scene, o, d, eps, k3, unit_n=False)
@@ -1826,7 +1761,7 @@ def phase_streaming(eps):
     work, rays, boxes = closest_work(o, d, tabs, aabb, k7a[0], leaf, eps)
     C, L = st.n_clusters, WALK_L["K1"]
     say("11 walk", k1_walk_line(f"one-mesh herd, one K1 launch over {C} clusters",
-                                rays, R, C))
+                                rays, R, C, L))
     counts = torch.bincount(rays * n_blocks + boxes // -(-C // n_blocks),
                             minlength=R * n_blocks).view(R, n_blocks)
     say("11 walk", walk_line(f"one-mesh herd, streamed K1 t0 and uv ({n_blocks} blocks)",
@@ -3123,6 +3058,167 @@ def phase_book(eps) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the tools (rtc_tpu_torch/tools), as a user runs them
+# ---------------------------------------------------------------------------
+
+TOOLS_TIMEOUT = 600     # seconds the bench subprocess may take
+SWEEP_LEAFS = (64, 256)  # the cow frames held to the leaf-128 image
+DRYRUN_RANKS = 4
+
+
+def tool_process(module: str, *args) -> tuple:
+    """python -m rtc_tpu_torch.tools.<module> args in a subprocess:
+    (stdout lines, stderr lines, seconds); a nonzero exit raises."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"rtc_tpu_torch.tools.{module}", *args],
+                          cwd=ROOT, capture_output=True, text=True, timeout=TOOLS_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"tools.{module} {' '.join(args)} exited "
+          f"{proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout.splitlines(), proc.stderr.splitlines(), seconds
+
+
+def in_process(fn, *args) -> tuple:
+    """fn(*args) with its standard output captured, then printed: (result,
+    the JSON lines it printed, seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(buf.getvalue(), end="", flush=True)
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    return out, lines, seconds
+
+
+# the routes of the kernels the cow frames do not run, each at leaf 64 and
+# 256 against leaf 128: (world, width, mesh_impl, the kernels it launches,
+# the herds' knife-edge budget)
+LEAF_ROUTES = {
+    "glass_teapot": ("glass_teapot", 480, "auto",
+                     ("closest_hit_sn", "any_hit", "crossing_count"), False),
+    "cow_herd_smooth": ("cow_herd_smooth", 240, "auto",
+                        ("closest_hit_tlas_sn", "any_hit_tlas"), True),
+    "cow elementwise": ("cow", 480, "elementwise",
+                        ("closest_hit_elementwise", "any_hit_elementwise"), False),
+    "cow_herd_mesh streamed": ("cow_herd_mesh", 240, "auto",
+                               ("closest_hit_t0", "any_hit"), True),
+}
+
+
+def leaf_routes() -> dict:
+    """Each LEAF_ROUTES frame compiled at leaf 64 and 256, its kernels
+    counted, held to the same frame at leaf 128 under the image budget."""
+    out = {}
+    for key, (name, width, impl, kernels, knife) in LEAF_ROUTES.items():
+        world, cam = (REGISTRY.get(name) or TEST_WORLDS[name])(width)
+        cfg = RenderConfig(ray_tile=RAY_TILE, mesh_impl=impl)
+        ref = None
+        for leaf in (128,) + SWEEP_LEAFS:
+            scene = compile_scene(world, dtype=torch.float32, device="cuda",
+                                  cluster_size=leaf)
+            mi.reset_launch_counts()
+            img = render(scene, cam, cfg)
+            torch.cuda.synchronize()
+            check(all(mi.LAUNCHES[k] > 0 for k in kernels),
+                  f"{key} at leaf {leaf}: launches {dict(mi.LAUNCHES)}")
+            if ref is None:
+                ref = img
+                continue
+            out[f"{key} leaf {leaf}"] = dict(
+                gate=image_gate(f"{key} at leaf {leaf} vs 128", img, ref, knife),
+                launches={k: v for k, v in mi.LAUNCHES.items() if v})
+    return out
+
+
+def phase_tools() -> dict:
+    """Each tool on the card: tools.bench (cow at 1920 with the parity
+    gate, and the suite) and tools.graft_entry's dryrun_multichip(4) as
+    processes; tools.perf_probe (the stages and the K1 walk's visits) and
+    tools.kernel_sweep (leaf x block size, K1 held to plain for each pair)
+    and graft_entry.entry() in this process; and the cow frame at leaf 64
+    and 256 (K3 fused, then K1 + K2 split, each counted) and the other
+    kernels' routes at those leaves (leaf_routes) held to the leaf-128
+    frame under the f32 image budget. Returns the tools record."""
+    rec = {"card": CARD}
+    out, err, seconds = tool_process("bench", str(WIDTH))
+    check(len(out) == 1, f"tools.bench printed {len(out)} stdout lines")
+    row = json.loads(out[0])
+    check(set(row) == {"metric", "value", "unit", "vs_baseline"}
+          and torch.cuda.get_device_name(0) in row["metric"] and row["value"] > 0,
+          f"tools.bench's line: {row}")
+    check(any(ln.startswith("kernel parity ok") for ln in err),
+          "tools.bench: no 'kernel parity ok' line")
+    err_json = [json.loads(ln) for ln in err if ln.startswith("{")]
+    rec["bench"] = dict(line=row, suite=[r for r in err_json if "metric" in r],
+                        frames=[r for r in err_json if "frame_ms" in r], s=seconds)
+    say("17 tools", f"tools.bench {WIDTH} in {seconds:.1f} s: {out[0]}; "
+        + next(ln for ln in err if ln.startswith("kernel parity")))
+
+    res, lines, seconds = in_process(perf_probe.main, WIDTH, "cow", "cuda")
+    _, visits, v_seconds = in_process(perf_probe.visit_sim, WIDTH, "cow", "cuda")
+    rec["perf_probe"] = dict(res, visits=visits, s=seconds, visits_s=v_seconds)
+    say("17 tools", f"tools.perf_probe {WIDTH} in {seconds:.1f} s: "
+        + json.dumps(lines[0]) + "; " + json.dumps(lines[1]))
+
+    rows, _, seconds = in_process(kernel_sweep.sweep, WIDTH)
+    check(len(rows) == 9, f"tools.kernel_sweep: {len(rows)} pairs")
+    rec["kernel_sweep"] = dict(rows=rows, s=seconds)
+    say("17 tools", f"tools.kernel_sweep {WIDTH} in {seconds:.1f} s, K1 t bit-equal to "
+        "plain at each pair: " + "; ".join(
+            f"leaf {r['leaf']} rt {r['rt']}: prim {r['prim_ms']:.3f} ms, "
+            f"refl {r['refl_ms']:.3f} ms" for r in rows))
+
+    base, cam = slice_scene("cow", WIDTH)
+    world, _ = REGISTRY["cow"](WIDTH)
+    frames = {}
+    for split in (False, True):
+        cfg = RenderConfig(ray_tile=RAY_TILE, fused_shadow=not split)
+        ref = render(base, cam, cfg)
+        for leaf in SWEEP_LEAFS:
+            scene = compile_scene(world, dtype=torch.float32, device="cuda",
+                                  cluster_size=leaf)
+            render(scene, cam, cfg)
+            torch.cuda.synchronize()
+            mi.reset_launch_counts()
+            t0 = time.perf_counter()
+            img = render(scene, cam, cfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launched = ("closest_hit", "any_hit") if split else ("closest_shadow",)
+            check(all(mi.LAUNCHES[k] > 0 for k in launched),
+                  f"leaf {leaf} cow frame: {dict(mi.LAUNCHES)}")
+            key = f"leaf {leaf} {'split' if split else 'fused'}"
+            frames[key] = dict(gate=image_gate(f"cow {key} vs leaf 128", img, ref),
+                               launches={k: v for k, v in mi.LAUNCHES.items() if v},
+                               frame_ms=ms, n_clusters=scene.static.n_clusters)
+    rec["leaf_frames"] = frames
+    say("17 tools", "cow at leaf 64 and 256 against leaf 128: " + "; ".join(
+        f"{k}: {v['gate']}, {v['launches']}, {v['frame_ms']:.1f} ms"
+        for k, v in frames.items()))
+    rec["leaf_routes"] = leaf_routes()
+    say("17 tools", "the other kernels' routes at leaf 64 and 256 against leaf 128: "
+        + "; ".join(f"{k}: {v['gate']}, {v['launches']}"
+                    for k, v in rec["leaf_routes"].items()))
+
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    img = fn(*args)
+    torch.cuda.synchronize()
+    check(tuple(img.shape) == (2048, 3) and bool(torch.isfinite(img).all()),
+          "graft_entry.entry(): bad image")
+    entry_s = time.perf_counter() - t0
+    m, lines, seconds = in_process(graft_entry.dryrun_multichip, DRYRUN_RANKS)
+    rec["graft_entry"] = dict(entry_shape=list(img.shape), entry_s=entry_s,
+                              dryrun=m, dryrun_s=seconds)
+    say("17 tools", f"graft_entry.entry() {tuple(img.shape)} in {entry_s:.1f} s; "
+        f"dryrun_multichip({DRYRUN_RANKS}) over gloo in {seconds:.1f} s, every gate "
+        f"passed: {json.dumps(m)}")
+    return rec
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--parallel-worker"]:
         return parallel_worker(sys.argv[2:])
@@ -3160,6 +3256,7 @@ def main() -> int:
     cli_record = phase_cli()
     parallel = phase_parallel()
     book = phase_book(eps)
+    tools = phase_tools()
 
     # each kernel's launches come from the frame that runs it: K3 from the
     # cow's default fused frame, K1 and K2 from its fused_shadow=False
@@ -3222,6 +3319,7 @@ def main() -> int:
     print(json.dumps({"cli": cli_record}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"book": book}))
+    print(json.dumps({"tools": tools}))
     print(json.dumps(record))
     print(f"card: {CARD}")
     print(json.dumps({"ok": True, "device": {

@@ -86,7 +86,13 @@ namespace {
 
 constexpr float kBig = 1e30f;  // "no hit" (rtc_tpu_torch/utils/constants.py)
 constexpr float kFar = 1e12f;  // parked origin of dead lanes (integrator.py)
-constexpr int kThreads = 128;
+// Threads a block of the per-ray kernels (K1-K6; K7 has kTileK7). A build
+// may set it (-DRTC_THREADS=64): tools/kernel_sweep.py sweeps it, as
+// kernel_sweep.py swept the TPU kernels' ray tile.
+#ifndef RTC_THREADS
+#define RTC_THREADS 128
+#endif
+constexpr int kThreads = RTC_THREADS;
 
 struct Ray {
   float ox, oy, oz;

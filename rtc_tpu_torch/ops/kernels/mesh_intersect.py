@@ -68,7 +68,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 VMEM_TRI_BUDGET = 49152
 # clusters per supercluster, the kernels' kSuperWidth (K7a/K7b)
 SUPER_WIDTH = 8
-# threads a block, the kernels' kThreads (K7: ELEMENTWISE_TILE)
+# threads a block, the kernels' kThreads (K7: ELEMENTWISE_TILE) in the
+# default build; block_flags(n) builds another
 BLOCK_THREADS = 128
 # K7's tile walk (kTileK7, kMaxLeafK7, kK7LaneMin): rays a block, the most
 # rows a cluster it stages in shared memory, and the entered lanes a warp,
@@ -466,6 +467,11 @@ COUNTERS = ("inst_group_tests", "inst_tests", "group_tests", "cluster_tests",
             "subs_entered", "pair_det", "pair_u", "pair_v", "pair_t",
             "super_tests", "supers_entered", "rounds", "round_lanes",
             "tile_clusters", "tile_slots", "tile_by_lane")
+
+
+def block_flags(threads: int) -> tuple:
+    """build()'s extra_flags for per-ray kernels (K1-K6) of threads a block."""
+    return (f"-DRTC_THREADS={int(threads)}",)
 
 
 def build(source: str = SOURCE, extra_flags: tuple = ()) -> str:

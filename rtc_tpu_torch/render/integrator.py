@@ -70,16 +70,25 @@ def _prim_axis(cfg: RenderConfig):
 
 def _resolve_mesh_impl(scene: Scene, cfg: RenderConfig, x) -> str:
     """'kernel', 'elementwise' or 'bruteforce' for rays x. 'auto' takes the
-    kernels for f32 tensors on CUDA and the dense sweep otherwise; an
-    explicit 'kernel' or 'elementwise' on a CPU or f64 tensor raises, and
-    so does 'elementwise' under the prim axis (rtc_tpu :552-560): its
-    tile walk is built for the whole world table."""
+    kernels for f32 tensors on CUDA and a clustered table, and the dense
+    sweep otherwise; a scene without triangles has nothing for the kernels
+    and sweeps its prims. An explicit 'kernel' or 'elementwise' raises on
+    a CPU or f64 tensor and on an unclustered triangle table
+    (compile_scene(cluster_size=0)), and so does 'elementwise' under the
+    prim axis (rtc_tpu :552-560): its tile walk is built for the whole
+    world table."""
+    st = scene.static
     impl = cfg.mesh_impl
     if impl == "auto":
-        impl = ("kernel" if scene.static.n_clusters and x.is_cuda
+        impl = ("kernel" if st.n_clusters and x.is_cuda
                 and x.dtype == torch.float32 else "bruteforce")
-    if impl in KERNEL_IMPLS and not scene.static.n_clusters:
+    if impl in KERNEL_IMPLS and not st.n_tris:
         impl = "bruteforce"
+    if impl in KERNEL_IMPLS and not st.n_clusters:
+        raise ValueError(
+            f"mesh_impl={impl!r} walks the cluster tables, and this scene's "
+            f"{st.n_tris} triangles are unclustered (cluster_size=0); compile "
+            "it with a cluster size or use 'bruteforce'")
     if impl == "elementwise" and cfg.prim_axis is not None:
         raise ValueError(
             "mesh_impl='elementwise' does not support primitive sharding; use "

@@ -6,6 +6,12 @@ idempotent work units: finished tiles are persisted, and a crashed or
 preempted render resumes from the last checkpoint. The checkpoint is
 rtc_tpu's .npz layout (flat, next_tile, tile), so either package resumes
 the other's file.
+
+The default config is RenderConfig's with rtc_tpu's tile, 8,192 rays: a
+tile is the unit a checkpoint saves, and a checkpoint resumes only at the
+tile it was written with. The renderer's own default tile is a whole
+1920x960 frame, which would save nothing before the render ends and
+resume no file rtc_tpu writes at its defaults.
 """
 
 from __future__ import annotations
@@ -17,13 +23,15 @@ import numpy as np
 import torch
 
 from ..scene.compile import Scene
-from ..utils.config import DEFAULT_CONFIG, RenderConfig
+from ..utils.config import RenderConfig
 from ..utils.constants import FAR, PARK
 from . import integrator
 from .camera import Camera, camera_rays
 
+CHECKPOINT_CONFIG = RenderConfig(ray_tile=8192)
 
-def render_tiles(scene: Scene, camera: Camera, cfg: RenderConfig = DEFAULT_CONFIG,
+
+def render_tiles(scene: Scene, camera: Camera, cfg: RenderConfig = CHECKPOINT_CONFIG,
                  start_tile: int = 0) -> Iterator[Tuple[int, int, np.ndarray]]:
     """Yield (tile_index, n_tiles, colors (tile, 3)) in scanline order, one
     host copy a tile. Deterministic: tile i is identical across runs. The
@@ -46,7 +54,7 @@ def render_tiles(scene: Scene, camera: Camera, cfg: RenderConfig = DEFAULT_CONFI
 
 
 def render_with_checkpoints(scene: Scene, camera: Camera,
-                            cfg: RenderConfig = DEFAULT_CONFIG,
+                            cfg: RenderConfig = CHECKPOINT_CONFIG,
                             checkpoint_path: Optional[str] = None,
                             checkpoint_every: int = 8) -> np.ndarray:
     """Render tile by tile into a float64 (V, H, 3) host image, persisting

@@ -52,19 +52,13 @@ def _unblock(colors, vsize: int, hsize: int):
             .reshape(vsize, hsize, 3))
 
 
-@torch.no_grad()
-def render(scene: Scene, camera: Camera, cfg: RenderConfig = DEFAULT_CONFIG):
-    """Render to a (V, H, 3) image tensor on the scene's device.
-
-    When the canvas divides into 16x16 blocks and ray_order is 'morton',
-    pixels are traced block-major: each screen block is a compact group of
-    rays, and the un-permute is a reshape. Other sizes fall back to Morton
-    order with a gathered un-permute.
-    """
-    dtype = cfg.torch_dtype()
-    device = scene.tri_p1.device
-    vsize, hsize = camera.vsize, camera.hsize
-    morton = cfg.ray_order == "morton"
+def pixel_order(vsize: int, hsize: int, ray_order: str, device):
+    """render()'s trace order: (px, py, blocked, inv_perm). When the canvas
+    divides into 16x16 blocks and ray_order is 'morton', pixels go
+    block-major (blocked, and the un-permute is a reshape); other sizes
+    fall back to Morton order, undone by the gather inv_perm; 'scanline'
+    is row-major (inv_perm None)."""
+    morton = ray_order == "morton"
     blocked = morton and vsize % BLOCK == 0 and hsize % BLOCK == 0
     inv_perm = None
     if blocked:
@@ -77,6 +71,18 @@ def render(scene: Scene, camera: Camera, cfg: RenderConfig = DEFAULT_CONFIG):
     else:
         idx = torch.arange(vsize * hsize, dtype=torch.int64, device=device)
         px, py = idx % hsize, idx // hsize
+    return px, py, blocked, inv_perm
+
+
+@torch.no_grad()
+def render(scene: Scene, camera: Camera, cfg: RenderConfig = DEFAULT_CONFIG):
+    """Render to a (V, H, 3) image tensor on the scene's device, the
+    pixels traced in pixel_order's order.
+    """
+    dtype = cfg.torch_dtype()
+    device = scene.tri_p1.device
+    vsize, hsize = camera.vsize, camera.hsize
+    px, py, blocked, inv_perm = pixel_order(vsize, hsize, cfg.ray_order, device)
     o, d = camera_rays_for_pixels(camera.transform_inverse, px, py,
                                   camera.half_width, camera.half_height,
                                   camera.pixel_size, dtype)

@@ -36,12 +36,13 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..ops.kernels.mesh_intersect import SUPER_WIDTH, VMEM_TRI_BUDGET
+from ..ops.kernels.mesh_intersect import (ELEMENTWISE_MAX_LEAF, SUPER_WIDTH,
+                                          VMEM_TRI_BUDGET)
 from .materials import NONE
 from .shapes import KIND_CODES, Shape, triangle_edges
 from .world import World
 
-# triangles per cluster, rtc_tpu's default
+# triangles per cluster, rtc_tpu's default (compile_scene's cluster_size)
 CLUSTER_SIZE = 128
 
 # SUPER_WIDTH clusters per supercluster: the elementwise kernels' (K7a/K7b)
@@ -563,7 +564,8 @@ def _unit_rows(a: np.ndarray) -> np.ndarray:
 
 
 def compile_scene(world: World, dtype: torch.dtype = torch.float32,
-                  device="cuda", containers: str = "refractive") -> Scene:
+                  device="cuda", containers: str = "refractive", *,
+                  cluster_size: int = CLUSTER_SIZE) -> Scene:
     """Compile a world into tensors on `device`: the card by default, so
     that render() runs the kernels; pass device="cpu" for the plain
     versions. Without a card the default raises, as torch does.
@@ -572,10 +574,23 @@ def compile_scene(world: World, dtype: torch.dtype = torch.float32,
     "refractive" (default) takes objects with ior != 1 or transparency > 0;
     "all" takes every object, which reproduces the reference's walk over
     the whole intersection list (src/intersection.rs:29-62) exactly.
+
+    cluster_size is the leaf, as rtc_tpu's: the triangles per cluster of
+    the k-d clustering, the TLAS and the occlusion tables. 0 keeps the
+    triangle table unclustered, in leaf order and unpadded, with no TLAS;
+    the integrator then takes the plain sweep on every backend, as
+    rtc_tpu's takes its brute force (render/integrator.py
+    _resolve_mesh_impl). A leaf above ELEMENTWISE_MAX_LEAF raises: K7
+    stages two clusters in shared memory and refuses larger ones.
     """
     if containers not in ("refractive", "all"):
         raise ValueError(f"containers must be 'refractive' or 'all', "
                          f"got {containers!r}")
+    if not 0 <= cluster_size <= ELEMENTWISE_MAX_LEAF:
+        raise ValueError(
+            f"cluster_size must be 0 (unclustered) or a leaf of 1 to "
+            f"{ELEMENTWISE_MAX_LEAF} rows, the most K7 (the elementwise "
+            f"kernels) stages in shared memory; got {cluster_size}")
     leaves = _flatten(world)
     prims = [s for s in leaves if s.kind in KIND_CODES]
     tri_leaves = [s for s in leaves if s.kind in ("triangle", "mesh")]
@@ -632,19 +647,22 @@ def compile_scene(world: World, dtype: torch.dtype = torch.float32,
 
     n_clusters = 0
     tlas, n_inst, n_mesh, cm = None, 0, 0, 0
-    if n_tris_raw:
+    cluster_aabb = super_aabb = np.zeros((0, 6))
+    if n_tris_raw and cluster_size:
         (tri_p1, tri_e1, tri_e2, tri_n, tri_obj, tri_sn, cluster_aabb,
          super_aabb, tri_src) = _cluster_triangles(
             np.concatenate(tp1), np.concatenate(te1), np.concatenate(te2),
-            np.concatenate(tn), np.concatenate(tobj), tri_sn, CLUSTER_SIZE)
+            np.concatenate(tn), np.concatenate(tobj), tri_sn, cluster_size)
         n_clusters = len(cluster_aabb)
         tlas, n_inst, n_mesh, cm = _build_tlas(
-            tri_leaves, inv_of, CLUSTER_SIZE, len(tri_p1), tri_src,
+            tri_leaves, inv_of, cluster_size, len(tri_p1), tri_src,
             leaf_offsets, n_prims)
+    elif n_tris_raw:
+        tri_p1, tri_e1, tri_e2, tri_n, tri_obj = (
+            np.concatenate(a) for a in (tp1, te1, te2, tn, tobj))
     else:
         tri_p1 = tri_e1 = tri_e2 = tri_n = np.zeros((0, 3))
         tri_obj = np.zeros((0,), dtype=np.int32)
-        cluster_aabb = super_aabb = np.zeros((0, 6))
     n_tris = len(tri_p1)
     if tri_sn is None:
         tri_sn = np.zeros((3, 0, 3))
@@ -721,7 +739,7 @@ def compile_scene(world: World, dtype: torch.dtype = torch.float32,
         any_refractive=any(m.transparency > 0.0 for m in mats),
         any_pattern=any(m.pattern is not None for m in mats),
         n_clusters=n_clusters,
-        cluster_size=CLUSTER_SIZE if n_clusters else 0,
+        cluster_size=cluster_size if n_clusters else 0,
         any_smooth=bool(any_smooth and n_tris),
         n_super=len(super_aabb),
         single_tri_obj=n_prims if len(tri_leaves) == 1 else -1,

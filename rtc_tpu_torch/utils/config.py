@@ -26,7 +26,17 @@ class RenderConfig:
       epsilon: offset for over points and the parallel-ray guard.
       dtype: 'float32' or 'float64'.
       ray_tile: rays per wavefront tile; the renderer shades the frame tile
-        by tile to bound the working set.
+        by tile to bound the working set. The default is the whole 1920x960
+        frame: of the tiles 8,192, 65,536, 262,144, 460,800 and the frame,
+        the frame was the fastest on every scene of the sweep (cow, teapot,
+        teapot_smooth, glass_teapot, both herds and table; at most 7.3 GiB
+        peak, table's) on an NVIDIA H100 80GB HBM3 at 700 W, by the rule
+        "the fastest, or within 10% of it, on every scene with a peak under
+        40 GiB" (rtc_tpu_torch.tools.bench --tile=N; PERF.md). The sweep
+        ran the f32 render on the card; float64, the CPU, gradients and
+        sharded renders were not measured at this tile. Progressive
+        rendering keeps rtc_tpu's 8,192 (render/progressive.py): its tile
+        is the unit a checkpoint saves.
       mesh_impl: triangle intersector. 'kernel' runs the hand-written CUDA
         kernels (f32 tensors on a CUDA device only); 'bruteforce' the dense
         PyTorch sweep; 'auto' picks 'kernel' for f32 tensors on CUDA and
@@ -53,7 +63,7 @@ class RenderConfig:
     max_depth: int = 5
     epsilon: float = EPSILON
     dtype: str = "float32"
-    ray_tile: int = 8192
+    ray_tile: int = 1920 * 960
     mesh_impl: str = "auto"
     shadows: bool = True
     ray_order: str = "morton"

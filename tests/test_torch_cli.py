@@ -131,6 +131,21 @@ def test_cli_file_equals_rtc_tpu(tmp_path, name):
     assert out.read_bytes().startswith(b"P3\n32 16\n255\n")
 
 
+def test_cli_file_at_the_default_tile_equals_rtc_tpu(tmp_path):
+    """At the port's default tile (the whole 1920x960 frame) main shades
+    three_spheres at 160x80 in one tile, rtc_tpu at its 8,192 in two; the
+    files are the same bytes (f64)."""
+    assert RenderConfig().ray_tile >= 160 * 80 > JaxRenderConfig().ray_tile
+    out = tmp_path / "port.ppm"
+    assert main([str(out), "160", "--scene", "three_spheres", "--device", "cpu",
+                 "--dtype", "float64"]) == 0
+    world, cam = JAX_REGISTRY["three_spheres"](160)
+    ref = jax_render(jax_compile_scene(world, dtype=np.float64), cam,
+                     JaxRenderConfig(dtype="float64"))
+    jax_write_ppm(np.asarray(ref), str(tmp_path / "ref.ppm"))
+    assert out.read_bytes() == (tmp_path / "ref.ppm").read_bytes()
+
+
 def test_cli_list_prints_rtc_tpus_scenes(capsys):
     assert main(["--list"]) == 0
     assert capsys.readouterr().out.split() == sorted(JAX_REGISTRY)

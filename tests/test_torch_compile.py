@@ -244,7 +244,7 @@ def test_config_knobs():
     cfg = RenderConfig()
     assert (cfg.max_depth, cfg.epsilon, cfg.dtype, cfg.ray_tile, cfg.mesh_impl,
             cfg.shadows, cfg.ray_order, cfg.fused_shadow) == \
-        (5, 1e-5, "float32", 8192, "auto", True, "morton", True)
+        (5, 1e-5, "float32", 1920 * 960, "auto", True, "morton", True)
     with pytest.raises(ValueError):
         RenderConfig(mesh_impl="mxu")
     # prim_axis names the rank grid's axis; rendering with it outside a
@@ -266,14 +266,16 @@ def test_compile_defaults_to_the_card():
 
 
 def test_import_loads_no_jax():
-    """The port never imports jax or rtc_tpu."""
+    """The port never imports jax or rtc_tpu, its tools included."""
     code = ("import sys, rtc_tpu_torch, rtc_tpu_torch.render.integrator, "
             "rtc_tpu_torch.cli, rtc_tpu_torch.render.progressive, "
             "rtc_tpu_torch.utils.debug, rtc_tpu_torch.io.canvas, "
             "rtc_tpu_torch.parallel.mesh, rtc_tpu_torch.parallel.collectives, "
             "rtc_tpu_torch.parallel.shard, rtc_tpu_torch.parallel.multihost, "
             "rtc_tpu_torch.testing, rtc_tpu_torch.ops, rtc_tpu_torch.utils, "
-            "rtc_tpu_torch.io.obj; "
+            "rtc_tpu_torch.io.obj, rtc_tpu_torch.tools.bench, "
+            "rtc_tpu_torch.tools.perf_probe, rtc_tpu_torch.tools.kernel_sweep, "
+            "rtc_tpu_torch.tools.graft_entry, rtc_tpu_torch.tools.walk; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'rtc_tpu')]; print(bad); sys.exit(bool(bad))")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -172,3 +172,49 @@ def test_group_bounds_start_empty_and_keep_infinite_planes():
     assert np.isinf(lo[0]) and np.isinf(hi[2]) and lo[1] == hi[1] == 2
     lo, hi = shape_bounds(S.group([]))
     assert np.all(lo > hi)
+
+
+@pytest.mark.parametrize("writer,reader", [("port", "rtc_tpu"), ("rtc_tpu", "port")])
+def test_default_configs_resume_each_other(tmp_path, writer, reader, monkeypatch):
+    """At both packages' default configs (f32; the port's progressive
+    default keeps rtc_tpu's 8,192-ray tile, not the renderer's whole-frame
+    tile) a render stopped after tile 0 of 2 leaves a checkpoint of tile
+    8,192 that the other package resumes from tile 1."""
+    width = 160                                   # 160 x 80 = 12,800 rays
+    world, cam = REGISTRY["three_spheres"](width)
+    jax_world, jax_cam = JAX_REGISTRY["three_spheres"](width)
+    args = {"port": (progressive, compile_scene(world, device="cpu"), cam),
+            "rtc_tpu": (jax_progressive, jax_compile_scene(jax_world), jax_cam)}
+    path = str(tmp_path / "render.npz")
+    module, s, c = args[writer]
+    done = []
+    orig = module.render_tiles
+
+    def crashing(scene, camera, cfg, start_tile=0):
+        for i, total, colors in orig(scene, camera, cfg, start_tile):
+            if i >= 1:
+                raise KeyboardInterrupt
+            done.append(i)
+            yield i, total, colors
+
+    monkeypatch.setattr(module, "render_tiles", crashing)
+    with pytest.raises(KeyboardInterrupt):
+        module.render_with_checkpoints(s, c, checkpoint_path=path, checkpoint_every=1)
+    monkeypatch.undo()
+    assert done == [0]
+    with np.load(path) as ck:
+        assert (int(ck["next_tile"]), int(ck["tile"])) == (1, 8192)
+
+    module, s, c = args[reader]
+    resumed = []
+    orig = module.render_tiles
+
+    def counting(scene, camera, cfg, start_tile=0):
+        for i, total, colors in orig(scene, camera, cfg, start_tile):
+            resumed.append(i)
+            yield i, total, colors
+
+    monkeypatch.setattr(module, "render_tiles", counting)
+    img = module.render_with_checkpoints(s, c, checkpoint_path=path, checkpoint_every=1)
+    assert resumed == [1]
+    assert img.shape == (width // 2, width, 3) and np.isfinite(img).all()
