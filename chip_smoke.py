@@ -99,7 +99,21 @@ and K2 (the one-mesh herd), each under the f32 image budget (the herds'
 knife-edge budget) against leaf 128, graft_entry.entry() and
 graft_entry.dryrun_multichip(4) (four gloo ranks on the card, every gate
 of __graft_entry__.py); it prints a "tools" JSON line after the "book"
-line. Phase 2 prints the ordered
+line. Phase 18 runs the compiled frame (rtc_tpu_torch/render/compiled.py):
+for cow, teapot, teapot_smooth, pumpkin, glass_teapot, cow_herd,
+cow_herd_smooth, table and cow under mesh_impl="elementwise" at 1920x960
+and the default tile, the route render() takes (each graphed), the
+graphed frame (the first call's eager run and capture, then a replay)
+bit-equal to the eager frame (compiled.eager()), a replay's kernel
+launches equal to the eager frame's, a second camera on the same canvas
+replayed with no new capture and bit-equal to its own eager frame, the
+capture's seconds, the eager and graphed frames timed in turns (7 each,
+medians) and their peak memory with the graph's pool; the cow frame's
+device busy share under torch.profiler, eager and graphed; and the
+progressive cow frame at tile 8,192, eager and graphed, every tile
+bit-equal. It prints a "compiled" JSON line after the "tools" line.
+Phases 1-17 render() on the graphed route too, where the frame's route
+is graphed. Phase 2 prints the ordered
 walk's list lengths and the registers, memory and resident blocks of the
 kernels that walk (K1-K6); phases 3, 6, 9 and 11 print the boxes
 each ray visits (median, 99th percentile, maximum: clusters, and for K5
@@ -115,12 +129,14 @@ result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -134,7 +150,7 @@ from rtc_tpu_torch.models.scenes import REGISTRY, TEST_WORLDS
 from rtc_tpu_torch.ops import transforms as X
 from rtc_tpu_torch.ops.kernels import mesh_intersect as mi
 from rtc_tpu_torch.ops.vec import normalize, normalize3
-from rtc_tpu_torch.render import integrator
+from rtc_tpu_torch.render import compiled, integrator
 from rtc_tpu_torch.render.camera import camera_rays, camera_rays_for_pixels
 from rtc_tpu_torch.render.renderer import blocked_pixels, render
 from rtc_tpu_torch.scene.compile import GROUP, compile_scene
@@ -3219,6 +3235,301 @@ def phase_tools() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the compiled frame (render/compiled.py)
+# ---------------------------------------------------------------------------
+
+# frame -> (registry scene, mesh_impl), each at 1920x960, depth 5, f32, at
+# the default tile (the whole frame)
+COMPILED_FRAMES = {"cow": ("cow", "auto"), "teapot": ("teapot", "auto"),
+                   "teapot_smooth": ("teapot_smooth", "auto"),
+                   "pumpkin": ("pumpkin", "auto"), "glass_teapot": ("glass_teapot", "auto"),
+                   "cow_herd": ("cow_herd", "auto"),
+                   "cow_herd_smooth": ("cow_herd_smooth", "auto"),
+                   "table": ("table", "auto"), "cow elementwise": ("cow", "elementwise")}
+COMPILED_TURNS = 7      # eager and graphed frames timed in turns
+PROFILED_FRAMES = 3     # frames a profile of the cow's device share
+PROGRESSIVE_TILE = 8192
+
+
+def frame_ms(scene, cam, cfg, graphs: bool) -> float:
+    """Host ms of one render() and a synchronize, eager or graphed."""
+    torch.cuda.synchronize()
+    with contextlib.nullcontext() if graphs else compiled.eager():
+        t0 = time.perf_counter()
+        render(scene, cam, cfg)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+# each launch count's CUDA kernel in csrc/mesh_intersect.cu: one count is
+# one launch of that kernel
+KERNEL_OF_COUNT = {"closest_hit": "closest_hit_kernel", "closest_hit_sn": "closest_hit_kernel",
+                   "closest_hit_t0": "closest_hit_kernel",
+                   "closest_hit_uv": "closest_hit_kernel", "any_hit": "any_hit_kernel",
+                   "closest_shadow": "closest_shadow_kernel",
+                   "closest_shadow_sn": "closest_shadow_kernel",
+                   "crossing_count": "crossing_count_kernel",
+                   "closest_hit_tlas": "closest_hit_tlas_kernel",
+                   "closest_hit_tlas_sn": "closest_hit_tlas_kernel",
+                   "any_hit_tlas": "any_hit_tlas_kernel",
+                   "closest_hit_elementwise": "elementwise_kernel",
+                   "any_hit_elementwise": "elementwise_kernel"}
+
+
+def port_kernel(name: str):
+    """The kernel of csrc/mesh_intersect.cu (its anonymous namespace) that
+    a profiler event names, demangled or not; None for any other."""
+    m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", name)
+    if m is not None:
+        kernel = m.group(1)
+    else:
+        m = re.match(r"_ZN12_GLOBAL__N_1(\d+)", name)
+        kernel = m and name[m.end():m.end() + int(m.group(1))]
+    return kernel if kernel in KERNEL_OF_COUNT.values() else None
+
+
+def counted_kernels(launches: dict, times: int = 1) -> dict:
+    """Launch counts (mi.LAUNCHES' keys) as launches of each CUDA kernel."""
+    out = collections.Counter()
+    for k, n in launches.items():
+        if n:
+            out[KERNEL_OF_COUNT[k]] += n * times
+    return dict(out)
+
+
+def traced(call, n: int):
+    """call() n times under torch.profiler, mi.LAUNCHES from 0: (the device
+    events, the host's wall ms, the launches of each port kernel that the
+    device ran, by the kernel's name in the trace, and what mi.LAUNCHES
+    counted, by the same names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mi.reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ran = dict(collections.Counter(k for k in map(port_kernel, (e.name for e in ops)) if k))
+    return ops, wall, ran, counted_kernels(mi.LAUNCHES)
+
+
+def device_share(scene, cam, cfg, graphs: bool) -> dict:
+    """PROFILED_FRAMES frames back to back under torch.profiler: the
+    device's busy ms (its operations' time, summed) over the host's wall
+    ms; None where the profiler recorded no device operation. Fails
+    unless the port's kernels in the trace, counted by name, are what
+    mi.LAUNCHES counted (on the graphed route: the graph's launches once a
+    replay)."""
+    frame_ms(scene, cam, cfg, graphs)
+    graph = compiled.graph_for(scene, ("frame", (cam.vsize, cam.hsize), cfg))
+    with contextlib.nullcontext() if graphs else compiled.eager():
+        ops, wall, ran, counted = traced(lambda: render(scene, cam, cfg), PROFILED_FRAMES)
+    kind = "graphed" if graphs else "eager"
+    check(ran == counted and ran, f"cow {kind} under the profiler: the device ran {ran}, "
+          f"the wrappers counted {counted}")
+    if graphs:
+        check(counted == counted_kernels(graph.launches, PROFILED_FRAMES),
+              f"cow graphed: counted {counted}, the graph's launches {graph.launches} "
+              f"x {PROFILED_FRAMES}")
+    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3 if ops else None
+    return dict(wall_ms=wall / PROFILED_FRAMES, device_ops=len(ops) / PROFILED_FRAMES,
+                busy_ms=None if busy is None else busy / PROFILED_FRAMES,
+                busy_share=None if busy is None else busy / wall,
+                kernels_traced={k: v / PROFILED_FRAMES for k, v in ran.items()})
+
+
+def orbited(cam, angle: float = 0.05):
+    """cam's canvas, its eye turned by angle about the world's y axis."""
+    other = Camera(cam.hsize, cam.vsize, cam.field_of_view)
+    return other.set_transform(cam.transform @ X.rotation_y(angle))
+
+
+def compiled_frame(frame: str) -> dict:
+    """One COMPILED_FRAMES entry: its route; the eager frame and its
+    launches; the first graphed call (its eager run and capture) and a
+    replay, both bit-equal to the eager frame, the replay launching what
+    the eager frame launched; a second camera on the canvas replayed with
+    no capture, bit-equal to its own eager frame; the frames timed eager
+    and graphed in turns; peak memory."""
+    name, impl = COMPILED_FRAMES[frame]
+    scene, cam = slice_scene(name, WIDTH)
+    cfg = RenderConfig(mesh_impl=impl)
+    key = ("frame", (cam.vsize, cam.hsize), cfg)
+    route = compiled.route(scene, cfg)
+    check(route == compiled.GRAPHED, f"{frame}: route {route!r}")
+    compiled.clear()
+    torch.cuda.empty_cache()
+    with compiled.eager():
+        render(scene, cam, cfg)
+        mi.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        want = render(scene, cam, cfg)
+        torch.cuda.synchronize()
+        eager_launches = dict(mi.LAUNCHES)
+        eager_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    captures = compiled.COUNTS["captures"]
+    mi.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = render(scene, cam, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(dict(mi.LAUNCHES) == eager_launches,
+          f"{frame}: the first graphed call launched {dict(mi.LAUNCHES)}, "
+          f"the eager frame {eager_launches}")
+    graph = compiled.graph_for(scene, key)
+    check(graph is not None and compiled.COUNTS["captures"] == captures + 1,
+          f"{frame}: the first call captured no graph")
+    torch.cuda.empty_cache()  # the pool and the first call's image stay
+    pool = (torch.cuda.memory_reserved() - reserved - first.nbytes) / 2**30
+    mi.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    got = render(scene, cam, cfg)
+    torch.cuda.synchronize()
+    replay_launches = dict(mi.LAUNCHES)
+    graphed_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(torch.equal(first, want) and torch.equal(got, want),
+          f"{frame}: the graphed frame differs from the eager frame on "
+          f"{int((got != want).any(dim=2).sum())} pixels")
+    check(replay_launches == eager_launches and graph.launches
+          == {k: v for k, v in eager_launches.items() if v},
+          f"{frame}: a replay launched {replay_launches}, the eager frame "
+          f"{eager_launches}")
+    check(bool(torch.isfinite(got).all()) and float(got.amax()) > 0.1,
+          f"{frame}: the image is not finite or black")
+
+    cam2 = orbited(cam)
+    got2 = render(scene, cam2, cfg)
+    torch.cuda.synchronize()
+    check(compiled.COUNTS["captures"] == captures + 1 and graph.replays == 2,
+          f"{frame}: the second camera captured again")
+    with compiled.eager():
+        want2 = render(scene, cam2, cfg)
+    check(torch.equal(got2, want2) and not torch.equal(want2, want),
+          f"{frame}: the second camera's graphed frame differs from its eager frame "
+          f"on {int((got2 != want2).any(dim=2).sum())} pixels")
+
+    # the kernels in a traced replay, by name, against the graph's launches
+    replays = graph.replays
+    _, _, ran, counted = traced(lambda: render(scene, cam, cfg), 1)
+    check(graph.replays == replays + 1 and ran == counted == counted_kernels(graph.launches),
+          f"{frame}: a traced replay ran {ran}, the graph's launches {graph.launches}")
+
+    eager_ms, graphed_ms = [], []
+    for _ in range(COMPILED_TURNS):
+        eager_ms.append(frame_ms(scene, cam, cfg, graphs=False))
+        graphed_ms.append(frame_ms(scene, cam, cfg, graphs=True))
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    rec = dict(route=route, launches={k: v for k, v in eager_launches.items() if v},
+               warm_s=graph.warm_s, capture_s=graph.capture_s, first_call_s=first_s,
+               eager_ms=eager_ms, graphed_ms=graphed_ms, eager_median_ms=med(eager_ms),
+               graphed_median_ms=med(graphed_ms), eager_peak_gib=eager_peak,
+               graphed_peak_gib=graphed_peak, pool_gib=pool, kernels_traced=ran)
+    say("18 compiled", f"{frame} {cam.hsize}x{cam.vsize}: route {route}; graphed == eager "
+        f"bit for bit, and a second camera replays with no capture, == its eager frame; "
+        f"launches a replay {rec['launches']} (== eager; traced by name {ran}); eager run {graph.warm_s:.3f} s, "
+        f"capture {graph.capture_s:.3f} s; median ms eager {rec['eager_median_ms']:.2f}, "
+        f"graphed {rec['graphed_median_ms']:.2f} (in turns, {COMPILED_TURNS} each: "
+        f"{', '.join(f'{a:.2f}/{b:.2f}' for a, b in zip(eager_ms, graphed_ms))}); peak "
+        f"GiB eager {eager_peak:.2f}, graphed {graphed_peak:.2f}, pool {pool:.2f}")
+    return rec
+
+
+def held_at_once(frames: dict) -> dict:
+    """The cache full of its largest graphs: the MAX_GRAPHS frames of
+    COMPILED_FRAMES with the largest pools captured one after another with
+    no clear() between them, and the memory the card then holds reserved
+    for them (graphs, their inputs and what they keep) beside the sum of
+    the pools each measured alone."""
+    big = sorted(frames, key=lambda f: -frames[f]["pool_gib"])[:compiled.MAX_GRAPHS]
+    calls = []
+    for frame in big:
+        name, impl = COMPILED_FRAMES[frame]
+        scene, cam = slice_scene(name, WIDTH)
+        calls.append((scene, cam, RenderConfig(mesh_impl=impl)))
+    compiled.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    for scene, cam, cfg in calls:
+        render(scene, cam, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_reserved() - reserved) / 2**30
+    check(len(compiled._CACHE) == len(big), f"held: {len(compiled._CACHE)} graphs")
+    out = dict(frames=big, held_gib=held,
+               pools_alone_gib=sum(frames[f]["pool_gib"] for f in big))
+    say("18 compiled", f"the cache full ({compiled.MAX_GRAPHS} graphs, the largest pools: "
+        f"{', '.join(big)}): {held:.2f} GiB reserved for them, against "
+        f"{out['pools_alone_gib']:.2f} GiB of pools measured one at a time")
+    compiled.clear()
+    return out
+
+
+def phase_compiled() -> dict:
+    """render() replayed from a CUDA graph against the eager frame, for
+    each of COMPILED_FRAMES (compiled_frame); the cow frame's device busy
+    share, eager and graphed; and the progressive cow frame at tile
+    PROGRESSIVE_TILE, eager and graphed, every tile bit-equal. Returns the
+    phase's record."""
+    from rtc_tpu_torch.render.progressive import render_tiles
+
+    rec = {"card": CARD, "frames": {}}
+    for frame in COMPILED_FRAMES:
+        rec["frames"][frame] = compiled_frame(frame)
+    rec["held"] = held_at_once(rec["frames"])
+
+    scene, cam = slice_scene("cow", WIDTH)
+    cfg = RenderConfig()
+    shares = {kind: device_share(scene, cam, cfg, graphs)
+              for kind, graphs in (("eager", False), ("graphed", True))}
+    rec["cow_device_share"] = shares
+    say("18 compiled", "cow frame under torch.profiler, " + "; ".join(
+        f"{k}: wall {v['wall_ms']:.2f} ms, device busy "
+        + ("not measured (no device operation recorded)" if v["busy_ms"] is None else
+           f"{v['busy_ms']:.2f} ms = {v['busy_share']:.3f} of the wall")
+        + f", {v['device_ops']:.0f} device operations a frame" for k, v in shares.items()))
+
+    cfg = RenderConfig(ray_tile=PROGRESSIVE_TILE)
+    runs = {}
+    for kind in ("eager", "first", "graphed"):
+        if kind == "first":
+            compiled.clear()
+        mi.reset_launch_counts()
+        torch.cuda.synchronize()
+        with compiled.eager() if kind == "eager" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            tiles = [c for _, _, c in render_tiles(scene, cam, cfg)]
+            runs[kind] = (time.perf_counter() - t0, tiles, dict(mi.LAUNCHES))
+    n_tiles = len(runs["eager"][1])
+    for kind in ("first", "graphed"):
+        check(all(np.array_equal(a, b) for a, b in zip(runs[kind][1], runs["eager"][1])),
+              f"progressive {kind}: tiles differ from the eager tiles")
+        check(runs[kind][2] == runs["eager"][2],
+              f"progressive {kind}: launches {runs[kind][2]}, eager {runs['eager'][2]}")
+    graph = compiled.graph_for(scene, ("tile", PROGRESSIVE_TILE, cfg))
+    check(graph is not None and graph.replays == 2 * n_tiles - 1,
+          "progressive: the tiles did not replay one graph")
+    rec["progressive"] = dict(tile=PROGRESSIVE_TILE, tiles=n_tiles,
+                              eager_s=runs["eager"][0], first_s=runs["first"][0],
+                              graphed_s=runs["graphed"][0], capture_s=graph.capture_s,
+                              launches={k: v for k, v in runs["eager"][2].items() if v})
+    say("18 compiled", f"progressive cow {WIDTH}x{HEIGHT} at tile {PROGRESSIVE_TILE}: "
+        f"{n_tiles} tiles bit-equal eager and graphed; eager {runs['eager'][0]:.3f} s, "
+        f"graphed {runs['graphed'][0]:.3f} s (first, with the capture "
+        f"{graph.capture_s:.3f} s: {runs['first'][0]:.3f} s); launches "
+        f"{rec['progressive']['launches']} on either route")
+    compiled.clear()
+    return rec
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--parallel-worker"]:
         return parallel_worker(sys.argv[2:])
@@ -3257,6 +3568,7 @@ def main() -> int:
     parallel = phase_parallel()
     book = phase_book(eps)
     tools = phase_tools()
+    compiled_record = phase_compiled()
 
     # each kernel's launches come from the frame that runs it: K3 from the
     # cow's default fused frame, K1 and K2 from its fused_shadow=False
@@ -3320,6 +3632,7 @@ def main() -> int:
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"book": book}))
     print(json.dumps({"tools": tools}))
+    print(json.dumps({"compiled": compiled_record}))
     print(json.dumps(record))
     print(f"card: {CARD}")
     print(json.dumps({"ok": True, "device": {

@@ -300,22 +300,23 @@ def crossing_count_plain(o, d, t_hit, hit_gid, p1, e1, e2, tri_cid,
     tri_cid == k, the triangle hit_gid excluded, and the latest such t
     (-BIG where none).
 
-    A dense sweep over the container rows of the global triangle tables
-    (tri_cid >= 0), chunked over rays; rtc_tpu's compact refr_tri_* slabs
-    hold the same rows, so the port does not keep them. Returns (cnt (R, K)
-    i32, last (R, K) in o's dtype)."""
+    A dense sweep over every row of the triangle tables, chunked over
+    rays, each counted only in its own slot (tri_cid; -1: not a container):
+    rtc_tpu sweeps its compact refr_tri_* slabs of the container rows,
+    which give the same counts and maxima, so the port does not keep them.
+    Every shape here follows the tables' (no selection of rows by value),
+    so a graph capture takes it. Returns (cnt (R, K) i32, last (R, K) in
+    o's dtype)."""
     R, K = o.shape[0], n_containers
     cnt = torch.zeros((R, K), dtype=torch.int32, device=o.device)
     last = torch.full((R, K), -BIG, dtype=o.dtype, device=o.device)
-    rows = torch.nonzero(tri_cid >= 0)[:, 0]
-    if rows.numel() == 0 or R == 0:
+    if tri_cid.shape[0] == 0 or R == 0:
         return cnt, last
-    cid = tri_cid[rows]
-    gid = rows.to(hit_gid.dtype)
-    step = _chunk(R, rows.numel(), o.device)
+    cid = tri_cid
+    gid = torch.arange(tri_cid.shape[0], dtype=hit_gid.dtype, device=o.device)
+    step = _chunk(R, tri_cid.shape[0], o.device)
     for s in range(0, R, step):
-        t, valid = _pair_tests(o[s:s + step], d[s:s + step], p1[rows],
-                               e1[rows], e2[rows], eps)
+        t, valid = _pair_tests(o[s:s + step], d[s:s + step], p1, e1, e2, eps)
         before = (valid & (t < t_hit[s:s + step, None])
                   & (gid[None] != hit_gid[s:s + step, None]))
         for k in range(K):

@@ -20,9 +20,11 @@ def sphere(p):
 
 
 def plane(p):
-    """Constant +y (reference: src/shape.rs:471)."""
-    return torch.tensor([0.0, 1.0, 0.0], dtype=p.dtype,
-                        device=p.device).expand_as(p)
+    """Constant +y (reference: src/shape.rs:471), made on p's device
+    with no data from the host."""
+    n = p.new_zeros(3)
+    n[1].fill_(1.0)  # a fill; n[1] = 1.0 would copy a host scalar
+    return n.expand_as(p)
 
 
 def cube(p):

@@ -41,15 +41,36 @@ class Camera:
         return np.linalg.inv(self.transform)
 
 
+def camera_values(camera: Camera) -> np.ndarray:
+    """The (19,) float64 values a frame's rays depend on, rtc_tpu's
+    _gen_rays arguments: the inverse transform row-major, half_width,
+    half_height and pixel_size. A compiled frame (render/compiled.py)
+    takes them as its graph input, so a new camera on the same canvas
+    replays the same graph."""
+    return np.concatenate([camera.transform_inverse.reshape(16),
+                           [camera.half_width, camera.half_height,
+                            camera.pixel_size]]).astype(np.float64)
+
+
+def rays_from_values(values, px, py):
+    """camera_rays_for_pixels on camera_values as one (19,) tensor on px's
+    device, in the rays' dtype: its views go in as they are, with no copy
+    from the host (the inputs of a captured frame)."""
+    return camera_rays_for_pixels(values[:16].view(4, 4), px, py, values[16],
+                                  values[17], values[18], values.dtype)
+
+
 def camera_rays_for_pixels(inv, px, py, half_width, half_height, pixel_size,
                            dtype=torch.float32):
     """Primary rays for explicit pixel coordinates: ray_for_pixel
     (src/camera.rs:48-65) batched over any pixel order.
 
-    inv: (4, 4) camera inverse (array or tensor); px/py: (R,) integer
-    tensors, whose device the rays are made on. Per-pixel arithmetic is
-    elementwise, so every pixel order gives the same values per pixel.
-    Returns (R, 3) origins and unit directions.
+    inv: (4, 4) camera inverse; px/py: (R,) integer tensors, whose device
+    the rays are made on; inv and the three scalars are arrays, numbers, or
+    tensors, which are used as they are when they are on that device in
+    dtype (as_tensor copies nothing then) and converted otherwise. Per-pixel
+    arithmetic is elementwise, so every pixel order gives the same values
+    per pixel. Returns (R, 3) origins and unit directions.
     """
     dev = px.device
     inv = torch.as_tensor(inv, dtype=dtype, device=dev)

@@ -1,0 +1,238 @@
+"""The compiled frame: render() and the progressive tile captured once as
+CUDA graphs and replayed (counterpart of jax.jit's compilation cache over
+rtc_tpu/render/renderer.py and progressive.py).
+
+rtc_tpu compiles a frame into one program, once per (scene shape, canvas
+shape, config). Here the same work is captured once per (scene, canvas,
+config) as a torch.cuda.CUDAGraph and replayed: every kernel of the frame,
+the shading glue's included, launches from one graph, with no Python
+between them. The graph reads the scene's tensors where they lie, and its
+inputs are static tensors that each call fills before the replay: the
+camera's values for a frame (camera.camera_values), a tile's rays for a
+progressive tile. A graph keeps every tensor it reads that is neither the
+scene's nor its own (a frame's pixel order), since a replay runs no
+Python that would keep it alive.
+
+Which route a call takes (route) is decided before any capture, from the
+scene's static shapes, the config and the device alone:
+
+  graphed  a CUDA device, cfg.prim_axis None, and no table that streams;
+  eager    the CPU (the tests' route, which gives the bytes it always gave);
+           primitive sharding (the collectives of gloo cannot be
+           captured); a streamed table (superblock streaming reads its
+           block order on the host, mesh_intersect.py closest_hit_blocked
+           and any_hit_blocked).
+
+eager() is the counterpart of jax.disable_jit(): inside it every call
+takes the eager route. A capture never falls back to eager: one that
+fails raises CaptureError, chained to the operation that broke it.
+
+The first call for a key runs the work eagerly on a side stream (which
+builds the kernels, mi.library(), and cuBLAS's workspace on that stream)
+and returns that result; then it captures the same work on the same
+stream, PyTorch's documented recipe. Each graph holds a private memory
+pool as large as its work's peak (gigabytes for a prim-only frame at the
+whole-frame tile), so the cache keeps at most MAX_GRAPHS graphs, least
+recently used first out; clear() drops them all. An entry holds its scene
+weakly and dies with it; a scene whose tensor fields were reassigned since
+the capture is captured again.
+
+Kernel launches (mi.LAUNCHES) happen at a replay, not at the capture: the
+capture's own counts are taken back and recorded as the graph's launches,
+which every replay adds, so a frame counts the same launches on either
+route.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import contextvars
+import dataclasses
+import functools
+import time
+import weakref
+
+import torch
+
+from ..ops.kernels import mesh_intersect as mi
+from . import integrator
+
+GRAPHED = "graphed"
+MAX_GRAPHS = 4
+COUNTS = {"captures": 0}
+
+_EAGER = contextvars.ContextVar("rtc_tpu_torch_eager", default=False)
+_CACHE: "collections.OrderedDict[tuple, Graph]" = collections.OrderedDict()
+
+
+class CaptureError(RuntimeError):
+    """A graphed route's capture failed; __cause__ is the failure."""
+
+
+@contextlib.contextmanager
+def eager():
+    """Run render() and render_tiles eagerly inside this block, on every
+    route (jax.disable_jit's counterpart)."""
+    token = _EAGER.set(True)
+    try:
+        yield
+    finally:
+        _EAGER.reset(token)
+
+
+def route(scene, cfg, device=None) -> str:
+    """GRAPHED, or 'eager: <reason>', for a call of scene under cfg on
+    device (default: the scene's)."""
+    device = torch.device(scene.tri_p1.device if device is None else device)
+    if device.type != "cuda":
+        return "eager: the CPU"
+    if cfg.prim_axis is not None:
+        return "eager: primitive sharding (gloo's collectives cannot be captured)"
+    if integrator.streams(scene, cfg, device):
+        return "eager: a streamed table (its block order is read on the host)"
+    return GRAPHED
+
+
+def graphed(scene, cfg, device) -> bool:
+    """Does this call replay a graph: its route, unless inside eager()."""
+    return not _EAGER.get() and route(scene, cfg, device) == GRAPHED
+
+
+def clear() -> None:
+    """Drop every graph, and with them their memory pools."""
+    _CACHE.clear()
+
+
+def graph_for(scene, key):
+    """The cached graph of scene under key (render: ('frame', (vsize,
+    hsize), cfg); render_tiles: ('tile', tile, cfg)), or None."""
+    g = _CACHE.get((id(scene),) + key)
+    return g if g is not None and g.valid_for(scene) else None
+
+
+def _addresses(scene) -> tuple:
+    """Where each tensor the graph may read lies: the scene's fields and
+    the tables they hold."""
+    out = []
+    for f in dataclasses.fields(scene):
+        v = getattr(scene, f.name)
+        tables = isinstance(v, tuple) and all(isinstance(x, torch.Tensor) for x in v)
+        out.extend(x.data_ptr() if isinstance(x, torch.Tensor) else x
+                   for x in (v if tables else (v,)))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(index: int) -> torch.cuda.Stream:
+    return torch.cuda.Stream(index)
+
+
+def _first_error(err: BaseException) -> BaseException:
+    while err.__context__ is not None:
+        err = err.__context__
+    return err
+
+
+class Graph:
+    """fn(*inputs) captured once and replayed: inputs are static tensors
+    that the caller fills before each replay; keep, the other tensors fn
+    reads beside the scene's, which the graph holds as long as it lives;
+    output is the static result, which the next replay overwrites.
+    launches: the kernel launches a replay makes; warm_s and capture_s:
+    the host seconds of the first call's eager run and of its capture."""
+
+    def __init__(self, scene, key: tuple, fn, inputs: tuple, what: str,
+                 keep: tuple = ()):
+        # the cache's entry under key dies with the scene
+        self.scene = weakref.ref(scene, lambda _: _CACHE.pop(key, None))
+        self.addresses = _addresses(scene)
+        self.fn, self.inputs, self.what, self.keep = fn, inputs, what, keep
+        self.graph = self.output = None
+        self.launches: dict = {}
+        self.warm_s = self.capture_s = 0.0
+        self.replays = 0
+
+    def valid_for(self, scene) -> bool:
+        return self.scene() is scene and self.addresses == _addresses(scene)
+
+    def capture(self):
+        """Run fn once eagerly on the side stream and return its result,
+        then capture fn on that stream. Raises CaptureError if the capture
+        fails."""
+        device = self.inputs[0].device
+        current = torch.cuda.current_stream(device)
+        stream = _side_stream(device.index or 0)
+        t0 = time.perf_counter()
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            out = self.fn(*self.inputs)
+        current.wait_stream(stream)
+        out.record_stream(current)
+        torch.cuda.synchronize(device)
+        self.warm_s = time.perf_counter() - t0
+
+        torch.cuda.empty_cache()
+        before = dict(mi.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin()
+                try:
+                    self.output = self.fn(*self.inputs)
+                finally:
+                    # ends the capture whatever happened; if fn failed, an
+                    # error raised here chains to fn's
+                    graph.capture_end()
+        except Exception as err:
+            first = _first_error(err)
+            raise CaptureError(f"capturing {self.what} failed: {type(first).__name__}: "
+                               f"{first}") from err
+        finally:
+            self.launches = {k: n - before[k] for k, n in mi.LAUNCHES.items()
+                             if n != before[k]}
+            mi.LAUNCHES.update(before)  # nothing ran: the replays count
+        torch.cuda.synchronize(device)
+        self.capture_s = time.perf_counter() - t0
+        self.graph, self.fn = graph, None  # fn holds the scene
+        COUNTS["captures"] += 1
+        return out
+
+    def replay(self):
+        self.graph.replay()
+        for k, n in self.launches.items():
+            mi.LAUNCHES[k] += n
+        self.replays += 1
+        return self.output
+
+
+def run(scene, key: tuple, fn, values: tuple, what: str, keep: tuple = ()):
+    """fn(*values) through scene's graph under key (graph_for): each value
+    is copied into the graph's input of its shape and dtype, on the
+    scene's device (from pinned memory where it lies on the host, so the
+    copy waits for nothing), and the graph replayed; the first call for a
+    key makes the inputs, runs fn eagerly and captures it, and its graph
+    holds keep (every tensor fn reads beside the scene's). Returns the
+    static output on a replay (overwritten by the next one) and the eager
+    run's result on the first call."""
+    full = (id(scene),) + key
+    device = scene.tri_p1.device
+    if device.type == "cuda":
+        values = tuple(v.pin_memory() if v.device.type == "cpu" else v for v in values)
+    g = graph_for(scene, key)
+    if g is None:
+        _CACHE.pop(full, None)
+        inputs = tuple(torch.empty(v.shape, dtype=v.dtype, device=device) for v in values)
+        for x, v in zip(inputs, values):
+            x.copy_(v, non_blocking=True)
+        g = Graph(scene, full, fn, inputs, what, keep)
+        out = g.capture()
+        while len(_CACHE) >= MAX_GRAPHS:
+            _CACHE.popitem(last=False)
+        _CACHE[full] = g
+        return out
+    _CACHE.move_to_end(full)
+    for x, v in zip(g.inputs, values):
+        x.copy_(v, non_blocking=True)
+    return g.replay()

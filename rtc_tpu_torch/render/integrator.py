@@ -68,8 +68,9 @@ def _prim_axis(cfg: RenderConfig):
     return None if cfg.prim_axis is None else grid.axis(cfg.prim_axis)
 
 
-def _resolve_mesh_impl(scene: Scene, cfg: RenderConfig, x) -> str:
-    """'kernel', 'elementwise' or 'bruteforce' for rays x. 'auto' takes the
+def mesh_impl_for(scene: Scene, cfg: RenderConfig, is_cuda: bool, dtype) -> str:
+    """'kernel', 'elementwise' or 'bruteforce' for rays of dtype on a CUDA
+    device (is_cuda) or the CPU. 'auto' takes the
     kernels for f32 tensors on CUDA and a clustered table, and the dense
     sweep otherwise; a scene without triangles has nothing for the kernels
     and sweeps its prims. An explicit 'kernel' or 'elementwise' raises on
@@ -80,8 +81,8 @@ def _resolve_mesh_impl(scene: Scene, cfg: RenderConfig, x) -> str:
     st = scene.static
     impl = cfg.mesh_impl
     if impl == "auto":
-        impl = ("kernel" if st.n_clusters and x.is_cuda
-                and x.dtype == torch.float32 else "bruteforce")
+        impl = ("kernel" if st.n_clusters and is_cuda
+                and dtype == torch.float32 else "bruteforce")
     if impl in KERNEL_IMPLS and not st.n_tris:
         impl = "bruteforce"
     if impl in KERNEL_IMPLS and not st.n_clusters:
@@ -93,10 +94,11 @@ def _resolve_mesh_impl(scene: Scene, cfg: RenderConfig, x) -> str:
         raise ValueError(
             "mesh_impl='elementwise' does not support primitive sharding; use "
             "'kernel' (K1, K2 and K4 on each shard's own tables) or 'bruteforce'")
-    if impl in KERNEL_IMPLS and not (x.is_cuda and x.dtype == torch.float32):
+    if impl in KERNEL_IMPLS and not (is_cuda and dtype == torch.float32):
         raise ValueError(
             f"mesh_impl={impl!r} runs the CUDA kernels, which take float32 "
-            f"tensors on a CUDA device (got {x.dtype} on {x.device})")
+            f"tensors on a CUDA device (got {dtype} on "
+            f"{'a CUDA device' if is_cuda else 'the CPU'})")
     return impl
 
 
@@ -123,6 +125,35 @@ def _use_fused_shadow(scene: Scene, cfg: RenderConfig, impl: str) -> bool:
             and cfg.prim_axis is None and st.n_prims == 0 and st.n_tris > 0
             and not _use_tlas(scene, cfg, impl)
             and mi._blocked(scene.tri_p1, st.cluster_size, budget) == 1)
+
+
+def streams(scene: Scene, cfg: RenderConfig, device) -> bool:
+    """Does a frame of scene under cfg on device stream a table in
+    superblocks (mesh_intersect.py closest_hit_blocked, any_hit_blocked,
+    crossing_count_blocked)? A shape test: a kernel route
+    on a world table of more than VMEM_TRI_BUDGET rows (_blocked > 1),
+    where K1 and K2 sweep that table (the 'kernel' route without the
+    instanced tables) or K4 counts crossings on it (a mesh container with
+    the refraction child, max_depth >= 4). K3, K5, K6 and K7 never stream."""
+    st = scene.static
+    if not st.n_tris:
+        return False
+    impl = mesh_impl_for(scene, cfg, torch.device(device).type == "cuda",
+                         cfg.torch_dtype())
+    if (impl not in KERNEL_IMPLS
+            or mi._blocked(scene.tri_p1, st.cluster_size, mi.VMEM_TRI_BUDGET) == 1):
+        return False
+    census = bool(st.refr_mesh_obj_ids) and st.any_refractive and cfg.max_depth >= 4
+    return census or (impl == "kernel" and not _use_tlas(scene, cfg, impl))
+
+
+def device_ids(ids, device):
+    """The ints ids as a (K,) int64 tensor made on device by fills, so no
+    data is copied from the host (a graph capture takes it)."""
+    out = torch.empty((len(ids),), dtype=torch.long, device=device)
+    for k, i in enumerate(ids):
+        out[k].fill_(i)  # out[k] = i would copy a host scalar
+    return out
 
 
 def corner_normals(scene: Scene):
@@ -350,7 +381,7 @@ def prim_candidates(scene: Scene, o, d, eps, ids=None):
     restricts the sweep to a subset of prims (the refraction census)."""
     inv, kind, params = scene.prim_inv, scene.prim_kind, scene.prim_params
     if ids is not None:
-        sel = torch.as_tensor(ids, dtype=torch.long, device=inv.device)
+        sel = device_ids(ids, inv.device)
         inv, kind, params = inv[sel], kind[sel], params[sel]
     o_l, d_l = _local_rays(inv, o, d)
     ymin, ymax = params[:, 0], params[:, 1]
@@ -415,7 +446,7 @@ def mesh_closest(scene: Scene, o, d, cfg: RenderConfig):
     and one gathered blend, :619-630), or K5 for an instanced scene;
     'elementwise' launches K7a and gathers the normal (:702-717);
     'bruteforce' is the dense sweep of the world table."""
-    impl = _resolve_mesh_impl(scene, cfg, o)
+    impl = mesh_impl_for(scene, cfg, o.is_cuda, o.dtype)
     if _use_tlas(scene, cfg, impl):
         return _tlas_closest(scene, o, d, cfg)[:3]
     st, eps = scene.static, cfg.epsilon
@@ -505,7 +536,7 @@ def closest_hit(scene: Scene, o, d, cfg: RenderConfig) -> HitInfo:
     idx_t = torch.zeros((R,), **i32)
     tri_obj = torch.zeros((R,), **i32)
     tri_n = torch.zeros_like(o)
-    if st.n_tris and _use_tlas(scene, cfg, _resolve_mesh_impl(scene, cfg, o)):
+    if st.n_tris and _use_tlas(scene, cfg, mesh_impl_for(scene, cfg, o.is_cuda, o.dtype)):
         # K5 selects the winner's object id itself
         t_t, idx_t, tri_n, tri_obj = _tlas_closest(scene, o, d, cfg)
     elif st.n_tris:
@@ -656,7 +687,7 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
                               & (t < distance[:, None, None])).flatten(1), dim=1)
     if st.n_tris:
         tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
-        impl = _resolve_mesh_impl(scene, cfg, point)
+        impl = mesh_impl_for(scene, cfg, point.is_cuda, point.dtype)
         if _use_tlas(scene, cfg, impl):
             tl = scene.tlas
             found = mi.mesh_any_hit_tlas(point, direction, distance, tl.p1,
@@ -736,7 +767,7 @@ def mesh_census(scene: Scene, o, d, t_hit, hit_gid, cfg: RenderConfig):
     # which is no Pallas kernel (rtc_tpu :1041-1052); the port keeps no
     # such slabs, so 'elementwise' launches K4 too: it counts exactly on
     # the card, and it keeps the plain census off the card's path
-    if _resolve_mesh_impl(scene, cfg, o) in KERNEL_IMPLS:
+    if mesh_impl_for(scene, cfg, o.is_cuda, o.dtype) in KERNEL_IMPLS:
         cnt, last = mi.mesh_crossing_count(
             o, d, t_hit.contiguous(), hit_gid.contiguous(), *tabs,
             scene.cluster_aabb, scene.tri_cid, K, st.cluster_size, cfg.epsilon,
@@ -793,7 +824,7 @@ def refraction_indices(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
 
     cnt = torch.cat(cnts, dim=1)                        # (R, K)
     last = torch.cat(lasts, dim=1)                      # (R, K)
-    cont_obj = torch.as_tensor(objs, dtype=torch.long, device=o.device)
+    cont_obj = device_ids(objs, o.device)
     inside = (cnt % 2) == 1
     sub_ior = scene.mat_ior[cont_obj]                   # (K,)
 
@@ -920,7 +951,7 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
     if budget < 1 or st.n_objects == 0:
         return torch.zeros_like(o)
 
-    impl = _resolve_mesh_impl(scene, cfg, o)
+    impl = mesh_impl_for(scene, cfg, o.is_cuda, o.dtype)
     shadowed = None
     if _use_fused_shadow(scene, cfg, impl):
         # one K3 launch: closest hit + the in-register shadow query

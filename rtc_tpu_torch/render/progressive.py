@@ -12,6 +12,10 @@ tile is the unit a checkpoint saves, and a checkpoint resumes only at the
 tile it was written with. The renderer's own default tile is a whole
 1920x960 frame, which would save nothing before the render ends and
 resume no file rtc_tpu writes at its defaults.
+
+On a CUDA device each tile replays one graph per (scene, tile, config)
+(render/compiled.py), as rtc_tpu jits _tile_colors: the tile's rays are
+copied into the graph's inputs, and its colors out to the host.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 from ..scene.compile import Scene
 from ..utils.config import RenderConfig
 from ..utils.constants import FAR, PARK
-from . import integrator
+from . import compiled, integrator
 from .camera import Camera, camera_rays
 
 CHECKPOINT_CONFIG = RenderConfig(ray_tile=8192)
@@ -36,7 +40,8 @@ def render_tiles(scene: Scene, camera: Camera, cfg: RenderConfig = CHECKPOINT_CO
     """Yield (tile_index, n_tiles, colors (tile, 3)) in scanline order, one
     host copy a tile. Deterministic: tile i is identical across runs. The
     rays are made on the scene's device; the last tile's pad rays are
-    parked as render() parks them."""
+    parked as render() parks them. On the graphed route (compiled.route)
+    every tile replays the tile's graph."""
     o, d = camera_rays(camera.transform_inverse, camera.hsize, camera.vsize,
                        camera.half_width, camera.half_height, camera.pixel_size,
                        cfg.torch_dtype(), device=scene.tri_p1.device)
@@ -46,10 +51,14 @@ def render_tiles(scene: Scene, camera: Camera, cfg: RenderConfig = CHECKPOINT_CO
     pad = n_tiles * tile - n_rays
     o = torch.cat([o, o.new_full((pad, 3), FAR)])
     d = torch.cat([d, d.new_full((pad, 3), PARK)])
+    graphed = compiled.graphed(scene, cfg, o.device)
+    shade = lambda o, d: integrator.color_at(scene, o, d, cfg)
     for i in range(start_tile, n_tiles):
+        rays = (o[i * tile:(i + 1) * tile], d[i * tile:(i + 1) * tile])
         with torch.no_grad():
-            colors = integrator.color_at(scene, o[i * tile:(i + 1) * tile],
-                                         d[i * tile:(i + 1) * tile], cfg)
+            colors = (compiled.run(scene, ("tile", tile, cfg), shade, rays,
+                                   f"the {tile}-ray tile")
+                      if graphed else shade(*rays))
         yield i, n_tiles, colors.cpu().numpy()
 
 

@@ -3,18 +3,24 @@ of rtc_tpu/render/renderer.py).
 
 Rays are generated on the scene's device directly in tile order, shaded
 `ray_tile` rays at a time so the working set stays bounded at any
-resolution, and put back in row-major order at the end.
+resolution, and put back in row-major order at the end. On a CUDA device
+the whole frame, ray generation to image, is one CUDA graph, captured once
+per (scene, canvas, config) and replayed with the camera's values as its
+input (render/compiled.py), as rtc_tpu jits it once per (scene shape,
+canvas shape, config).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..scene.compile import Scene
 from ..utils.config import DEFAULT_CONFIG, RenderConfig
 from ..utils.constants import FAR, PARK
-from . import integrator
-from .camera import Camera, camera_rays_for_pixels
+from . import compiled, integrator
+from .camera import Camera, camera_values, rays_from_values
 from .order import morton_perm
 
 BLOCK = 16  # 16x16 = 256 pixels per screen block
@@ -52,12 +58,15 @@ def _unblock(colors, vsize: int, hsize: int):
             .reshape(vsize, hsize, 3))
 
 
+@functools.lru_cache(maxsize=8)
 def pixel_order(vsize: int, hsize: int, ray_order: str, device):
     """render()'s trace order: (px, py, blocked, inv_perm). When the canvas
     divides into 16x16 blocks and ray_order is 'morton', pixels go
     block-major (blocked, and the un-permute is a reshape); other sizes
     fall back to Morton order, undone by the gather inv_perm; 'scanline'
-    is row-major (inv_perm None)."""
+    is row-major (inv_perm None). Built once per canvas, order and device
+    (rtc_tpu's _PERM_CACHE): the tensors are shared, so callers only read
+    them, and a graph that reads them keeps them (render)."""
     morton = ray_order == "morton"
     blocked = morton and vsize % BLOCK == 0 and hsize % BLOCK == 0
     inv_perm = None
@@ -74,21 +83,38 @@ def pixel_order(vsize: int, hsize: int, ray_order: str, device):
     return px, py, blocked, inv_perm
 
 
-@torch.no_grad()
-def render(scene: Scene, camera: Camera, cfg: RenderConfig = DEFAULT_CONFIG):
-    """Render to a (V, H, 3) image tensor on the scene's device, the
-    pixels traced in pixel_order's order.
-    """
-    dtype = cfg.torch_dtype()
-    device = scene.tri_p1.device
-    vsize, hsize = camera.vsize, camera.hsize
-    px, py, blocked, inv_perm = pixel_order(vsize, hsize, cfg.ray_order, device)
-    o, d = camera_rays_for_pixels(camera.transform_inverse, px, py,
-                                  camera.half_width, camera.half_height,
-                                  camera.pixel_size, dtype)
-    colors = _shade_rays(scene, o, d, cfg)
+def _frame(scene: Scene, vsize: int, hsize: int, cfg: RenderConfig, order,
+           values):
+    """The (V, H, 3) image as a function of the camera's values
+    (camera_values as a (19,) tensor on the scene's device, in cfg's
+    dtype): rays in order's order (pixel_order's tuple), shaded, put back
+    in row-major order. What a compiled frame captures."""
+    px, py, blocked, inv_perm = order
+    colors = _shade_rays(scene, *rays_from_values(values, px, py), cfg)
     if blocked:
         return _unblock(colors, vsize, hsize)
     if inv_perm is not None:
         colors = colors[inv_perm]
     return colors.reshape(vsize, hsize, 3)
+
+
+@torch.no_grad()
+def render(scene: Scene, camera: Camera, cfg: RenderConfig = DEFAULT_CONFIG):
+    """Render to a (V, H, 3) image tensor on the scene's device, the
+    pixels traced in pixel_order's order. On the graphed route
+    (compiled.route) the frame replays its graph and the image is a copy
+    of the graph's output; compiled.eager() runs it eagerly.
+    """
+    dtype = cfg.torch_dtype()
+    device = scene.tri_p1.device
+    vsize, hsize = camera.vsize, camera.hsize
+    values = torch.from_numpy(camera_values(camera)).to(dtype)
+    order = pixel_order(vsize, hsize, cfg.ray_order, device)
+    if compiled.graphed(scene, cfg, device):
+        # the graph reads order's tensors, so it keeps them: pixel_order's
+        # cache may drop them while the graph lives
+        frame = functools.partial(_frame, scene, vsize, hsize, cfg, order)
+        return compiled.run(scene, ("frame", (vsize, hsize), cfg), frame,
+                            (values,), f"the {hsize}x{vsize} frame",
+                            keep=order).clone()
+    return _frame(scene, vsize, hsize, cfg, order, values.to(device))

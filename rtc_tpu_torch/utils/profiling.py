@@ -113,8 +113,10 @@ def time_render(render_fn, *args, warmup: bool = True, iters: int = 1,
                 **kwargs):
     """Return (result, compile_seconds, per_iter_seconds). compile_seconds
     is the first call, with everything it builds and loads (the CUDA
-    kernels at first use); per_iter_seconds the mean of iters later calls,
-    each forced before the clock stops."""
+    kernels at first use) and, on render()'s graphed route, the frame's
+    capture as a CUDA graph (render/compiled.py), as rtc_tpu's includes
+    the jit compile; per_iter_seconds the mean of iters later calls, each
+    forced before the clock stops."""
     t0 = time.perf_counter()
     out = render_fn(*args, **kwargs)
     _force(out)

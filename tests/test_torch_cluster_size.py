@@ -175,11 +175,10 @@ def test_kernel_request_on_unclustered_table_raises(impl):
     """An explicit kernel route on cluster_size=0 triangles raises; 'auto'
     takes the plain sweep there, and a scene without triangles (table)
     sweeps its prims whatever the request."""
-    x = torch.zeros(4, 3)
     cow = compile_scene(REGISTRY["cow"](16)[0], device="cpu", cluster_size=0)
     with pytest.raises(ValueError, match="unclustered"):
-        integrator._resolve_mesh_impl(cow, RenderConfig(mesh_impl=impl), x)
-    assert integrator._resolve_mesh_impl(cow, RenderConfig(), x) == "bruteforce"
+        integrator.mesh_impl_for(cow, RenderConfig(mesh_impl=impl), False, torch.float32)
+    assert integrator.mesh_impl_for(cow, RenderConfig(), False, torch.float32) == "bruteforce"
     table = compile_scene(REGISTRY["table"](16)[0], device="cpu", cluster_size=0)
-    assert integrator._resolve_mesh_impl(
-        table, RenderConfig(mesh_impl=impl), x) == "bruteforce"
+    assert integrator.mesh_impl_for(
+        table, RenderConfig(mesh_impl=impl), False, torch.float32) == "bruteforce"

@@ -11,7 +11,11 @@ kernels; the closest-hit autograd Functions with each kernel as their
 forward against their plain versions; and the tables inject_params
 rebuilds from new triangle rows; and the book API on the card:
 intersect_all and hit_index against K1 on a cow wavefront, camera_rays
-on a card matrix, and the testing helpers' book numbers in float64.
+on a card matrix, and the testing helpers' book numbers in float64; and
+the compiled frame (render/compiled.py): render() and render_tiles
+replayed from CUDA graphs, bit-equal to the eager frame, one capture for
+two cameras, a replay's launches equal to the eager frame's, a streamed
+table on the eager route, and a capture that meets a host sync raising.
 
 These tests need a CUDA device and nvcc, and skip elsewhere. This file
 imports neither jax nor rtc_tpu, so on the GPU machine it runs without the
@@ -26,13 +30,14 @@ import numpy as np
 import pytest
 import torch
 
-from rtc_tpu_torch import default_world, hit_index, intersect_all, testing
+from rtc_tpu_torch import Camera, default_world, hit_index, intersect_all, testing
 from rtc_tpu_torch.diff import render_grad as RG
 from rtc_tpu_torch.models.scenes import (REGISTRY, _cam, cow_herd_mesh_world,
                                          cow_herd_world)
 from rtc_tpu_torch.ops import matrices
 from rtc_tpu_torch.ops.kernels import mesh_intersect as mi
-from rtc_tpu_torch.render import integrator
+from rtc_tpu_torch.ops import transforms as X
+from rtc_tpu_torch.render import compiled, integrator, progressive
 from rtc_tpu_torch.render.camera import camera_rays, camera_rays_for_pixels
 from rtc_tpu_torch.render.renderer import render
 from rtc_tpu_torch.scene.compile import compile_scene, occlusion_tables
@@ -1626,3 +1631,147 @@ def test_book_helpers_on_the_card(cuda):
     a = torch.tensor([[-4, 2, -2, -3], [9, 6, 2, 6], [0, -5, 1, -5], [0, 0, 0, 0]],
                      dtype=torch.float64, device=cuda)
     assert not bool(torch.isfinite(matrices.inverse(a)).all())
+
+
+# --- the compiled frame (render/compiled.py) ---------------------------------
+
+GRAPHED_FRAMES = {"cow": ("cow", "auto"), "cow elementwise": ("cow", "elementwise"),
+                  "teapot_smooth": ("teapot_smooth", "auto"),
+                  "glass_teapot": ("glass_teapot", "auto"), "cow_herd": ("cow_herd", "auto"),
+                  "table": ("table", "auto"), "cow bruteforce": ("cow", "bruteforce")}
+
+
+@pytest.mark.parametrize("frame", list(GRAPHED_FRAMES))
+def test_graphed_frame_is_bit_equal_to_eager(cuda, frame):
+    """128x64 in two tiles: the first graphed call (its eager run, then the
+    capture) and a replay equal the eager frame bit for bit, and the
+    replay launches each kernel as often as the eager frame."""
+    name, impl = GRAPHED_FRAMES[frame]
+    world, cam = REGISTRY[name](128)
+    scene = compile_scene(world, device=cuda)
+    cfg = RenderConfig(ray_tile=4096, mesh_impl=impl)
+    assert compiled.route(scene, cfg) == compiled.GRAPHED
+    with compiled.eager():
+        mi.reset_launch_counts()
+        want = render(scene, cam, cfg)
+        eager = dict(mi.LAUNCHES)
+    compiled.clear()
+    captures = compiled.COUNTS["captures"]
+    first = render(scene, cam, cfg)
+    mi.reset_launch_counts()
+    got = render(scene, cam, cfg)
+    torch.cuda.synchronize()
+    assert compiled.COUNTS["captures"] == captures + 1
+    assert torch.equal(first, want) and torch.equal(got, want)
+    assert dict(mi.LAUNCHES) == eager
+    assert any(eager.values()) == (name != "table" and impl != "bruteforce")
+    compiled.clear()
+
+
+def test_two_cameras_make_one_capture(cuda):
+    """A second camera on the canvas replays the first camera's graph with
+    its own values, and each frame equals its eager frame; a new canvas
+    captures anew."""
+    world, cam = REGISTRY["cow"](128)
+    scene = compile_scene(world, device=cuda)
+    cam2 = Camera(cam.hsize, cam.vsize, cam.field_of_view).set_transform(
+        cam.transform @ X.rotation_y(0.2))
+    cfg = RenderConfig()
+    with compiled.eager():
+        want = [render(scene, c, cfg) for c in (cam, cam2)]
+    assert not torch.equal(*want)
+    compiled.clear()
+    captures = compiled.COUNTS["captures"]
+    for c, w in ((cam, want[0]), (cam2, want[1]), (cam, want[0]), (cam2, want[1])):
+        assert torch.equal(render(scene, c, cfg), w)
+    assert compiled.COUNTS["captures"] == captures + 1
+    assert compiled.graph_for(scene, ("frame", (64, 128), cfg)).replays == 3
+    render(scene, REGISTRY["cow"](64)[1], cfg)
+    assert compiled.COUNTS["captures"] == captures + 2
+    compiled.clear()
+
+
+def test_a_replay_after_nine_other_canvases_is_bit_equal(cuda):
+    """A frame's graph holds its pixel order: after nine other canvases
+    push that order out of pixel_order's cache (one of them under the
+    device string 'cuda', a key of its own) and the freed memory is
+    written over, a replay still equals the eager frame bit for bit.
+    80x40 is no multiple of 16, so the order has its un-permute gather."""
+    from rtc_tpu_torch.render import renderer
+
+    world, cam = REGISTRY["cow"](80)
+    scene = compile_scene(world, device=cuda)
+    cfg = RenderConfig()
+    with compiled.eager():
+        want = render(scene, cam, cfg)
+    compiled.clear()
+    render(scene, cam, cfg)
+    graph = compiled.graph_for(scene, ("frame", (40, 80), cfg))
+    order = renderer.pixel_order(40, 80, "morton", scene.tri_p1.device)
+    assert graph.keep is order and order[3] is not None
+    renderer.pixel_order(40, 80, "morton", "cuda")
+    for width in range(96, 96 + 8 * 16, 16):
+        renderer.pixel_order(width // 2, width, "morton", scene.tri_p1.device)
+    assert renderer.pixel_order(40, 80, "morton", scene.tri_p1.device) is not order
+    junk = [torch.full((40 * 80,), 2**40, dtype=torch.int64, device=cuda)
+            for _ in range(64)]
+    assert torch.equal(render(scene, cam, cfg), want)
+    assert torch.equal(render(scene, cam, cfg), want)
+    del junk
+    compiled.clear()
+
+
+def test_progressive_tiles_replay_one_graph(cuda):
+    world, cam = REGISTRY["glass_teapot"](128)
+    scene = compile_scene(world, device=cuda)
+    cfg = RenderConfig(ray_tile=1024)
+    with compiled.eager():
+        mi.reset_launch_counts()
+        want = [c for _, _, c in progressive.render_tiles(scene, cam, cfg)]
+        eager = dict(mi.LAUNCHES)
+    compiled.clear()
+    mi.reset_launch_counts()
+    got = [c for _, _, c in progressive.render_tiles(scene, cam, cfg)]
+    assert len(got) == 8 and all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert dict(mi.LAUNCHES) == eager
+    assert compiled.graph_for(scene, ("tile", 1024, cfg)).replays == 7
+    compiled.clear()
+
+
+def test_streamed_table_renders_eagerly(cuda):
+    """The one-mesh 3x3 herd streams its table (two superblocks): its frame
+    takes the eager route and captures nothing."""
+    scene = compile_scene(cow_herd_mesh_world(3, 3), device=cuda)
+    cam = _cam(128, [0, 10, -18], [0, 3, 2])
+    cfg = RenderConfig(ray_tile=4096)
+    assert compiled.route(scene, cfg).startswith("eager: a streamed table")
+    captures = compiled.COUNTS["captures"]
+    img = render(scene, cam, cfg)
+    assert compiled.COUNTS["captures"] == captures and float(img.amax()) > 0.1
+
+
+def test_a_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):
+    """A host sync in a graphed frame raises CaptureError, chained to the
+    operation that broke the capture: no fallback to the eager frame, and
+    no graph is kept. The card works on afterwards."""
+    world, cam = REGISTRY["cow"](64)
+    scene = compile_scene(world, device=cuda)
+    record = integrator.object_record
+
+    def synced(scene, obj):
+        rec = record(scene, obj)
+        rec["ambient"] = rec["ambient"] * float(rec["ambient"].amax())
+        return rec
+
+    monkeypatch.setattr(integrator, "object_record", synced)
+    cfg = RenderConfig()
+    compiled.clear()
+    with pytest.raises(compiled.CaptureError, match="capturing the 64x32 frame failed"):
+        render(scene, cam, cfg)
+    assert compiled.graph_for(scene, ("frame", (32, 64), cfg)) is None
+    monkeypatch.undo()
+    with compiled.eager():
+        want = render(scene, cam, cfg)
+    assert torch.equal(render(scene, cam, cfg), want)
+    assert torch.equal(render(scene, cam, cfg), want)
+    compiled.clear()

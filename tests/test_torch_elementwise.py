@@ -161,8 +161,7 @@ def _elementwise_render(name, width):
     scene = _compile(REGISTRY[name](width)[0])
     cam = REGISTRY[name](width)[1]
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(integrator, "_resolve_mesh_impl",
-                   lambda scene, cfg, x: "elementwise")
+        mp.setattr(integrator, "mesh_impl_for", lambda *a: "elementwise")
         calls = _spy_calls(mp, ELEMENTWISE_WRAPPERS + OTHER_WRAPPERS)
         mi.reset_launch_counts()
         img = render(scene, cam, RenderConfig(ray_tile=512)).numpy()

@@ -210,7 +210,7 @@ def test_shard_streams_as_rtc_tpu_shard():
         return streamed(*args, **kwargs)
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(integrator, "_resolve_mesh_impl", lambda s, c, x: "kernel")
+        mp.setattr(integrator, "mesh_impl_for", lambda *a: "kernel")
         mp.setattr(mi, "closest_hit_blocked", spy)
         for s in [scene] + shards:
             calls.clear()
@@ -355,7 +355,7 @@ def test_elementwise_under_the_prim_axis_raises():
     scene, _ = _scene("teapot", 16, torch.float32)
     cfg = RenderConfig(mesh_impl="elementwise", prim_axis="prims")
     with pytest.raises(ValueError, match="primitive sharding"):
-        integrator._resolve_mesh_impl(scene, cfg, scene.tri_p1)
+        integrator.mesh_impl_for(scene, cfg, False, scene.tri_p1.dtype)
 
 
 def test_make_mesh_needs_a_process_group():

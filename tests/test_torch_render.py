@@ -126,8 +126,7 @@ def test_fused_branch_equals_split_branch(cow64, monkeypatch):
     o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize,
                        cam.half_width, cam.half_height, cam.pixel_size)
     o = o.contiguous()
-    monkeypatch.setattr(integrator, "_resolve_mesh_impl",
-                        lambda scene, cfg, x: "kernel")
+    monkeypatch.setattr(integrator, "mesh_impl_for", lambda *a: "kernel")
     mi.reset_launch_counts()
     fused = integrator.color_at(scene, o, d, RenderConfig())
     split = integrator.color_at(scene, o, d, RenderConfig(fused_shadow=False))

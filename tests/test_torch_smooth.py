@@ -186,8 +186,7 @@ def test_fused_sn_branch_equals_split_branch(monkeypatch):
     scene = _compile(world, dtype=torch.float32)
     o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize,
                        cam.half_width, cam.half_height, cam.pixel_size)
-    monkeypatch.setattr(integrator, "_resolve_mesh_impl",
-                        lambda scene, cfg, x: "kernel")
+    monkeypatch.setattr(integrator, "mesh_impl_for", lambda *a: "kernel")
     fused = integrator.color_at(scene, o, d, RenderConfig())
     split = integrator.color_at(scene, o, d, RenderConfig(fused_shadow=False))
     assert torch.equal(fused, split)

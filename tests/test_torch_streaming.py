@@ -322,8 +322,7 @@ def herd_colors(herds):
             return wrapped
 
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(integrator, "_resolve_mesh_impl",
-                       lambda scene, cfg, x: "kernel")
+            mp.setattr(integrator, "mesh_impl_for", lambda *a: "kernel")
             for name in names:
                 mp.setattr(mi, name, spy(name, getattr(mi, name)))
             got = integrator.color_at(scene, torch.from_numpy(o),

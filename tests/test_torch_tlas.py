@@ -246,8 +246,7 @@ def tlas_colors(herds):
             return wrapped
 
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(integrator, "_resolve_mesh_impl",
-                       lambda scene, cfg, x: "kernel")
+            mp.setattr(integrator, "mesh_impl_for", lambda *a: "kernel")
             for name in calls:
                 mp.setattr(mi, name, spy(name, getattr(mi, name)))
             mi.reset_launch_counts()

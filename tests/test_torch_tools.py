@@ -89,8 +89,8 @@ def kernel_route(monkeypatch):
     """The integrator takes the kernel route for CPU tensors too (its
     wrappers then return their plain versions), except where a config asks
     for the plain sweep."""
-    monkeypatch.setattr(integrator, "_resolve_mesh_impl",
-                        lambda scene, cfg, x: ("bruteforce" if cfg.mesh_impl == "bruteforce"
+    monkeypatch.setattr(integrator, "mesh_impl_for",
+                        lambda scene, cfg, *a: ("bruteforce" if cfg.mesh_impl == "bruteforce"
                                                else "kernel"))
 
 
