@@ -40,7 +40,7 @@ launches in each frame, and checks each image against the plain render
 and, where tests/golden has one, the golden. Phase 13 runs the gradient
 path (render/integrator.py's autograd Functions, diff.render_grad): the
 cow frame's loss_and_grad in 4 tiles through K3 (8 launches under
-autograd) against the whole frame in one graph, the split route and
+autograd) against the whole frame in one call, the split route and
 central finite differences, three Adam steps whose loss falls, a profiled
 step, each of the eight Functions with its kernel against autograd through
 the dense plain sweep, and K3 after inject_params moves triangles; it
@@ -112,6 +112,27 @@ medians) and their peak memory with the graph's pool; the cow frame's
 device busy share under torch.profiler, eager and graphed; and the
 progressive cow frame at tile 8,192, eager and graphed, every tile
 bit-equal. It prints a "compiled" JSON line after the "tools" line.
+Phase 19 runs the compiled gradient step (render/compiled.py step_route,
+diff/render_grad.py): on the cow frame at 1920x960, depth 5, f32, with
+DEFAULT_PARAMS, loss_and_grad in 4 tiles of 460,800 rays (one capture,
+then replays with the other tiles' values) and of the whole frame in one
+call, fused K3 and split K1 + K2, each graphed result bit-equal to the
+eager one (compiled.eager()) or, where eager runs differ, within twice
+their spread, with central finite differences on the graphed gradients;
+5 Adam steps (capturable=True) graphed and eager on one trajectory, the
+loss falling at each; loss_and_grad and the step timed eager and graphed
+in turns (7 each, medians), with the captures, first calls, pools and
+the step's device busy share under torch.profiler; a traced replay's
+kernels by name against the eager step's; loss_and_grad at 480x240 on
+teapot_smooth, glass_teapot, cow_herd, cow_herd_smooth and cow under
+mesh_impl="elementwise", every autograd Function but the streamed
+KernelClosestUv applied inside a capture; the eager routes (triangle
+rows among the parameters, an Adam with capturable=False, eager()); and
+K3's backward on 460,800 rays timed with the misses' stand-in rows spread
+and on row 0 against the nonzero backward it replaced. It prints a
+"compiled_grads" JSON line after the "compiled" line. Phase 13's
+tri_p1 parameters and default Adam take the eager route by rule, which
+it asserts.
 Phases 1-17 render() on the graphed route too, where the frame's route
 is graphed. Phase 2 prints the ordered
 walk's list lengths and the registers, memory and resident blocks of the
@@ -2153,12 +2174,15 @@ def phase_gradients(eps):
     5, f32, mesh_impl="kernel", fused K3: loss_and_grad of the mean squared
     error against a target rendered with PERTURB, in GRAD_TILES tiles of
     460,800 rays (K3 launched on both bounce nodes of every tile under
-    autograd), against the whole frame in one graph, the split route (K1 +
+    autograd), against the whole frame in one call, the split route (K1 +
     K2), and central finite differences; then ADAM_STEPS Adam steps of
-    make_train_step, and one profiled step. (b) Each autograd Function with
-    its kernel against the dense plain sweep (function_gate). (c) The
-    vertex update (vertex_update_gate). Returns the "grads" record."""
+    make_train_step, and one profiled step; its tri_p1 parameters and its
+    default Adam (capturable=False) take the eager route by rule, which
+    compiled.ROUTES must show. (b) Each autograd Function with its kernel
+    against the dense plain sweep (function_gate). (c) The vertex update
+    (vertex_update_gate). Returns the "grads" record."""
     scene, cam = slice_scene("cow", WIDTH)
+    compiled.ROUTES.clear()
     fused = RenderConfig(ray_tile=RAY_TILE, mesh_impl="kernel")
     split = RenderConfig(ray_tile=RAY_TILE, mesh_impl="kernel", fused_shadow=False)
     tiles = frame_tiles(cam, GRAD_TILES)
@@ -2221,7 +2245,7 @@ def phase_gradients(eps):
     one_peak = torch.cuda.max_memory_allocated()
     one_rel = {k: rel_norm(grads_one[k], grads[k]) for k in grads}
     check(max(one_rel.values()) <= 1e-5 and abs(float(loss_one) - loss) <= 1e-6 * loss,
-          f"one-graph frame vs tiles: loss {float(loss_one)} vs {loss}, gradients {one_rel}")
+          f"one-call frame vs tiles: loss {float(loss_one)} vs {loss}, gradients {one_rel}")
 
     trained = RG.extract_params(scene, tuple(PERTURB))
     step = RG.make_train_step(torch.optim.Adam(trained.values(), lr=ADAM_LR), fused)
@@ -2238,6 +2262,12 @@ def phase_gradients(eps):
           f"Adam steps: the loss did not fall at each step: {losses}")
     prof = profiled_step(RG.extract_params(scene, tuple(PERTURB)), scene, o_all, d_all,
                          t_all, fused)
+    routes = dict(compiled.ROUTES)
+    want = {"loss_and_grad: " + compiled.step_route(scene, fused, params),
+            "train_step: " + compiled.step_route(
+                scene, fused, trained, torch.optim.Adam(trained.values()))}
+    check(set(routes) == want and all(": eager: " in k for k in want),
+          f"the gradient path's routes {routes}, expected {want}")
 
     functions = {name: function_gate(name, eps) for name in FUNCTIONS}
     vertex = vertex_update_gate(scene, cam, eps)
@@ -2247,26 +2277,26 @@ def phase_gradients(eps):
                  f"{GRAD_TILES} tiles of {RAY_TILE}",
         "forward_frame_ms": [x * 1e3 for x in forward_s],
         "loss_and_grad_frame_ms": [lg_s * 1e3, lg2_s * 1e3],
-        "loss_and_grad_one_graph_ms": one_s * 1e3,
+        "loss_and_grad_one_call_ms": one_s * 1e3,
         "train_step_ms": [x * 1e3 for x in step_s],
         "peak_gib": {"loss_and_grad_tiles": tiled_peak / gib,
-                     "loss_and_grad_one_graph": one_peak / gib,
-                     "train_step_one_graph": step_peak / gib},
+                     "loss_and_grad_one_call": one_peak / gib,
+                     "train_step_one_call": step_peak / gib},
         "launches": {k: v for k, v in launches.items() if v},
         "loss": loss, "finite_differences": fd,
         "split_vs_fused_tri_p1_rel": split_tri,
-        "one_graph_vs_tiles_rel_max": max(one_rel.values()),
-        "adam_losses": losses, "profiled_step": prof,
+        "one_call_vs_tiles_rel_max": max(one_rel.values()),
+        "adam_losses": losses, "profiled_step": prof, "routes": routes,
         "functions": functions, "vertex_update": vertex}
     say("13 gradients",
         f"{record['frame']}: forward frame (render, no_grad) "
         f"{forward_s[1] * 1e3:.1f} ms; loss_and_grad {lg_s * 1e3:.1f} / "
-        f"{lg2_s * 1e3:.1f} ms (one graph {one_s * 1e3:.1f} ms); train step "
+        f"{lg2_s * 1e3:.1f} ms (one call {one_s * 1e3:.1f} ms); train step "
         f"{', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms; peak "
-        f"{tiled_peak / gib:.2f} GiB tiled, {one_peak / gib:.2f} one graph, "
+        f"{tiled_peak / gib:.2f} GiB tiled, {one_peak / gib:.2f} one call, "
         f"{step_peak / gib:.2f} a step; K3 launches {launches['closest_shadow']}; "
         f"finite differences {fd}; split == fused (tri_p1 rel {split_tri:.2g}); "
-        f"Adam losses {losses}; profiled step {prof}")
+        f"Adam losses {losses}; profiled step {prof}; routes {routes}")
     for name, r in functions.items():
         say("13 gradients", f"{name} on {r['scene']}: {r['rays']} rays, {r['hits']} hits, "
             f"{r['winners_compared']} compared; gradients vs f64 plain max|diff| "
@@ -3252,14 +3282,20 @@ PROFILED_FRAMES = 3     # frames a profile of the cow's device share
 PROGRESSIVE_TILE = 8192
 
 
-def frame_ms(scene, cam, cfg, graphs: bool) -> float:
-    """Host ms of one render() and a synchronize, eager or graphed."""
+def call_ms(call, graphs: bool) -> float:
+    """Host ms of call() and a synchronize, eager (compiled.eager()) or on
+    its own route."""
     torch.cuda.synchronize()
     with contextlib.nullcontext() if graphs else compiled.eager():
         t0 = time.perf_counter()
-        render(scene, cam, cfg)
+        call()
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def frame_ms(scene, cam, cfg, graphs: bool) -> float:
+    """Host ms of one render() and a synchronize, eager or graphed."""
+    return call_ms(lambda: render(scene, cam, cfg), graphs)
 
 
 # each launch count's CUDA kernel in csrc/mesh_intersect.cu: one count is
@@ -3319,17 +3355,28 @@ def traced(call, n: int):
     return ops, wall, ran, counted_kernels(mi.LAUNCHES)
 
 
+def busy_share(call, graphs: bool, n: int = PROFILED_FRAMES) -> dict:
+    """n calls back to back under torch.profiler: the device's busy ms
+    over the host's wall ms (None where it recorded no device operation),
+    and the port's kernels the trace holds by name beside what
+    mi.LAUNCHES counted."""
+    with contextlib.nullcontext() if graphs else compiled.eager():
+        ops, wall, ran, counted = traced(call, n)
+    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3 if ops else None
+    return dict(wall_ms=wall / n, device_ops=len(ops) / n,
+                busy_ms=None if busy is None else busy / n,
+                busy_share=None if busy is None else busy / wall,
+                ran=ran, counted=counted)
+
+
 def device_share(scene, cam, cfg, graphs: bool) -> dict:
-    """PROFILED_FRAMES frames back to back under torch.profiler: the
-    device's busy ms (its operations' time, summed) over the host's wall
-    ms; None where the profiler recorded no device operation. Fails
-    unless the port's kernels in the trace, counted by name, are what
-    mi.LAUNCHES counted (on the graphed route: the graph's launches once a
-    replay)."""
+    """busy_share of PROFILED_FRAMES frames. Fails unless the port's
+    kernels in the trace, counted by name, are what mi.LAUNCHES counted
+    (on the graphed route: the graph's launches once a replay)."""
     frame_ms(scene, cam, cfg, graphs)
     graph = compiled.graph_for(scene, ("frame", (cam.vsize, cam.hsize), cfg))
-    with contextlib.nullcontext() if graphs else compiled.eager():
-        ops, wall, ran, counted = traced(lambda: render(scene, cam, cfg), PROFILED_FRAMES)
+    share = busy_share(lambda: render(scene, cam, cfg), graphs)
+    ran, counted = share.pop("ran"), share.pop("counted")
     kind = "graphed" if graphs else "eager"
     check(ran == counted and ran, f"cow {kind} under the profiler: the device ran {ran}, "
           f"the wrappers counted {counted}")
@@ -3337,11 +3384,7 @@ def device_share(scene, cam, cfg, graphs: bool) -> dict:
         check(counted == counted_kernels(graph.launches, PROFILED_FRAMES),
               f"cow graphed: counted {counted}, the graph's launches {graph.launches} "
               f"x {PROFILED_FRAMES}")
-    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3 if ops else None
-    return dict(wall_ms=wall / PROFILED_FRAMES, device_ops=len(ops) / PROFILED_FRAMES,
-                busy_ms=None if busy is None else busy / PROFILED_FRAMES,
-                busy_share=None if busy is None else busy / wall,
-                kernels_traced={k: v / PROFILED_FRAMES for k, v in ran.items()})
+    return dict(share, kernels_traced={k: v / PROFILED_FRAMES for k, v in ran.items()})
 
 
 def orbited(cam, angle: float = 0.05):
@@ -3530,6 +3573,451 @@ def phase_compiled() -> dict:
     return rec
 
 
+
+# ---------------------------------------------------------------------------
+# phase 19: the compiled gradient step (loss_and_grad and the train step
+# replayed from CUDA graphs, render/compiled.py step_route)
+# ---------------------------------------------------------------------------
+
+GRAD_TURNS = 7           # eager and graphed calls timed in turns
+GRAD_ADAM_STEPS = 5      # (b)'s Adam steps (capturable=True) on each route
+GRAD_EAGER_RUNS = 5      # eager runs whose spread a graphed result may differ by
+SPREAD_FACTOR = 2        # ... at most this many times, where eager runs differ
+GRAD_SMALL = 480         # (e)'s canvas
+# (e): frame -> (registry scene, mesh_impl, the Functions its loss_and_grad applies)
+GRAD_FRAMES = {"teapot_smooth": ("teapot_smooth", "auto", ("KernelClosestShadowSn",)),
+               "glass_teapot": ("glass_teapot", "auto", ("KernelClosestSn",)),
+               "cow_herd": ("cow_herd", "auto", ("KernelClosestTlas",)),
+               "cow_herd_smooth": ("cow_herd_smooth", "auto", ("KernelClosestTlasSn",)),
+               "cow elementwise": ("cow", "elementwise", ("KernelClosest",))}
+# every Function but the streamed KernelClosestUv, which stays eager by route
+GRAPHED_FUNCTIONS = ("KernelClosest", "KernelClosestN", "KernelClosestSn",
+                     "KernelClosestShadow", "KernelClosestShadowSn",
+                     "KernelClosestTlas", "KernelClosestTlasSn")
+CAPTURED = collections.Counter()  # Function -> applies inside a capture
+
+
+def nonzero_pull(ctx, lead, grads, refined):
+    """integrator._pull as it was before its shapes were the wavefront's
+    (the hit rays gathered by torch.nonzero), timed beside it."""
+    *inputs, win = ctx.saved_tensors
+    needs = ctx.needs_input_grad[lead:]
+    if not any(needs):
+        return (None,) * (lead + len(inputs))
+    rays = torch.nonzero(win >= 0)[:, 0]
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(n) for x, n in zip(inputs, needs)]
+        ys = refined(*(x.double().index_select(0, rays) for x in xs[:2]),
+                     *(x.double() for x in xs[2:]), win.index_select(0, rays).long())
+        pairs = [(y, g.double().index_select(0, rays))
+                 for y, g in zip(ys, grads) if y.requires_grad]
+        got = iter(torch.autograd.grad(
+            [y for y, _ in pairs], [x for x, n in zip(xs, needs) if n],
+            [g for _, g in pairs], allow_unused=True))
+    return (None,) * lead + tuple(next(got) if n else None for n in needs)
+
+
+@contextlib.contextmanager
+def counting_captured_functions():
+    """Count in CAPTURED each autograd Function applied while a graph
+    captures (its ctx's class is <Function>Backward)."""
+    forward = integrator._forward
+
+    def counted(ctx, *a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            CAPTURED[type(ctx).__name__.removesuffix("Backward")] += 1
+        return forward(ctx, *a, **k)
+
+    integrator._forward = counted
+    try:
+        yield
+    finally:
+        integrator._forward = forward
+
+
+def spread_gate(what: str, got, runs) -> dict:
+    """got (any nesting of tensors) against the eager runs: bit-equal to the
+    first where every eager run is, else within SPREAD_FACTOR times the
+    largest difference between two eager runs."""
+    flat = [compiled.tensors(r) for r in runs]
+    diff = lambda xs, ys: max(float((a.double() - b.double()).abs().max())
+                              for a, b in zip(xs, ys))
+    spread = max(diff(flat[i], flat[j]) for i in range(len(flat)) for j in range(i))
+    err = diff(compiled.tensors(got), flat[0])
+    check(err <= SPREAD_FACTOR * spread,
+          f"{what}: graphed differs from eager by {err:.3g}, eager runs by {spread:.3g}")
+    return dict(max_abs_err=err, eager_spread=spread, bit_equal=err == 0.0)
+
+
+def eager_runs(call, n: int = GRAD_EAGER_RUNS) -> list:
+    with compiled.eager():
+        return [call() for _ in range(n)]
+
+
+def first_graphed_call(call, what: str) -> dict:
+    """The first graphed call from an empty cache: its result, wall s, the
+    graph it made (one capture) and that graph's pool in GiB (the memory
+    the card holds reserved after it, less the result)."""
+    compiled.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    captures = compiled.COUNTS["captures"]
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(compiled.COUNTS["captures"] == captures + 1 and len(compiled._CACHE) == 1,
+          f"{what}: the first call made {compiled.COUNTS['captures'] - captures} captures")
+    torch.cuda.empty_cache()
+    pool = (torch.cuda.memory_reserved() - reserved
+            - sum(t.nbytes for t in compiled.tensors(out))) / 2**30
+    graph = next(iter(compiled._CACHE.values()))
+    return dict(out=out, first_s=first_s, graph=graph, pool_gib=pool)
+
+
+def grad_tiles_run(params, scene, tiles, targets, cfg) -> list:
+    """loss_and_grad of each tile: [(loss, grads)], and each tile's launches."""
+    out = []
+    for (o, d), t in zip(tiles, targets):
+        mi.reset_launch_counts()
+        out.append((RG.loss_and_grad(params, scene, o, d, t, cfg), dict(mi.LAUNCHES)))
+    return out
+
+
+def graphed_gradients(name, scene, tiles, targets, cfg, params) -> dict:
+    """(a) for one route of the cow frame: loss_and_grad in tiles (one
+    capture, then replays with the other tiles' values) and of the whole
+    frame in one call, each graphed against the eager runs; the tiles'
+    launches against eager's; central finite differences on the graphed
+    tiles' frame gradients."""
+    with compiled.eager():
+        eager_tiles = [grad_tiles_run(params, scene, tiles, targets, cfg)
+                       for _ in range(GRAD_EAGER_RUNS)]
+    first = first_graphed_call(lambda: grad_tiles_run(params, scene, tiles, targets, cfg),
+                               f"{name} tiles")
+    graph = first["graph"]
+    again = grad_tiles_run(params, scene, tiles, targets, cfg)
+    check(graph.replays == 2 * len(tiles) - 1 and len(compiled._CACHE) == 1,
+          f"{name}: the tiles replayed {graph.replays} times")
+    gates = {}
+    for kind, run in (("first", first["out"]), ("replays", again)):
+        gates[kind] = spread_gate(f"{name} tiles, {kind}", [r for r, _ in run],
+                                  [[r for r, _ in e] for e in eager_tiles])
+        check([n for _, n in run] == [n for _, n in eager_tiles[0]],
+              f"{name} tiles, {kind}: launches {[n for _, n in run]}, eager "
+              f"{[n for _, n in eager_tiles[0]]}")
+    launches = {k: v for k, v in eager_tiles[0][0][1].items() if v}
+    check(bool(launches) and {k: v for k, v in graph.launches.items() if v} == launches,
+          f"{name}: a replay launches {graph.launches}, an eager tile {launches}")
+
+    n = sum(o.shape[0] for o, _ in tiles)
+    grads = {k: sum(o.shape[0] / n * g[k] for ((_, g), _), (o, _) in zip(again, tiles))
+             for k in params}
+    fd = {}
+    for pname, index in (("mat_color", (0, 0)), ("light_intensity", (0,))):
+        at = []
+        for sign in (1, -1):
+            p = {k: v.detach().clone() for k, v in params.items()}
+            p[pname][index] += sign * FD_EPS
+            at.append(tiled_loss(p, scene, tiles, targets, cfg))
+        fd_val = (at[0] - at[1]) / (2 * FD_EPS)
+        ad = float(grads[pname][index])
+        check(abs(ad - fd_val) <= FD_RTOL * abs(fd_val),
+              f"{name} graphed {pname}{list(index)}: autograd {ad} vs finite difference "
+              f"{fd_val}")
+        fd[f"{pname}{list(index)}"] = {"autograd": ad, "finite_difference": fd_val}
+
+    o_all = torch.cat([o for o, _ in tiles])
+    d_all = torch.cat([d for _, d in tiles])
+    t_all = torch.cat(targets)
+    whole = lambda: RG.loss_and_grad(params, scene, o_all, d_all, t_all, cfg)
+    eager_whole = eager_runs(whole)
+    first_whole = first_graphed_call(whole, f"{name} whole frame")
+    replay_whole = whole()
+    for kind, got in (("first", first_whole["out"]), ("replay", replay_whole)):
+        gates[f"whole frame {kind}"] = spread_gate(f"{name} whole frame, {kind}", got,
+                                                   eager_whole)
+    check(first_whole["graph"].replays == 1, f"{name} whole frame: no replay")
+    return dict(launches_a_tile=launches, gates=gates, finite_differences=fd,
+                tiles_first_call_s=first["first_s"], tiles_warm_s=graph.warm_s,
+                tiles_capture_s=graph.capture_s, tiles_pool_gib=first["pool_gib"],
+                whole_first_call_s=first_whole["first_s"],
+                whole_warm_s=first_whole["graph"].warm_s,
+                whole_capture_s=first_whole["graph"].capture_s,
+                whole_pool_gib=first_whole["pool_gib"])
+
+
+def adam_trajectory(scene, o, d, target, cfg, steps: int = GRAD_ADAM_STEPS) -> list:
+    """steps Adam steps (capturable=True) on PERTURB's parameters from the
+    scene's values: [(loss before the step, {name: value after it})]."""
+    params = RG.extract_params(scene, tuple(PERTURB))
+    step = RG.make_train_step(torch.optim.Adam(params.values(), lr=ADAM_LR,
+                                               capturable=True), cfg)
+    out = []
+    for _ in range(steps):
+        loss = step(params, scene, o, d, target)
+        out.append((loss, {k: v.detach().clone() for k, v in params.items()}))
+    return out
+
+
+def backward_times(scene, cam, eps) -> dict:
+    """K3's Function on the cow's 460,800-ray wavefront, every input
+    requiring grad: the backward's ms (CUDA events, median of GRAD_TURNS
+    in turns) with the misses on spread stand-in rows, all on row 0, and
+    the nonzero backward it replaced; their gradients against each other."""
+    o, d = main_path_rays(cam)
+    fn, kernel, _, tabs, lead = function_case("K3", scene, eps)
+    xs = [x.detach().clone().requires_grad_() for x in (o, d, *tabs)]
+    w = torch.randn((o.shape[0], 4), generator=torch.Generator("cuda").manual_seed(0),
+                    device="cuda")
+    outs = fn.apply(kernel, eps, *lead, *xs)
+    loss = (torch.where(outs[1] >= 0, outs[0], 0.0) * w[:, 3]).sum() + (outs[2] * w[:, :3]).sum()
+    pull, stand_in = integrator._pull, integrator._stand_in
+    modes = {"spread": (stand_in, pull), "zero": (lambda win, rows: 0, pull),
+             "nonzero": (stand_in, nonzero_pull)}
+    times, grads = {m: [] for m in modes}, {}
+    try:
+        for _ in range(GRAD_TURNS + 1):
+            for m, (fn_stand_in, fn_pull) in modes.items():
+                integrator._stand_in, integrator._pull = fn_stand_in, fn_pull
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                torch.cuda.synchronize()
+                ev[0].record()
+                grads[m] = torch.autograd.grad(loss, xs, retain_graph=True)
+                ev[1].record()
+                torch.cuda.synchronize()
+                times[m].append(ev[0].elapsed_time(ev[1]))
+    finally:
+        integrator._stand_in, integrator._pull = stand_in, pull
+    med = lambda xs: sorted(xs[1:])[len(xs[1:]) // 2]
+    rel = {m: max(rel_norm(a, b) for a, b in zip(grads[m], grads["nonzero"]))
+           for m in ("spread", "zero")}
+    for m, r in rel.items():
+        check(r <= 1e-6, f"backward with misses {m}: gradients differ from the nonzero "
+              f"backward's by {r:.3g}")
+    return dict(rays=o.shape[0], hits=int((outs[1] >= 0).sum()),
+                median_ms={m: med(v) for m, v in times.items()},
+                ms={m: v[1:] for m, v in times.items()}, rel_to_nonzero=rel)
+
+
+def small_frame_gate(frame: str) -> dict:
+    """(e): loss_and_grad of one frame at GRAD_SMALL, graphed (the first
+    call and a replay) against eager, the Functions its capture applied."""
+    name, impl, functions = GRAD_FRAMES[frame]
+    scene, cam = slice_scene(name, GRAD_SMALL)
+    cfg = RenderConfig(mesh_impl=impl)
+    check(compiled.step_route(scene, cfg, RG.DEFAULT_PARAMS) == compiled.GRAPHED,
+          f"{frame}: gradient route {compiled.step_route(scene, cfg, RG.DEFAULT_PARAMS)}")
+    (o, d), = frame_tiles(cam, 1)
+    base = RG.extract_params(scene)
+    with torch.no_grad():
+        target = integrator.color_at(RG.inject_params(
+            scene, {k: base[k].detach() + v for k, v in PERTURB.items()}), o, d, cfg)
+    params = RG.extract_params(scene)
+    call = lambda: RG.loss_and_grad(params, scene, o, d, target, cfg)
+    runs = eager_runs(call)
+    before = collections.Counter(CAPTURED)
+    compiled.clear()
+    first = call()
+    got = call()
+    graph = next(iter(compiled._CACHE.values()))
+    applied = {k: CAPTURED[k] - before[k] for k in CAPTURED if CAPTURED[k] != before[k]}
+    check(graph.replays == 1 and all(applied.get(f) for f in functions),
+          f"{frame}: replays {graph.replays}, Functions captured {applied}")
+    gates = {kind: spread_gate(f"{frame} {kind}", out, runs)
+             for kind, out in (("first", first), ("replay", got))}
+    check(all(bool(torch.isfinite(g).all()) for g in got[1].values()),
+          f"{frame}: a gradient is not finite")
+    return dict(rays=o.shape[0], functions_captured=applied,
+                launches={k: v for k, v in graph.launches.items() if v}, gates=gates)
+
+
+def eager_route_gates(scene, tiles, targets, cfg) -> dict:
+    """(f): triangle rows among the parameters, an Adam with
+    capturable=False and eager() each take the eager route they name, and
+    capture nothing."""
+    (o, d), t = tiles[0], targets[0]
+    compiled.clear()
+    compiled.ROUTES.clear()
+    captures = compiled.COUNTS["captures"]
+    rows = RG.extract_params(scene, RG.DEFAULT_PARAMS + ("tri_p1",))
+    RG.loss_and_grad(rows, scene, o, d, t, cfg)
+    mat = RG.extract_params(scene, tuple(PERTURB))
+    RG.make_train_step(torch.optim.Adam(mat.values(), lr=ADAM_LR), cfg)(mat, scene, o, d, t)
+    with compiled.eager():
+        RG.loss_and_grad(RG.extract_params(scene), scene, o, d, t, cfg)
+    routes = dict(compiled.ROUTES)
+    want = {"loss_and_grad: " + compiled.step_route(scene, cfg, rows): 1,
+            "train_step: " + compiled.step_route(
+                scene, cfg, mat, torch.optim.Adam(mat.values())): 1,
+            "loss_and_grad: " + compiled.EAGER_CONTEXT: 1}
+    check(routes == want and all(k.split(": ", 1)[1].startswith("eager: ") for k in want)
+          and compiled.COUNTS["captures"] == captures and not compiled._CACHE,
+          f"eager routes: {routes}, expected {want}")
+    return routes
+
+
+def phase_compiled_grads(eps) -> dict:
+    """The gradient step replayed from CUDA graphs against the eager step
+    (compiled.eager()), on the cow frame at 1920x960, depth 5, f32, with
+    DEFAULT_PARAMS: (a) loss_and_grad in GRAD_TILES tiles and of the whole
+    frame, fused K3 and split K1 + K2, with finite differences; (b)
+    GRAD_ADAM_STEPS Adam steps (capturable=True) on both routes; (c) the
+    calls timed in turns, capture and first-call s, pools, the step's
+    busy share; (d) a traced replay's kernels by name against the eager
+    step's; (e) the 480x240 frames of GRAD_FRAMES, and every Function but
+    KernelClosestUv applied inside a capture; (f) the eager routes; and
+    the fixed-shape backward's time, the misses spread and on row 0,
+    against the nonzero backward. Returns the phase's record."""
+    scene, cam = slice_scene("cow", WIDTH)
+    fused = RenderConfig(ray_tile=RAY_TILE, mesh_impl="kernel")
+    split = RenderConfig(ray_tile=RAY_TILE, mesh_impl="kernel", fused_shadow=False)
+    tiles = frame_tiles(cam, GRAD_TILES)
+    base = RG.extract_params(scene)
+    with torch.no_grad():
+        target_scene = RG.inject_params(
+            scene, {k: base[k].detach() + v for k, v in PERTURB.items()})
+        targets = [integrator.color_at(target_scene, o, d, fused) for o, d in tiles]
+    params = RG.extract_params(scene)
+    o_all = torch.cat([o for o, _ in tiles])
+    d_all = torch.cat([d for _, d in tiles])
+    t_all = torch.cat(targets)
+    rec = {"card": CARD, "frame": f"cow {WIDTH}x{HEIGHT} depth {DEPTH} f32, DEFAULT_PARAMS, "
+           f"{GRAD_TILES} tiles of {RAY_TILE}"}
+    for cfg in (fused, split):
+        check(compiled.step_route(scene, cfg, params) == compiled.GRAPHED,
+              f"cow gradient route {compiled.step_route(scene, cfg, params)}")
+
+    with counting_captured_functions():
+        rec["fused"] = graphed_gradients("fused", scene, tiles, targets, fused, params)
+        rec["split"] = graphed_gradients("split", scene, tiles, targets, split, params)
+        check(rec["fused"]["launches_a_tile"] == {"closest_shadow": 2}
+              and rec["split"]["launches_a_tile"] == {"closest_hit": 2, "any_hit": 2},
+              "gradient tiles' launches")
+        for kind in ("fused", "split"):
+            say("19 compiled grads", f"cow {kind}: {GRAD_TILES} tiles, one capture and "
+                f"{2 * GRAD_TILES - 1} replays, and the whole frame: " + "; ".join(
+                    f"{k} max|diff| {v['max_abs_err']:.3g} (eager spread "
+                    f"{v['eager_spread']:.3g})" for k, v in rec[kind]["gates"].items())
+                + f"; launches a tile {rec[kind]['launches_a_tile']}; finite differences "
+                f"{rec[kind]['finite_differences']}; tiles capture "
+                f"{rec[kind]['tiles_capture_s']:.3f} s, first call "
+                f"{rec[kind]['tiles_first_call_s']:.3f} s, pool "
+                f"{rec[kind]['tiles_pool_gib']:.2f} GiB; whole frame capture "
+                f"{rec[kind]['whole_capture_s']:.3f} s, first call "
+                f"{rec[kind]['whole_first_call_s']:.3f} s, pool "
+                f"{rec[kind]['whole_pool_gib']:.2f} GiB")
+
+        # (b) Adam, capturable on both routes
+        trajectory = lambda: adam_trajectory(scene, o_all, d_all, t_all, fused)
+        eager_traj = eager_runs(trajectory, 2)
+        first = first_graphed_call(lambda: adam_trajectory(scene, o_all, d_all, t_all, fused,
+                                                           1), "the train step")
+        compiled.clear()
+        graphed_traj = trajectory()
+        step_graph = next(iter(compiled._CACHE.values()))
+        check(step_graph.replays == GRAD_ADAM_STEPS - 1,
+              f"Adam: {step_graph.replays} replays of {GRAD_ADAM_STEPS} steps")
+        adam = spread_gate("Adam trajectory", graphed_traj, eager_traj)
+        losses = [float(x) for x, _ in graphed_traj]
+        with torch.no_grad():
+            losses.append(float(RG.render_loss(graphed_traj[-1][1], scene, o_all, d_all,
+                                               t_all, fused)))
+        check(all(b < a for a, b in zip(losses, losses[1:])),
+              f"graphed Adam: the loss did not fall at each step: {losses}")
+        rec["adam"] = dict(gate=adam, losses=losses,
+                           eager_losses=[float(x) for x, _ in eager_traj[0]],
+                           first_call_s=first["first_s"], warm_s=step_graph.warm_s,
+                           capture_s=step_graph.capture_s, pool_gib=first["pool_gib"])
+        say("19 compiled grads", f"Adam (capturable) {GRAD_ADAM_STEPS} steps of the whole "
+            f"frame graphed against eager: max|diff| {adam['max_abs_err']:.3g} (eager "
+            f"spread {adam['eager_spread']:.3g}); losses {losses}; first call "
+            f"{first['first_s']:.3f} s, capture {step_graph.capture_s:.3f} s, pool "
+            f"{first['pool_gib']:.2f} GiB")
+
+        # (e) the other scenes' Functions
+        rec["frames"] = {f: small_frame_gate(f) for f in GRAD_FRAMES}
+        for f, r in rec["frames"].items():
+            say("19 compiled grads", f"{f} {GRAD_SMALL}: " + "; ".join(
+                f"{k} max|diff| {v['max_abs_err']:.3g} (eager spread {v['eager_spread']:.3g})"
+                for k, v in r["gates"].items())
+                + f"; Functions captured {r['functions_captured']}; launches a replay "
+                f"{r['launches']}")
+    missing = [f for f in GRAPHED_FUNCTIONS if not CAPTURED[f]]
+    check(not missing and not CAPTURED["KernelClosestUv"],
+          f"Functions never applied inside a capture: {missing}; all: {dict(CAPTURED)}")
+    rec["functions_captured"] = dict(CAPTURED)
+
+    # (c) and (d): in turns, on the fused route
+    (o, d), t = tiles[0], targets[0]
+    tile_call = lambda: RG.loss_and_grad(params, scene, o, d, t, fused)
+    whole_call = lambda: RG.loss_and_grad(params, scene, o_all, d_all, t_all, fused)
+    timed = {}
+    for kind, graphs in (("eager", False), ("graphed", True)):
+        trained = RG.extract_params(scene, tuple(PERTURB))
+        step = RG.make_train_step(torch.optim.Adam(trained.values(), lr=ADAM_LR,
+                                                   capturable=True), fused)
+        timed[kind] = (graphs, lambda step=step, trained=trained: step(
+            trained, scene, o_all, d_all, t_all))
+    compiled.clear()
+    timed["graphed"][1]()  # the first calls: each captures its graph
+    tile_call()
+    whole_call()
+    turns = collections.defaultdict(list)
+    for _ in range(GRAD_TURNS):
+        for kind, (graphs, step_call) in timed.items():
+            turns[f"tile_{kind}"].append(call_ms(tile_call, graphs))
+            turns[f"whole_{kind}"].append(call_ms(whole_call, graphs))
+            turns[f"step_{kind}"].append(call_ms(step_call, graphs))
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    rec["turns_ms"] = dict(turns)
+    rec["median_ms"] = {k: med(v) for k, v in turns.items()}
+    # the kernels by name are gated on one traced call each, below: over
+    # PROFILED_FRAMES steps the profiler has dropped a kernel (5 of 6)
+    shares = {kind: busy_share(step_call, graphs) for kind, (graphs, step_call) in timed.items()}
+    # each route's trace must hold every kernel the graph launches, by
+    # name, and no launch the counts do not: after phase 13's profiled step
+    # torch.profiler has dropped one of a step's two K3 launches from its
+    # trace on either route (and never in phase 19 run alone), so the
+    # counts, equal on both routes and to the graph's, hold the number
+    step_graph = next(g for k, g in compiled._CACHE.items() if k[1] == "step")
+    want = counted_kernels(step_graph.launches)
+    replays = step_graph.replays
+    _, _, ran, counted = traced(timed["graphed"][1], 1)
+    with compiled.eager():
+        _, _, eager_ran, eager_counted = traced(timed["eager"][1], 1)
+    check(step_graph.replays == replays + 1 and counted == eager_counted == want
+          and set(ran) == set(eager_ran) == set(want)
+          and all(r.get(k, 0) <= n for r in (ran, eager_ran) for k, n in want.items()),
+          f"a traced step replay ran {ran}, counted {counted}, the eager step "
+          f"{eager_ran} (counted {eager_counted}), the graph's launches {want}")
+    rec["step_busy_share"] = shares
+    rec["traced_step_kernels"] = dict(graphed=ran, eager=eager_ran, counted=want)
+    say("19 compiled grads", "median ms eager/graphed in turns ({} each): loss_and_grad "
+        "tile {:.2f}/{:.2f}, whole frame {:.2f}/{:.2f}, Adam step {:.2f}/{:.2f}".format(
+            GRAD_TURNS, *(rec["median_ms"][f"{c}_{k}"] for c in ("tile", "whole", "step")
+                          for k in ("eager", "graphed"))))
+    say("19 compiled grads", "the Adam step under torch.profiler, " + "; ".join(
+        f"{k}: wall {v['wall_ms']:.2f} ms, device busy "
+        + ("not measured (no device operation recorded)" if v["busy_ms"] is None else
+           f"{v['busy_ms']:.2f} ms = {v['busy_share']:.3f} of the wall")
+        + f", {v['device_ops']:.0f} device operations" for k, v in shares.items())
+        + f"; one traced step ran {ran} graphed, {eager_ran} eager, counted {want} on "
+        "either route")
+
+    rec["routes"] = eager_route_gates(scene, tiles, targets, fused)
+    say("19 compiled grads", f"eager routes: {rec['routes']}")
+    rec["backward"] = backward_times(scene, cam, eps)
+    b = rec["backward"]
+    say("19 compiled grads", f"K3's backward on {b['rays']} rays ({b['hits']} hits), every "
+        f"input requiring grad, median ms: misses spread {b['median_ms']['spread']:.3f}, "
+        f"on row 0 {b['median_ms']['zero']:.3f}, the nonzero backward "
+        f"{b['median_ms']['nonzero']:.3f}; rel to it {b['rel_to_nonzero']}")
+    compiled.clear()
+    return rec
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--parallel-worker"]:
         return parallel_worker(sys.argv[2:])
@@ -3569,6 +4057,7 @@ def main() -> int:
     book = phase_book(eps)
     tools = phase_tools()
     compiled_record = phase_compiled()
+    compiled_grads = phase_compiled_grads(eps)
 
     # each kernel's launches come from the frame that runs it: K3 from the
     # cow's default fused frame, K1 and K2 from its fused_shadow=False
@@ -3633,6 +4122,7 @@ def main() -> int:
     print(json.dumps({"book": book}))
     print(json.dumps({"tools": tools}))
     print(json.dumps({"compiled": compiled_record}))
+    print(json.dumps({"compiled_grads": compiled_grads}))
     print(json.dumps(record))
     print(f"card: {CARD}")
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..ops import transforms as X
-from ..render import integrator
+from ..render import compiled, integrator
 from ..render.camera import camera_rays
 from ..scene.compile import GEOMETRY_FIELDS, Scene, derived_tables
 from ..utils.config import DEFAULT_CONFIG, RenderConfig
@@ -70,9 +70,7 @@ def render_loss(params, scene: Scene, o, d, target, cfg: RenderConfig):
     return torch.mean((img - target) ** 2)
 
 
-def loss_and_grad(params, scene: Scene, o, d, target, cfg: RenderConfig):
-    """(loss, {name: gradient}) of render_loss; a parameter the image does
-    not depend on gets a zero gradient."""
+def _loss_and_grad(params, scene: Scene, o, d, target, cfg: RenderConfig):
     leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
     loss = render_loss(leaves, scene, o, d, target, cfg)
     grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
@@ -80,19 +78,69 @@ def loss_and_grad(params, scene: Scene, o, d, target, cfg: RenderConfig):
                            for (k, v), g in zip(leaves.items(), grads)}
 
 
+def _shapes(*tensors) -> tuple:
+    return tuple((tuple(x.shape), x.dtype) for x in tensors)
+
+
+def loss_and_grad(params, scene: Scene, o, d, target, cfg: RenderConfig):
+    """(loss, {name: gradient}) of render_loss; a parameter the image does
+    not depend on gets a zero gradient. On the graphed route one graph per
+    (scene, the parameters' names, shapes and dtypes, the rays' and
+    target's, cfg) runs the forward and the backward; the parameters'
+    values, o, d and target are its inputs, and the results are the
+    caller's own."""
+    if not compiled.step_graphed("loss_and_grad", scene, cfg, params):
+        return _loss_and_grad(params, scene, o, d, target, cfg)
+    names = tuple(params)
+    key = ("grad", tuple(zip(names, _shapes(*params.values()))), _shapes(o, d, target), cfg)
+
+    def fn(*inputs):
+        return _loss_and_grad(dict(zip(names, inputs)), scene, *inputs[len(names):], cfg)
+
+    loss, grads = compiled.run(scene, key, fn, (*params.values(), o, d, target),
+                               "loss_and_grad")
+    return loss.clone(), {k: g.clone() for k, g in grads.items()}
+
+
+def _optimizer_tensors(optimizer: torch.optim.Optimizer) -> tuple:
+    """The optimizer's parameters and the tensors of its state."""
+    ps = [p for g in optimizer.param_groups for p in g["params"]]
+    return (*ps, *(v for p in ps for v in optimizer.state.get(p, {}).values()
+                   if isinstance(v, torch.Tensor)))
+
+
 def make_train_step(optimizer: torch.optim.Optimizer,
                     cfg: RenderConfig = DEFAULT_CONFIG):
     """A step of any torch.optim optimizer over scene parameters.
     train_step(params, scene, o, d, target) -> loss before the step;
     params must hold the leaf tensors the optimizer was built on, which
-    the step updates in place."""
+    the step updates in place.
 
-    def train_step(params, scene, o, d, target):
+    On the graphed route (compiled.step_route: Adam and its kin need
+    capturable=True) the first call for a (scene, parameters, rays' shape)
+    takes its step eagerly and captures the next; each later call copies
+    o, d and target into the graph and replays it: the forward, the
+    backward and optimizer.step(), reading and writing the parameters and
+    the optimizer's state in place. The learning rate and every other
+    setting of the optimizer is fixed at the capture, as rtc_tpu's optax
+    transform is when jitted; new parameter tensors capture again."""
+
+    def step(params, scene, o, d, target):
         optimizer.zero_grad(set_to_none=True)
         loss = render_loss(params, scene, o, d, target, cfg)
         loss.backward()
         optimizer.step()
         return loss.detach()
+
+    def train_step(params, scene, o, d, target):
+        if not compiled.step_graphed("train_step", scene, cfg, params, optimizer):
+            return step(params, scene, o, d, target)
+        key = ("step", id(optimizer), tuple(zip(params, _shapes(*params.values()))),
+               _shapes(o, d, target), cfg)
+        loss = compiled.run(scene, key, lambda *x: step(params, scene, *x), (o, d, target),
+                            "the train step",
+                            held=lambda: (*params.values(), *_optimizer_tensors(optimizer)))
+        return loss.clone()
 
     return train_step
 

@@ -1,6 +1,7 @@
-"""The compiled frame: render() and the progressive tile captured once as
-CUDA graphs and replayed (counterpart of jax.jit's compilation cache over
-rtc_tpu/render/renderer.py and progressive.py).
+"""The compiled frame and gradient step: render(), the progressive tile,
+loss_and_grad and the train step captured once as CUDA graphs and
+replayed (counterpart of jax.jit's compilation cache over
+rtc_tpu/render/renderer.py, progressive.py and diff/render_grad.py).
 
 rtc_tpu compiles a frame into one program, once per (scene shape, canvas
 shape, config). Here the same work is captured once per (scene, canvas,
@@ -9,9 +10,12 @@ the shading glue's included, launches from one graph, with no Python
 between them. The graph reads the scene's tensors where they lie, and its
 inputs are static tensors that each call fills before the replay: the
 camera's values for a frame (camera.camera_values), a tile's rays for a
-progressive tile. A graph keeps every tensor it reads that is neither the
+progressive tile; the parameters' values, the rays and the target for
+loss_and_grad. A graph keeps every tensor it reads that is neither the
 scene's nor its own (a frame's pixel order), since a replay runs no
-Python that would keep it alive.
+Python that would keep it alive. A train step's graph reads and writes
+the parameters and the optimizer's state in place: it holds them, and a
+call whose parameters or state lie elsewhere captures again.
 
 Which route a call takes (route) is decided before any capture, from the
 scene's static shapes, the config and the device alone:
@@ -23,9 +27,17 @@ scene's static shapes, the config and the device alone:
            block order on the host, mesh_intersect.py closest_hit_blocked
            and any_hit_blocked).
 
-eager() is the counterpart of jax.disable_jit(): inside it every call
-takes the eager route. A capture never falls back to eager: one that
-fails raises CaptureError, chained to the operation that broke it.
+A gradient call (step_route) takes the frame's route, and two more rules
+send it eager: triangle rows among the parameters (inject_params rebuilds
+the boxes and occlusion tables from them on the host, derived_tables),
+and, for a train step, an optimizer with capturable=False (Adam and its
+kin then keep their step count on the host). ROUTES counts the route each
+gradient call took.
+
+eager() is the counterpart of jax.disable_jit(): inside it every call,
+frame or gradient, takes the eager route. A capture never falls back to
+eager: one that fails raises CaptureError, chained to the operation that
+broke it.
 
 The first call for a key runs the work eagerly on a side stream (which
 builds the kernels, mi.library(), and cuBLAS's workspace on that stream)
@@ -56,11 +68,14 @@ import weakref
 import torch
 
 from ..ops.kernels import mesh_intersect as mi
+from ..scene.compile import GEOMETRY_FIELDS
 from . import integrator
 
 GRAPHED = "graphed"
+EAGER_CONTEXT = "eager: inside compiled.eager()"
 MAX_GRAPHS = 4
 COUNTS = {"captures": 0}
+ROUTES: "collections.Counter[str]" = collections.Counter()  # "<call>: <route>" -> calls
 
 _EAGER = contextvars.ContextVar("rtc_tpu_torch_eager", default=False)
 _CACHE: "collections.OrderedDict[tuple, Graph]" = collections.OrderedDict()
@@ -72,8 +87,8 @@ class CaptureError(RuntimeError):
 
 @contextlib.contextmanager
 def eager():
-    """Run render() and render_tiles eagerly inside this block, on every
-    route (jax.disable_jit's counterpart)."""
+    """Run render(), render_tiles, loss_and_grad and train steps eagerly
+    inside this block, on every route (jax.disable_jit's counterpart)."""
     token = _EAGER.set(True)
     try:
         yield
@@ -99,28 +114,73 @@ def graphed(scene, cfg, device) -> bool:
     return not _EAGER.get() and route(scene, cfg, device) == GRAPHED
 
 
+def step_route(scene, cfg, names, optimizer=None) -> str:
+    """GRAPHED, or 'eager: <reason>', for loss_and_grad (optimizer None)
+    or a train step of the parameters named by names, on the scene's
+    device."""
+    frame = route(scene, cfg)
+    if frame != GRAPHED:
+        return frame
+    rows = [k for k in names if k in GEOMETRY_FIELDS]
+    if rows:
+        return (f"eager: geometry parameters {', '.join(rows)} (inject_params rebuilds "
+                "the boxes and occlusion tables on the host, derived_tables)")
+    if optimizer is not None and any(g.get("capturable") is False
+                                     for g in optimizer.param_groups):
+        return (f"eager: {type(optimizer).__name__} with capturable=False "
+                "(its step count lives on the host)")
+    return GRAPHED
+
+
+def step_graphed(call: str, scene, cfg, names, optimizer=None) -> bool:
+    """Does this gradient call (call: 'loss_and_grad' or 'train_step')
+    replay a graph: its step_route, unless inside eager(). Counts the
+    route taken in ROUTES."""
+    taken = EAGER_CONTEXT if _EAGER.get() else step_route(scene, cfg, names, optimizer)
+    ROUTES[f"{call}: {taken}"] += 1
+    return taken == GRAPHED
+
+
 def clear() -> None:
     """Drop every graph, and with them their memory pools."""
     _CACHE.clear()
 
 
-def graph_for(scene, key):
+def graph_for(scene, key, held=()):
     """The cached graph of scene under key (render: ('frame', (vsize,
-    hsize), cfg); render_tiles: ('tile', tile, cfg)), or None."""
+    hsize), cfg); render_tiles: ('tile', tile, cfg); loss_and_grad:
+    ('grad', ...); a train step: ('step', ...)), or None; held: the
+    tensors the call would have it hold (run)."""
     g = _CACHE.get((id(scene),) + key)
-    return g if g is not None and g.valid_for(scene) else None
+    return g if g is not None and g.valid_for(scene, held) else None
+
+
+def _layout(x: torch.Tensor) -> tuple:
+    """Where a tensor lies and how a graph reads it."""
+    return x.data_ptr(), tuple(x.shape), x.stride(), x.dtype
 
 
 def _addresses(scene) -> tuple:
-    """Where each tensor the graph may read lies: the scene's fields and
-    the tables they hold."""
+    """Where each tensor the graph may read lies, with its shape, strides
+    and dtype: the scene's fields and the tables they hold."""
     out = []
     for f in dataclasses.fields(scene):
         v = getattr(scene, f.name)
         tables = isinstance(v, tuple) and all(isinstance(x, torch.Tensor) for x in v)
-        out.extend(x.data_ptr() if isinstance(x, torch.Tensor) else x
+        out.extend(_layout(x) if isinstance(x, torch.Tensor) else x
                    for x in (v if tables else (v,)))
     return tuple(out)
+
+
+def tensors(out) -> list:
+    """The tensors of an output: a tensor, or a tuple, list or dict of
+    outputs; numbers hold none."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (int, float)):
+        return []
+    items = out.values() if isinstance(out, dict) else out
+    return [t for x in items for t in tensors(x)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -138,9 +198,11 @@ class Graph:
     """fn(*inputs) captured once and replayed: inputs are static tensors
     that the caller fills before each replay; keep, the other tensors fn
     reads beside the scene's, which the graph holds as long as it lives;
-    output is the static result, which the next replay overwrites.
-    launches: the kernel launches a replay makes; warm_s and capture_s:
-    the host seconds of the first call's eager run and of its capture."""
+    output is the static result (a tensor, or a tuple or dict of them),
+    which the next replay overwrites; held, the tensors a replay reads and
+    writes in place beside the scene's (hold). launches: the kernel
+    launches a replay makes; warm_s and capture_s: the host seconds of the
+    first call's eager run and of its capture."""
 
     def __init__(self, scene, key: tuple, fn, inputs: tuple, what: str,
                  keep: tuple = ()):
@@ -148,13 +210,22 @@ class Graph:
         self.scene = weakref.ref(scene, lambda _: _CACHE.pop(key, None))
         self.addresses = _addresses(scene)
         self.fn, self.inputs, self.what, self.keep = fn, inputs, what, keep
+        self.held, self.held_layout = (), ()
         self.graph = self.output = None
         self.launches: dict = {}
         self.warm_s = self.capture_s = 0.0
         self.replays = 0
 
-    def valid_for(self, scene) -> bool:
-        return self.scene() is scene and self.addresses == _addresses(scene)
+    def valid_for(self, scene, held=()) -> bool:
+        return (self.scene() is scene and self.addresses == _addresses(scene)
+                and self.held_layout == tuple(map(_layout, held)))
+
+    def hold(self, held) -> None:
+        """Keep the tensors held, which a replay reads and writes in place,
+        alive while the graph lives; a call that would have it hold others
+        (or the same at another shape, stride or dtype) is not its own."""
+        self.held = tuple(held)
+        self.held_layout = tuple(map(_layout, self.held))
 
     def capture(self):
         """Run fn once eagerly on the side stream and return its result,
@@ -168,7 +239,8 @@ class Graph:
         with torch.cuda.stream(stream):
             out = self.fn(*self.inputs)
         current.wait_stream(stream)
-        out.record_stream(current)
+        for t in tensors(out):
+            t.record_stream(current)
         torch.cuda.synchronize(device)
         self.warm_s = time.perf_counter() - t0
 
@@ -207,32 +279,41 @@ class Graph:
         return self.output
 
 
-def run(scene, key: tuple, fn, values: tuple, what: str, keep: tuple = ()):
+def run(scene, key: tuple, fn, values: tuple, what: str, keep: tuple = (),
+        held=tuple):
     """fn(*values) through scene's graph under key (graph_for): each value
     is copied into the graph's input of its shape and dtype, on the
     scene's device (from pinned memory where it lies on the host, so the
     copy waits for nothing), and the graph replayed; the first call for a
     key makes the inputs, runs fn eagerly and captures it, and its graph
-    holds keep (every tensor fn reads beside the scene's). Returns the
+    holds keep (every tensor fn reads beside the scene's). held() gives
+    the tensors fn reads and writes in place (a train step's parameters
+    and optimizer state, which its first run may create): the graph holds
+    them, and a call whose held() differ captures again. Returns the
     static output on a replay (overwritten by the next one) and the eager
     run's result on the first call."""
     full = (id(scene),) + key
     device = scene.tri_p1.device
     if device.type == "cuda":
         values = tuple(v.pin_memory() if v.device.type == "cpu" else v for v in values)
-    g = graph_for(scene, key)
+    g = graph_for(scene, key, held())
     if g is None:
         _CACHE.pop(full, None)
         inputs = tuple(torch.empty(v.shape, dtype=v.dtype, device=device) for v in values)
-        for x, v in zip(inputs, values):
-            x.copy_(v, non_blocking=True)
+        _fill(inputs, values)
         g = Graph(scene, full, fn, inputs, what, keep)
         out = g.capture()
+        g.hold(held())
         while len(_CACHE) >= MAX_GRAPHS:
             _CACHE.popitem(last=False)
         _CACHE[full] = g
         return out
     _CACHE.move_to_end(full)
-    for x, v in zip(g.inputs, values):
-        x.copy_(v, non_blocking=True)
+    _fill(g.inputs, values)
     return g.replay()
+
+
+@torch.no_grad()  # a value that requires grad (a parameter) leaves the input a leaf
+def _fill(inputs, values) -> None:
+    for x, v in zip(inputs, values):
+        x.copy_(v, non_blocking=True)

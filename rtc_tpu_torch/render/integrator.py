@@ -169,9 +169,14 @@ def corner_normals(scene: Scene):
 # its outputs unchanged; backward mirrors the JVP's refined(...): it
 # recomputes the winner's Möller-Trumbore (and, where the JVP does, the
 # corner blend and the instance affine) under autograd and pulls the
-# incoming gradients through it on the hit rays only (a miss's tangent is
-# zero), which the raw winner id, the search's second output, marks (-1 on
-# a miss). Ids and shadow flags are non-differentiable, as rtc_tpu's
+# incoming gradients through it. As rtc_tpu's JVPs (idx_c = where(hit_ok,
+# idx, 0), then where(hit_ok, dt, 0.0)), every shape is the wavefront's:
+# the closed form runs on every ray, a miss (the raw winner id, the
+# search's second output, is -1) reads a stand-in row, and its incoming
+# gradients are zeroed, so it adds an exact zero (intersect.triangle
+# divides by 1.0 where det is small, so its partials are finite even on a
+# padding row). Nothing waits on the host, and a CUDA graph captures the
+# backward. Ids and shadow flags are non-differentiable, as rtc_tpu's
 # float0 tangents.
 # backward evaluates the closed form in float64: its partials cancel (t is
 # f * (e2 . q) with f = 1 / det), so float32 evaluations in two orders
@@ -182,10 +187,22 @@ def corner_normals(scene: Scene):
 # and sums each row's rays one by one, which took 0.24 s a tile of 460,800
 # cow rays with the misses on row 0.
 
-def _forward(ctx, search, eps, inputs):
+def _stand_in(win, rows: int):
+    """Each ray's stand-in row, which a miss reads: ray k reads row k mod
+    rows. With every miss on row 0 their atomic adds of zeros would all
+    land on one address: K3's backward over cow's 460,800 rays (396k
+    misses) took 4.85 ms spread and 7.31 ms on row 0 on an H100 80GB HBM3
+    at 700 W (chip_smoke.py phase 19 times both), and 5.13 ms when it
+    gathered the hit rays with torch.nonzero."""
+    return torch.arange(win.shape[0], dtype=win.dtype, device=win.device) % max(rows, 1)
+
+
+def _forward(ctx, search, eps, inputs, rows=None):
+    """rows: the winner ids' range, the first table's rows by default."""
     with torch.no_grad():  # the kernels take contiguous rows (camera rays expand o)
         outs = search(*(x.detach().contiguous() for x in inputs))
     ctx.eps = eps
+    ctx.rows = inputs[2].shape[0] if rows is None else rows
     ctx.mark_non_differentiable(*(y for y in outs if not y.is_floating_point()))
     ctx.save_for_backward(*inputs, outs[1])
     return outs
@@ -194,25 +211,30 @@ def _forward(ctx, search, eps, inputs):
 def _pull(ctx, lead: int, grads, refined):
     """The gradients of a Function's inputs (saved by _forward after `lead`
     leading arguments that are not differentiable): refined(o, d, *tables,
-    i), on the hit rays' o, d and winner ids i, gives one output per entry
-    of grads. None for the leading arguments and every input that needs no
-    gradient."""
+    i), on every ray's o, d and winner id i (a miss's its _stand_in row),
+    gives one output per entry of grads, whose miss rays are zeroed. None
+    for the leading arguments and every input that needs no gradient."""
     *inputs, win = ctx.saved_tensors
     needs = ctx.needs_input_grad[lead:]
     if not any(needs):
         return (None,) * (lead + len(inputs))
-    rays = torch.nonzero(win >= 0)[:, 0]
+    hit = win >= 0
     with torch.enable_grad():
         xs = [x.detach().requires_grad_(n) for x, n in zip(inputs, needs)]
-        # o and d are per ray, the rest are tables
-        ys = refined(*(x.double().index_select(0, rays) for x in xs[:2]),
-                     *(x.double() for x in xs[2:]), win.index_select(0, rays).long())
-        pairs = [(y, g.double().index_select(0, rays))
+        ys = refined(*(x.double() for x in xs),
+                     torch.where(hit, win, _stand_in(win, ctx.rows)).long())
+        pairs = [(y, torch.where(hit.view(-1, *(1,) * (g.dim() - 1)), g.double(), 0.0))
                  for y, g in zip(ys, grads) if y.requires_grad]
         got = iter(torch.autograd.grad(
             [y for y, _ in pairs], [x for x, n in zip(xs, needs) if n],
             [g for _, g in pairs], allow_unused=True))
-    return (None,) * lead + tuple(next(got) if n else None for n in needs)
+    # + 0.0 makes a -0.0 gradient 0.0, as an index_add into zeros does: the
+    # bytes of a backward over the hit rays alone (tests hold them equal)
+    return (None,) * lead + tuple(_plus_zero(next(got)) if n else None for n in needs)
+
+
+def _plus_zero(g):
+    return None if g is None else g + 0.0
 
 
 def _rows(i, *tables):
@@ -345,7 +367,8 @@ class KernelClosestTlas(torch.autograd.Function):
     @staticmethod
     def forward(ctx, search, eps, tm, inst_mesh, o, d, p1, e1, e2, tri_n, inst_ab):
         ctx.tm, ctx.inst_mesh = tm, inst_mesh
-        return _forward(ctx, search, eps, (o, d, p1, e1, e2, tri_n, inst_ab))
+        return _forward(ctx, search, eps, (o, d, p1, e1, e2, tri_n, inst_ab),
+                        rows=tm * inst_ab.shape[0])
 
     @staticmethod
     def backward(ctx, gt, _, __, gn):
@@ -360,7 +383,8 @@ class KernelClosestTlasSn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, search, eps, tm, inst_mesh, o, d, p1, e1, e2, sn, inst_ab):
         ctx.tm, ctx.inst_mesh = tm, inst_mesh
-        return _forward(ctx, search, eps, (o, d, p1, e1, e2, sn, inst_ab))
+        return _forward(ctx, search, eps, (o, d, p1, e1, e2, sn, inst_ab),
+                        rows=tm * inst_ab.shape[0])
 
     @staticmethod
     def backward(ctx, gt, _, __, gn):

@@ -579,7 +579,7 @@ def compile_scene(world: World, dtype: torch.dtype = torch.float32,
     the k-d clustering, the TLAS and the occlusion tables. 0 keeps the
     triangle table unclustered, in leaf order and unpadded, with no TLAS;
     the integrator then takes the plain sweep on every backend, as
-    rtc_tpu's takes its brute force (render/integrator.py
+    rtc_tpu's takes its brute force (rtc_tpu/render/integrator.py
     _resolve_mesh_impl). A leaf above ELEMENTWISE_MAX_LEAF raises: K7
     stages two clusters in shared memory and refuses larger ones.
     """

@@ -252,6 +252,34 @@ def test_cache_is_bounded_and_dies_with_its_scene(cpu_graphs, monkeypatch):
     assert not compiled._CACHE
 
 
+def test_a_field_reshaped_at_its_address_captures_again(cpu_graphs):
+    """A scene field reassigned to a view of its storage with another
+    shape keeps its data_ptr(): the graph is no longer the scene's, and the
+    next call captures again (as jax.jit retraces on a new shape), its
+    image equal to the eager frame."""
+    world, cam = REGISTRY["cow"](16)
+    scene = _compile(world, dtype=torch.float32)
+    cfg = RenderConfig(ray_tile=128)
+    key = ("frame", (8, 16), cfg)
+    rows = scene.tri_n.shape[0]
+    spare = torch.cat([scene.tri_n, torch.zeros((5, 3))])
+    scene.tri_n = spare[:rows + 5]  # the winners never read the 5 extra rows
+    with compiled.eager():
+        want = render(scene, cam, cfg)
+    captures = cpu_graphs["captures"]
+    render(scene, cam, cfg)
+    assert compiled.graph_for(scene, key) is not None
+    scene.tri_n = spare[:rows]
+    assert scene.tri_n.data_ptr() == spare.data_ptr()
+    assert compiled.graph_for(scene, key) is None
+    assert torch.equal(render(scene, cam, cfg), want)
+    assert cpu_graphs["captures"] == captures + 2
+    assert compiled.graph_for(scene, key) is not None
+    scene.tri_n = spare.view(-1)[:rows * 3].view(3, rows).t()  # same shape, other strides
+    assert scene.tri_n.shape == (rows, 3) and scene.tri_n.data_ptr() == spare.data_ptr()
+    assert compiled.graph_for(scene, key) is None
+
+
 def test_a_frame_graph_keeps_its_pixel_order(cpu_graphs):
     """A frame's graph holds the pixel order its capture read (a replay
     runs no Python that would keep pixel_order's cached tensors alive):

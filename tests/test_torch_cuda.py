@@ -15,7 +15,10 @@ on a card matrix, and the testing helpers' book numbers in float64; and
 the compiled frame (render/compiled.py): render() and render_tiles
 replayed from CUDA graphs, bit-equal to the eager frame, one capture for
 two cameras, a replay's launches equal to the eager frame's, a streamed
-table on the eager route, and a capture that meets a host sync raising.
+table on the eager route, and a capture that meets a host sync raising;
+and the compiled gradient step: loss_and_grad and an Adam step replayed
+from CUDA graphs against the eager calls, after other graphs too, and
+the gradient routes that stay eager.
 
 These tests need a CUDA device and nvcc, and skip elsewhere. This file
 imports neither jax nor rtc_tpu, so on the GPU machine it runs without the
@@ -1775,3 +1778,132 @@ def test_a_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):
     assert torch.equal(render(scene, cam, cfg), want)
     assert torch.equal(render(scene, cam, cfg), want)
     compiled.clear()
+
+
+# --- the compiled gradient step (diff/render_grad.py through compiled.py) ----
+
+PERTURB = {"mat_color": -0.3, "light_intensity": -0.3}
+
+
+def _grad_setup(cuda, width=128):
+    """The cow at width: its scene, a fused config, the camera's rays and
+    a target rendered with PERTURB's lowered material and light."""
+    world, cam = REGISTRY["cow"](width)
+    scene = compile_scene(world, device=cuda)
+    cfg = RenderConfig(mesh_impl="kernel")
+    o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize, cam.half_width,
+                       cam.half_height, cam.pixel_size, device=cuda)
+    o, d = o.contiguous(), d.contiguous()
+    base = RG.extract_params(scene)
+    with torch.no_grad():
+        target = integrator.color_at(RG.inject_params(
+            scene, {k: base[k].detach() + v for k, v in PERTURB.items()}), o, d, cfg)
+    return scene, cfg, o, d, target
+
+
+def _assert_within_eager_spread(got, runs):
+    """Bit-equal to the first eager run where the eager runs agree bit for
+    bit; elsewhere within twice their largest difference."""
+    ref = compiled.tensors(runs[0])
+    spread = max(float((a - b).abs().max())
+                 for r in runs[1:] for a, b in zip(compiled.tensors(r), ref))
+    err = max(float((a - b).abs().max()) for a, b in zip(compiled.tensors(got), ref))
+    assert err <= 2 * spread, (err, spread)
+
+
+def test_graphed_loss_and_grad_equals_eager(cuda):
+    """The cow at 128x64 with the material, light, patterns and tri_n as
+    parameters (so K3's Function pulls its backward inside the graph): the
+    first call (its eager run, then the capture) and replays with other
+    rays equal the eager calls, one capture in all."""
+    scene, cfg, o, d, target = _grad_setup(cuda)
+    params = RG.extract_params(scene, RG.DEFAULT_PARAMS + ("tri_n",))
+    assert compiled.step_route(scene, cfg, params) == compiled.GRAPHED
+    waves = [(o, d, target), (o.flip(0).contiguous(), d.flip(0).contiguous(), target)]
+    with compiled.eager():
+        want = [[RG.loss_and_grad(params, scene, *w, cfg) for _ in range(3)] for w in waves]
+    compiled.clear()
+    captures = compiled.COUNTS["captures"]
+    for k in (0, 1, 0):
+        got = RG.loss_and_grad(params, scene, *waves[k], cfg)
+        _assert_within_eager_spread(got, want[k])
+    assert compiled.COUNTS["captures"] == captures + 1
+    assert float(got[1]["tri_n"].abs().sum()) > 0
+    compiled.clear()
+
+
+def _adam_steps(scene, cfg, o, d, target, steps=4):
+    params = RG.extract_params(scene, tuple(PERTURB))
+    step = RG.make_train_step(torch.optim.Adam(params.values(), lr=5e-2, capturable=True),
+                              cfg)
+    out = []
+    for _ in range(steps):
+        loss = step(params, scene, o, d, target)
+        out.append((loss, {k: v.detach().clone() for k, v in params.items()}))
+    return out
+
+
+def test_graphed_adam_step_follows_the_eager_trajectory(cuda):
+    """Four Adam steps (capturable=True) graphed take the eager steps: the
+    first call one step, each replay one more, and the loss falls."""
+    scene, cfg, o, d, target = _grad_setup(cuda)
+    with compiled.eager():
+        want = [_adam_steps(scene, cfg, o, d, target) for _ in range(2)]
+    compiled.clear()
+    captures = compiled.COUNTS["captures"]
+    got = _adam_steps(scene, cfg, o, d, target)
+    assert compiled.COUNTS["captures"] == captures + 1
+    _assert_within_eager_spread(got, want)
+    losses = [float(x) for x, _ in got]
+    assert all(b < a for a, b in zip(losses, losses[1:])), losses
+    compiled.clear()
+
+
+def test_a_grad_replay_after_other_graphs_is_equal(cuda):
+    """loss_and_grad's graph and a train step's, then two frame graphs on
+    other canvases (the cache full), the freed memory written over:
+    replays of both still equal the eager calls."""
+    scene, cfg, o, d, target = _grad_setup(cuda, 80)
+    params = RG.extract_params(scene)
+    with compiled.eager():
+        want = [RG.loss_and_grad(params, scene, o, d, target, cfg) for _ in range(3)]
+        want_steps = [_adam_steps(scene, cfg, o, d, target, 3) for _ in range(2)]
+    compiled.clear()
+    RG.loss_and_grad(params, scene, o, d, target, cfg)
+    trained = RG.extract_params(scene, tuple(PERTURB))
+    step = RG.make_train_step(torch.optim.Adam(trained.values(), lr=5e-2, capturable=True),
+                              cfg)
+    steps = [(step(trained, scene, o, d, target),
+              {k: v.detach().clone() for k, v in trained.items()})]
+    for width in (96, 112):
+        render(scene, REGISTRY["cow"](width)[1], RenderConfig())
+    assert len(compiled._CACHE) == compiled.MAX_GRAPHS
+    junk = [torch.full((1 << 20,), 2**40, dtype=torch.int64, device=cuda) for _ in range(64)]
+    _assert_within_eager_spread(RG.loss_and_grad(params, scene, o, d, target, cfg), want)
+    for _ in range(2):
+        steps.append((step(trained, scene, o, d, target),
+                      {k: v.detach().clone() for k, v in trained.items()}))
+    _assert_within_eager_spread(steps, want_steps)
+    del junk
+    compiled.clear()
+
+
+def test_gradient_eager_routes(cuda):
+    """Triangle rows among the parameters, an Adam with capturable=False
+    and eager() take the eager route, and capture nothing."""
+    scene, cfg, o, d, target = _grad_setup(cuda, 64)
+    compiled.clear()
+    compiled.ROUTES.clear()
+    captures = compiled.COUNTS["captures"]
+    RG.loss_and_grad(RG.extract_params(scene, ("mat_color", "tri_p1")), scene, o, d,
+                     target, cfg)
+    mat = RG.extract_params(scene, ("mat_color",))
+    RG.make_train_step(torch.optim.Adam(mat.values()), cfg)(mat, scene, o, d, target)
+    with compiled.eager():
+        RG.loss_and_grad(mat, scene, o, d, target, cfg)
+    assert compiled.COUNTS["captures"] == captures and not compiled._CACHE
+    assert sorted(compiled.ROUTES) == sorted([
+        "loss_and_grad: eager: geometry parameters tri_p1 (inject_params rebuilds the "
+        "boxes and occlusion tables on the host, derived_tables)",
+        "train_step: eager: Adam with capturable=False (its step count lives on the host)",
+        "loss_and_grad: " + compiled.EAGER_CONTEXT])
