@@ -183,6 +183,7 @@ from rtc_tpu_torch.tools.walk import (block_census, entered, k1_walk_line, walk_
                                      walk_line)
 from rtc_tpu_torch.utils.config import RenderConfig
 from rtc_tpu_torch.utils.constants import BIG, FAR
+from rtc_tpu_torch.utils import profiling
 from rtc_tpu_torch.utils.profiling import rays_per_pixel
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1972,7 +1973,6 @@ def profiled_step(params, scene, o, d, target, cfg) -> dict:
     kernels (torch.cuda._sleep) queued between them, from the kernels
     torch.profiler records (None where it recorded no spin kernel); and the
     CUDA-event time of each part, each ended by a synchronize."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     names = ("forward", "backward", "update")
@@ -1993,8 +1993,7 @@ def profiled_step(params, scene, o, d, target, cfg) -> dict:
         opt.step()
         marks[3].record()
         torch.cuda.synchronize()
-    ops = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
+    ops = sorted(profiling.device_ops(prof.events()), key=lambda e: e.time_range.start)
     device, k = dict.fromkeys(names, 0.0), 0
     for e in ops:
         if "spin" in e.name:
@@ -3339,7 +3338,6 @@ def traced(call, n: int):
     events, the host's wall ms, the launches of each port kernel that the
     device ran, by the kernel's name in the trace, and what mi.LAUNCHES
     counted, by the same names)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     mi.reset_launch_counts()
@@ -3350,7 +3348,7 @@ def traced(call, n: int):
             call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = profiling.device_ops(prof.events())
     ran = dict(collections.Counter(k for k in map(port_kernel, (e.name for e in ops)) if k))
     return ops, wall, ran, counted_kernels(mi.LAUNCHES)
 
@@ -3421,9 +3419,10 @@ def compiled_frame(frame: str) -> dict:
     captures = compiled.COUNTS["captures"]
     mi.reset_launch_counts()
     t0 = time.perf_counter()
-    first = render(scene, cam, cfg)
+    first, spans = recorded(lambda: render(scene, cam, cfg))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    warm_s, capture_s = (spans[k].seconds for k in ("rtc.graph.warm", "rtc.graph.capture"))
     check(dict(mi.LAUNCHES) == eager_launches,
           f"{frame}: the first graphed call launched {dict(mi.LAUNCHES)}, "
           f"the eager frame {eager_launches}")
@@ -3471,14 +3470,14 @@ def compiled_frame(frame: str) -> dict:
         graphed_ms.append(frame_ms(scene, cam, cfg, graphs=True))
     med = lambda xs: sorted(xs)[len(xs) // 2]
     rec = dict(route=route, launches={k: v for k, v in eager_launches.items() if v},
-               warm_s=graph.warm_s, capture_s=graph.capture_s, first_call_s=first_s,
+               warm_s=warm_s, capture_s=capture_s, first_call_s=first_s,
                eager_ms=eager_ms, graphed_ms=graphed_ms, eager_median_ms=med(eager_ms),
                graphed_median_ms=med(graphed_ms), eager_peak_gib=eager_peak,
                graphed_peak_gib=graphed_peak, pool_gib=pool, kernels_traced=ran)
     say("18 compiled", f"{frame} {cam.hsize}x{cam.vsize}: route {route}; graphed == eager "
         f"bit for bit, and a second camera replays with no capture, == its eager frame; "
-        f"launches a replay {rec['launches']} (== eager; traced by name {ran}); eager run {graph.warm_s:.3f} s, "
-        f"capture {graph.capture_s:.3f} s; median ms eager {rec['eager_median_ms']:.2f}, "
+        f"launches a replay {rec['launches']} (== eager; traced by name {ran}); eager run {warm_s:.3f} s, "
+        f"capture {capture_s:.3f} s; median ms eager {rec['eager_median_ms']:.2f}, "
         f"graphed {rec['graphed_median_ms']:.2f} (in turns, {COMPILED_TURNS} each: "
         f"{', '.join(f'{a:.2f}/{b:.2f}' for a, b in zip(eager_ms, graphed_ms))}); peak "
         f"GiB eager {eager_peak:.2f}, graphed {graphed_peak:.2f}, pool {pool:.2f}")
@@ -3549,8 +3548,8 @@ def phase_compiled() -> dict:
         torch.cuda.synchronize()
         with compiled.eager() if kind == "eager" else contextlib.nullcontext():
             t0 = time.perf_counter()
-            tiles = [c for _, _, c in render_tiles(scene, cam, cfg)]
-            runs[kind] = (time.perf_counter() - t0, tiles, dict(mi.LAUNCHES))
+            tiles, spans = recorded(lambda: [c for _, _, c in render_tiles(scene, cam, cfg)])
+            runs[kind] = (time.perf_counter() - t0, tiles, dict(mi.LAUNCHES), spans)
     n_tiles = len(runs["eager"][1])
     for kind in ("first", "graphed"):
         check(all(np.array_equal(a, b) for a, b in zip(runs[kind][1], runs["eager"][1])),
@@ -3560,14 +3559,15 @@ def phase_compiled() -> dict:
     graph = compiled.graph_for(scene, ("tile", PROGRESSIVE_TILE, cfg))
     check(graph is not None and graph.replays == 2 * n_tiles - 1,
           "progressive: the tiles did not replay one graph")
+    capture_s = runs["first"][3]["rtc.graph.capture"].seconds
     rec["progressive"] = dict(tile=PROGRESSIVE_TILE, tiles=n_tiles,
                               eager_s=runs["eager"][0], first_s=runs["first"][0],
-                              graphed_s=runs["graphed"][0], capture_s=graph.capture_s,
+                              graphed_s=runs["graphed"][0], capture_s=capture_s,
                               launches={k: v for k, v in runs["eager"][2].items() if v})
     say("18 compiled", f"progressive cow {WIDTH}x{HEIGHT} at tile {PROGRESSIVE_TILE}: "
         f"{n_tiles} tiles bit-equal eager and graphed; eager {runs['eager'][0]:.3f} s, "
         f"graphed {runs['graphed'][0]:.3f} s (first, with the capture "
-        f"{graph.capture_s:.3f} s: {runs['first'][0]:.3f} s); launches "
+        f"{capture_s:.3f} s: {runs['first'][0]:.3f} s); launches "
         f"{rec['progressive']['launches']} on either route")
     compiled.clear()
     return rec
@@ -3654,17 +3654,30 @@ def eager_runs(call, n: int = GRAD_EAGER_RUNS) -> list:
         return [call() for _ in range(n)]
 
 
+def recorded(call):
+    """call() with the program's spans recorded: (its result, the spans'
+    totals by name, profiling.totals)."""
+    was = profiling.set_recording(True)
+    try:
+        out = call()
+    finally:
+        profiling.set_recording(was)
+    return out, profiling.totals(profiling.take_spans().spans)
+
+
 def first_graphed_call(call, what: str) -> dict:
     """The first graphed call from an empty cache: its result, wall s, the
-    graph it made (one capture) and that graph's pool in GiB (the memory
-    the card holds reserved after it, less the result)."""
+    host s of its eager run and of its capture (the spans rtc.graph.warm
+    and rtc.graph.capture), the graph it made (one capture) and that
+    graph's pool in GiB (the memory the card holds reserved after it, less
+    the result)."""
     compiled.clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved()
     captures = compiled.COUNTS["captures"]
     t0 = time.perf_counter()
-    out = call()
+    out, spans = recorded(call)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     check(compiled.COUNTS["captures"] == captures + 1 and len(compiled._CACHE) == 1,
@@ -3673,7 +3686,8 @@ def first_graphed_call(call, what: str) -> dict:
     pool = (torch.cuda.memory_reserved() - reserved
             - sum(t.nbytes for t in compiled.tensors(out))) / 2**30
     graph = next(iter(compiled._CACHE.values()))
-    return dict(out=out, first_s=first_s, graph=graph, pool_gib=pool)
+    return dict(out=out, first_s=first_s, warm_s=spans["rtc.graph.warm"].seconds,
+                capture_s=spans["rtc.graph.capture"].seconds, graph=graph, pool_gib=pool)
 
 
 def grad_tiles_run(params, scene, tiles, targets, cfg) -> list:
@@ -3740,11 +3754,11 @@ def graphed_gradients(name, scene, tiles, targets, cfg, params) -> dict:
                                                    eager_whole)
     check(first_whole["graph"].replays == 1, f"{name} whole frame: no replay")
     return dict(launches_a_tile=launches, gates=gates, finite_differences=fd,
-                tiles_first_call_s=first["first_s"], tiles_warm_s=graph.warm_s,
-                tiles_capture_s=graph.capture_s, tiles_pool_gib=first["pool_gib"],
+                tiles_first_call_s=first["first_s"], tiles_warm_s=first["warm_s"],
+                tiles_capture_s=first["capture_s"], tiles_pool_gib=first["pool_gib"],
                 whole_first_call_s=first_whole["first_s"],
-                whole_warm_s=first_whole["graph"].warm_s,
-                whole_capture_s=first_whole["graph"].capture_s,
+                whole_warm_s=first_whole["warm_s"],
+                whole_capture_s=first_whole["capture_s"],
                 whole_pool_gib=first_whole["pool_gib"])
 
 
@@ -3928,12 +3942,12 @@ def phase_compiled_grads(eps) -> dict:
               f"graphed Adam: the loss did not fall at each step: {losses}")
         rec["adam"] = dict(gate=adam, losses=losses,
                            eager_losses=[float(x) for x, _ in eager_traj[0]],
-                           first_call_s=first["first_s"], warm_s=step_graph.warm_s,
-                           capture_s=step_graph.capture_s, pool_gib=first["pool_gib"])
+                           first_call_s=first["first_s"], warm_s=first["warm_s"],
+                           capture_s=first["capture_s"], pool_gib=first["pool_gib"])
         say("19 compiled grads", f"Adam (capturable) {GRAD_ADAM_STEPS} steps of the whole "
             f"frame graphed against eager: max|diff| {adam['max_abs_err']:.3g} (eager "
             f"spread {adam['eager_spread']:.3g}); losses {losses}; first call "
-            f"{first['first_s']:.3f} s, capture {step_graph.capture_s:.3f} s, pool "
+            f"{first['first_s']:.3f} s, capture {first['capture_s']:.3f} s, pool "
             f"{first['pool_gib']:.2f} GiB")
 
         # (e) the other scenes' Functions

@@ -49,7 +49,6 @@ import sys
 import time
 
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from rtc_tpu_torch.diff import render_grad as RG
@@ -59,6 +58,7 @@ from rtc_tpu_torch.render.camera import camera_rays_for_pixels
 from rtc_tpu_torch.render.renderer import blocked_pixels, render
 from rtc_tpu_torch.scene.compile import compile_scene
 from rtc_tpu_torch.utils.config import RenderConfig
+from rtc_tpu_torch.utils import profiling
 from rtc_tpu_torch.utils.profiling import rays_per_pixel
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -78,11 +78,14 @@ def frame_seconds(scene, cam, cfg) -> float:
 
 def profiled_frame(scene, cam, cfg) -> dict:
     """One frame under torch.profiler: wall, device busy and idle share,
-    and device time per kernel name."""
+    device time per kernel name, the program's spans (host ms by name)
+    and the device's idle gaps inside render() by the innermost span."""
     torch.cuda.synchronize()
+    profiling.take_spans()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_ms = frame_seconds(scene, cam, cfg) * 1e3
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    ops = profiling.device_ops(events)
     if not ops:
         raise RuntimeError("the profiler recorded no device operation")
     by_name: dict[str, list] = {}
@@ -100,6 +103,9 @@ def profiled_frame(scene, cam, cfg) -> dict:
         "our_kernels_ms": {k: sum(ms for name, (_, ms) in by_name.items()
                                   if k in name) for k in OUR_KERNELS
                            if any(k in name for name in by_name)},
+        "spans_ms": {k: t.seconds * 1e3 for k, t in
+                     profiling.totals(profiling.take_spans().spans).items()},
+        "idle_gaps_ms": [[name, s * 1e3] for s, name, _ in profiling.idle_gaps(events)[:10]],
         "by_kernel": [{"name": name, "launches": n, "ms": ms}
                       for name, (n, ms) in top],
     }
@@ -128,8 +134,7 @@ def device_parts(prof, names) -> dict:
     """Device ms of the kernels between the spin kernels (torch.cuda._sleep)
     that the caller queued between the parts named in names, in device
     order; None when the profiler recorded no spin kernel."""
-    ops = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
+    ops = sorted(profiling.device_ops(prof.events()), key=lambda e: e.time_range.start)
     parts, k = dict.fromkeys(names, 0.0), 0
     for e in ops:
         if "spin" in e.name:
@@ -189,8 +194,7 @@ def grad_frames(tile: int, card: str) -> dict:
         RG.loss_and_grad(params, scene, a, b, t, cfg)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    busy = sum(e.time_range.elapsed_us() for e in profiling.device_ops(prof.events())) / 1e3
     record["tile_loss_and_grad"] = {"wall_ms": wall, "device_busy_ms": busy,
                                     **ops_table(prof)}
     opt = torch.optim.Adam(params.values(), lr=5e-2)

@@ -27,6 +27,7 @@ from ..render import compiled, integrator
 from ..render.camera import camera_rays
 from ..scene.compile import GEOMETRY_FIELDS, Scene, derived_tables
 from ..utils.config import DEFAULT_CONFIG, RenderConfig
+from ..utils.profiling import span
 
 # Scene fields exposed as trainable parameters: materials, light, patterns,
 # and object transforms (the inverse slabs; inject_params derives
@@ -88,18 +89,24 @@ def loss_and_grad(params, scene: Scene, o, d, target, cfg: RenderConfig):
     (scene, the parameters' names, shapes and dtypes, the rays' and
     target's, cfg) runs the forward and the backward; the parameters'
     values, o, d and target are its inputs, and the results are the
-    caller's own."""
-    if not compiled.step_graphed("loss_and_grad", scene, cfg, params):
-        return _loss_and_grad(params, scene, o, d, target, cfg)
-    names = tuple(params)
-    key = ("grad", tuple(zip(names, _shapes(*params.values()))), _shapes(o, d, target), cfg)
+    caller's own. Span rtc.loss_and_grad, around rtc.route, compiled.run's
+    and rtc.graph.output (the copies)."""
+    with span("rtc.loss_and_grad"):
+        with span("rtc.route"):
+            graphed = compiled.step_graphed("loss_and_grad", scene, cfg, params)
+        if not graphed:
+            return _loss_and_grad(params, scene, o, d, target, cfg)
+        names = tuple(params)
+        key = ("grad", tuple(zip(names, _shapes(*params.values()))), _shapes(o, d, target),
+               cfg)
 
-    def fn(*inputs):
-        return _loss_and_grad(dict(zip(names, inputs)), scene, *inputs[len(names):], cfg)
+        def fn(*inputs):
+            return _loss_and_grad(dict(zip(names, inputs)), scene, *inputs[len(names):], cfg)
 
-    loss, grads = compiled.run(scene, key, fn, (*params.values(), o, d, target),
-                               "loss_and_grad")
-    return loss.clone(), {k: g.clone() for k, g in grads.items()}
+        loss, grads = compiled.run(scene, key, fn, (*params.values(), o, d, target),
+                                   "loss_and_grad")
+        with span("rtc.graph.output"):
+            return loss.clone(), {k: g.clone() for k, g in grads.items()}
 
 
 def _optimizer_tensors(optimizer: torch.optim.Optimizer) -> tuple:
@@ -123,7 +130,9 @@ def make_train_step(optimizer: torch.optim.Optimizer,
     backward and optimizer.step(), reading and writing the parameters and
     the optimizer's state in place. The learning rate and every other
     setting of the optimizer is fixed at the capture, as rtc_tpu's optax
-    transform is when jitted; new parameter tensors capture again."""
+    transform is when jitted; new parameter tensors capture again. Span
+    rtc.train_step, around rtc.route, compiled.run's and rtc.graph.output
+    (the loss's copy)."""
 
     def step(params, scene, o, d, target):
         optimizer.zero_grad(set_to_none=True)
@@ -133,14 +142,18 @@ def make_train_step(optimizer: torch.optim.Optimizer,
         return loss.detach()
 
     def train_step(params, scene, o, d, target):
-        if not compiled.step_graphed("train_step", scene, cfg, params, optimizer):
-            return step(params, scene, o, d, target)
-        key = ("step", id(optimizer), tuple(zip(params, _shapes(*params.values()))),
-               _shapes(o, d, target), cfg)
-        loss = compiled.run(scene, key, lambda *x: step(params, scene, *x), (o, d, target),
-                            "the train step",
-                            held=lambda: (*params.values(), *_optimizer_tensors(optimizer)))
-        return loss.clone()
+        with span("rtc.train_step"):
+            with span("rtc.route"):
+                graphed = compiled.step_graphed("train_step", scene, cfg, params, optimizer)
+            if not graphed:
+                return step(params, scene, o, d, target)
+            key = ("step", id(optimizer), tuple(zip(params, _shapes(*params.values()))),
+                   _shapes(o, d, target), cfg)
+            loss = compiled.run(scene, key, lambda *x: step(params, scene, *x), (o, d, target),
+                                "the train step",
+                                held=lambda: (*params.values(), *_optimizer_tensors(optimizer)))
+            with span("rtc.graph.output"):
+                return loss.clone()
 
     return train_step
 

@@ -62,13 +62,13 @@ import contextlib
 import contextvars
 import dataclasses
 import functools
-import time
 import weakref
 
 import torch
 
 from ..ops.kernels import mesh_intersect as mi
 from ..scene.compile import GEOMETRY_FIELDS
+from ..utils.profiling import span
 from . import integrator
 
 GRAPHED = "graphed"
@@ -201,8 +201,8 @@ class Graph:
     output is the static result (a tensor, or a tuple or dict of them),
     which the next replay overwrites; held, the tensors a replay reads and
     writes in place beside the scene's (hold). launches: the kernel
-    launches a replay makes; warm_s and capture_s: the host seconds of the
-    first call's eager run and of its capture."""
+    launches a replay makes. The first call's eager run and its capture
+    are the spans rtc.graph.warm and rtc.graph.capture."""
 
     def __init__(self, scene, key: tuple, fn, inputs: tuple, what: str,
                  keep: tuple = ()):
@@ -213,7 +213,6 @@ class Graph:
         self.held, self.held_layout = (), ()
         self.graph = self.output = None
         self.launches: dict = {}
-        self.warm_s = self.capture_s = 0.0
         self.replays = 0
 
     def valid_for(self, scene, held=()) -> bool:
@@ -234,39 +233,37 @@ class Graph:
         device = self.inputs[0].device
         current = torch.cuda.current_stream(device)
         stream = _side_stream(device.index or 0)
-        t0 = time.perf_counter()
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            out = self.fn(*self.inputs)
-        current.wait_stream(stream)
-        for t in tensors(out):
-            t.record_stream(current)
-        torch.cuda.synchronize(device)
-        self.warm_s = time.perf_counter() - t0
-
-        torch.cuda.empty_cache()
-        before = dict(mi.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        try:
+        with span("rtc.graph.warm"):
+            stream.wait_stream(current)
             with torch.cuda.stream(stream):
-                graph.capture_begin()
-                try:
-                    self.output = self.fn(*self.inputs)
-                finally:
-                    # ends the capture whatever happened; if fn failed, an
-                    # error raised here chains to fn's
-                    graph.capture_end()
-        except Exception as err:
-            first = _first_error(err)
-            raise CaptureError(f"capturing {self.what} failed: {type(first).__name__}: "
-                               f"{first}") from err
-        finally:
-            self.launches = {k: n - before[k] for k, n in mi.LAUNCHES.items()
-                             if n != before[k]}
-            mi.LAUNCHES.update(before)  # nothing ran: the replays count
-        torch.cuda.synchronize(device)
-        self.capture_s = time.perf_counter() - t0
+                out = self.fn(*self.inputs)
+            current.wait_stream(stream)
+            for t in tensors(out):
+                t.record_stream(current)
+            torch.cuda.synchronize(device)
+
+        with span("rtc.graph.capture"):
+            torch.cuda.empty_cache()
+            before = dict(mi.LAUNCHES)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.stream(stream):
+                    graph.capture_begin()
+                    try:
+                        self.output = self.fn(*self.inputs)
+                    finally:
+                        # ends the capture whatever happened; if fn failed, an
+                        # error raised here chains to fn's
+                        graph.capture_end()
+            except Exception as err:
+                first = _first_error(err)
+                raise CaptureError(f"capturing {self.what} failed: {type(first).__name__}: "
+                                   f"{first}") from err
+            finally:
+                self.launches = {k: n - before[k] for k, n in mi.LAUNCHES.items()
+                                 if n != before[k]}
+                mi.LAUNCHES.update(before)  # nothing ran: the replays count
+            torch.cuda.synchronize(device)
         self.graph, self.fn = graph, None  # fn holds the scene
         COUNTS["captures"] += 1
         return out
@@ -291,16 +288,18 @@ def run(scene, key: tuple, fn, values: tuple, what: str, keep: tuple = (),
     and optimizer state, which its first run may create): the graph holds
     them, and a call whose held() differ captures again. Returns the
     static output on a replay (overwritten by the next one) and the eager
-    run's result on the first call."""
+    run's result on the first call. Spans: rtc.graph.lookup,
+    rtc.graph.fill, then rtc.graph.replay, or a capture's rtc.graph.warm
+    and rtc.graph.capture."""
     full = (id(scene),) + key
     device = scene.tri_p1.device
-    if device.type == "cuda":
-        values = tuple(v.pin_memory() if v.device.type == "cpu" else v for v in values)
-    g = graph_for(scene, key, held())
+    with span("rtc.graph.lookup"):
+        g = graph_for(scene, key, held())
     if g is None:
         _CACHE.pop(full, None)
-        inputs = tuple(torch.empty(v.shape, dtype=v.dtype, device=device) for v in values)
-        _fill(inputs, values)
+        with span("rtc.graph.fill"):
+            inputs = tuple(torch.empty(v.shape, dtype=v.dtype, device=device) for v in values)
+            _fill(inputs, values)
         g = Graph(scene, full, fn, inputs, what, keep)
         out = g.capture()
         g.hold(held())
@@ -309,11 +308,15 @@ def run(scene, key: tuple, fn, values: tuple, what: str, keep: tuple = (),
         _CACHE[full] = g
         return out
     _CACHE.move_to_end(full)
-    _fill(g.inputs, values)
-    return g.replay()
+    with span("rtc.graph.fill"):
+        _fill(g.inputs, values)
+    with span("rtc.graph.replay"):
+        return g.replay()
 
 
 @torch.no_grad()  # a value that requires grad (a parameter) leaves the input a leaf
 def _fill(inputs, values) -> None:
     for x, v in zip(inputs, values):
+        if x.is_cuda and v.device.type == "cpu":
+            v = v.pin_memory()
         x.copy_(v, non_blocking=True)

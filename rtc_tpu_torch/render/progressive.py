@@ -29,6 +29,7 @@ import torch
 from ..scene.compile import Scene
 from ..utils.config import RenderConfig
 from ..utils.constants import FAR, PARK
+from ..utils.profiling import span
 from . import compiled, integrator
 from .camera import Camera, camera_rays
 
@@ -41,25 +42,34 @@ def render_tiles(scene: Scene, camera: Camera, cfg: RenderConfig = CHECKPOINT_CO
     host copy a tile. Deterministic: tile i is identical across runs. The
     rays are made on the scene's device; the last tile's pad rays are
     parked as render() parks them. On the graphed route (compiled.route)
-    every tile replays the tile's graph."""
-    o, d = camera_rays(camera.transform_inverse, camera.hsize, camera.vsize,
-                       camera.half_width, camera.half_height, camera.pixel_size,
-                       cfg.torch_dtype(), device=scene.tri_p1.device)
-    n_rays = o.shape[0]
-    tile = min(cfg.ray_tile, n_rays)
-    n_tiles = -(-n_rays // tile)
-    pad = n_tiles * tile - n_rays
-    o = torch.cat([o, o.new_full((pad, 3), FAR)])
-    d = torch.cat([d, d.new_full((pad, 3), PARK)])
-    graphed = compiled.graphed(scene, cfg, o.device)
+    every tile replays the tile's graph. Span rtc.render_tiles: a root for
+    the rays' set-up with rtc.route, and one for each tile around
+    compiled.run's spans and rtc.graph.output (the colors' copy to the
+    host); none is open across a yield."""
+    with span("rtc.render_tiles"):
+        o, d = camera_rays(camera.transform_inverse, camera.hsize, camera.vsize,
+                           camera.half_width, camera.half_height, camera.pixel_size,
+                           cfg.torch_dtype(), device=scene.tri_p1.device)
+        n_rays = o.shape[0]
+        tile = min(cfg.ray_tile, n_rays)
+        n_tiles = -(-n_rays // tile)
+        pad = n_tiles * tile - n_rays
+        o = torch.cat([o, o.new_full((pad, 3), FAR)])
+        d = torch.cat([d, d.new_full((pad, 3), PARK)])
+        with span("rtc.route"):
+            graphed = compiled.graphed(scene, cfg, o.device)
     shade = lambda o, d: integrator.color_at(scene, o, d, cfg)
     for i in range(start_tile, n_tiles):
-        rays = (o[i * tile:(i + 1) * tile], d[i * tile:(i + 1) * tile])
-        with torch.no_grad():
-            colors = (compiled.run(scene, ("tile", tile, cfg), shade, rays,
+        with span("rtc.render_tiles"), torch.no_grad():
+            rays = (o[i * tile:(i + 1) * tile], d[i * tile:(i + 1) * tile])
+            if graphed:
+                out = compiled.run(scene, ("tile", tile, cfg), shade, rays,
                                    f"the {tile}-ray tile")
-                      if graphed else shade(*rays))
-        yield i, n_tiles, colors.cpu().numpy()
+                with span("rtc.graph.output"):
+                    colors = out.cpu().numpy()
+            else:
+                colors = shade(*rays).cpu().numpy()
+        yield i, n_tiles, colors
 
 
 def render_with_checkpoints(scene: Scene, camera: Camera,

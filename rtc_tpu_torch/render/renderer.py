@@ -19,6 +19,7 @@ import torch
 from ..scene.compile import Scene
 from ..utils.config import DEFAULT_CONFIG, RenderConfig
 from ..utils.constants import FAR, PARK
+from ..utils.profiling import span
 from . import compiled, integrator
 from .camera import Camera, camera_values, rays_from_values
 from .order import morton_perm
@@ -103,18 +104,25 @@ def render(scene: Scene, camera: Camera, cfg: RenderConfig = DEFAULT_CONFIG):
     """Render to a (V, H, 3) image tensor on the scene's device, the
     pixels traced in pixel_order's order. On the graphed route
     (compiled.route) the frame replays its graph and the image is a copy
-    of the graph's output; compiled.eager() runs it eagerly.
+    of the graph's output; compiled.eager() runs it eagerly. Span
+    rtc.render, around rtc.camera, rtc.route, compiled.run's and
+    rtc.graph.output (the copy).
     """
-    dtype = cfg.torch_dtype()
-    device = scene.tri_p1.device
-    vsize, hsize = camera.vsize, camera.hsize
-    values = torch.from_numpy(camera_values(camera)).to(dtype)
-    order = pixel_order(vsize, hsize, cfg.ray_order, device)
-    if compiled.graphed(scene, cfg, device):
-        # the graph reads order's tensors, so it keeps them: pixel_order's
-        # cache may drop them while the graph lives
-        frame = functools.partial(_frame, scene, vsize, hsize, cfg, order)
-        return compiled.run(scene, ("frame", (vsize, hsize), cfg), frame,
-                            (values,), f"the {hsize}x{vsize} frame",
-                            keep=order).clone()
-    return _frame(scene, vsize, hsize, cfg, order, values.to(device))
+    with span("rtc.render"):
+        dtype = cfg.torch_dtype()
+        device = scene.tri_p1.device
+        vsize, hsize = camera.vsize, camera.hsize
+        with span("rtc.camera"):
+            values = torch.from_numpy(camera_values(camera)).to(dtype)
+        order = pixel_order(vsize, hsize, cfg.ray_order, device)
+        with span("rtc.route"):
+            graphed = compiled.graphed(scene, cfg, device)
+        if graphed:
+            # the graph reads order's tensors, so it keeps them: pixel_order's
+            # cache may drop them while the graph lives
+            frame = functools.partial(_frame, scene, vsize, hsize, cfg, order)
+            out = compiled.run(scene, ("frame", (vsize, hsize), cfg), frame, (values,),
+                               f"the {hsize}x{vsize} frame", keep=order)
+            with span("rtc.graph.output"):
+                return out.clone()
+        return _frame(scene, vsize, hsize, cfg, order, values.to(device))

@@ -29,6 +29,7 @@ from rtc_tpu_torch.render.renderer import render
 from rtc_tpu_torch.scene.compile import compile_scene
 from rtc_tpu_torch.utils.config import RenderConfig
 from rtc_tpu_torch.utils.constants import FAR, PARK
+from rtc_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -319,6 +320,52 @@ def test_tile_graph_replays_every_tile(cpu_graphs):
     assert len(want) == 5 and all(np.array_equal(a, b) for a, b in zip(want[1:], got))
     assert cpu_graphs["captures"] == captures + 1
     assert compiled.graph_for(scene, ("tile", 64, cfg)).replays == 3
+
+
+REPLAY_SPANS = ("rtc.graph.lookup", "rtc.graph.fill", "rtc.graph.replay", "rtc.graph.output")
+
+
+def recorded(call) -> list:
+    """The program's spans of call(), recorded: [(name, parent index)] in
+    order of entry."""
+    profiling.take_spans()
+    profiling.set_recording(True)
+    try:
+        call()
+    finally:
+        profiling.set_recording(False)
+    return [(s.name, s.parent) for s in profiling.take_spans().spans]
+
+
+def test_render_records_its_spans(cpu_graphs):
+    """A graphed render() is one rtc.render root over the camera's values,
+    the route, the graph's lookup, the inputs' fill, the replay and the
+    output's copy, in that order; the first call captures where a later
+    one replays, and an eager frame has no graph's spans."""
+    world, cam = REGISTRY["cow"](16)
+    scene = _compile(world, dtype=torch.float32)
+    cfg = RenderConfig(ray_tile=64)
+    head = [("rtc.render", -1), ("rtc.camera", 0), ("rtc.route", 0)]
+    assert recorded(lambda: render(scene, cam, cfg)) == head + [
+        ("rtc.graph.lookup", 0), ("rtc.graph.fill", 0), ("rtc.graph.output", 0)]
+    assert recorded(lambda: render(scene, cam, cfg)) == head + [(n, 0) for n in REPLAY_SPANS]
+    with compiled.eager():
+        assert recorded(lambda: render(scene, cam, cfg)) == head
+
+
+def test_render_tiles_records_a_root_a_tile(cpu_graphs):
+    """render_tiles: a root for the rays' set-up with the route, then one
+    a tile over its graph's spans; none open across a yield."""
+    world, cam = REGISTRY["glass_teapot"](16)
+    scene = _compile(world, dtype=torch.float32)
+    cfg = RenderConfig(ray_tile=64)
+    list(progressive.render_tiles(scene, cam, cfg))
+    got = recorded(lambda: list(progressive.render_tiles(scene, cam, cfg)))
+    want = [("rtc.render_tiles", -1), ("rtc.route", 0)]
+    for _ in range(2):
+        root = len(want)
+        want += [("rtc.render_tiles", -1)] + [(n, root) for n in REPLAY_SPANS]
+    assert got == want
 
 
 # --- ray generation, and the CPU route's bytes --------------------------------

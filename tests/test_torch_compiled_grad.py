@@ -31,7 +31,7 @@ from rtc_tpu_torch.render.camera import camera_rays
 from rtc_tpu_torch.scene.compile import TENSOR_FIELDS, compile_scene, scene_from_numpy
 from rtc_tpu_torch.utils.config import RenderConfig
 from rtc_tpu_torch.utils.constants import EPSILON
-from test_torch_compiled import cpu_graphs  # noqa: F401 (a fixture)
+from test_torch_compiled import REPLAY_SPANS, cpu_graphs, recorded  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 
@@ -344,6 +344,21 @@ def test_graphed_train_step_follows_the_eager_trajectory(cow_frames, cpu_graphs,
     key = next(k for k in compiled._CACHE if k[1] == "step")
     graph = compiled._CACHE[key]
     assert graph.replays == 2 and len(graph.held) > 2  # the parameters and momenta
+
+
+@pytest.mark.parametrize("call", ["loss_and_grad", "train_step"])
+def test_gradient_calls_record_their_spans(cow_frames, cpu_graphs, call):
+    """A replayed loss_and_grad or train step is one root of its name over
+    the route, the graph's lookup, the inputs' fill, the replay and the
+    output's copy, in that order."""
+    scene, cfg, waves = cow_frames[torch.float64]
+    params = RG.extract_params(scene, tuple(PERTURB))
+    step = RG.make_train_step(torch.optim.SGD(params.values(), lr=0.5, momentum=0.9), cfg)
+    fn = {"loss_and_grad": lambda: RG.loss_and_grad(params, scene, *waves[0], cfg),
+          "train_step": lambda: step(params, scene, *waves[0])}[call]
+    fn()
+    assert recorded(fn) == [(f"rtc.{call}", -1), ("rtc.route", 0)] + [
+        (n, 0) for n in REPLAY_SPANS]
 
 
 def test_new_parameter_tensors_capture_again(cow_frames, cpu_graphs):

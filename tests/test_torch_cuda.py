@@ -15,7 +15,8 @@ on a card matrix, and the testing helpers' book numbers in float64; and
 the compiled frame (render/compiled.py): render() and render_tiles
 replayed from CUDA graphs, bit-equal to the eager frame, one capture for
 two cameras, a replay's launches equal to the eager frame's, a streamed
-table on the eager route, and a capture that meets a host sync raising;
+table on the eager route, a capture that meets a host sync raising, and
+the program's spans of a graphed frame under torch.profiler;
 and the compiled gradient step: loss_and_grad and an Adam step replayed
 from CUDA graphs against the eager calls, after other graphs too, and
 the gradient routes that stay eager.
@@ -46,6 +47,7 @@ from rtc_tpu_torch.render.renderer import render
 from rtc_tpu_torch.scene.compile import compile_scene, occlusion_tables
 from rtc_tpu_torch.scene.shapes import mesh, triangle
 from rtc_tpu_torch.scene.world import PointLight, World
+from rtc_tpu_torch.utils import profiling
 from rtc_tpu_torch.utils.config import RenderConfig
 from rtc_tpu_torch.ops.vec import normalize, normalize3
 from rtc_tpu_torch.utils.constants import BIG, EPSILON
@@ -1777,6 +1779,40 @@ def test_a_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):
         want = render(scene, cam, cfg)
     assert torch.equal(render(scene, cam, cfg), want)
     assert torch.equal(render(scene, cam, cfg), want)
+    compiled.clear()
+
+
+def test_graphed_frame_spans_under_the_profiler(cuda):
+    """A graphed cow frame's first call and a replay under torch.profiler
+    (recording on while it runs): the capture's rtc.graph.warm and
+    rtc.graph.capture and the replay's rtc.graph.replay are in the
+    in-memory record, under rtc.render, and among the profiler's host
+    events; the spans' device side is a user annotation, which
+    profiling.device_ops leaves out."""
+    from torch.autograd import DeviceType
+
+    world, cam = REGISTRY["cow"](128)
+    scene = compile_scene(world, device=cuda)
+    cfg = RenderConfig()
+    compiled.clear()
+    profiling.take_spans()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        render(scene, cam, cfg)
+        render(scene, cam, cfg)
+        torch.cuda.synchronize()
+    spans = profiling.take_spans().spans
+    names = ("rtc.graph.warm", "rtc.graph.capture", "rtc.graph.replay")
+    for name in names:
+        (s,) = [s for s in spans if s.name == name]
+        assert spans[s.parent].name == "rtc.render" and s.end_ns > s.start_ns, name
+    events = prof.events()
+    host = {e.name for e in events if e.device_type == DeviceType.CPU}
+    assert set(names) <= host
+    assert all(e.is_user_annotation for e in events
+               if e.device_type == DeviceType.CUDA and e.name.startswith("rtc."))
+    ops = profiling.device_ops(events)
+    assert ops and not any(e.name.startswith("rtc.") for e in ops)
     compiled.clear()
 
 
