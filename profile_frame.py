@@ -23,10 +23,11 @@ CUDA names, e.g. closest_hit_tlas_kernel and any_hit_tlas_kernel for the
 herds' K5 and K6). It prints one JSON line per frame kind and writes the
 full record to build/profile/frame_<scene>[_<impl>].json.
 
-    python3 profile_frame.py --grad
+    python3 profile_frame.py --grad [--scene cow]
 
-profiles the gradient frame instead: cow at 1920x960, depth 5, f32,
-fused K3, against chip_smoke.py's target (phase 13), in tiles of --tile
+profiles the scene's gradient frame instead: at 1920x960, depth 5, f32,
+the kernels (cow's fused K3), against a target rendered with
+chip_smoke.py's perturbed material and light (phase 13), in tiles of --tile
 rays. For each parameter set (GRAD_SETS) it times diff.render_grad's
 loss_and_grad over the frame, one tile at a time, and one Adam step of
 make_train_step over the whole frame in one graph (host clock around the
@@ -34,13 +35,21 @@ call and torch.cuda.synchronize(), after a warm-up); then profiles one
 tile's loss_and_grad and one whole-frame step of the largest set under
 torch.profiler: device time by kernel, the operators' self CPU and device
 time, and the step's device time split into forward, backward and
-update at spin kernels queued between them. Record:
-build/profile/grad_cow.json.
+update at spin kernels queued between them; and the cuBLAS launches of a
+replayed graphed Adam step (capturable) of the color_light set. Record:
+build/profile/grad_<scene>.json.
+
+Both modes list the cuBLAS kernels (gemv or gemm in their names) of one
+eager frame or step by the operation that launched them and its input
+shapes, a backward kernel also by the forward operation whose autograd
+node ran it ("cublas_sites"); "cublas_launches" counts them by name in a
+graphed replay.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import statistics
@@ -53,7 +62,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from rtc_tpu_torch.diff import render_grad as RG
 from rtc_tpu_torch.models.scenes import REGISTRY, TEST_WORLDS
-from rtc_tpu_torch.render import integrator
+from rtc_tpu_torch.render import compiled, integrator
 from rtc_tpu_torch.render.camera import camera_rays_for_pixels
 from rtc_tpu_torch.render.renderer import blocked_pixels, render
 from rtc_tpu_torch.scene.compile import compile_scene
@@ -67,6 +76,7 @@ OUR_KERNELS = ("closest_hit_kernel", "any_hit_kernel", "closest_shadow_kernel",
                "crossing_count_kernel", "closest_hit_tlas_kernel",
                "any_hit_tlas_kernel", "closest_hit_elementwise_kernel", "any_hit_elementwise_kernel")
 SCENES = dict(REGISTRY, **TEST_WORLDS)
+ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
 
 def frame_seconds(scene, cam, cfg) -> float:
@@ -76,13 +86,72 @@ def frame_seconds(scene, cam, cfg) -> float:
     return time.perf_counter() - t0
 
 
+def is_cublas(name: str) -> bool:
+    return "gemv" in name or "gemm" in name
+
+
+def cublas_launches(fn) -> dict:
+    """{kernel name: launches} of the cuBLAS kernels fn() runs, under
+    torch.profiler."""
+    torch.cuda.synchronize()
+    with profile(activities=ACTIVITIES) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return dict(collections.Counter(e.name for e in profiling.device_ops(prof.events())
+                                    if is_cublas(e.name)))
+
+
+def _autograd_node(e):
+    """The backward function a profiler event ran inside, or None."""
+    while e is not None:
+        if e.name.startswith("autograd::engine::evaluate_function"):
+            return e
+        e = e.cpu_parent
+    return None
+
+
+def cublas_sites(fn) -> list:
+    """The cuBLAS kernels of one eager fn() under torch.profiler, by the
+    operation that launched them and its input shapes; a backward kernel
+    also by its autograd node and the forward operation that made the
+    node (the same sequence number). Shapes name the call site: the
+    card's profiler records no Python stack. Most launches first."""
+    torch.cuda.synchronize()
+    with compiled.eager(), profile(activities=ACTIVITIES, record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    forward = collections.defaultdict(list)  # operations that share a number
+    for e in events:
+        if e.sequence_nr >= 0 and e.name.startswith("aten::") and _autograd_node(e) is None:
+            forward[e.sequence_nr].append(e)
+    counts = collections.Counter()
+    for e in events:
+        for k in e.kernels:
+            if is_cublas(k.name):
+                node, made = _autograd_node(e), ""
+                if node is not None:
+                    fn_name = node.name.split(": ")[-1]  # BmmBackward0 of aten::bmm
+                    op = "aten::" + fn_name[:fn_name.find("Backward")].lower()
+                    f = [x for x in forward[node.sequence_nr] if x.name == op]
+                    made = (f"{fn_name} of {op} {f[0].input_shapes}" if f else fn_name)
+                counts[(e.name, str(e.input_shapes), made, k.name)] += 1
+    return [{"op": op, "shapes": shapes, "backward": made, "kernel": kernel, "launches": n}
+            for (op, shapes, made, kernel), n in sorted(counts.items(), key=lambda kv: -kv[1])]
+
+
+def _sites_line(sites: list) -> list:
+    return [f"{s['launches']}x {s['op']} {s['shapes']} {s['backward']} {s['kernel'][:40]}"
+            for s in sites]
+
+
 def profiled_frame(scene, cam, cfg) -> dict:
     """One frame under torch.profiler: wall, device busy and idle share,
     device time per kernel name, the program's spans (host ms by name)
     and the device's idle gaps inside render() by the innermost span."""
     torch.cuda.synchronize()
     profiling.take_spans()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=ACTIVITIES) as prof:
         wall_ms = frame_seconds(scene, cam, cfg) * 1e3
     events = prof.events()
     ops = profiling.device_ops(events)
@@ -106,6 +175,8 @@ def profiled_frame(scene, cam, cfg) -> dict:
         "spans_ms": {k: t.seconds * 1e3 for k, t in
                      profiling.totals(profiling.take_spans().spans).items()},
         "idle_gaps_ms": [[name, s * 1e3] for s, name, _ in profiling.idle_gaps(events)[:10]],
+        "cublas_launches": {name: n for name, (n, _) in by_name.items()
+                            if is_cublas(name)},
         "by_kernel": [{"name": name, "launches": n, "ms": ms}
                       for name, (n, ms) in top],
     }
@@ -144,14 +215,14 @@ def device_parts(prof, names) -> dict:
     return parts if k == len(names) - 1 else None
 
 
-def grad_frames(tile: int, card: str) -> dict:
-    """The gradient frame of cow (see the module's docstring)."""
-    world, cam = REGISTRY["cow"](WIDTH)
+def grad_frames(name: str, tile: int, card: str) -> dict:
+    """The gradient frame of a scene (see the module's docstring)."""
+    world, cam = SCENES[name](WIDTH)
     scene = compile_scene(world, dtype=torch.float32, device="cuda")
     cfg = RenderConfig(ray_tile=tile, mesh_impl="kernel")
     px, py = blocked_pixels(cam.vsize, cam.hsize, "cuda")
-    o, d = camera_rays_for_pixels(cam.transform_inverse, px, py, cam.half_width,
-                                  cam.half_height, cam.pixel_size)
+    o, d = (x.contiguous() for x in camera_rays_for_pixels(
+        cam.transform_inverse, px, py, cam.half_width, cam.half_height, cam.pixel_size))
     tiles = [(o[i:i + tile].contiguous(), d[i:i + tile].contiguous())
              for i in range(0, o.shape[0], tile)]
     base = RG.extract_params(scene)
@@ -177,19 +248,31 @@ def grad_frames(tile: int, card: str) -> dict:
             out.append((time.perf_counter() - t0) * 1e3)
         return out
 
-    record = {"card": card, "scene": "cow", "tile": tile, "sets": {}}
-    for name, names in GRAD_SETS.items():
+    record = {"card": card, "scene": name, "tile": tile, "sets": {}}
+    for set_name, names in GRAD_SETS.items():
         params = RG.extract_params(scene, names)
         step = RG.make_train_step(torch.optim.Adam(params.values(), lr=5e-2), cfg)
         entry = {"loss_and_grad_frame_ms": seconds(lambda: frame_grad(params)),
                  "train_step_ms": seconds(lambda: step(params, scene, o, d, target))}
-        record["sets"][name] = entry
-        print(json.dumps({"card": card, "grad_set": name, **entry}), flush=True)
+        record["sets"][set_name] = entry
+        print(json.dumps({"card": card, "grad_set": set_name, **entry}), flush=True)
+
+    params = RG.extract_params(scene, GRAD_SETS["color_light"])
+    step = RG.make_train_step(torch.optim.Adam(params.values(), lr=5e-2, capturable=True),
+                              cfg)
+    step(params, scene, o, d, target)  # the eager run and the capture
+    record["step_cublas"] = {
+        "cublas_launches": cublas_launches(lambda: step(params, scene, o, d, target)),
+        "cublas_sites": cublas_sites(lambda: step(params, scene, o, d, target))}
+    print(json.dumps({"card": card, "scene": name, "graphed_step_cublas_launches":
+                      record["step_cublas"]["cublas_launches"],
+                      "eager_step_cublas_sites":
+                      _sites_line(record["step_cublas"]["cublas_sites"])}), flush=True)
 
     params = RG.extract_params(scene, GRAD_SETS["default_rows"])
     (a, b), t = tiles[0], targets[0]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=ACTIVITIES) as prof:
         t0 = time.perf_counter()
         RG.loss_and_grad(params, scene, a, b, t, cfg)
         torch.cuda.synchronize()
@@ -199,7 +282,7 @@ def grad_frames(tile: int, card: str) -> dict:
                                     **ops_table(prof)}
     opt = torch.optim.Adam(params.values(), lr=5e-2)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=ACTIVITIES) as prof:
         t0 = time.perf_counter()
         opt.zero_grad()
         loss = RG.render_loss(params, scene, o, d, target, cfg)
@@ -235,7 +318,7 @@ def main() -> int:
                     help="RenderConfig.ray_tile (default: bench.py's cow tile)")
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--grad", action="store_true",
-                    help="profile the cow's gradient frame instead")
+                    help="profile the scene's gradient frame instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_frame: no CUDA device; nothing was run", file=sys.stderr)
@@ -245,8 +328,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     if args.grad:
-        record = grad_frames(args.tile, card)
-        out = os.path.join(ROOT, "build", "profile", "grad_cow.json")
+        record = grad_frames(args.scene, args.tile, card)
+        out = os.path.join(ROOT, "build", "profile", f"grad_{args.scene}.json")
         os.makedirs(os.path.dirname(out), exist_ok=True)
         with open(out, "w") as f:
             json.dump(record, f, indent=1)
@@ -272,9 +355,11 @@ def main() -> int:
         median = statistics.median(walls)
         entry = {"wall_ms": walls, "median_ms": median,
                  "rays_per_s": casts / (median / 1e3),
-                 **profiled_frame(scene, cam, cfg)}
+                 **profiled_frame(scene, cam, cfg),
+                 "cublas_sites": cublas_sites(lambda: render(scene, cam, cfg))}
         record["frames"][kind] = entry
-        summary = {k: v for k, v in entry.items() if k != "by_kernel"}
+        summary = {k: v for k, v in entry.items() if k not in ("by_kernel", "cublas_sites")}
+        summary["cublas_sites"] = _sites_line(entry["cublas_sites"])
         summary["top"] = [f"{k['ms']:.3f} ms x{k['launches']} {k['name'][:60]}"
                           for k in entry["by_kernel"][:6]]
         print(json.dumps({"card": card, "scene": args.scene, "impl": args.impl,

@@ -36,7 +36,7 @@ import torch
 
 from ..ops import intersect, lighting, normals, patterns
 from ..ops.kernels import mesh_intersect as mi
-from ..ops.vec import normalize, normalize3, pack3, safe_sqrt, unpack3
+from ..ops.vec import affine3, normalize, normalize3, pack3, safe_sqrt, unpack3
 from ..parallel import collectives as coll
 from ..parallel import mesh as grid
 from ..scene.compile import Scene
@@ -658,20 +658,22 @@ def hit_index(xs: Intersections):
 def normal_at(scene: Scene, hit: HitInfo, world_point, eps):
     """World-space unit normal at the hit (reference: src/shape.rs:466-519):
     the triangle's from closest-hit time, else the prim's, through its
-    inverse-transpose."""
+    inverse-transpose. world_point: its (R,) components. Both products with
+    the hit prim's matrices are affine3's, by component: an einsum would
+    run a cuBLAS batched gemv over one 3x3 a ray."""
     if not scene.static.n_prims:
         return hit.tri_n
     p = hit.prim.long()
     inv, invT = scene.prim_inv[p], scene.prim_invT[p]
     params, kind = scene.prim_params[p], scene.prim_kind[p]
-    p_l = torch.einsum("rij,rj->ri", inv[:, :, :3], world_point) + inv[:, :, 3]
+    p_l = affine3(inv, *world_point)
     n_l = normals.sphere(p_l)
     n_l = torch.where((kind == PLANE)[:, None], normals.plane(p_l), n_l)
     n_l = torch.where((kind == CUBE)[:, None], normals.cube(p_l), n_l)
     n_l = torch.where((kind == CYLINDER)[:, None],
                       normals.cylinder(p_l, params[:, 0], params[:, 1], eps), n_l)
     n_l = torch.where((kind == CONE)[:, None], normals.cone(p_l), n_l)
-    n_p = normalize(torch.einsum("rij,rj->ri", invT, n_l))
+    n_p = normalize(affine3(invT, *unpack3(n_l)))
     return torch.where(hit.is_tri[:, None], hit.tri_n, n_p)
 
 
@@ -908,7 +910,7 @@ def prepare_hit3(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
     dx, dy, dz = unpack3(d)
     px, py, pz = ox + dx * t_safe, oy + dy * t_safe, oz + dz * t_safe
     ex, ey, ez = -dx, -dy, -dz
-    nx, ny, nz = unpack3(normal_at(scene, hit, pack3(px, py, pz), eps))
+    nx, ny, nz = unpack3(normal_at(scene, hit, (px, py, pz), eps))
     inside = (nx * ex + ny * ey + nz * ez) < 0.0
     nx = torch.where(inside, -nx, nx)
     ny = torch.where(inside, -ny, ny)
@@ -1013,10 +1015,9 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
     over = tuple(torch.where(valid, c, FAR) for c in comps.over_point)
 
     if st.any_pattern:
-        # pattern space: one affine per object (pattern_inv @ object_inv)
-        pat_inv = rec["pat_inv"]
-        pat_p = torch.einsum("rij,rj->ri", pat_inv[:, :, :3],
-                             pack3(px, py, pz)) + pat_inv[:, :, 3]
+        # pattern space: one affine per object (pattern_inv @ object_inv),
+        # by component (affine3): an einsum is a cuBLAS batched gemv
+        pat_p = affine3(rec["pat_inv"], px, py, pz)
         pat_kind = rec["pat_kind"]
         base_color = torch.where(
             (pat_kind == NONE)[:, None], rec["color"],

@@ -77,7 +77,7 @@ def normal_at(shape: Shape, point, dtype=torch.float64, device="cuda"):
         tri=torch.zeros((1,), **i32),
         is_tri=torch.full((1,), is_tri, device=device),
         tri_n=scene.tri_n[0:1] if is_tri else p.new_zeros((1, 3)))
-    return _np(integrator.normal_at(scene, hit, p, _config(dtype).epsilon))[0]
+    return _np(integrator.normal_at(scene, hit, p.unbind(1), _config(dtype).epsilon))[0]
 
 
 def hit(ts):

@@ -19,7 +19,8 @@ table on the eager route, a capture that meets a host sync raising, and
 the program's spans of a graphed frame under torch.profiler;
 and the compiled gradient step: loss_and_grad and an Adam step replayed
 from CUDA graphs against the eager calls, after other graphs too, and
-the gradient routes that stay eager.
+the gradient routes that stay eager; and the cuBLAS launches of a graphed
+glass_teapot frame and step against cow's.
 
 These tests need a CUDA device and nvcc, and skip elsewhere. This file
 imports neither jax nor rtc_tpu, so on the GPU machine it runs without the
@@ -1943,3 +1944,65 @@ def test_gradient_eager_routes(cuda):
         "boxes and occlusion tables on the host, derived_tables)",
         "train_step: eager: Adam with capturable=False (its step count lives on the host)",
         "loss_and_grad: " + compiled.EAGER_CONTEXT])
+
+
+# --- cuBLAS launches in the shading glue --------------------------------------
+
+def _cublas_launches(fn) -> int:
+    """The cuBLAS kernels (gemv or gemm in their names) among the device
+    operations of fn() under torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = profiling.device_ops(prof.events())
+    assert ops, "the profiler recorded no device operation"
+    return sum("gemv" in e.name or "gemm" in e.name for e in ops)
+
+
+def _prim_rays_by_component(inv, o, d):
+    """integrator._local_rays with the prims' shared matrices (N, 3, 4)
+    applied by component: (R, N, 3) each."""
+    ox, oy, oz = (c[:, None, None] for c in o.unbind(1))
+    dx, dy, dz = (c[:, None, None] for c in d.unbind(1))
+    m = inv.unbind(-1)
+    return (m[0] * ox + m[1] * oy + m[2] * oz + m[3], m[0] * dx + m[1] * dy + m[2] * dz)
+
+
+def _glue_cublas_launches(name, cuda):
+    """cuBLAS launches in a replay of a graphed 64x32 frame and of a graphed
+    Adam step (the material color and the light, capturable) of a
+    registry scene."""
+    world, cam = REGISTRY[name](64)
+    scene = compile_scene(world, device=cuda)
+    cfg = RenderConfig()
+    compiled.clear()
+    render(scene, cam, cfg)
+    frame = _cublas_launches(lambda: render(scene, cam, cfg))
+    o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize, cam.half_width,
+                       cam.half_height, cam.pixel_size, device=cuda)
+    o, d = o.float().contiguous(), d.float().contiguous()
+    target = torch.full_like(o, 0.25)
+    params = RG.extract_params(scene, tuple(PERTURB))
+    step = RG.make_train_step(torch.optim.Adam(params.values(), lr=5e-2, capturable=True),
+                              cfg)
+    step(params, scene, o, d, target)
+    stepped = _cublas_launches(lambda: step(params, scene, o, d, target))
+    assert compiled.route(scene, cfg) == compiled.GRAPHED
+    assert compiled.step_route(scene, cfg, params) == compiled.GRAPHED
+    compiled.clear()
+    return frame, stepped
+
+
+def test_shading_glue_launches_no_cublas_beyond_cow(cuda, monkeypatch):
+    """glass_teapot's shading nodes (a plane with checkers, so normal_at's
+    two products and the pattern's in each) launch no more cuBLAS kernels
+    than cow's, in a graphed frame and a graphed step: cow's are the
+    camera's shared product. The prim sweep's shared product
+    (_local_rays, one gemm a sweep, which cow has not) is applied by
+    component in both scenes for this count."""
+    monkeypatch.setattr(integrator, "_local_rays", _prim_rays_by_component)
+    glass = _glue_cublas_launches("glass_teapot", cuda)
+    cow = _glue_cublas_launches("cow", cuda)
+    assert glass[0] <= cow[0] and glass[1] <= cow[1], (glass, cow)

@@ -29,12 +29,14 @@ from rtc_tpu.utils.config import RenderConfig as JaxRenderConfig
 from rtc_tpu_torch.diff import checkpoint as ckpt
 from rtc_tpu_torch.diff import render_grad as RG
 from rtc_tpu_torch.ops import transforms as X
+from rtc_tpu_torch.ops.kernels import mesh_intersect as mi
+from rtc_tpu_torch.ops.vec import affine3
 from rtc_tpu_torch.render import integrator
 from rtc_tpu_torch.render.camera import Camera, camera_rays
 from rtc_tpu_torch.scene import shapes as S
 from rtc_tpu_torch.scene.compile import (TENSOR_FIELDS, compile_scene,
                                          params_from_numpy, scene_from_numpy)
-from rtc_tpu_torch.scene.materials import Material
+from rtc_tpu_torch.scene.materials import Material, gradient_pattern
 from rtc_tpu_torch.scene.world import PointLight, World
 from rtc_tpu_torch.utils.config import RenderConfig
 
@@ -141,6 +143,109 @@ def test_adam_trajectory_matches_optax(setup):
     for k in params:
         np.testing.assert_allclose(params[k].detach().numpy(), np.asarray(jparams[k]),
                                    rtol=1e-5, atol=1e-8, err_msg=k)
+
+
+# --- affine3: the per-ray affines of normal_at and the pattern lookup ------
+
+AFFINE_FORMS = ("3x3", "3x4", "3x4 linear part")
+
+
+def _affine_case(dtype, form, rays=37):
+    """Per-ray matrices of the form (a 3x4 one's linear part is a strided
+    view) and (R, 3) vectors."""
+    g = torch.Generator().manual_seed(7)
+    m = torch.randn((rays, 3, 4), generator=g, dtype=torch.float64).to(dtype)
+    v = torch.randn((rays, 3), generator=g, dtype=torch.float64).to(dtype)
+    if form == "3x3":
+        m = m[:, :, :3].contiguous()
+    elif form == "3x4 linear part":
+        m = m[:, :, :3]
+    return m, v
+
+
+@pytest.mark.parametrize("form", AFFINE_FORMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_affine3_matches_einsum(dtype, form):
+    m, v = _affine_case(dtype, form)
+    want = torch.einsum("rij,rj->ri", m[:, :, :3], v)
+    if m.shape[-1] == 4:
+        want = want + m[:, :, 3]
+    got = affine3(m, *v.unbind(1))
+    assert got.shape == want.shape and got.dtype == dtype
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-12 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("form", AFFINE_FORMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_affine3_rounds_as_instance_rays(dtype, form):
+    """Bit for bit the sums of mi.instance_rays: its origin o' = A o + b
+    with a translation, its direction d' = A d without."""
+    m, v = _affine_case(dtype, form)
+    b = m[:, :, 3] if m.shape[-1] == 4 else torch.zeros_like(v)
+    o2, d2 = mi.instance_rays(v, v, torch.cat([m[:, :, :3].reshape(-1, 9), b], 1))
+    assert torch.equal(affine3(m, *v.unbind(1)), o2 if m.shape[-1] == 4 else d2)
+
+
+@pytest.mark.parametrize("form", AFFINE_FORMS)
+def test_affine3_gradcheck(form):
+    m, v = _affine_case(torch.float64, form, rays=5)
+    leaf = (m[:, :, :3] if form == "3x3" else m).detach().requires_grad_()
+    view = (lambda a: a[:, :, :3]) if form == "3x4 linear part" else (lambda a: a)
+    v = v.detach().requires_grad_()
+    assert torch.autograd.gradcheck(lambda a, x: affine3(view(a), *x.unbind(1)),
+                                    (leaf, v))
+
+
+@pytest.fixture(scope="module")
+def affine_scene():
+    """Two transformed spheres over a plane, each with a rotated, scaled
+    gradient pattern (a color that moves with the hit point, unlike
+    checkers), at 16x8 in f64: prim_inv reaches the normal's products
+    (the point's and the inverse-transpose's) and the pattern's point."""
+    def grad_pattern(a, b, m):
+        return gradient_pattern(a, b).set_transform(m)
+
+    floor = S.plane(material=Material(
+        pattern=grad_pattern((0.9, 0.2, 0.1), (0.1, 0.3, 0.9),
+                             X.rotation_y(0.4) @ X.scaling(0.7, 1.0, 0.7)),
+        reflective=0.3))
+    ball = S.sphere(transform=X.translation(-0.6, 1.0, 0.3) @ X.rotation_z(0.3)
+                    @ X.scaling(1.0, 1.4, 0.8),
+                    material=Material(pattern=grad_pattern(
+                        (0.2, 0.8, 0.3), (0.7, 0.1, 0.6),
+                        X.rotation_x(0.5) @ X.scaling(0.4, 0.4, 0.4)),
+                        diffuse=0.8, specular=0.4))
+    glass = S.sphere(transform=X.translation(0.9, 0.7, -0.8) @ X.scaling(0.6, 0.7, 0.6),
+                     material=Material(color=(0.1, 0.1, 0.1), transparency=0.9,
+                                       refractive_index=1.5, reflective=0.5))
+    world = World(objects=[floor, ball, glass], light=PointLight((-10, 10, -10), (1, 1, 1)))
+    scene = compile_scene(world, dtype=torch.float64, device="cpu")
+    cam = Camera(16, 8, math.pi / 3)
+    cam.set_transform(X.view_transform([0, 1.5, -5], [0, 1, 0], [0, 1, 0]))
+    o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize, cam.half_width,
+                       cam.half_height, cam.pixel_size, torch.float64)
+    return scene, o, d, torch.zeros_like(o) + 0.25
+
+
+@pytest.mark.parametrize(
+    "name,index",
+    [
+        ("prim_inv", (0, 1, 3)),   # the plane's height: the pattern's point
+        ("prim_inv", (1, 0, 0)),   # the ball's linear part: its normals
+        ("prim_inv", (1, 1, 2)),
+        ("prim_inv", (1, 2, 3)),
+        ("prim_inv", (2, 1, 1)),   # the glass ball, seen through refraction
+        ("pat_a", (0, 0)),
+        ("pat_b", (1, 2)),
+    ],
+)
+def test_prim_and_pattern_grads_match_finite_diff(affine_scene, name, index):
+    scene, o, d, target = affine_scene
+    params = RG.extract_params(scene, ALL_PARAMS)
+    ad, fd = RG.finite_diff_check(params, scene, o, d, target, CFG, name, index)
+    assert np.isfinite(ad) and abs(ad) > 1e-6
+    np.testing.assert_allclose(ad, fd, rtol=2e-3, atol=1e-7)
 
 
 # --- camera-pose gradients ----------------------------------------------------
