@@ -25,6 +25,13 @@ their own, which rtc_tpu has no counterpart of (OcclusionTables, built by
 occlusion_tables): a copy of the rows in a finer spatial order with a box
 for every 8 of them, boxes widened once, here, and the census's container
 slots in the copy's order.
+
+compile_scene's host work records the program's spans (utils/profiling.py
+span): the root rtc.compile, and inside it rtc.compile.cluster (the k-d
+clustering of the world table), rtc.compile.tlas (the instanced tables,
+only where the world takes the instanced path), rtc.compile.occlusion
+(each level's occlusion tables, uploaded) and rtc.compile.upload (the
+other tables' copy to the device).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 
 from ..ops.kernels.mesh_intersect import (ELEMENTWISE_MAX_LEAF, SUPER_WIDTH,
                                           VMEM_TRI_BUDGET)
+from ..utils.profiling import span
 from .materials import NONE
 from .shapes import KIND_CODES, Shape, triangle_edges
 from .world import World
@@ -471,6 +479,13 @@ def _build_tlas(tri_leaves, inv_of, leaf: int, n_tris: int, tri_src,
     if (len(tri_leaves) < 2 or n_tris <= VMEM_TRI_BUDGET
             or any(s.kind != "mesh" for s in tri_leaves)):
         return None, 0, 0, 0
+    with span("rtc.compile.tlas"):
+        return _tlas_tables(tri_leaves, inv_of, leaf, tri_src, leaf_offsets, n_prims)
+
+
+def _tlas_tables(tri_leaves, inv_of, leaf: int, tri_src, leaf_offsets, n_prims: int):
+    """_build_tlas's tables for an eligible world, or (None, 0, 0, 0) where
+    the unique meshes exceed the budget."""
     use_sn = any(s.vn1 is not None for s in tri_leaves)
     unique, inst_mesh = {}, []
     for s in tri_leaves:
@@ -582,7 +597,14 @@ def compile_scene(world: World, dtype: torch.dtype = torch.float32,
     rtc_tpu's takes its brute force (rtc_tpu/render/integrator.py
     _resolve_mesh_impl). A leaf above ELEMENTWISE_MAX_LEAF raises: K7
     stages two clusters in shared memory and refuses larger ones.
+
+    The call is the span rtc.compile (module doc).
     """
+    with span("rtc.compile"):
+        return _compile_scene(world, dtype, device, containers, cluster_size)
+
+
+def _compile_scene(world: World, dtype, device, containers: str, cluster_size: int) -> Scene:
     if containers not in ("refractive", "all"):
         raise ValueError(f"containers must be 'refractive' or 'all', "
                          f"got {containers!r}")
@@ -649,10 +671,11 @@ def compile_scene(world: World, dtype: torch.dtype = torch.float32,
     tlas, n_inst, n_mesh, cm = None, 0, 0, 0
     cluster_aabb = super_aabb = np.zeros((0, 6))
     if n_tris_raw and cluster_size:
-        (tri_p1, tri_e1, tri_e2, tri_n, tri_obj, tri_sn, cluster_aabb,
-         super_aabb, tri_src) = _cluster_triangles(
-            np.concatenate(tp1), np.concatenate(te1), np.concatenate(te2),
-            np.concatenate(tn), np.concatenate(tobj), tri_sn, cluster_size)
+        with span("rtc.compile.cluster"):
+            (tri_p1, tri_e1, tri_e2, tri_n, tri_obj, tri_sn, cluster_aabb,
+             super_aabb, tri_src) = _cluster_triangles(
+                np.concatenate(tp1), np.concatenate(te1), np.concatenate(te2),
+                np.concatenate(tn), np.concatenate(tobj), tri_sn, cluster_size)
         n_clusters = len(cluster_aabb)
         tlas, n_inst, n_mesh, cm = _build_tlas(
             tri_leaves, inv_of, cluster_size, len(tri_p1), tri_src,
@@ -754,10 +777,11 @@ def compile_scene(world: World, dtype: torch.dtype = torch.float32,
 
 
 def _tensors(arrays: dict, names, dtype, device) -> dict:
-    return {k: torch.tensor(np.asarray(arrays[k]),
-                            dtype=torch.int32 if k in _INT_FIELDS else dtype,
-                            device=device)
-            for k in names}
+    with span("rtc.compile.upload"):
+        return {k: torch.tensor(np.asarray(arrays[k]),
+                                dtype=torch.int32 if k in _INT_FIELDS else dtype,
+                                device=device)
+                for k in names}
 
 
 def _to_scene(arrays: dict, static: SceneStatic, dtype, device,
@@ -766,13 +790,15 @@ def _to_scene(arrays: dict, static: SceneStatic, dtype, device,
     tensors = _tensors(arrays, TENSOR_FIELDS, dtype, device)
     occ = tlas_occ = None
     if static.n_clusters:
-        occ = occlusion_tables(arrays["tri_p1"], arrays["tri_e1"], arrays["tri_e2"],
-                               arrays["cluster_aabb"], leaf, device,
-                               tri_cid=tensors["tri_cid"])
+        with span("rtc.compile.occlusion"):
+            occ = occlusion_tables(arrays["tri_p1"], arrays["tri_e1"], arrays["tri_e2"],
+                                   arrays["cluster_aabb"], leaf, device,
+                                   tri_cid=tensors["tri_cid"])
     if tlas is not None:
-        tlas_occ = occlusion_tables(tlas["p1"], tlas["e1"], tlas["e2"], tlas["caabb"],
-                                    leaf, device, tlas["inst_aabb"], tlas["inst_mesh"],
-                                    static.tlas_n_mesh)
+        with span("rtc.compile.occlusion"):
+            tlas_occ = occlusion_tables(tlas["p1"], tlas["e1"], tlas["e2"], tlas["caabb"],
+                                        leaf, device, tlas["inst_aabb"], tlas["inst_mesh"],
+                                        static.tlas_n_mesh)
         tlas = TlasTables(**_tensors(tlas, TlasTables._fields, dtype, device))
     return Scene(**tensors, tlas=tlas, static=static, occ=occ, tlas_occ=tlas_occ)
 
