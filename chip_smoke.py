@@ -2168,6 +2168,87 @@ def vertex_update_gate(scene, cam, eps) -> dict:
                 stale_table_gaps=stale_gaps)
 
 
+# the object rows' sum (object_record's gradient) on the main path's inputs:
+# glass_teapot's whole frame, the fit cells' view (2 objects; mat_color's 3
+# columns), and one cow tile of RAY_TILE rays (1 object), with the fit
+# cells' parameters (rtbench/traffic/fit.json)
+ROWS_FRAMES = {"glass_teapot": 1, "cow": GRAD_TILES}
+ROWS_PARAMS = ("mat_color", "light_intensity")
+ROWS_TOL = 4e-6  # of an entry's sum of |g| (tests/test_torch_cuda.py)
+
+
+def object_rows_gate() -> dict:
+    """The object rows' sum on the inputs the main path hands it: every
+    call in one eager loss_and_grad of each ROWS_FRAMES frame (an eager
+    call: a capture's copies would hold no values). Each call's kernel
+    against the float64 sum within ROWS_TOL of its entry's sum of |g|, and
+    two runs bit-equal; the largest call timed against its plain version
+    (object_rows_sum_plain), index_add_ (the one PyTorch call that sums
+    the same) and its bound: the ids (with two objects or more) and the
+    gradients read once, the tables written. Returns its kernels line:
+    glass_teapot's numbers, and cow's under cow_*."""
+    real, taken = mi.object_rows_sum, []
+
+    def keep(ids, grads, n_rows):
+        taken.append((ids, [g.clone() for g in grads], n_rows))
+        return real(ids, grads, n_rows)
+
+    line = {"name": "object rows' sum (object_record's gradient)", "route": "cuda",
+            "source": SOURCE, "replaces": "index_add_ (index_select's backward)",
+            "frame": "glass_teapot fit", "flips": None, "pair_tests": None}
+    for name, n_tiles in ROWS_FRAMES.items():
+        scene, cam = slice_scene(name, WIDTH)
+        o, d = frame_tiles(cam, n_tiles)[0]
+        params = RG.extract_params(scene, ROWS_PARAMS)
+        taken.clear()
+        mi.reset_launch_counts()
+        mi.object_rows_sum = keep
+        try:
+            RG._loss_and_grad(params, scene, o, d, torch.full_like(o, 0.5), RenderConfig())
+        finally:
+            mi.object_rows_sum = real
+        launches = dict(mi.LAUNCHES)["object_rows"]
+        check(launches == len(taken) > 0, f"object rows on {name}: {launches} launches "
+              f"for {len(taken)} calls")
+        errs = []
+        for ids, grads, n_rows in taken:
+            check(n_rows == scene.static.n_objects and ids.shape[0] <= o.shape[0],
+                  f"object rows on {name}: {n_rows} rows, {ids.shape[0]} rays")
+            got, again = real(ids, grads, n_rows), real(ids, grads, n_rows)
+            exact = mi.object_rows_sum_plain(ids, [g.double() for g in grads], n_rows)
+            scale = mi.object_rows_sum_plain(ids, [g.double().abs() for g in grads], n_rows)
+            for a, b, x, m in zip(got, again, exact, scale):
+                check(torch.equal(a, b), f"object rows on {name}: two runs differ")
+                err = (a.double() - x).abs()
+                check(bool((err <= ROWS_TOL * m).all()), f"object rows on {name}: "
+                      f"max |kernel - f64| {float(err.max()):.3g} past {ROWS_TOL} of sum |g|")
+                errs.append(float(err.max()))
+        ids, grads, n_rows = max(taken, key=lambda c: c[0].shape[0])
+        R = ids.shape[0]
+
+        def index_add():
+            return [g.new_zeros((n_rows, *g.shape[1:])).index_add_(0, ids, g)
+                    for g in grads]
+
+        ms, plain_ms, _, _ = time_pair(lambda: real(ids, grads, n_rows),
+                                       lambda: mi.object_rows_sum_plain(ids, grads, n_rows),
+                                       plain_warmup=2, plain_iters=10)
+        library_ms = timed_ms(index_add, 2, 10)[0]
+        columns = sum(g[0].numel() for g in grads)
+        b = bound(Work((R * columns, 0, 0)),
+                  (nbytes(ids) if n_rows > 1 else 0) + nbytes(*grads) + 4 * n_rows * columns)
+        got = dict(launches=launches, calls_compared=len(taken), max_abs_err=max(errs),
+                   ms=ms, device_ms=device_ms(lambda: real(ids, grads, n_rows)),
+                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=b[0], bound_by=b[1],
+                   rays=R, plain_rays=R, rows=n_rows, columns=columns)
+        line.update(got if name == "glass_teapot" else {f"cow_{k}": v for k, v in got.items()})
+        say("13 gradients", f"object rows' sum on {name}: {len(taken)} calls of {R} rays x "
+            f"{n_rows} rows x {columns} columns, max |kernel - f64| {max(errs):.3g}, two runs "
+            f"bit-equal; kernel {shown(ms)} (device {shown(got['device_ms'])}), plain "
+            f"{shown(plain_ms)}, index_add_ {shown(library_ms)}, bound {shown(b[0])}")
+    return line
+
+
 def phase_gradients(eps):
     """The gradient path on the card. (a) The cow frame at 1920x960, depth
     5, f32, mesh_impl="kernel", fused K3: loss_and_grad of the mean squared
@@ -2179,7 +2260,9 @@ def phase_gradients(eps):
     default Adam (capturable=False) take the eager route by rule, which
     compiled.ROUTES must show. (b) Each autograd Function with its kernel
     against the dense plain sweep (function_gate). (c) The vertex update
-    (vertex_update_gate). Returns the "grads" record."""
+    (vertex_update_gate). (d) The object rows' sum on the main path's
+    inputs (object_rows_gate), whose line the kernels' record takes.
+    Returns the "grads" record."""
     scene, cam = slice_scene("cow", WIDTH)
     compiled.ROUTES.clear()
     fused = RenderConfig(ray_tile=RAY_TILE, mesh_impl="kernel")
@@ -2204,7 +2287,8 @@ def phase_gradients(eps):
     launches = dict(mi.LAUNCHES)
     tiled_peak = torch.cuda.max_memory_allocated()
     lg2_s, _ = wall_s(lambda: tiled_loss_and_grad(params, scene, tiles, targets, fused))
-    want = dict(dict.fromkeys(mi.LAUNCHES, 0), closest_shadow=2 * GRAD_TILES)
+    want = dict(dict.fromkeys(mi.LAUNCHES, 0), closest_shadow=2 * GRAD_TILES,
+                object_rows=2 * GRAD_TILES)
     check(launches == want, f"gradient frame: launch counts {launches}, expected {want}")
     for k, g in grads.items():
         check(bool(torch.isfinite(g).all()), f"gradient of {k} is not finite")
@@ -2226,7 +2310,7 @@ def phase_gradients(eps):
     mi.reset_launch_counts()
     loss_s, grads_s = tiled_loss_and_grad(params, scene, tiles, targets, split)
     want = dict(dict.fromkeys(mi.LAUNCHES, 0), closest_hit=2 * GRAD_TILES,
-                any_hit=2 * GRAD_TILES)
+                any_hit=2 * GRAD_TILES, object_rows=2 * GRAD_TILES)
     check(dict(mi.LAUNCHES) == want, f"split gradient frame: launch counts {mi.LAUNCHES}")
     check(loss_s == loss, f"split loss {loss_s} != fused loss {loss}")
     for k in RG.DEFAULT_PARAMS:
@@ -2270,6 +2354,7 @@ def phase_gradients(eps):
 
     functions = {name: function_gate(name, eps) for name in FUNCTIONS}
     vertex = vertex_update_gate(scene, cam, eps)
+    rows = object_rows_gate()
     gib = 2 ** 30
     record = {
         "frame": f"cow {WIDTH}x{HEIGHT} depth {DEPTH} f32 kernel fused, "
@@ -2286,7 +2371,7 @@ def phase_gradients(eps):
         "split_vs_fused_tri_p1_rel": split_tri,
         "one_call_vs_tiles_rel_max": max(one_rel.values()),
         "adam_losses": losses, "profiled_step": prof, "routes": routes,
-        "functions": functions, "vertex_update": vertex}
+        "functions": functions, "vertex_update": vertex, "object_rows": rows}
     say("13 gradients",
         f"{record['frame']}: forward frame (render, no_grad) "
         f"{forward_s[1] * 1e3:.1f} ms; loss_and_grad {lg_s * 1e3:.1f} / "
@@ -3309,7 +3394,9 @@ KERNEL_OF_COUNT = {"closest_hit": "closest_hit_kernel", "closest_hit_sn": "close
                    "closest_hit_tlas_sn": "closest_hit_tlas_kernel",
                    "any_hit_tlas": "any_hit_tlas_kernel",
                    "closest_hit_elementwise": "elementwise_kernel",
-                   "any_hit_elementwise": "elementwise_kernel"}
+                   "any_hit_elementwise": "elementwise_kernel",
+                   # a call launches both passes; pass 1 stands for it
+                   "object_rows": "object_rows_partial_kernel"}
 
 
 def port_kernel(name: str):
@@ -3906,8 +3993,9 @@ def phase_compiled_grads(eps) -> dict:
     with counting_captured_functions():
         rec["fused"] = graphed_gradients("fused", scene, tiles, targets, fused, params)
         rec["split"] = graphed_gradients("split", scene, tiles, targets, split, params)
-        check(rec["fused"]["launches_a_tile"] == {"closest_shadow": 2}
-              and rec["split"]["launches_a_tile"] == {"closest_hit": 2, "any_hit": 2},
+        check(rec["fused"]["launches_a_tile"] == {"closest_shadow": 2, "object_rows": 2}
+              and rec["split"]["launches_a_tile"] == {"closest_hit": 2, "any_hit": 2,
+                                                      "object_rows": 2},
               "gradient tiles' launches")
         for kind in ("fused", "split"):
             say("19 compiled grads", f"cow {kind}: {GRAD_TILES} tiles, one capture and "
@@ -4129,7 +4217,7 @@ def main() -> int:
             if key in TABLE_ORDER_BOUNDS else {}),
          **EXTRA.get(key, {}),
          **sizes.get(key, dict(rays=MAIN_RAYS, plain_rays=MAIN_RAYS))}
-        for key, (label, line, frame) in lines.items()]}
+        for key, (label, line, frame) in lines.items()] + [grads["object_rows"]]}
     print(json.dumps({"grads": grads}))
     print(json.dumps({"cli": cli_record}))
     print(json.dumps({"parallel": parallel}))

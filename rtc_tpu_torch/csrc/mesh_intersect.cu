@@ -1,7 +1,8 @@
 // Mesh intersection kernels for NVIDIA Hopper (sm_90a): K1 closest hit,
 // K2 any-hit occlusion, K3 fused closest hit + shadow, K4 crossing census,
 // K5 instanced closest hit, K6 instanced occlusion, and the elementwise
-// cross-check backend K7a (closest hit) and K7b (occlusion).
+// cross-check backend K7a (closest hit) and K7b (occlusion); and, for the
+// shading glue's backward, the object rows' sum (no TPU counterpart).
 //
 // Replaces (rtc_tpu/ops/pallas/mesh_intersect.py):
 //   K1 _kernel_mxu / _kernel_mxu_body, with_n, with_sn, with_t0 and
@@ -77,6 +78,8 @@
 // census (K4) needs no order either: it sums crossings, and walks the same
 // tables with a signed box test. K7a and K7b walk the world table in table
 // order, a block of rays at a time (the tile walk).
+
+#include <algorithm>
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1454,6 +1457,113 @@ any_hit_elementwise_old_kernel(const float* __restrict__ o,
 }
 #endif
 
+// The object rows' sum: the gradient of object_record's gather of its
+// parameter fields (render/integrator.py ObjectRows), each (R, width)
+// gradient summed by the rays' object ids into its (O, width) table. It
+// replaces no TPU kernel: it replaces the index_add_ that index_select's
+// backward is, which adds every ray's columns by atomics into O rows, so
+// the rays of one object wait on each other at the same few addresses
+// (glass_teapot.fit: 19.35 ms a step, PERF.md). The work is R (K + 1) reads
+// and R K adds, far under a millisecond at the card's bytes per second;
+// what bounded the atomics was their order, not the bytes.
+//
+// Design: no atomics, and a fixed order, so the sums are the same bits
+// from run to run. Pass 1 cuts the rays into one contiguous chunk a block
+// (kRowsBlocksPerSM blocks an SM). A warp takes 32 rays at a time: for
+// each object id among its lanes (one in a coherent warp), the lanes of
+// that id add their column into a butterfly sum across the warp, and one
+// lane a column adds it into the warp's own accumulator in shared memory.
+// The block sums its warps' accumulators in warp order into its partial,
+// scratch the wrapper takes from the torch allocator (so a CUDA graph
+// captures the launch). Pass 2 gives each (object, column) a warp, whose
+// lanes sum the blocks' partials in a fixed stride and then across the
+// warp, and writes the field's table. O == 1 reads no ids. The
+// accumulators hold one tile of the O x K table: all of it where its
+// kRowsWarps copies fit a block's shared memory (2 x 3 in the fit cells,
+// 90 x 16 under DEFAULT_PARAMS), else a few columns, and a few rows past
+// that; each tile is a pass 1 and a pass 2 over all the rays.
+constexpr int kRowsThreads = 256;
+constexpr int kRowsWarps = kRowsThreads / 32;
+constexpr int kRowsBlocksPerSM = 8;  // 2,048 threads, the most an SM holds
+constexpr int kMaxRowFields = 12;
+
+struct RowFields {
+  const float* g[kMaxRowFields];  // (R, width[k]) gradients
+  float* out[kMaxRowFields];      // (O, width[k]) sums
+  int width[kMaxRowFields];
+  int n;                          // fields
+};
+
+struct RowTile {
+  int o0, rows;  // objects [o0, o0 + rows)
+  int c0, cols;  // columns [c0, c0 + cols) of the fields side by side
+};
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;  // every lane holds the same bits (a + b == b + a)
+}
+
+__global__ void __launch_bounds__(kRowsThreads)
+object_rows_partial_kernel(const int* __restrict__ ids, int R, RowFields f, RowTile t,
+                           int chunk, float* __restrict__ partial) {
+  extern __shared__ float rows_acc[];  // [kRowsWarps][t.rows][t.cols]
+  const int OK = t.rows * t.cols;
+  for (int e = threadIdx.x; e < kRowsWarps * OK; e += kRowsThreads) rows_acc[e] = 0.f;
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* own = rows_acc + warp * OK;
+  const int first = (int)blockIdx.x * chunk;
+  const int end = min(R, first + chunk);
+  for (int base = first + warp * 32; base < end; base += kRowsThreads) {
+    const int r = base + lane;
+    int id = -1;  // the ray's row in the tile, or -1
+    if (r < end) {
+      id = (ids == nullptr ? 0 : ids[r]) - t.o0;
+      if (id >= t.rows) id = -1;
+    }
+    unsigned todo = __ballot_sync(0xffffffffu, id >= 0);
+    while (todo) {
+      const int o = __shfl_sync(0xffffffffu, id, __ffs(todo) - 1);
+      const bool in = id == o;
+      todo &= ~__ballot_sync(0xffffffffu, in);
+      for (int k = 0, c = -t.c0; k < f.n && c < t.cols; ++k) {
+        const float* g = f.g[k];
+        const int w = f.width[k];
+        for (int j = 0; j < w; ++j, ++c) {
+          if (c < 0 || c >= t.cols) continue;
+          const float s = warp_sum(in ? g[(size_t)r * w + j] : 0.f);
+          if (lane == (c & 31)) own[o * t.cols + c] += s;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < OK; e += kRowsThreads) {
+    float s = rows_acc[e];
+    for (int w = 1; w < kRowsWarps; ++w) s += rows_acc[w * OK + e];
+    partial[(size_t)blockIdx.x * OK + e] = s;
+  }
+}
+
+__global__ void __launch_bounds__(kRowsThreads)
+object_rows_total_kernel(const float* __restrict__ partial, int blocks, RowFields f,
+                         RowTile t) {
+  const int OK = t.rows * t.cols;
+  const int e = blockIdx.x * kRowsWarps + (threadIdx.x >> 5);
+  if (e >= OK) return;  // a whole warp
+  const int lane = threadIdx.x & 31;
+  float s = 0.f;
+  for (int b = lane; b < blocks; b += 32) s += partial[(size_t)b * OK + e];
+  s = warp_sum(s);
+  if (lane == 0) {
+    const int o = t.o0 + e / t.cols;
+    int c = t.c0 + e % t.cols, k = 0;
+    while (c >= f.width[k]) c -= f.width[k++];
+    f.out[k][(size_t)o * f.width[k] + c] = s;
+  }
+}
+
 inline unsigned blocks_for(int R) { return (unsigned)((R + kThreads - 1) / kThreads); }
 
 // K2, K3, K4 and K6 read the occlusion tables (scene/compile.py OcclusionTables):
@@ -1797,6 +1907,83 @@ int rtc_count_any_hit_elementwise_old(int device, void* stream, const float* o,
   return (int)cudaGetLastError();
 }
 #endif
+
+// pass 1's blocks for R rays, and its tile of the O x K table (rows x
+// cols): as much of the table as kRowsWarps accumulators of it fit a
+// block's opt-in shared memory on this device
+static cudaError_t rows_plan(int device, int R, int O, int K, int* blocks, int* rows,
+                             int* cols) {
+  int sms = 0, smem = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const int cap = smem / (int)(kRowsWarps * sizeof(float));  // entries a tile
+  *cols = std::min(K, std::max(1, cap / O));
+  *rows = std::min(O, cap / *cols);
+  *blocks = std::min((R + kRowsThreads - 1) / kRowsThreads, kRowsBlocksPerSM * sms);
+  return cudaSuccess;
+}
+
+// The floats of scratch rtc_object_rows_sum takes for R rays and an O x K
+// table: pass 1's partials of one tile.
+int rtc_object_rows_scratch(int device, int R, int O, int K, long long* floats) {
+  if (O < 1 || R < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  int blocks, rows, cols;
+  cudaError_t err = rows_plan(device, R, O, K, &blocks, &rows, &cols);
+  if (err != cudaSuccess) return (int)err;
+  *floats = (long long)blocks * rows * cols;
+  return 0;
+}
+
+// The object rows' sum over n fields (grads[k] (R, widths[k]) into outs[k]
+// (O, widths[k])) by ids (R,) in [0, O), null when O == 1, with scratch of
+// rtc_object_rows_scratch's floats; ids outside [0, O) add nothing.
+// Refuses n outside [1, kMaxRowFields] and scratch short of that.
+int rtc_object_rows_sum(int device, void* stream, const int* ids, int R, int O,
+                        const float* const* grads, float* const* outs,
+                        const int* widths, int n, float* scratch, long long floats) {
+  if (n < 1 || n > kMaxRowFields || O < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  RowFields f{};
+  f.n = n;
+  int K = 0;
+  for (int k = 0; k < n; ++k) {
+    if (widths[k] < 1) return (int)cudaErrorInvalidValue;
+    f.g[k] = grads[k];
+    f.out[k] = outs[k];
+    f.width[k] = widths[k];
+    K += widths[k];
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int blocks, rows, cols;
+  err = rows_plan(device, R, O, K, &blocks, &rows, &cols);
+  if (err != cudaSuccess) return (int)err;
+  if (floats < (long long)blocks * rows * cols) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kRowsWarps * rows * cols * sizeof(float);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(object_rows_partial_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int chunk = (R + blocks - 1) / blocks;
+  for (int o0 = 0; o0 < O; o0 += rows) {
+    for (int c0 = 0; c0 < K; c0 += cols) {
+      const RowTile t{o0, std::min(rows, O - o0), c0, std::min(cols, K - c0)};
+      object_rows_partial_kernel<<<blocks, kRowsThreads,
+                                   (size_t)kRowsWarps * t.rows * t.cols * sizeof(float),
+                                   (cudaStream_t)stream>>>(ids, R, f, t, chunk, scratch);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      object_rows_total_kernel<<<(unsigned)((t.rows * t.cols + kRowsWarps - 1) / kRowsWarps),
+                                 kRowsThreads, 0, (cudaStream_t)stream>>>(scratch, blocks,
+                                                                          f, t);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  return 0;
+}
 
 const char* rtc_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

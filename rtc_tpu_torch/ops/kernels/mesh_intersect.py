@@ -18,11 +18,15 @@ Counterpart of rtc_tpu/ops/pallas/mesh_intersect.py:
   K7a mesh_closest_hit_elementwise <- mesh_closest_hit_pallas      (_kernel)
   K7b mesh_any_hit_elementwise     <- mesh_any_hit_pallas          (_anyhit_kernel)
 
-Each wrapper takes f32 tensors. Given tensors on the CPU it returns its
-plain version's result; given CUDA tensors it launches its kernel, or
-raises. LAUNCHES counts the kernel launches of each wrapper. K2, K3, K4
-and K6 also take the walks' tables (occ: scene/compile.py
-OcclusionTables), which only their kernels read.
+and, with no TPU counterpart, the object rows' sum (object_rows_sum), the
+backward of object_record's gather of its parameter fields.
+
+Each wrapper of K1-K7 takes f32 tensors. Given tensors on the CPU it
+returns its plain version's result; given CUDA tensors it launches its
+kernel, or raises; so does object_rows_sum with its float32 gradients.
+LAUNCHES counts the kernel launches of each wrapper (a call of
+object_rows_sum as one). K2, K3, K4 and K6 also take the walks' tables
+(occ: scene/compile.py OcclusionTables), which only their kernels read.
 
 mesh_closest_hit, mesh_closest_hit_uv, mesh_any_hit and
 mesh_crossing_count stream a table of more than block_budget rows
@@ -43,6 +47,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -50,6 +55,7 @@ import subprocess
 import torch
 
 from ...utils.constants import BIG, EPSILON, FAR
+from ...utils.profiling import span
 from ..intersect import triangle
 from ..vec import dot3, normalize3
 
@@ -83,7 +89,8 @@ LAUNCHES = {"closest_hit": 0, "any_hit": 0, "closest_shadow": 0,
             "closest_hit_sn": 0, "closest_shadow_sn": 0, "crossing_count": 0,
             "closest_hit_tlas": 0, "closest_hit_tlas_sn": 0, "any_hit_tlas": 0,
             "closest_hit_t0": 0, "closest_hit_uv": 0,
-            "closest_hit_elementwise": 0, "any_hit_elementwise": 0}
+            "closest_hit_elementwise": 0, "any_hit_elementwise": 0,
+            "object_rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -527,12 +534,15 @@ def bind(path: str) -> ctypes.CDLL:
                                                 P, I, I, F, P, P]
     lib.rtc_any_hit_elementwise.argtypes = [I, P, P, P, P, I, P, P, P, P, I, P,
                                             I, I, F, P]
+    lib.rtc_object_rows_scratch.argtypes = [I, I, I, I, ctypes.POINTER(ctypes.c_longlong)]
+    lib.rtc_object_rows_sum.argtypes = [I, P, P, I, I, P, P, P, I, P, ctypes.c_longlong]
     for fn in (lib.rtc_closest_hit, lib.rtc_closest_hit_sn, lib.rtc_any_hit,
                lib.rtc_closest_shadow, lib.rtc_closest_shadow_sn,
                lib.rtc_crossing_count, lib.rtc_closest_hit_tlas,
                lib.rtc_closest_hit_tlas_sn, lib.rtc_any_hit_tlas,
                lib.rtc_closest_hit_bounded,
-               lib.rtc_closest_hit_elementwise, lib.rtc_any_hit_elementwise):
+               lib.rtc_closest_hit_elementwise, lib.rtc_any_hit_elementwise,
+               lib.rtc_object_rows_scratch, lib.rtc_object_rows_sum):
         fn.restype = I
     lib.rtc_error_string.argtypes = [I]
     lib.rtc_error_string.restype = ctypes.c_char_p
@@ -1078,6 +1088,56 @@ def mesh_any_hit_elementwise(o, d, max_t, tri_p1, tri_e1, tri_e2,
         _raise_on(err, "any_hit_elementwise")
         LAUNCHES["any_hit_elementwise"] += 1
     return hit
+
+
+# ---------------------------------------------------------------------------
+# the object rows' sum: the gradient of object_record's parameter fields
+# (render/integrator.py ObjectRows)
+# ---------------------------------------------------------------------------
+
+def object_rows_sum_plain(ids, grads, n_rows: int):
+    """The object rows' sum in plain PyTorch: each (R, ...) gradient of
+    grads summed by the rays' ids (R,) into an (n_rows, ...) table, by
+    index_add_ (index_select's backward); with one row, the sum over the
+    rays (an expand's backward), which reads no ids."""
+    if n_rows == 1:
+        return [g.sum(0, keepdim=True) for g in grads]
+    idx = ids.long()
+    return [g.new_zeros((n_rows, *g.shape[1:])).index_add_(0, idx, g) for g in grads]
+
+
+def object_rows_sum(ids, grads, n_rows: int):
+    """The object rows' sum of object_rows_sum_plain. Given CPU tensors,
+    the plain version; given CUDA tensors (int32 ids in [0, n_rows),
+    float32 gradients), the kernel, run to run the same bits, or a raise.
+    The span rtc.object_rows.kernel or rtc.object_rows.plain names the
+    path taken."""
+    if not ids.is_cuda:
+        with span("rtc.object_rows.plain"):
+            return object_rows_sum_plain(ids, grads, n_rows)
+    with span("rtc.object_rows.kernel"):
+        device, R, n = ids.device, ids.shape[0], len(grads)
+        _check("ids", ids, torch.int32, (R,), device)
+        gs = [g.contiguous() for g in grads]
+        for k, g in enumerate(gs):
+            _check(f"grads[{k}]", g, torch.float32, (R, *g.shape[1:]), device)
+        if R == 0 or not gs:
+            return [g.new_zeros((n_rows, *g.shape[1:])) for g in gs]
+        widths = [math.prod(g.shape[1:]) for g in gs]
+        outs = [g.new_empty((n_rows, *g.shape[1:])) for g in gs]
+        lib, index = library(), device.index or 0
+        floats = ctypes.c_longlong()
+        _raise_on(lib.rtc_object_rows_scratch(index, R, n_rows, sum(widths),
+                                              ctypes.byref(floats)), "object_rows")
+        scratch = torch.empty((floats.value,), dtype=torch.float32, device=device)
+        P = ctypes.c_void_p
+        err = lib.rtc_object_rows_sum(
+            index, _stream(device), ids.data_ptr() if n_rows > 1 else None, R, n_rows,
+            (P * n)(*(g.data_ptr() for g in gs)), (P * n)(*(x.data_ptr() for x in outs)),
+            (ctypes.c_int * n)(*widths), n, scratch.data_ptr(), floats)
+        _raise_on(err, "object_rows")
+        LAUNCHES["object_rows"] += 1
+        return outs
 
 
 # ---------------------------------------------------------------------------

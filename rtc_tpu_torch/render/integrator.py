@@ -185,7 +185,10 @@ def corner_normals(scene: Scene):
 # the kernel's float32 inputs, rounded once. Table rows are gathered with
 # index_select, whose backward adds with atomics: indexing's backward sorts
 # and sums each row's rays one by one, which took 0.24 s a tile of 460,800
-# cow rays with the misses on row 0.
+# cow rays with the misses on row 0. Triangle rows spread the rays' atomics
+# over many addresses; an object's few rows do not, so object_record
+# gathers its parameter fields through ObjectRows, whose backward sums by
+# block without atomics (mi.object_rows_sum).
 
 def _stand_in(win, rows: int):
     """Each ray's stand-in row, which a miss reads: ray k reads row k mod
@@ -739,32 +742,69 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
     return shadowed
 
 
+# object_record's entries and the scene's per-object fields they read
+RECORD_FIELDS = (
+    ("pat_kind", "pat_kind"), ("pat_a", "pat_a"), ("pat_b", "pat_b"),
+    ("pat_inv", "pat_inv"), ("color", "mat_color"), ("ambient", "mat_ambient"),
+    ("diffuse", "mat_diffuse"), ("specular", "mat_specular"),
+    ("shininess", "mat_shininess"), ("reflective", "mat_reflective"),
+    ("transparency", "mat_transparency"), ("ior", "mat_ior"),
+)
+
+
+class ObjectRows(torch.autograd.Function):
+    """Each field's rows (O, ...) of the rays' objects obj (R,): one (R, ...)
+    output a field, so no differentiable slice of a wider gather remains
+    (each slice's backward would fill and add the whole width). With one
+    object, its row expanded. backward sums each present gradient into
+    its field's table in one pass, mi.object_rows_sum: on the card a block
+    reduction in place of index_select's atomics, which took every ray of
+    an object one at a time at the same few addresses."""
+
+    @staticmethod
+    def forward(ctx, obj, *fields):
+        ctx.save_for_backward(obj)
+        ctx.rows = fields[0].shape[0]
+        if ctx.rows == 1:
+            return tuple(x[0].expand(obj.shape[0], *x.shape[1:]) for x in fields)
+        idx = obj.long()
+        return tuple(x.index_select(0, idx) for x in fields)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        (obj,) = ctx.saved_tensors
+        sums = iter(mi.object_rows_sum(obj, [g for g in grads if g is not None],
+                                       ctx.rows))
+        return (None, *(None if g is None else next(sums) for g in grads))
+
+
 def object_record(scene: Scene, obj):
-    """One fused gather of the per-object shading data: (R,) columns."""
+    """The per-object shading data of the rays' objects obj (R,): {entry:
+    (R, ...)}. The fields that need a gradient (grad enabled and the field
+    requires it: the parameters) go through ObjectRows; the others through
+    one gather of their columns side by side, detached, so autograd
+    records nothing for them. With no parameter, that one gather holds
+    every field."""
+    grad = torch.is_grad_enabled()
+    params = [(k, f) for k, f in RECORD_FIELDS if grad and getattr(scene, f).requires_grad]
+    rest = [(k, getattr(scene, f).detach()) for k, f in RECORD_FIELDS if (k, f) not in params]
     O = scene.pat_inv.shape[0]
-    tbl = torch.cat([
-        scene.pat_kind[:, None].to(scene.pat_a.dtype),  # 0
-        scene.pat_a,                        # 1:4
-        scene.pat_b,                        # 4:7
-        scene.pat_inv.reshape(O, 12),       # 7:19
-        scene.mat_color,                    # 19:22
-        scene.mat_ambient[:, None],         # 22
-        scene.mat_diffuse[:, None],         # 23
-        scene.mat_specular[:, None],        # 24
-        scene.mat_shininess[:, None],       # 25
-        scene.mat_reflective[:, None],      # 26
-        scene.mat_transparency[:, None],    # 27
-        scene.mat_ior[:, None],             # 28
-    ], dim=1)
+    cols = [x.reshape(O, -1).to(scene.pat_a.dtype) for _, x in rest]
+    tbl = torch.cat(cols, dim=1)
     if scene.static.n_objects == 1:
         g = tbl[0].expand(obj.shape[0], tbl.shape[1])
     else:
-        g = tbl.index_select(0, obj.long())  # backward: atomics (see _pull)
-    return dict(pat_kind=g[:, 0].to(torch.int32), pat_a=g[:, 1:4],
-                pat_b=g[:, 4:7], pat_inv=g[:, 7:19].reshape(-1, 3, 4),
-                color=g[:, 19:22], ambient=g[:, 22], diffuse=g[:, 23],
-                specular=g[:, 24], shininess=g[:, 25], reflective=g[:, 26],
-                transparency=g[:, 27], ior=g[:, 28])
+        g = tbl.index_select(0, obj.long())
+    rec, a = {}, 0
+    for (k, x), c in zip(rest, cols):
+        b = a + c.shape[1]
+        v = g[:, a] if x.dim() == 1 else g[:, a:b].reshape(-1, *x.shape[1:])
+        rec[k] = v.to(x.dtype)
+        a = b
+    if params:
+        rows = ObjectRows.apply(obj, *(getattr(scene, f) for _, f in params))
+        rec.update(zip((k for k, _ in params), rows))
+    return rec
 
 
 @torch.no_grad()

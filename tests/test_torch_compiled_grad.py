@@ -350,15 +350,20 @@ def test_graphed_train_step_follows_the_eager_trajectory(cow_frames, cpu_graphs,
 def test_gradient_calls_record_their_spans(cow_frames, cpu_graphs, call):
     """A replayed loss_and_grad or train step is one root of its name over
     the route, the graph's lookup, the inputs' fill, the replay and the
-    output's copy, in that order."""
+    output's copy, in that order. The stand-in graph's replay reruns the
+    step, so its backward's object rows' sums (one a shading node, the
+    plain path in f64) sit under the replay; a card's replay runs no
+    Python and records none."""
     scene, cfg, waves = cow_frames[torch.float64]
     params = RG.extract_params(scene, tuple(PERTURB))
     step = RG.make_train_step(torch.optim.SGD(params.values(), lr=0.5, momentum=0.9), cfg)
     fn = {"loss_and_grad": lambda: RG.loss_and_grad(params, scene, *waves[0], cfg),
           "train_step": lambda: step(params, scene, *waves[0])}[call]
     fn()
-    assert recorded(fn) == [(f"rtc.{call}", -1), ("rtc.route", 0)] + [
-        (n, 0) for n in REPLAY_SPANS]
+    spans = [(f"rtc.{call}", -1), ("rtc.route", 0)] + [(n, 0) for n in REPLAY_SPANS]
+    replay = spans.index(("rtc.graph.replay", 0))
+    spans[replay + 1:replay + 1] = [("rtc.object_rows.plain", replay)] * 2
+    assert recorded(fn) == spans
 
 
 def test_new_parameter_tensors_capture_again(cow_frames, cpu_graphs):

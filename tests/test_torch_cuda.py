@@ -19,8 +19,10 @@ table on the eager route, a capture that meets a host sync raising, and
 the program's spans of a graphed frame under torch.profiler;
 and the compiled gradient step: loss_and_grad and an Adam step replayed
 from CUDA graphs against the eager calls, after other graphs too, and
-the gradient routes that stay eager; and the cuBLAS launches of a graphed
-glass_teapot frame and step against cow's.
+the gradient routes that stay eager; the cuBLAS launches of a graphed
+glass_teapot frame and step against cow's; and the object rows' sum
+(object_record's gradient) against its index_add_ twin, in a graph, and
+in tiles past a block's shared memory.
 
 These tests need a CUDA device and nvcc, and skip elsewhere. This file
 imports neither jax nor rtc_tpu, so on the GPU machine it runs without the
@@ -2006,3 +2008,115 @@ def test_shading_glue_launches_no_cublas_beyond_cow(cuda, monkeypatch):
     glass = _glue_cublas_launches("glass_teapot", cuda)
     cow = _glue_cublas_launches("cow", cuda)
     assert glass[0] <= cow[0] and glass[1] <= cow[1], (glass, cow)
+
+
+# --- the object rows' sum (object_record's gradient) --------------------------
+
+FRAME_RAYS = 1920 * 960
+# the fit cells' parameter (mat_color) and DEFAULT_PARAMS' per-object fields
+# (pat_a, pat_b, mat_color and the seven scalars)
+ROW_WIDTHS = {3: (3,), 16: (3, 3, 3, 1, 1, 1, 1, 1, 1, 1)}
+
+
+def _rows_case(n_rows, k, ids, cuda, dyadic, seed=0):
+    """ids (R,) int32, uniform over n_rows or all on the last row, and one
+    (R, w) gradient a field of ROW_WIDTHS[k] (a (R,) one for width 1).
+    dyadic: multiples of 1/16 in [-1/2, 1/2], so every partial sum of a
+    frame's rays (|sum| < 2**20) is exact in float32 and any order gives
+    the same bits; else normal values."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    R = FRAME_RAYS
+    obj = (torch.randint(0, n_rows, (R,), generator=gen, device=cuda, dtype=torch.int32)
+           if ids == "uniform" else torch.full((R,), n_rows - 1, dtype=torch.int32,
+                                               device=cuda))
+    grads = []
+    for w in ROW_WIDTHS[k]:
+        shape = (R, w) if w > 1 else (R,)
+        g = (torch.randint(-8, 9, shape, generator=gen, device=cuda).float() / 16 if dyadic
+             else torch.randn(shape, generator=gen, device=cuda))
+        grads.append(g)
+    return obj, grads
+
+
+@pytest.mark.parametrize("ids", ["uniform", "one object"])
+@pytest.mark.parametrize("k", [3, 16])
+@pytest.mark.parametrize("n_rows", [1, 2, 90])
+def test_object_rows_kernel_matches_index_add(cuda, n_rows, k, ids):
+    """The kernel against its index_add_ twin over a 1920x960 frame's rays:
+    on dyadic gradients, where every order of float32 sums is exact, bit
+    for bit; on normal ones against the float64 sum, within 4e-6 of the
+    entry's sum of |g|: the kernel adds in float32 in another order, at
+    most ~57 roundings deep (a warp's butterfly and its ~7 batches, 8 warps,
+    33 partials a lane and a butterfly over ~1,000 blocks), each at most
+    2**-24 of a partial sum no larger than that sum of |g|; and two runs
+    give the same bits."""
+    for dyadic in (True, False):
+        obj, grads = _rows_case(n_rows, k, ids, cuda, dyadic)
+        launches = mi.LAUNCHES["object_rows"]
+        got = mi.object_rows_sum(obj, grads, n_rows)
+        again = mi.object_rows_sum(obj, grads, n_rows)
+        assert mi.LAUNCHES["object_rows"] == launches + 2
+        twin = mi.object_rows_sum_plain(obj, grads, n_rows)
+        exact = mi.object_rows_sum_plain(obj, [g.double() for g in grads], n_rows)
+        torch.cuda.synchronize()
+        for a, b, t, x, g in zip(got, again, twin, exact, grads):
+            assert a.shape == t.shape == (n_rows, *g.shape[1:]) and torch.equal(a, b)
+            if dyadic:
+                assert torch.equal(a, t) and torch.equal(a.double(), x)
+            else:
+                scale = mi.object_rows_sum_plain(obj, [g.double().abs()], n_rows)[0]
+                assert bool(((a.double() - x).abs() <= 4e-6 * scale).all())
+
+
+def test_object_rows_kernel_replays_from_a_graph(cuda):
+    """One capture of the kernel into a CUDA graph (its scratch from the
+    graph's pool) and its replay give the eager call's bits."""
+    obj, grads = _rows_case(2, 16, "uniform", cuda, dyadic=False, seed=1)
+    eager = mi.object_rows_sum(obj, grads, 2)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        mi.object_rows_sum(obj, grads, 2)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        held = mi.object_rows_sum(obj, grads, 2)
+    for x in held:
+        x.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(held, eager))
+
+
+def test_object_rows_path_and_its_span(cuda):
+    """On the card the kernel takes every float32 input, and its span says
+    so: 1,000 rows x 16 columns (512 KB of accumulators, past a block's
+    shared memory: tiles of columns) and 10,000 x 3 (tiles of rows too),
+    1,000 x 3 (dynamic shared memory past 48 KB), 2 x 3, and a few rays or
+    one; bit-equal to the twin on dyadic gradients. float64 gradients on
+    the card raise, and the CPU takes the twin under its own span."""
+    cases = [(1000, 16, FRAME_RAYS), (10000, 3, FRAME_RAYS), (1000, 3, FRAME_RAYS),
+             (2, 3, FRAME_RAYS), (2, 3, 100), (2, 16, 1)]
+    was = profiling.set_recording(True)
+    try:
+        for n_rows, k, R in cases:
+            obj, grads = _rows_case(n_rows, k, "uniform", cuda, dyadic=True)
+            obj, grads = obj[:R], [g[:R] for g in grads]
+            profiling.take_spans()
+            launches = mi.LAUNCHES["object_rows"]
+            got = mi.object_rows_sum(obj, grads, n_rows)
+            (s,) = profiling.take_spans().spans
+            assert s.name == "rtc.object_rows.kernel", (n_rows, k, R)
+            assert mi.LAUNCHES["object_rows"] == launches + 1
+            twin = mi.object_rows_sum_plain(obj, grads, n_rows)
+            assert all(torch.equal(a, b) for a, b in zip(got, twin)), (n_rows, k, R)
+        with pytest.raises(ValueError, match="dtype"):
+            mi.object_rows_sum(obj, [g.double() for g in grads], n_rows)
+        assert mi.LAUNCHES["object_rows"] == launches + 1
+        profiling.take_spans()
+        cpu = mi.object_rows_sum(obj.cpu(), [g.cpu() for g in grads], n_rows)
+        (s,) = profiling.take_spans().spans
+        assert s.name == "rtc.object_rows.plain"
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, cpu))
+    finally:
+        profiling.set_recording(was)

@@ -248,6 +248,94 @@ def test_prim_and_pattern_grads_match_finite_diff(affine_scene, name, index):
     np.testing.assert_allclose(ad, fd, rtol=2e-3, atol=1e-7)
 
 
+# --- object_record's gradient (integrator.ObjectRows) ---------------------------
+
+def _record_before(scene, obj):
+    """object_record as it was before ObjectRows: one gather of all 29
+    columns, sliced, differentiable as a whole."""
+    O = scene.pat_inv.shape[0]
+    tbl = torch.cat([
+        scene.pat_kind[:, None].to(scene.pat_a.dtype), scene.pat_a, scene.pat_b,
+        scene.pat_inv.reshape(O, 12), scene.mat_color, scene.mat_ambient[:, None],
+        scene.mat_diffuse[:, None], scene.mat_specular[:, None],
+        scene.mat_shininess[:, None], scene.mat_reflective[:, None],
+        scene.mat_transparency[:, None], scene.mat_ior[:, None]], dim=1)
+    if scene.static.n_objects == 1:
+        g = tbl[0].expand(obj.shape[0], tbl.shape[1])
+    else:
+        g = tbl.index_select(0, obj.long())
+    return dict(pat_kind=g[:, 0].to(torch.int32), pat_a=g[:, 1:4],
+                pat_b=g[:, 4:7], pat_inv=g[:, 7:19].reshape(-1, 3, 4),
+                color=g[:, 19:22], ambient=g[:, 22], diffuse=g[:, 23],
+                specular=g[:, 24], shininess=g[:, 25], reflective=g[:, 26],
+                transparency=g[:, 27], ior=g[:, 28])
+
+
+def _record_world(n_objects):
+    """n_objects objects at 16x8 in f64: one sphere; a checkered plane and
+    a sphere; or a gradient-patterned plane under a row of spheres, some
+    reflective, one glass, each its own colour."""
+    ball = lambda x, **m: S.sphere(transform=X.translation(x, 1.0, 0.0)
+                                   @ X.scaling(0.45, 0.45, 0.45), material=Material(**m))
+    if n_objects == 1:
+        objects = [ball(0.0, color=(0.2, 0.8, 0.3))]
+    else:
+        floor = S.plane(material=Material(pattern=gradient_pattern(
+            (0.9, 0.2, 0.1), (0.1, 0.3, 0.9)).set_transform(X.rotation_y(0.4)),
+            reflective=0.2))
+        xs = np.linspace(-2.0, 2.0, n_objects - 1)
+        objects = [floor] + [
+            ball(x, color=(0.1 + 0.07 * k, 0.8 - 0.05 * k, 0.3), reflective=0.3 * (k % 2),
+                 **(dict(transparency=0.8, refractive_index=1.5) if k == 2 else {}))
+            for k, x in enumerate(xs)]
+    world = World(objects=objects, light=PointLight((-10, 10, -10), (1, 1, 1)))
+    scene = compile_scene(world, dtype=torch.float64, device="cpu")
+    cam = Camera(16, 8, math.pi / 3)
+    cam.set_transform(X.view_transform([0, 1.5, -5], [0, 1, 0], [0, 1, 0]))
+    o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize, cam.half_width,
+                       cam.half_height, cam.pixel_size, torch.float64)
+    return scene, o, d, torch.zeros_like(o) + 0.25
+
+
+RECORD_PARAMS = {"color": ("mat_color",), "color_light": ("mat_color", "light_intensity"),
+                 "default": RG.DEFAULT_PARAMS}
+
+
+@pytest.mark.parametrize("names", list(RECORD_PARAMS))
+@pytest.mark.parametrize("n_objects", [1, 2, 9])
+def test_object_rows_match_the_whole_table_gather(monkeypatch, n_objects, names):
+    """ObjectRows's gradients equal those of the one 29-column gather at
+    1e-12 in f64 (1, 2 and 9 objects; the fit cells' parameters and
+    DEFAULT_PARAMS); under no_grad object_record is that gather, bit for
+    bit; and the Function passes gradcheck on this scene's ids."""
+    scene, o, d, target = _record_world(n_objects)
+    assert scene.static.n_objects == n_objects
+    params = RG.extract_params(scene, RECORD_PARAMS[names])
+    loss, grads = RG.loss_and_grad(params, scene, o, d, target, CFG)
+    with monkeypatch.context() as m:
+        m.setattr(integrator, "object_record", _record_before)
+        want_loss, want = RG.loss_and_grad(params, scene, o, d, target, CFG)
+    balls = want["mat_color"][int(n_objects > 1):]  # the floor's colour is its pattern's
+    assert float(loss) == float(want_loss) and bool((balls.abs().sum(1) > 0).all())
+    for k in params:
+        np.testing.assert_allclose(grads[k].numpy(), want[k].numpy(), rtol=1e-12,
+                                   atol=1e-12, err_msg=k)
+
+    hit = integrator.closest_hit(scene, o, d, CFG)
+    injected = RG.inject_params(scene, params)
+    with torch.no_grad():
+        got, before = (f(injected, hit.obj) for f in (integrator.object_record,
+                                                         _record_before))
+    assert got.keys() == before.keys()
+    for k in got:
+        assert got[k].dtype == before[k].dtype and torch.equal(got[k], before[k]), k
+
+    fields = [getattr(scene, f).detach().clone().requires_grad_()
+              for f in ("mat_color", "mat_ambient", "pat_inv")]
+    assert torch.autograd.gradcheck(
+        lambda *x: integrator.ObjectRows.apply(hit.obj, *x), fields)
+
+
 # --- camera-pose gradients ----------------------------------------------------
 
 POSE = ([0.0, 1.5, -5.0], [0.0, 1.0, 0.0], [0.0, 1.0, 0.0], math.pi / 3)
