@@ -182,7 +182,7 @@ from rtc_tpu_torch.tools import graft_entry, kernel_sweep, perf_probe
 from rtc_tpu_torch.tools.walk import (block_census, entered, k1_walk_line, walk_census,
                                      walk_line)
 from rtc_tpu_torch.utils.config import RenderConfig
-from rtc_tpu_torch.utils.constants import BIG, FAR
+from rtc_tpu_torch.utils.constants import BIG, FAR, VMEM_TRI_BUDGET
 from rtc_tpu_torch.utils import profiling
 from rtc_tpu_torch.utils.profiling import rays_per_pixel
 
@@ -1565,7 +1565,6 @@ def phase_elementwise(eps):
         st = scene.static
         leaf, aabb, sup = st.cluster_size, scene.cluster_aabb, scene.super_aabb
         tabs = tables(scene)
-        whole = scene.tri_p1.shape[0]  # a budget that makes one launch
         o, d = main_path_rays(cam)
         sub = lambda x: x[::step].contiguous()
         k7a = lambda oo, dd: mi.mesh_closest_hit_elementwise(oo, dd, *tabs, aabb,
@@ -1578,8 +1577,7 @@ def phase_elementwise(eps):
         check(all(torch.equal(a[::step], b) for a, b in zip(full, got)),
               f"{name} K7a: the subset's outputs differ from the full run's")
         err_a, ties_plain = winners_gate(f"{name} K7a vs plain", got, ref)
-        k1 = mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, aabb, leaf, eps,
-                                 block_budget=whole)
+        k1 = mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, aabb, leaf, eps)
         _, ties_k1 = winners_gate(f"{name} K7a vs K1", full, k1)
 
         fo, fd, fmax = occlusion_rays(scene, o, d, full[0], full[1])
@@ -1592,8 +1590,7 @@ def phase_elementwise(eps):
             plain_warmup=0, plain_iters=1)
         check(torch.equal(hit[::step], got_b), f"{name} K7b: subset differs")
         flips_plain = flags_gate(f"{name} K7b vs plain", got_b, ref_b)
-        k2 = mi.mesh_any_hit(fo, fd, fmax, *tabs, aabb, leaf, eps, block_budget=whole,
-                             occ=scene.occ)
+        k2 = mi.mesh_any_hit(fo, fd, fmax, *tabs, aabb, leaf, eps, occ=scene.occ)
         flags_gate(f"{name} K7b vs K2", hit, k2, exact=True)
         say("10 elementwise",
             f"{name} (C={st.n_clusters}, S={st.n_super}): K7a {ms_a:.3f} ms on "
@@ -1641,21 +1638,20 @@ def streamed_vs_single(name, eps):
     scene, cam = slice_scene(name, WIDTH)
     leaf, aabb = scene.static.cluster_size, scene.cluster_aabb
     tabs = tables(scene)
-    small = 2 * leaf
-    n_blocks = mi._blocked(scene.tri_p1, leaf, small)
+    n_blocks = mi._blocked(scene.tri_p1, leaf, 2 * leaf)
     o, d = main_path_rays(cam)
     single = mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, aabb, leaf, eps)
-    streamed = mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, aabb, leaf, eps,
-                                   block_budget=small)
+    streamed = mi.closest_hit_blocked(o, d, *tabs, aabb, n_blocks, leaf, eps,
+                                      tri_n=scene.tri_n)
     _, ties = winners_gate(f"{name} streamed K1", streamed, single)
     same = streamed[1] == single[1]
     check(torch.equal(streamed[2][same], single[2][same]),
           f"{name} streamed K1: normals differ at equal idx")
     fo, fd, fmax = occlusion_rays(scene, o, d, single[0], single[1])
-    k2 = (fo, fd, fmax, *tabs, aabb, leaf, eps)
+    k2 = (fo, fd, fmax, *tabs, aabb)
     flags_gate(f"{name} streamed K2",
-               mi.mesh_any_hit(*k2, block_budget=small, occ=scene.occ),
-               mi.mesh_any_hit(*k2, occ=scene.occ), exact=True)
+               mi.any_hit_blocked(*k2, n_blocks, leaf, eps, occ=scene.occ),
+               mi.mesh_any_hit(*k2, leaf, eps, occ=scene.occ), exact=True)
     line = (f"{name} in {n_blocks} blocks: K1 t bit-equal on {o.shape[0]} rays "
             f"({ties} idx ties across blocks), K2 flags equal on {fo.shape[0]}")
     if scene.static.refr_mesh_obj_ids:
@@ -1666,11 +1662,11 @@ def streamed_vs_single(name, eps):
         crossings = 0
         for oo, tt, gg in ((o, hit.t.contiguous(), gid),
                            (o2, torch.full_like(hit.t, BIG), torch.full_like(gid, -2))):
-            k4 = (oo, d, tt, gg, *tabs, aabb, scene.tri_cid, K, leaf, eps)
+            k4 = (oo, d, tt, gg, *tabs, aabb, scene.tri_cid, K)
             crossings += census_gate(
                 f"{name} streamed K4",
-                mi.mesh_crossing_count(*k4, block_budget=small, occ=scene.occ),
-                mi.mesh_crossing_count(*k4, occ=scene.occ))[1]
+                mi.crossing_count_blocked(*k4, n_blocks, leaf, eps, occ=scene.occ),
+                mi.mesh_crossing_count(*k4, leaf, eps, occ=scene.occ))[1]
         line += f", K4 counts and latest crossings equal ({crossings} crossings)"
     say("11 streaming", line)
 
@@ -1683,19 +1679,19 @@ def herd_k2(scene, o, d, n_blocks: int, eps) -> str:
     (k2_bounds, over the whole table) into the K2 line's herd_* keys.
     Returns the phase's summary."""
     so, sd, smax = surface_shadow_rays(scene, o, d)
-    leaf, whole = scene.static.cluster_size, scene.tri_p1.shape[0]
-    call = lambda **kw: mi.mesh_any_hit(so, sd, smax, *tables(scene), scene.cluster_aabb,
-                                        leaf, eps, occ=scene.occ, **kw)
+    leaf, k2 = scene.static.cluster_size, (so, sd, smax, *tables(scene), scene.cluster_aabb)
+    call = lambda: mi.any_hit_blocked(*k2, n_blocks, leaf, eps, occ=scene.occ)
+    one = lambda: mi.mesh_any_hit(*k2, leaf, eps, occ=scene.occ)
     mi.reset_launch_counts()
     streamed = call()
     check(mi.LAUNCHES["any_hit"] == n_blocks, f"{mi.LAUNCHES}")
-    ms_single, single = timed_ms(lambda: call(block_budget=whole), 1, 5)
+    ms_single, single = timed_ms(one, 1, 5)
     ms_streamed, streamed = timed_ms(call, 1, 5)
-    ms_single2, _ = timed_ms(lambda: call(block_budget=whole), 0, 5)
+    ms_single2, _ = timed_ms(one, 0, 5)
     flags_gate("one-mesh herd streamed K2 vs one launch", streamed, single, exact=True)
     k2_table_order_gate("one-mesh herd streamed K2", scene, streamed, so, sd, smax, eps)
     lesser, old = k2_bounds(scene, so, sd, smax, streamed, eps)
-    dev_single = device_ms(lambda: call(block_budget=whole))
+    dev_single = device_ms(one)
     EXTRA.setdefault("any_hit", {}).update(
         herd_rays=so.shape[0], herd_streamed_ms=ms_streamed,
         herd_single_launch_device_ms=dev_single,
@@ -1743,31 +1739,32 @@ def phase_streaming(eps):
     st = scene.static
     leaf, aabb, sup = st.cluster_size, scene.cluster_aabb, scene.super_aabb
     tabs = tables(scene)
-    whole = scene.tri_p1.shape[0]
-    n_blocks = mi._blocked(scene.tri_p1, leaf, mi.VMEM_TRI_BUDGET)
+    n_blocks = mi._blocked(scene.tri_p1, leaf, VMEM_TRI_BUDGET)
     check(n_blocks == 11 and st.n_clusters == 4088,
           f"one-mesh herd: {n_blocks} blocks of {st.n_clusters} clusters")
     step = PLAIN_STEPS["cow_herd"]
     sub = lambda x: x[::step].contiguous()
     o, d = main_path_rays(cam)
     k7a = mi.mesh_closest_hit_elementwise(o, d, *tabs, aabb, sup, leaf, eps)
-    streamed = lambda: mi.mesh_closest_hit(o, d, *tabs, scene.tri_n, aabb, leaf, eps)
+    streamed = lambda: mi.closest_hit_blocked(o, d, *tabs, aabb, n_blocks, leaf, eps,
+                                              tri_n=scene.tri_n)
     mi.reset_launch_counts()
     out = streamed()
     check(mi.LAUNCHES["closest_hit_t0"] == n_blocks, f"{mi.LAUNCHES}")
     ms_single, single = timed_ms(lambda: mi.mesh_closest_hit(
-        o, d, *tabs, scene.tri_n, aabb, leaf, eps, block_budget=whole), 1, 3)
+        o, d, *tabs, scene.tri_n, aabb, leaf, eps), 1, 3)
     ms_t0, out = timed_ms(streamed, 1, 3)
     DEVICE_MS["closest_hit_t0"] = None  # device_ms: a streamed call waits on the device
     ms_single2, _ = timed_ms(lambda: mi.mesh_closest_hit(
-        o, d, *tabs, scene.tri_n, aabb, leaf, eps, block_budget=whole), 0, 3)
+        o, d, *tabs, scene.tri_n, aabb, leaf, eps), 0, 3)
     _, ties_k7a = winners_gate("one-mesh herd streamed K1 vs K7a", out, k7a)
     _, ties_single = winners_gate("one-mesh herd streamed K1 vs one launch", out, single)
     pms_t0, ref = timed_ms(lambda: mi.closest_hit_plain(sub(o), sub(d), *tabs,
                                                        scene.tri_n, eps), 0, 1)
     err_t0, _ = winners_gate("one-mesh herd streamed K1 vs plain",
                              tuple(x[::step] for x in out), ref)
-    uv_call = lambda: mi.mesh_closest_hit_uv(o, d, *tabs, aabb, leaf, eps)
+    uv_call = lambda: mi.closest_hit_blocked(o, d, *tabs, aabb, n_blocks, leaf, eps,
+                                             want_uv=True)
     ms_uv, uv = timed_ms(uv_call, 1, 3)
     DEVICE_MS["closest_hit_uv"] = None
     _, ties_uv = winners_gate("one-mesh herd streamed K1 uv vs K7a", uv, k7a)
@@ -1781,7 +1778,8 @@ def phase_streaming(eps):
     fo, fd, fmax = occlusion_rays(scene, o, d, k7a[0], k7a[1])
     k7b = mi.mesh_any_hit_elementwise(fo, fd, fmax, *tabs, aabb, sup, leaf, eps)
     flags_gate("one-mesh herd streamed K2 vs K7b",
-               mi.mesh_any_hit(fo, fd, fmax, *tabs, aabb, leaf, eps, occ=scene.occ), k7b,
+               mi.any_hit_blocked(fo, fd, fmax, *tabs, aabb, n_blocks, leaf, eps,
+                                  occ=scene.occ), k7b,
                exact=True)
     k2_line = herd_k2(scene, o, d, n_blocks, eps)
     say("11 streaming",
@@ -2021,9 +2019,10 @@ def function_case(name, s, eps):
             *x, s.cluster_aabb, leaf, eps), lambda *x: mi.closest_hit_plain(*x, eps),
             (*flat, s.tri_n), ())
     if name == "K1 with_uv streamed":
-        return (I.KernelClosestUv, lambda *x: mi.mesh_closest_hit_uv(
-            *x, s.cluster_aabb, leaf, eps), lambda *x: mi.closest_hit_uv_plain(*x, eps),
-            flat, ())
+        n_blocks = mi._blocked(s.tri_p1, leaf, VMEM_TRI_BUDGET)
+        return (I.KernelClosestUv, lambda *x: mi.closest_hit_blocked(
+            *x, s.cluster_aabb, n_blocks, leaf, eps, want_uv=True),
+            lambda *x: mi.closest_hit_uv_plain(*x, eps), flat, ())
     if name == "K1 with_sn":
         return (I.KernelClosestSn, lambda *x: mi.mesh_closest_hit_sn(
             *x, s.cluster_aabb, leaf, eps), lambda *x: mi.closest_hit_sn_plain(*x, eps),

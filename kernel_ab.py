@@ -63,10 +63,10 @@ walk, K6) on cow's two wavefronts (K3's shadow rays, the free-space
 occlusion rays), the one-mesh herd's and cow_herd's two;
 of K4's census walk on glass_teapot's two census inputs (its old
 loop is not kept: the table-order census's tests are modelled only);
-and of K7a and K7b, old (one ray a lane, which the counting build alone
-still exports) and new (the tile walk, which also tallies the lanes that
-hold a row in its 32-row rounds and the share of its warps' ray slots
-that hold a listed ray), on their wavefronts of cow and cow_herd: per
+and of K7a's and K7b's tile walk (which also tallies the lanes that hold
+a row in its 32-row rounds and the share of its warps' ray slots that
+hold a listed ray; their old one-ray-a-lane loops are not kept), on
+their wavefronts of cow and cow_herd: per
 walk the mean and 99th percentile a ray, and a warp's max lane over its
 mean lane (the sum over warps of the most a lane of the warp does, over
 the sum of what its lanes do), beside the tests chip_smoke.py's bounds
@@ -94,7 +94,7 @@ import chip_smoke as cs
 from rtc_tpu_torch.ops.kernels import mesh_intersect as mi
 from rtc_tpu_torch.render import integrator
 from rtc_tpu_torch.utils.config import RenderConfig
-from rtc_tpu_torch.utils.constants import BIG
+from rtc_tpu_torch.utils.constants import BIG, VMEM_TRI_BUDGET
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join("rtc_tpu_torch", "csrc", "mesh_intersect.cu")
@@ -229,16 +229,18 @@ def cases(eps: float) -> list:
     sc, cam = cs.slice_scene("cow_herd_mesh", cs.WIDTH)
     oo, dd = cs.main_path_rays(cam)
     tb, ab, lf = cs.tables(sc), sc.cluster_aabb, sc.static.cluster_size
-    out.append(("K1 with_t0 streamed (11 launches), one-mesh herd", oo.shape[0],
-                lambda m: m.mesh_closest_hit(oo, dd, *tb, sc.tri_n, ab, lf, eps), 3))
-    out.append(("K1 with_uv streamed (11 launches), one-mesh herd", oo.shape[0],
-                lambda m: m.mesh_closest_hit_uv(oo, dd, *tb, ab, lf, eps), 3))
+    nb = mi._blocked(sc.tri_p1, lf, VMEM_TRI_BUDGET)
+    out.append((f"K1 with_t0 streamed ({nb} launches), one-mesh herd", oo.shape[0],
+                lambda m: m.closest_hit_blocked(oo, dd, *tb, ab, nb, lf, eps,
+                                                tri_n=sc.tri_n), 3))
+    out.append((f"K1 with_uv streamed ({nb} launches), one-mesh herd", oo.shape[0],
+                lambda m: m.closest_hit_blocked(oo, dd, *tb, ab, nb, lf, eps,
+                                                want_uv=True), 3))
     out.append((f"K1 flat, one launch over the one-mesh herd's {sc.static.n_clusters} "
                 "clusters", oo.shape[0],
-                lambda m: m.mesh_closest_hit(oo, dd, *tb, sc.tri_n, ab, lf, eps,
-                                             block_budget=sc.tri_p1.shape[0]), 3))
+                lambda m: m.mesh_closest_hit(oo, dd, *tb, sc.tri_n, ab, lf, eps), 3))
     qo, qd, qmax = cs.surface_shadow_rays(sc, oo, dd)
-    out.append(("K2 streamed (11 launches), the one-mesh herd's surface shadow rays",
+    out.append((f"K2 streamed ({nb} launches), the one-mesh herd's surface shadow rays",
                 qo.shape[0], k2_case(sc, qo, qd, qmax, eps), 5))
 
     for name in ("cow_herd", "cow_herd_smooth"):
@@ -288,8 +290,13 @@ def k7_herd_cases(eps) -> list:
 
 def k2_case(scene, o, d, max_t, eps):
     """K2 on one wavefront over a world table: one launch, or streamed
-    where the table exceeds the budget."""
+    (any_hit_blocked) where the table exceeds the budget."""
     tabs, leaf = cs.tables(scene), scene.static.cluster_size
+    n_blocks = mi._blocked(scene.tri_p1, leaf, VMEM_TRI_BUDGET)
+    if n_blocks > 1:
+        return lambda m: m.any_hit_blocked(o, d, max_t, *tabs, scene.cluster_aabb, n_blocks,
+                                           leaf, eps, **occ_kw(m, "any_hit_blocked",
+                                                               scene.occ))
     return lambda m: m.mesh_any_hit(o, d, max_t, *tabs, scene.cluster_aabb, leaf, eps,
                                     **occ_kw(m, "mesh_any_hit", scene.occ))
 
@@ -420,36 +427,12 @@ def table_order(o, d, max_t, p1, e1, e2, aabb, leaf: int, eps):
     return hit
 
 
-def k7_old(o, d, max_t, scene, eps):
-    """K7a's loop before the tile walk (max_t None: (t, idx)) or K7b's ((R,)
-    bool), one ray a lane, on the counting build
-    (rtc_count_*_elementwise_old), over the scene's world table."""
-    st, R = scene.static, o.shape[0]
-    lib = mi.library()
-    dev = (o.device.index or 0, mi._stream(o.device))
-    tabs = [x.data_ptr() for x in cs.tables(scene)]
-    boxes = (scene.cluster_aabb.data_ptr(), st.n_clusters, scene.super_aabb.data_ptr(),
-             st.n_super, st.cluster_size, eps)
-    if max_t is None:
-        t = torch.empty((R,), dtype=torch.float32, device=o.device)
-        idx = torch.empty((R,), dtype=torch.int32, device=o.device)
-        mi._raise_on(lib.rtc_count_closest_hit_elementwise_old(
-            *dev, o.data_ptr(), d.data_ptr(), R, *tabs, *boxes, t.data_ptr(),
-            idx.data_ptr()), "K7a's old loop")
-        return t, idx
-    hit = torch.empty((R,), dtype=torch.bool, device=o.device)
-    mi._raise_on(lib.rtc_count_any_hit_elementwise_old(
-        *dev, o.data_ptr(), d.data_ptr(), max_t.data_ptr(), R, *tabs, *boxes,
-        hit.data_ptr()), "K7b's old loop")
-    return hit
-
-
 def old_streamed_k2(o, d, max_t, scene, eps):
     """The old streamed K2 (before the occlusion walk): the table-order loop
     on views of each superblock's rows, in _block_order, with the carried
     found mask (mi.any_hit_blocked's schedule)."""
     leaf, aabb = scene.static.cluster_size, scene.cluster_aabb
-    n_blocks = mi._blocked(scene.tri_p1, leaf, mi.VMEM_TRI_BUDGET)
+    n_blocks = mi._blocked(scene.tri_p1, leaf, VMEM_TRI_BUDGET)
     per_block, blocks = mi._block_tables(aabb.shape[0], n_blocks)
     found = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
     for b in mi._block_order(o, d, aabb, per_block).tolist():
@@ -547,8 +530,9 @@ def count_main(out_path: str) -> int:
     herd, cam = cs.slice_scene("cow_herd_mesh", cs.WIDTH)
     o, d = cs.main_path_rays(cam)
     so, sd, smax = cs.surface_shadow_rays(herd, o, d)
-    k2 = lambda: mi.mesh_any_hit(so, sd, smax, *cs.tables(herd), herd.cluster_aabb,
-                                 herd.static.cluster_size, eps, occ=herd.occ)
+    n_blocks = mi._blocked(herd.tri_p1, herd.static.cluster_size, VMEM_TRI_BUDGET)
+    k2 = lambda: mi.any_hit_blocked(so, sd, smax, *cs.tables(herd), herd.cluster_aabb,
+                                    n_blocks, herd.static.cluster_size, eps, occ=herd.occ)
     production = k2()
     case = f"one-mesh herd K2 streamed ({so.shape[0]} surface shadow rays)"
     flags, counts = counted(lambda: old_streamed_k2(so, sd, smax, herd, eps), so.shape[0],
@@ -599,16 +583,12 @@ def count_main(out_path: str) -> int:
         production = k7a()
         work = cs.closest_work(o, d, tabs, aabb, production[0], leaf, eps)[0]
         case = f"{name} K7a ({o.shape[0]} primary rays, {where})"
-        out, counts = counted(lambda: k7_old(o, d, None, scene, eps), o.shape[0], lib)
-        report(case, "old: one ray a lane (K7a)", counts, out, production, work)
         out, counts = counted(k7a, o.shape[0], lib)
         report(case, "new: tile walk (K7a)", counts, out, production, work)
         k7b = lambda: mi.mesh_any_hit_elementwise(fo, fd, fmax, *args)
         production = k7b()
         work = cs.any_work(fo, fd, tabs, aabb, fmax, production, leaf, eps)
         case = f"{name} K7b ({fo.shape[0]} free-space occlusion rays, {where})"
-        out, counts = counted(lambda: k7_old(fo, fd, fmax, scene, eps), fo.shape[0], lib)
-        report(case, "old: one ray a lane (K7b)", counts, (out,), (production,), work)
         out, counts = counted(k7b, fo.shape[0], lib)
         report(case, "new: tile walk (K7b)", counts, (out,), (production,), work)
     os.makedirs(os.path.dirname(out_path), exist_ok=True)

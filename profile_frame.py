@@ -342,8 +342,8 @@ def main() -> int:
                                                    st.any_refractive)
     record = {"card": card, "scene": args.scene, "impl": args.impl,
               "tile": args.tile, "casts": casts, "frames": {}}
-    impl = "kernel" if args.impl == "auto" else args.impl  # f32 on the card
-    fusable = integrator._use_fused_shadow(scene, RenderConfig(), impl)
+    fusable = integrator.plan(scene, RenderConfig(mesh_impl=args.impl), "cuda",
+                              torch.float32).fused
     kinds = (("fused", True), ("split", False)) if fusable else (("default", True),)
     for kind, fused in kinds:
         cfg = RenderConfig(ray_tile=args.tile, fused_shadow=fused,

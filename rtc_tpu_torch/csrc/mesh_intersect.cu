@@ -436,14 +436,13 @@ __device__ __forceinline__ void closest_hit_dev(
 // walks tally, per ray, the box tests and boxes entered at each level and
 // the pair tests by the stage where they stop, into the (R, kCounters)
 // i32 buffer that rtc_set_count_buffer names (the occlusion walk of K2,
-// K3's phase 3 and K6, K4's census walk, K7's tile walk, and the
-// table-order loops, which this build alone also exports: K2's old loop,
-// and K7a's and K7b's old per-lane loops). K7's tile walk also tallies
-// its 32-row rounds and the lanes holding a row in them on the ray, and,
-// on the first ray of each tile, the clusters the tile tested, those it
-// tested a lane a ray, and the ray slots its warps ran for them (a warp a
-// ray: kTileWarps a round of listed rays; a lane a ray: 32 for each warp
-// holding an entered lane). In
+// K3's phase 3 and K6, K4's census walk, K7's tile walk, and K2's old
+// table-order loop, which this build alone also exports). K7's tile walk
+// also tallies its 32-row rounds and the lanes holding a row in them on
+// the ray, and, on the first ray of each tile, the clusters the tile
+// tested, those it tested a lane a ray, and the ray slots its warps ran
+// for them (a warp a ray: kTileWarps a round of listed rays; a lane a ray:
+// 32 for each warp holding an entered lane). In
 // the production build the tallies are empty and nothing else differs.
 enum Counter {
   kInstGroupTests, kInstTests, kGroupTests, kClusterTests, kSubTests,
@@ -468,8 +467,7 @@ __device__ __forceinline__ void tally(int) {}
 #endif
 
 #ifdef RTC_COUNT
-// The table-order loop over clusters [c0, c1), K2's and K7b's before their
-// walks: does any triangle lie at t in [0, max_t)? max_t <= 0 marks a dead
+// The table-order loop over clusters [c0, c1), K2's before its walk: does any triangle lie at t in [0, max_t)? max_t <= 0 marks a dead
 // lane, which never hits. Clusters in table order (k-d order, so still
 // spatially coherent), skipping those the ray misses or enters at or
 // beyond max_t; each entered cluster's leaf rows; the lane stops at its
@@ -1070,7 +1068,7 @@ any_hit_tlas_kernel(const float* __restrict__ o, const float* __restrict__ d,
 // order of visits: the cluster boxes are widened as cluster_slab widens, and
 // a super box holds its clusters'. The staged rows hand the pair test the
 // same f32 values, and the staged super boxes are widened with the same
-// operations, so every output equals the per-lane loop's bit for bit.
+// operations, so every output equals the plain sweep's bit for bit.
 
 constexpr int kSuperWidth = 8;    // mesh_intersect.py SUPER_WIDTH
 constexpr int kTileK7 = 256;      // rays a block: a 16x16 screen block's worth
@@ -1385,77 +1383,6 @@ elementwise_kernel(const float* __restrict__ o, const float* __restrict__ d,
     idx_out[i] = s_best[tid];
   }
 }
-
-#ifdef RTC_COUNT
-// K7a's and K7b's loops before the tile walk, one ray a thread in blocks of
-// kThreads, each lane culling and testing on its own; built only to be
-// counted (rtc_count_closest_hit_elementwise_old, _any_hit_).
-__global__ void __launch_bounds__(kThreads)
-closest_hit_elementwise_old_kernel(const float* __restrict__ o,
-                                   const float* __restrict__ d, int R,
-                                   const float* __restrict__ p1,
-                                   const float* __restrict__ e1,
-                                   const float* __restrict__ e2,
-                                   const float* __restrict__ aabb, int C,
-                                   const float* __restrict__ sup, int S, int leaf,
-                                   float eps, float* __restrict__ t_out,
-                                   int* __restrict__ idx_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
-  const Ray r = load_ray(o, d, i);
-  float t_best = kBig;
-  int best = -1;
-  for (int s = 0; s < S; ++s) {
-    tally(kSuperTests);
-    if (!(cluster_entry(r, sup, s) < t_best)) continue;
-    tally(kSupersEntered);
-    const int c1 = min((s + 1) * kSuperWidth, C);
-    for (int c = s * kSuperWidth; c < c1; ++c) {
-      tally(kClusterTests);
-      if (!(cluster_entry(r, aabb, c) < t_best)) continue;
-      tally(kClustersEntered);
-      for (int j = c * leaf; j < (c + 1) * leaf; ++j) {
-        float t;
-        const int stage = pair_stage(r, SplitRows{p1, e1, e2}, j, eps, t);
-        tally(kPairDet + stage);
-        if (stage == kCrosses && t >= 0.f && t < t_best) {
-          t_best = t;
-          best = j;
-        }
-      }
-    }
-  }
-  t_out[i] = t_best;
-  idx_out[i] = best;
-}
-
-__global__ void __launch_bounds__(kThreads)
-any_hit_elementwise_old_kernel(const float* __restrict__ o,
-                               const float* __restrict__ d,
-                               const float* __restrict__ max_t, int R,
-                               const float* __restrict__ p1,
-                               const float* __restrict__ e1,
-                               const float* __restrict__ e2,
-                               const float* __restrict__ aabb, int C,
-                               const float* __restrict__ sup, int S, int leaf,
-                               float eps, uint8_t* __restrict__ hit_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
-  const float mt = max_t[i];
-  bool hit = false;
-  if (mt > 0.f) {
-    const Ray r = load_ray(o, d, i);
-    for (int s = 0; s < S && !hit; ++s) {
-      tally(kSuperTests);
-      if (!(cluster_entry(r, sup, s) < mt)) continue;
-      tally(kSupersEntered);
-      hit = any_hit_table_order(r, mt, p1, e1, e2, aabb, s * kSuperWidth,
-                                min((s + 1) * kSuperWidth, C), leaf, eps);
-    }
-  }
-  hit_out[i] = hit;
-}
-#endif
 
 // The object rows' sum: the gradient of object_record's gather of its
 // parameter fields (render/integrator.py ObjectRows), each (R, width)
@@ -1876,34 +1803,6 @@ int rtc_count_any_hit_table_order(int device, void* stream, const float* o,
   if (err != cudaSuccess) return (int)err;
   any_hit_table_order_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
       o, d, max_t, R, p1, e1, e2, aabb, C, leaf, eps, hit_out);
-  return (int)cudaGetLastError();
-}
-
-// K7a's and K7b's loops before the tile walk (one ray a thread), kept to be
-// counted against it (kernel_ab.py --count); the arguments of
-// rtc_closest_hit_elementwise and rtc_any_hit_elementwise.
-int rtc_count_closest_hit_elementwise_old(int device, void* stream, const float* o,
-                                          const float* d, int R, const float* p1,
-                                          const float* e1, const float* e2,
-                                          const float* aabb, int C, const float* sup,
-                                          int S, int leaf, float eps, float* t_out,
-                                          int* idx_out) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  closest_hit_elementwise_old_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
-      o, d, R, p1, e1, e2, aabb, C, sup, S, leaf, eps, t_out, idx_out);
-  return (int)cudaGetLastError();
-}
-
-int rtc_count_any_hit_elementwise_old(int device, void* stream, const float* o,
-                                      const float* d, const float* max_t, int R,
-                                      const float* p1, const float* e1, const float* e2,
-                                      const float* aabb, int C, const float* sup, int S,
-                                      int leaf, float eps, uint8_t* hit_out) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  any_hit_elementwise_old_kernel<<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
-      o, d, max_t, R, p1, e1, e2, aabb, C, sup, S, leaf, eps, hit_out);
   return (int)cudaGetLastError();
 }
 #endif

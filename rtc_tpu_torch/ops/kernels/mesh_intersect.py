@@ -28,14 +28,14 @@ LAUNCHES counts the kernel launches of each wrapper (a call of
 object_rows_sum as one). K2, K3, K4 and K6 also take the walks' tables
 (occ: scene/compile.py OcclusionTables), which only their kernels read.
 
-mesh_closest_hit, mesh_closest_hit_uv, mesh_any_hit and
-mesh_crossing_count stream a table of more than block_budget rows
-(default VMEM_TRI_BUDGET) in cluster superblocks, as rtc_tpu does
-(_blocked, :1413-1564): the drivers below are device-agnostic PyTorch that
-call the wrappers once per block, so on the CPU they run the plain
-versions block by block. K1 gets views of each block's rows; K2 and K4
-walk the whole table's occlusion tables, limited to the block's cluster
-range (clusters=).
+Each wrapper launches one kernel on the table it is given, of any size.
+The superblock drivers (closest_hit_blocked, any_hit_blocked,
+crossing_count_blocked) stream a table in n_blocks cluster superblocks, as
+rtc_tpu does (_blocked, :1413-1564), where the integrator's plan says so:
+they are device-agnostic PyTorch that call the wrappers once per block, so
+on the CPU they run the plain versions block by block. K1 gets views of
+each block's rows; K2 and K4 walk the whole table's occlusion tables,
+limited to the block's cluster range (clusters=).
 
 The kernels are built from the checkout's sources with nvcc at first use,
 into a plain-C shared library under build/kernels/ (content-addressed, so
@@ -67,11 +67,6 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
-# rtc_tpu's VMEM triangle budget (mesh_intersect.py:1408-1410), a TPU
-# artifact kept unchanged so that the same tables stream, and the same
-# worlds take the instanced path (scene/compile.py), in both packages; the
-# CUDA kernels themselves take any size
-VMEM_TRI_BUDGET = 49152
 # clusters per supercluster, the kernels' kSuperWidth (K7a/K7b)
 SUPER_WIDTH = 8
 # threads a block, the kernels' kThreads (K7: ELEMENTWISE_TILE) in the
@@ -555,12 +550,6 @@ def bind(path: str) -> ctypes.CDLL:
         lib.rtc_count_any_hit_table_order.argtypes = [I, P, P, P, P, I, P, P, P, P, I,
                                                       I, F, P]
         lib.rtc_count_any_hit_table_order.restype = I
-        lib.rtc_count_closest_hit_elementwise_old.argtypes = \
-            lib.rtc_closest_hit_elementwise.argtypes
-        lib.rtc_count_any_hit_elementwise_old.argtypes = \
-            lib.rtc_any_hit_elementwise.argtypes
-        lib.rtc_count_closest_hit_elementwise_old.restype = I
-        lib.rtc_count_any_hit_elementwise_old.restype = I
     return lib
 
 
@@ -668,24 +657,10 @@ def _closest_launch(name, fn, o, d, tri_p1, tri_e1, tri_e2, payload,
     return t, idx, pay
 
 
-def _no_bound_when_streaming(t0) -> None:
-    if t0 is not None:
-        # as rtc_tpu (mesh_intersect.py:1691): the drivers carry their own
-        raise ValueError("t0 is not taken by a streamed call "
-                         "(the table exceeds block_budget)")
-
-
 def mesh_closest_hit(o, d, tri_p1, tri_e1, tri_e2, tri_n, cluster_aabb,
-                     leaf: int, eps: float = EPSILON, t0=None,
-                     block_budget: int = VMEM_TRI_BUDGET):
+                     leaf: int, eps: float = EPSILON, t0=None):
     """K1: (t, idx, n) as closest_hit_plain. t0 (R,): a strict bound (K1's
-    t0 mode). A table of more than block_budget rows streams in
-    superblocks (closest_hit_blocked)."""
-    n_blocks = _blocked(tri_p1, leaf, block_budget)
-    if n_blocks > 1:
-        _no_bound_when_streaming(t0)
-        return closest_hit_blocked(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
-                                   n_blocks, leaf, eps, tri_n=tri_n)
+    t0 mode)."""
     if o.device.type == "cpu":
         return closest_hit_plain(o, d, tri_p1, tri_e1, tri_e2, tri_n, eps, t0)
     if t0 is None:
@@ -698,15 +673,9 @@ def mesh_closest_hit(o, d, tri_p1, tri_e1, tri_e2, tri_n, cluster_aabb,
 
 
 def mesh_closest_hit_uv(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
-                        leaf: int, eps: float = EPSILON, t0=None,
-                        block_budget: int = VMEM_TRI_BUDGET):
-    """K1 with_uv: (t, idx, uv (R, 2)) as closest_hit_uv_plain; t0 and
-    block_budget as mesh_closest_hit."""
-    n_blocks = _blocked(tri_p1, leaf, block_budget)
-    if n_blocks > 1:
-        _no_bound_when_streaming(t0)
-        return closest_hit_blocked(o, d, tri_p1, tri_e1, tri_e2, cluster_aabb,
-                                   n_blocks, leaf, eps, want_uv=True)
+                        leaf: int, eps: float = EPSILON, t0=None):
+    """K1 with_uv: (t, idx, uv (R, 2)) as closest_hit_uv_plain; t0 as
+    mesh_closest_hit."""
     if o.device.type == "cpu":
         return closest_hit_uv_plain(o, d, tri_p1, tri_e1, tri_e2, eps, t0)
     return _closest_launch("closest_hit_uv", library().rtc_closest_hit_bounded,
@@ -743,18 +712,11 @@ def _range_rows(clusters, leaf: int, *tables):
 
 
 def mesh_any_hit(o, d, max_t, tri_p1, tri_e1, tri_e2, cluster_aabb,
-                 leaf: int, eps: float = EPSILON,
-                 block_budget: int = VMEM_TRI_BUDGET, occ=None, clusters=None):
+                 leaf: int, eps: float = EPSILON, occ=None, clusters=None):
     """K2: (R,) bool as any_hit_plain. occ: the table's OcclusionTables
     (Scene.occ), which the kernel walks; a launch without them raises.
-    clusters = (c0, c1): only the rows of clusters [c0, c1) count, in one
-    call (a streamed superblock). Without it, a table of more than
-    block_budget rows streams in superblocks (any_hit_blocked)."""
-    if clusters is None:
-        n_blocks = _blocked(tri_p1, leaf, block_budget)
-        if n_blocks > 1:
-            return any_hit_blocked(o, d, max_t, tri_p1, tri_e1, tri_e2,
-                                   cluster_aabb, n_blocks, leaf, eps, occ)
+    clusters = (c0, c1): only the rows of clusters [c0, c1) count (a
+    superblock of any_hit_blocked)."""
     if o.device.type == "cpu":
         return any_hit_plain(o, d, max_t,
                              *_range_rows(clusters, leaf, tri_p1, tri_e1, tri_e2), eps)
@@ -868,9 +830,7 @@ def mesh_closest_shadow_sn(o, d, tri_p1, tri_e1, tri_e2, tri_sn, cluster_aabb,
 
 def mesh_crossing_count(o, d, t_hit, hit_gid, tri_p1, tri_e1, tri_e2,
                         cluster_aabb, tri_cid, n_containers: int, leaf: int,
-                        eps: float = EPSILON,
-                        block_budget: int = VMEM_TRI_BUDGET, occ=None,
-                        clusters=None):
+                        eps: float = EPSILON, occ=None, clusters=None):
     """K4: (cnt (R, K) i32, last (R, K) f32) as crossing_count_plain.
     t_hit <= -BIG marks a dead lane; hit_gid (R,) i32, a row of the whole
     table, is -2 where the hit is not a triangle. occ: the table's
@@ -879,15 +839,8 @@ def mesh_crossing_count(o, d, t_hit, hit_gid, tri_p1, tri_e1, tri_e2,
     in place of tri_cid; a launch without them, or with tables built from
     other slots, raises. A row whose slot is n_containers or more counts
     nowhere, on the card as in the plain version. clusters = (c0,
-    c1): only the rows of clusters [c0, c1) count, in one call (a streamed
-    superblock). Without it, a table of more than block_budget rows
-    streams in superblocks (crossing_count_blocked)."""
-    if clusters is None:
-        n_blocks = _blocked(tri_p1, leaf, block_budget)
-        if n_blocks > 1:
-            return crossing_count_blocked(o, d, t_hit, hit_gid, tri_p1, tri_e1,
-                                          tri_e2, cluster_aabb, tri_cid,
-                                          n_containers, n_blocks, leaf, eps, occ)
+    c1): only the rows of clusters [c0, c1) count (a superblock of
+    crossing_count_blocked)."""
     if o.device.type == "cpu":
         # the plain version sweeps the range's rows, so the hit row is
         # rebased to them
@@ -1144,12 +1097,12 @@ def object_rows_sum(ids, grads, n_rows: int):
 # superblock streaming (rtc_tpu mesh_intersect.py:1413-1564)
 # ---------------------------------------------------------------------------
 #
-# A table of more than block_budget rows is cut into n_blocks superblocks of
+# A table of more rows than a budget is cut into n_blocks superblocks of
 # per_block = ceil(C / n_blocks) clusters, rtc_tpu's cut: the last one may be
 # short where rtc_tpu pads it with empty clusters, which no ray enters. The
 # drivers call the wrappers once per block: K1 on views of the block's rows
-# (no copy) with a budget that the block fits, K2 and K4 on the whole
-# table's occlusion tables with the block's cluster range.
+# (no copy), K2 and K4 on the whole table's occlusion tables with the
+# block's cluster range.
 
 def _blocked(tri_p1, leaf: int, budget: int) -> int:
     """Number of cluster superblocks for a table of tri_p1.shape[0] padded
@@ -1206,18 +1159,16 @@ def closest_hit_blocked(o, d, p1, e1, e2, aabb, n_blocks: int, leaf: int,
     t_c = torch.full((R,), BIG, dtype=o.dtype, device=o.device)
     idx_c = torch.full((R,), -1, dtype=torch.int32, device=o.device)
     pay_c = o.new_zeros((R, 2 if want_uv else 3))
-    budget = per_block * leaf
     for b in order:
         c0, c1 = blocks[b]
         rows, cl = slice(c0 * leaf, c1 * leaf), slice(c0, c1)
         tabs = (p1[rows], e1[rows], e2[rows])
         if want_uv:
             t_b, idx_b, pay_b = mesh_closest_hit_uv(
-                o, d, *tabs, aabb[cl], leaf, eps, t0=t_c, block_budget=budget)
+                o, d, *tabs, aabb[cl], leaf, eps, t0=t_c)
         else:
             t_b, idx_b, pay_b = mesh_closest_hit(
-                o, d, *tabs, tri_n[rows], aabb[cl], leaf, eps, t0=t_c,
-                block_budget=budget)
+                o, d, *tabs, tri_n[rows], aabb[cl], leaf, eps, t0=t_c)
         won = idx_b >= 0
         t_c = torch.where(won, t_b, t_c)
         idx_c = torch.where(won, idx_b + c0 * leaf, idx_c)

@@ -14,7 +14,7 @@ Two axes (parallel/mesh.py):
 Every rank holds the whole scene and calls the same function; the prims,
 materials, patterns and light stay whole on every rank. An instanced
 scene's TLAS tables are left unused under the prim axis, which takes the
-world table, as rtc_tpu does (render/integrator.py _use_tlas).
+world table, as rtc_tpu does (render/integrator.py plan).
 """
 
 from __future__ import annotations

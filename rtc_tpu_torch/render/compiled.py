@@ -20,7 +20,8 @@ call whose parameters or state lie elsewhere captures again.
 Which route a call takes (route) is decided before any capture, from the
 scene's static shapes, the config and the device alone:
 
-  graphed  a CUDA device, cfg.prim_axis None, and no table that streams;
+  graphed  a CUDA device, cfg.prim_axis None, and no table that streams
+           (integrator.plan's streams);
   eager    the CPU (the tests' route, which gives the bytes it always gave);
            primitive sharding (the collectives of gloo cannot be
            captured); a streamed table (superblock streaming reads its
@@ -104,7 +105,7 @@ def route(scene, cfg, device=None) -> str:
         return "eager: the CPU"
     if cfg.prim_axis is not None:
         return "eager: primitive sharding (gloo's collectives cannot be captured)"
-    if integrator.streams(scene, cfg, device):
+    if integrator.plan(scene, cfg, device, cfg.torch_dtype()).streams:
         return "eager: a streamed table (its block order is read on the host)"
     return GRAPHED
 

@@ -8,8 +8,8 @@ and one refraction child).
 
 Ported: analytic prims, flat and smooth triangle meshes, instanced meshes
 (on the kernel path, K5 for closest hit and K6 for shadows, as rtc_tpu's
-TLAS path), tables over rtc_tpu's VMEM budget (streamed in superblocks by
-the kernel wrappers), the elementwise cross-check backend (K7a, K7b),
+TLAS path), tables over rtc_tpu's VMEM budget (streamed in superblocks
+where plan says so), the elementwise cross-check backend (K7a, K7b),
 patterns, shadows, reflection, refraction with the n1/n2 crossing census,
 the Schlick blend, and primitive sharding (cfg.prim_axis inside a sharded
 call of parallel/shard.py: the scene's triangle table is one rank's shard,
@@ -41,6 +41,7 @@ from ..parallel import collectives as coll
 from ..parallel import mesh as grid
 from ..scene.compile import Scene
 from ..scene.materials import NONE
+from ..utils import constants
 from ..utils.config import RenderConfig
 from ..utils.constants import BIG, FAR, PARK
 
@@ -56,9 +57,6 @@ class HitInfo(NamedTuple):
     tri: torch.Tensor      # (R,) i32 triangle id (0 on a miss)
     is_tri: torch.Tensor   # (R,) bool: a triangle won
     tri_n: torch.Tensor    # (R, 3) the winning triangle's unit world normal
-
-
-KERNEL_IMPLS = ("kernel", "elementwise")
 
 
 def _prim_axis(cfg: RenderConfig):
@@ -83,9 +81,9 @@ def mesh_impl_for(scene: Scene, cfg: RenderConfig, is_cuda: bool, dtype) -> str:
     if impl == "auto":
         impl = ("kernel" if st.n_clusters and is_cuda
                 and dtype == torch.float32 else "bruteforce")
-    if impl in KERNEL_IMPLS and not st.n_tris:
+    if impl != "bruteforce" and not st.n_tris:
         impl = "bruteforce"
-    if impl in KERNEL_IMPLS and not st.n_clusters:
+    if impl != "bruteforce" and not st.n_clusters:
         raise ValueError(
             f"mesh_impl={impl!r} walks the cluster tables, and this scene's "
             f"{st.n_tris} triangles are unclustered (cluster_size=0); compile "
@@ -94,7 +92,7 @@ def mesh_impl_for(scene: Scene, cfg: RenderConfig, is_cuda: bool, dtype) -> str:
         raise ValueError(
             "mesh_impl='elementwise' does not support primitive sharding; use "
             "'kernel' (K1, K2 and K4 on each shard's own tables) or 'bruteforce'")
-    if impl in KERNEL_IMPLS and not (is_cuda and dtype == torch.float32):
+    if impl != "bruteforce" and not (is_cuda and dtype == torch.float32):
         raise ValueError(
             f"mesh_impl={impl!r} runs the CUDA kernels, which take float32 "
             f"tensors on a CUDA device (got {dtype} on "
@@ -102,49 +100,64 @@ def mesh_impl_for(scene: Scene, cfg: RenderConfig, is_cuda: bool, dtype) -> str:
     return impl
 
 
-def _use_tlas(scene: Scene, cfg: RenderConfig, impl: str) -> bool:
-    """The instanced path (K5, K6) serves a scene with TLAS tables on the
-    kernel backend (rtc_tpu :510-519); 'bruteforce' and 'elementwise'
-    sweep the world table, and so does the prim axis: the shards are of
-    the world table, and the TLAS tables stay whole and unused."""
-    return (bool(scene.static.tlas_n_inst) and impl == "kernel"
-            and cfg.prim_axis is None)
+class Plan(NamedTuple):
+    """The kernels a frame of one scene under one config runs (plan): the
+    one place that decides them. mesh_closest, closest_hit, is_shadowed,
+    mesh_census, color_at and compiled.route read it; the kernel wrappers
+    launch what they are called for."""
+    impl: str     # 'kernel', 'elementwise' or 'bruteforce' (mesh_impl_for)
+    tlas: bool    # closest hit by K5 and occlusion by K6 (the instanced tables)
+    fused: bool   # closest hit and shadow in one K3 launch
+    blocks: int   # the world table's superblocks at the budget (1: one launch)
+    uv: bool      # a smooth closest hit by K1 with_uv and one blend, streamed
+    census: bool  # a frame counts crossings on the world table (K4)
+
+    @property
+    def streams(self) -> bool:
+        """Does a frame stream the world table in superblocks
+        (mesh_intersect.py closest_hit_blocked, any_hit_blocked,
+        crossing_count_blocked)? Where blocks > 1: K1 and K2 on 'kernel'
+        without the instanced tables, and K4 on 'kernel' or 'elementwise'.
+        K3, K5, K6 and K7 never stream."""
+        return self.blocks > 1 and (self.census or (self.impl == "kernel"
+                                                    and not self.tlas))
 
 
-def _use_fused_shadow(scene: Scene, cfg: RenderConfig, impl: str) -> bool:
-    """Fused closest+shadow eligibility (rtc_tpu :522-536): kernel backend,
-    shadows on, no prim axis (a shard's shadow ray needs the whole combined
-    hit first), a pure-mesh scene, flat or smooth, not instanced (K3 would
-    sweep the instanced scene's whole world table), and a table that fits
-    one superblock of rtc_tpu's VMEM budget (43/49 of it when smooth: the
-    corner-normal slab), so a larger one streams through K1 and K2. The
-    budget is a TPU artifact, kept so both packages take the same route."""
+def plan(scene: Scene, cfg: RenderConfig, device, dtype) -> Plan:
+    """The Plan of scene under cfg for rays of dtype on device, from the
+    scene's static shapes and its world table's padded rows alone, as
+    rtc_tpu decides (integrator :510-536):
+      tlas    a scene with instanced tables on 'kernel' (rtc_tpu's 'mxu');
+              'bruteforce' and 'elementwise' sweep the world table, and so
+              does the prim axis: the shards are of the world table, and
+              the instanced tables stay whole and unused;
+      fused   'kernel', shadows on, no prim axis (a shard's shadow ray needs
+              the whole combined hit first), a pure-mesh scene, flat or
+              smooth, not instanced (K3 would sweep the world table), and a
+              table that fits one superblock (43/49 of the budget when
+              smooth: rtc_tpu's corner-normal slab);
+      blocks  VMEM_TRI_BUDGET's superblocks of the table (1 on
+              'bruteforce', which sweeps it whole);
+      uv      'kernel' without the instanced tables, smooth, and more
+              triangles (not padded rows) than the budget, where rtc_tpu
+              leaves with_sn; such a table has blocks > 1;
+      census  a mesh container with the refraction child (max_depth >= 4)."""
     st = scene.static
-    budget = (mi.VMEM_TRI_BUDGET * 43) // 49 if st.any_smooth else mi.VMEM_TRI_BUDGET
-    return (cfg.fused_shadow and cfg.shadows and impl == "kernel"
-            and cfg.prim_axis is None and st.n_prims == 0 and st.n_tris > 0
-            and not _use_tlas(scene, cfg, impl)
-            and mi._blocked(scene.tri_p1, st.cluster_size, budget) == 1)
-
-
-def streams(scene: Scene, cfg: RenderConfig, device) -> bool:
-    """Does a frame of scene under cfg on device stream a table in
-    superblocks (mesh_intersect.py closest_hit_blocked, any_hit_blocked,
-    crossing_count_blocked)? A shape test: a kernel route
-    on a world table of more than VMEM_TRI_BUDGET rows (_blocked > 1),
-    where K1 and K2 sweep that table (the 'kernel' route without the
-    instanced tables) or K4 counts crossings on it (a mesh container with
-    the refraction child, max_depth >= 4). K3, K5, K6 and K7 never stream."""
-    st = scene.static
-    if not st.n_tris:
-        return False
-    impl = mesh_impl_for(scene, cfg, torch.device(device).type == "cuda",
-                         cfg.torch_dtype())
-    if (impl not in KERNEL_IMPLS
-            or mi._blocked(scene.tri_p1, st.cluster_size, mi.VMEM_TRI_BUDGET) == 1):
-        return False
-    census = bool(st.refr_mesh_obj_ids) and st.any_refractive and cfg.max_depth >= 4
-    return census or (impl == "kernel" and not _use_tlas(scene, cfg, impl))
+    impl = mesh_impl_for(scene, cfg, torch.device(device).type == "cuda", dtype)
+    budget = constants.VMEM_TRI_BUDGET
+    tlas = bool(st.tlas_n_inst) and impl == "kernel" and cfg.prim_axis is None
+    fused = (cfg.fused_shadow and cfg.shadows and impl == "kernel"
+             and cfg.prim_axis is None and st.n_prims == 0 and st.n_tris > 0
+             and not tlas and mi._blocked(
+                 scene.tri_p1, st.cluster_size,
+                 budget * 43 // 49 if st.any_smooth else budget) == 1)
+    blocks = (1 if impl == "bruteforce"
+              else mi._blocked(scene.tri_p1, st.cluster_size, budget))
+    return Plan(impl=impl, tlas=tlas, fused=fused, blocks=blocks,
+                uv=(impl == "kernel" and not tlas and st.any_smooth
+                    and st.n_tris > budget),
+                census=(bool(st.refr_mesh_obj_ids) and st.any_refractive
+                        and cfg.max_depth >= 4))
 
 
 def device_ids(ids, device):
@@ -473,13 +486,14 @@ def mesh_closest(scene: Scene, o, d, cfg: RenderConfig):
     and one gathered blend, :619-630), or K5 for an instanced scene;
     'elementwise' launches K7a and gathers the normal (:702-717);
     'bruteforce' is the dense sweep of the world table."""
-    impl = mesh_impl_for(scene, cfg, o.is_cuda, o.dtype)
-    if _use_tlas(scene, cfg, impl):
+    p = plan(scene, cfg, o.device, o.dtype)
+    if p.tlas:
         return _tlas_closest(scene, o, d, cfg)[:3]
     st, eps = scene.static, cfg.epsilon
     tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
     args = (scene.cluster_aabb, st.cluster_size, eps)
-    if impl == "elementwise":
+    streamed = (scene.cluster_aabb, p.blocks, st.cluster_size, eps)
+    if p.impl == "elementwise":
         t, idx = KernelClosest.apply(
             lambda *x: mi.mesh_closest_hit_elementwise(
                 *x, scene.cluster_aabb, scene.super_aabb, st.cluster_size, eps),
@@ -493,21 +507,27 @@ def mesh_closest(scene: Scene, o, d, cfg: RenderConfig):
                             scene.tri_n.index_select(0, idx.clamp_min(0).long()), 0.0)
     elif st.any_smooth:
         snc = corner_normals(scene)
-        if impl != "kernel":
+        if p.impl != "kernel":
             t, idx, n = mi.closest_hit_sn_plain(o, d, *tabs, snc, eps)
-        elif st.n_tris <= mi.VMEM_TRI_BUDGET:
-            t, idx, n = KernelClosestSn.apply(
-                lambda *x: mi.mesh_closest_hit_sn(*x, *args), eps, o, d, *tabs, snc)
-        else:
-            # streamed: the winner's (u, v), then one (R, 9) gather and
-            # the blend in rtc_tpu's order
+        elif p.uv:
+            # the winner's (u, v), then one (R, 9) gather and the blend in
+            # rtc_tpu's order
             t, idx, uv = KernelClosestUv.apply(
-                lambda *x: mi.mesh_closest_hit_uv(*x, *args), eps, o, d, *tabs)
+                lambda *x: mi.closest_hit_blocked(*x, *streamed, want_uv=True),
+                eps, o, d, *tabs)
             n = mi.corner_blend(uv[:, 0], uv[:, 1],
                                 snc.index_select(0, idx.clamp_min(0).long()))
             n = torch.where((idx >= 0)[:, None], n, 0.0)
+        else:
+            t, idx, n = KernelClosestSn.apply(
+                lambda *x: mi.mesh_closest_hit_sn(*x, *args), eps, o, d, *tabs, snc)
         n = normalize(n)
-    elif impl == "kernel":
+    elif p.impl == "kernel" and p.blocks > 1:
+        t, idx, n = KernelClosestN.apply(
+            lambda o, d, p1, e1, e2, n: mi.closest_hit_blocked(
+                o, d, p1, e1, e2, *streamed, tri_n=n),
+            eps, o, d, *tabs, scene.tri_n)
+    elif p.impl == "kernel":
         t, idx, n = KernelClosestN.apply(
             lambda *x: mi.mesh_closest_hit(*x, *args), eps, o, d, *tabs, scene.tri_n)
     else:
@@ -563,7 +583,7 @@ def closest_hit(scene: Scene, o, d, cfg: RenderConfig) -> HitInfo:
     idx_t = torch.zeros((R,), **i32)
     tri_obj = torch.zeros((R,), **i32)
     tri_n = torch.zeros_like(o)
-    if st.n_tris and _use_tlas(scene, cfg, mesh_impl_for(scene, cfg, o.is_cuda, o.dtype)):
+    if st.n_tris and plan(scene, cfg, o.device, o.dtype).tlas:
         # K5 selects the winner's object id itself
         t_t, idx_t, tri_n, tri_obj = _tlas_closest(scene, o, d, cfg)
     elif st.n_tris:
@@ -716,19 +736,23 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
                               & (t < distance[:, None, None])).flatten(1), dim=1)
     if st.n_tris:
         tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
-        impl = mesh_impl_for(scene, cfg, point.is_cuda, point.dtype)
-        if _use_tlas(scene, cfg, impl):
+        p = plan(scene, cfg, point.device, point.dtype)
+        if p.tlas:
             tl = scene.tlas
             found = mi.mesh_any_hit_tlas(point, direction, distance, tl.p1,
                                          tl.e1, tl.e2, tl.caabb, tl.inst_ab,
                                          tl.inst_aabb, tl.inst_mesh,
                                          st.cluster_size, st.tlas_cm,
                                          cfg.epsilon, occ=scene.tlas_occ)
-        elif impl == "kernel":
+        elif p.impl == "kernel" and p.blocks > 1:
+            found = mi.any_hit_blocked(point, direction, distance, *tabs,
+                                       scene.cluster_aabb, p.blocks,
+                                       st.cluster_size, cfg.epsilon, occ=scene.occ)
+        elif p.impl == "kernel":
             found = mi.mesh_any_hit(point, direction, distance, *tabs,
                                     scene.cluster_aabb,
                                     st.cluster_size, cfg.epsilon, occ=scene.occ)
-        elif impl == "elementwise":
+        elif p.impl == "elementwise":
             found = mi.mesh_any_hit_elementwise(
                 point, direction, distance, *tabs, scene.cluster_aabb,
                 scene.super_aabb, st.cluster_size, cfg.epsilon)
@@ -833,7 +857,13 @@ def mesh_census(scene: Scene, o, d, t_hit, hit_gid, cfg: RenderConfig):
     # which is no Pallas kernel (rtc_tpu :1041-1052); the port keeps no
     # such slabs, so 'elementwise' launches K4 too: it counts exactly on
     # the card, and it keeps the plain census off the card's path
-    if mesh_impl_for(scene, cfg, o.is_cuda, o.dtype) in KERNEL_IMPLS:
+    p = plan(scene, cfg, o.device, o.dtype)
+    if p.blocks > 1:
+        cnt, last = mi.crossing_count_blocked(
+            o, d, t_hit.contiguous(), hit_gid.contiguous(), *tabs,
+            scene.cluster_aabb, scene.tri_cid, K, p.blocks, st.cluster_size,
+            cfg.epsilon, occ=scene.occ)
+    elif p.impl != "bruteforce":
         cnt, last = mi.mesh_crossing_count(
             o, d, t_hit.contiguous(), hit_gid.contiguous(), *tabs,
             scene.cluster_aabb, scene.tri_cid, K, st.cluster_size, cfg.epsilon,
@@ -1017,9 +1047,8 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
     if budget < 1 or st.n_objects == 0:
         return torch.zeros_like(o)
 
-    impl = mesh_impl_for(scene, cfg, o.is_cuda, o.dtype)
     shadowed = None
-    if _use_fused_shadow(scene, cfg, impl):
+    if plan(scene, cfg, o.device, o.dtype).fused:
         # one K3 launch: closest hit + the in-register shadow query
         tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
         fn, kernel, payload = (

@@ -43,8 +43,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..ops.kernels.mesh_intersect import (ELEMENTWISE_MAX_LEAF, SUPER_WIDTH,
-                                          VMEM_TRI_BUDGET)
+from ..ops.kernels.mesh_intersect import ELEMENTWISE_MAX_LEAF, SUPER_WIDTH
+from ..utils.constants import VMEM_TRI_BUDGET
 from ..utils.profiling import span
 from .materials import NONE
 from .shapes import KIND_CODES, Shape, triangle_edges
@@ -54,11 +54,9 @@ from .world import World
 CLUSTER_SIZE = 128
 
 # SUPER_WIDTH clusters per supercluster: the elementwise kernels' (K7a/K7b)
-# middle level. VMEM_TRI_BUDGET is rtc_tpu's VMEM triangle budget, a TPU
-# artifact: a world of mesh leaves whose padded table exceeds it, and whose
-# unique meshes fit it, takes the instanced (TLAS) path. The port keeps the
-# rule unchanged so that the same worlds take that path in both packages
-# and the tables compare element for element.
+# middle level. A world of mesh leaves whose padded table exceeds
+# VMEM_TRI_BUDGET, and whose unique meshes fit it, takes the instanced
+# (TLAS) path, as in rtc_tpu, so the tables compare element for element.
 
 # infinite cylinder/cone extents are clamped so f32 arithmetic stays finite
 Y_INF = 1e9

@@ -64,7 +64,7 @@ def check_kernel_parity(scene, cam, cfg) -> None:
     o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize, cam.half_width,
                        cam.half_height, cam.pixel_size, dtype,
                        device=scene.tri_p1.device)
-    if integrator.mesh_impl_for(scene, cfg, o.is_cuda, o.dtype) not in integrator.KERNEL_IMPLS:
+    if integrator.plan(scene, cfg, o.device, o.dtype).impl == "bruteforce":
         print("kernel parity: skipped (brute-force impl active)", file=sys.stderr)
         return
     # keep the plain reference's dense (R, T) sweep small for huge scenes

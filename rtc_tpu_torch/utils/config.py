@@ -56,7 +56,7 @@ class RenderConfig:
         grid the call made active, parallel/mesh.py); rendering with it
         outside a sharded call raises.
       fused_shadow: let pure-mesh scenes run the fused closest+shadow
-        kernel (integrator._use_fused_shadow); False forces the split
+        kernel (integrator.plan's fused); False forces the split
         closest-hit and any-hit sweeps.
     """
 

@@ -16,6 +16,14 @@ BIG = 1e30
 FAR = 1e12
 PARK = 0.5773502692
 
+# rtc_tpu's VMEM triangle budget (ops/pallas/mesh_intersect.py:1408-1410),
+# a TPU artifact kept unchanged so that both packages take the same route
+# on the same world: a mesh table of more padded rows streams in
+# superblocks (render/integrator.py plan), and a world of mesh leaves over
+# it takes the instanced path (scene/compile.py). The CUDA kernels
+# themselves take a table of any size.
+VMEM_TRI_BUDGET = 49152
+
 
 def is_almost_equal(a, b, eps: float = EPSILON):
     """Scalar or elementwise approximate equality (reference:

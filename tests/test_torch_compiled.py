@@ -29,7 +29,7 @@ from rtc_tpu_torch.render.renderer import render
 from rtc_tpu_torch.scene.compile import compile_scene
 from rtc_tpu_torch.utils.config import RenderConfig
 from rtc_tpu_torch.utils.constants import FAR, PARK
-from rtc_tpu_torch.utils import profiling
+from rtc_tpu_torch.utils import constants, profiling
 
 torch.set_num_threads(2)
 
@@ -101,21 +101,27 @@ def one_mesh_herd():
 
 
 def test_a_streamed_table_is_eager(one_mesh_herd, monkeypatch):
-    """Over the budget K1 and K2 stream on the kernel route, and the frame
-    goes eager; the elementwise kernels and the dense sweep never stream;
-    under the budget the same table is graphed."""
+    """Over the budget K1 and K2 stream on the kernel route (the plan's
+    blocks > 1 and streams), and the frame goes eager; the elementwise
+    kernels and the dense sweep never stream; under the budget the same
+    table is graphed."""
     for scene in one_mesh_herd.values():
         for impl in ("auto", "kernel", "elementwise", "bruteforce"):
-            assert compiled.route(scene, RenderConfig(mesh_impl=impl), CUDA) \
-                == compiled.GRAPHED
-    monkeypatch.setattr(mi, "VMEM_TRI_BUDGET", SMALL_BUDGET)
+            cfg = RenderConfig(mesh_impl=impl)
+            assert compiled.route(scene, cfg, CUDA) == compiled.GRAPHED
+            assert not integrator.plan(scene, cfg, CUDA, torch.float32).streams
+    monkeypatch.setattr(constants, "VMEM_TRI_BUDGET", SMALL_BUDGET)
     for scene in one_mesh_herd.values():
-        for impl in ("auto", "kernel"):
-            assert compiled.route(scene, RenderConfig(mesh_impl=impl), CUDA).startswith(
-                "eager: a streamed table")
-        for impl in ("elementwise", "bruteforce"):
-            assert compiled.route(scene, RenderConfig(mesh_impl=impl), CUDA) \
-                == compiled.GRAPHED
+        for impl in ("auto", "kernel", "elementwise", "bruteforce"):
+            cfg = RenderConfig(mesh_impl=impl)
+            p = integrator.plan(scene, cfg, CUDA, torch.float32)
+            assert p.streams == (impl in ("auto", "kernel")), impl
+            assert p.blocks == (1 if impl == "bruteforce" else 48), impl
+            route = compiled.route(scene, cfg, CUDA)
+            if p.streams:
+                assert route.startswith("eager: a streamed table")
+            else:
+                assert route == compiled.GRAPHED
 
 
 ROUTE_CASES = [("cow", "auto", 5, True), ("cow", "auto", 5, False),
@@ -133,29 +139,34 @@ def test_rule_matches_the_streaming_a_frame_runs(registry, one_mesh_herd, monkey
     """With a budget of two clusters a superblock, route() calls a frame
     streamed exactly when its color_at, run on the CPU as the card would
     route it (the wrappers then take their plain versions), calls one of
-    the three superblock streaming functions."""
+    the three superblock streaming functions; the plan's tlas and fused
+    hold exactly when it calls K5 (mesh_closest_hit_tlas*) and K3
+    (mesh_closest_shadow*)."""
     if name.startswith("herd_mesh"):
         scene, cam = one_mesh_herd[name.endswith("smooth")], registry["cow_herd"][1]
     else:
         scene, cam = registry[name]
     cfg = RenderConfig(mesh_impl=impl, max_depth=depth, shadows=shadows)
-    budget, blocked = mi.VMEM_TRI_BUDGET, mi._blocked
-    monkeypatch.setattr(mi, "VMEM_TRI_BUDGET", SMALL_BUDGET)
-    # the wrappers' default budget, bound when they were defined, too
-    monkeypatch.setattr(mi, "_blocked", lambda t, leaf, b: blocked(
-        t, leaf, SMALL_BUDGET if b == budget else b))
+    monkeypatch.setattr(constants, "VMEM_TRI_BUDGET", SMALL_BUDGET)
     eager = compiled.route(scene, cfg, CUDA) != compiled.GRAPHED
-    impl = integrator.mesh_impl_for(scene, cfg, True, torch.float32)
-    monkeypatch.setattr(integrator, "mesh_impl_for", lambda *a: impl)
-    calls = []
-    for name in ("closest_hit_blocked", "any_hit_blocked", "crossing_count_blocked"):
-        fn = getattr(mi, name)
-        monkeypatch.setattr(mi, name, lambda *a, fn=fn, **k: calls.append(fn) or fn(*a, **k))
+    p = integrator.plan(scene, cfg, CUDA, torch.float32)
+    monkeypatch.setattr(integrator, "mesh_impl_for", lambda *a: p.impl)
+    calls = {"streamed": [], "tlas": [], "fused": []}
+    for kind, names in (("streamed", ("closest_hit_blocked", "any_hit_blocked",
+                                      "crossing_count_blocked")),
+                        ("tlas", ("mesh_closest_hit_tlas", "mesh_closest_hit_tlas_sn")),
+                        ("fused", ("mesh_closest_shadow", "mesh_closest_shadow_sn"))):
+        for name in names:
+            fn = getattr(mi, name)
+            monkeypatch.setattr(mi, name, lambda *a, fn=fn, c=calls[kind], **k:
+                                c.append(fn) or fn(*a, **k))
     o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize, cam.half_width,
                        cam.half_height, cam.pixel_size)
     with torch.no_grad():
         integrator.color_at(scene, o.contiguous(), d, cfg)
-    assert eager == bool(calls), (compiled.route(scene, cfg, CUDA), len(calls))
+    assert eager == p.streams == bool(calls["streamed"]), (
+        compiled.route(scene, cfg, CUDA), len(calls["streamed"]))
+    assert p.tlas == bool(calls["tlas"]) and p.fused == bool(calls["fused"]), p
 
 
 # --- the frame cache ----------------------------------------------------------

@@ -83,8 +83,9 @@ def _case(name, s):
         return (I.KernelClosestN, lambda *x: mi.mesh_closest_hit(
             *x, s.cluster_aabb, leaf, EPSILON), (*_flat(s), s.tri_n), ())
     if name == "K1 with_uv streamed":
-        return (I.KernelClosestUv, lambda *x: mi.mesh_closest_hit_uv(
-            *x, s.cluster_aabb, leaf, EPSILON, block_budget=16 * leaf), _flat(s), ())
+        return (I.KernelClosestUv, lambda *x: mi.closest_hit_blocked(
+            *x, s.cluster_aabb, mi._blocked(s.tri_p1, leaf, 16 * leaf), leaf, EPSILON,
+            want_uv=True), _flat(s), ())
     if name == "K1 with_sn":
         return (I.KernelClosestSn, lambda *x: mi.mesh_closest_hit_sn(
             *x, s.cluster_aabb, leaf, EPSILON), (*_flat(s), I.corner_normals(s)), ())

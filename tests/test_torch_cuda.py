@@ -754,32 +754,35 @@ def test_streamed_matches_single_launch(cuda):
     scene, o, d = _soup(np.random.default_rng(13), 120, cuda, n_containers=2)
     tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
     leaf = scene.static.cluster_size
-    small = dict(block_budget=2 * leaf)
+    blocks = mi._blocked(scene.tri_p1, leaf, 2 * leaf)
     args = (*tabs, scene.tri_n, scene.cluster_aabb, leaf)
     mi.reset_launch_counts()
-    streamed = mi.mesh_closest_hit(o, d, *args, **small)
+    streamed = mi.closest_hit_blocked(o, d, *tabs, scene.cluster_aabb, blocks, leaf,
+                                      tri_n=scene.tri_n)
     assert mi.LAUNCHES["closest_hit_t0"] == 60
     single = mi.mesh_closest_hit(o, d, *args)
     assert torch.equal(streamed[0], single[0])
     same = streamed[1] == single[1]
     assert float(same.float().mean()) > 0.99
     assert torch.equal(streamed[2][same], single[2][same])
-    uv_s = mi.mesh_closest_hit_uv(o, d, *tabs, scene.cluster_aabb, leaf, **small)
+    uv_s = mi.closest_hit_blocked(o, d, *tabs, scene.cluster_aabb, blocks, leaf,
+                                  want_uv=True)
     uv_1 = mi.mesh_closest_hit_uv(o, d, *tabs, scene.cluster_aabb, leaf)
     assert torch.equal(uv_s[0], uv_1[0])
     same = uv_s[1] == uv_1[1]
     assert torch.equal(uv_s[2][same], uv_1[2][same])
     max_t = torch.full((o.shape[0],), 8.0, device=cuda)
     max_t[::5] = -1.0
-    k2 = (o, d, max_t, *tabs, scene.cluster_aabb, leaf)
     occ = dict(occ=scene.occ)
-    assert torch.equal(mi.mesh_any_hit(*k2, **small, **occ), mi.mesh_any_hit(*k2, **occ))
+    assert torch.equal(
+        mi.any_hit_blocked(o, d, max_t, *tabs, scene.cluster_aabb, blocks, leaf, **occ),
+        mi.mesh_any_hit(o, d, max_t, *tabs, scene.cluster_aabb, leaf, **occ))
     gid = torch.where(single[1] >= 0, single[1], -2).to(torch.int32)
     for t_hit in (single[0], torch.full_like(single[0], BIG)):
         k4 = (o, d, t_hit.contiguous(), gid.contiguous(), *tabs,
-              scene.cluster_aabb, scene.tri_cid, 2, leaf)
-        cnt_s, last_s = mi.mesh_crossing_count(*k4, **small, **occ)
-        cnt_1, last_1 = mi.mesh_crossing_count(*k4, **occ)
+              scene.cluster_aabb, scene.tri_cid, 2)
+        cnt_s, last_s = mi.crossing_count_blocked(*k4, blocks, leaf, **occ)
+        cnt_1, last_1 = mi.mesh_crossing_count(*k4, leaf, **occ)
         assert torch.equal(cnt_s, cnt_1) and torch.equal(last_s, last_1)
     assert int(cnt_1.sum()) > 100
 
@@ -944,7 +947,6 @@ def _k1_every_mode_and_k3(tabs, leaf, o, d, cuda):
     flat and with_sn, in one launch each over the whole table. Returns
     ({mode: K1 outputs}, {mode: K3 outputs}, t0)."""
     p1, e1, e2, n, sn, aabb = tabs
-    whole = dict(block_budget=p1.shape[0])
     t_free = mi._closest_plain(o, d, p1, e1, e2, EPS)[0]
     gen = torch.Generator().manual_seed(5)
     t0 = t_free * (torch.rand((o.shape[0],), generator=gen) + 0.5).to(cuda)
@@ -952,12 +954,11 @@ def _k1_every_mode_and_k3(tabs, leaf, o, d, cuda):
     t0[1::11] = BIG
     t0[2::13] = float("nan")
     t0 = t0.contiguous()
-    k1 = {"flat": mi.mesh_closest_hit(o, d, p1, e1, e2, n, aabb, leaf, **whole),
+    k1 = {"flat": mi.mesh_closest_hit(o, d, p1, e1, e2, n, aabb, leaf),
           "sn": mi.mesh_closest_hit_sn(o, d, p1, e1, e2, sn, aabb, leaf),
-          "t0": mi.mesh_closest_hit(o, d, p1, e1, e2, n, aabb, leaf, t0=t0, **whole),
-          "uv": mi.mesh_closest_hit_uv(o, d, p1, e1, e2, aabb, leaf, **whole),
-          "uv_t0": mi.mesh_closest_hit_uv(o, d, p1, e1, e2, aabb, leaf, t0=t0,
-                                          **whole)}
+          "t0": mi.mesh_closest_hit(o, d, p1, e1, e2, n, aabb, leaf, t0=t0),
+          "uv": mi.mesh_closest_hit_uv(o, d, p1, e1, e2, aabb, leaf),
+          "uv_t0": mi.mesh_closest_hit_uv(o, d, p1, e1, e2, aabb, leaf, t0=t0)}
     light = torch.tensor(LIGHT, device=cuda)
     occ = occlusion_tables(p1, e1, e2, aabb, leaf, cuda)
     k3 = {"flat": mi.mesh_closest_shadow(o, d, p1, e1, e2, n, aabb, light, leaf, occ=occ),
@@ -979,7 +980,7 @@ def _assert_k3_is_split(k3, k1, tabs, leaf, o, d):
         assert torch.equal(n, k1[mode][2])
         so, sd, max_t = mi.shadow_rays_plain(o, d, t, idx, n, light, EPS, unit_n)
         k2 = mi.mesh_any_hit(so.contiguous(), sd.contiguous(), max_t.contiguous(),
-                             p1, e1, e2, tabs[5], leaf, block_budget=p1.shape[0],
+                             p1, e1, e2, tabs[5], leaf,
                              occ=occlusion_tables(p1, e1, e2, tabs[5], leaf, o.device))
         assert torch.equal(sh, k2)
 
@@ -1394,8 +1395,9 @@ def _function_case(name, s):
             *x, s.cluster_aabb, leaf, eps), lambda *x: mi.closest_hit_plain(*x, eps),
             (*_flat_rows(s), s.tri_n), ())
     if name == "K1 with_uv streamed":
-        return (I.KernelClosestUv, lambda *x: mi.mesh_closest_hit_uv(
-            *x, s.cluster_aabb, leaf, eps, block_budget=16 * leaf),
+        return (I.KernelClosestUv, lambda *x: mi.closest_hit_blocked(
+            *x, s.cluster_aabb, mi._blocked(s.tri_p1, leaf, 16 * leaf), leaf, eps,
+            want_uv=True),
             lambda *x: mi.closest_hit_uv_plain(*x, eps), _flat_rows(s), ())
     if name == "K1 with_sn":
         return (I.KernelClosestSn, lambda *x: mi.mesh_closest_hit_sn(

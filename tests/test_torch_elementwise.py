@@ -216,11 +216,11 @@ def test_elementwise_never_takes_the_instanced_or_fused_route():
     """rtc_tpu's choices for 'pallas': the herds sweep their world table
     and no fused kernel runs (rtc_tpu integrator :518, :532)."""
     scene = _compile(REGISTRY["cow_herd"](16)[0])
-    cfg = RenderConfig(mesh_impl="elementwise")
+    f32 = torch.float32
+    p = integrator.plan(scene, RenderConfig(mesh_impl="elementwise"), "cuda", f32)
     assert scene.static.tlas_n_inst
-    assert not integrator._use_tlas(scene, cfg, "elementwise")
-    assert not integrator._use_fused_shadow(scene, cfg, "elementwise")
-    assert integrator._use_tlas(scene, cfg, "kernel")
+    assert p.impl == "elementwise" and not p.tlas and not p.fused
+    assert integrator.plan(scene, RenderConfig(), "cuda", f32).tlas
 
 
 @pytest.mark.parametrize("name", ["teapot", "pumpkin"])

@@ -115,6 +115,11 @@ def _leaf(s):
     return s.static.cluster_size
 
 
+def _blocks16(s):
+    """The superblocks of 16 clusters of s's table (a streamed search)."""
+    return mi._blocked(s.tri_p1, _leaf(s), 16 * _leaf(s))
+
+
 CASES = {
     "K7a": ("teapot", integrator.KernelClosest,
             lambda s: lambda *x: mi.mesh_closest_hit_elementwise(
@@ -131,18 +136,18 @@ CASES = {
                       _spec("mxu_interpret", js, R), *x, js.cluster_aabb, js.super_aabb),
                   lambda js: (*_flat(js), js.tri_n), 2),
     "K1 with_n streamed": ("teapot", integrator.KernelClosestN,
-                           lambda s: lambda *x: mi.mesh_closest_hit(
-                               *x, s.cluster_aabb, _leaf(s), EPSILON,
-                               block_budget=16 * _leaf(s)),
+                           lambda s: lambda o, d, p1, e1, e2, n: mi.closest_hit_blocked(
+                               o, d, p1, e1, e2, s.cluster_aabb, _blocks16(s), _leaf(s),
+                               EPSILON, tri_n=n),
                            lambda s: (*_flat(s), s.tri_n),
                            lambda js, R: lambda *x: jint._kernel_closest_n(
                                _spec("mxu_interpret", js, R), *x, js.cluster_aabb,
                                js.super_aabb),
                            lambda js: (*_flat(js), js.tri_n), 2),
     "K1 with_uv streamed": ("teapot_smooth", integrator.KernelClosestUv,
-                            lambda s: lambda *x: mi.mesh_closest_hit_uv(
-                                *x, s.cluster_aabb, _leaf(s), EPSILON,
-                                block_budget=16 * _leaf(s)),
+                            lambda s: lambda *x: mi.closest_hit_blocked(
+                                *x, s.cluster_aabb, _blocks16(s), _leaf(s), EPSILON,
+                                want_uv=True),
                             _flat,
                             lambda js, R: lambda *x: jint._kernel_closest_uv(
                                 _spec("mxu_interpret", js, R), *x, js.cluster_aabb,

@@ -49,6 +49,7 @@ from rtc_tpu_torch.render.renderer import render
 from rtc_tpu_torch.scene.compile import (TENSOR_FIELDS, compile_scene,
                                          occlusion_tables)
 from rtc_tpu_torch.utils.config import RenderConfig
+from rtc_tpu_torch.utils.constants import VMEM_TRI_BUDGET
 from test_parallel import assert_images_match
 from torch_parallel_worker import PRIM_CASES, TILE
 
@@ -189,7 +190,7 @@ def test_shard_streams_as_rtc_tpu_shard():
     whole table and not on a shard (the kernel branch forced: the
     wrappers run their plain versions on the CPU)."""
     scene = compile_scene(cow_herd_mesh_world(3, 3), device="cpu")
-    leaf, budget = scene.static.cluster_size, mi.VMEM_TRI_BUDGET
+    leaf, budget = scene.static.cluster_size, VMEM_TRI_BUDGET
     shards = [shard_scene(pad_tris(scene, 2), i, 2) for i in range(2)]
     assert mi._blocked(scene.tri_p1, leaf, budget) == jax_blocked(
         np.asarray(scene.tri_p1), leaf, budget) == 2

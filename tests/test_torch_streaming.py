@@ -38,7 +38,7 @@ from rtc_tpu_torch.ops.kernels import mesh_intersect as mi
 from rtc_tpu_torch.render import integrator
 from rtc_tpu_torch.scene.compile import compile_scene
 from rtc_tpu_torch.utils.config import RenderConfig
-from rtc_tpu_torch.utils.constants import BIG, FAR, PARK
+from rtc_tpu_torch.utils.constants import BIG, FAR, PARK, VMEM_TRI_BUDGET
 
 torch.set_num_threads(2)
 
@@ -117,7 +117,8 @@ def test_streamed_closest_with_normal(teapot):
     leaf = scene.static.cluster_size
     args = (*_tabs(scene), scene.tri_n, scene.cluster_aabb, leaf)
     assert mi._blocked(scene.tri_p1, leaf, 2 * leaf) == 28
-    t, idx, n = mi.mesh_closest_hit(ot, dt, *args, block_budget=2 * leaf)
+    t, idx, n = mi.closest_hit_blocked(ot, dt, *_tabs(scene), scene.cluster_aabb, 28,
+                                       leaf, tri_n=scene.tri_n)
     t1, i1, n1 = mi.mesh_closest_hit(ot, dt, *args)
     same = _assert_same_winners(t, idx, t1, i1, exact=True)
     assert torch.equal(n[same], n1[same])
@@ -136,8 +137,9 @@ def test_streamed_any_hit(teapot):
     mt = np.full((o.shape[0],), 50.0, np.float32)
     mt[::4] = -1.0  # dead lanes
     args = (*_tabs(scene), scene.cluster_aabb, leaf)
-    h = mi.mesh_any_hit(ot, dt, torch.from_numpy(mt), *args,
-                        block_budget=2 * leaf)
+    h = mi.any_hit_blocked(ot, dt, torch.from_numpy(mt), *_tabs(scene),
+                           scene.cluster_aabb, mi._blocked(scene.tri_p1, leaf, 2 * leaf),
+                           leaf)
     assert torch.equal(h, mi.mesh_any_hit(ot, dt, torch.from_numpy(mt), *args))
     ref = np.asarray(mesh_any_hit_mxu(o, d, mt, *_jax_args(js), **_kw(
         js, vmem_tri_budget=2 * leaf)))
@@ -157,10 +159,12 @@ def test_streamed_census():
     t, idx = mi.closest_hit_plain(ot, dt, *_tabs(scene), scene.tri_n)[:2]
     gid = torch.where(idx >= 0, idx, -2).to(torch.int32)
     args = (*_tabs(scene), scene.cluster_aabb, scene.tri_cid, 1, leaf)
+    n_blocks = mi._blocked(scene.tri_p1, leaf, 2 * leaf)
     crossings = 0
     for t_hit, g in ((t, gid), (torch.full_like(t, BIG), torch.full_like(gid, -2))):
-        cnt, last = mi.mesh_crossing_count(ot, dt, t_hit, g, *args,
-                                           block_budget=2 * leaf)
+        cnt, last = mi.crossing_count_blocked(ot, dt, t_hit, g, *_tabs(scene),
+                                              scene.cluster_aabb, scene.tri_cid, 1,
+                                              n_blocks, leaf)
         c1, l1 = mi.mesh_crossing_count(ot, dt, t_hit, g, *args)
         assert torch.equal(cnt, c1) and torch.equal(last, l1)
         crossings += int(cnt.sum())
@@ -183,7 +187,9 @@ def test_streamed_uv():
     js, scene, o, d, ot, dt = _pair("teapot_smooth", 5)
     leaf = scene.static.cluster_size
     args = (*_tabs(scene), scene.cluster_aabb, leaf)
-    t, idx, uv = mi.mesh_closest_hit_uv(ot, dt, *args, block_budget=2 * leaf)
+    t, idx, uv = mi.closest_hit_blocked(ot, dt, *_tabs(scene), scene.cluster_aabb,
+                                        mi._blocked(scene.tri_p1, leaf, 2 * leaf), leaf,
+                                        want_uv=True)
     t1, i1, uv1 = mi.mesh_closest_hit_uv(ot, dt, *args)
     same = _assert_same_winners(t, idx, t1, i1, exact=True)
     assert torch.equal(uv[same], uv1[same])
@@ -200,7 +206,8 @@ def test_carried_t0_contract(teapot, payload):
     """test_carried_t0_bound_semantics: with t0, only hits strictly before
     it are reported; a bound below every hit reports t = BIG, idx = -1
     (and a zero payload); a bound above every hit gives the free winners
-    back exactly. rtc_tpu's t0 call agrees on the winners."""
+    back exactly. rtc_tpu's t0 call agrees on the winners. A streamed call
+    takes no t0: the driver carries its own."""
     js, scene, o, d, ot, dt = teapot
     leaf = scene.static.cluster_size
     if payload == "n":
@@ -223,10 +230,10 @@ def test_carried_t0_contract(teapot, payload):
     tr, ir = mesh_closest_hit_mxu(o, d, *_jax_args(js), **_kw(
         js, t0=t0_high.numpy()))
     assert (np.asarray(ir)[hit.numpy()] == i.numpy()[hit.numpy()]).mean() > 0.99
-    with pytest.raises(ValueError, match="t0"):
-        mi.mesh_closest_hit(ot, dt, *_tabs(scene), scene.tri_n,
-                            scene.cluster_aabb, leaf, t0=t_free,
-                            block_budget=2 * leaf)
+    with pytest.raises(TypeError, match="t0"):
+        mi.closest_hit_blocked(ot, dt, *_tabs(scene), scene.cluster_aabb,
+                               mi._blocked(scene.tri_p1, leaf, 2 * leaf), leaf,
+                               tri_n=scene.tri_n, t0=t_free)
 
 
 def _herd_pair(smooth: bool):
@@ -260,7 +267,7 @@ def test_block_order_matches_rtc_tpu(teapot, herds, where):
         budget = 2 * scene.static.cluster_size
     else:
         js, scene, o, d = herds["flat"]
-        budget = mi.VMEM_TRI_BUDGET
+        budget = VMEM_TRI_BUDGET
     leaf = scene.static.cluster_size
     n_blocks = mi._blocked(scene.tri_p1, leaf, budget)
     assert n_blocks == jax_blocked(js.tri_p1, leaf, budget) > 1
@@ -292,13 +299,14 @@ def test_one_mesh_herd_compiles_to_two_blocks(herds):
         st = scene.static
         assert (st.tlas_n_inst, st.n_tris, st.n_clusters) == (0, 53248, 416)
         assert st.any_smooth == (kind == "smooth")
-        assert mi._blocked(scene.tri_p1, st.cluster_size, mi.VMEM_TRI_BUDGET) == 2
-        assert not integrator._use_fused_shadow(scene, RenderConfig(), "kernel")
+        p = integrator.plan(scene, RenderConfig(), "cuda", torch.float32)
+        assert mi._blocked(scene.tri_p1, st.cluster_size, VMEM_TRI_BUDGET) == 2
+        assert p.blocks == 2 and not p.fused
         for field in ("tri_p1", "tri_e1", "tri_e2", "cluster_aabb"):
             assert np.array_equal(getattr(scene, field).numpy(),
                                   np.asarray(getattr(js, field))), field
     teapot = _compile(REGISTRY["teapot"](16)[0])
-    assert integrator._use_fused_shadow(teapot, RenderConfig(), "kernel")
+    assert integrator.plan(teapot, RenderConfig(), "cuda", torch.float32).fused
 
 
 @pytest.fixture(scope="module")
@@ -311,7 +319,8 @@ def herd_colors(herds):
     names = ("mesh_closest_hit", "mesh_closest_hit_uv", "mesh_closest_hit_sn",
              "mesh_any_hit", "mesh_closest_shadow", "mesh_closest_shadow_sn",
              "mesh_crossing_count", "mesh_closest_hit_elementwise",
-             "mesh_any_hit_elementwise")
+             "mesh_any_hit_elementwise", "closest_hit_blocked", "any_hit_blocked",
+             "crossing_count_blocked")
     for kind, (js, scene, o, d) in herds.items():
         calls = dict.fromkeys(names, 0)
 
@@ -347,11 +356,13 @@ def test_one_mesh_herd_color_at_matches_rtc_tpu(herd_colors, kind):
 
 @pytest.mark.parametrize("kind", ["flat", "smooth"])
 def test_one_mesh_herd_streams(herd_colors, kind):
-    """One node (the herd is not reflective): the closest-hit wrapper (K1
-    with_n flat, K1 with_uv smooth) and K2's, each called once by the
-    integrator and once per block by its driver; no fused kernel."""
+    """One node (the herd is not reflective): the integrator calls the
+    closest-hit driver and K2's once each, and each driver calls its
+    wrapper (K1 with_n flat, K1 with_uv smooth; K2) once per block; no
+    fused kernel."""
     _, _, calls = herd_colors[kind]
     closest = "mesh_closest_hit_uv" if kind == "smooth" else "mesh_closest_hit"
     want = dict.fromkeys(calls, 0)
-    want.update({closest: 3, "mesh_any_hit": 3})
+    want.update({"closest_hit_blocked": 1, closest: 2, "any_hit_blocked": 1,
+                 "mesh_any_hit": 2})
     assert calls == want
