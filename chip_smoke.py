@@ -37,7 +37,11 @@ cow and cow_herd under mesh_impl="elementwise", the one-mesh herds
 streamed, teapot and pumpkin) at 1920x960 (the smooth one-mesh herd at
 480x240), depth 5, f32 through render(), counting each kernel's
 launches in each frame, and checks each image against the plain render
-and, where tests/golden has one, the golden. Phase 13 runs the gradient
+and, where tests/golden has one, the golden. Phase 8 also holds the prim
+kernel (mi.prim_closest, mi.prim_any) to its plain version, bit for bit,
+on the six calls of one glass_teapot frame at 1920x960 and the default
+tile, and times each call against the plain version and its bound; the
+kernels' record takes its two lines. Phase 13 runs the gradient
 path (render/integrator.py's autograd Functions, diff.render_grad): the
 cow frame's loss_and_grad in 4 tiles through K3 (8 launches under
 autograd) against the whole frame in one call, the split route and
@@ -55,7 +59,8 @@ PPM writers (C++ and Python) timed on the cow frame; the CLI's main path
 counted; the cow's render_with_checkpoints frame (K3 counted) against
 render(); and the six prim-only scenes at their golden widths under
 tests/test_golden.py's F32_BUDGET and at width 1920 timed (median of 7,
-peak memory, no kernel launched). It prints a "cli" JSON line after the
+peak memory, the prim kernel's launches counted, the image bit-equal to
+the plain render). It prints a "cli" JSON line after the
 "grads" line. Phase 15 runs rtc_tpu_torch.parallel: grids of ranks, each
 a process of this script (--parallel-worker) on the one card, the kernels
 built once by this process first. Cow at 1920x960 on a 2x2 grid over gloo
@@ -1311,10 +1316,13 @@ def glass_teapot_k2(scene, o, d, eps) -> None:
 # the slice's frames: each kernel of the scene's path, launches per frame
 FRAME_KERNELS = {
     "teapot_smooth": lambda tiles: {"closest_shadow_sn": tiles},
-    # root node + its reflected and refracted children; census at the root
+    # root node + its reflected and refracted children; census at the root;
+    # the checkered plane's closest hit and shadow flag at each node
     "glass_teapot": lambda tiles: {"closest_hit_sn": 3 * tiles,
                                    "any_hit": 3 * tiles,
-                                   "crossing_count": tiles},
+                                   "crossing_count": tiles,
+                                   "prim_closest": 3 * tiles,
+                                   "prim_any": 3 * tiles},
     # instanced and not reflective: one node per tile, K5 then K6
     "cow_herd": lambda tiles: {"closest_hit_tlas": tiles,
                                "any_hit_tlas": tiles},
@@ -1396,6 +1404,87 @@ def phase_frames():
             f"depth {depth} kernels vs tests/golden/{name}.npy (f64): 8-bit "
             f"match {match:.4f}, structural flips {flips}")
     return launches
+
+
+PRIM_SCENE = "glass_teapot"  # the frame whose prims' sweep the kernels line times
+
+
+def prim_sweep_lines() -> list:
+    """The prims' sweep on the inputs the main path hands it: the calls of
+    mi.prim_closest (closest_hit's) and mi.prim_any (is_shadowed's), one a
+    shading node, recorded in one eager PRIM_SCENE frame at 1920x960 and
+    the default tile (1,843,200 rays a call), with the launches that frame
+    counted from 0. Each call's kernel against its plain version bit for
+    bit (t's bits, the prim ids, the flags); each timed (time_pair, and
+    device_ms) against the plain version and the bound: the rays (o, d,
+    and max_t in the any mode) read once and the results written, at
+    HBM_RATE. Returns the two kernels lines, each "ms", "device_ms",
+    "plain_ms" and "bound_ms" a call (the mean of the frame's calls)."""
+    scene, cam = slice_scene(PRIM_SCENE, WIDTH)
+    taken = {"prim_closest": [], "prim_any": []}
+    real = {name: getattr(mi, name) for name in taken}
+
+    def keeper(name):
+        def keep(*args):
+            taken[name].append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+            return real[name](*args)
+        return keep
+
+    with compiled.eager():
+        render(scene, cam, RenderConfig())  # warm-up
+        torch.cuda.synchronize()
+        mi.reset_launch_counts()
+        for name in taken:
+            setattr(mi, name, keeper(name))
+        try:
+            render(scene, cam, RenderConfig())
+            torch.cuda.synchronize()
+        finally:
+            for name in taken:
+                setattr(mi, name, real[name])
+    launches = dict(mi.LAUNCHES)
+    plains = {"prim_closest": mi.prim_closest_plain, "prim_any": mi.prim_any_plain}
+    lines = []
+    for name, label in (("prim_closest", "prims' sweep, closest (t, prim)"),
+                        ("prim_any", "prims' sweep, shadow flag")):
+        calls = taken[name]
+        check(launches[name] == len(calls) == 3, f"{PRIM_SCENE} frame: {launches[name]} "
+              f"{name} launches for {len(calls)} calls, expected 3")
+        per = []
+        for args in calls:
+            kernel = lambda: real[name](*args)
+            plain = lambda: plains[name](*args)
+            ms, plain_ms, got, ref = time_pair(kernel, plain, plain_warmup=1, plain_iters=3)
+            if name == "prim_closest":
+                same = (torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+                        and torch.equal(got[1], ref[1]))
+                n_bytes = nbytes(*args[:2], *got)
+                found = int((got[0] < BIG).sum())
+            else:
+                same = torch.equal(got, ref)
+                n_bytes = nbytes(*args[:3], got)
+                found = int(got.sum())
+            check(same, f"{name} on {PRIM_SCENE}'s frame inputs: kernel differs from plain")
+            b = bound(Work(), n_bytes)
+            per.append(dict(ms=ms, device_ms=device_ms(kernel), plain_ms=plain_ms,
+                            bound_ms=b[0], bound_by=b[1], found=found))
+        mean = lambda k: (None if any(c[k] is None for c in per)
+                          else sum(c[k] for c in per) / len(per))
+        line = {"name": label, "route": "cuda", "source": SOURCE,
+                "replaces": "intersect.prims and its reduction (the torch sweep)",
+                "frame": PRIM_SCENE, "launches": launches[name], "max_abs_err": 0.0,
+                "flips": 0, "pair_tests": None, "library_ms": None,
+                **{k: mean(k) for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+                "bound_by": per[0]["bound_by"], "rays": calls[0][0].shape[0],
+                "plain_rays": calls[0][0].shape[0], "calls": per}
+        lines.append(line)
+        say("8 prim sweep",
+            f"{name} on {PRIM_SCENE}'s {WIDTH}x{HEIGHT} frame inputs: {len(calls)} calls "
+            f"of {line['rays']} rays ({[c['found'] for c in per]} hits or shadowed), "
+            f"{launches[name]} launches a frame, bit-equal to plain; a call: kernel "
+            f"{shown(line['ms'])} (device {shown(line['device_ms'])}), plain "
+            f"{shown(line['plain_ms'])}, bound {shown(line['bound_ms'])} ({line['bound_by']})")
+    return lines
 
 
 # ---------------------------------------------------------------------------
@@ -2488,7 +2577,9 @@ def phase_cli() -> dict:
     its timed one); the cow's render_with_checkpoints frame, counted the
     same way, against render(); and the six prim-only scenes at their
     golden widths under F32_BUDGET and at width 1920 timed, with their
-    peak memory and no kernel launched. Returns the `cli` record."""
+    peak memory, the prim kernel's launches (both modes once a shading
+    node, nothing else) and the image bit-equal to the plain render
+    (mesh_impl="bruteforce"). Returns the `cli` record."""
     from rtc_tpu_torch import cli
     from rtc_tpu_torch import native
     from rtc_tpu_torch.io.canvas import Canvas, write_ppm
@@ -2582,7 +2673,8 @@ def phase_cli() -> dict:
         f"{progressive_s:.3f} s, K3 {counts['closest_shadow']} launches; against "
         f"render(): {gate}")
 
-    # the prim-only scenes: no kernel runs; the sweep is plain PyTorch
+    # the prim-only scenes: the prim kernel sweeps them (Plan.prims), both
+    # modes once a shading node, and nothing else launches
     record["prim_scenes"] = {}
     for name, (gw, depth, budget) in PRIM_GOLDENS.items():
         gate = golden_gate(name, gw, depth, budget)
@@ -2598,9 +2690,14 @@ def phase_cli() -> dict:
             img = render(scene, cam, cfg)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-            check(mi.LAUNCHES == dict.fromkeys(mi.LAUNCHES, 0),
-                  f"{name}: a prim-only frame launched {mi.LAUNCHES}")
+            counts = dict(mi.LAUNCHES)
+            check(counts["prim_closest"] == counts["prim_any"] >= 1
+                  and sum(counts.values()) == 2 * counts["prim_closest"],
+                  f"{name}: a prim-only frame launched {counts}")
         peak = torch.cuda.max_memory_allocated()
+        plain = render(scene, cam, dataclasses.replace(cfg, mesh_impl="bruteforce"))
+        check(torch.equal(img, plain), f"{name}: the prim kernel's frame differs from "
+              "the plain render's")
         check(img.shape == (cam.vsize, cam.hsize, 3), f"{name}: image shape")
         check(bool(torch.isfinite(img).all()), f"{name}: non-finite values")
         check(float(img.min()) >= 0.0 and float(img.amax()) > 0.1,
@@ -2613,13 +2710,15 @@ def phase_cli() -> dict:
             "width": cam.hsize, "height": cam.vsize, "n_prims": st.n_prims,
             "frame_ms": [w * 1e3 for w in walls], "median_ms": median * 1e3,
             "casts": casts, "rays_per_s": casts / median, "peak_bytes": peak,
-            "compile_s": SCENES[name][1], "golden": gate}
+            "compile_s": SCENES[name][1], "golden": gate,
+            "launches": {k: v for k, v in counts.items() if v}}
         say("14 prim-only scenes",
             f"{name} {cam.hsize}x{cam.vsize} depth {DEPTH} f32, tile {RAY_TILE}, "
             f"{st.n_prims} prims: frame median {median * 1e3:.1f} ms of "
             f"[{', '.join(f'{w * 1e3:.1f}' for w in walls)}] = "
             f"{casts / median / 1e6:.1f}M rays/s ({casts} casts); peak "
-            f"{peak / 2**30:.2f} GiB; no kernel launched; {gate}")
+            f"{peak / 2**30:.2f} GiB; launches { {k: v for k, v in counts.items() if v} }, "
+            f"bit-equal to the plain render; {gate}")
     return record
 
 
@@ -3395,7 +3494,8 @@ KERNEL_OF_COUNT = {"closest_hit": "closest_hit_kernel", "closest_hit_sn": "close
                    "closest_hit_elementwise": "elementwise_kernel",
                    "any_hit_elementwise": "elementwise_kernel",
                    # a call launches both passes; pass 1 stands for it
-                   "object_rows": "object_rows_partial_kernel"}
+                   "object_rows": "object_rows_partial_kernel",
+                   "prim_closest": "prim_sweep_kernel", "prim_any": "prim_sweep_kernel"}
 
 
 def port_kernel(name: str):
@@ -4143,6 +4243,7 @@ def main() -> int:
         times.update(t)
         parity.update(p)
     launches.update(phase_frames())
+    prim_lines = prim_sweep_lines()
     t, p, sizes = phase_tlas(eps)
     times.update(t)
     parity.update(p)
@@ -4216,7 +4317,8 @@ def main() -> int:
             if key in TABLE_ORDER_BOUNDS else {}),
          **EXTRA.get(key, {}),
          **sizes.get(key, dict(rays=MAIN_RAYS, plain_rays=MAIN_RAYS))}
-        for key, (label, line, frame) in lines.items()] + [grads["object_rows"]]}
+        for key, (label, line, frame) in lines.items()] + [grads["object_rows"]]
+        + prim_lines}
     print(json.dumps({"grads": grads}))
     print(json.dumps({"cli": cli_record}))
     print(json.dumps({"parallel": parallel}))

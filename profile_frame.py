@@ -74,7 +74,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WIDTH, DEPTH = 1920, 5
 OUR_KERNELS = ("closest_hit_kernel", "any_hit_kernel", "closest_shadow_kernel",
                "crossing_count_kernel", "closest_hit_tlas_kernel",
-               "any_hit_tlas_kernel", "closest_hit_elementwise_kernel", "any_hit_elementwise_kernel")
+               "any_hit_tlas_kernel", "closest_hit_elementwise_kernel", "any_hit_elementwise_kernel",
+               "prim_sweep_kernel")
 SCENES = dict(REGISTRY, **TEST_WORLDS)
 ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 

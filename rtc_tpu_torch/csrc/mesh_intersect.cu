@@ -1,8 +1,9 @@
 // Mesh intersection kernels for NVIDIA Hopper (sm_90a): K1 closest hit,
 // K2 any-hit occlusion, K3 fused closest hit + shadow, K4 crossing census,
 // K5 instanced closest hit, K6 instanced occlusion, and the elementwise
-// cross-check backend K7a (closest hit) and K7b (occlusion); and, for the
-// shading glue's backward, the object rows' sum (no TPU counterpart).
+// cross-check backend K7a (closest hit) and K7b (occlusion); and, with no
+// TPU counterpart, the object rows' sum (the shading glue's backward) and
+// the analytic prims' sweep (closest hit or shadow flag over the prims).
 //
 // Replaces (rtc_tpu/ops/pallas/mesh_intersect.py):
 //   K1 _kernel_mxu / _kernel_mxu_body, with_n, with_sn, with_t0 and
@@ -1491,6 +1492,260 @@ object_rows_total_kernel(const float* __restrict__ partial, int blocks, RowField
   }
 }
 
+// ---------------------------------------------------------------------------
+// The analytic prims' sweep (no TPU counterpart: rtc_tpu sweeps its prims
+// in XLA, integrator.py :64-105, as the plain version ops/intersect.py
+// prims() does, every kind on every prim and ray, padded to 4 slots).
+// render/integrator.py closest_hit and is_shadowed launch it where the plan
+// says so, once a shading node each. One thread a ray. The block stages the
+// prims' tables (inverse (N, 3, 4), kind, ymin, ymax, capped) in shared
+// memory, kPrimTile prims at a time, and each ray loops over them in
+// order: the ray into the prim's object space in affine3's order
+// (((m0 x + m1 y) + m2 z) + m3), then only that prim's kind's slots (the
+// branch is uniform: every thread of the block reads the same prim), with
+// ops/intersect.py's formulas in their order, reduced in registers.
+// ANY = false: the first least t over prims, then slots, of the valid
+// slots with t >= 0 (BIG elsewhere, pad slots too), argmin's answer over
+// the plain version's (R, 4N) row, so (BIG, 0) where none is. ANY: does a
+// valid slot lie at 0 <= t < max_t (max_t -1 on a dead lane: never)?
+// torch.minimum and torch.maximum keep a NaN; so do nan_min and nan_max.
+// What bounds it: bytes, the rays read once (24 B a ray in float32, 4 more
+// for max_t) and the results written once (8 B, or a 1-byte flag), against
+// a few hundred operations a ray and prim; the plain version writes and
+// reads some 20 kB a ray through ~340 launches at one prim.
+constexpr int kPrimTile = 128;     // prims a block stages at a time
+constexpr double kBigD = 1e30;     // BIG in the rays' type (constants.py)
+
+__device__ __forceinline__ float abs_s(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_s(double x) { return fabs(x); }
+__device__ __forceinline__ float sqrt_s(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_s(double x) { return sqrt(x); }
+__device__ __forceinline__ float fmin_s(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double fmin_s(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float fmax_s(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double fmax_s(double a, double b) { return fmax(a, b); }
+
+template <typename S>
+__device__ __forceinline__ S nan_min(S a, S b) {  // torch.minimum
+  if (a != a) return a;
+  if (b != b) return b;
+  return fmin_s(a, b);
+}
+
+template <typename S>
+__device__ __forceinline__ S nan_max(S a, S b) {  // torch.maximum
+  if (a != a) return a;
+  if (b != b) return b;
+  return fmax_s(a, b);
+}
+
+template <typename S>
+struct PrimRow {
+  S m[12];  // world -> object, row-major (3, 4)
+  S ymin, ymax;
+  int kind;  // intersect.py SPHERE .. CONE
+  bool capped;
+};
+
+template <typename S>
+struct PrimSlots {
+  S t[4];
+  bool v[4];
+};
+
+// intersect._quadratic: both roots, valid iff disc >= 0
+template <typename S>
+__device__ __forceinline__ bool prim_quadratic(S a, S b, S c, S& t0, S& t1) {
+  const S disc = b * b - S(4) * a * c;
+  const S sq = disc > S(0) ? sqrt_s(disc) : S(0);
+  const S denom = abs_s(a) > S(0) ? S(2) * a : S(1);
+  t0 = (-b - sq) / denom;
+  t1 = (-b + sq) / denom;
+  return disc >= S(0);
+}
+
+// intersect._check_axis on the +-1 slab
+template <typename S>
+__device__ __forceinline__ void prim_axis(S o1, S d1, S eps, S& tmin, S& tmax) {
+  const S num_lo = S(-1) - o1;
+  const S num_hi = S(1) - o1;
+  const bool parallel = abs_s(d1) < eps;
+  const S ds = parallel ? S(1) : d1;
+  const S ta = num_lo / ds;
+  const S tb = num_hi / ds;
+  const S big = static_cast<S>(kBigD);
+  tmin = parallel ? (num_lo <= S(0) ? -big : big) : nan_min(ta, tb);
+  tmax = parallel ? (num_hi >= S(0) ? big : -big) : nan_max(ta, tb);
+}
+
+// intersect._check_cap
+template <typename S>
+__device__ __forceinline__ bool prim_cap(const S* o, const S* d, S t) {
+  const S x = o[0] + t * d[0];
+  const S y = o[1] + t * d[1];
+  const S z = o[2] + t * d[2];
+  return x * x + z * z <= abs_s(y);
+}
+
+// intersect._caps into slots 2 and 3
+template <typename S>
+__device__ __forceinline__ void prim_caps(const PrimRow<S>& p, const S* o, const S* d,
+                                          S eps, PrimSlots<S>& h) {
+  const bool dy_ok = abs_s(d[1]) >= eps;
+  const S dy = dy_ok ? d[1] : S(1);
+  h.t[2] = (p.ymin - o[1]) / dy;
+  h.t[3] = (p.ymax - o[1]) / dy;
+  const bool on = p.capped && dy_ok;
+  h.v[2] = on && prim_cap(o, d, h.t[2]);
+  h.v[3] = on && prim_cap(o, d, h.t[3]);
+}
+
+// The slots of prim p's own kind for a ray o, d in its object space;
+// the plain version's pads: t 0, invalid.
+template <typename S>
+__device__ __forceinline__ PrimSlots<S> prim_slots(const PrimRow<S>& p, const S* o,
+                                                   const S* d, S eps) {
+  PrimSlots<S> h;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    h.t[s] = S(0);
+    h.v[s] = false;
+  }
+  switch (p.kind) {
+    case 0: {  // sphere
+      const S a = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+      const S b = S(2) * (d[0] * o[0] + d[1] * o[1] + d[2] * o[2]);
+      const S c = o[0] * o[0] + o[1] * o[1] + o[2] * o[2] - S(1);
+      h.v[0] = h.v[1] = prim_quadratic(a, b, c, h.t[0], h.t[1]);
+      break;
+    }
+    case 1: {  // plane
+      h.v[0] = abs_s(d[1]) >= eps;
+      h.t[0] = -o[1] / (h.v[0] ? d[1] : S(1));
+      break;
+    }
+    case 2: {  // cube
+      S xl, xh, yl, yh, zl, zh;
+      prim_axis(o[0], d[0], eps, xl, xh);
+      prim_axis(o[1], d[1], eps, yl, yh);
+      prim_axis(o[2], d[2], eps, zl, zh);
+      h.t[0] = nan_max(nan_max(xl, yl), zl);
+      h.t[1] = nan_min(nan_min(xh, yh), zh);
+      h.v[0] = h.v[1] = h.t[1] >= h.t[0];
+      break;
+    }
+    case 3: {  // cylinder
+      const S a = d[0] * d[0] + d[2] * d[2];
+      const bool wall = abs_s(a) >= eps;
+      const S b = S(2) * (o[0] * d[0] + o[2] * d[2]);
+      const S c = o[0] * o[0] + o[2] * o[2] - S(1);
+      const bool ok = prim_quadratic(wall ? a : S(1), b, c, h.t[0], h.t[1]);
+      const S y0 = o[1] + h.t[0] * d[1];
+      const S y1 = o[1] + h.t[1] * d[1];
+      h.v[0] = wall && ok && p.ymin < y0 && y0 < p.ymax;
+      h.v[1] = wall && ok && p.ymin < y1 && y1 < p.ymax;
+      prim_caps(p, o, d, eps, h);
+      break;
+    }
+    case 4: {  // cone
+      const S a = d[0] * d[0] - d[1] * d[1] + d[2] * d[2];
+      const S b = S(2) * (o[0] * d[0] - o[1] * d[1] + o[2] * d[2]);
+      const S c = o[0] * o[0] - o[1] * o[1] + o[2] * o[2];
+      const bool a_zero = abs_s(a) < eps;
+      const bool b_ok = abs_s(b) >= eps;
+      const S t_lin = -c / (b_ok ? S(2) * b : S(1));
+      S t0, t1;
+      const bool ok = prim_quadratic(a_zero ? S(1) : a, b, c, t0, t1);
+      const S t_sm = nan_min(t0, t1);
+      const S t_lg = nan_max(t0, t1);
+      const S y0 = o[1] + t_sm * d[1];
+      const S y1 = o[1] + t_lg * d[1];
+      h.t[0] = a_zero ? t_lin : t_sm;
+      h.v[0] = a_zero ? b_ok : (ok && p.ymin < y0 && y0 < p.ymax);
+      h.t[1] = t_lg;
+      h.v[1] = !a_zero && ok && p.ymin < y1 && y1 < p.ymax;
+      prim_caps(p, o, d, eps, h);
+      break;
+    }
+    default:
+      break;
+  }
+  return h;
+}
+
+template <typename S, bool ANY>
+__global__ void __launch_bounds__(kThreads)
+prim_sweep_kernel(const S* __restrict__ o, const S* __restrict__ d,
+                  const S* __restrict__ max_dist, int R, const S* __restrict__ inv,
+                  const int* __restrict__ kind, const S* __restrict__ params, int N,
+                  S eps, S* __restrict__ t_out, int* __restrict__ prim_out,
+                  uint8_t* __restrict__ hit_out) {
+  __shared__ PrimRow<S> tile[kPrimTile];
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = i < R;
+  S wo[3] = {S(0), S(0), S(0)}, wd[3] = {S(0), S(0), S(0)};
+  S lim = S(-1);
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      wo[k] = o[3 * (size_t)i + k];
+      wd[k] = d[3 * (size_t)i + k];
+    }
+    if (ANY) lim = max_dist[i];
+  }
+  const S big = static_cast<S>(kBigD);
+  S best = S(INFINITY);  // argmin: the first element always replaces it
+  int best_p = 0;
+  bool hit = false;
+  for (int base = 0; base < N; base += kPrimTile) {
+    const int n = min(kPrimTile, N - base);
+    __syncthreads();  // the previous tile is read
+    for (int e = threadIdx.x; e < n; e += kThreads) {
+      PrimRow<S>& p = tile[e];
+      const size_t r = (size_t)(base + e);
+#pragma unroll
+      for (int k = 0; k < 12; ++k) p.m[k] = inv[12 * r + k];
+      p.ymin = params[3 * r];
+      p.ymax = params[3 * r + 1];
+      p.capped = params[3 * r + 2] > S(0.5);
+      p.kind = kind[r];
+    }
+    __syncthreads();
+    if (!live || (ANY && hit)) continue;
+    for (int j = 0; j < n; ++j) {
+      const PrimRow<S>& p = tile[j];
+      S lo[3], ld[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const S* m = p.m + 4 * k;
+        lo[k] = m[0] * wo[0] + m[1] * wo[1] + m[2] * wo[2] + m[3];
+        ld[k] = m[0] * wd[0] + m[1] * wd[1] + m[2] * wd[2];
+      }
+      const PrimSlots<S> h = prim_slots(p, lo, ld, eps);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (ANY) {
+          hit = hit || (h.v[s] && h.t[s] >= S(0) && h.t[s] < lim);
+        } else {
+          const S tt = h.v[s] && h.t[s] >= S(0) ? h.t[s] : big;
+          if (tt < best) {
+            best = tt;
+            best_p = base + j;
+          }
+        }
+      }
+      if (ANY && hit) break;
+    }
+  }
+  if (!live) return;
+  if (ANY) {
+    hit_out[i] = hit;
+  } else {
+    t_out[i] = best;
+    prim_out[i] = best_p;
+  }
+}
+
 inline unsigned blocks_for(int R) { return (unsigned)((R + kThreads - 1) / kThreads); }
 
 // K2, K3, K4 and K6 read the occlusion tables (scene/compile.py OcclusionTables):
@@ -1541,6 +1796,18 @@ int launch_elementwise(int device, void* stream, const float* o, const float* d,
   elementwise_kernel<ANY><<<(unsigned)((R + kTileK7 - 1) / kTileK7), kTileK7, smem,
                             (cudaStream_t)stream>>>(
       o, d, max_t, R, p1, e1, e2, aabb, C, sup, leaf, eps, vec16, t_out, idx_out, hit_out);
+  return (int)cudaGetLastError();
+}
+
+template <typename S, bool ANY>
+int launch_prim_sweep(void* stream, const void* o, const void* d, const void* max_dist,
+                      int R, const void* inv, const int* kind, const void* params,
+                      int N, double eps, void* t_out, int* prim_out, uint8_t* hit_out) {
+  prim_sweep_kernel<S, ANY><<<blocks_for(R), kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const S*>(o), static_cast<const S*>(d),
+      static_cast<const S*>(max_dist), R, static_cast<const S*>(inv), kind,
+      static_cast<const S*>(params), N, static_cast<S>(eps), static_cast<S*>(t_out),
+      prim_out, hit_out);
   return (int)cudaGetLastError();
 }
 
@@ -1882,6 +2149,23 @@ int rtc_object_rows_sum(int device, void* stream, const int* ids, int R, int O,
     }
   }
   return 0;
+}
+
+// The analytic prims' sweep over N >= 1 prims (inv (N, 3, 4), kind (N,) int32,
+// params (N, 3)) of R rays o, d (R, 3), all float64 where f64 is set, else
+// float32. any = 0: t_out (R,) and prim_out (R,) int32, the closest hit;
+// any = 1: hit_out (R,) bytes, a valid slot at 0 <= t < max_dist (R,).
+int rtc_prim_sweep(int device, void* stream, int f64, int any, const void* o,
+                   const void* d, const void* max_dist, int R, const void* inv,
+                   const int* kind, const void* params, int N, double eps,
+                   void* t_out, int* prim_out, uint8_t* hit_out) {
+  if (R < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  auto launch = f64 ? (any ? launch_prim_sweep<double, true> : launch_prim_sweep<double, false>)
+                    : (any ? launch_prim_sweep<float, true> : launch_prim_sweep<float, false>);
+  return launch(stream, o, d, max_dist, R, inv, kind, params, N, eps, t_out, prim_out,
+                hit_out);
 }
 
 const char* rtc_error_string(int err) {

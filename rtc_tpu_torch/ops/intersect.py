@@ -13,7 +13,9 @@ Each analytic kind is a branchless batched function over rays of shape
     aabb     -> 2 slots   (the group-bounds cull, src/shape.rs:399-425)
 
 Invalid slots carry arbitrary finite t values; callers mask with `valid`.
-Every formula keeps rtc_tpu's association order.
+Every formula keeps rtc_tpu's association order, summed left to right,
+and the prim kernel (csrc/mesh_intersect.cu prim_sweep_kernel) evaluates
+the analytic kinds in the same order: prims() below is its plain version.
 """
 
 from __future__ import annotations
@@ -23,7 +25,10 @@ from typing import NamedTuple
 import torch
 
 from ..utils.constants import BIG, EPSILON
-from .vec import cross3, dot3, safe_sqrt, unpack3
+from .vec import affine3, cross3, dot3, safe_sqrt, unpack3
+
+# kind codes (scene.shapes.KIND_CODES)
+SPHERE, PLANE, CUBE, CYLINDER, CONE = 0, 1, 2, 3, 4
 
 
 class Hits(NamedTuple):
@@ -45,9 +50,10 @@ def _quadratic(a, b, c):
 
 def sphere(o, d) -> Hits:
     """Unit sphere at the origin (reference: src/shape.rs:258-273)."""
-    a = (d * d).sum(-1)
-    b = 2.0 * (d * o).sum(-1)
-    c = (o * o).sum(-1) - 1.0
+    o3, d3 = unpack3(o), unpack3(d)
+    a = dot3(*d3, *d3)
+    b = 2.0 * dot3(*d3, *o3)
+    c = dot3(*o3, *o3) - 1.0
     t0, t1, valid = _quadratic(a, b, c)
     return Hits(torch.stack([t0, t1], -1), torch.stack([valid, valid], -1))
 
@@ -193,3 +199,51 @@ def triangle(o, d, p1, e1, e2, eps: float = EPSILON):
     t = f * dot3(e2x, e2y, e2z, qx, qy, qz)
     valid = det_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
     return t, valid, u, v
+
+
+def local_rays(inv, o, d):
+    """Rays in each prim's object space: inv (N, 3, 4), o/d (R, 3) ->
+    (R, N, 3) each, by component in affine3's order, as the prim kernel
+    rounds them (a shared einsum is a cuBLAS product in the library's
+    order)."""
+    o3 = (c[:, None] for c in unpack3(o))
+    d3 = (c[:, None] for c in unpack3(d))
+    return affine3(inv, *o3), affine3(inv[..., :3], *d3)
+
+
+def prims(inv, kind, params, o, d, eps: float = EPSILON) -> Hits:
+    """(R, N, 4) candidate t and validity of every analytic prim of the
+    tables inv (N, 3, 4), kind (N,) and params (N, 3) (ymin, ymax, capped)
+    for rays o/d (R, 3): prim_slots on the rays in each prim's object
+    space. The prim kernel's plain version: it evaluates each prim's own
+    kind."""
+    return prim_slots(*local_rays(inv, o, d), kind, params, eps)
+
+
+def prim_slots(o_l, d_l, kind, params, eps: float = EPSILON) -> Hits:
+    """(..., 4) candidate t and validity of object-space rays o_l/d_l
+    (..., 3) against prims whose kind (...) and params (..., 3) broadcast
+    with them: (R, N, 3) rays and a table's (N,) kinds, or one prim a ray.
+    Every kind runs on every prim, masked by kind, each padded to 4 slots
+    with invalid zeros (rtc_tpu integrator :64-105)."""
+    ymin, ymax = params[..., 0], params[..., 1]
+    capped = params[..., 2] > 0.5
+
+    def pad4(h: Hits):
+        extra = h.t.shape[:-1] + (4 - h.t.shape[-1],)
+        return Hits(torch.cat([h.t, h.t.new_zeros(extra)], -1),
+                    torch.cat([h.valid, h.valid.new_zeros(extra)], -1))
+
+    sp = pad4(sphere(o_l, d_l))
+    pl = pad4(plane(o_l, d_l, eps))
+    cu = pad4(cube(o_l, d_l, eps))
+    cy = pad4(cylinder(o_l, d_l, ymin, ymax, capped, eps))
+    co = pad4(cone(o_l, d_l, ymin, ymax, capped, eps))
+
+    k = kind[..., None]
+    t = torch.where(k == SPHERE, sp.t, 0.0)
+    v = (k == SPHERE) & sp.valid
+    for code, h in ((PLANE, pl), (CUBE, cu), (CYLINDER, cy), (CONE, co)):
+        t = torch.where(k == code, h.t, t)
+        v = torch.where(k == code, h.valid, v)
+    return Hits(t, v)

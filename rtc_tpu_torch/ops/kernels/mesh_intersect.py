@@ -19,13 +19,15 @@ Counterpart of rtc_tpu/ops/pallas/mesh_intersect.py:
   K7b mesh_any_hit_elementwise     <- mesh_any_hit_pallas          (_anyhit_kernel)
 
 and, with no TPU counterpart, the object rows' sum (object_rows_sum), the
-backward of object_record's gather of its parameter fields.
+backward of object_record's gather of its parameter fields, and the
+analytic prims' sweep (prim_closest, prim_any), the closest hit and the
+shadow flag over the scene's prims.
 
 Each wrapper of K1-K7 takes f32 tensors. Given tensors on the CPU it
 returns its plain version's result; given CUDA tensors it launches its
-kernel, or raises; so does object_rows_sum with its float32 gradients.
-LAUNCHES counts the kernel launches of each wrapper (a call of
-object_rows_sum as one). K2, K3, K4 and K6 also take the walks' tables
+kernel, or raises; so do object_rows_sum with its float32 gradients and
+the prims' sweep with float32 or float64 rays. LAUNCHES counts the kernel
+launches of each wrapper (a call of object_rows_sum as one). K2, K3, K4 and K6 also take the walks' tables
 (occ: scene/compile.py OcclusionTables), which only their kernels read.
 
 Each wrapper launches one kernel on the table it is given, of any size.
@@ -56,7 +58,7 @@ import torch
 
 from ...utils.constants import BIG, EPSILON, FAR
 from ...utils.profiling import span
-from ..intersect import triangle
+from ..intersect import prims, triangle
 from ..vec import dot3, normalize3
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -85,7 +87,7 @@ LAUNCHES = {"closest_hit": 0, "any_hit": 0, "closest_shadow": 0,
             "closest_hit_tlas": 0, "closest_hit_tlas_sn": 0, "any_hit_tlas": 0,
             "closest_hit_t0": 0, "closest_hit_uv": 0,
             "closest_hit_elementwise": 0, "any_hit_elementwise": 0,
-            "object_rows": 0}
+            "object_rows": 0, "prim_closest": 0, "prim_any": 0}
 
 
 def reset_launch_counts() -> None:
@@ -531,13 +533,16 @@ def bind(path: str) -> ctypes.CDLL:
                                             I, I, F, P]
     lib.rtc_object_rows_scratch.argtypes = [I, I, I, I, ctypes.POINTER(ctypes.c_longlong)]
     lib.rtc_object_rows_sum.argtypes = [I, P, P, I, I, P, P, P, I, P, ctypes.c_longlong]
+    lib.rtc_prim_sweep.argtypes = [I, P, I, I, P, P, P, I, P, P, P, I, ctypes.c_double,
+                                   P, P, P]
     for fn in (lib.rtc_closest_hit, lib.rtc_closest_hit_sn, lib.rtc_any_hit,
                lib.rtc_closest_shadow, lib.rtc_closest_shadow_sn,
                lib.rtc_crossing_count, lib.rtc_closest_hit_tlas,
                lib.rtc_closest_hit_tlas_sn, lib.rtc_any_hit_tlas,
                lib.rtc_closest_hit_bounded,
                lib.rtc_closest_hit_elementwise, lib.rtc_any_hit_elementwise,
-               lib.rtc_object_rows_scratch, lib.rtc_object_rows_sum):
+               lib.rtc_object_rows_scratch, lib.rtc_object_rows_sum,
+               lib.rtc_prim_sweep):
         fn.restype = I
     lib.rtc_error_string.argtypes = [I]
     lib.rtc_error_string.restype = ctypes.c_char_p
@@ -1091,6 +1096,84 @@ def object_rows_sum(ids, grads, n_rows: int):
         _raise_on(err, "object_rows")
         LAUNCHES["object_rows"] += 1
         return outs
+
+
+# ---------------------------------------------------------------------------
+# the analytic prims' sweep (render/integrator.py closest_hit, is_shadowed)
+# ---------------------------------------------------------------------------
+#
+# The prims' tables are the scene's: inv (N, 3, 4) world -> object, kind (N,)
+# int32 (intersect.SPHERE .. CONE), params (N, 3) ymin, ymax, capped.
+
+def prim_closest_plain(o, d, inv, kind, params, eps: float = EPSILON):
+    """The prims' closest hit in plain PyTorch: over every prim's 4 slots
+    (intersect.prims), argmin's first least t of the valid slots with
+    t >= 0, BIG elsewhere: (t (R,), prim (R,) int32), (BIG, 0) where none
+    is. Differentiable in t (rtc_tpu integrator :560-566)."""
+    t, v = prims(inv, kind, params, o, d, eps)
+    tt = torch.where(v & (t >= 0.0), t, BIG).reshape(o.shape[0], -1)
+    i = torch.argmin(tt, dim=1)
+    return torch.gather(tt, 1, i[:, None])[:, 0], (i // 4).to(torch.int32)
+
+
+def prim_any_plain(o, d, max_t, inv, kind, params, eps: float = EPSILON):
+    """The prims' shadow flag in plain PyTorch: does a valid slot lie at
+    t in [0, max_t)? Lanes with max_t <= 0 are dead and never hit."""
+    t, v = prims(inv, kind, params, o, d, eps)
+    return torch.any((v & (t >= 0.0) & (t < max_t[:, None, None])).flatten(1), dim=1)
+
+
+def _prim_launch(name, o, d, max_t, inv, kind, params, eps):
+    """Validate and launch the prim kernel: float32 or float64 rays (R, 3)
+    with the tables (N >= 1 prims) in their dtype; max_t (R,) in the any
+    mode (name 'prim_any'). Returns (t, prim) or the flags."""
+    device, dtype = o.device, o.dtype
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the prim kernel takes float32 or float64 rays, got {dtype}")
+    R, N = o.shape[0], inv.shape[0]
+    _check("o", o, dtype, (R, 3), device)
+    _check("d", d, dtype, (R, 3), device)
+    _check("prim_inv", inv, dtype, (N, 3, 4), device)
+    _check("prim_kind", kind, torch.int32, (N,), device)
+    _check("prim_params", params, dtype, (N, 3), device)
+    any_mode = max_t is not None
+    if any_mode:
+        _check("max_t", max_t, dtype, (R,), device)
+        hit = torch.empty((R,), dtype=torch.bool, device=device)
+        t = prim = None
+    else:
+        t = torch.empty((R,), dtype=dtype, device=device)
+        prim = torch.empty((R,), dtype=torch.int32, device=device)
+        hit = None
+    ptr = lambda x: None if x is None else x.data_ptr()
+    if R:
+        err = library().rtc_prim_sweep(
+            device.index or 0, _stream(device), int(dtype == torch.float64),
+            int(any_mode), o.data_ptr(), d.data_ptr(), ptr(max_t), R, inv.data_ptr(),
+            kind.data_ptr(), params.data_ptr(), N, eps, ptr(t), ptr(prim), ptr(hit))
+        _raise_on(err, name)
+        LAUNCHES[name] += 1
+    return hit if any_mode else (t, prim)
+
+
+def prim_closest(o, d, inv, kind, params, eps: float = EPSILON):
+    """prim_closest_plain's (t, prim): the plain version for CPU tensors;
+    for CUDA tensors the prim kernel's closest mode (prim_sweep_kernel),
+    bit for bit the plain version's on the card, or a raise. Not
+    differentiable: integrator.KernelPrimClosest gives it a backward."""
+    if not o.is_cuda:
+        return prim_closest_plain(o, d, inv, kind, params, eps)
+    return _prim_launch("prim_closest", o, d, None, inv, kind, params, eps)
+
+
+def prim_any(o, d, max_t, inv, kind, params, eps: float = EPSILON):
+    """prim_any_plain's flags (R,) bool: the plain version for CPU tensors;
+    for CUDA tensors the prim kernel's any mode, or a raise."""
+    if not o.is_cuda:
+        return prim_any_plain(o, d, max_t, inv, kind, params, eps)
+    return _prim_launch("prim_any", o, d, max_t, inv, kind, params, eps)
 
 
 # ---------------------------------------------------------------------------

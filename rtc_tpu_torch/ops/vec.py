@@ -47,9 +47,11 @@ def affine3(m, x, y, z):
     """One matrix a row applied to component vectors: m (R, 3, 3), or
     (R, 3, 4) with its last column the translation, and x, y, z (R,) ->
     (R, 3), row i ((m[:, i, 0] x + m[:, i, 1] y) + m[:, i, 2] z) (+ m[:, i, 3]),
-    summed left to right as mesh_intersect.instance_rays rounds. Elementwise
-    by column: a per-row einsum is a batched gemv on the card (cuBLAS, far
-    below its bandwidth at 3x3), whose order is the library's."""
+    summed left to right as mesh_intersect.instance_rays and the prim kernel
+    round. Shared matrices broadcast: m (N, 3, 4) with x, y, z (R, 1) gives
+    (R, N, 3) (intersect.local_rays). Elementwise by column: a per-row
+    einsum is a batched gemv on the card (cuBLAS, far below its bandwidth
+    at 3x3), whose order is the library's."""
     c = m.unbind(-1)
     out = c[0] * x[:, None] + c[1] * y[:, None] + c[2] * z[:, None]
     return out + c[3] if len(c) == 4 else out

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import intersect, lighting, normals, patterns
+from ..ops.intersect import CONE, CUBE, CYLINDER, PLANE
 from ..ops.kernels import mesh_intersect as mi
 from ..ops.vec import affine3, normalize, normalize3, pack3, safe_sqrt, unpack3
 from ..parallel import collectives as coll
@@ -44,9 +45,6 @@ from ..scene.materials import NONE
 from ..utils import constants
 from ..utils.config import RenderConfig
 from ..utils.constants import BIG, FAR, PARK
-
-# kind codes (scene.shapes.KIND_CODES)
-SPHERE, PLANE, CUBE, CYLINDER, CONE = 0, 1, 2, 3, 4
 
 
 class HitInfo(NamedTuple):
@@ -68,11 +66,11 @@ def _prim_axis(cfg: RenderConfig):
 
 def mesh_impl_for(scene: Scene, cfg: RenderConfig, is_cuda: bool, dtype) -> str:
     """'kernel', 'elementwise' or 'bruteforce' for rays of dtype on a CUDA
-    device (is_cuda) or the CPU. 'auto' takes the
-    kernels for f32 tensors on CUDA and a clustered table, and the dense
-    sweep otherwise; a scene without triangles has nothing for the kernels
-    and sweeps its prims. An explicit 'kernel' or 'elementwise' raises on
-    a CPU or f64 tensor and on an unclustered triangle table
+    device (is_cuda) or the CPU: the triangles' route (the prims' is
+    plan's). 'auto' takes the kernels for f32 tensors on CUDA and a
+    clustered table, and the dense sweep otherwise; a scene without
+    triangles has nothing for them. An explicit 'kernel' or 'elementwise'
+    raises on a CPU or f64 tensor and on an unclustered triangle table
     (compile_scene(cluster_size=0)), and so does 'elementwise' under the
     prim axis (rtc_tpu :552-560): its tile walk is built for the whole
     world table."""
@@ -111,6 +109,7 @@ class Plan(NamedTuple):
     blocks: int   # the world table's superblocks at the budget (1: one launch)
     uv: bool      # a smooth closest hit by K1 with_uv and one blend, streamed
     census: bool  # a frame counts crossings on the world table (K4)
+    prims: bool   # the prims' closest hit and shadow flag by the prim kernel
 
     @property
     def streams(self) -> bool:
@@ -141,7 +140,11 @@ def plan(scene: Scene, cfg: RenderConfig, device, dtype) -> Plan:
       uv      'kernel' without the instanced tables, smooth, and more
               triangles (not padded rows) than the budget, where rtc_tpu
               leaves with_sn; such a table has blocks > 1;
-      census  a mesh container with the refraction child (max_depth >= 4)."""
+      census  a mesh container with the refraction child (max_depth >= 4);
+      prims   analytic prims in float32 or float64 on a CUDA device,
+              whatever the triangles' route, unless cfg.mesh_impl is
+              'bruteforce'; that and the CPU sweep them in PyTorch
+              (intersect.prims), the kernel's plain version."""
     st = scene.static
     impl = mesh_impl_for(scene, cfg, torch.device(device).type == "cuda", dtype)
     budget = constants.VMEM_TRI_BUDGET
@@ -157,7 +160,10 @@ def plan(scene: Scene, cfg: RenderConfig, device, dtype) -> Plan:
                 uv=(impl == "kernel" and not tlas and st.any_smooth
                     and st.n_tris > budget),
                 census=(bool(st.refr_mesh_obj_ids) and st.any_refractive
-                        and cfg.max_depth >= 4))
+                        and cfg.max_depth >= 4),
+                prims=(st.n_prims > 0 and torch.device(device).type == "cuda"
+                       and dtype in (torch.float32, torch.float64)
+                       and cfg.mesh_impl != "bruteforce"))
 
 
 def device_ids(ids, device):
@@ -407,44 +413,64 @@ class KernelClosestTlasSn(torch.autograd.Function):
         return _pull(ctx, 4, (gt, gn), _tlas_refined(ctx, True))
 
 
-def _local_rays(inv, o, d):
-    """Rays in each prim's object space: inv (N, 3, 4), o/d (R, 3) ->
-    (R, N, 3) each."""
-    o_l = torch.einsum("nij,rj->rni", inv[:, :, :3], o) + inv[:, :, 3]
-    d_l = torch.einsum("nij,rj->rni", inv[:, :, :3], d)
-    return o_l, d_l
+def prim_tables(scene: Scene):
+    """The prims' tables the sweep reads: (inv, kind, params)."""
+    return scene.prim_inv, scene.prim_kind, scene.prim_params
 
 
 def prim_candidates(scene: Scene, o, d, eps, ids=None):
-    """(R, N, 4) candidate t and validity of every analytic prim. Every
-    kind runs on every prim, masked by kind (rtc_tpu :64-105). ids
-    restricts the sweep to a subset of prims (the refraction census)."""
-    inv, kind, params = scene.prim_inv, scene.prim_kind, scene.prim_params
+    """(R, N, 4) candidate t and validity of every analytic prim
+    (intersect.prims: every kind on every prim, masked by kind, rtc_tpu
+    :64-105). ids restricts the sweep to a subset of prims (the
+    refraction census)."""
+    tabs = prim_tables(scene)
     if ids is not None:
-        sel = device_ids(ids, inv.device)
-        inv, kind, params = inv[sel], kind[sel], params[sel]
-    o_l, d_l = _local_rays(inv, o, d)
-    ymin, ymax = params[:, 0], params[:, 1]
-    capped = params[:, 2] > 0.5
+        sel = device_ids(ids, tabs[0].device)
+        tabs = tuple(x[sel] for x in tabs)
+    return intersect.prims(*tabs, o, d, eps)
 
-    def pad4(h: intersect.Hits):
-        extra = h.t.shape[:-1] + (4 - h.t.shape[-1],)
-        return intersect.Hits(torch.cat([h.t, h.t.new_zeros(extra)], -1),
-                              torch.cat([h.valid, h.valid.new_zeros(extra)], -1))
 
-    sp = pad4(intersect.sphere(o_l, d_l))
-    pl = pad4(intersect.plane(o_l, d_l, eps))
-    cu = pad4(intersect.cube(o_l, d_l, eps))
-    cy = pad4(intersect.cylinder(o_l, d_l, ymin, ymax, capped, eps))
-    co = pad4(intersect.cone(o_l, d_l, ymin, ymax, capped, eps))
+class KernelPrimClosest(torch.autograd.Function):
+    """(t, prim) of the prim kernel's closest mode, mi.prim_closest;
+    gradients to o, d and the prims' inv and params (geometry gradients).
+    backward re-evaluates each hit ray's winning prim alone on its rows
+    (intersect.prim_slots) in the rays' dtype, as the plain sweep computes
+    it, and differentiates the least of its valid slots; a miss reads its
+    _stand_in row and gets none."""
 
-    k = kind[None, :, None]
-    t = torch.where(k == SPHERE, sp.t, 0.0)
-    v = (k == SPHERE) & sp.valid
-    for code, h in ((PLANE, pl), (CUBE, cu), (CYLINDER, cy), (CONE, co)):
-        t = torch.where(k == code, h.t, t)
-        v = torch.where(k == code, h.valid, v)
-    return t, v
+    @staticmethod
+    def forward(ctx, eps, o, d, inv, kind, params):
+        with torch.no_grad():
+            t, prim = mi.prim_closest(*(x.detach().contiguous()
+                                        for x in (o, d, inv, kind, params)), eps)
+        ctx.eps = eps
+        ctx.mark_non_differentiable(prim)
+        ctx.save_for_backward(o, d, inv, kind, params, t, prim)
+        return t, prim
+
+    @staticmethod
+    def backward(ctx, gt, _):
+        o, d, inv, kind, params, t, prim = ctx.saved_tensors
+        needs = ctx.needs_input_grad[1:]
+        if not any(needs):
+            return (None,) * 6
+        hit = t < BIG
+        i = torch.where(hit, prim, _stand_in(prim, inv.shape[0])).long()
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(n)
+                  for x, n in zip((o, d, inv, kind, params), needs)]
+            o_, d_, inv_, kind_, params_ = xs
+            rows = inv_.index_select(0, i)
+            ts, v = intersect.prim_slots(affine3(rows, *unpack3(o_)),
+                                         affine3(rows[..., :3], *unpack3(d_)),
+                                         kind_.index_select(0, i),
+                                         params_.index_select(0, i), ctx.eps)
+            tt = torch.where(v & (ts >= 0.0), ts, BIG)
+            win = torch.gather(tt, 1, torch.argmin(tt, dim=1, keepdim=True))[:, 0]
+            got = iter(torch.autograd.grad(
+                win, [x for x, n in zip(xs, needs) if n], torch.where(hit, gt, 0.0),
+                allow_unused=True))
+        return (None,) + tuple(_plus_zero(next(got)) if n else None for n in needs)
 
 
 def tri_candidates(scene: Scene, o, d, eps, with_uv: bool = False):
@@ -570,20 +596,20 @@ def closest_hit(scene: Scene, o, d, cfg: RenderConfig) -> HitInfo:
     table, as a single device reports it."""
     R = o.shape[0]
     st = scene.static
+    p = plan(scene, cfg, o.device, o.dtype)
     i32 = dict(dtype=torch.int32, device=o.device)
     t_p = torch.full((R,), BIG, dtype=o.dtype, device=o.device)
     idx_p = torch.zeros((R,), **i32)
     if st.n_prims:
-        t, v = prim_candidates(scene, o, d, cfg.epsilon)
-        tt = torch.where(v & (t >= 0.0), t, BIG).reshape(R, -1)
-        idx_flat = torch.argmin(tt, dim=1)
-        t_p = torch.gather(tt, 1, idx_flat[:, None])[:, 0]
-        idx_p = (idx_flat // 4).to(torch.int32)
+        if p.prims:
+            t_p, idx_p = KernelPrimClosest.apply(cfg.epsilon, o, d, *prim_tables(scene))
+        else:
+            t_p, idx_p = mi.prim_closest_plain(o, d, *prim_tables(scene), cfg.epsilon)
     t_t = torch.full((R,), BIG, dtype=o.dtype, device=o.device)
     idx_t = torch.zeros((R,), **i32)
     tri_obj = torch.zeros((R,), **i32)
     tri_n = torch.zeros_like(o)
-    if st.n_tris and plan(scene, cfg, o.device, o.dtype).tlas:
+    if st.n_tris and p.tlas:
         # K5 selects the winner's object id itself
         t_t, idx_t, tri_n, tri_obj = _tlas_closest(scene, o, d, cfg)
     elif st.n_tris:
@@ -718,8 +744,9 @@ def shadow_query(scene: Scene, point, live=None):
 def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
     """Shadow ray toward the light (reference: src/world.rs:100-114).
 
-    `hit().t < distance` is "any candidate t in [0, distance)": a dense
-    prim sweep OR the any-hit kernel on the triangles (K6 on an instanced
+    `hit().t < distance` is "any candidate t in [0, distance)": the prims'
+    sweep (the prim kernel where plan says so, else its plain version) OR
+    the any-hit kernel on the triangles (K6 on an instanced
     scene's tables, K2 otherwise, streamed over a table above the VMEM
     budget; K7b on 'elementwise'; the plain sweep of the world table on
     'bruteforce'); under the prim axis, of this rank's shard, ORed over
@@ -729,14 +756,14 @@ def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
     """
     direction, distance = shadow_query(scene, point, live)
     st = scene.static
+    p = plan(scene, cfg, point.device, point.dtype)
     shadowed = torch.zeros(point.shape[:1], dtype=torch.bool, device=point.device)
     if st.n_prims:
-        t, valid = prim_candidates(scene, point, direction, cfg.epsilon)
-        shadowed = torch.any((valid & (t >= 0.0)
-                              & (t < distance[:, None, None])).flatten(1), dim=1)
+        sweep = mi.prim_any if p.prims else mi.prim_any_plain
+        shadowed = sweep(point.contiguous(), direction, distance,
+                         *prim_tables(scene), cfg.epsilon)
     if st.n_tris:
         tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
-        p = plan(scene, cfg, point.device, point.dtype)
         if p.tlas:
             tl = scene.tlas
             found = mi.mesh_any_hit_tlas(point, direction, distance, tl.p1,

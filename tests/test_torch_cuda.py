@@ -20,9 +20,13 @@ the program's spans of a graphed frame under torch.profiler;
 and the compiled gradient step: loss_and_grad and an Adam step replayed
 from CUDA graphs against the eager calls, after other graphs too, and
 the gradient routes that stay eager; the cuBLAS launches of a graphed
-glass_teapot frame and step against cow's; and the object rows' sum
+glass_teapot frame and step against cow's; the object rows' sum
 (object_record's gradient) against its index_add_ twin, in a graph, and
-in tiles past a block's shared memory.
+in tiles past a block's shared memory; and the prims' sweep (the prim
+kernel) against its plain version bit for bit in float32 and float64 on
+tests/test_torch_prim_sweep.py's worlds, edge cases and a million random
+rays, its launches a frame, the prim-only worlds in float32 and float64
+on it, and its gradients (KernelPrimClosest) through the prims' tables.
 
 These tests need a CUDA device and nvcc, and skip elsewhere. This file
 imports neither jax nor rtc_tpu, so on the GPU machine it runs without the
@@ -31,12 +35,17 @@ repository's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+import oracle
+from test_torch_prim_sweep import CASES as PRIM_CASES
+from test_torch_prim_sweep import EDGES as PRIM_EDGES
+from test_torch_prim_sweep import _rays as prim_rays
 from rtc_tpu_torch import Camera, default_world, hit_index, intersect_all, testing
 from rtc_tpu_torch.diff import render_grad as RG
 from rtc_tpu_torch.models.scenes import (REGISTRY, _cam, cow_herd_mesh_world,
@@ -53,7 +62,7 @@ from rtc_tpu_torch.scene.world import PointLight, World
 from rtc_tpu_torch.utils import profiling
 from rtc_tpu_torch.utils.config import RenderConfig
 from rtc_tpu_torch.ops.vec import normalize, normalize3
-from rtc_tpu_torch.utils.constants import BIG, EPSILON
+from rtc_tpu_torch.utils.constants import BIG, EPSILON, FAR, PARK
 
 torch.set_num_threads(2)
 
@@ -391,9 +400,11 @@ def test_render_slice_scene_through_kernels_matches_plain(cuda, name):
     mi.reset_launch_counts()
     img = render(scene, cam, RenderConfig(ray_tile=4096))
     # 2 tiles; teapot_smooth has 1 node per tile, glass_teapot 3 (the root
-    # and its reflected and refracted children) with the census at the root
+    # and its reflected and refracted children) with the census at the root,
+    # and its plane's closest hit and shadow flag at each node
     want = ({"closest_shadow_sn": 2} if name == "teapot_smooth" else
-            {"closest_hit_sn": 6, "any_hit": 6, "crossing_count": 2})
+            {"closest_hit_sn": 6, "any_hit": 6, "crossing_count": 2,
+             "prim_closest": 6, "prim_any": 6})
     assert mi.LAUNCHES == dict(dict.fromkeys(mi.LAUNCHES, 0), **want)
     ref = render(scene, cam, RenderConfig(ray_tile=4096, mesh_impl="bruteforce"))
     err = (img - ref).abs().amax(dim=2).flatten()
@@ -1655,7 +1666,9 @@ GRAPHED_FRAMES = {"cow": ("cow", "auto"), "cow elementwise": ("cow", "elementwis
 def test_graphed_frame_is_bit_equal_to_eager(cuda, frame):
     """128x64 in two tiles: the first graphed call (its eager run, then the
     capture) and a replay equal the eager frame bit for bit, and the
-    replay launches each kernel as often as the eager frame."""
+    replay launches each kernel as often as the eager frame: some kernel
+    on every route but 'bruteforce' (the prim-only table's prim kernel
+    among them)."""
     name, impl = GRAPHED_FRAMES[frame]
     world, cam = REGISTRY[name](128)
     scene = compile_scene(world, device=cuda)
@@ -1674,7 +1687,7 @@ def test_graphed_frame_is_bit_equal_to_eager(cuda, frame):
     assert compiled.COUNTS["captures"] == captures + 1
     assert torch.equal(first, want) and torch.equal(got, want)
     assert dict(mi.LAUNCHES) == eager
-    assert any(eager.values()) == (name != "table" and impl != "bruteforce")
+    assert any(eager.values()) == (impl != "bruteforce")
     compiled.clear()
 
 
@@ -1965,15 +1978,6 @@ def _cublas_launches(fn) -> int:
     return sum("gemv" in e.name or "gemm" in e.name for e in ops)
 
 
-def _prim_rays_by_component(inv, o, d):
-    """integrator._local_rays with the prims' shared matrices (N, 3, 4)
-    applied by component: (R, N, 3) each."""
-    ox, oy, oz = (c[:, None, None] for c in o.unbind(1))
-    dx, dy, dz = (c[:, None, None] for c in d.unbind(1))
-    m = inv.unbind(-1)
-    return (m[0] * ox + m[1] * oy + m[2] * oz + m[3], m[0] * dx + m[1] * dy + m[2] * dz)
-
-
 def _glue_cublas_launches(name, cuda):
     """cuBLAS launches in a replay of a graphed 64x32 frame and of a graphed
     Adam step (the material color and the light, capturable) of a
@@ -1999,14 +2003,12 @@ def _glue_cublas_launches(name, cuda):
     return frame, stepped
 
 
-def test_shading_glue_launches_no_cublas_beyond_cow(cuda, monkeypatch):
+def test_shading_glue_launches_no_cublas_beyond_cow(cuda):
     """glass_teapot's shading nodes (a plane with checkers, so normal_at's
-    two products and the pattern's in each) launch no more cuBLAS kernels
+    two products and the pattern's in each, and the prims' sweep, the prim
+    kernel with its local rays by component) launch no more cuBLAS kernels
     than cow's, in a graphed frame and a graphed step: cow's are the
-    camera's shared product. The prim sweep's shared product
-    (_local_rays, one gemm a sweep, which cow has not) is applied by
-    component in both scenes for this count."""
-    monkeypatch.setattr(integrator, "_local_rays", _prim_rays_by_component)
+    camera's shared product."""
     glass = _glue_cublas_launches("glass_teapot", cuda)
     cow = _glue_cublas_launches("cow", cuda)
     assert glass[0] <= cow[0] and glass[1] <= cow[1], (glass, cow)
@@ -2122,3 +2124,158 @@ def test_object_rows_path_and_its_span(cuda):
         assert all(torch.equal(a.cpu(), b) for a, b in zip(got, cpu))
     finally:
         profiling.set_recording(was)
+
+
+# --- the analytic prims' sweep (prim_sweep_kernel) ---------------------------
+
+def _prim_inputs(world, rays, cuda, dtype):
+    """The prims' tables of world on the card in dtype, and rays (o, d,
+    max_t) as numpy float64 arrays moved there."""
+    scene = compile_scene(world, dtype=dtype, device=cuda)
+    return (integrator.prim_tables(scene),
+            tuple(torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=cuda)
+                  for x in rays))
+
+
+def _assert_prim_kernel_is_plain(tabs, o, d, max_t):
+    """Both modes of the kernel against their plain versions, bit for bit
+    (t's bits, the prim ids and the flags), one launch each."""
+    before = dict(mi.LAUNCHES)
+    t, prim = mi.prim_closest(o, d, *tabs, EPSILON)
+    flag = mi.prim_any(o, d, max_t, *tabs, EPSILON)
+    torch.cuda.synchronize()
+    assert mi.LAUNCHES["prim_closest"] == before["prim_closest"] + 1
+    assert mi.LAUNCHES["prim_any"] == before["prim_any"] + 1
+    pt, pp = mi.prim_closest_plain(o, d, *tabs, EPSILON)
+    bits = torch.int64 if t.dtype == torch.float64 else torch.int32
+    assert torch.equal(t.view(bits), pt.view(bits)) and torch.equal(prim, pp)
+    assert torch.equal(flag, mi.prim_any_plain(o, d, max_t, *tabs, EPSILON))
+    return t, flag
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(PRIM_CASES))
+def test_prim_kernel_matches_plain(cuda, case, dtype):
+    """Each kind alone (cylinder and cone capped and open) and the mixed
+    world of nine prims, 4,099 rays (a ragged last block) with every 8th
+    lane dead and the last ones parked."""
+    world = World(objects=PRIM_CASES[case]())
+    o, d, dist = prim_rays(oracle.flatten(world), 4099, seed=11)
+    o[-3:], d[-3:] = FAR, PARK
+    tabs, (o, d, dist) = _prim_inputs(world, (o, d, dist), cuda, dtype)
+    t, flag = _assert_prim_kernel_is_plain(tabs, o, d, dist)
+    assert int((t < BIG).sum()) > 1000 and int(flag.sum()) > 100
+    assert not bool(flag[::8].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_prim_kernel_edge_cases(cuda, dtype):
+    """tests/test_torch_prim_sweep.py's edge cases (parallel to and in the
+    plane, tangent to the sphere, inside the cube, at a cap's rim, a row
+    that misses every prim), each world with its ray."""
+    for case, (make, org, dirn, dist, want_t, want_prim, want_shadow) in PRIM_EDGES.items():
+        rays = tuple(np.asarray([x], np.float64) for x in (org, dirn, [dist]))
+        tabs, (o, d, m) = _prim_inputs(World(objects=make()), (*rays[:2], rays[2][0]),
+                                       cuda, dtype)
+        t, flag = _assert_prim_kernel_is_plain(tabs, o, d, m)
+        if want_t is None:
+            assert float(t[0]) == float(torch.tensor(BIG, dtype=dtype)), case
+        elif dtype == torch.float64:  # float32 rounds the ray's decimals
+            assert float(t[0]) == want_t, case
+        assert bool(flag[0]) == want_shadow, case
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("repeat, n", [(1, 1_000_003), (15, 8_192)])
+def test_prim_kernel_matches_plain_on_many_rays(cuda, dtype, repeat, n):
+    """The mixed world on 1,000,003 seeded rays; and repeated 15 times, 135
+    prims, two tiles past a block's stage (kPrimTile 128), on 8,192."""
+    world = World(objects=[p for _ in range(repeat) for p in PRIM_CASES["mixed"]()])
+    o, d, dist = prim_rays(oracle.flatten(world), n, seed=5)
+    tabs, (o, d, dist) = _prim_inputs(world, (o, d, dist), cuda, dtype)
+    assert tabs[0].shape[0] == 9 * repeat
+    t, flag = _assert_prim_kernel_is_plain(tabs, o, d, dist)
+    assert int((t < BIG).sum()) > n // 3 and int(flag.sum()) > n // 20
+
+
+def _prim_frame(name, cuda, **kw):
+    world, cam = REGISTRY[name](128)
+    return compile_scene(world, device=cuda), cam, RenderConfig(**kw)
+
+
+@pytest.mark.parametrize("name, launches", [("glass_teapot", 3), ("cow", 0),
+                                            ("cow_herd", 0)])
+def test_prim_kernel_launches_a_frame(cuda, name, launches):
+    """A glass frame (one tile) launches the prim kernel three times in
+    each mode, closest_hit and is_shadowed once a shading node, eager and
+    replayed; cow and the herd have no prims and launch it never."""
+    scene, cam, cfg = _prim_frame(name, cuda)
+    assert integrator.plan(scene, cfg, cuda, torch.float32).prims == bool(launches)
+    compiled.clear()
+    for run in (compiled.eager, lambda: contextlib.nullcontext()):
+        with run():
+            render(scene, cam, cfg)
+            mi.reset_launch_counts()
+            render(scene, cam, cfg)
+        torch.cuda.synchronize()
+        assert (mi.LAUNCHES["prim_closest"], mi.LAUNCHES["prim_any"]) == (launches,) * 2
+    compiled.clear()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["table", "three_spheres"])
+def test_prim_only_frame_takes_the_prim_kernel(cuda, monkeypatch, name, dtype):
+    """A world without triangles (its triangles' route 'bruteforce', in
+    either dtype) sweeps its prims with the prim kernel, closest_hit and
+    is_shadowed once a shading node each, and its image is the plain
+    route's (mesh_impl='bruteforce') bit for bit."""
+    world, cam = REGISTRY[name](96)
+    scene = compile_scene(world, dtype=dtype, device=cuda)
+    cfg = RenderConfig(dtype="float64" if dtype == torch.float64 else "float32")
+    assert integrator.plan(scene, cfg, cuda, dtype).prims
+    with compiled.eager():
+        mi.reset_launch_counts()
+        img = render(scene, cam, cfg)
+        torch.cuda.synchronize()
+        closest, shadow = mi.LAUNCHES["prim_closest"], mi.LAUNCHES["prim_any"]
+        assert closest == shadow >= 1 and sum(mi.LAUNCHES.values()) == 2 * closest
+        ref = render(scene, cam, dataclasses.replace(cfg, mesh_impl="bruteforce"))
+    assert img.dtype == dtype and torch.equal(img, ref)
+
+
+def _plain_route(monkeypatch):
+    """plan with the prims' flag off: the plain sweep, as the parent ran it."""
+    real = integrator.plan
+    monkeypatch.setattr(integrator, "plan", lambda *a: real(*a)._replace(prims=False))
+
+
+@pytest.mark.parametrize("names", [("mat_color", "light_intensity"), ("prim_inv",)])
+def test_prim_kernel_under_gradients(cuda, monkeypatch, names):
+    """loss_and_grad of a 128x64 glass frame, eager: closest_hit launches
+    the kernel through KernelPrimClosest with the glass fit's parameters
+    and with prim_inv a parameter alike (its backward re-evaluates each
+    winner's prim). The loss is the plain sweep's (the parent's route) bit
+    for bit and so are the gradients, but for the order of prim_inv's sum
+    over the rays, which indexing's backward takes in atomics (runs of the
+    parent differ there by a few float32 ulps): within 1e-5 of the largest
+    entry. is_shadowed, never differentiated, launches the kernel three
+    times."""
+    scene, cam, cfg = _prim_frame("glass_teapot", cuda)
+    o, d = camera_rays(cam.transform_inverse, cam.hsize, cam.vsize, cam.half_width,
+                       cam.half_height, cam.pixel_size, device=cuda)
+    o, d = o.float().contiguous(), d.float().contiguous()
+    target = torch.full_like(o, 0.25)
+    params = RG.extract_params(scene, names)
+    with compiled.eager():
+        mi.reset_launch_counts()
+        got = RG.loss_and_grad(params, scene, o, d, target, cfg)
+        assert (mi.LAUNCHES["prim_closest"], mi.LAUNCHES["prim_any"]) == (3, 3)
+        _plain_route(monkeypatch)
+        mi.reset_launch_counts()
+        want = RG.loss_and_grad(params, scene, o, d, target, cfg)
+        assert (mi.LAUNCHES["prim_closest"], mi.LAUNCHES["prim_any"]) == (0, 0)
+    assert torch.equal(got[0], want[0])
+    for k in names:
+        g, w = got[1][k], want[1][k]
+        assert float(w.abs().max()) > 0
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max()), k
