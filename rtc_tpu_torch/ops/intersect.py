@@ -30,6 +30,11 @@ from .vec import affine3, cross3, dot3, safe_sqrt, unpack3
 # kind codes (scene.shapes.KIND_CODES)
 SPHERE, PLANE, CUBE, CYLINDER, CONE = 0, 1, 2, 3, 4
 
+# calls of prims(), the plain sweep over every prim; apart from the kernels'
+# launches (mesh_intersect.LAUNCHES), and like them repeated by each replay
+# of a CUDA graph whose capture made them (render/compiled.py)
+PLAIN_SWEEPS = {"prims": 0}
+
 
 class Hits(NamedTuple):
     """t: (..., k) candidate hit times; valid: (..., k) mask."""
@@ -216,7 +221,8 @@ def prims(inv, kind, params, o, d, eps: float = EPSILON) -> Hits:
     tables inv (N, 3, 4), kind (N,) and params (N, 3) (ymin, ymax, capped)
     for rays o/d (R, 3): prim_slots on the rays in each prim's object
     space. The prim kernel's plain version: it evaluates each prim's own
-    kind."""
+    kind. Counted in PLAIN_SWEEPS."""
+    PLAIN_SWEEPS["prims"] += 1
     return prim_slots(*local_rays(inv, o, d), kind, params, eps)
 
 

@@ -53,7 +53,8 @@ the capture is captured again.
 Kernel launches (mi.LAUNCHES) happen at a replay, not at the capture: the
 capture's own counts are taken back and recorded as the graph's launches,
 which every replay adds, so a frame counts the same launches on either
-route.
+route. The prims' plain sweeps (intersect.PLAIN_SWEEPS) are counted the
+same way, as the graph's sweeps.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ import weakref
 
 import torch
 
+from ..ops import intersect
 from ..ops.kernels import mesh_intersect as mi
 from ..scene.compile import GEOMETRY_FIELDS
 from ..utils.profiling import span
@@ -77,6 +79,10 @@ EAGER_CONTEXT = "eager: inside compiled.eager()"
 MAX_GRAPHS = 4
 COUNTS = {"captures": 0}
 ROUTES: "collections.Counter[str]" = collections.Counter()  # "<call>: <route>" -> calls
+
+# the counters a capture takes back and a replay repeats: (the kernels'
+# launches, the prims' plain sweeps)
+_COUNTERS = (mi.LAUNCHES, intersect.PLAIN_SWEEPS)
 
 _EAGER = contextvars.ContextVar("rtc_tpu_torch_eager", default=False)
 _CACHE: "collections.OrderedDict[tuple, Graph]" = collections.OrderedDict()
@@ -202,8 +208,9 @@ class Graph:
     output is the static result (a tensor, or a tuple or dict of them),
     which the next replay overwrites; held, the tensors a replay reads and
     writes in place beside the scene's (hold). launches: the kernel
-    launches a replay makes. The first call's eager run and its capture
-    are the spans rtc.graph.warm and rtc.graph.capture."""
+    launches a replay makes; sweeps: the prims' plain sweeps it makes.
+    The first call's eager run and its capture are the spans
+    rtc.graph.warm and rtc.graph.capture."""
 
     def __init__(self, scene, key: tuple, fn, inputs: tuple, what: str,
                  keep: tuple = ()):
@@ -214,6 +221,7 @@ class Graph:
         self.held, self.held_layout = (), ()
         self.graph = self.output = None
         self.launches: dict = {}
+        self.sweeps: dict = {}
         self.replays = 0
 
     def valid_for(self, scene, held=()) -> bool:
@@ -245,7 +253,7 @@ class Graph:
 
         with span("rtc.graph.capture"):
             torch.cuda.empty_cache()
-            before = dict(mi.LAUNCHES)
+            before = tuple(dict(c) for c in _COUNTERS)
             graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.stream(stream):
@@ -261,9 +269,10 @@ class Graph:
                 raise CaptureError(f"capturing {self.what} failed: {type(first).__name__}: "
                                    f"{first}") from err
             finally:
-                self.launches = {k: n - before[k] for k, n in mi.LAUNCHES.items()
-                                 if n != before[k]}
-                mi.LAUNCHES.update(before)  # nothing ran: the replays count
+                self.launches, self.sweeps = ({k: n - b[k] for k, n in c.items() if n != b[k]}
+                                              for c, b in zip(_COUNTERS, before))
+                for c, b in zip(_COUNTERS, before):
+                    c.update(b)  # nothing ran: the replays count
             torch.cuda.synchronize(device)
         self.graph, self.fn = graph, None  # fn holds the scene
         COUNTS["captures"] += 1
@@ -271,8 +280,9 @@ class Graph:
 
     def replay(self):
         self.graph.replay()
-        for k, n in self.launches.items():
-            mi.LAUNCHES[k] += n
+        for c, made in zip(_COUNTERS, (self.launches, self.sweeps)):
+            for k, n in made.items():
+                c[k] += n
         self.replays += 1
         return self.output
 

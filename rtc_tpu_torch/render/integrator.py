@@ -45,6 +45,7 @@ from ..scene.materials import NONE
 from ..utils import constants
 from ..utils.config import RenderConfig
 from ..utils.constants import BIG, FAR, PARK
+from ..utils.profiling import span
 
 
 class HitInfo(NamedTuple):
@@ -920,6 +921,10 @@ def refraction_indices(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
     live: optional (R,) bool of the rays whose shading reads n1/n2; the
     others leave the mesh census (t bound -BIG) and get defaults that no
     caller reads.
+
+    Spans: rtc.census over the census, rtc.census.prims over the prims'
+    sweep and rtc.census.mesh over the mesh containers' count; they fire
+    where the Python runs (an eager call, a capture), not in a replay.
     """
     st = scene.static
     ids, mesh_ids = st.refr_prim_ids, st.refr_mesh_obj_ids
@@ -930,35 +935,38 @@ def refraction_indices(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
     if not ids and not mesh_ids:
         return one, n2_enter
 
-    cnts, lasts, objs = [], [], []
-    if ids:
-        t, v = prim_candidates(scene, o, d, cfg.epsilon, ids=ids)  # (R, Ka, 4)
-        before = v & (t < hit.t[:, None, None])
-        cnts.append(before.sum(2, dtype=torch.int32))
-        lasts.append(torch.where(before, t, -BIG).amax(2))
-        objs.extend(ids)  # prim id == object id
-    if mesh_ids:
-        hit_gid = torch.where(hit.is_tri, hit.tri, -2).to(torch.int32)
-        t_census = hit.t if live is None else torch.where(live, hit.t, -BIG)
-        cnt_m, last_m = mesh_census(scene, o, d, t_census, hit_gid, cfg)
-        cnts.append(cnt_m)
-        lasts.append(last_m)
-        objs.extend(mesh_ids)
+    with span("rtc.census"):
+        cnts, lasts, objs = [], [], []
+        if ids:
+            with span("rtc.census.prims"):
+                t, v = prim_candidates(scene, o, d, cfg.epsilon, ids=ids)  # (R, Ka, 4)
+                before = v & (t < hit.t[:, None, None])
+                cnts.append(before.sum(2, dtype=torch.int32))
+                lasts.append(torch.where(before, t, -BIG).amax(2))
+                objs.extend(ids)  # prim id == object id
+        if mesh_ids:
+            with span("rtc.census.mesh"):
+                hit_gid = torch.where(hit.is_tri, hit.tri, -2).to(torch.int32)
+                t_census = hit.t if live is None else torch.where(live, hit.t, -BIG)
+                cnt_m, last_m = mesh_census(scene, o, d, t_census, hit_gid, cfg)
+                cnts.append(cnt_m)
+                lasts.append(last_m)
+                objs.extend(mesh_ids)
 
-    cnt = torch.cat(cnts, dim=1)                        # (R, K)
-    last = torch.cat(lasts, dim=1)                      # (R, K)
-    cont_obj = device_ids(objs, o.device)
-    inside = (cnt % 2) == 1
-    sub_ior = scene.mat_ior[cont_obj]                   # (K,)
+        cnt = torch.cat(cnts, dim=1)                        # (R, K)
+        last = torch.cat(lasts, dim=1)                      # (R, K)
+        cont_obj = device_ids(objs, o.device)
+        inside = (cnt % 2) == 1
+        sub_ior = scene.mat_ior[cont_obj]                   # (K,)
 
-    def stack_top(mask):
-        j = torch.argmax(torch.where(mask, last, -BIG), dim=1)
-        return torch.where(mask.any(1), sub_ior[j], 1.0)
+        def stack_top(mask):
+            j = torch.argmax(torch.where(mask, last, -BIG), dim=1)
+            return torch.where(mask.any(1), sub_ior[j], 1.0)
 
-    is_self = cont_obj[None, :] == hit.obj[:, None]
-    self_inside = (inside & is_self).any(1)
-    n1 = stack_top(inside)
-    n2 = torch.where(self_inside, stack_top(inside & ~is_self), n2_enter)
+        is_self = cont_obj[None, :] == hit.obj[:, None]
+        self_inside = (inside & is_self).any(1)
+        n1 = stack_top(inside)
+        n2 = torch.where(self_inside, stack_top(inside & ~is_self), n2_enter)
     return n1, n2
 
 

@@ -10,9 +10,11 @@ mark the host work of the public entries that go through the frame and
 step cache (render/compiled.py): a root for each call of render(),
 render_tiles, loss_and_grad and a train step, and inside it the camera's
 values, the route, the graph's lookup, the inputs' fill, the replay, the
-output's copy, and a capture's eager run and capture; and a root for each
-compile_scene call, with the compile's steps inside it (rtc.compile.*,
-scene/compile.py). Recording is off by default, and then a span is a
+output's copy, and a capture's eager run and capture; inside a frame
+where its Python runs (an eager call, a capture), the refraction census
+(rtc.census over rtc.census.prims and rtc.census.mesh,
+render/integrator.py); and a root for each compile_scene call, with the
+compile's steps inside it (rtc.compile.*, scene/compile.py). Recording is off by default, and then a span is a
 shared no-op context. It is on while
 set_recording(True) holds or a torch profiler runs (trace() among them):
 each span then appends (name, start_ns, end_ns, parent) to a bounded

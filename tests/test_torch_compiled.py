@@ -366,7 +366,10 @@ def test_render_records_its_spans(cpu_graphs):
 
 def test_render_tiles_records_a_root_a_tile(cpu_graphs):
     """render_tiles: a root for the rays' set-up with the route, then one
-    a tile over its graph's spans; none open across a yield."""
+    a tile over its graph's spans; none open across a yield. The stand-in
+    graph's replay reruns the tile, so its primary node's refraction
+    census (rtc.census over the mesh's rtc.census.mesh) sits under the
+    replay; a card's replay runs no Python and records none."""
     world, cam = REGISTRY["glass_teapot"](16)
     scene = _compile(world, dtype=torch.float32)
     cfg = RenderConfig(ray_tile=64)
@@ -376,6 +379,8 @@ def test_render_tiles_records_a_root_a_tile(cpu_graphs):
     for _ in range(2):
         root = len(want)
         want += [("rtc.render_tiles", -1)] + [(n, root) for n in REPLAY_SPANS]
+        replay = want.index(("rtc.graph.replay", root))
+        want[replay + 1:replay + 1] = [("rtc.census", replay), ("rtc.census.mesh", replay + 1)]
     assert got == want
 
 
