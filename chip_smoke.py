@@ -517,6 +517,18 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# the shading stages' launch counts (mi.LAUNCHES keys)
+SHADE_STAGES = ("shade_surface", "shade_node", "shade_blend")
+
+
+def shading(nodes: int, blends: int, surfaces: int | None = None) -> dict:
+    """The shading stages' launches of a frame: a node launch a shaded
+    node, a surface launch a node that K3 does not give the shadow flag
+    (surfaces; default every node), a blend launch a node that branches."""
+    return {"shade_surface": nodes if surfaces is None else surfaces,
+            "shade_node": nodes, "shade_blend": blends}
+
+
 def live_bytes(live, *tensors) -> int:
     """The bytes of the rows of tensors (R, ...) on the lanes where live
     (R,) holds. An any-hit or census lane that is dead (max_t <= 0, t_hit
@@ -1064,8 +1076,10 @@ def phase_slice():
     n_tiles = -(-WIDTH * HEIGHT // RAY_TILE)
     nodes = n_tiles * 2  # two bounce nodes per tile at depth 5
     none = dict.fromkeys(mi.LAUNCHES, 0)
-    expected = {"fused": dict(none, closest_shadow=nodes),
-                "split": dict(none, closest_hit=nodes, any_hit=nodes)}
+    # the root branches (cow is reflective); K3 gives the fused nodes' flag
+    expected = {"fused": dict(none, closest_shadow=nodes, **shading(nodes, n_tiles, 0)),
+                "split": dict(none, closest_hit=nodes, any_hit=nodes,
+                              **shading(nodes, n_tiles))}
     for key in expected:
         check(launches[key] == expected[key],
               f"{key} frame: launch counts {launches[key]}, "
@@ -1315,19 +1329,21 @@ def glass_teapot_k2(scene, o, d, eps) -> None:
 
 # the slice's frames: each kernel of the scene's path, launches per frame
 FRAME_KERNELS = {
-    "teapot_smooth": lambda tiles: {"closest_shadow_sn": tiles},
+    "teapot_smooth": lambda tiles: {"closest_shadow_sn": tiles, **shading(tiles, 0, 0)},
     # root node + its reflected and refracted children; census at the root;
-    # the checkered plane's closest hit and shadow flag at each node
+    # the checkered plane's closest hit and shadow flag at each node; the
+    # blend at the root
     "glass_teapot": lambda tiles: {"closest_hit_sn": 3 * tiles,
                                    "any_hit": 3 * tiles,
                                    "crossing_count": tiles,
                                    "prim_closest": 3 * tiles,
-                                   "prim_any": 3 * tiles},
+                                   "prim_any": 3 * tiles,
+                                   **shading(3 * tiles, tiles)},
     # instanced and not reflective: one node per tile, K5 then K6
     "cow_herd": lambda tiles: {"closest_hit_tlas": tiles,
-                               "any_hit_tlas": tiles},
+                               "any_hit_tlas": tiles, **shading(tiles, 0)},
     "cow_herd_smooth": lambda tiles: {"closest_hit_tlas_sn": tiles,
-                                      "any_hit_tlas": tiles},
+                                      "any_hit_tlas": tiles, **shading(tiles, 0)},
 }
 # tests/test_golden.py: (width, depth) and F32_BUDGET; the herds have none
 GOLDEN_SPECS = {"teapot_smooth": (24, 5, (0.99, 2)),
@@ -1484,6 +1500,149 @@ def prim_sweep_lines() -> list:
             f"{launches[name]} launches a frame, bit-equal to plain; a call: kernel "
             f"{shown(line['ms'])} (device {shown(line['device_ms'])}), plain "
             f"{shown(line['plain_ms'])}, bound {shown(line['bound_ms'])} ({line['bound_by']})")
+    return lines
+
+
+SHADE_PLAIN = {"shade_surface": mi.shade_surface_plain, "shade_node": mi.shade_node_plain,
+               "shade_blend": mi.shade_blend_plain}
+
+
+def shade_calls(name: str = PRIM_SCENE, width: int = WIDTH) -> list:
+    """Every call of the shading stages' wrappers (mi.shade_surface,
+    shade_node, shade_blend) in one eager frame of name at width and the
+    default tile (1,843,200 rays a call at 1920): [(stage, args, kwargs,
+    outputs)], in the frame's order. The launch counts are set to 0 just
+    before that frame, so mi.LAUNCHES holds its launches on return."""
+    scene, cam = slice_scene(name, width)
+    calls = []
+    real = {k: getattr(mi, k) for k in SHADE_STAGES}
+
+    def keeper(k):
+        def keep(*a, **kw):
+            out = real[k](*a, **kw)
+            calls.append((k, a, kw, out))
+            return out
+        return keep
+
+    with compiled.eager():
+        render(scene, cam, RenderConfig())  # warm-up
+        for k in SHADE_STAGES:
+            setattr(mi, k, keeper(k))
+        try:
+            mi.reset_launch_counts()
+            render(scene, cam, RenderConfig())
+            torch.cuda.synchronize()
+        finally:
+            for k in SHADE_STAGES:
+                setattr(mi, k, real[k])
+    return calls
+
+
+def shade_outputs(stage: str, out) -> list:
+    """A stage's output tensors, the plain version's weights stacked as the
+    kernel's (R, 4) (a column the plain version leaves out: the kernel's,
+    which no caller reads)."""
+    if stage == "shade_surface":
+        return list(out)
+    if stage == "shade_blend":
+        return [out]
+    rays = [x for child in (out.refl, out.refr) if child is not None for x in child]
+    return [out.color, *rays] + ([] if out.weights is None else [out.weights])
+
+
+def shade_equal(stage: str, got, ref) -> bool:
+    """The kernel's outputs equal the plain version's bit for bit (a
+    node's weights on the columns the plain version fills)."""
+    g, r = shade_outputs(stage, got), shade_outputs(stage, ref)
+    if stage == "shade_node" and got.weights is not None:
+        g.pop()
+        r.pop()
+        for k, w in enumerate(ref.weights):
+            if w is not None:
+                g.append(got.weights[:, k])
+                r.append(w)
+    return all(torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+               for a, b in zip(g, r))
+
+
+def shade_bytes(stage: str, args, got) -> int:
+    """The bytes a stage's kernel reads and writes once: its outputs, and
+    its per-ray inputs on the lanes that read them. The surface and node
+    stages read the rays and the hits' valid on every lane, t on a valid
+    one; with prims, is_tri on every lane, prim on a prim's (is_tri
+    false) and tri_n on a triangle's; without, tri_n on every lane. The
+    node stage reads besides the hits' obj and, where given, the shadow
+    flag, n1 and n2. The blend stage reads valid, the surface colour, the
+    children's colours where given and the weights."""
+    if stage == "shade_blend":
+        return nbytes(*(a for a in args[:5] if torch.is_tensor(a)), got)
+    o, d, hit = args[:3]
+    prims = args[3] if stage == "shade_surface" else args[6]
+    ins = nbytes(o, d, hit.valid) + live_bytes(hit.valid, hit.t)
+    if prims is None:
+        ins += nbytes(hit.tri_n)
+    else:
+        ins += (nbytes(hit.is_tri) + live_bytes(~hit.is_tri, hit.prim)
+                + live_bytes(hit.is_tri, hit.tri_n))
+    if stage == "shade_node":
+        ins += nbytes(hit.obj, *(a for a in args[3:6] if torch.is_tensor(a)))
+    return ins + nbytes(*shade_outputs(stage, got))
+
+
+# a tile's shading launches (shading()) in the frames shade_lines records:
+# the root and its reflection and refraction children, the blend at the root
+SHADE_FRAMES = {"glass_teapot": (3, 1), "table": (3, 1)}
+
+
+def shade_lines(name: str = PRIM_SCENE) -> list:
+    """Each shading stage on the inputs the main path hands it (shade_calls
+    of an eager 1920x960 frame of name): the frame's launches of each stage
+    (counted from 0 just before it) equal to its wrapper's calls and to
+    SHADE_FRAMES' count; each call's kernel against its plain version bit
+    for bit, and timed (time_pair, and device_ms, the host's dispatch
+    hidden) against the plain version and the bound, the bytes it reads
+    and writes once at HBM_RATE (shade_bytes). Returns one kernels line a
+    stage, "launches" the frame's, "ms", "device_ms", "plain_ms" and
+    "bound_ms" a call (the mean of the frame's calls), "calls" each
+    call's."""
+    calls = shade_calls(name)
+    launched = {k: mi.LAUNCHES[k] for k in SHADE_STAGES}
+    n_tiles = -(-WIDTH * HEIGHT // RenderConfig().ray_tile)
+    want = shading(*(n * n_tiles for n in SHADE_FRAMES[name]))
+    got = {k: sum(c[0] == k for c in calls) for k in SHADE_STAGES}
+    check(launched == got == want, f"shading on {name}'s frame: launches {launched}, "
+          f"wrapper calls {got}, expected {want}")
+    lines = []
+    for stage in SHADE_STAGES:
+        mine = [(a, kw) for k, a, kw, _ in calls if k == stage]
+        per = []
+        for a, kw in mine:
+            kernel = lambda: getattr(mi, stage)(*a, **kw)
+            plain = lambda: SHADE_PLAIN[stage](*a, **kw)
+            ms, plain_ms, got, ref = time_pair(kernel, plain, plain_warmup=1, plain_iters=3)
+            check(shade_equal(stage, got, ref),
+                  f"{stage} on {name}'s frame inputs: kernel differs from plain")
+            b = bound(Work(), shade_bytes(stage, a, got))
+            per.append(dict(ms=ms, device_ms=device_ms(kernel), plain_ms=plain_ms,
+                            bound_ms=b[0], bound_by=b[1], bytes=shade_bytes(stage, a, got)))
+        if not per:
+            continue
+        mean = lambda k: (None if any(c[k] is None for c in per)
+                          else sum(c[k] for c in per) / len(per))
+        rays = (mine[0][0][1] if stage == "shade_blend" else mine[0][0][0]).shape[0]
+        line = {"name": f"shading, {stage}", "route": "cuda", "source": SOURCE,
+                "replaces": "ops/shading.py's elementwise chain (the plain version)",
+                "frame": name, "launches": launched[stage], "max_abs_err": 0.0, "flips": 0,
+                "pair_tests": None, "library_ms": None,
+                **{k: mean(k) for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+                "bound_by": per[0]["bound_by"], "rays": rays, "plain_rays": rays,
+                "calls": per}
+        lines.append(line)
+        say("8 shading", f"{stage} on {name}'s {WIDTH}x{HEIGHT} frame inputs: "
+            f"{len(mine)} calls of {rays} rays, bit-equal to plain; a call: kernel "
+            f"{shown(line['ms'])} (device {shown(line['device_ms'])}), plain "
+            f"{shown(line['plain_ms'])}, bound {shown(line['bound_ms'])} "
+            f"({line['bound_by']}, {per[0]['bytes']} bytes)")
     return lines
 
 
@@ -1902,19 +2061,25 @@ def phase_streaming(eps):
 
 
 # the new routes' frames: (scene, canvas width, mesh_impl, launches(tiles))
+# (each node's shading stages: cow's two nodes and the blend at its root;
+# the herds, teapot and pumpkin one node, K3's flag on the last two)
 NEW_FRAMES = {
     "cow elementwise": ("cow", WIDTH, "elementwise",
                         lambda n: {"closest_hit_elementwise": 2 * n,
-                                   "any_hit_elementwise": 2 * n}),
+                                   "any_hit_elementwise": 2 * n, **shading(2 * n, n)}),
     "cow_herd elementwise": ("cow_herd", WIDTH, "elementwise",
                              lambda n: {"closest_hit_elementwise": n,
-                                        "any_hit_elementwise": n}),
+                                        "any_hit_elementwise": n, **shading(n, 0)}),
     "cow_herd_mesh": ("cow_herd_mesh", WIDTH, "auto",
-                      lambda n: {"closest_hit_t0": 11 * n, "any_hit": 11 * n}),
+                      lambda n: {"closest_hit_t0": 11 * n, "any_hit": 11 * n,
+                                 **shading(n, 0)}),
     "cow_herd_mesh_smooth": ("cow_herd_mesh_smooth", 480, "auto",
-                             lambda n: {"closest_hit_uv": 11 * n, "any_hit": 11 * n}),
-    "teapot": ("teapot", WIDTH, "auto", lambda n: {"closest_shadow": n}),
-    "pumpkin": ("pumpkin", WIDTH, "auto", lambda n: {"closest_shadow_sn": n}),
+                             lambda n: {"closest_hit_uv": 11 * n, "any_hit": 11 * n,
+                                        **shading(n, 0)}),
+    "teapot": ("teapot", WIDTH, "auto",
+               lambda n: {"closest_shadow": n, **shading(n, 0, 0)}),
+    "pumpkin": ("pumpkin", WIDTH, "auto",
+                lambda n: {"closest_shadow_sn": n, **shading(n, 0, 0)}),
 }
 NEW_GOLDENS = {"teapot": (24, 5, (0.99, 2)), "pumpkin": (24, 5, (0.98, 2))}
 
@@ -2635,7 +2800,8 @@ def phase_cli() -> dict:
     counts = dict(mi.LAUNCHES)
     check(rc == 0, f"cli.main returned {rc}")
     n_tiles = -(-WIDTH * HEIGHT // RenderConfig().ray_tile)
-    expected = dict(dict.fromkeys(mi.LAUNCHES, 0), closest_shadow=2 * 2 * n_tiles)
+    expected = dict(dict.fromkeys(mi.LAUNCHES, 0), closest_shadow=2 * 2 * n_tiles,
+                    **shading(2 * 2 * n_tiles, 2 * n_tiles, 0))
     check(counts == expected, f"CLI main path: launch counts {counts}, expected {expected}")
     report = json.loads(stderr.getvalue().strip().splitlines()[-1])
     with open(path, "rb") as f:
@@ -2659,7 +2825,8 @@ def phase_cli() -> dict:
     progressive_s = time.perf_counter() - t0
     counts = dict(mi.LAUNCHES)
     n_tiles = -(-WIDTH * HEIGHT // RAY_TILE)
-    expected = dict(dict.fromkeys(mi.LAUNCHES, 0), closest_shadow=2 * n_tiles)
+    expected = dict(dict.fromkeys(mi.LAUNCHES, 0), closest_shadow=2 * n_tiles,
+                    **shading(2 * n_tiles, n_tiles, 0))
     check(counts == expected, f"progressive frame: launch counts {counts}, "
           f"expected {expected}")
     check(flat.shape == (HEIGHT, WIDTH, 3) and bool(np.isfinite(flat).all()),
@@ -2674,7 +2841,8 @@ def phase_cli() -> dict:
         f"render(): {gate}")
 
     # the prim-only scenes: the prim kernel sweeps them (Plan.prims), both
-    # modes once a shading node, and nothing else launches
+    # modes once a shading node, and nothing else launches but each node's
+    # shading stages (the blend at a tile's root where the scene branches)
     record["prim_scenes"] = {}
     for name, (gw, depth, budget) in PRIM_GOLDENS.items():
         gate = golden_gate(name, gw, depth, budget)
@@ -2683,6 +2851,8 @@ def phase_cli() -> dict:
         render(scene, cam, cfg)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        n_tiles = -(-cam.hsize * cam.vsize // RAY_TILE)
+        branching = n_tiles if scene.static.any_reflective or scene.static.any_refractive else 0
         walls = []
         for _ in range(PRIM_FRAMES):
             mi.reset_launch_counts()
@@ -2691,8 +2861,10 @@ def phase_cli() -> dict:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             counts = dict(mi.LAUNCHES)
-            check(counts["prim_closest"] == counts["prim_any"] >= 1
-                  and sum(counts.values()) == 2 * counts["prim_closest"],
+            nodes = counts["prim_closest"]
+            check(nodes >= 1 and counts == dict(
+                      dict.fromkeys(mi.LAUNCHES, 0), prim_closest=nodes, prim_any=nodes,
+                      **shading(nodes, branching)),
                   f"{name}: a prim-only frame launched {counts}")
         peak = torch.cuda.max_memory_allocated()
         plain = render(scene, cam, dataclasses.replace(cfg, mesh_impl="bruteforce"))
@@ -2938,10 +3110,12 @@ def phase_parallel() -> dict:
     n_tiles = -(-WIDTH * HEIGHT // RAY_TILE)
     # cow over 2 rays ranks: Morton tiles of RAY_TILE dealt two ways, so a
     # rank shades half the tiles; two nodes (the root and its reflection),
-    # each a K1 and a K2 on the shard, no K3 under the prim axis
+    # each a K1 and a K2 on the shard, no K3 under the prim axis, and its
+    # shading stages, the blend at the root
     local_tiles = -(-n_tiles // 2)
     expected = {"cow 2x2": dict(dict.fromkeys(mi.LAUNCHES, 0), closest_hit=2 * local_tiles,
-                                any_hit=2 * local_tiles),
+                                any_hit=2 * local_tiles,
+                                **shading(2 * local_tiles, local_tiles)),
                 "glass_teapot 1x2": single["glass_teapot 1x2"][1]}
     for key in ("cow 2x2", "glass_teapot 1x2"):
         ranks = run_grid(key)
@@ -3262,7 +3436,10 @@ def phase_book(eps) -> dict:
     k2 = launches["any_hit"]
     check(k3 >= 1, f"color_at_single on cow launched K3 {k3} times")
     check(k2 >= 1, f"is_shadowed on cow launched K2 {k2} times")
-    check(launches == dict(dict.fromkeys(mi.LAUNCHES, 0), closest_shadow=k3, any_hit=k2),
+    # a sample's two nodes (K3 each, its flag: no surface launch), the
+    # blend at its root
+    check(launches == dict(dict.fromkeys(mi.LAUNCHES, 0), closest_shadow=k3, any_hit=k2,
+                           **shading(k3, BOOK_SAMPLES, 0)),
           f"the helpers launched {launches}")
     want = img[py, px].cpu().numpy()
     bad = int((colors != want).any(1).sum())
@@ -3495,7 +3672,9 @@ KERNEL_OF_COUNT = {"closest_hit": "closest_hit_kernel", "closest_hit_sn": "close
                    "any_hit_elementwise": "elementwise_kernel",
                    # a call launches both passes; pass 1 stands for it
                    "object_rows": "object_rows_partial_kernel",
-                   "prim_closest": "prim_sweep_kernel", "prim_any": "prim_sweep_kernel"}
+                   "prim_closest": "prim_sweep_kernel", "prim_any": "prim_sweep_kernel",
+                   "shade_surface": "shade_kernel", "shade_node": "shade_kernel",
+                   "shade_blend": "shade_kernel"}
 
 
 def port_kernel(name: str):
@@ -4243,7 +4422,7 @@ def main() -> int:
         times.update(t)
         parity.update(p)
     launches.update(phase_frames())
-    prim_lines = prim_sweep_lines()
+    prim_lines = prim_sweep_lines() + shade_lines() + shade_lines("table")
     t, p, sizes = phase_tlas(eps)
     times.update(t)
     parity.update(p)

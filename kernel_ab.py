@@ -38,7 +38,13 @@ free-space occlusion rays and on the 460,800 shadow rays the frame casts
 from its surfaces) and cow_herd_smooth (K5 with_sn); K7a on the primary
 rays and K7b on the free-space occlusion rays of cow and of cow_herd's
 world table (4,088 clusters, 511 supers);
-and the 10,240 rays of chip_smoke.py's 208-cluster soup (K1 flat). Each case runs the builds in the order
+the 10,240 rays of chip_smoke.py's 208-cluster soup (K1 flat); and each
+call of the shading stages (shade_surface, shade_node, shade_blend) in an
+eager 1920x960 glass_teapot frame and a table frame (chip_smoke.py
+shade_calls, 1,843,200 rays a call), in the builds that have them, each
+line with the stage's plain version's time ("plain_ms", its outputs
+bit-equal to the first build's) and its bound ("bound_ms": the bytes it
+reads and writes, chip_smoke.py shade_bytes, once at 3.35 TB/s). Each case runs the builds in the order
 first..last, last..first, each timed with CUDA events around repeated
 calls after a warm-up, so every build sees the same card state; every
 build's outputs must equal the first build's bit for bit (t, idx or enc,
@@ -171,9 +177,31 @@ def occ_kw(m, fn: str, occ) -> dict:
     return {"occ": occ} if takes_occ(m, fn) else {}
 
 
+def shade_cases(scenes=("glass_teapot", "table")) -> list:
+    """chip_smoke.py's shading calls of each scene's frame as cases, each
+    with its plain version and its bound: [(name, rays, call, iters,
+    extra)]."""
+    out = []
+    calls = [(name, i, *c) for name in scenes for i, c in enumerate(cs.shade_calls(name))]
+    for name, i, stage, a, kw, got in calls:
+        rays = (a[1] if stage == "shade_blend" else a[0]).shape[0]
+        bound_ms = cs.bound(cs.Work(), cs.shade_bytes(stage, a, got))[0]
+        out.append((f"shading {stage}, {name}'s call {i}", rays,
+                    lambda m, stage=stage, a=a, kw=kw: tuple(
+                        cs.shade_outputs(stage, getattr(m, stage)(*a, **kw))), 10,
+                    {"needs": stage, "bound_ms": bound_ms,
+                     "plain": lambda stage=stage, a=a, kw=kw: cs.SHADE_PLAIN[stage](*a, **kw),
+                     "plain_equal": lambda stage=stage, a=a, kw=kw: cs.shade_equal(
+                         stage, getattr(mi, stage)(*a, **kw), cs.SHADE_PLAIN[stage](*a, **kw))}))
+    return out
+
+
 def cases(eps: float) -> list:
-    """[(name, rays, call, iters)]: call(m) launches the kernel through the
-    wrappers module m and returns its outputs."""
+    """[(name, rays, call, iters[, extra])]: call(m) launches the kernel
+    through the wrappers module m and returns its outputs; extra, where
+    given: the wrapper a build needs to run the case ("needs"), the plain
+    version ("plain"), whether this checkout's kernel equals it bit for bit
+    ("plain_equal") and the bound ("bound_ms")."""
     out = []
     scene, cam = cs.slice_scene("cow", cs.WIDTH)
     o, d = cs.main_path_rays(cam)
@@ -261,7 +289,7 @@ def cases(eps: float) -> list:
             out.append((f"K6, {name}'s {wave} rays", qo.shape[0],
                         lambda m, k6=k6, sc=sc: m.mesh_any_hit_tlas(
                             *k6, **occ_kw(m, "mesh_any_hit_tlas", sc.tlas_occ)), 10))
-    return out
+    return out + shade_cases()
 
 
 def k7_wavefronts(name: str, eps):
@@ -637,30 +665,38 @@ def main() -> int:
         print(json.dumps({"card": cs.CARD, "build": name, **info}), flush=True)
 
     ok = True
-    for case, rays, call, iters in cases(eps):
+    for case, rays, call, iters, *extra in cases(eps):
         if args.only and not re.search(args.only, case):
             continue
-        order = list(libs) + list(libs)[::-1]
-        ms = {name: [] for name in libs}
-        device = {name: [] for name in libs}
+        extra = extra[0] if extra else {}
+        present = [n for n in libs if hasattr(mods[n], extra.get("needs", "library"))]
+        order = present + present[::-1]
+        ms = {name: [] for name in present}
+        device = {name: [] for name in present}
         outs = {}
         for name in order:
             t, got = cs.timed_ms(lambda: call(mods[name]), 2, iters)
             ms[name].append(t)
             device[name].append(cs.device_ms(lambda: call(mods[name]), iters))
             outs[name] = got if isinstance(got, tuple) else (got,)
-        first = next(iter(libs))
+        first = present[0]
         equal = {name: all(torch.equal(a, b) for a, b in
                            zip(bits(outs[name]), bits(outs[first])))
-                 for name in libs}
+                 for name in present}
+        with_plain = {}
+        if "plain" in extra:
+            plain_ms, _ = cs.timed_ms(extra["plain"], 1, 3)
+            with_plain = {"plain_ms": plain_ms, "bound_ms": extra["bound_ms"],
+                          "bit_equal_to_plain": extra["plain_equal"]()}
+            ok &= with_plain["bit_equal_to_plain"]
         ok &= all(equal.values())
         line = {"card": cs.CARD, "case": case, "rays": rays,
                 "ms": {n: sum(v) / len(v) for n, v in ms.items()}, "ms_each": ms,
                 "device_ms": {n: None if None in v else sum(v) / len(v)
                               for n, v in device.items()},
                 "device_ms_each": device,
-                "bit_equal_to_" + first: equal,
-                "digest": {n: digest(outs[n]) for n in libs}}
+                "bit_equal_to_" + first: equal, **with_plain,
+                "digest": {n: digest(outs[n]) for n in present}}
         record["cases"].append(line)
         print(json.dumps(line), flush=True)
     out = args.out or os.path.join(ROOT, "build", "kernel_ab.json")

@@ -2,8 +2,9 @@
 // K2 any-hit occlusion, K3 fused closest hit + shadow, K4 crossing census,
 // K5 instanced closest hit, K6 instanced occlusion, and the elementwise
 // cross-check backend K7a (closest hit) and K7b (occlusion); and, with no
-// TPU counterpart, the object rows' sum (the shading glue's backward) and
-// the analytic prims' sweep (closest hit or shadow flag over the prims).
+// TPU counterpart, the object rows' sum (the shading glue's backward), the
+// analytic prims' sweep (closest hit or shadow flag over the prims) and a
+// bounce node's shading (its hits' frame, Phong and children's rays).
 //
 // Replaces (rtc_tpu/ops/pallas/mesh_intersect.py):
 //   K1 _kernel_mxu / _kernel_mxu_body, with_n, with_sn, with_t0 and
@@ -1746,6 +1747,485 @@ prim_sweep_kernel(const S* __restrict__ o, const S* __restrict__ d,
   }
 }
 
+// ---------------------------------------------------------------------------
+// A bounce node's shading (no TPU counterpart: rtc_tpu shades in XLA,
+// integrator.py :1114-1262). render/integrator.py color_at launches it
+// three times a node around the searches, where the plan says so and
+// autograd has nothing to record; the plain versions are ops/shading.py's:
+//   kShadeSurface  after the closest hit: the hit's frame and its shadow
+//                  query, the over point toward the light, parked where the
+//                  lane is dead (shading.surface)
+//   kShadeNode     after the shadow flag and the census: the base colour,
+//                  Phong, and the children's parked rays and blend weights,
+//                  or a childless node's final colour (shading.node)
+//   kShadeBlend    after the children: their colours blended onto the
+//                  surface colour (shading.blend_colors)
+// One thread a ray, every intermediate in registers. A ray evaluates only
+// its hit prim's own kind of normal (ops/normals.py) and only its object's
+// own pattern (ops/patterns.py), with the plain versions' formulas in their
+// order, where the plain versions evaluate every kind and pattern on every
+// ray and select by mask. With -fmad=false and PyTorch's own definitions
+// (torch.remainder: fmod, then the divisor added where the signs differ;
+// clamp_min and clamp_max keep a NaN; x ** y is pow, x ** 2 is x * x;
+// 1 / sqrt), each output rounds as the plain version's. Each ray reads
+// its own prim's and object's rows through the read-only cache (staging a
+// scene's rows in shared memory measured no faster on the H100). What
+// bounds it: bytes, each ray's inputs read and its
+// outputs written once, against some hundred operations a ray; the plain
+// versions make some 200 elementwise passes a node over (R,) tensors.
+constexpr int kShadeThreads = 256;
+enum ShadeStage { kShadeSurface = 0, kShadeNode = 1, kShadeBlend = 2 };
+// ShadeNode's flags (mesh_intersect.py SHADE_FLAGS)
+enum ShadeFlag { kBranchR = 1, kBranchT = 2, kBlendFlag = 4, kPattern = 8 };
+// utils/constants.py FAR, PARK; ops/patterns.py PATTERN_EPS; materials.py NONE
+constexpr double kFarD = 1e12, kParkD = 0.5773502692, kPatternEpsD = 1e-4;
+constexpr int kPatNone = -1;
+
+__device__ __forceinline__ float floor_s(float x) { return floorf(x); }
+__device__ __forceinline__ double floor_s(double x) { return floor(x); }
+__device__ __forceinline__ float fmod_s(float a, float b) { return fmodf(a, b); }
+__device__ __forceinline__ double fmod_s(double a, double b) { return fmod(a, b); }
+__device__ __forceinline__ float pow_s(float a, float b) { return powf(a, b); }
+__device__ __forceinline__ double pow_s(double a, double b) { return pow(a, b); }
+__device__ __forceinline__ float ldg_s(const float* p) { return __ldg(p); }
+__device__ __forceinline__ double ldg_s(const double* p) { return __ldg(p); }
+
+template <typename S>
+struct ShadePrim {
+  S m[12];  // world -> object, row-major (3, 4)
+  S mt[9];  // the inverse-transpose's linear part (3, 3)
+  S ymin, ymax;
+  int kind;  // intersect.py SPHERE .. CONE
+};
+
+template <typename S>
+struct ShadeObject {
+  S a[3], b[3];
+  S m[12];  // pattern_inv @ object_inv, row-major (3, 4)
+  S color[3];
+  S ambient, diffuse, specular, shininess, reflective, transparency;
+  int kind;  // materials.py NONE .. TEST
+};
+
+// The scene's rows (shading.Prims, shading.Objects) and light; N may be 0.
+template <typename S>
+struct ShadeTables {
+  const S* inv;
+  const S* invT;
+  const int* kind;
+  const S* params;
+  int N;
+  const int* pat_kind;
+  const S* pat_a;
+  const S* pat_b;
+  const S* pat_inv;
+  const S* color;
+  const S* ambient;
+  const S* diffuse;
+  const S* specular;
+  const S* shininess;
+  const S* reflective;
+  const S* transparency;
+  int O;
+  const S* light;      // (3,) position
+  const S* intensity;  // (3,)
+};
+
+// A stage's per-ray inputs, (R, ...) each; null where the stage reads none
+// (shadowed: lit; n1, n2: 1).
+template <typename S>
+struct ShadeRays {
+  const S* o;
+  const S* d;
+  const S* t;
+  const uint8_t* valid;
+  const uint8_t* is_tri;
+  const int* prim;
+  const S* tri_n;
+  const int* obj;
+  const uint8_t* shadowed;
+  const S* n1;
+  const S* n2;
+  const S* surface;  // kShadeBlend: the surface colour
+  const S* refl;     // the children's colours
+  const S* refr;
+  const S* weights;  // (R, 4) reflective, transparency, 1 - tir, reflectance
+};
+
+// A stage's outputs. kShadeSurface: origin (R, 3), direction (R, 3),
+// distance (R,). kShadeNode: colour (R, 3), reflection o and d, refraction
+// o and d (R, 3) each, weights (R, 4). kShadeBlend: colour (R, 3).
+template <typename S>
+struct ShadeOut {
+  S* out[6];
+};
+
+template <typename S>
+__device__ __forceinline__ ShadePrim<S> load_shade_prim(const ShadeTables<S>& tb, int p) {
+  ShadePrim<S> r;
+  const size_t i = (size_t)p;
+#pragma unroll
+  for (int k = 0; k < 12; ++k) r.m[k] = ldg_s(tb.inv + 12 * i + k);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) r.mt[k] = ldg_s(tb.invT + 9 * i + k);
+  r.ymin = ldg_s(tb.params + 3 * i);
+  r.ymax = ldg_s(tb.params + 3 * i + 1);
+  r.kind = __ldg(tb.kind + i);
+  return r;
+}
+
+template <typename S>
+__device__ __forceinline__ ShadeObject<S> load_shade_object(const ShadeTables<S>& tb, int e) {
+  ShadeObject<S> r;
+  const size_t i = (size_t)e;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    r.a[k] = ldg_s(tb.pat_a + 3 * i + k);
+    r.b[k] = ldg_s(tb.pat_b + 3 * i + k);
+    r.color[k] = ldg_s(tb.color + 3 * i + k);
+  }
+#pragma unroll
+  for (int k = 0; k < 12; ++k) r.m[k] = ldg_s(tb.pat_inv + 12 * i + k);
+  r.ambient = ldg_s(tb.ambient + i);
+  r.diffuse = ldg_s(tb.diffuse + i);
+  r.specular = ldg_s(tb.specular + i);
+  r.shininess = ldg_s(tb.shininess + i);
+  r.reflective = ldg_s(tb.reflective + i);
+  r.transparency = ldg_s(tb.transparency + i);
+  r.kind = __ldg(tb.pat_kind + i);
+  return r;
+}
+
+// vec.py normalize3: a zero (or NaN) square stays zero
+template <typename S>
+__device__ __forceinline__ void shade_normalize(S* v) {
+  const S sq = v[0] * v[0] + v[1] * v[1] + v[2] * v[2];
+  const S inv = sq > S(0) ? S(1) / sqrt_s(sq) : S(0);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) v[k] = v[k] * inv;
+}
+
+// shading.hit_normal on a prim: its own kind's object-space normal
+// (normals.py) at the affine3 of p, through the inverse-transpose,
+// normalized. An unknown kind is the sphere's, as the plain select leaves it.
+template <typename S>
+__device__ __forceinline__ void prim_normal(const ShadePrim<S>& q, const S* p, S eps, S* n) {
+  S l[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const S* m = q.m + 4 * k;
+    l[k] = m[0] * p[0] + m[1] * p[1] + m[2] * p[2] + m[3];
+  }
+  S nl[3] = {l[0], l[1], l[2]};
+  switch (q.kind) {
+    case 1:  // plane
+      nl[0] = S(0); nl[1] = S(1); nl[2] = S(0);
+      break;
+    case 2: {  // cube: the largest |component|, ties x, then y, then z
+      const S ax = abs_s(l[0]), ay = abs_s(l[1]), az = abs_s(l[2]);
+      const S maxc = nan_max(nan_max(ax, ay), az);
+      const bool is_x = ax == maxc;
+      const bool is_y = !is_x && ay == maxc;
+      nl[0] = is_x ? l[0] : S(0);
+      nl[1] = is_y ? l[1] : S(0);
+      nl[2] = is_x || is_y ? S(0) : l[2];
+      break;
+    }
+    case 3: {  // cylinder: the caps within unit radius and eps of their plane
+      const S dist = l[0] * l[0] + l[2] * l[2];
+      const bool top = dist < S(1) && l[1] >= q.ymax - eps;
+      const bool bottom = dist < S(1) && l[1] <= q.ymin + eps;
+      nl[0] = top || bottom ? S(0) : l[0];
+      nl[1] = top ? S(1) : (bottom ? S(-1) : S(0));
+      nl[2] = top || bottom ? S(0) : l[2];
+      break;
+    }
+    case 4: {  // cone
+      const S s = l[0] * l[0] + l[2] * l[2];
+      const S y = s > S(0) ? sqrt_s(s) : S(0);
+      nl[1] = l[1] > S(0) ? -y : y;
+      break;
+    }
+    default:  // sphere
+      break;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const S* m = q.mt + 3 * k;
+    n[k] = m[0] * nl[0] + m[1] * nl[1] + m[2] * nl[2];
+  }
+  shade_normalize(n);
+}
+
+// shading.surface_frame: the hit point p, the unit normal n flipped toward
+// the eye -d, and the ray's direction d.
+template <typename S>
+struct ShadeFrame {
+  S p[3], n[3], d[3];
+};
+
+template <typename S>
+__device__ __forceinline__ ShadeFrame<S> shade_frame(const ShadeRays<S>& in,
+                                                     const ShadeTables<S>& tb, int i,
+                                                     bool valid, S eps) {
+  ShadeFrame<S> f;
+  const S ts = valid ? in.t[i] : S(1);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    f.d[k] = in.d[3 * (size_t)i + k];
+    f.p[k] = in.o[3 * (size_t)i + k] + f.d[k] * ts;
+  }
+  if (tb.N > 0 && !in.is_tri[i]) {
+    const int pid = in.prim[i];
+    prim_normal(load_shade_prim(tb, pid), f.p, eps, f.n);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) f.n[k] = in.tri_n[3 * (size_t)i + k];
+  }
+  const bool inside = (f.n[0] * -f.d[0] + f.n[1] * -f.d[1] + f.n[2] * -f.d[2]) < S(0);
+  if (inside) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) f.n[k] = -f.n[k];
+  }
+  return f;
+}
+
+// normalize3(light - p) . n, lighting3's light_dot_normal and color_at's
+// facing test; lv gets the unit light vector
+template <typename S>
+__device__ __forceinline__ S light_dot_normal(const ShadeFrame<S>& f, const S* light, S* lv) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) lv[k] = ldg_s(light + k) - f.p[k];
+  shade_normalize(lv);
+  return lv[0] * f.n[0] + lv[1] * f.n[1] + lv[2] * f.n[2];
+}
+
+// patterns.py _parity_even: torch.remainder(v, 2) == 0
+template <typename S>
+__device__ __forceinline__ bool parity_even(S v) {
+  S mod = fmod_s(v, S(2));
+  if (mod != S(0) && mod < S(0)) mod += S(2);
+  return mod == S(0);
+}
+
+// patterns.color_at for one object's own kind at pattern-space point q
+template <typename S>
+__device__ __forceinline__ void pattern_color(const ShadeObject<S>& ob, const S* q, S* c) {
+  const S pe = static_cast<S>(kPatternEpsD);
+  int pick = -1;  // 0: a, 1: b
+  switch (ob.kind) {
+    case 0:  // stripe
+      pick = parity_even(floor_s(q[0] + pe)) ? 0 : 1;
+      break;
+    case 1: {  // gradient
+      const S frac = q[0] - floor_s(q[0]);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) c[k] = ob.a[k] + (ob.b[k] - ob.a[k]) * frac;
+      return;
+    }
+    case 2:  // ring
+      pick = parity_even(floor_s(sqrt_s(q[0] * q[0] + q[2] * q[2]) + pe)) ? 0 : 1;
+      break;
+    case 3:  // checkers
+      pick = parity_even(floor_s(q[0] + pe) + floor_s(q[1] + pe) + floor_s(q[2] + pe)) ? 0
+                                                                                      : 1;
+      break;
+    case 4:  // test: the point itself
+#pragma unroll
+      for (int k = 0; k < 3; ++k) c[k] = q[k];
+      return;
+    default:
+      break;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) c[k] = pick == 0 ? ob.a[k] : (pick == 1 ? ob.b[k] : S(0));
+}
+
+// shading.blend_colors on one ray: where(valid, surface + secondary, 0)
+template <typename S>
+__device__ __forceinline__ void blend_out(bool valid, const S* surf, const S* refl,
+                                          const S* refr, S reflective, S transparency,
+                                          S reflectance, bool blend, S* out) {
+  const bool both = blend && reflective > S(0) && transparency > S(0);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const S sec = both ? refl[k] * reflectance + refr[k] * (S(1) - reflectance)
+                       : refl[k] + refr[k];
+    out[k] = valid ? surf[k] + sec : S(0);
+  }
+}
+
+template <typename S>
+__device__ __forceinline__ void store3(S* out, int i, const S* v) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out[3 * (size_t)i + k] = v[k];
+}
+
+template <typename S, int STAGE>
+__global__ void __launch_bounds__(kShadeThreads)
+shade_kernel(ShadeRays<S> in, int R, ShadeTables<S> tb, int flags, S eps,
+             ShadeOut<S> out) {
+  const int i = blockIdx.x * kShadeThreads + threadIdx.x;
+  if (i >= R) return;
+  const bool valid = in.valid[i];
+  const S far = static_cast<S>(kFarD);
+
+  if (STAGE == kShadeBlend) {  // shading.blend_colors
+    const S* w = in.weights + 4 * (size_t)i;
+    S surf[3], refl[3] = {S(0), S(0), S(0)}, refr[3] = {S(0), S(0), S(0)};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      surf[k] = in.surface[3 * (size_t)i + k];
+      if (flags & kBranchR) refl[k] = in.refl[3 * (size_t)i + k] * w[0];
+      if (flags & kBranchT) refr[k] = in.refr[3 * (size_t)i + k] * w[1] * w[2];
+    }
+    S c[3];
+    blend_out(valid, surf, refl, refr, w[0], w[1], w[3], (flags & kBlendFlag) != 0, c);
+    store3(out.out[0], i, c);
+    return;
+  }
+
+  const ShadeFrame<S> f = shade_frame(in, tb, i, valid, eps);
+  S lv[3];
+  const S ldn = light_dot_normal(f, tb.light, lv);
+
+  if (STAGE == kShadeSurface) {  // shading.surface
+    S over[3], v[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      over[k] = valid ? f.p[k] + f.n[k] * eps : far;
+      v[k] = ldg_s(tb.light + k) - over[k];
+    }
+    const S dist = sqrt_s(nan_max(v[0] * v[0] + v[1] * v[1] + v[2] * v[2], S(1e-30)));
+#pragma unroll
+    for (int k = 0; k < 3; ++k) v[k] = v[k] / dist;
+    store3(out.out[0], i, over);
+    store3(out.out[1], i, v);
+    out.out[2][i] = valid && ldn >= S(0) ? dist : S(-1);
+    return;
+  }
+
+  // kShadeNode: shading.node
+  const ShadeObject<S> ob = load_shade_object(tb, in.obj[i]);
+  S base[3];
+  if ((flags & kPattern) && ob.kind != kPatNone) {
+    S q[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const S* m = ob.m + 4 * k;
+      q[k] = m[0] * f.p[0] + m[1] * f.p[1] + m[2] * f.p[2] + m[3];
+    }
+    pattern_color(ob, q, base);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) base[k] = ob.color[k];
+  }
+
+  // lighting.lighting3
+  const bool lit = !(in.shadowed && in.shadowed[i]) && ldn >= S(0);
+  const S dl = ob.diffuse * ldn;
+  const S kl = S(2) * (-lv[0] * f.n[0] + -lv[1] * f.n[1] + -lv[2] * f.n[2]);
+  S r[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) r[k] = -lv[k] - f.n[k] * kl;
+  const S rde = r[0] * -f.d[0] + r[1] * -f.d[1] + r[2] * -f.d[2];
+  const bool spec_on = lit && rde > S(0);
+  const S factor = pow_s(spec_on ? nan_max(rde, S(1e-30)) : S(1), ob.shininess);
+  const S sf = ob.specular * factor;
+  S surf[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const S li = ldg_s(tb.intensity + k);
+    const S ef = base[k] * li;
+    const S df = lit ? ef * dl : S(0);
+    const S sp_ = spec_on ? li * sf : S(0);
+    surf[k] = ef * ob.ambient + df + sp_;
+  }
+
+  const S n1 = in.n1 ? in.n1[i] : S(1);
+  const S n2 = in.n2 ? in.n2[i] : S(1);
+  const S cos_i = -f.d[0] * f.n[0] + -f.d[1] * f.n[1] + -f.d[2] * f.n[2];
+  const S park = static_cast<S>(kParkD);
+  if (flags & kBranchR) {  // the reflection, from the over point
+    const bool live = valid && ob.reflective > S(0);
+    const S k2 = S(2) * (f.d[0] * f.n[0] + f.d[1] * f.n[1] + f.d[2] * f.n[2]);
+    S ro[3], rd[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      ro[k] = live ? f.p[k] + f.n[k] * eps : far;
+      rd[k] = live ? f.d[k] - f.n[k] * k2 : park;
+    }
+    store3(out.out[1], i, ro);
+    store3(out.out[2], i, rd);
+  }
+  S notir = S(1);
+  if (flags & kBranchT) {  // Snell's refraction, from the under point
+    const S n_ratio = n1 / n2;
+    const S sin2_t = n_ratio * n_ratio * (S(1) - cos_i * cos_i);
+    const bool tir = sin2_t > S(1);
+    const S c = S(1) - nan_min(sin2_t, S(1));
+    const S cos_t = c > S(0) ? sqrt_s(c) : S(0);
+    const S a = n_ratio * cos_i - cos_t;
+    const bool live = valid && ob.transparency > S(0) && !tir;
+    S to[3], td[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      to[k] = live ? f.p[k] - f.n[k] * eps : far;
+      td[k] = live ? f.n[k] * a - -f.d[k] * n_ratio : park;
+    }
+    store3(out.out[3], i, to);
+    store3(out.out[4], i, td);
+    notir = tir ? S(0) : S(1);
+  }
+  S reflectance = S(0);
+  if (flags & kBlendFlag) {  // shading.schlick
+    const S n = n1 / n2;
+    const S sin2_t = n * n * (S(1) - cos_i * cos_i);
+    const bool tir = n1 > n2 && sin2_t > S(1);
+    const S c = S(1) - nan_min(sin2_t, S(1));
+    const S cos_t = c > S(0) ? sqrt_s(c) : S(0);
+    const S cos_used = n1 > n2 ? cos_t : cos_i;
+    S r0 = (n1 - n2) / (n1 + n2);
+    r0 = r0 * r0;
+    reflectance = tir ? S(1) : r0 + (S(1) - r0) * pow_s(S(1) - cos_used, S(5));
+  }
+  if (!(flags & (kBranchR | kBranchT))) {  // no child: the final colour
+    const S zero[3] = {S(0), S(0), S(0)};
+    S c[3];
+    blend_out(valid, surf, zero, zero, ob.reflective, ob.transparency, reflectance,
+              (flags & kBlendFlag) != 0, c);
+    store3(out.out[0], i, c);
+    return;
+  }
+  store3(out.out[0], i, surf);
+  S* w = out.out[5] + 4 * (size_t)i;
+  w[0] = ob.reflective;
+  w[1] = ob.transparency;
+  w[2] = notir;
+  w[3] = reflectance;
+}
+
+template <typename S, int STAGE>
+int launch_shade(void* stream, int R, const void* const* in, const void* const* tabs,
+                 int N, int O, int flags, double eps, void* const* outs) {
+  auto s = [](const void* p) { return static_cast<const S*>(p); };
+  auto b = [](const void* p) { return static_cast<const uint8_t*>(p); };
+  auto n = [](const void* p) { return static_cast<const int*>(p); };
+  const ShadeRays<S> rays{s(in[0]), s(in[1]), s(in[2]), b(in[3]), b(in[4]), n(in[5]),
+                          s(in[6]), n(in[7]), b(in[8]), s(in[9]), s(in[10]), s(in[11]),
+                          s(in[12]), s(in[13]), s(in[14])};
+  const ShadeTables<S> tb{s(tabs[0]), s(tabs[1]), n(tabs[2]), s(tabs[3]), N,
+                          n(tabs[4]), s(tabs[5]), s(tabs[6]), s(tabs[7]), s(tabs[8]),
+                          s(tabs[9]), s(tabs[10]), s(tabs[11]), s(tabs[12]), s(tabs[13]),
+                          s(tabs[14]), O, s(tabs[15]), s(tabs[16])};
+  ShadeOut<S> out;
+  for (int k = 0; k < 6; ++k) out.out[k] = static_cast<S*>(outs[k]);
+  shade_kernel<S, STAGE><<<(unsigned)((R + kShadeThreads - 1) / kShadeThreads),
+                           kShadeThreads, 0, (cudaStream_t)stream>>>(
+      rays, R, tb, flags, static_cast<S>(eps), out);
+  return (int)cudaGetLastError();
+}
+
 inline unsigned blocks_for(int R) { return (unsigned)((R + kThreads - 1) / kThreads); }
 
 // K2, K3, K4 and K6 read the occlusion tables (scene/compile.py OcclusionTables):
@@ -2166,6 +2646,32 @@ int rtc_prim_sweep(int device, void* stream, int f64, int any, const void* o,
                     : (any ? launch_prim_sweep<float, true> : launch_prim_sweep<float, false>);
   return launch(stream, o, d, max_dist, R, inv, kind, params, N, eps, t_out, prim_out,
                 hit_out);
+}
+
+// A bounce node's shading, stage 0 (surface), 1 (node) or 2 (blend), over
+// R rays, all float64 where f64 is set, else float32: in, the stage's 15
+// ShadeRays pointers in order (o, d, t, valid, is_tri, prim, tri_n, obj,
+// shadowed, n1, n2, surface, refl, refr, weights; null where the stage
+// reads none); tables, the 17 ShadeTables pointers (the N prims' inv,
+// invT, kind, params; the O objects' pat_kind, pat_a, pat_b, pat_inv,
+// color, ambient, diffuse, specular, shininess, reflective, transparency;
+// the light's position and intensity); outs, the stage's ShadeOut
+// pointers (6, null where unused); flags, ShadeFlag's bits.
+int rtc_shade(int device, void* stream, int f64, int stage, int flags, int R,
+              const void* const* in, const void* const* tables, int N, int O,
+              double eps, void* const* outs) {
+  if (R < 1 || N < 0 || O < 0 || stage < kShadeSurface || stage > kShadeBlend)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  using Launch = int (*)(void*, int, const void* const*, const void* const*, int, int, int,
+                         double, void* const*);
+  static const Launch launches[2][3] = {
+      {launch_shade<float, kShadeSurface>, launch_shade<float, kShadeNode>,
+       launch_shade<float, kShadeBlend>},
+      {launch_shade<double, kShadeSurface>, launch_shade<double, kShadeNode>,
+       launch_shade<double, kShadeBlend>}};
+  return launches[f64 ? 1 : 0][stage](stream, R, in, tables, N, O, flags, eps, outs);
 }
 
 const char* rtc_error_string(int err) {

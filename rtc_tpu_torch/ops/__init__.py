@@ -6,6 +6,7 @@ from . import (  # noqa: F401
     normals,
     patterns,
     rays,
+    shading,
     transforms,
     tuples,
     vec,

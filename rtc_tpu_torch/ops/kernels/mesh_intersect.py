@@ -19,15 +19,17 @@ Counterpart of rtc_tpu/ops/pallas/mesh_intersect.py:
   K7b mesh_any_hit_elementwise     <- mesh_any_hit_pallas          (_anyhit_kernel)
 
 and, with no TPU counterpart, the object rows' sum (object_rows_sum), the
-backward of object_record's gather of its parameter fields, and the
-analytic prims' sweep (prim_closest, prim_any), the closest hit and the
-shadow flag over the scene's prims.
+backward of object_record's gather of its parameter fields, the analytic
+prims' sweep (prim_closest, prim_any), the closest hit and the shadow
+flag over the scene's prims, and a bounce node's shading (shade_surface,
+shade_node, shade_blend; plain versions ops/shading.py).
 
 Each wrapper of K1-K7 takes f32 tensors. Given tensors on the CPU it
 returns its plain version's result; given CUDA tensors it launches its
-kernel, or raises; so do object_rows_sum with its float32 gradients and
-the prims' sweep with float32 or float64 rays. LAUNCHES counts the kernel
-launches of each wrapper (a call of object_rows_sum as one). K2, K3, K4 and K6 also take the walks' tables
+kernel, or raises; so do object_rows_sum with its float32 gradients, and
+the prims' sweep and the shading stages with float32 or float64 rays.
+LAUNCHES counts the kernel launches of each wrapper (a call of
+object_rows_sum as one). K2, K3, K4 and K6 also take the walks' tables
 (occ: scene/compile.py OcclusionTables), which only their kernels read.
 
 Each wrapper launches one kernel on the table it is given, of any size.
@@ -58,6 +60,7 @@ import torch
 
 from ...utils.constants import BIG, EPSILON, FAR
 from ...utils.profiling import span
+from .. import shading
 from ..intersect import prims, triangle
 from ..vec import dot3, normalize3
 
@@ -87,7 +90,8 @@ LAUNCHES = {"closest_hit": 0, "any_hit": 0, "closest_shadow": 0,
             "closest_hit_tlas": 0, "closest_hit_tlas_sn": 0, "any_hit_tlas": 0,
             "closest_hit_t0": 0, "closest_hit_uv": 0,
             "closest_hit_elementwise": 0, "any_hit_elementwise": 0,
-            "object_rows": 0, "prim_closest": 0, "prim_any": 0}
+            "object_rows": 0, "prim_closest": 0, "prim_any": 0,
+            "shade_surface": 0, "shade_node": 0, "shade_blend": 0}
 
 
 def reset_launch_counts() -> None:
@@ -535,6 +539,7 @@ def bind(path: str) -> ctypes.CDLL:
     lib.rtc_object_rows_sum.argtypes = [I, P, P, I, I, P, P, P, I, P, ctypes.c_longlong]
     lib.rtc_prim_sweep.argtypes = [I, P, I, I, P, P, P, I, P, P, P, I, ctypes.c_double,
                                    P, P, P]
+    lib.rtc_shade.argtypes = [I, P, I, I, I, I, P, P, I, I, ctypes.c_double, P]
     for fn in (lib.rtc_closest_hit, lib.rtc_closest_hit_sn, lib.rtc_any_hit,
                lib.rtc_closest_shadow, lib.rtc_closest_shadow_sn,
                lib.rtc_crossing_count, lib.rtc_closest_hit_tlas,
@@ -542,7 +547,7 @@ def bind(path: str) -> ctypes.CDLL:
                lib.rtc_closest_hit_bounded,
                lib.rtc_closest_hit_elementwise, lib.rtc_any_hit_elementwise,
                lib.rtc_object_rows_scratch, lib.rtc_object_rows_sum,
-               lib.rtc_prim_sweep):
+               lib.rtc_prim_sweep, lib.rtc_shade):
         fn.restype = I
     lib.rtc_error_string.argtypes = [I]
     lib.rtc_error_string.restype = ctypes.c_char_p
@@ -1174,6 +1179,169 @@ def prim_any(o, d, max_t, inv, kind, params, eps: float = EPSILON):
     if not o.is_cuda:
         return prim_any_plain(o, d, max_t, inv, kind, params, eps)
     return _prim_launch("prim_any", o, d, max_t, inv, kind, params, eps)
+
+
+# ---------------------------------------------------------------------------
+# a bounce node's shading (render/integrator.py color_at; plain versions
+# ops/shading.py surface, node, blend_colors)
+# ---------------------------------------------------------------------------
+#
+# hit is a shading.HitInfo (t, valid, obj, prim, is_tri, tri_n), prims a
+# shading.Prims or None (no analytic prim), objects a shading.Objects,
+# each in the rays' dtype (ids int32, flags bool).
+
+# the node stage's flags (the kernels' ShadeFlag)
+SHADE_FLAGS = {"branch_r": 1, "branch_t": 2, "blend": 4, "pattern": 8}
+_SHADE_STAGES = {"shade_surface": 0, "shade_node": 1, "shade_blend": 2}
+
+
+# shade_surface's and shade_blend's plain versions
+shade_surface_plain = shading.surface
+shade_blend_plain = shading.blend_colors
+
+
+def shade_node_plain(o, d, hit, shadowed, n1, n2, prims, objects, light_pos,
+                     light_intensity, eps: float = EPSILON, branch_r: bool = False,
+                     branch_t: bool = False, blend: bool = False, pattern: bool = False):
+    """shade_node's plain version, shading.node on the rays' object rows."""
+    return shading.node(o, d, hit, shadowed, n1, n2, prims,
+                        shading.object_rows(objects, hit.obj), light_pos,
+                        light_intensity, eps, branch_r, branch_t, blend, pattern)
+
+
+def _ray_input(name, x, dtype, shape, device):
+    """x as the kernel reads it (contiguous), checked; None stays None."""
+    if x is None:
+        return None
+    x = x.detach().contiguous()
+    _check(name, x, dtype, shape, device)
+    return x
+
+
+def _hit_inputs(o, d, hit):
+    """(device, dtype, R, [o, d, t, valid, is_tri, prim, tri_n, obj])."""
+    device, dtype = o.device, o.dtype
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the shading kernels take float32 or float64 rays, got {dtype}")
+    R = o.shape[0]
+    i32 = torch.int32
+    return device, dtype, R, [
+        _ray_input("o", o, dtype, (R, 3), device), _ray_input("d", d, dtype, (R, 3), device),
+        _ray_input("t", hit.t, dtype, (R,), device),
+        _ray_input("valid", hit.valid, torch.bool, (R,), device),
+        _ray_input("is_tri", hit.is_tri, torch.bool, (R,), device),
+        _ray_input("prim", hit.prim.to(i32), i32, (R,), device),
+        _ray_input("tri_n", hit.tri_n, dtype, (R, 3), device),
+        _ray_input("obj", hit.obj.to(i32), i32, (R,), device)]
+
+
+def _shade_tables(prims, objects, light_pos, light_intensity, dtype, device):
+    """(N, O, the kernels' 17 table tensors or None)."""
+    out = []
+    N = 0 if prims is None else prims.inv.shape[0]
+    if N:
+        out += [_ray_input("prim_inv", prims.inv, dtype, (N, 3, 4), device),
+                _ray_input("prim_invT", prims.invT, dtype, (N, 3, 3), device),
+                _ray_input("prim_kind", prims.kind, torch.int32, (N,), device),
+                _ray_input("prim_params", prims.params, dtype, (N, 3), device)]
+    else:
+        out += [None] * 4
+    O = 0 if objects is None else objects.pat_kind.shape[0]
+    if O:
+        widths = {"pat_a": (3,), "pat_b": (3,), "pat_inv": (3, 4), "color": (3,)}
+        out += [_ray_input(k, x, torch.int32 if k == "pat_kind" else dtype,
+                           (O, *widths.get(k, ())), device)
+                for k, x in zip(objects._fields, objects)]
+    else:
+        out += [None] * 11
+    out += [_ray_input("light_pos", light_pos, dtype, (3,), device),
+            _ray_input("light_intensity", light_intensity, dtype, (3,), device)]
+    return N, O, out
+
+
+def _shade_launch(name, device, dtype, R, ins, tables, N, O, flags, eps, outs):
+    """Launch stage name of the shading kernel: ins, its ShadeRays tensors
+    in order (15, None where unread); tables, its 17 ShadeTables tensors;
+    outs, its outputs (6, None where unused)."""
+    if R:
+        P = ctypes.c_void_p
+        ptr = lambda x: None if x is None else x.data_ptr()
+        err = library().rtc_shade(
+            device.index or 0, _stream(device), int(dtype == torch.float64),
+            _SHADE_STAGES[name], flags, R, (P * 15)(*map(ptr, ins)),
+            (P * 17)(*map(ptr, tables)), N, O, eps, (P * 6)(*map(ptr, outs)))
+        _raise_on(err, name)
+        LAUNCHES[name] += 1
+
+
+def shade_surface(o, d, hit, prims, light_pos, eps: float = EPSILON):
+    """shade_surface_plain's (origin, direction, distance): the plain
+    version for CPU tensors; for CUDA tensors (float32 or float64) the
+    shading kernel's surface stage, bit for bit the plain version's, or a
+    raise. Not differentiable."""
+    if not o.is_cuda:
+        return shade_surface_plain(o, d, hit, prims, light_pos, eps)
+    device, dtype, R, ins = _hit_inputs(o, d, hit)
+    N, O, tables = _shade_tables(prims, None, light_pos, None, dtype, device)
+    outs = [torch.empty((R, 3), dtype=dtype, device=device),
+            torch.empty((R, 3), dtype=dtype, device=device),
+            torch.empty((R,), dtype=dtype, device=device)]
+    _shade_launch("shade_surface", device, dtype, R, ins + [None] * 7, tables, N, O, 0,
+                  eps, outs + [None] * 3)
+    return tuple(outs)
+
+
+def shade_node(o, d, hit, shadowed, n1, n2, prims, objects, light_pos, light_intensity,
+               eps: float = EPSILON, branch_r: bool = False, branch_t: bool = False,
+               blend: bool = False, pattern: bool = False):
+    """shade_node_plain's shading.Node: the plain version for CPU tensors;
+    for CUDA tensors the shading kernel's node stage (weights an (R, 4)
+    tensor), bit for bit the plain version's, or a raise. Not
+    differentiable."""
+    if not o.is_cuda:
+        return shade_node_plain(o, d, hit, shadowed, n1, n2, prims, objects, light_pos,
+                                light_intensity, eps, branch_r, branch_t, blend, pattern)
+    device, dtype, R, ins = _hit_inputs(o, d, hit)
+    N, O, tables = _shade_tables(prims, objects, light_pos, light_intensity, dtype, device)
+    ins += [_ray_input("shadowed", shadowed, torch.bool, (R,), device),
+            _ray_input("n1", n1, dtype, (R,), device),
+            _ray_input("n2", n2, dtype, (R,), device), None, None, None, None]
+    new = lambda *shape: torch.empty((R, *shape), dtype=dtype, device=device)
+    color = new(3)
+    refl = (new(3), new(3)) if branch_r else None
+    refr = (new(3), new(3)) if branch_t else None
+    weights = new(4) if branch_r or branch_t else None
+    flags = sum(SHADE_FLAGS[k] for k, on in (("branch_r", branch_r), ("branch_t", branch_t),
+                                             ("blend", blend), ("pattern", pattern)) if on)
+    _shade_launch("shade_node", device, dtype, R, ins, tables, N, O, flags, eps,
+                  [color, *(refl or (None, None)), *(refr or (None, None)), weights])
+    return shading.Node(color, refl, refr, weights)
+
+
+def shade_blend(valid, surface, refl, refr, weights, blend: bool = False):
+    """shade_blend_plain's colour (R, 3): the plain version for CPU tensors;
+    for CUDA tensors (weights shade_node's (R, 4)) the shading kernel's
+    blend stage, bit for bit the plain version's, or a raise. Not
+    differentiable."""
+    if not surface.is_cuda:
+        return shade_blend_plain(valid, surface, refl, refr, weights, blend)
+    device, dtype, R = surface.device, surface.dtype, surface.shape[0]
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the shading kernels take float32 or float64 rays, got {dtype}")
+    ins = [None, None, None, _ray_input("valid", valid, torch.bool, (R,), device)]
+    ins += [None] * 7 + [_ray_input("surface", surface, dtype, (R, 3), device),
+                         _ray_input("refl", refl, dtype, (R, 3), device),
+                         _ray_input("refr", refr, dtype, (R, 3), device),
+                         _ray_input("weights", weights, dtype, (R, 4), device)]
+    flags = sum(SHADE_FLAGS[k] for k, on in (("branch_r", refl is not None),
+                                             ("branch_t", refr is not None),
+                                             ("blend", blend)) if on)
+    color = torch.empty((R, 3), dtype=dtype, device=device)
+    _shade_launch("shade_blend", device, dtype, R, ins, [None] * 17, 0, 0, flags, 0.0,
+                  [color] + [None] * 5)
+    return color
 
 
 # ---------------------------------------------------------------------------

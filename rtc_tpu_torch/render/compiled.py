@@ -53,8 +53,9 @@ the capture is captured again.
 Kernel launches (mi.LAUNCHES) happen at a replay, not at the capture: the
 capture's own counts are taken back and recorded as the graph's launches,
 which every replay adds, so a frame counts the same launches on either
-route. The prims' plain sweeps (intersect.PLAIN_SWEEPS) are counted the
-same way, as the graph's sweeps.
+route. The prims' plain sweeps (intersect.PLAIN_SWEEPS) and the shading
+nodes by path (integrator.SHADE_NODES) are counted the same way, as the
+graph's sweeps and shades.
 """
 
 from __future__ import annotations
@@ -81,8 +82,8 @@ COUNTS = {"captures": 0}
 ROUTES: "collections.Counter[str]" = collections.Counter()  # "<call>: <route>" -> calls
 
 # the counters a capture takes back and a replay repeats: (the kernels'
-# launches, the prims' plain sweeps)
-_COUNTERS = (mi.LAUNCHES, intersect.PLAIN_SWEEPS)
+# launches, the prims' plain sweeps, the shading nodes by path)
+_COUNTERS = (mi.LAUNCHES, intersect.PLAIN_SWEEPS, integrator.SHADE_NODES)
 
 _EAGER = contextvars.ContextVar("rtc_tpu_torch_eager", default=False)
 _CACHE: "collections.OrderedDict[tuple, Graph]" = collections.OrderedDict()
@@ -207,8 +208,9 @@ class Graph:
     reads beside the scene's, which the graph holds as long as it lives;
     output is the static result (a tensor, or a tuple or dict of them),
     which the next replay overwrites; held, the tensors a replay reads and
-    writes in place beside the scene's (hold). launches: the kernel
-    launches a replay makes; sweeps: the prims' plain sweeps it makes.
+    writes in place beside the scene's (hold). counts: what a replay adds
+    to each of _COUNTERS: launches, the kernel launches; sweeps, the
+    prims' plain sweeps; shades, the shading nodes by path.
     The first call's eager run and its capture are the spans
     rtc.graph.warm and rtc.graph.capture."""
 
@@ -220,9 +222,12 @@ class Graph:
         self.fn, self.inputs, self.what, self.keep = fn, inputs, what, keep
         self.held, self.held_layout = (), ()
         self.graph = self.output = None
-        self.launches: dict = {}
-        self.sweeps: dict = {}
+        self.counts: tuple = tuple({} for _ in _COUNTERS)
         self.replays = 0
+
+    launches = property(lambda self: self.counts[0])
+    sweeps = property(lambda self: self.counts[1])
+    shades = property(lambda self: self.counts[2])
 
     def valid_for(self, scene, held=()) -> bool:
         return (self.scene() is scene and self.addresses == _addresses(scene)
@@ -269,8 +274,8 @@ class Graph:
                 raise CaptureError(f"capturing {self.what} failed: {type(first).__name__}: "
                                    f"{first}") from err
             finally:
-                self.launches, self.sweeps = ({k: n - b[k] for k, n in c.items() if n != b[k]}
-                                              for c, b in zip(_COUNTERS, before))
+                self.counts = tuple({k: n - b[k] for k, n in c.items() if n != b[k]}
+                                    for c, b in zip(_COUNTERS, before))
                 for c, b in zip(_COUNTERS, before):
                     c.update(b)  # nothing ran: the replays count
             torch.cuda.synchronize(device)
@@ -280,7 +285,7 @@ class Graph:
 
     def replay(self):
         self.graph.replay()
-        for c, made in zip(_COUNTERS, (self.launches, self.sweeps)):
+        for c, made in zip(_COUNTERS, self.counts):
             for k, n in made.items():
                 c[k] += n
         self.replays += 1

@@ -16,7 +16,10 @@ call of parallel/shard.py: the scene's triangle table is one rank's shard,
 and closest_hit, is_shadowed and refraction_indices combine their partial
 results over the prims group). Masked lanes carry finite dummy values, and
 dead lanes are parked outside every box so the kernels' traversal drops
-them at once.
+them at once. A node's shading (its hits' frame, shadow query, pattern,
+Phong, children's rays and blend) runs in the shading kernels where the
+plan says so and autograd has nothing to record (shade_by_kernel), else
+in their plain versions (ops/shading.py).
 
 Gradients: the pure-PyTorch path is differentiable as it stands. Every
 closest-hit kernel call goes through a torch.autograd.Function (KernelClosest
@@ -34,28 +37,23 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import intersect, lighting, normals, patterns
-from ..ops.intersect import CONE, CUBE, CYLINDER, PLANE
+from ..ops import intersect, shading
 from ..ops.kernels import mesh_intersect as mi
-from ..ops.vec import affine3, normalize, normalize3, pack3, safe_sqrt, unpack3
+from ..ops.shading import HitInfo  # noqa: F401  (integrator.HitInfo)
+from ..ops.vec import affine3, normalize, pack3, unpack3
 from ..parallel import collectives as coll
 from ..parallel import mesh as grid
 from ..scene.compile import Scene
-from ..scene.materials import NONE
 from ..utils import constants
 from ..utils.config import RenderConfig
-from ..utils.constants import BIG, FAR, PARK
+from ..utils.constants import BIG
 from ..utils.profiling import span
 
-
-class HitInfo(NamedTuple):
-    t: torch.Tensor        # (R,) hit time (BIG on a miss)
-    valid: torch.Tensor    # (R,) bool
-    obj: torch.Tensor      # (R,) i32 object id (0 on a miss)
-    prim: torch.Tensor     # (R,) analytic prim id (0 unless a prim won)
-    tri: torch.Tensor      # (R,) i32 triangle id (0 on a miss)
-    is_tri: torch.Tensor   # (R,) bool: a triangle won
-    tri_n: torch.Tensor    # (R, 3) the winning triangle's unit world normal
+# shading nodes by the path that shaded them: the shading kernels
+# (mi.shade_surface, shade_node, shade_blend) or their plain versions
+# (ops/shading.py), color_at's one increment a node; carried through a
+# graph's replays (render/compiled.py)
+SHADE_NODES = {"kernel": 0, "plain": 0}
 
 
 def _prim_axis(cfg: RenderConfig):
@@ -111,6 +109,7 @@ class Plan(NamedTuple):
     uv: bool      # a smooth closest hit by K1 with_uv and one blend, streamed
     census: bool  # a frame counts crossings on the world table (K4)
     prims: bool   # the prims' closest hit and shadow flag by the prim kernel
+    shade: bool   # a node's shading by the shading kernels (shade_by_kernel)
 
     @property
     def streams(self) -> bool:
@@ -145,7 +144,11 @@ def plan(scene: Scene, cfg: RenderConfig, device, dtype) -> Plan:
       prims   analytic prims in float32 or float64 on a CUDA device,
               whatever the triangles' route, unless cfg.mesh_impl is
               'bruteforce'; that and the CPU sweep them in PyTorch
-              (intersect.prims), the kernel's plain version."""
+              (intersect.prims), the kernel's plain version;
+      shade   float32 or float64 on a CUDA device, unless cfg.mesh_impl
+              is 'bruteforce' (the prims' rule): the shading kernels,
+              where a node's autograd has nothing to record
+              (shade_by_kernel); else their plain versions, ops/shading.py."""
     st = scene.static
     impl = mesh_impl_for(scene, cfg, torch.device(device).type == "cuda", dtype)
     budget = constants.VMEM_TRI_BUDGET
@@ -157,14 +160,14 @@ def plan(scene: Scene, cfg: RenderConfig, device, dtype) -> Plan:
                  budget * 43 // 49 if st.any_smooth else budget) == 1)
     blocks = (1 if impl == "bruteforce"
               else mi._blocked(scene.tri_p1, st.cluster_size, budget))
+    card = (torch.device(device).type == "cuda" and dtype in (torch.float32, torch.float64)
+            and cfg.mesh_impl != "bruteforce")
     return Plan(impl=impl, tlas=tlas, fused=fused, blocks=blocks,
                 uv=(impl == "kernel" and not tlas and st.any_smooth
                     and st.n_tris > budget),
                 census=(bool(st.refr_mesh_obj_ids) and st.any_refractive
                         and cfg.max_depth >= 4),
-                prims=(st.n_prims > 0 and torch.device(device).type == "cuda"
-                       and dtype in (torch.float32, torch.float64)
-                       and cfg.mesh_impl != "bruteforce"))
+                prims=st.n_prims > 0 and card, shade=card)
 
 
 def device_ids(ids, device):
@@ -705,57 +708,53 @@ def hit_index(xs: Intersections):
     return torch.where(ok.any(dim=1), first, -1)
 
 
-def normal_at(scene: Scene, hit: HitInfo, world_point, eps):
-    """World-space unit normal at the hit (reference: src/shape.rs:466-519):
-    the triangle's from closest-hit time, else the prim's, through its
-    inverse-transpose. world_point: its (R,) components. Both products with
-    the hit prim's matrices are affine3's, by component: an einsum would
-    run a cuBLAS batched gemv over one 3x3 a ray."""
+def shade_prims(scene: Scene):
+    """The prims' rows a normal reads (shading.Prims), or None without
+    analytic prims."""
     if not scene.static.n_prims:
-        return hit.tri_n
-    p = hit.prim.long()
-    inv, invT = scene.prim_inv[p], scene.prim_invT[p]
-    params, kind = scene.prim_params[p], scene.prim_kind[p]
-    p_l = affine3(inv, *world_point)
-    n_l = normals.sphere(p_l)
-    n_l = torch.where((kind == PLANE)[:, None], normals.plane(p_l), n_l)
-    n_l = torch.where((kind == CUBE)[:, None], normals.cube(p_l), n_l)
-    n_l = torch.where((kind == CYLINDER)[:, None],
-                      normals.cylinder(p_l, params[:, 0], params[:, 1], eps), n_l)
-    n_l = torch.where((kind == CONE)[:, None], normals.cone(p_l), n_l)
-    n_p = normalize(affine3(invT, *unpack3(n_l)))
-    return torch.where(hit.is_tri[:, None], hit.tri_n, n_p)
+        return None
+    return shading.Prims(scene.prim_inv, scene.prim_invT, scene.prim_kind,
+                         scene.prim_params)
+
+
+def shade_objects(scene: Scene):
+    """The objects' rows a node's shading reads (shading.Objects)."""
+    return shading.Objects(*(getattr(scene, f) for f in shading.OBJECT_FIELDS))
+
+
+def normal_at(scene: Scene, hit: HitInfo, world_point, eps):
+    """World-space unit normal at the hit (shading.hit_normal; reference:
+    src/shape.rs:466-519). world_point: its (R,) components."""
+    return shading.hit_normal(shade_prims(scene), hit, world_point, eps)
 
 
 def shadow_query(scene: Scene, point, live=None):
     """is_shadowed's query from each point toward the light: (unit
     direction (R, 3), distance (R,)), the distance -1 on dead lanes (live
     False), which never report a hit."""
-    px, py, pz = unpack3(point)
-    lx, ly, lz = scene.light_pos.unbind(0)
-    vx, vy, vz = lx - px, ly - py, lz - pz
-    distance = torch.sqrt(torch.clamp_min(vx * vx + vy * vy + vz * vz, 1e-30))
-    direction = pack3(vx / distance, vy / distance, vz / distance)
-    if live is not None:
-        distance = torch.where(live, distance, -1.0)
-    return direction, distance
+    return shading.shadow_query(point, scene.light_pos, live)
 
 
 @torch.no_grad()
 def is_shadowed(scene: Scene, point, cfg: RenderConfig, live=None):
-    """Shadow ray toward the light (reference: src/world.rs:100-114).
+    """Shadow ray toward the light (reference: src/world.rs:100-114), from
+    each point (R, 3): occluded on its shadow_query. live: optional (R,)
+    bool; dead lanes get max_t = -1 and report unshadowed."""
+    return occluded(scene, point, *shadow_query(scene, point, live), cfg)
 
-    `hit().t < distance` is "any candidate t in [0, distance)": the prims'
-    sweep (the prim kernel where plan says so, else its plain version) OR
-    the any-hit kernel on the triangles (K6 on an instanced
-    scene's tables, K2 otherwise, streamed over a table above the VMEM
-    budget; K7b on 'elementwise'; the plain sweep of the world table on
-    'bruteforce'); under the prim axis, of this rank's shard, ORed over
-    the prims group (rtc_tpu :916-920). live: optional (R,) bool; dead
-    lanes get max_t = -1 and report unshadowed. Not differentiable
-    (rtc_tpu stops its gradients, :892), so no graph is kept.
-    """
-    direction, distance = shadow_query(scene, point, live)
+
+@torch.no_grad()
+def occluded(scene: Scene, point, direction, distance, cfg: RenderConfig):
+    """Is each shadow query (origin point (R, 3), unit direction (R, 3),
+    distance (R,), -1 on a dead lane) blocked? `hit().t < distance` is
+    "any candidate t in [0, distance)": the prims' sweep (the prim kernel
+    where plan says so, else its plain version) OR the any-hit kernel on
+    the triangles (K6 on an instanced scene's tables, K2 otherwise,
+    streamed over a table above the VMEM budget; K7b on 'elementwise';
+    the plain sweep of the world table on 'bruteforce'); under the prim
+    axis, of this rank's shard, ORed over the prims group (rtc_tpu
+    :916-920). Not differentiable (rtc_tpu stops its gradients, :892), so
+    no graph is kept."""
     st = scene.static
     p = plan(scene, cfg, point.device, point.dtype)
     shadowed = torch.zeros(point.shape[:1], dtype=torch.bool, device=point.device)
@@ -1004,39 +1003,17 @@ class Comps3(NamedTuple):
 def prepare_hit3(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
                  n2_enter=None, need_refraction: bool = True,
                  refraction_live=None) -> Comps3:
-    """The shading frame of a wavefront of hits (rtc_tpu :1114-1160).
-    Misses carry finite dummies; callers mask on hit.valid. Every formula
-    keeps rtc_tpu's association order. need_refraction=False skips the
-    n1/n2 census (leaf nodes never read it); refraction_live masks it per
-    ray (see refraction_indices)."""
-    eps = cfg.epsilon
-    t_safe = torch.where(hit.valid, hit.t, 1.0)
-    ox, oy, oz = unpack3(o)
-    dx, dy, dz = unpack3(d)
-    px, py, pz = ox + dx * t_safe, oy + dy * t_safe, oz + dz * t_safe
-    ex, ey, ez = -dx, -dy, -dz
-    nx, ny, nz = unpack3(normal_at(scene, hit, (px, py, pz), eps))
-    inside = (nx * ex + ny * ey + nz * ez) < 0.0
-    nx = torch.where(inside, -nx, nx)
-    ny = torch.where(inside, -ny, ny)
-    nz = torch.where(inside, -nz, nz)
-    k = 2.0 * (dx * nx + dy * ny + dz * nz)
+    """The shading frame of a wavefront of hits (shading.surface_frame)
+    with the n1/n2 census (refraction_indices). Misses carry finite
+    dummies; callers mask on hit.valid. need_refraction=False skips the
+    census (leaf nodes never read it); refraction_live masks it per ray."""
+    fr = shading.surface_frame(o, d, hit, shade_prims(scene), cfg.epsilon)
     if need_refraction:
         n1, n2 = refraction_indices(scene, o, d, hit, cfg, n2_enter=n2_enter,
                                     live=refraction_live)
     else:
         n1 = n2 = torch.ones(o.shape[:1], dtype=o.dtype, device=o.device)
-    return Comps3(
-        point=(px, py, pz),
-        eyev=(ex, ey, ez),
-        normalv=(nx, ny, nz),
-        inside=inside,
-        over_point=(px + nx * eps, py + ny * eps, pz + nz * eps),
-        under_point=(px - nx * eps, py - ny * eps, pz - nz * eps),
-        reflectv=(dx - nx * k, dy - ny * k, dz - nz * k),
-        n1=n1,
-        n2=n2,
-    )
+    return Comps3(*fr, n1=n1, n2=n2)
 
 
 def prepare_hit(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
@@ -1053,28 +1030,34 @@ def prepare_hit(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
                  reflectv=pack3(*c.reflectv), n1=c.n1, n2=c.n2)
 
 
-def schlick(cos_eye_normal, n1, n2):
-    """Fresnel approximation (reference: src/intersection.rs:107-128)."""
-    cos = cos_eye_normal
-    n = n1 / n2
-    sin2_t = n * n * (1.0 - cos * cos)
-    tir = (n1 > n2) & (sin2_t > 1.0)
-    cos_t = safe_sqrt(1.0 - torch.clamp_max(sin2_t, 1.0))
-    cos_used = torch.where(n1 > n2, cos_t, cos)
-    r0 = ((n1 - n2) / (n1 + n2)) ** 2
-    reflectance = r0 + (1.0 - r0) * (1.0 - cos_used) ** 5
-    return torch.where(tir, 1.0, reflectance)
+schlick = shading.schlick  # Fresnel (reference: src/intersection.rs:107-128)
 
 
-def _park(live, o3, d3):
-    """Packed secondary rays, with the lanes that spawn none parked
-    pointing away from the scene (src/world.rs:117-119,132-134)."""
-    return (pack3(*(torch.where(live, c, FAR) for c in o3)),
-            pack3(*(torch.where(live, c, PARK) for c in d3)))
+def shade_by_kernel(p: Plan, scene: Scene, o, d, hit: HitInfo) -> bool:
+    """Does a node shade by the shading kernels: where p.shade, and
+    autograd has nothing to record, grad mode off or none of the inputs
+    the node reads (its rays, its hits' t and normals, the scene's fields
+    of shade_prims, shade_objects and the light, and mat_ior, which
+    reaches the node through the census's n1/n2) requiring grad. Else the
+    plain versions, which autograd differentiates."""
+    if not p.shade:
+        return False
+    if not torch.is_grad_enabled():
+        return True
+    reads = [o, d, hit.t, hit.tri_n, *shade_objects(scene), scene.mat_ior,
+             scene.light_pos, scene.light_intensity, *(shade_prims(scene) or ())]
+    return not any(x.requires_grad for x in reads)
 
 
 def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
-    """Whole-wavefront color (reference: src/world.rs:80-98). o/d: (R, 3)."""
+    """Whole-wavefront color (reference: src/world.rs:80-98). o/d: (R, 3).
+
+    A node shades its hits in three stages around the searches (the
+    shading kernels where shade_by_kernel says so, else their plain
+    versions, ops/shading.py): the surface's shadow query, then after the
+    shadow flag and the n1/n2 census the surface colour and the children's
+    parked rays, then after the children the blend. Counted in
+    SHADE_NODES by the path taken."""
     if budget is None:
         budget = cfg.max_depth
     st = scene.static
@@ -1082,8 +1065,10 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
     if budget < 1 or st.n_objects == 0:
         return torch.zeros_like(o)
 
+    p = plan(scene, cfg, o.device, o.dtype)
+    eps = cfg.epsilon
     shadowed = None
-    if plan(scene, cfg, o.device, o.dtype).fused:
+    if p.fused:
         # one K3 launch: closest hit + the in-register shadow query
         tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
         fn, kernel, payload = (
@@ -1092,8 +1077,8 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
             (KernelClosestShadow, mi.mesh_closest_shadow, scene.tri_n))
         t, idx, n, shadowed = fn.apply(
             lambda *x: kernel(*x, scene.cluster_aabb, scene.light_pos,
-                              st.cluster_size, cfg.epsilon, occ=scene.occ),
-            cfg.epsilon, o, d, *tabs, payload)
+                              st.cluster_size, eps, occ=scene.occ),
+            eps, o, d, *tabs, payload)
         if st.any_smooth:
             n = normalize(n)
         idx = idx.clamp_min(0)
@@ -1104,79 +1089,48 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
     else:
         hit = closest_hit(scene, o, d, cfg)
     valid = hit.valid
-    rec = object_record(scene, hit.obj)
-    can_branch = budget >= 4  # children shade only if budget - 3 >= 1
-    reflective, transparency = rec["reflective"], rec["transparency"]
+    kernel = shade_by_kernel(p, scene, o, d, hit)
+    SHADE_NODES["kernel" if kernel else "plain"] += 1
+    prims = shade_prims(scene)
+    light = (scene.light_pos, scene.light_intensity)
+    if kernel:
+        rec = fr = None
+    else:
+        rec = object_record(scene, hit.obj)
+        fr = shading.surface_frame(o, d, hit, prims, eps)
+
+    if shadowed is None and cfg.shadows:
+        query = (mi.shade_surface(o, d, hit, prims, scene.light_pos, eps) if kernel else
+                 shading.surface(o, d, hit, prims, scene.light_pos, eps, frame=fr))
+        shadowed = occluded(scene, *query, cfg)
+
     # n1/n2 are read only by the Snell child and the Schlick blend, which
     # exist only when this node can branch and the hit is transparent
     # (src/world.rs:71-77,132-134)
-    comps = prepare_hit3(scene, o, d, hit, cfg, n2_enter=rec["ior"],
-                         need_refraction=can_branch and st.any_refractive,
-                         refraction_live=valid & (transparency > 0.0))
-    px, py, pz = comps.point
-    ex, ey, ez = comps.eyev
-    nx, ny, nz = comps.normalv
-    over = tuple(torch.where(valid, c, FAR) for c in comps.over_point)
+    can_branch = budget >= 4  # children shade only if budget - 3 >= 1
+    branch_r = can_branch and st.any_reflective  # (src/intersection.rs:27, world.rs:125)
+    branch_t = can_branch and st.any_refractive
+    blend = st.any_reflective and st.any_refractive
+    n1 = n2 = None
+    if branch_t:
+        if kernel:
+            ior = scene.mat_ior.index_select(0, hit.obj.long())
+            transparency = scene.mat_transparency.index_select(0, hit.obj.long())
+        else:
+            ior, transparency = rec["ior"], rec["transparency"]
+        n1, n2 = refraction_indices(scene, o, d, hit, cfg, n2_enter=ior,
+                                    live=valid & (transparency > 0.0))
 
-    if st.any_pattern:
-        # pattern space: one affine per object (pattern_inv @ object_inv),
-        # by component (affine3): an einsum is a cuBLAS batched gemv
-        pat_p = affine3(rec["pat_inv"], px, py, pz)
-        pat_kind = rec["pat_kind"]
-        base_color = torch.where(
-            (pat_kind == NONE)[:, None], rec["color"],
-            patterns.color_at(pat_p, pat_kind, rec["pat_a"], rec["pat_b"]))
+    flags = dict(branch_r=branch_r, branch_t=branch_t, blend=blend, pattern=st.any_pattern)
+    if kernel:
+        node = mi.shade_node(o, d, hit, shadowed, n1, n2, prims, shade_objects(scene),
+                             *light, eps, **flags)
     else:
-        base_color = rec["color"]
-
-    if shadowed is None and cfg.shadows:
-        # occlusion matters only where the surface faces the light
-        # (lighting zeroes diffuse+specular when light.normal < 0,
-        # src/material.rs:57-67): back-facing lanes leave the sweep
-        lx, ly, lz = scene.light_pos.unbind(0)
-        lvx, lvy, lvz = normalize3(lx - px, ly - py, lz - pz)
-        facing = (lvx * nx + lvy * ny + lvz * nz) >= 0.0
-        shadowed = is_shadowed(scene, pack3(*over), cfg, live=valid & facing)
-    elif shadowed is None:
-        shadowed = torch.zeros_like(valid)
-    surface = lighting.lighting3(
-        base_color, rec["ambient"], rec["diffuse"], rec["specular"],
-        rec["shininess"], scene.light_pos, scene.light_intensity,
-        comps.point, comps.eyev, comps.normalv, shadowed)
-
-    refl = torch.zeros_like(o)
-    if can_branch and st.any_reflective:  # (src/intersection.rs:27, world.rs:125)
-        live_r = valid & (reflective > 0.0)
-        refl = color_at(scene, *_park(live_r, over, comps.reflectv), cfg,
-                        budget - 3) * reflective[:, None]
-
-    refr = torch.zeros_like(o)
-    n1, n2 = comps.n1, comps.n2
-    if can_branch and st.any_refractive:
-        # Snell construction (reference: src/world.rs:140-162)
-        n_ratio = n1 / n2
-        cos_i = ex * nx + ey * ny + ez * nz
-        sin2_t = n_ratio * n_ratio * (1.0 - cos_i * cos_i)
-        tir = sin2_t > 1.0
-        cos_t = safe_sqrt(1.0 - torch.clamp_max(sin2_t, 1.0))
-        a = n_ratio * cos_i - cos_t
-        refr_d = (nx * a - ex * n_ratio, ny * a - ey * n_ratio,
-                  nz * a - ez * n_ratio)
-        live_t = valid & (transparency > 0.0) & ~tir
-        under = tuple(torch.where(valid, c, FAR) for c in comps.under_point)
-        refr = (color_at(scene, *_park(live_t, under, refr_d), cfg, budget - 3)
-                * transparency[:, None]
-                * (~tir).to(o.dtype)[:, None])
-
-    if st.any_reflective and st.any_refractive:
-        # the Schlick blend, only where the material is both
-        # (src/world.rs:71-77)
-        both = (reflective > 0.0) & (transparency > 0.0)
-        reflectance = schlick(ex * nx + ey * ny + ez * nz, n1, n2)
-        secondary = torch.where(
-            both[:, None],
-            refl * reflectance[:, None] + refr * (1.0 - reflectance)[:, None],
-            refl + refr)
-    else:
-        secondary = refl + refr
-    return torch.where(valid[:, None], surface + secondary, 0.0)
+        node = shading.node(o, d, hit, shadowed, n1, n2, prims, rec, *light, eps,
+                            **flags, frame=fr)
+    if node.refl is None and node.refr is None:
+        return node.color
+    refl, refr = (None if rays is None else color_at(scene, *rays, cfg, budget - 3)
+                  for rays in (node.refl, node.refr))
+    return (mi.shade_blend if kernel else shading.blend_colors)(
+        valid, node.color, refl, refr, node.weights, blend)

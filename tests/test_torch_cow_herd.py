@@ -160,7 +160,8 @@ def cuda():
 @pytest.mark.parametrize("seed", [20, 21])
 def test_k5_k6_frame_matches_reference_within_the_cells_limits(cuda, seed):
     """A seeded herd's f32 frame at 240x120 through K5 and K6 (no other
-    port kernel), every pixel against the reference in f64, compared as
+    port kernel but the node's shading stages), every pixel against the
+    reference in f64, compared as
     the cell's check compares (rtbench/check.py frame_numbers): the share
     of pixels off by more than bad_gap, and the 90th percentile of the lit
     pixels' gaps, each within the cell's limit."""
@@ -171,7 +172,8 @@ def test_k5_k6_frame_matches_reference_within_the_cells_limits(cuda, seed):
     mi.reset_launch_counts()
     img = render(scene, prog.camera(config["camera"]["from"]), RenderConfig())
     launched = {k for k, v in mi.LAUNCHES.items() if v}
-    assert launched == {"closest_hit_tlas", "any_hit_tlas"}, mi.LAUNCHES
+    assert launched == {"closest_hit_tlas", "any_hit_tlas", "shade_surface",
+                        "shade_node"}, mi.LAUNCHES
     py, px = np.divmod(np.arange(240 * 120), 240)
     want = _reference(config, px, py, torch.float64, cuda)
     gap = (img.reshape(-1, 3).double() - want).abs().amax(1)

@@ -401,10 +401,12 @@ def test_render_slice_scene_through_kernels_matches_plain(cuda, name):
     img = render(scene, cam, RenderConfig(ray_tile=4096))
     # 2 tiles; teapot_smooth has 1 node per tile, glass_teapot 3 (the root
     # and its reflected and refracted children) with the census at the root,
-    # and its plane's closest hit and shadow flag at each node
-    want = ({"closest_shadow_sn": 2} if name == "teapot_smooth" else
+    # and its plane's closest hit and shadow flag at each node; each node's
+    # shading stages (K3's flag: no surface stage), the blend at the root
+    want = ({"closest_shadow_sn": 2, "shade_node": 2} if name == "teapot_smooth" else
             {"closest_hit_sn": 6, "any_hit": 6, "crossing_count": 2,
-             "prim_closest": 6, "prim_any": 6})
+             "prim_closest": 6, "prim_any": 6, "shade_surface": 6, "shade_node": 6,
+             "shade_blend": 2})
     assert mi.LAUNCHES == dict(dict.fromkeys(mi.LAUNCHES, 0), **want)
     ref = render(scene, cam, RenderConfig(ray_tile=4096, mesh_impl="bruteforce"))
     err = (img - ref).abs().amax(dim=2).flatten()
@@ -552,8 +554,9 @@ def test_tlas_edge_cases(cuda):
 @pytest.mark.parametrize("smooth", [False, True])
 def test_render_herd_through_kernels_matches_plain(cuda, smooth):
     """The 3x3 herd at 128x64, depth 5: K5 and K6 render it, one launch of
-    each per tile (2 tiles, one node: the herd is not reflective) and no
-    other kernel; the image within the f32 budget of
+    each per tile (2 tiles, one node: the herd is not reflective), and the
+    node's two shading stages, and no other kernel; the image within the
+    f32 budget of
     tests/test_pallas_mesh.py of the plain render, which sweeps the world
     table."""
     scene = compile_scene(cow_herd_world(3, 3, smooth), device=cuda)
@@ -562,7 +565,8 @@ def test_render_herd_through_kernels_matches_plain(cuda, smooth):
     img = render(scene, cam, RenderConfig(ray_tile=4096))
     k5 = "closest_hit_tlas_sn" if smooth else "closest_hit_tlas"
     assert mi.LAUNCHES == dict(dict.fromkeys(mi.LAUNCHES, 0),
-                               **{k5: 2, "any_hit_tlas": 2})
+                               **{k5: 2, "any_hit_tlas": 2, "shade_surface": 2,
+                                  "shade_node": 2})
     ref = render(scene, cam, RenderConfig(ray_tile=4096, mesh_impl="bruteforce"))
     assert float(img.amax()) > 0.1
     err = (img - ref).abs().amax(dim=2).flatten()
@@ -804,21 +808,23 @@ def test_new_routes_render_and_match_plain(cuda, name):
     """128x64, depth 5, two tiles: cow under 'elementwise' (K7a and K7b, 2
     nodes a tile); the one-mesh 3x3 herd, flat and smooth, streamed in 2
     blocks (K1 t0 or K1 uv, and K2, once per block and tile); teapot and
-    pumpkin on the default path (K3 flat and with_sn). Each image within
-    the f32 budget of tests/test_pallas_mesh.py of the plain render."""
+    pumpkin on the default path (K3 flat and with_sn); each node's shading
+    stages. Each image within the f32 budget of tests/test_pallas_mesh.py
+    of the plain render."""
     cfg = RenderConfig(ray_tile=4096)
     if name.startswith("cow_herd_mesh"):
         smooth = name.endswith("smooth")
         scene = compile_scene(cow_herd_mesh_world(3, 3, smooth), device=cuda)
         cam = _cam(128, [0, 10, -18], [0, 3, 2])
         want = {"closest_hit_uv" if smooth else "closest_hit_t0": 4,
-                "any_hit": 4}
+                "any_hit": 4, "shade_surface": 2, "shade_node": 2}
     else:
         world, cam = REGISTRY[name](128)
         scene = compile_scene(world, device=cuda)
-        want = {"cow": {"closest_hit_elementwise": 4, "any_hit_elementwise": 4},
-                "teapot": {"closest_shadow": 2},
-                "pumpkin": {"closest_shadow_sn": 2}}[name]
+        want = {"cow": {"closest_hit_elementwise": 4, "any_hit_elementwise": 4,
+                        "shade_surface": 4, "shade_node": 4, "shade_blend": 2},
+                "teapot": {"closest_shadow": 2, "shade_node": 2},
+                "pumpkin": {"closest_shadow_sn": 2, "shade_node": 2}}[name]
         if name == "cow":
             cfg = RenderConfig(ray_tile=4096, mesh_impl="elementwise")
     mi.reset_launch_counts()
@@ -1779,14 +1785,13 @@ def test_a_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):
     no graph is kept. The card works on afterwards."""
     world, cam = REGISTRY["cow"](64)
     scene = compile_scene(world, device=cuda)
-    record = integrator.object_record
+    node = mi.shade_node
 
-    def synced(scene, obj):
-        rec = record(scene, obj)
-        rec["ambient"] = rec["ambient"] * float(rec["ambient"].amax())
-        return rec
+    def synced(*args, **kw):
+        out = node(*args, **kw)
+        return out._replace(color=out.color * float(out.color.amax()))
 
-    monkeypatch.setattr(integrator, "object_record", synced)
+    monkeypatch.setattr(mi, "shade_node", synced)
     cfg = RenderConfig()
     compiled.clear()
     with pytest.raises(compiled.CaptureError, match="capturing the 64x32 frame failed"):
@@ -2227,8 +2232,9 @@ def test_prim_kernel_launches_a_frame(cuda, name, launches):
 def test_prim_only_frame_takes_the_prim_kernel(cuda, monkeypatch, name, dtype):
     """A world without triangles (its triangles' route 'bruteforce', in
     either dtype) sweeps its prims with the prim kernel, closest_hit and
-    is_shadowed once a shading node each, and its image is the plain
-    route's (mesh_impl='bruteforce') bit for bit."""
+    is_shadowed once a shading node each, and launches no other kernel but
+    each node's shading stages; its image is the plain sweep's (plan's
+    prims flag off) bit for bit."""
     world, cam = REGISTRY[name](96)
     scene = compile_scene(world, dtype=dtype, device=cuda)
     cfg = RenderConfig(dtype="float64" if dtype == torch.float64 else "float32")
@@ -2238,8 +2244,11 @@ def test_prim_only_frame_takes_the_prim_kernel(cuda, monkeypatch, name, dtype):
         img = render(scene, cam, cfg)
         torch.cuda.synchronize()
         closest, shadow = mi.LAUNCHES["prim_closest"], mi.LAUNCHES["prim_any"]
-        assert closest == shadow >= 1 and sum(mi.LAUNCHES.values()) == 2 * closest
-        ref = render(scene, cam, dataclasses.replace(cfg, mesh_impl="bruteforce"))
+        searches = sum(v for k, v in mi.LAUNCHES.items() if not k.startswith("shade_"))
+        assert closest == shadow >= 1 and searches == 2 * closest
+        assert mi.LAUNCHES["shade_surface"] == mi.LAUNCHES["shade_node"] == closest
+        _plain_route(monkeypatch)
+        ref = render(scene, cam, cfg)
     assert img.dtype == dtype and torch.equal(img, ref)
 
 

@@ -356,7 +356,8 @@ def test_the_plain_sweep_count_is_carried_through_a_replay():
     first = render(scene, cam, cfg).clone()  # the eager run on the side stream, and the capture
     graph = next(g for k, g in compiled._CACHE.items() if k[1] == "frame")
     assert graph.sweeps == {"prims": 1}
-    assert graph.launches == {"prim_closest": 3, "prim_any": 3}
+    assert graph.launches == {"prim_closest": 3, "prim_any": 3, "shade_surface": 3,
+                              "shade_node": 3, "shade_blend": 1}
     assert intersect.PLAIN_SWEEPS["prims"] == sweeps + 1
     got = render(scene, cam, cfg)
     torch.cuda.synchronize()
