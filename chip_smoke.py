@@ -1561,8 +1561,12 @@ def shade_equal(stage: str, got, ref) -> bool:
             if w is not None:
                 g.append(got.weights[:, k])
                 r.append(w)
-    return all(torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
-               for a, b in zip(g, r))
+    return all(map(bit_equal, g, r))
+
+
+def bit_equal(a, b) -> bool:
+    """a and b hold the same bits (so -0.0 and NaN compare by theirs)."""
+    return torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
 def shade_bytes(stage: str, args, got) -> int:
@@ -1641,6 +1645,133 @@ def shade_lines(name: str = PRIM_SCENE) -> list:
         say("8 shading", f"{stage} on {name}'s {WIDTH}x{HEIGHT} frame inputs: "
             f"{len(mine)} calls of {rays} rays, bit-equal to plain; a call: kernel "
             f"{shown(line['ms'])} (device {shown(line['device_ms'])}), plain "
+            f"{shown(line['plain_ms'])}, bound {shown(line['bound_ms'])} "
+            f"({line['bound_by']}, {per[0]['bytes']} bytes)")
+    return lines
+
+
+# a fit's shading under autograd (integrator's "grad" route): the node
+# stage's factors instance and the backward's two stages, each wrapper with
+# its plain twin
+SHADE_GRAD_PLAIN = {"shade_node": mi.shade_node_plain,
+                    "shade_node_grad": mi.shade_node_grad_plain,
+                    "shade_blend_grad": mi.shade_blend_grad_plain}
+# the launches of one gradient of shade_grad_lines' glass_teapot fit: a
+# factors node launch a node (the root and its two children), a backward
+# launch a node and one more for the root's blend
+SHADE_GRAD_FIT = {"shade_node": 3, "shade_grad": 4}
+
+
+def shade_grad_calls(name: str = "glass_teapot") -> list:
+    """Every call of the node stage's factors instance (mi.shade_node with
+    factors) and of the shading backward's wrappers (mi.shade_node_grad,
+    shade_blend_grad) in one eager gradient of a 1920x960 fit of name:
+    loss_and_grad on the fit cells' parameters (mat_color and
+    light_intensity) over every pixel's ray in 16x16 blocks, against a
+    flat target. [(wrapper, args, kwargs, outputs)], in the order of the
+    calls. The launch counts are set to 0 just before that gradient (after
+    one to warm up), so mi.LAUNCHES holds its launches on return."""
+    scene, cam = slice_scene(name, WIDTH)
+    px, py = blocked_pixels(cam.vsize, cam.hsize, "cuda")
+    o, d = camera_rays_for_pixels(cam.transform_inverse, px, py, cam.half_width,
+                                  cam.half_height, cam.pixel_size)
+    o, d = o.contiguous(), d.contiguous()
+    params = RG.extract_params(scene, ("mat_color", "light_intensity"))
+    fit = lambda: RG.loss_and_grad(params, scene, o, d, torch.full_like(o, 0.25),
+                                   RenderConfig())
+    calls = []
+    real = {k: getattr(mi, k) for k in SHADE_GRAD_PLAIN}
+
+    def keeper(k):
+        def keep(*a, **kw):
+            out = real[k](*a, **kw)
+            calls.append((k, a, kw, out))
+            return out
+        return keep
+
+    with compiled.eager():
+        fit()  # warm-up
+        torch.cuda.synchronize()
+        for k in SHADE_GRAD_PLAIN:
+            setattr(mi, k, keeper(k))
+        try:
+            mi.reset_launch_counts()
+            fit()
+            torch.cuda.synchronize()
+        finally:
+            for k in SHADE_GRAD_PLAIN:
+                setattr(mi, k, real[k])
+    return calls
+
+
+def shade_grad_bytes(args, outs) -> int:
+    """The bytes a backward stage reads and writes once: the upstream
+    gradient and the saved (R, 4) factors or weights, the blend's valid
+    and the node's intensity, and the partials it writes."""
+    return nbytes(*(a for a in args if torch.is_tensor(a)),
+                  *(x for x in outs if x is not None))
+
+
+def shade_grad_lines(name: str = "glass_teapot") -> list:
+    """The fit's shading kernels under autograd on the inputs the main path
+    hands them (shade_grad_calls of an eager 1920x960 gradient of name):
+    the gradient's launches of the factors instance and of the backward
+    (counted from 0 just before it) equal to the wrappers' calls and to
+    SHADE_GRAD_FIT; each call's kernel against its plain twin bit for bit
+    (the node's outputs as shade_equal, and its factors), twice the same
+    bits, and timed (time_pair, and device_ms) against the twin and the
+    bound, the bytes it reads and writes once at HBM_RATE (shade_bytes
+    and the factors for the node, shade_grad_bytes for the backward).
+    Returns one kernels line a wrapper, as shade_lines'."""
+    calls = shade_grad_calls(name)
+    launched = {k: mi.LAUNCHES[k] for k in SHADE_GRAD_FIT}
+    got = {"shade_node": sum(c[0] == "shade_node" for c in calls),
+           "shade_grad": sum(c[0] != "shade_node" for c in calls)}
+    check(all(c[2].get("factors") for c in calls if c[0] == "shade_node"),
+          f"shading on {name}'s fit: a node call without the factors")
+    check(launched == got == SHADE_GRAD_FIT, f"shading on {name}'s fit: launches "
+          f"{launched}, wrapper calls {got}, expected {SHADE_GRAD_FIT}")
+    lines = []
+    for stage, plain_fn in SHADE_GRAD_PLAIN.items():
+        mine = [(a, kw, out) for k, a, kw, out in calls if k == stage]
+        per = []
+        for a, kw, first in mine:
+            kernel = lambda: getattr(mi, stage)(*a, **kw)
+            plain = lambda: plain_fn(*a, **kw)
+            ms, plain_ms, got, ref = time_pair(kernel, plain, plain_warmup=1, plain_iters=3)
+            if stage == "shade_node":
+                outputs_of = lambda n: [*shade_outputs(stage, n), n.factors]
+                same = (shade_equal(stage, got, ref) and bit_equal(got.factors, ref.factors)
+                        and all(map(bit_equal, outputs_of(got), outputs_of(first))))
+                n_bytes = shade_bytes(stage, a, got) + nbytes(got.factors)
+            else:
+                outs = lambda xs: [x for x in xs if x is not None]
+                same = all(len(outs(got)) == len(outs(x)) > 0
+                           and all(map(bit_equal, outs(got), outs(x))) for x in (ref, first))
+                n_bytes = shade_grad_bytes(a, got)
+            check(same, f"{stage} on {name}'s fit inputs: kernel differs from its plain "
+                  f"twin or from its first run")
+            b = bound(Work(), n_bytes)
+            per.append(dict(ms=ms, device_ms=device_ms(kernel), plain_ms=plain_ms,
+                            bound_ms=b[0], bound_by=b[1], bytes=n_bytes))
+        mean = lambda k: (None if any(c[k] is None for c in per)
+                          else sum(c[k] for c in per) / len(per))
+        rays = mine[0][0][0].shape[0]
+        label = ("shading, shade_node with the factors" if stage == "shade_node"
+                 else f"shading backward, {stage}")
+        line = {"name": label, "route": "cuda", "source": SOURCE,
+                "replaces": "autograd's backward of ops/shading.py's elementwise chain"
+                if stage != "shade_node" else
+                "ops/shading.py's elementwise chain under autograd (the plain version)",
+                "frame": f"{name} fit", "launches": len(mine), "max_abs_err": 0.0,
+                "flips": 0, "pair_tests": None, "library_ms": None,
+                **{k: mean(k) for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+                "bound_by": per[0]["bound_by"], "rays": rays, "plain_rays": rays,
+                "calls": per}
+        lines.append(line)
+        say("8 shading", f"{label} on {name}'s {WIDTH}x{HEIGHT} fit inputs: {len(mine)} "
+            f"calls of {rays} rays, bit-equal to the plain twin and to the first run; a "
+            f"call: kernel {shown(line['ms'])} (device {shown(line['device_ms'])}), plain "
             f"{shown(line['plain_ms'])}, bound {shown(line['bound_ms'])} "
             f"({line['bound_by']}, {per[0]['bytes']} bytes)")
     return lines
@@ -2421,10 +2552,12 @@ def vertex_update_gate(scene, cam, eps) -> dict:
                 stale_table_gaps=stale_gaps)
 
 
-# the object rows' sum (object_record's gradient) on the main path's inputs:
-# glass_teapot's whole frame, the fit cells' view (2 objects; mat_color's 3
-# columns), and one cow tile of RAY_TILE rays (1 object), with the fit
-# cells' parameters (rtbench/traffic/fit.json)
+# the object rows' sum on the main path's inputs: glass_teapot's whole
+# frame, the fit cells' view (2 objects), and one cow tile of RAY_TILE rays
+# (1 object), with the fit cells' parameters (rtbench/traffic/fit.json),
+# which take the shading kernels under autograd: each call is a node's
+# backward (integrator.KernelShadeNode), the per-ray partials of the
+# object's colour row and of the light's intensity, 3 columns each
 ROWS_FRAMES = {"glass_teapot": 1, "cow": GRAD_TILES}
 ROWS_PARAMS = ("mat_color", "light_intensity")
 ROWS_TOL = 4e-6  # of an entry's sum of |g| (tests/test_torch_cuda.py)
@@ -2446,8 +2579,9 @@ def object_rows_gate() -> dict:
         taken.append((ids, [g.clone() for g in grads], n_rows))
         return real(ids, grads, n_rows)
 
-    line = {"name": "object rows' sum (object_record's gradient)", "route": "cuda",
-            "source": SOURCE, "replaces": "index_add_ (index_select's backward)",
+    line = {"name": "object rows' sum (the shading backward's per-object sum)",
+            "route": "cuda", "source": SOURCE,
+            "replaces": "index_add_ (the same sum by object in one PyTorch call)",
             "frame": "glass_teapot fit", "flips": None, "pair_tests": None}
     for name, n_tiles in ROWS_FRAMES.items():
         scene, cam = slice_scene(name, WIDTH)
@@ -3674,7 +3808,7 @@ KERNEL_OF_COUNT = {"closest_hit": "closest_hit_kernel", "closest_hit_sn": "close
                    "object_rows": "object_rows_partial_kernel",
                    "prim_closest": "prim_sweep_kernel", "prim_any": "prim_sweep_kernel",
                    "shade_surface": "shade_kernel", "shade_node": "shade_kernel",
-                   "shade_blend": "shade_kernel"}
+                   "shade_blend": "shade_kernel", "shade_grad": "shade_grad_kernel"}
 
 
 def port_kernel(name: str):
@@ -4422,7 +4556,8 @@ def main() -> int:
         times.update(t)
         parity.update(p)
     launches.update(phase_frames())
-    prim_lines = prim_sweep_lines() + shade_lines() + shade_lines("table")
+    prim_lines = (prim_sweep_lines() + shade_lines() + shade_lines("table")
+                  + shade_grad_lines())
     t, p, sizes = phase_tlas(eps)
     times.update(t)
     parity.update(p)

@@ -44,7 +44,13 @@ eager 1920x960 glass_teapot frame and a table frame (chip_smoke.py
 shade_calls, 1,843,200 rays a call), in the builds that have them, each
 line with the stage's plain version's time ("plain_ms", its outputs
 bit-equal to the first build's) and its bound ("bound_ms": the bytes it
-reads and writes, chip_smoke.py shade_bytes, once at 3.35 TB/s). Each case runs the builds in the order
+reads and writes, chip_smoke.py shade_bytes, once at 3.35 TB/s); and
+each call of the shading backward (shade_node_grad, shade_blend_grad) in
+the eager gradient of a 1920x960 glass_teapot fit (chip_smoke.py
+shade_grad_calls: its parameters mat_color and light_intensity, the
+view's rays in 16x16 blocks), likewise with its plain version's time and
+its bound (its inputs read once, its partials written once,
+shade_grad_bytes). Each case runs the builds in the order
 first..last, last..first, each timed with CUDA events around repeated
 calls after a warm-up, so every build sees the same card state; every
 build's outputs must equal the first build's bit for bit (t, idx or enc,
@@ -196,6 +202,25 @@ def shade_cases(scenes=("glass_teapot", "table")) -> list:
     return out
 
 
+def shade_grad_cases(name: str = "glass_teapot") -> list:
+    """chip_smoke.py's calls of the shading backward in a fit's gradient
+    (shade_grad_calls) as cases, each with its plain version and its
+    bound: [(name, rays, call, iters, extra)]."""
+    out = []
+    calls = [c for c in cs.shade_grad_calls(name) if c[0] != "shade_node"]
+    for i, (stage, a, kw, got) in enumerate(calls):
+        bound_ms = cs.bound(cs.Work(), cs.shade_grad_bytes(a, got))[0]
+        run = lambda m, stage=stage, a=a, kw=kw: tuple(
+            x for x in getattr(m, stage)(*a, **kw) if x is not None)
+        plain = lambda stage=stage, a=a, kw=kw: cs.SHADE_GRAD_PLAIN[stage](*a, **kw)
+        out.append((f"shading backward {stage}, {name}'s fit call {i}", a[0].shape[0], run,
+                    10, {"needs": stage, "bound_ms": bound_ms, "plain": plain,
+                         "plain_equal": lambda run=run, plain=plain: all(
+                             torch.equal(x, y) for x, y in
+                             zip(bits(run(mi)), bits(z for z in plain() if z is not None)))}))
+    return out
+
+
 def cases(eps: float) -> list:
     """[(name, rays, call, iters[, extra])]: call(m) launches the kernel
     through the wrappers module m and returns its outputs; extra, where
@@ -289,7 +314,7 @@ def cases(eps: float) -> list:
             out.append((f"K6, {name}'s {wave} rays", qo.shape[0],
                         lambda m, k6=k6, sc=sc: m.mesh_any_hit_tlas(
                             *k6, **occ_kw(m, "mesh_any_hit_tlas", sc.tlas_occ)), 10))
-    return out + shade_cases()
+    return out + shade_cases() + shade_grad_cases()
 
 
 def k7_wavefronts(name: str, eps):

@@ -1773,8 +1773,13 @@ prim_sweep_kernel(const S* __restrict__ o, const S* __restrict__ d,
 // bounds it: bytes, each ray's inputs read and its
 // outputs written once, against some hundred operations a ray; the plain
 // versions make some 200 elementwise passes a node over (R,) tensors.
+//
+// Under autograd (render/integrator.py KernelShadeNode, KernelShadeBlend,
+// where only the objects' colours and the light's intensity require grad)
+// the node stage runs as kShadeNodeGrad, float32 only: the same code, which
+// also writes each ray's factors (R, 4) for the backward, shade_grad_kernel.
 constexpr int kShadeThreads = 256;
-enum ShadeStage { kShadeSurface = 0, kShadeNode = 1, kShadeBlend = 2 };
+enum ShadeStage { kShadeSurface = 0, kShadeNode = 1, kShadeBlend = 2, kShadeNodeGrad = 3 };
 // ShadeNode's flags (mesh_intersect.py SHADE_FLAGS)
 enum ShadeFlag { kBranchR = 1, kBranchT = 2, kBlendFlag = 4, kPattern = 8 };
 // utils/constants.py FAR, PARK; ops/patterns.py PATTERN_EPS; materials.py NONE
@@ -1854,10 +1859,11 @@ struct ShadeRays {
 
 // A stage's outputs. kShadeSurface: origin (R, 3), direction (R, 3),
 // distance (R,). kShadeNode: colour (R, 3), reflection o and d, refraction
-// o and d (R, 3) each, weights (R, 4). kShadeBlend: colour (R, 3).
+// o and d (R, 3) each, weights (R, 4); kShadeNodeGrad also the factors
+// (R, 4) (shade_grad_kernel). kShadeBlend: colour (R, 3).
 template <typename S>
 struct ShadeOut {
-  S* out[6];
+  S* out[7];
 };
 
 template <typename S>
@@ -2141,6 +2147,21 @@ shade_kernel(ShadeRays<S> in, int R, ShadeTables<S> tb, int flags, S eps,
     const S sp_ = spec_on ? li * sf : S(0);
     surf[k] = ef * ob.ambient + df + sp_;
   }
+  if (STAGE == kShadeNodeGrad) {
+    // surf is bilinear in the object's colour row (where the base colour is
+    // it, no pattern) and the intensity: d surf[k] / d color[k] = li[k] a,
+    // d surf[k] / d li[k] = base[k] a + s. A childless node's colour is 0
+    // where the hit is not valid, and so are its factors there.
+    const bool leaf = !(flags & (kBranchR | kBranchT));
+    const bool live = valid || !leaf;
+    const bool own = !((flags & kPattern) && ob.kind != kPatNone);
+    const S a = ob.ambient + (lit ? dl : S(0));
+    const S s = spec_on ? sf : S(0);
+    S* fa = out.out[6] + 4 * (size_t)i;
+    fa[0] = live && own ? a : S(0);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) fa[1 + k] = live ? base[k] * a + s : S(0);
+  }
 
   const S n1 = in.n1 ? in.n1[i] : S(1);
   const S n2 = in.n2 ? in.n2[i] : S(1);
@@ -2219,11 +2240,56 @@ int launch_shade(void* stream, int R, const void* const* in, const void* const* 
                           s(tabs[9]), s(tabs[10]), s(tabs[11]), s(tabs[12]), s(tabs[13]),
                           s(tabs[14]), O, s(tabs[15]), s(tabs[16])};
   ShadeOut<S> out;
-  for (int k = 0; k < 6; ++k) out.out[k] = static_cast<S*>(outs[k]);
+  for (int k = 0; k < 7; ++k) out.out[k] = static_cast<S*>(outs[k]);
   shade_kernel<S, STAGE><<<(unsigned)((R + kShadeThreads - 1) / kShadeThreads),
                            kShadeThreads, 0, (cudaStream_t)stream>>>(
       rays, R, tb, flags, static_cast<S>(eps), out);
   return (int)cudaGetLastError();
+}
+
+// The shading stages' backward (render/integrator.py KernelShadeNode,
+// KernelShadeBlend; plain versions mesh_intersect.py shade_node_grad_plain,
+// shade_blend_grad_plain), float32, one thread a ray, given the upstream
+// gradient g (R, 3) of the stage's colour:
+//   kShadeGradNode   from the node's factors f (R, 4) (kShadeNodeGrad):
+//                    the colour row's partial g li f[0] (out0) and the
+//                    intensity's g f[1..3] (out1), each (R, 3)
+//   kShadeGradBlend  from the node's weights w (R, 4) and valid: the
+//                    surface colour's g where valid (out0), the reflected
+//                    colour's (out1) and the refracted colour's (out2),
+//                    shading.blend_colors' Schlick case (flags' kBlendFlag)
+// A null output is not wanted. No atomics: the wrappers sum the partials by
+// object with the object rows' sum, in a fixed order.
+enum ShadeGradStage { kShadeGradNode = 0, kShadeGradBlend = 1 };
+
+template <int STAGE>
+__global__ void __launch_bounds__(kShadeThreads)
+shade_grad_kernel(const float* __restrict__ g, const float* __restrict__ saved,
+                  const uint8_t* __restrict__ valid, const float* __restrict__ intensity,
+                  int R, int flags, float* out0, float* out1, float* out2) {
+  const int i = blockIdx.x * kShadeThreads + threadIdx.x;
+  if (i >= R) return;
+  const float* f = saved + 4 * (size_t)i;
+  float gi[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) gi[k] = g[3 * (size_t)i + k];
+  if (STAGE == kShadeGradNode) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (out0) out0[3 * (size_t)i + k] = gi[k] * __ldg(intensity + k) * f[0];
+      if (out1) out1[3 * (size_t)i + k] = gi[k] * f[1 + k];
+    }
+    return;
+  }
+  const bool v = valid[i];
+  const bool both = (flags & kBlendFlag) && f[0] > 0.f && f[1] > 0.f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float gs = v ? gi[k] : 0.f;
+    if (out0) out0[3 * (size_t)i + k] = gs;
+    if (out1) out1[3 * (size_t)i + k] = (both ? gs * f[3] : gs) * f[0];
+    if (out2) out2[3 * (size_t)i + k] = (both ? gs * (1.f - f[3]) : gs) * f[2] * f[1];
+  }
 }
 
 inline unsigned blocks_for(int R) { return (unsigned)((R + kThreads - 1) / kThreads); }
@@ -2648,30 +2714,53 @@ int rtc_prim_sweep(int device, void* stream, int f64, int any, const void* o,
                 hit_out);
 }
 
-// A bounce node's shading, stage 0 (surface), 1 (node) or 2 (blend), over
-// R rays, all float64 where f64 is set, else float32: in, the stage's 15
+// A bounce node's shading, stage 0 (surface), 1 (node), 2 (blend) or 3
+// (node, with the factors of its backward; float32 only), over R rays, all
+// float64 where f64 is set, else float32: in, the stage's 15
 // ShadeRays pointers in order (o, d, t, valid, is_tri, prim, tri_n, obj,
 // shadowed, n1, n2, surface, refl, refr, weights; null where the stage
 // reads none); tables, the 17 ShadeTables pointers (the N prims' inv,
 // invT, kind, params; the O objects' pat_kind, pat_a, pat_b, pat_inv,
 // color, ambient, diffuse, specular, shininess, reflective, transparency;
 // the light's position and intensity); outs, the stage's ShadeOut
-// pointers (6, null where unused); flags, ShadeFlag's bits.
+// pointers (7, null where unused); flags, ShadeFlag's bits.
 int rtc_shade(int device, void* stream, int f64, int stage, int flags, int R,
               const void* const* in, const void* const* tables, int N, int O,
               double eps, void* const* outs) {
-  if (R < 1 || N < 0 || O < 0 || stage < kShadeSurface || stage > kShadeBlend)
+  if (R < 1 || N < 0 || O < 0 || stage < kShadeSurface || stage > kShadeNodeGrad ||
+      (f64 && stage == kShadeNodeGrad))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   using Launch = int (*)(void*, int, const void* const*, const void* const*, int, int, int,
                          double, void* const*);
-  static const Launch launches[2][3] = {
+  static const Launch launches[2][4] = {
       {launch_shade<float, kShadeSurface>, launch_shade<float, kShadeNode>,
-       launch_shade<float, kShadeBlend>},
+       launch_shade<float, kShadeBlend>, launch_shade<float, kShadeNodeGrad>},
       {launch_shade<double, kShadeSurface>, launch_shade<double, kShadeNode>,
-       launch_shade<double, kShadeBlend>}};
+       launch_shade<double, kShadeBlend>, nullptr}};
   return launches[f64 ? 1 : 0][stage](stream, R, in, tables, N, O, flags, eps, outs);
+}
+
+// The shading stages' backward, stage 0 (node) or 1 (blend), over R rays in
+// float32: g (R, 3), the upstream gradient; saved (R, 4), the node's factors
+// (stage 0) or weights (stage 1); valid (R,) bytes (stage 1); intensity
+// (3,) (stage 0); outs, shade_grad_kernel's three outputs (null where not
+// wanted); flags, ShadeFlag's bits (stage 1 reads kBlendFlag).
+int rtc_shade_grad(int device, void* stream, int stage, int flags, int R, const float* g,
+                   const float* saved, const uint8_t* valid, const float* intensity,
+                   float* const* outs) {
+  if (R < 1 || stage < kShadeGradNode || stage > kShadeGradBlend ||
+      (stage == kShadeGradNode ? intensity == nullptr : valid == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  auto kernel = stage == kShadeGradNode ? shade_grad_kernel<kShadeGradNode>
+                                        : shade_grad_kernel<kShadeGradBlend>;
+  kernel<<<(unsigned)((R + kShadeThreads - 1) / kShadeThreads), kShadeThreads, 0,
+           (cudaStream_t)stream>>>(g, saved, valid, intensity, R, flags, outs[0], outs[1],
+                                   outs[2]);
+  return (int)cudaGetLastError();
 }
 
 const char* rtc_error_string(int err) {

@@ -22,7 +22,8 @@ and, with no TPU counterpart, the object rows' sum (object_rows_sum), the
 backward of object_record's gather of its parameter fields, the analytic
 prims' sweep (prim_closest, prim_any), the closest hit and the shadow
 flag over the scene's prims, and a bounce node's shading (shade_surface,
-shade_node, shade_blend; plain versions ops/shading.py).
+shade_node, shade_blend; plain versions ops/shading.py) with the backward
+of its node and blend stages (shade_node_grad, shade_blend_grad).
 
 Each wrapper of K1-K7 takes f32 tensors. Given tensors on the CPU it
 returns its plain version's result; given CUDA tensors it launches its
@@ -91,7 +92,7 @@ LAUNCHES = {"closest_hit": 0, "any_hit": 0, "closest_shadow": 0,
             "closest_hit_t0": 0, "closest_hit_uv": 0,
             "closest_hit_elementwise": 0, "any_hit_elementwise": 0,
             "object_rows": 0, "prim_closest": 0, "prim_any": 0,
-            "shade_surface": 0, "shade_node": 0, "shade_blend": 0}
+            "shade_surface": 0, "shade_node": 0, "shade_blend": 0, "shade_grad": 0}
 
 
 def reset_launch_counts() -> None:
@@ -540,6 +541,7 @@ def bind(path: str) -> ctypes.CDLL:
     lib.rtc_prim_sweep.argtypes = [I, P, I, I, P, P, P, I, P, P, P, I, ctypes.c_double,
                                    P, P, P]
     lib.rtc_shade.argtypes = [I, P, I, I, I, I, P, P, I, I, ctypes.c_double, P]
+    lib.rtc_shade_grad.argtypes = [I, P, I, I, I, P, P, P, P, P]
     for fn in (lib.rtc_closest_hit, lib.rtc_closest_hit_sn, lib.rtc_any_hit,
                lib.rtc_closest_shadow, lib.rtc_closest_shadow_sn,
                lib.rtc_crossing_count, lib.rtc_closest_hit_tlas,
@@ -547,7 +549,7 @@ def bind(path: str) -> ctypes.CDLL:
                lib.rtc_closest_hit_bounded,
                lib.rtc_closest_hit_elementwise, lib.rtc_any_hit_elementwise,
                lib.rtc_object_rows_scratch, lib.rtc_object_rows_sum,
-               lib.rtc_prim_sweep, lib.rtc_shade):
+               lib.rtc_prim_sweep, lib.rtc_shade, lib.rtc_shade_grad):
         fn.restype = I
     lib.rtc_error_string.argtypes = [I]
     lib.rtc_error_string.restype = ctypes.c_char_p
@@ -1192,7 +1194,9 @@ def prim_any(o, d, max_t, inv, kind, params, eps: float = EPSILON):
 
 # the node stage's flags (the kernels' ShadeFlag)
 SHADE_FLAGS = {"branch_r": 1, "branch_t": 2, "blend": 4, "pattern": 8}
-_SHADE_STAGES = {"shade_surface": 0, "shade_node": 1, "shade_blend": 2}
+# the kernels' ShadeStage: the node stage with the factors of its backward
+# is its own stage, a float32 instance apart from the one frames run
+_SHADE_STAGES = {"shade_surface": 0, "shade_node": 1, "shade_blend": 2, "factors": 3}
 
 
 # shade_surface's and shade_blend's plain versions
@@ -1202,11 +1206,13 @@ shade_blend_plain = shading.blend_colors
 
 def shade_node_plain(o, d, hit, shadowed, n1, n2, prims, objects, light_pos,
                      light_intensity, eps: float = EPSILON, branch_r: bool = False,
-                     branch_t: bool = False, blend: bool = False, pattern: bool = False):
+                     branch_t: bool = False, blend: bool = False, pattern: bool = False,
+                     factors: bool = False):
     """shade_node's plain version, shading.node on the rays' object rows."""
     return shading.node(o, d, hit, shadowed, n1, n2, prims,
                         shading.object_rows(objects, hit.obj), light_pos,
-                        light_intensity, eps, branch_r, branch_t, blend, pattern)
+                        light_intensity, eps, branch_r, branch_t, blend, pattern,
+                        factors=factors)
 
 
 def _ray_input(name, x, dtype, shape, device):
@@ -1261,17 +1267,19 @@ def _shade_tables(prims, objects, light_pos, light_intensity, dtype, device):
     return N, O, out
 
 
-def _shade_launch(name, device, dtype, R, ins, tables, N, O, flags, eps, outs):
-    """Launch stage name of the shading kernel: ins, its ShadeRays tensors
-    in order (15, None where unread); tables, its 17 ShadeTables tensors;
-    outs, its outputs (6, None where unused)."""
+def _shade_launch(name, device, dtype, R, ins, tables, N, O, flags, eps, outs,
+                  stage: str | None = None):
+    """Launch stage (default: name) of the shading kernel, counted as name:
+    ins, its ShadeRays tensors in order (15, None where unread); tables,
+    its 17 ShadeTables tensors; outs, its outputs (7, None where unused)."""
     if R:
         P = ctypes.c_void_p
         ptr = lambda x: None if x is None else x.data_ptr()
+        outs = list(outs) + [None] * (7 - len(outs))
         err = library().rtc_shade(
             device.index or 0, _stream(device), int(dtype == torch.float64),
-            _SHADE_STAGES[name], flags, R, (P * 15)(*map(ptr, ins)),
-            (P * 17)(*map(ptr, tables)), N, O, eps, (P * 6)(*map(ptr, outs)))
+            _SHADE_STAGES[stage or name], flags, R, (P * 15)(*map(ptr, ins)),
+            (P * 17)(*map(ptr, tables)), N, O, eps, (P * 7)(*map(ptr, outs)))
         _raise_on(err, name)
         LAUNCHES[name] += 1
 
@@ -1295,15 +1303,19 @@ def shade_surface(o, d, hit, prims, light_pos, eps: float = EPSILON):
 
 def shade_node(o, d, hit, shadowed, n1, n2, prims, objects, light_pos, light_intensity,
                eps: float = EPSILON, branch_r: bool = False, branch_t: bool = False,
-               blend: bool = False, pattern: bool = False):
+               blend: bool = False, pattern: bool = False, factors: bool = False):
     """shade_node_plain's shading.Node: the plain version for CPU tensors;
     for CUDA tensors the shading kernel's node stage (weights an (R, 4)
-    tensor), bit for bit the plain version's, or a raise. Not
-    differentiable."""
+    tensor), bit for bit the plain version's, or a raise. factors: also
+    the factors of its backward (Node.factors, shade_node_grad), by the
+    stage's float32 instance that writes them. Not differentiable."""
     if not o.is_cuda:
         return shade_node_plain(o, d, hit, shadowed, n1, n2, prims, objects, light_pos,
-                                light_intensity, eps, branch_r, branch_t, blend, pattern)
+                                light_intensity, eps, branch_r, branch_t, blend, pattern,
+                                factors)
     device, dtype, R, ins = _hit_inputs(o, d, hit)
+    if factors and dtype != torch.float32:
+        raise ValueError(f"the node stage's factors take float32 rays, got {dtype}")
     N, O, tables = _shade_tables(prims, objects, light_pos, light_intensity, dtype, device)
     ins += [_ray_input("shadowed", shadowed, torch.bool, (R,), device),
             _ray_input("n1", n1, dtype, (R,), device),
@@ -1315,9 +1327,11 @@ def shade_node(o, d, hit, shadowed, n1, n2, prims, objects, light_pos, light_int
     weights = new(4) if branch_r or branch_t else None
     flags = sum(SHADE_FLAGS[k] for k, on in (("branch_r", branch_r), ("branch_t", branch_t),
                                              ("blend", blend), ("pattern", pattern)) if on)
+    fac = new(4) if factors else None
     _shade_launch("shade_node", device, dtype, R, ins, tables, N, O, flags, eps,
-                  [color, *(refl or (None, None)), *(refr or (None, None)), weights])
-    return shading.Node(color, refl, refr, weights)
+                  [color, *(refl or (None, None)), *(refr or (None, None)), weights, fac],
+                  stage="factors" if factors else None)
+    return shading.Node(color, refl, refr, weights, fac)
 
 
 def shade_blend(valid, surface, refl, refr, weights, blend: bool = False):
@@ -1340,8 +1354,90 @@ def shade_blend(valid, surface, refl, refr, weights, blend: bool = False):
                                              ("blend", blend)) if on)
     color = torch.empty((R, 3), dtype=dtype, device=device)
     _shade_launch("shade_blend", device, dtype, R, ins, [None] * 17, 0, 0, flags, 0.0,
-                  [color] + [None] * 5)
+                  [color])
     return color
+
+
+# the backward of the node and blend stages (render/integrator.py
+# KernelShadeNode, KernelShadeBlend): each ray's partials, which the
+# Functions sum by object_rows_sum
+
+def shade_node_grad_plain(g, factors, light_intensity, color: bool = True,
+                          light: bool = True):
+    """shade_node_grad's plain version: from the upstream gradient g (R, 3)
+    of a node's colour and its factors (R, 4) (Node.factors), each ray's
+    partial of its object's colour row, g * light_intensity * factors[:, 0]
+    (where color), and of the light's intensity, g * factors[:, 1:] (where
+    light); None where not wanted."""
+    return (g * light_intensity * factors[:, :1] if color else None,
+            g * factors[:, 1:] if light else None)
+
+
+def shade_blend_grad_plain(g, valid, weights, surface: bool = True, refl: bool = True,
+                           refr: bool = True, blend: bool = False):
+    """shade_blend_grad's plain version: from the upstream gradient g
+    (R, 3) of a blend's colour, with the node's valid (R,) and weights
+    (shade_node's (R, 4), or the plain version's tuple), the partials of
+    blend_colors' surface colour and of the reflected and refracted
+    colours (None where not wanted), in autograd's order of blend_colors'
+    operations."""
+    gs = torch.where(valid[:, None], g, 0.0)
+    w = weights.unbind(1) if torch.is_tensor(weights) else weights
+    if blend:
+        both = ((w[0] > 0.0) & (w[1] > 0.0))[:, None]
+        gr = torch.where(both, gs * w[3][:, None], gs)
+        gt = torch.where(both, gs * (1.0 - w[3])[:, None], gs)
+    else:
+        gr = gt = gs
+    return (gs if surface else None, gr * w[0][:, None] if refl else None,
+            gt * w[2][:, None] * w[1][:, None] if refr else None)
+
+
+def _shade_grad_launch(stage: int, flags: int, g, saved, valid, light_intensity, wants):
+    """Launch the shading backward's stage (the kernels' ShadeGradStage) on
+    float32 CUDA tensors: g (R, 3), saved (R, 4); one (R, 3) output a true
+    entry of wants (three), None for the others."""
+    device, R = g.device, g.shape[0]
+    f32 = torch.float32
+    g = _ray_input("g", g, f32, (R, 3), device)
+    saved = _ray_input("saved", saved, f32, (R, 4), device)
+    valid = _ray_input("valid", valid, torch.bool, (R,), device)
+    light_intensity = _ray_input("light_intensity", light_intensity, f32, (3,), device)
+    outs = [torch.empty((R, 3), dtype=f32, device=device) if w else None for w in wants]
+    if R and any(wants):
+        P = ctypes.c_void_p
+        ptr = lambda x: None if x is None else x.data_ptr()
+        err = library().rtc_shade_grad(device.index or 0, _stream(device), stage, flags, R,
+                                       g.data_ptr(), saved.data_ptr(), ptr(valid),
+                                       ptr(light_intensity), (P * 3)(*map(ptr, outs)))
+        _raise_on(err, "shade_grad")
+        LAUNCHES["shade_grad"] += 1
+    return outs
+
+
+def shade_node_grad(g, factors, light_intensity, color: bool = True, light: bool = True):
+    """shade_node_grad_plain's partials: the plain version for CPU tensors;
+    for CUDA tensors (float32) the shading backward's node stage
+    (shade_grad_kernel), or a raise."""
+    if not g.is_cuda:
+        return shade_node_grad_plain(g, factors, light_intensity, color, light)
+    if g.dtype != torch.float32:
+        raise ValueError(f"the shading backward takes float32 gradients, got {g.dtype}")
+    return tuple(_shade_grad_launch(0, 0, g, factors, None, light_intensity,
+                                    (color, light, False))[:2])
+
+
+def shade_blend_grad(g, valid, weights, surface: bool = True, refl: bool = True,
+                     refr: bool = True, blend: bool = False):
+    """shade_blend_grad_plain's partials: the plain version for CPU tensors;
+    for CUDA tensors (float32) the shading backward's blend stage
+    (shade_grad_kernel), bit for bit the plain version's, or a raise."""
+    if not g.is_cuda:
+        return shade_blend_grad_plain(g, valid, weights, surface, refl, refr, blend)
+    if g.dtype != torch.float32:
+        raise ValueError(f"the shading backward takes float32 gradients, got {g.dtype}")
+    return tuple(_shade_grad_launch(1, SHADE_FLAGS["blend"] if blend else 0, g, weights,
+                                    valid, None, (surface, refl, refr)))
 
 
 # ---------------------------------------------------------------------------

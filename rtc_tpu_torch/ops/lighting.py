@@ -39,28 +39,13 @@ def lighting3(
     # f64 goldens stay bit-stable
     scx, scy, scz = unpack3(surface_color)
     lix, liy, liz = unpack3(light_intensity.expand_as(surface_color))
-    px, py, pz = p3
-    ex, ey, ez = e3
-    nx, ny, nz = n3
-    lpx, lpy, lpz = unpack3(light_position.expand_as(surface_color))
-
     efx, efy, efz = scx * lix, scy * liy, scz * liz
-    lvx, lvy, lvz = normalize3(lpx - px, lpy - py, lpz - pz)
-
-    ldn = dot3(lvx, lvy, lvz, nx, ny, nz)
-    lit = (~in_shadow) & (ldn >= 0.0)
-    dl = diffuse * ldn
+    lit, dl, spec_on, sf = phong_terms(
+        diffuse, specular, shininess, unpack3(light_position.expand_as(surface_color)),
+        p3, e3, n3, in_shadow)
     dfx = torch.where(lit, efx * dl, 0.0)
     dfy = torch.where(lit, efy * dl, 0.0)
     dfz = torch.where(lit, efz * dl, 0.0)
-
-    # reflect(-lightv, normalv)
-    k = 2.0 * dot3(-lvx, -lvy, -lvz, nx, ny, nz)
-    rx, ry, rz = -lvx - nx * k, -lvy - ny * k, -lvz - nz * k
-    rde = dot3(rx, ry, rz, ex, ey, ez)
-    spec_on = lit & (rde > 0.0)
-    factor = torch.where(spec_on, torch.clamp_min(rde, 1e-30), 1.0) ** shininess
-    sf = specular * factor
     spx = torch.where(spec_on, lix * sf, 0.0)
     spy = torch.where(spec_on, liy * sf, 0.0)
     spz = torch.where(spec_on, liz * sf, 0.0)
@@ -68,3 +53,27 @@ def lighting3(
     return pack3(efx * ambient + dfx + spx,
                  efy * ambient + dfy + spy,
                  efz * ambient + dfz + spz)
+
+
+def phong_terms(diffuse, specular, shininess, lp3, p3, e3, n3, in_shadow):
+    """lighting3's terms a ray, with the light's position lp3 in component
+    form: (lit, dl, spec_on, sf), so that the colour is ef * ambient, plus
+    ef * dl where lit, plus intensity * sf where spec_on (ef the surface
+    colour times the intensity)."""
+    px, py, pz = p3
+    ex, ey, ez = e3
+    nx, ny, nz = n3
+    lpx, lpy, lpz = lp3
+    lvx, lvy, lvz = normalize3(lpx - px, lpy - py, lpz - pz)
+
+    ldn = dot3(lvx, lvy, lvz, nx, ny, nz)
+    lit = (~in_shadow) & (ldn >= 0.0)
+    dl = diffuse * ldn
+
+    # reflect(-lightv, normalv)
+    k = 2.0 * dot3(-lvx, -lvy, -lvz, nx, ny, nz)
+    rx, ry, rz = -lvx - nx * k, -lvy - ny * k, -lvz - nz * k
+    rde = dot3(rx, ry, rz, ex, ey, ez)
+    spec_on = lit & (rde > 0.0)
+    factor = torch.where(spec_on, torch.clamp_min(rde, 1e-30), 1.0) ** shininess
+    return lit, dl, spec_on, specular * factor

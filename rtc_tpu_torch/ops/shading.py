@@ -94,11 +94,14 @@ class Node(NamedTuple):
     final colour where it has no child (refl and refr None); refl and
     refr, each child's parked rays (o, d) or None; weights, the blend's
     (reflective, transparency, 1 - tir, Schlick's reflectance): a tuple
-    of (R,) tensors (None where unused) or the kernel's (R, 4)."""
+    of (R,) tensors (None where unused) or the kernel's (R, 4); factors,
+    where asked for, the (R, 4) partials of color that its backward reads
+    (node, factors=True)."""
     color: torch.Tensor
     refl: tuple | None
     refr: tuple | None
     weights: tuple | torch.Tensor | None
+    factors: torch.Tensor | None = None
 
 
 def hit_normal(prims: Prims | None, hit, world_point, eps):
@@ -208,7 +211,7 @@ def object_rows(objects: Objects, obj) -> dict:
 
 def node(o, d, hit, shadowed, n1, n2, prims: Prims | None, rec: dict, light_pos,
          light_intensity, eps, branch_r: bool, branch_t: bool, blend: bool,
-         pattern: bool, frame: Frame | None = None) -> Node:
+         pattern: bool, frame: Frame | None = None, factors: bool = False) -> Node:
     """shade_node's plain version on the rays' object rows rec (an entry
     of Objects' names each, (R, ...); object_rows): the base colour (the
     object's pattern in pattern space where pattern, the scene has one),
@@ -219,7 +222,14 @@ def node(o, d, hit, shadowed, n1, n2, prims: Prims | None, rec: dict, light_pos,
     census). blend: the scene is reflective and refractive, so the
     children meet in the Schlick blend. A node with neither child returns
     its final colour (blend with no child). frame: the hits'
-    surface_frame, where the caller has it."""
+    surface_frame, where the caller has it. factors: the kernel's grad
+    instance, with Node.factors: the colour
+    is bilinear in the object's colour row and the light's intensity, and
+    the factors are its partials, a ray's column 0 that of the row (a,
+    ambient plus the diffuse term where lit; 0 where a pattern gives the
+    base colour) and columns 1-3 that of the intensity (base * a plus the
+    specular term where lit), 0 where a childless node's hit is not
+    valid."""
     fr = surface_frame(o, d, hit, prims, eps) if frame is None else frame
     valid = hit.valid
     ex, ey, ez = fr.eyev
@@ -265,10 +275,22 @@ def node(o, d, hit, shadowed, n1, n2, prims: Prims | None, rec: dict, light_pos,
         # (src/world.rs:71-77)
         reflectance = schlick(ex * nx + ey * ny + ez * nz, n1, n2)
     weights = (reflective, transparency, notir, reflectance)
-    if refl is None and refr is None:
+    leaf = refl is None and refr is None
+    fac = None
+    if factors:
+        lit, dl, spec_on, sf = lighting.phong_terms(
+            rec["diffuse"], rec["specular"], rec["shininess"],
+            unpack3(light_pos.expand_as(base_color)), fr.point, fr.eyev, fr.normalv, shadowed)
+        a = rec["ambient"] + torch.where(lit, dl, 0.0)
+        own = torch.where(rec["pat_kind"] == NONE, a, 0.0) if pattern else a
+        fac = torch.cat([own[:, None],
+                         base_color * a[:, None] + torch.where(spec_on, sf, 0.0)[:, None]], 1)
+        if leaf:
+            fac = torch.where(valid[:, None], fac, 0.0)
+    if leaf:
         return Node(blend_colors(valid, surface_color, None, None, weights, blend),
-                    None, None, None)
-    return Node(surface_color, refl, refr, weights)
+                    None, None, None, fac)
+    return Node(surface_color, refl, refr, weights, fac)
 
 
 def blend_colors(valid, surface_color, refl_color, refr_color, weights, blend: bool):

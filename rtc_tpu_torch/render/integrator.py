@@ -18,8 +18,9 @@ results over the prims group). Masked lanes carry finite dummy values, and
 dead lanes are parked outside every box so the kernels' traversal drops
 them at once. A node's shading (its hits' frame, shadow query, pattern,
 Phong, children's rays and blend) runs in the shading kernels where the
-plan says so and autograd has nothing to record (shade_by_kernel), else
-in their plain versions (ops/shading.py).
+plan says so and autograd records nothing, or only the objects' colours
+and the light's intensity (KernelShadeNode, KernelShadeBlend), else in
+their plain versions (ops/shading.py): shade_route decides.
 
 Gradients: the pure-PyTorch path is differentiable as it stands. Every
 closest-hit kernel call goes through a torch.autograd.Function (KernelClosest
@@ -49,11 +50,12 @@ from ..utils.config import RenderConfig
 from ..utils.constants import BIG
 from ..utils.profiling import span
 
-# shading nodes by the path that shaded them: the shading kernels
-# (mi.shade_surface, shade_node, shade_blend) or their plain versions
+# shading nodes by the path that shaded them (shade_route): the shading
+# kernels (mi.shade_surface, shade_node, shade_blend), the same under
+# autograd with their backward ("grad"), or their plain versions
 # (ops/shading.py), color_at's one increment a node; carried through a
 # graph's replays (render/compiled.py)
-SHADE_NODES = {"kernel": 0, "plain": 0}
+SHADE_NODES = {"kernel": 0, "plain": 0, "grad": 0}
 
 
 def _prim_axis(cfg: RenderConfig):
@@ -109,7 +111,7 @@ class Plan(NamedTuple):
     uv: bool      # a smooth closest hit by K1 with_uv and one blend, streamed
     census: bool  # a frame counts crossings on the world table (K4)
     prims: bool   # the prims' closest hit and shadow flag by the prim kernel
-    shade: bool   # a node's shading by the shading kernels (shade_by_kernel)
+    shade: bool   # a node's shading by the shading kernels (shade_route)
 
     @property
     def streams(self) -> bool:
@@ -147,8 +149,8 @@ def plan(scene: Scene, cfg: RenderConfig, device, dtype) -> Plan:
               (intersect.prims), the kernel's plain version;
       shade   float32 or float64 on a CUDA device, unless cfg.mesh_impl
               is 'bruteforce' (the prims' rule): the shading kernels,
-              where a node's autograd has nothing to record
-              (shade_by_kernel); else their plain versions, ops/shading.py."""
+              where shade_route says so; else their plain versions,
+              ops/shading.py."""
     st = scene.static
     impl = mesh_impl_for(scene, cfg, torch.device(device).type == "cuda", dtype)
     budget = constants.VMEM_TRI_BUDGET
@@ -1033,31 +1035,111 @@ def prepare_hit(scene: Scene, o, d, hit: HitInfo, cfg: RenderConfig,
 schlick = shading.schlick  # Fresnel (reference: src/intersection.rs:107-128)
 
 
-def shade_by_kernel(p: Plan, scene: Scene, o, d, hit: HitInfo) -> bool:
-    """Does a node shade by the shading kernels: where p.shade, and
-    autograd has nothing to record, grad mode off or none of the inputs
-    the node reads (its rays, its hits' t and normals, the scene's fields
-    of shade_prims, shade_objects and the light, and mat_ior, which
-    reaches the node through the census's n1/n2) requiring grad. Else the
-    plain versions, which autograd differentiates."""
+def shade_route(p: Plan, scene: Scene, o, d, hit: HitInfo) -> str:
+    """The path a node shades by, its SHADE_NODES key. Where p.shade:
+    'kernel', the shading kernels, where autograd has nothing to record
+    (grad mode off, or none of the inputs the node reads requires grad:
+    its rays, its hits' t and normals, the scene's fields of shade_prims,
+    shade_objects and the light, and mat_ior, which reaches the node
+    through the census's n1/n2); 'grad', the shading kernels under
+    autograd (KernelShadeNode, KernelShadeBlend), where of those inputs
+    only the objects' colours (mat_color) and the light's intensity
+    require grad and the rays are float32. Else 'plain', the plain
+    versions, which autograd differentiates."""
     if not p.shade:
-        return False
+        return "plain"
     if not torch.is_grad_enabled():
-        return True
-    reads = [o, d, hit.t, hit.tri_n, *shade_objects(scene), scene.mat_ior,
-             scene.light_pos, scene.light_intensity, *(shade_prims(scene) or ())]
-    return not any(x.requires_grad for x in reads)
+        return "kernel"
+    fixed = [o, d, hit.t, hit.tri_n, scene.mat_ior, scene.light_pos,
+             *(x for k, x in zip(shading.Objects._fields, shade_objects(scene))
+               if k != "color"), *(shade_prims(scene) or ())]
+    if any(x.requires_grad for x in fixed):
+        return "plain"
+    if not (scene.mat_color.requires_grad or scene.light_intensity.requires_grad):
+        return "kernel"
+    return "grad" if o.dtype == torch.float32 else "plain"
+
+
+# --- a node's shading under autograd (shade_route's 'grad') ----------------
+#
+# Where only the objects' colours and the light's intensity require grad, a
+# node shades by the kernels all the same: its colour is bilinear in the
+# object's colour row and the intensity, and nothing else it reads moves
+# with them (the blend's weights, the children's rays). The node stage's
+# float32 instance that writes its factors (mi.shade_node(factors=True))
+# saves four floats a ray; the backward makes each ray's partials in one
+# launch (mi.shade_node_grad, mi.shade_blend_grad) and sums them by object
+# with the object rows' sum (mi.object_rows_sum), without atomics, so a
+# step's gradients are the same bits from run to run. On the CPU the
+# wrappers run their plain versions.
+
+class KernelShadeNode(torch.autograd.Function):
+    """A node's colour under autograd: color and factors, the node stage's
+    (mi.shade_node(factors=True)) on the objects' colour table and the
+    light's intensity detached, as a function of those two. backward: the
+    colour table's gradient, each ray's partial summed into its object's
+    row, and the intensity's, summed over every ray."""
+
+    @staticmethod
+    def forward(ctx, color, factors, obj, mat_color, intensity):
+        ctx.rows = mat_color.shape[0]
+        ctx.save_for_backward(obj.to(torch.int32), factors, intensity)
+        return color
+
+    @staticmethod
+    def backward(ctx, g):
+        obj, factors, intensity = ctx.saved_tensors
+        want_c, want_l = ctx.needs_input_grad[3:]
+        parts = mi.shade_node_grad(g.contiguous(), factors, intensity.detach(), want_c,
+                                   want_l)
+        sums = iter(mi.object_rows_sum(obj, [x for x in parts if x is not None], ctx.rows))
+        return (None, None, None, next(sums) if want_c else None,
+                next(sums).sum(0) if want_l else None)
+
+
+class KernelShadeBlend(torch.autograd.Function):
+    """The blend stage under autograd (mi.shade_blend): gradients to the
+    surface colour and the children's colours, from the node's valid and
+    weights (the kernel's (R, 4), or the plain version's tuple)."""
+
+    @staticmethod
+    def forward(ctx, blend, valid, surface, refl, refr, weights):
+        ctx.blend, ctx.stacked = blend, torch.is_tensor(weights)
+        ctx.save_for_backward(valid, *((weights,) if ctx.stacked else weights))
+        return mi.shade_blend(valid, *(None if x is None else x.detach()
+                                       for x in (surface, refl, refr)), weights, blend)
+
+    @staticmethod
+    def backward(ctx, g):
+        valid, *weights = ctx.saved_tensors
+        grads = mi.shade_blend_grad(g.contiguous(), valid,
+                                    weights[0] if ctx.stacked else tuple(weights),
+                                    *ctx.needs_input_grad[2:5], ctx.blend)
+        return (None, None, *grads, None)
+
+
+def autograd_node(scene: Scene, o, d, hit: HitInfo, shadowed, n1, n2, eps,
+                  flags: dict) -> shading.Node:
+    """mi.shade_node's Node, its colour differentiable in scene.mat_color
+    and scene.light_intensity through KernelShadeNode."""
+    objects = shade_objects(scene)._replace(color=scene.mat_color.detach())
+    node = mi.shade_node(o, d, hit, shadowed, n1, n2, shade_prims(scene), objects,
+                         scene.light_pos, scene.light_intensity.detach(), eps, **flags,
+                         factors=True)
+    return node._replace(color=KernelShadeNode.apply(
+        node.color, node.factors, hit.obj, scene.mat_color, scene.light_intensity))
 
 
 def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
     """Whole-wavefront color (reference: src/world.rs:80-98). o/d: (R, 3).
 
     A node shades its hits in three stages around the searches (the
-    shading kernels where shade_by_kernel says so, else their plain
-    versions, ops/shading.py): the surface's shadow query, then after the
-    shadow flag and the n1/n2 census the surface colour and the children's
-    parked rays, then after the children the blend. Counted in
-    SHADE_NODES by the path taken."""
+    shading kernels where shade_route says so, under autograd through
+    KernelShadeNode and KernelShadeBlend, else their plain versions,
+    ops/shading.py): the surface's shadow query, then after the shadow
+    flag and the n1/n2 census the surface colour and the children's parked
+    rays, then after the children the blend. Counted in SHADE_NODES by the
+    path taken."""
     if budget is None:
         budget = cfg.max_depth
     st = scene.static
@@ -1089,8 +1171,9 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
     else:
         hit = closest_hit(scene, o, d, cfg)
     valid = hit.valid
-    kernel = shade_by_kernel(p, scene, o, d, hit)
-    SHADE_NODES["kernel" if kernel else "plain"] += 1
+    route = shade_route(p, scene, o, d, hit)
+    SHADE_NODES[route] += 1
+    kernel = route != "plain"
     prims = shade_prims(scene)
     light = (scene.light_pos, scene.light_intensity)
     if kernel:
@@ -1122,7 +1205,9 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
                                     live=valid & (transparency > 0.0))
 
     flags = dict(branch_r=branch_r, branch_t=branch_t, blend=blend, pattern=st.any_pattern)
-    if kernel:
+    if route == "grad":
+        node = autograd_node(scene, o, d, hit, shadowed, n1, n2, eps, flags)
+    elif kernel:
         node = mi.shade_node(o, d, hit, shadowed, n1, n2, prims, shade_objects(scene),
                              *light, eps, **flags)
     else:
@@ -1132,5 +1217,7 @@ def color_at(scene: Scene, o, d, cfg: RenderConfig, budget: int | None = None):
         return node.color
     refl, refr = (None if rays is None else color_at(scene, *rays, cfg, budget - 3)
                   for rays in (node.refl, node.refr))
+    if route == "grad":
+        return KernelShadeBlend.apply(blend, valid, node.color, refl, refr, node.weights)
     return (mi.shade_blend if kernel else shading.blend_colors)(
         valid, node.color, refl, refr, node.weights, blend)

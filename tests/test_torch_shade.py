@@ -2,12 +2,16 @@
 csrc/mesh_intersect.cu shade_kernel, by mesh_intersect.py shade_surface,
 shade_node and shade_blend).
 
-On the CPU: plan's shade flag; the rule that takes the kernels only where
-autograd has nothing to record; integrator.SHADE_NODES, one a shaded node
-by the path taken; the kernels' route through color_at on the CPU (the
-wrappers then run their plain versions) against the plain route on the
-registry scenes and on edge-case worlds, and on the f64 goldens; the
-metric reader shade_plain_share.frame. PyTorch's CPU kernels round pow
+On the CPU: plan's shade flag; the rule that takes the kernels where
+autograd has nothing to record, or only the objects' colours and the
+light's intensity (the 'grad' route, integrator.KernelShadeNode and
+KernelShadeBlend); integrator.SHADE_NODES, one a shaded node by the path
+taken; the kernels' route through color_at on the CPU (the wrappers then
+run their plain versions) against the plain route on the registry scenes
+and on edge-case worlds, and on the f64 goldens; the 'grad' route's
+gradients, its Functions on their plain twins, against autograd through
+the plain versions in float64; the metric readers shade_plain_share.frame
+and shade_plain_share.fit. PyTorch's CPU kernels round pow
 and sqrt by the tensors' layout (vector math over contiguous runs, libm
 elsewhere), and the two routes lay out the object rows apart, so on the
 CPU the routes agree within 1 ulp; on the card every value is per
@@ -21,7 +25,10 @@ edge-case worlds (every prim kind, a cylinder's caps within eps, every
 pattern kind with coordinates on cell boundaries, inside hits, total
 internal reflection, misses, back-facing and parked lanes); render()'s
 image on the kernel route against the plain route's; the launches of a
-frame; and a replayed graph adding SHADE_NODES' counts. This file imports
+frame; a replayed graph adding SHADE_NODES' counts, a frame's and a train
+step's; the node stage's float32 instance with the factors and the
+backward's kernels against their plain versions; and a frame's gradients
+on the 'grad' route against the plain route's. This file imports
 neither jax nor rtc_tpu:
 
     python -m pytest --noconftest -m cuda tests/test_torch_shade.py -q
@@ -203,6 +210,13 @@ def _plain_route(monkeypatch):
                         lambda *a: real(*a)._replace(shade=False))
 
 
+def _grad_route(monkeypatch):
+    """Every node through the 'grad' route's Functions (which float64 does
+    not take on the card: here the wrappers run their plain twins)."""
+    _kernel_route(monkeypatch)
+    monkeypatch.setattr(integrator, "shade_route", lambda *a: "grad")
+
+
 def _registry(name, width, dtype, device="cpu"):
     world, cam = REGISTRY[name](width)
     return compile_scene(world, dtype=dtype, device=device), cam
@@ -259,28 +273,32 @@ def test_plan_shades_by_kernel(scene_name, device, dtype, impl, want):
 @pytest.mark.parametrize("field", ["mat_color", "light_intensity", "light_pos", "prim_inv",
                                    "pat_inv", "mat_shininess", "mat_ior"])
 def test_kernels_only_where_autograd_records_nothing(field):
-    """shade_by_kernel: the kernels under no_grad, and with grad on where no
-    input of the node requires grad; the plain versions where a scene field
-    the node reads, its rays or its hits require grad, and wherever the
-    plan says so."""
+    """shade_route: the kernels ('kernel') under no_grad, and with grad on
+    where no input of the node requires grad; 'grad' where only the
+    objects' colours or the light's intensity do (float32); the plain
+    versions where another scene field the node reads, its rays or its
+    hits require grad, and wherever the plan says so."""
     scene, cam = _registry("glass_teapot", 16, F32)
     o, d = _camera_rays(cam)
     cfg = RenderConfig()
     p = integrator.plan(scene, cfg, "cuda", F32)
     hit = integrator.closest_hit(scene, o, d, cfg)
-    assert p.shade and integrator.shade_by_kernel(p, scene, o, d, hit)
+    assert p.shade and integrator.shade_route(p, scene, o, d, hit) == "kernel"
     with torch.no_grad():
-        assert integrator.shade_by_kernel(p, scene, o, d, hit)
+        assert integrator.shade_route(p, scene, o, d, hit) == "kernel"
     param = dataclasses.replace(
         scene, **{field: getattr(scene, field).clone().requires_grad_()})
-    assert not integrator.shade_by_kernel(p, param, o, d, hit)
+    trained = field in ("mat_color", "light_intensity")
+    assert integrator.shade_route(p, param, o, d, hit) == ("grad" if trained else "plain")
     with torch.no_grad():
-        assert integrator.shade_by_kernel(p, param, o, d, hit)
+        assert integrator.shade_route(p, param, o, d, hit) == "kernel"
     ray = o.clone().requires_grad_()
-    assert not integrator.shade_by_kernel(p, scene, ray, d, hit)
-    assert not integrator.shade_by_kernel(
-        p, scene, o, d, hit._replace(t=hit.t.clone().requires_grad_()))
-    assert not integrator.shade_by_kernel(p._replace(shade=False), scene, o, d, hit)
+    assert integrator.shade_route(p, scene, ray, d, hit) == "plain"
+    assert integrator.shade_route(p, param, ray, d, hit) == "plain"
+    assert integrator.shade_route(
+        p, scene, o, d, hit._replace(t=hit.t.clone().requires_grad_())) == "plain"
+    assert integrator.shade_route(p._replace(shade=False), scene, o, d, hit) == "plain"
+    assert integrator.shade_route(p._replace(shade=False), param, o, d, hit) == "plain"
 
 
 @pytest.mark.parametrize("scene_name, nodes", [("cow", 2), ("glass_teapot", 3),
@@ -295,37 +313,139 @@ def test_shade_nodes_count_a_node_by_its_path(scene_name, nodes, monkeypatch):
     o, d = _camera_rays(cam)
     cfg = RenderConfig()
     want, counted = _shades(lambda: integrator.color_at(scene, o, d, cfg))
-    assert counted == {"kernel": 0, "plain": nodes}
+    assert counted == {"kernel": 0, "plain": nodes, "grad": 0}
     _kernel_route(monkeypatch)
     with torch.no_grad():
         got, counted = _shades(lambda: integrator.color_at(scene, o, d, cfg))
-    assert counted == {"kernel": nodes, "plain": 0}
+    assert counted == {"kernel": nodes, "plain": 0, "grad": 0}
     assert ulp_gap(got, want) <= 1
 
 
-@pytest.mark.parametrize("names", [("mat_color", "light_intensity"), ("mat_ior",)])
-def test_fit_step_takes_the_plain_path(monkeypatch, names):
-    """A gradient through mat_color and light_intensity, or through mat_ior
-    alone (which reaches the node only through the census's n1/n2), on the
-    card's route takes the plain versions on every node, and its gradients
-    are the plain route's."""
+def _param_grads(scene, names, o, d, cfg, weights=None):
+    """A frame's image and the gradients of (image * weights).sum() (the
+    image's own square without weights) with respect to the scene fields
+    names, each a fresh leaf."""
     from rtc_tpu_torch.diff import render_grad as RG
 
+    params = {k: getattr(scene, k).clone().requires_grad_() for k in names}
+    img = integrator.color_at(RG.inject_params(scene, params), o, d, cfg)
+    loss = img.square().sum() if weights is None else (img * weights).sum()
+    return img.detach(), torch.autograd.grad(loss, list(params.values()))
+
+
+@pytest.mark.parametrize("names", [("mat_color", "light_intensity"), ("mat_ior",),
+                                   ("mat_color", "mat_ior")])
+def test_fit_step_takes_the_plain_path(monkeypatch, names):
+    """The fit step's route rule (the name is older than the 'grad' route).
+    A gradient through mat_color and light_intensity on the card's route
+    takes the 'grad' route on every node, the kernels' Functions; through
+    mat_ior alone (which reaches the node only through the census's n1/n2)
+    or with mat_color, the plain versions. Either way the gradients are the
+    plain route's: bit for bit on the plain versions, within 1e-5 of the
+    largest entry on the 'grad' route, whose sums run in another order."""
     scene, cam = _registry("glass_teapot", 16, F32)
     o, d = _camera_rays(cam)
     cfg = RenderConfig()
-    params = {k: getattr(scene, k).clone().requires_grad_() for k in names}
-
-    def grads():
-        img = integrator.color_at(RG.inject_params(scene, params), o, d, cfg)
-        return torch.autograd.grad(img.square().sum(), list(params.values()))
-
-    want = grads()
+    route = "plain" if "mat_ior" in names else "grad"
+    _, want = _param_grads(scene, names, o, d, cfg)
     _kernel_route(monkeypatch)
-    got, counted = _shades(grads)
-    assert counted == {"kernel": 0, "plain": 3}
+    (_, got), counted = _shades(lambda: _param_grads(scene, names, o, d, cfg))
+    assert counted == {"kernel": 0, "plain": 0, "grad": 0, route: 3}
+    for a, b in zip(got, want):
+        if route == "plain":
+            assert torch.equal(a, b)
+        else:
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+        assert bool(a.abs().sum() > 0)
+
+
+def test_fit_step_in_float64_takes_the_plain_path(monkeypatch):
+    """The 'grad' route takes float32 only (the object rows' kernel sums
+    float32): a float64 fit on the card's route shades by the plain
+    versions, bit for bit the plain route's."""
+    scene, cam = _registry("glass_teapot", 16, F64)
+    o, d = _camera_rays(cam, F64)
+    cfg = _cfg(F64)
+    names = ("mat_color", "light_intensity")
+    _, want = _param_grads(scene, names, o, d, cfg)
+    _kernel_route(monkeypatch)
+    (_, got), counted = _shades(lambda: _param_grads(scene, names, o, d, cfg))
+    assert counted == {"kernel": 0, "plain": 3, "grad": 0}
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert all(bool(g.abs().sum() > 0) for g in got)
+
+
+GRAD_CASES = [("cow", None), ("glass_teapot", None), ("table", None),
+              *((name, "edge") for name in sorted(EDGE_WORLDS))]
+
+
+@pytest.mark.parametrize("names", [("mat_color", "light_intensity"), ("light_intensity",)])
+@pytest.mark.parametrize("name, kind", GRAD_CASES)
+def test_grad_route_equals_autograd_through_the_plain_versions(name, kind, names,
+                                                               monkeypatch):
+    """The 'grad' route's Functions on their plain twins (each node's
+    factors, the backward's partials, the object rows' sum) in float64:
+    the gradients of a seeded weighting of the image are autograd's
+    through shading.node and blend_colors within 1e-12 of the largest
+    entry, with light_intensity alone a parameter too; the image is the
+    plain route's within an ulp."""
+    if kind == "edge":
+        scene, o, d = edge_case(name, F64, n_random=512)
+    else:
+        scene, cam = _registry(name, 16, F64)
+        o, d = _camera_rays(cam, F64)
+    cfg = _cfg(F64)
+    weights = torch.rand(o.shape, dtype=F64, generator=torch.Generator().manual_seed(7))
+    want_img, want = _param_grads(scene, names, o, d, cfg, weights)
+    _grad_route(monkeypatch)
+    (img, got), counted = _shades(lambda: _param_grads(scene, names, o, d, cfg, weights))
+    assert counted["grad"] > 0 and counted["kernel"] == counted["plain"] == 0
+    assert ulp_gap(img, want_img) <= 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and float(b.abs().max()) > 0
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("leaf", [False, True])
+def test_node_factors_are_the_colours_partials(leaf):
+    """shading.node(factors=True) on glass_teapot's primary rays (leaf: as
+    a node with no child): its colour and weights as without factors, and
+    each factor the colour's partial
+    by autograd, per ray, in float64: column 0 that of the object's colour
+    row (the same for each channel), columns 1-3 those of the intensity."""
+    scene, cam = _registry("glass_teapot", 16, F64)
+    o, d = _camera_rays(cam, F64)
+    cfg = _cfg(F64)
+    hit = integrator.closest_hit(scene, o, d, cfg)
+    objects = integrator.shade_objects(scene)
+    kw = dict(branch_r=not leaf, branch_t=False, blend=False, pattern=True)
+    shadowed = integrator.is_shadowed(scene, integrator.shading.surface(
+        o, d, hit, integrator.shade_prims(scene), scene.light_pos, cfg.epsilon)[0], cfg)
+    args = (o, d, hit, shadowed, None, None, integrator.shade_prims(scene))
+    plain = mi.shade_node_plain(*args, objects, scene.light_pos, scene.light_intensity,
+                                cfg.epsilon, **kw)
+    node = mi.shade_node_plain(*args, objects, scene.light_pos, scene.light_intensity,
+                               cfg.epsilon, **kw, factors=True)
+    assert torch.equal(node.color, plain.color)
+    if leaf:
+        assert node.weights is plain.weights is None
+    else:
+        assert all(a is b is None or torch.equal(a, b)
+                   for a, b in zip(node.weights, plain.weights))
+    # a ray's colour reads only its own row and its own copy of the
+    # intensity, so the gradient of channel k summed over the rays, taken
+    # against the rays' rows, is each ray's partial
+    rec = integrator.shading.object_rows(objects, hit.obj)
+    own = rec["color"].clone().requires_grad_()
+    li = scene.light_intensity.expand_as(own).clone().requires_grad_()
+    rec["color"] = own
+    out = integrator.shading.node(*args, rec, scene.light_pos, li, cfg.epsilon, **kw).color
+    for k in range(3):
+        gc, gl = torch.autograd.grad(out[:, k].sum(), (own, li), retain_graph=True)
+        np.testing.assert_allclose(gc[:, k].numpy(), (scene.light_intensity[k]
+                                                      * node.factors[:, 0]).numpy(),
+                                   rtol=1e-12, atol=1e-15)
+        np.testing.assert_allclose(gl[:, k].numpy(), node.factors[:, 1 + k].numpy(),
+                                   rtol=1e-12, atol=1e-15)
 
 
 @pytest.mark.parametrize("name", sorted(EDGE_WORLDS))
@@ -383,6 +503,32 @@ def test_shade_plain_share_reader():
         integrator.SHADE_NODES.update(kernel=0, plain=0)
         assert read(r) is None
         del integrator.SHADE_NODES["plain"]
+        assert read(r) is None
+    finally:
+        integrator.SHADE_NODES.clear()
+        integrator.SHADE_NODES.update(saved)
+
+
+def test_shade_plain_share_fit_reader():
+    """shade_plain_share.fit: the plain nodes over every node, 'grad'
+    counted (a program without that key: 0), in %: 100 with only plain
+    nodes, 0 with none; None where the program has no counter or shaded
+    no node."""
+    read = _reader("shade_plain_share.fit")
+    r = types.SimpleNamespace(host={})
+    saved = dict(integrator.SHADE_NODES)
+    try:
+        integrator.SHADE_NODES.update(kernel=0, plain=12, grad=0)
+        assert read(r) == pytest.approx(100.0)
+        integrator.SHADE_NODES.update(kernel=24, plain=0, grad=600)
+        assert read(r) == pytest.approx(0.0)
+        integrator.SHADE_NODES.update(kernel=24, plain=600, grad=0)
+        assert read(r) == pytest.approx(100.0 * 600 / 624)
+        del integrator.SHADE_NODES["grad"]
+        assert read(r) == pytest.approx(100.0 * 600 / 624)
+        integrator.SHADE_NODES.update(kernel=0, plain=0)
+        assert read(r) is None
+        integrator.SHADE_NODES.clear()
         assert read(r) is None
     finally:
         integrator.SHADE_NODES.clear()
@@ -541,31 +687,87 @@ def test_render_on_the_kernels_equals_the_plain_route(cuda, name, dtype, monkeyp
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("names", [("mat_ior",), ("mat_color", "mat_ior")])
+@pytest.mark.parametrize("names", [("mat_ior",), ("mat_color", "mat_ior"),
+                                   ("mat_color", "light_intensity")])
 def test_grads_on_the_card_are_the_plain_routes(cuda, names, monkeypatch):
     """A glass_teapot frame's gradient on the card's own route, through
     mat_ior (which reaches a node only through the census's n1/n2) alone
     or with mat_color: every node on the plain versions, and the
-    gradients the plain route's bit for bit, mat_ior's not zero."""
-    from rtc_tpu_torch.diff import render_grad as RG
-
+    gradients the plain route's bit for bit, mat_ior's not zero. Through
+    mat_color and light_intensity, the fits' parameters: every node on the
+    'grad' route (the kernels and their backward), the gradients the same
+    bits from run to run, not zero, and within 1e-5 of the largest entry
+    of the plain route's, whose sums run in another order."""
     scene, cam = _card_frame("glass_teapot", F32, cuda)
     o, d = _camera_rays(cam)
     o, d = o.to(cuda), d.to(cuda)
     cfg = RenderConfig()
-    params = {k: getattr(scene, k).clone().requires_grad_() for k in names}
-
-    def grads():
-        img = integrator.color_at(RG.inject_params(scene, params), o, d, cfg)
-        return torch.autograd.grad(img.square().sum(), list(params.values()))
-
+    grads = lambda: _param_grads(scene, names, o, d, cfg)[1]
+    grad_route = names == ("mat_color", "light_intensity")
     got, counted = _shades(grads)
-    assert counted == {"kernel": 0, "plain": 3}
+    assert counted == ({"kernel": 0, "plain": 0, "grad": 3} if grad_route
+                       else {"kernel": 0, "plain": 3, "grad": 0})
     with monkeypatch.context() as m:
         _plain_route(m)
         want = grads()
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert bool(got[0].abs().sum() > 0)
+    if grad_route:
+        again = grads()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for a, b in zip(got, want):
+            assert bool(a.abs().sum() > 0)
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    else:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert bool(got[0].abs().sum() > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cow", "glass_teapot", "table", "herd"])
+def test_grad_stages_match_plain(cuda, name):
+    """On every node and blend call of a 192x96 eager frame: the node
+    stage's float32 instance with the factors gives the frame's instance's
+    outputs bit for bit and its plain twin's factors; the backward's
+    kernels on seeded upstream gradients give their plain versions'
+    partials bit for bit (each a product or a select of the same
+    operands), every wanted subset of them, and the same bits twice."""
+    scene, cam = _card_frame(name, F32, cuda)
+    o, d = _camera_rays(cam)
+    with torch.no_grad():
+        _, calls = recorded_stages(lambda: integrator.color_at(
+            scene, o.to(cuda), d.to(cuda), RenderConfig()))
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    seen = set()
+    for k, a, kw, out in calls:
+        if k == "shade_surface":
+            continue
+        R = (a[1] if k == "shade_blend" else a[0]).shape[0]
+        g = torch.randn((R, 3), generator=gen, device=cuda)
+        if k == "shade_node":
+            node = mi.shade_node(*a, **kw, factors=True)
+            twin = mi.shade_node_plain(*a, **kw, factors=True)
+            outputs = lambda n: [n.color, *(x for c in (n.refl, n.refr) if c is not None
+                                            for x in c),
+                                  *([n.weights] if torch.is_tensor(n.weights) else [])]
+            assert all(ulp_gap(x, y) == 0 for x, y in zip(outputs(node), outputs(out)))
+            assert ulp_gap(node.factors, twin.factors) == 0
+            li = a[9]
+            for want in ((True, True), (True, False), (False, True)):
+                got = mi.shade_node_grad(g, node.factors, li, *want)
+                ref = mi.shade_node_grad_plain(g, node.factors, li, *want)
+                for x, y in zip(got, ref):
+                    assert (x is None) == (y is None) and (x is None or ulp_gap(x, y) == 0)
+            again = mi.shade_node_grad(g, node.factors, li)
+            assert all(torch.equal(x, y) for x, y in
+                       zip(again, mi.shade_node_grad(g, node.factors, li)))
+        else:
+            valid, weights, blend = a[0], a[4], a[5] if len(a) > 5 else kw.get("blend", False)
+            has = (True, a[2] is not None, a[3] is not None)
+            got = mi.shade_blend_grad(g, valid, weights, *has, blend)
+            ref = mi.shade_blend_grad_plain(g, valid, weights, *has, blend)
+            for x, y in zip(got, ref):
+                assert (x is None) == (y is None) and (x is None or ulp_gap(x, y) == 0)
+        seen.add(k)
+    assert "shade_node" in seen
 
 
 @pytest.mark.cuda
@@ -575,7 +777,11 @@ def test_a_replay_adds_the_shading_counts(cuda, name, nodes, branching):
     """A frame's graph takes back its capture's SHADE_NODES and launches
     and each replay adds them: nodes kernel-shaded nodes, a surface and a
     node launch each (cow's fused K3 gives the shadow flag: no surface
-    launch), a blend launch a branching node."""
+    launch), a blend launch a branching node. So does a train step's graph
+    (Adam on mat_color and light_intensity, capturable): nodes on the
+    'grad' route, a backward launch each node and each branching node."""
+    from rtc_tpu_torch.diff import render_grad as RG
+
     scene, cam = _card_frame(name, F32, cuda)
     cfg = RenderConfig()
     compiled.clear()
@@ -584,12 +790,32 @@ def test_a_replay_adds_the_shading_counts(cuda, name, nodes, branching):
     graph = next(g for k, g in compiled._CACHE.items() if k[1] == "frame")
     surface = 0 if integrator.plan(scene, cfg, cuda, F32).fused else nodes
     launches = {"shade_surface": surface, "shade_node": nodes, "shade_blend": branching}
-    assert counted == {"kernel": nodes, "plain": 0}
+    assert counted == {"kernel": nodes, "plain": 0, "grad": 0}
     assert graph.shades == {"kernel": nodes}
     assert {k: graph.launches.get(k, 0) for k in STAGES} == launches
     _, counted = _shades(lambda: render(scene, cam, cfg))
     torch.cuda.synchronize()
-    assert counted == {"kernel": nodes, "plain": 0}
+    assert counted == {"kernel": nodes, "plain": 0, "grad": 0}
     assert {k: mi.LAUNCHES[k] for k in STAGES} == {k: 2 * n for k, n in launches.items()}
+    assert graph.replays == 1
+    compiled.clear()
+
+    o, d = _camera_rays(cam)
+    o, d = o.to(cuda), d.to(cuda)
+    target = torch.full_like(o, 0.25)
+    params = RG.extract_params(scene, ("mat_color", "light_intensity"))
+    step = RG.make_train_step(torch.optim.Adam(params.values(), lr=5e-2, capturable=True),
+                              cfg)
+    mi.reset_launch_counts()
+    _, counted = _shades(lambda: step(params, scene, o, d, target))
+    graph = next(g for k, g in compiled._CACHE.items() if k[1] == "step")
+    steps = dict(launches, shade_grad=nodes + branching)
+    assert counted == {"kernel": 0, "plain": 0, "grad": nodes}
+    assert graph.shades == {"grad": nodes}
+    assert {k: graph.launches.get(k, 0) for k in steps} == steps
+    _, counted = _shades(lambda: step(params, scene, o, d, target))
+    torch.cuda.synchronize()
+    assert counted == {"kernel": 0, "plain": 0, "grad": nodes}
+    assert {k: mi.LAUNCHES[k] for k in steps} == {k: 2 * n for k, n in steps.items()}
     assert graph.replays == 1
     compiled.clear()
